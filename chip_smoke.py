@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the port's main path on an NVIDIA card; hold every CUDA kernel
-against its plain PyTorch version.
+"""Drive the port's paths on an NVIDIA card; hold every CUDA kernel against
+its plain PyTorch version.
 
     python3 chip_smoke.py          # from the repository root, one card
 
@@ -9,21 +9,33 @@ Phases (any failure ends the run with a non-zero exit and no last line):
 1. Device: the card's name and power limit, as nvidia-smi prints them.
 2. Build: every source in src/repro_torch/kernels/csrc, one nvcc each, all
    started together, into build/repro_torch.
-3. Kernels against their plain versions on the card, at the main path's
+3. Kernels against their plain versions on the card, at the main paths'
    shapes and a few others, with CUDA-event timing (100 launches after a
    warm-up) of the kernel, the plain version and the one PyTorch call that
-   computes the same function (timed as a yardstick only; the port never
-   calls it). TF32 is off.
-4. Main path: ``repro_torch.launch.serve.main`` with yi-6b at full width
+   computes the same function where there is one (timed as a yardstick
+   only; the port never calls it). Paged attention has no such call: a
+   dense SDPA over a pre-gathered copy is timed beside it, labelled "dense
+   SDPA, gather excluded". TF32 is off.
+4. Flow path: ``repro_torch.launch.serve.main`` with yi-6b at full width
    (32 layers, bf16, random weights from a seeded generator on the card),
    NFE 8, batch 4, sequence 1024, 3 requests. Launch counts must be exact.
-5. The whole path on the card (kernels) against the CPU (plain versions):
+5. The flow path on the card (kernels) against the CPU (plain versions):
    yi-6b width cut to 2 layers, f32, euler NFE 4, relative L2 <= 1e-4.
-6. One JSON line listing the kernels, then the last line.
+6. Decode path: ``repro_torch.launch.serve.main`` in decode mode, yi-6b at
+   full width, 16 requests through the paged gateway with the paged kernel.
+   Every request must finish at its length with in-vocabulary tokens, no
+   request may fail, every page must return to the pool, and paged
+   attention must launch 32 times per ``decode_apply`` call (counted apart
+   from the kernel's own counter); the flow kernels launch 0 times.
+7. The decode path on the card (kernel) against the CPU (plain version):
+   the same 2-layer f32 model and the same gateway requests; every step's
+   logits within relative L2 1e-4 and the same greedy tokens.
+8. One JSON line listing the kernels, then the last line.
 """
 from __future__ import annotations
 
 import dataclasses
+import gc
 import json
 import subprocess
 import sys
@@ -43,9 +55,18 @@ TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}   # tests/test_kernels.py
 # rows, where |o| is small. scripts/flash_fault_check.py shows the sound
 # kernel inside both and planted faults outside.
 FLASH_BF16 = {"atol": 4e-3, "rtol": 2e-2, "row_rel_l2": 1e-2}
+# bf16 paged attention against its plain version: both keep scores, weights
+# and sums in f32 and round only the output to bf16, so the two differ by at
+# most one bf16 ulp of |o|, which is <= 2**-7 |o| (atol covers outputs near 0).
+PAGED_BF16 = {"rel": 2.0 ** -7, "atol": 1e-6}
 HBM_BYTES_PER_S = 3.35e12                          # H100 SXM data sheet
 PEAK_FLOPS = {torch.float32: 67e12, torch.bfloat16: 989e12}  # CUDA-core f32, dense bf16
 NFE, BATCH, SEQ, REQUESTS = 8, 4, 1024, 3
+DECODE_ARGS = ["--arch", "yi-6b", "--mode", "decode", "--full", "--gateway",
+               "--page-size", "16", "--paged-kernel", "--max-slots", "8", "--slots", "256",
+               "--requests", "16", "--decode-lengths", "128,32,64,16",
+               "--prefill-chunk", "64"]
+LAYERS = 32                                        # yi-6b
 
 
 def time_ms(fn, iters: int = 100, warmup: int = 5) -> float:
@@ -164,6 +185,89 @@ def flash_cases(dev):
     return rows
 
 
+def paged_errors(out: torch.Tensor, ref: torch.Tensor) -> dict:
+    """Largest |err|, and its largest ratio to the limit of the output type."""
+    err = (out.float() - ref.float()).abs()
+    if out.dtype == torch.float32:
+        limit = TOL[torch.float32] * 4 * (1 + ref.abs())
+    else:
+        limit = PAGED_BF16["rel"] * ref.float().abs() + PAGED_BF16["atol"]
+    return {"max_abs": float(err.max()), "ratio": float((err / limit).max())}
+
+
+def paged_inputs(g, dev, B, KV, G, hd, ps, nb, q_dtype, page_dtype, lengths):
+    """q, a K and V pool whose rows own nb shuffled pages past the trash page
+    0, the block table and the lengths, made on the card from ``g``."""
+    num_pages = 1 + B * nb
+    q = torch.randn((B, KV, G, hd), generator=g, device=dev).to(q_dtype)
+    k = torch.randn((num_pages, ps, KV, hd), generator=g, device=dev).to(page_dtype)
+    v = torch.randn((num_pages, ps, KV, hd), generator=g, device=dev).to(page_dtype)
+    perm = torch.randperm(num_pages - 1, generator=g, device=dev)[:B * nb] + 1
+    table = perm.reshape(B, nb).to(torch.int32)
+    return q, k, v, table, torch.tensor(lengths, dtype=torch.int32, device=dev)
+
+
+def paged_cases(dev):
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.flash_attention.paged_attention import paged_attention
+    from repro_torch.kernels.flash_attention.ref import paged_attention_ref
+
+    g = torch.Generator(device=dev).manual_seed(2)
+    bf16, f32 = torch.bfloat16, torch.float32
+    decode_lengths = [129, 1, 17, 64, 100, 33, 128, 16]
+    long_lengths = [4096, 3001, 2048, 1, 777, 4095, 1500, 3333]
+    rows = []
+    for B, KV, G, hd, ps, nb, q_dtype, page_dtype, lengths, poison in [
+            (8, 4, 8, 128, 16, 16, bf16, f32, decode_lengths, False),   # the decode cell
+            (8, 4, 8, 128, 16, 256, bf16, bf16, long_lengths, False),   # long rows
+            (8, 4, 8, 128, 16, 256, bf16, f32, long_lengths, False),
+            (2, 2, 2, 64, 8, 4, f32, f32, [2, 12], False),              # tests/test_kernels.py
+            (3, 1, 4, 32, 16, 2, f32, f32, [1, 19, 32], False),
+            (1, 4, 1, 64, 8, 3, f32, f32, [9], False),
+            (4, 4, 8, 128, 16, 16, bf16, f32, [5, 37, 1, 200], True)]:  # poisoned tails
+        q, k, v, table, lens = paged_inputs(g, dev, B, KV, G, hd, ps, nb, q_dtype,
+                                            page_dtype, lengths)
+        shape = (f"B={B} KV={KV} G={G} hd={hd} ps={ps} nb={nb} q {str(q_dtype)[6:]} "
+                 f"pages {str(page_dtype)[6:]} lengths<={max(lengths)}")
+        out = paged_attention(q, k, v, table, lens)
+        if poison:      # garbage in each row's own pages past its length
+            for b, n in enumerate(lengths):
+                for pos in range(n, nb * ps):
+                    page, off = int(table[b, pos // ps]), pos % ps
+                    k[page, off] = 1e4 if pos % 2 else -1e4
+                    v[page, off] = -1e4 if pos % 2 else 1e4
+            if not torch.equal(paged_attention(q, k, v, table, lens), out):
+                raise SystemExit(f"paged_attention [{shape}]: positions past the "
+                                 "length leak into the output")
+            shape += " poisoned"
+        ref = paged_attention_ref(q, k, v, table, lens)
+        e = paged_errors(out, ref)
+        if not e["ratio"] <= 1:
+            raise SystemExit(f"paged_attention [{shape}]: kernel vs plain outside the "
+                             f"limit (f32: 4x TOL, bf16: {PAGED_BF16}): {e}")
+        kept = [min(n, nb * ps) for n in lengths]
+        page_bytes = sum(kept) * KV * hd * 2 * k.element_size()
+        io_bytes = 2 * q.numel() * q.element_size() + 4 * (B + sum(-(-n // ps) for n in kept))
+        b_ms, b_by = bound(page_bytes + io_bytes, 4 * hd * G * KV * sum(kept), f32)
+        # yardstick: one SDPA over a dense copy gathered beforehand
+        L = nb * ps
+        kd = k[table.long()].reshape(B, L, KV, hd).transpose(1, 2)
+        vd = v[table.long()].reshape(B, L, KV, hd).transpose(1, 2)
+        qd = q.reshape(B, KV * G, 1, hd).to(page_dtype)
+        mask = (torch.arange(L, device=dev)[None, :] < lens[:, None])[:, None, None, :]
+        rows.append(dict(
+            shape=shape, max_abs_err=e["max_abs"], limit_ratio=e["ratio"],
+            ms=time_ms(lambda: paged_attention(q, k, v, table, lens)),
+            plain_ms=time_ms(lambda: paged_attention_ref(q, k, v, table, lens)),
+            library_ms=None,
+            yardstick_ms=time_ms(lambda: F.scaled_dot_product_attention(
+                qd, kd, vd, attn_mask=mask, enable_gqa=True)),
+            bound_ms=b_ms, bound_by=b_by))
+        del kd, vd
+    return rows
+
+
 def main_path(dev, counters):
     from repro_torch.launch import serve
 
@@ -176,7 +280,8 @@ def main_path(dev, counters):
                          "--requests", str(REQUESTS), "--bns-iters", "0"])
     wall = time.perf_counter() - t0
     launches = {name: c.launches for name, c in counters.items()}
-    want = {"ns_update": NFE * REQUESTS, "flash_attention": 32 * NFE * REQUESTS}
+    want = {"ns_update": NFE * REQUESTS, "flash_attention": LAYERS * NFE * REQUESTS,
+            "paged_attention": 0}
     if launches != want:
         raise SystemExit(f"main path launch counts {launches}, expected {want}")
     if len(served) != REQUESTS:
@@ -194,17 +299,22 @@ def main_path(dev, counters):
     return launches
 
 
-def whole_path_against_cpu(dev, counters):
+def small_model():
+    """yi-6b's width cut to 2 layers, f32, random weights on the CPU."""
     from repro_torch.configs import get_config
+    from repro_torch.models import model as M
+
+    cfg = dataclasses.replace(get_config("yi-6b"), n_layers=2, dtype="float32")
+    return cfg, M.init_params(torch.Generator().manual_seed(0), cfg, "cpu")
+
+
+def whole_path_against_cpu(dev, counters, cfg, params):
     from repro_torch.core.schedulers import get_scheduler
     from repro_torch.data.synthetic import DataConfig, SyntheticTokens
-    from repro_torch.models import model as M
     from repro_torch.models.transformer import params_to
     from repro_torch.serving.engine import FlowSampler
     from repro_torch.solvers.registry import build_ns
 
-    cfg = dataclasses.replace(get_config("yi-6b"), n_layers=2, dtype="float32")
-    params = M.init_params(torch.Generator().manual_seed(0), cfg, "cpu")
     batch = SyntheticTokens(cfg, DataConfig(batch_size=2, seq_len=128, seed=0),
                             device="cpu").batch(0)
     x0 = np.random.default_rng(0).standard_normal((2, 128, cfg.latent_dim)).astype(np.float32)
@@ -213,7 +323,7 @@ def whole_path_against_cpu(dev, counters):
     on_card = FlowSampler(params=params_to(params, dev), **kw).sample_from(batch, x0)
     torch.cuda.synchronize(dev)
     ran = {name: c.launches - before[name] for name, c in counters.items()}
-    if ran != {"ns_update": 4, "flash_attention": 2 * 4}:
+    if ran != {"ns_update": 4, "flash_attention": 2 * 4, "paged_attention": 0}:
         raise SystemExit(f"card run launched {ran}")
     on_cpu = FlowSampler(params=params, **kw).sample_from(batch, x0)
     rel = float(torch.linalg.vector_norm(on_card.cpu() - on_cpu)
@@ -224,6 +334,110 @@ def whole_path_against_cpu(dev, counters):
         raise SystemExit(f"whole path: relative L2 {rel} over 1e-4")
 
 
+class CountCalls:
+    """Counts (and optionally records the logits of) ``decode_apply`` calls,
+    apart from any kernel's counter, by wrapping the model function the
+    engine calls."""
+
+    def __init__(self, keep_logits: bool = False):
+        from repro_torch.models import model as M
+
+        self.module, self.inner = M, M.decode_apply
+        self.calls, self.keep, self.logits = 0, keep_logits, []
+
+    def __enter__(self):
+        def counted(*args, **kwargs):
+            logits, state = self.inner(*args, **kwargs)
+            self.calls += 1
+            if self.keep:
+                self.logits.append(logits.float().cpu())
+            return logits, state
+
+        self.module.decode_apply = counted
+        return self
+
+    def __exit__(self, *exc):
+        self.module.decode_apply = self.inner
+
+
+def decode_path(dev, counters):
+    from repro_torch.launch import serve
+
+    gc.collect()                       # the flow phase's weights go first
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    for c in counters.values():
+        c.reset()
+    with CountCalls() as calls:
+        served = serve.main(DECODE_ARGS)
+    launches = {name: c.launches for name, c in counters.items()}
+    s = served.stats
+    lengths = [128, 32, 64, 16]
+    want_lengths = [lengths[i % 4] for i in range(16)]
+    if len(served.responses) != 16 or any(r is None for r in served.responses):
+        raise SystemExit("decode path: a request was rejected or shed")
+    for r, n in zip(served.responses, want_lengths):
+        toks = r.tokens.tolist()
+        if r.meta["finish_reason"] != "length" or len(toks) != n:
+            raise SystemExit(f"decode path: {r.meta}, {len(toks)} tokens, expected {n}")
+        if min(toks) < 0 or max(toks) >= 64000:
+            raise SystemExit(f"decode path: token outside the vocabulary in {toks}")
+    if s["failed"] or s["pages_in_use"] or s["completed"] != 16:
+        raise SystemExit(f"decode path: failed {s['failed']}, pages in use "
+                         f"{s['pages_in_use']}, completed {s['completed']}")
+    want = {"ns_update": 0, "flash_attention": 0, "paged_attention": LAYERS * calls.calls}
+    if launches != want or calls.calls == 0:
+        raise SystemExit(f"decode path launch counts {launches}, expected {want} "
+                         f"({calls.calls} decode_apply calls)")
+    d = served.metrics["device_dispatch_ms"]
+    peak = torch.cuda.max_memory_allocated(dev)
+    print(f"decode path: yi-6b full width, 16 requests on 8 paged slots: "
+          f"{s['tokens_out']} tokens in {served.wall_s:.3f} s ({s['tokens_per_s']:.1f} tokens/s "
+          f"by the gateway clock), {s['forwards']} engine calls ({s['prefill_calls']} "
+          f"prefill, {s['prefill_tokens']} prompt tokens), {calls.calls} decode_apply calls, "
+          f"engine call ms mean {d['sum'] / d['count']:.3f} p50 {d['p50']:.3f} "
+          f"max {d['max']:.3f}, launches {launches}, peak memory {peak / 2**30:.3f} GiB")
+    return launches
+
+
+def decode_against_cpu(dev, counters, cfg, params):
+    from repro_torch.models.transformer import params_to
+    from repro_torch.serving.decode import DecodeGateway, DecodeRequest
+    from repro_torch.serving.engine import DecodeEngine
+
+    def serve_on(p):
+        engine = DecodeEngine(params=p, cfg=cfg, page_size=16, paged_kernel=True)
+        gw = DecodeGateway(engine, max_slots=2, cache_slots=32, prefill_chunk=4)
+        futures = [gw.submit(DecodeRequest(prompt=[(3 * r + 1) % cfg.vocab,
+                                                   (5 * r + 2) % cfg.vocab],
+                                           max_tokens=n))
+                   for r, n in enumerate([6, 3, 5, 2])]
+        with CountCalls(keep_logits=True) as rec:
+            while not all(f.done() for f in futures):
+                gw.pump()
+        return [f.result().tokens.tolist() for f in futures], rec.logits
+
+    before = counters["paged_attention"].launches
+    card_tokens, card_logits = serve_on(params_to(params, dev))
+    ran = counters["paged_attention"].launches - before
+    if ran != 2 * len(card_logits):
+        raise SystemExit(f"decode card run launched paged attention {ran} times for "
+                         f"{len(card_logits)} decode_apply calls")
+    cpu_tokens, cpu_logits = serve_on(params)
+    rels = [float(torch.linalg.vector_norm(a - b) / torch.linalg.vector_norm(b))
+            for a, b in zip(card_logits, cpu_logits)]
+    print(f"decode path, card kernel vs CPU plain (2 layers, f32, 4 requests): "
+          f"{len(rels)} steps, worst logits relative L2 {max(rels):.3e} (limit 1e-4), "
+          f"tokens equal: {card_tokens == cpu_tokens}")
+    if len(card_logits) != len(cpu_logits) or not max(rels) <= 1e-4:
+        raise SystemExit(f"decode path: per-step logits relative L2 {rels}")
+    if card_tokens != cpu_tokens:
+        top2 = [torch.topk(lg, 2, dim=-1).values for lg in cpu_logits]
+        margin = min(float((t[:, 0] - t[:, 1]).min()) for t in top2)
+        raise SystemExit(f"decode path: tokens differ ({card_tokens} vs {cpu_tokens}); "
+                         f"smallest top-2 logit margin on the CPU {margin:.3e}")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is False)",
@@ -232,6 +446,7 @@ def main() -> int:
     sys.path.insert(0, str(ROOT / "src"))
     from repro_torch.kernels import build
     from repro_torch.kernels.flash_attention import flash_attention as fa
+    from repro_torch.kernels.flash_attention import paged_attention as pa
     from repro_torch.kernels.ns_update import ns_update as nu
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -250,23 +465,32 @@ def main() -> int:
     print(f"build: {time.perf_counter() - t0:.1f} s "
           f"({', '.join(f'{k} {v:.1f} s' for k, v in seconds.items()) or 'cached'})")
 
-    rows = {"ns_update": ns_update_cases(dev), "flash_attention": flash_cases(dev)}
+    rows = {"ns_update": ns_update_cases(dev), "flash_attention": flash_cases(dev),
+            "paged_attention": paged_cases(dev)}
     for name, cases in rows.items():
         for r in cases:
+            lib = ("none" if r["library_ms"] is None else f"{r['library_ms']:.4f} ms")
+            extra = (f", dense SDPA (gather excluded) {r['yardstick_ms']:.4f} ms, "
+                     f"limit ratio {r['limit_ratio']:.4f}" if "yardstick_ms" in r else "")
             print(f"{name} [{r['shape']}]: err {r['max_abs_err']:.3e}, "
                   f"kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, "
-                  f"library {r['library_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms "
-                  f"({r['bound_by']})")
+                  f"library {lib}, bound {r['bound_ms']:.4f} ms ({r['bound_by']}){extra}")
 
-    counters = {"ns_update": nu.COUNTER, "flash_attention": fa.COUNTER}
+    counters = {"ns_update": nu.COUNTER, "flash_attention": fa.COUNTER,
+                "paged_attention": pa.COUNTER}
     launches = main_path(dev, counters)
-    whole_path_against_cpu(dev, counters)
+    cfg, params = small_model()
+    whole_path_against_cpu(dev, counters, cfg, params)
+    launches["paged_attention"] = decode_path(dev, counters)["paged_attention"]
+    decode_against_cpu(dev, counters, cfg, params)
 
     meta = {
         "ns_update": ("src/repro_torch/kernels/csrc/ns_update.cu",
                       "src/repro/kernels/ns_update/ns_update.py:36"),
         "flash_attention": ("src/repro_torch/kernels/csrc/flash_attention.cu",
                             "src/repro/kernels/flash_attention/flash_attention.py:68"),
+        "paged_attention": ("src/repro_torch/kernels/csrc/paged_attention.cu",
+                            "src/repro/kernels/flash_attention/paged_attention.py:74"),
     }
     kernels = []
     for name, (source, replaces) in meta.items():
@@ -277,6 +501,9 @@ def main() -> int:
                         **{k: main_case[k] for k in ("max_abs_err", "ms", "plain_ms",
                                                      "bound_ms", "bound_by",
                                                      "library_ms")}})
+        if "yardstick_ms" in main_case:
+            kernels[-1]["yardstick"] = {"what": "dense SDPA, gather excluded",
+                                        "ms": main_case["yardstick_ms"]}
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

@@ -1,11 +1,12 @@
-"""Attention dispatch in the model's layout: the CUDA flash kernel for tensors
-on the card, the plain version for tensors on the CPU."""
+"""Attention dispatch: the CUDA kernels for tensors on the card, the plain
+versions for tensors on the CPU."""
 from __future__ import annotations
 
 import torch
 
 from repro_torch.kernels.flash_attention.flash_attention import flash_attention
-from repro_torch.kernels.flash_attention.ref import attention_ref
+from repro_torch.kernels.flash_attention.paged_attention import paged_attention
+from repro_torch.kernels.flash_attention.ref import attention_ref, paged_attention_ref
 
 
 def attend(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -17,3 +18,13 @@ def attend(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     else:
         out = attention_ref(qt, kt, vt, causal=causal)
     return out.transpose(1, 2)
+
+
+def paged_attend(q: torch.Tensor, k_pages: torch.Tensor, v_pages: torch.Tensor,
+                 block_table: torch.Tensor, lengths: torch.Tensor) -> torch.Tensor:
+    """One-token paged decode attention; q: (B, KV, G, hd) grouped heads,
+    k_pages/v_pages: (num_pages, page_size, KV, hd), block_table: (B, nb),
+    lengths: (B,), both int32."""
+    if q.is_cuda:
+        return paged_attention(q, k_pages, v_pages, block_table, lengths)
+    return paged_attention_ref(q, k_pages, v_pages, block_table, lengths)

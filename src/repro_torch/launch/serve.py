@@ -1,22 +1,38 @@
-"""Serving launcher, flow mode: sample a flow backbone with an NS solver.
+"""Serving launcher: flow sampling with an NS solver, or autoregressive decode.
 
-Port of the flow mode of ``repro.launch.serve``:
+Port of ``repro.launch.serve``:
 
   PYTHONPATH=src python -m repro_torch.launch.serve --arch yi-6b --mode flow \
       --full --nfe 8 --batch 4 --seq 1024 --requests 3 --bns-iters 0
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch yi-6b --mode decode \
+      --full --gateway --page-size 16 --paged-kernel --max-slots 8 --slots 256 \
+      --requests 16 --decode-lengths 128,32,64,16 --prefill-chunk 64
 
 Runs on the card by default (``--device cuda``, an error without one);
 ``--device cpu`` runs the plain CPU path. Weights are random, drawn from a
 ``torch.Generator`` seeded with ``--seed``; conditioning tokens come from
 ``SyntheticTokens``.
 
-Without an artifact the reference distills the solver its ``_requested_spec``
-names (euler at ``--nfe``, BNS mode), starting from ``build_ns("euler", nfe)``.
-The port serves that initial solver when ``--bns-iters 0`` is given;
-distillation, artifacts, anytime budgets and the gateway tiers exit with the
-ROADMAP item that brings them — the launcher never serves something else in
-their place. Each request prints its shape, its NFE and its wall time, read
-after the device has finished.
+Flow mode: without an artifact the reference distills the solver its
+``_requested_spec`` names (euler at ``--nfe``, BNS mode), starting from
+``build_ns("euler", nfe)``. The port serves that initial solver when
+``--bns-iters 0`` is given; distillation, artifacts, anytime budgets and the
+flow gateway tiers exit with the ROADMAP item that brings them — the
+launcher never serves something else in their place. Each request prints
+its shape, its NFE and its wall time, read after the device has finished.
+
+Decode mode serves batched greedy decode (``greedy_demo``) or, with
+``--gateway``, a continuous-batching ``DecodeGateway``: each request is one
+prompt ``[(3r+1) % vocab, (5r+2) % vocab]`` submitted to a pool of
+``--max-slots`` state slots, ``--decode-lengths`` cycling its max_tokens.
+``--page-size`` pages the KV cache, ``--paged-kernel`` attends through the
+paged-attention kernel, ``--prefill-chunk`` sets the chunked prefill width
+(0 = token by token), ``--temperature``/``--top-k``/``--top-p`` sample
+instead of greedy, ``--stream`` submits through ``submit_stream``, and
+``--slo``/``--deadline-ms``/``--priority`` attach an ``SLOConfig``. The
+telemetry flags exit naming their ROADMAP item. ``main`` returns what the
+run served: the flow mode's ``Served`` list, ``GreedyDecoded``, or
+``DecodeServed`` (the responses and the gateway's ``stats()``).
 """
 from __future__ import annotations
 
@@ -31,7 +47,10 @@ from repro_torch.configs import get_config
 from repro_torch.core.schedulers import get_scheduler
 from repro_torch.data.synthetic import DataConfig, SyntheticTokens
 from repro_torch.models import model as M
-from repro_torch.serving.engine import FlowSampler
+from repro_torch.observability import format_stats_line
+from repro_torch.serving.decode import DecodeGateway, DecodeRequest
+from repro_torch.serving.engine import DecodeEngine, FlowSampler, SamplingParams, greedy_demo
+from repro_torch.serving.slo import AdmissionRejected, DeadlineExceeded, SLOConfig
 from repro_torch.solvers.registry import build_ns
 
 DEFAULT_NFE = 8
@@ -42,8 +61,13 @@ _NOT_YET = {
                  "pass --bns-iters 0 to serve the initial euler solver",
     "solver_artifact": "solver artifacts (ROADMAP Queue A item 3)",
     "budgets": "anytime multi-budget serving (ROADMAP Queue A item 4)",
-    "gateway": "the gateway tiers (ROADMAP Queue A item 7)",
-    "decode": "decode mode (ROADMAP Queue A item 9)",
+    "gateway": "the flow gateway tiers (ROADMAP Queue A item 7); decode mode "
+               "serves --gateway",
+}
+# The gateway modes' telemetry surfaces (ROADMAP Queue A item 11).
+_TELEMETRY = {
+    "metrics_port": "--metrics-port", "metrics_json": "--metrics-json",
+    "stats_interval": "--stats-interval", "trace_jsonl": "--trace-jsonl",
 }
 
 
@@ -55,6 +79,35 @@ class Served:
     tokens: torch.Tensor      # (B, S) long
     nfe: int
     ms: float                 # wall time, device work included
+
+
+@dataclasses.dataclass
+class GreedyDecoded:
+    """The decode demo's batch (decode mode without ``--gateway``)."""
+
+    tokens: torch.Tensor      # (batch, steps) int32, on the host
+    ms_per_token: float       # wall time, device work included
+
+
+@dataclasses.dataclass
+class DecodeServed:
+    """What the decode gateway served: one response per request (None where
+    admission rejected or the deadline shed it) and its final snapshots."""
+
+    responses: list
+    stats: dict               # DecodeGateway.stats()
+    metrics: dict             # DecodeGateway.metrics_snapshot()
+    wall_s: float             # submit of the first request to the end of drain
+
+
+def _int_list(text: str) -> tuple[int, ...]:
+    try:
+        vals = tuple(int(tok) for tok in text.split(",") if tok.strip())
+    except ValueError:
+        raise argparse.ArgumentTypeError(f"bad list {text!r}")
+    if not vals or any(v < 1 for v in vals):
+        raise argparse.ArgumentTypeError(f"bad list {text!r}")
+    return vals
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -80,18 +133,69 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--budgets", default=None,
                     help="not served yet: " + _NOT_YET["budgets"])
     ap.add_argument("--gateway", action="store_true",
-                    help="not served yet: " + _NOT_YET["gateway"])
+                    help="decode: serve through the continuous-batching "
+                         "DecodeGateway; flow: not served yet, "
+                         + _NOT_YET["gateway"])
+    # decode mode, as the reference's flags
+    ap.add_argument("--steps", type=int, default=32)
+    ap.add_argument("--slots", type=int, default=128,
+                    help="decode: KV cache positions per slot")
+    ap.add_argument("--window", type=int, default=0,
+                    help="decode: sliding-window ring buffer (0 = full cache)")
+    ap.add_argument("--max-slots", type=int, default=8,
+                    help="decode gateway: sequence slot count")
+    ap.add_argument("--decode-lengths", type=_int_list, default=None,
+                    help="decode gateway: per-request max_tokens, cycled over "
+                         "--requests (default: --steps and --steps/2)")
+    ap.add_argument("--page-size", type=int, default=0,
+                    help="decode: paged KV cache page size in tokens (0 = dense "
+                         "per-slot cache); must divide --slots")
+    ap.add_argument("--paged-kernel", action="store_true",
+                    help="decode: attend over the paged cache through the CUDA "
+                         "paged-attention kernel (its plain version on the CPU)")
+    ap.add_argument("--prefill-chunk", type=int, default=64,
+                    help="decode gateway: batched prefill chunk width in tokens "
+                         "(0 = token-by-token teacher forcing)")
+    ap.add_argument("--temperature", type=float, default=0.0,
+                    help="decode gateway: sampling temperature (0 = greedy)")
+    ap.add_argument("--top-k", type=int, default=0,
+                    help="decode gateway: keep the k most likely tokens (0 = all)")
+    ap.add_argument("--top-p", type=float, default=1.0,
+                    help="decode gateway: nucleus threshold (1.0 = no cap)")
+    ap.add_argument("--stream", action="store_true",
+                    help="decode gateway: submit via submit_stream and report "
+                         "the streamed tokens")
+    ap.add_argument("--slo", action="store_true",
+                    help="decode gateway: attach an SLOConfig (fast-reject "
+                         "admission, deadline shedding, urgency order)")
+    ap.add_argument("--slo-slack", type=float, default=0.0,
+                    help="with --slo: margin in ms taken off every deadline")
+    ap.add_argument("--slo-default-cost-ms", type=float, default=0.0,
+                    help="with --slo: per-dispatch cost before the first "
+                         "dispatch is observed")
+    ap.add_argument("--deadline-ms", type=float, default=None,
+                    help="decode gateway: per-request deadline in ms from submit")
+    ap.add_argument("--priority", type=int, default=0,
+                    help="decode gateway: request priority (higher first under --slo)")
+    for dest, flag in _TELEMETRY.items():
+        ap.add_argument(flag, dest=dest, default=None,
+                        help="not served yet: telemetry surfaces (ROADMAP Queue A "
+                             "item 11)")
     return ap
 
 
 def _refuse_unported(args) -> None:
-    for name, on in (("decode", args.mode == "decode"),
-                     ("bns_iters", args.bns_iters != 0),
-                     ("solver_artifact", args.solver_artifact is not None),
-                     ("budgets", args.budgets is not None),
-                     ("gateway", args.gateway)):
-        if on:
-            raise SystemExit(f"not served by the port yet: {_NOT_YET[name]}")
+    if args.mode == "flow":
+        for name, on in (("bns_iters", args.bns_iters != 0),
+                         ("solver_artifact", args.solver_artifact is not None),
+                         ("budgets", args.budgets is not None),
+                         ("gateway", args.gateway)):
+            if on:
+                raise SystemExit(f"not served by the port yet: {_NOT_YET[name]}")
+    for dest, flag in _TELEMETRY.items():
+        if getattr(args, dest) is not None:
+            raise SystemExit(f"not served by the port yet: {flag}, the telemetry "
+                             "surfaces (ROADMAP Queue A item 11)")
 
 
 def serve_flow(args, device: torch.device) -> list[Served]:
@@ -122,19 +226,88 @@ def serve_flow(args, device: torch.device) -> list[Served]:
     return served
 
 
+def serve_decode(args, device: torch.device):
+    cfg = get_config(args.arch, smoke=args.smoke)
+    params = M.init_params(torch.Generator(device=device).manual_seed(args.seed),
+                           cfg, device)
+    engine = DecodeEngine(params=params, cfg=cfg, window=args.window,
+                          page_size=args.page_size, paged_kernel=args.paged_kernel)
+    if args.gateway:
+        return _serve_decode_gateway(args, engine, cfg)
+    tokens, dt = greedy_demo(engine, args.batch, args.steps, args.slots)
+    print(f"decoded {args.steps} tokens x {args.batch} seqs ({dt:.1f} ms/token); "
+          f"first row: {tokens[0, :8].tolist()}")
+    return GreedyDecoded(tokens=tokens, ms_per_token=dt)
+
+
+def _serve_decode_gateway(args, engine: DecodeEngine, cfg) -> DecodeServed:
+    """Continuous decode batching: every request is one prompt -> state slot."""
+    lengths = args.decode_lengths or (args.steps, max(1, args.steps // 2))
+    sampling = None
+    if args.temperature > 0.0 or args.top_k > 0 or args.top_p < 1.0:
+        sampling = SamplingParams(temperature=args.temperature, top_k=args.top_k,
+                                  top_p=args.top_p)
+    slo = (SLOConfig(slack_ms=args.slo_slack, default_cost_ms=args.slo_default_cost_ms)
+           if args.slo else None)
+    gw = DecodeGateway(engine, max_slots=args.max_slots, cache_slots=args.slots,
+                       prefill_chunk=args.prefill_chunk, seed=args.seed, slo=slo)
+    t0 = time.perf_counter()
+    gw.start()
+    futures = []
+    for req in range(args.requests):
+        prompt = [(3 * req + 1) % cfg.vocab, (5 * req + 2) % cfg.vocab]
+        kw = dict(prompt=prompt, max_tokens=lengths[req % len(lengths)],
+                  sampling=sampling, deadline_ms=args.deadline_ms, priority=args.priority)
+        try:
+            futures.append(gw.submit_stream(**kw) if args.stream
+                           else gw.submit(DecodeRequest(**kw)))
+        except AdmissionRejected as e:
+            print(f"request {req}: REJECTED at admission ({e})")
+            futures.append(None)
+    gw.shutdown()
+    wall = time.perf_counter() - t0
+    responses = []
+    for i, fut in enumerate(futures):
+        if fut is None:
+            responses.append(None)
+            continue
+        try:
+            streamed = 0
+            if args.stream:
+                chunks = fut.chunks(timeout=60.0)
+                streamed = sum(1 for c in chunks if not c.final)
+                response = chunks[-1].payload
+            else:
+                response = fut.result()     # an engine failure re-raises here
+        except DeadlineExceeded:
+            print(f"request {i}: SHED (deadline exceeded in queue)")
+            responses.append(None)
+            continue
+        meta = response.meta
+        print(f"request {i}: {meta['new_tokens']} tokens ({meta['finish_reason']}), "
+              f"wait {meta['wait_ms']:.1f} ms, slot {meta['slot']}, "
+              f"join_step {meta['join_step']}"
+              + (f", {streamed} streamed tokens" if args.stream else ""))
+        responses.append(response)
+    stats = gw.stats()
+    print(format_stats_line(stats, prefix="decode gateway stats"))
+    return DecodeServed(responses=responses, stats=stats,
+                        metrics=gw.metrics_snapshot(), wall_s=wall)
+
+
 def _sync(device: torch.device) -> None:
     if device.type == "cuda":
         torch.cuda.synchronize(device)
 
 
-def main(argv=None) -> list[Served]:
+def main(argv=None):
     args = build_parser().parse_args(argv)
     _refuse_unported(args)
     try:
         device = resolve_device(args.device)
     except RuntimeError as e:
         raise SystemExit(str(e)) from None
-    return serve_flow(args, device)
+    return (serve_flow if args.mode == "flow" else serve_decode)(args, device)
 
 
 if __name__ == "__main__":

@@ -1,12 +1,15 @@
-"""Dense decoder-only transformer family (llama-style GQA), flow head.
+"""Dense decoder-only transformer family (llama-style GQA): flow head and
+one-token decode.
 
-Port of the flow path of ``repro.models.transformer`` (yi-6b / yi-34b
-[arXiv:2403.04652], phi3-medium-14b, command-r-35b's parallel block).
+Port of ``repro.models.transformer`` (yi-6b / yi-34b [arXiv:2403.04652],
+phi3-medium-14b, command-r-35b's parallel block): the flow path, and
+``decode_step`` over a dense or paged KV cache.
 
-Layer params are stacked on a leading axis, as in the reference, and the
-forward pass is a Python loop over that axis where the reference scans. The
-LM head is created so that ``params_from_jax`` covers the whole tree; it and
-``decode_step`` are not on the flow path (ROADMAP Queue A item 9).
+Layer params and caches are stacked on a leading axis, as in the reference,
+and every pass is a Python loop over that axis where the reference scans.
+``lm_forward`` (training and full-sequence prefill) is not ported: serving
+prefills token by token through ``decode_step``, as the reference's gateway
+does.
 """
 from __future__ import annotations
 
@@ -18,7 +21,14 @@ import torch.nn.functional as F
 
 from repro_torch import resolve_device
 from repro_torch.configs.base import ModelConfig
-from repro_torch.models.attention import attention_forward, init_attention
+from repro_torch.models.attention import (
+    KVCache,
+    PagedKVCache,
+    attention_forward,
+    decode_attention,
+    decode_attention_paged,
+    init_attention,
+)
 from repro_torch.models.layers import dense_init, rms_norm, swiglu, timestep_embedding
 
 Tensor = torch.Tensor
@@ -161,6 +171,73 @@ def dense_hidden(params: dict, cfg: ModelConfig, h: Tensor, positions: Tensor,
     for i in range(cfg.n_layers):
         h = _block(_layer(params["layers"], i), cfg, h, positions, causal, window)
     return rms_norm(h, params["final_norm"], cfg.norm_eps)
+
+
+def init_caches(cfg: ModelConfig, batch: int, slots: int, dtype=torch.bfloat16,
+                device="cuda") -> KVCache:
+    """Zeroed dense caches, (L, batch, slots, KV, hd), and a scalar index."""
+    shape = (cfg.n_layers, batch, slots, cfg.n_kv_heads, cfg.resolved_head_dim)
+    return KVCache(k=torch.zeros(shape, dtype=dtype, device=device),
+                   v=torch.zeros(shape, dtype=dtype, device=device),
+                   index=torch.zeros((), dtype=torch.int32, device=device))
+
+
+def init_paged_caches(cfg: ModelConfig, batch: int, num_pages: int, page_size: int,
+                      blocks_per_slot: int, dtype=torch.bfloat16,
+                      device="cuda") -> PagedKVCache:
+    """Paged decode state: a shared (L, num_pages, page_size, KV, hd) pool plus
+    a zeroed per-row block table — every row starts on the reserved trash
+    page 0 until the gateway's page allocator assigns it pages."""
+    shape = (cfg.n_layers, num_pages, page_size, cfg.n_kv_heads, cfg.resolved_head_dim)
+    return PagedKVCache(
+        k_pages=torch.zeros(shape, dtype=dtype, device=device),
+        v_pages=torch.zeros(shape, dtype=dtype, device=device),
+        block_table=torch.zeros((batch, blocks_per_slot), dtype=torch.int32, device=device),
+        index=torch.zeros((batch,), dtype=torch.int32, device=device))
+
+
+def decode_step(params: dict, cfg: ModelConfig, token: Tensor, caches, *,
+                window: int = 0, paged_kernel: bool = False,
+                active: Optional[Tensor] = None):
+    """One-token decode: token (B,) -> (logits (B, V), caches).
+
+    ``caches`` is a dense ``KVCache`` or a ``PagedKVCache``, updated IN PLACE
+    (see ``models.attention``) and returned with the advanced index.
+    ``active`` (B,) bool picks the rows the step advances (None: all): the
+    other rows keep their position and, in a dense cache, every bit of their
+    cache rows. A paged pool is written unconditionally, as the reference's
+    is. ``paged_kernel`` routes paged attention through the CUDA kernel.
+    """
+    h = params["embed"][token.long()][:, None, :]              # (B, 1, d)
+    B = h.shape[0]
+    paged = isinstance(caches, PagedKVCache)
+    attn_kw = dict(n_heads=cfg.n_heads, n_kv=cfg.n_kv_heads, head_dim=cfg.resolved_head_dim,
+                   rope_theta=cfg.rope_theta, norm_eps=cfg.norm_eps)
+    pos = caches.index.to(torch.int32).expand(B)
+    for i in range(cfg.n_layers):
+        p = _layer(params["layers"], i)
+        hn = rms_norm(h, p["norm1"], cfg.norm_eps)
+        if paged:
+            attn_out = decode_attention_paged(
+                p["attn"], hn, caches.k_pages[i], caches.v_pages[i], caches.block_table,
+                pos, kernel=paged_kernel, **attn_kw)
+        else:
+            layer_cache = KVCache(k=caches.k[i], v=caches.v[i], index=caches.index)
+            attn_out, _ = decode_attention(p["attn"], hn, layer_cache, window=window,
+                                           active=active, **attn_kw)
+        if cfg.parallel_block:
+            h = h + attn_out + swiglu(hn, **p["mlp"])
+        else:
+            h = h + attn_out
+            h = h + swiglu(rms_norm(h, p["norm2"], cfg.norm_eps), **p["mlp"])
+    h = rms_norm(h, params["final_norm"], cfg.norm_eps)[:, 0, :]
+    logits = h @ (params["embed"].T if cfg.tie_embeddings else params["lm_head"])
+    index = pos + 1
+    if active is not None:
+        index = torch.where(active, index, pos)
+    elif caches.index.dim() == 0:
+        index = caches.index + 1
+    return logits, caches._replace(index=index)
 
 
 # ---------------------------------------------------------------------------

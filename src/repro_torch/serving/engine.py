@@ -1,19 +1,30 @@
-"""Serving engine: ``FlowSampler``, the paper's product.
+"""Serving engines.
 
-Port of ``repro.serving.engine.FlowSampler``: batched sampling of a flow
-model with an NS solver (Algorithm 1). Each request batch costs exactly
-``n`` backbone forwards, and every solver step's update runs the
-``ns_update`` kernel on the card (its plain version on the CPU).
+Port of ``repro.serving.engine``:
 
-``FlowSampler.from_artifact`` (ROADMAP Queue A item 3), ``AnytimeFlowSampler``
-(item 4) and ``DecodeEngine`` with its sampling functions (item 9) come with
-their slices.
+``FlowSampler`` — the paper's product: batched sampling of a flow model with
+an NS solver (Algorithm 1). Each request batch costs exactly ``n`` backbone
+forwards, and every solver step's update runs the ``ns_update`` kernel on
+the card (its plain version on the CPU).
+
+``DecodeEngine`` — batched autoregressive decode over a KV cache: ``greedy``
+(a Python loop where the reference scans) and the slot API
+(``init_slot_state`` / ``step_slots`` / ``prefill_slots`` / ``reset_slots``)
+that ``serving.decode.DecodeGateway`` serves from. ``page_size > 0`` pages
+the cache (``PagedKVCache``), and ``paged_kernel`` attends through the
+paged-attention kernel. ``SamplingParams`` / ``sample_tokens`` add
+temperature / top-k / top-p sampling beside greedy.
+
+``FlowSampler.from_artifact`` (ROADMAP Queue A item 3) and
+``AnytimeFlowSampler`` (item 4) come with their slices.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional
+import time
+from typing import NamedTuple, Optional
 
+import numpy as np
 import torch
 
 from repro_torch.configs.base import ModelConfig
@@ -103,3 +114,285 @@ class FlowSampler:
     def nearest_tokens(self, latents: Tensor) -> Tensor:
         """Decode sampled latents to tokens by nearest latent embedding."""
         return nearest_latent_tokens(self.params, latents)
+
+
+# ---------------------------------------------------------------------------
+# Sampling (temperature / top-k / top-p beside greedy)
+# ---------------------------------------------------------------------------
+
+_NEG_INF = -1e30
+_MASK64 = (1 << 64) - 1
+
+
+def fold_in(seed: int, data: int) -> int:
+    """A new seed from ``seed`` and ``data`` (a splitmix64 round over their
+    mix, cut to 63 bits for ``torch.Generator.manual_seed``): the port's twin
+    of ``jax.random.fold_in``. The reference's threefry bits cannot be
+    reproduced in torch; this keeps their property that a draw depends only
+    on the seeds folded into it."""
+    z = (seed * 0x9E3779B97F4A7C15 + data + 0x632BE59BD9B4E019) & _MASK64
+    z = ((z ^ (z >> 30)) * 0xBF58476D1CE4E5B9) & _MASK64
+    z = ((z ^ (z >> 27)) * 0x94D049BB133111EB) & _MASK64
+    return (z ^ (z >> 31)) >> 1
+
+
+@dataclasses.dataclass(frozen=True)
+class SamplingParams:
+    """Per-request sampling knobs. ``temperature == 0`` is exact greedy
+    (argmax); ``top_k == 0`` and ``top_p == 1.0`` disable those filters.
+    Determinism contract: given the gateway's base seed, a request's tokens
+    depend only on (base seed, request uid, step)."""
+
+    temperature: float = 1.0
+    top_k: int = 0
+    top_p: float = 1.0
+
+    def __post_init__(self):
+        if self.temperature < 0:
+            raise ValueError(f"temperature must be >= 0, got {self.temperature}")
+        if self.top_k < 0:
+            raise ValueError(f"top_k must be >= 0, got {self.top_k}")
+        if not 0.0 < self.top_p <= 1.0:
+            raise ValueError(f"top_p must be in (0, 1], got {self.top_p}")
+
+
+class SlotSampling(NamedTuple):
+    """Per-slot sampling state for the sampled step (host numpy arrays).
+    ``seeds`` are per-SEQUENCE seeds (base seed folded with the request uid);
+    ``counts`` is each row's emitted-token count, folded in per step."""
+
+    seeds: np.ndarray    # (slots,) uint64 per-sequence seeds
+    counts: np.ndarray   # (slots,) int32 tokens emitted so far
+    temps: np.ndarray    # (slots,) f32 temperature (0 = greedy)
+    top_ks: np.ndarray   # (slots,) int32 top-k cutoff (0 = off)
+    top_ps: np.ndarray   # (slots,) f32 top-p cutoff (1.0 = off)
+
+
+def gumbel_noise(seeds, counts, temps, vocab: int, device) -> torch.Tensor:
+    """(B, vocab) f32 Gumbel draws: row i from a generator seeded with
+    ``fold_in(seeds[i], counts[i])``; greedy rows (temperature 0) get zeros."""
+    out = torch.zeros((len(seeds), vocab), dtype=torch.float32, device=device)
+    tiny = torch.finfo(torch.float32).tiny
+    for i, (seed, count, temp) in enumerate(zip(seeds, counts, temps)):
+        if temp > 0:
+            gen = torch.Generator(device=device).manual_seed(fold_in(int(seed), int(count)))
+            u = torch.rand((vocab,), generator=gen, device=device).clamp_(min=tiny)
+            out[i] = -torch.log(-torch.log(u))
+    return out
+
+
+def filter_logits(logits: torch.Tensor, temps: torch.Tensor, top_ks: torch.Tensor,
+                  top_ps: torch.Tensor) -> torch.Tensor:
+    """Temperature-scaled logits with everything outside each row's top-k
+    and top-p set to -1e30. Both filters run on the descending-sorted
+    logits; the exclusive cumsum keeps the top-1 token always."""
+    V = logits.shape[-1]
+    scaled = logits.to(torch.float32) / temps.clamp(min=1e-6)[:, None]
+    sorted_desc = torch.sort(scaled, dim=-1, descending=True).values
+    k = torch.where(top_ks > 0, top_ks, V).clamp(1, V).long()
+    kth = torch.take_along_dim(sorted_desc, (k - 1)[:, None], dim=-1)
+    probs = torch.softmax(sorted_desc, dim=-1)
+    cum = torch.cumsum(probs, dim=-1)
+    in_nucleus = (cum - probs) < top_ps[:, None]
+    pth = torch.where(in_nucleus, sorted_desc, torch.inf).amin(dim=-1, keepdim=True)
+    cutoff = torch.maximum(kth, pth)
+    return torch.where(scaled >= cutoff, scaled, _NEG_INF)
+
+
+def sample_tokens(logits: torch.Tensor, gumbel: torch.Tensor, temps: torch.Tensor,
+                  top_ks: torch.Tensor, top_ps: torch.Tensor) -> torch.Tensor:
+    """Per-row sampling with given Gumbel noise (B, V): temperature scale,
+    top-k and top-p truncation, Gumbel-max draw; rows with ``temps == 0``
+    take the exact argmax. The noise is an argument, so the filter can be
+    held against the reference fed the reference's own draws."""
+    greedy = torch.argmax(logits.to(torch.float32), dim=-1)
+    masked = filter_logits(logits, temps, top_ks, top_ps)
+    sampled = torch.argmax(masked + gumbel, dim=-1)
+    return torch.where(temps > 0, sampled, greedy).to(torch.int32)
+
+
+@dataclasses.dataclass
+class DecodeEngine:
+    """Batched autoregressive decode over a KV cache, on ``params``' device.
+
+    * ``greedy(prompt, state, num_steps)`` — run-to-completion batched greedy
+      decode, one ``decode_apply`` per token (the reference's ``lax.scan``
+      becomes a Python loop).
+    * slot serving — ``init_slot_state`` builds a fixed-slot state whose rows
+      are INDEPENDENT sequences at their own positions (per-row ``index``);
+      ``step_slots`` advances only the rows of the active mask;
+      ``prefill_slots`` feeds prompt chunks teacher-forced, one
+      ``decode_apply`` per column under the same row mask; ``reset_slots``
+      zeroes freed rows. State is updated IN PLACE and returned: a dense
+      cache only in the advanced rows (the others keep every bit), a paged
+      pool unconditionally, as the reference's is (page ownership and the
+      trash page 0 isolate rows; ``reset_slots`` leaves the pool alone and
+      zeroes the row's block table).
+
+    ``page_size > 0`` pages the cache; ``paged_kernel`` routes paged
+    attention through the CUDA kernel (its plain version on the CPU).
+    """
+
+    params: dict
+    cfg: ModelConfig
+    window: int = 0
+    page_size: int = 0          # > 0: paged KV cache
+    paged_kernel: bool = False  # paged attention through the kernel
+
+    #: gateways probe this before routing sampled requests
+    supports_sampling = True
+
+    def __post_init__(self):
+        if self.page_size:
+            if self.window:
+                raise ValueError(
+                    "paged KV cache is incompatible with sliding-window "
+                    "decode (the ring buffer already bounds resident KV)")
+            if self.cfg.family not in M.PAGED_FAMILIES + ("ssm",):
+                raise TypeError(
+                    f"page_size set but family {self.cfg.family!r} has no "
+                    f"pageable KV state (pageable: {M.PAGED_FAMILIES}; "
+                    "ssm accepted as a no-op)")
+        self.device = self.params["final_norm"].device
+        self._axes = M.decode_state_batch_axes(self.cfg, paged=self.paged)
+
+    @property
+    def paged(self) -> bool:
+        """True when slot state is a ``PagedKVCache``."""
+        return self.page_size > 0 and self.cfg.family in M.PAGED_FAMILIES
+
+    @property
+    def seq_capacity_bounded(self) -> bool:
+        """True when decode positions must fit the cache's physical slots:
+        non-windowed KV caches clamp writes to the last slot past capacity."""
+        return self.window == 0 and self.cfg.family != "ssm"
+
+    def _on_device(self, x, dtype=None) -> Tensor:
+        return torch.as_tensor(x, dtype=dtype, device=self.device)
+
+    def _apply(self, token, state, active=None):
+        return M.decode_apply(self.params, self.cfg, token, state, window=self.window,
+                              paged_kernel=self.paged_kernel, active=active)
+
+    def init_state(self, batch: int, slots: int, dtype=torch.float32):
+        return M.init_decode_state(self.cfg, batch, slots, dtype, self.device)
+
+    def step(self, token, state):
+        """One batched decode step: token (B,) -> (logits (B, V), state)."""
+        with torch.no_grad():
+            return self._apply(self._on_device(token), state)
+
+    def greedy(self, prompt, state, num_steps: int):
+        """prompt: (B,) last prompt token. Returns ((B, num_steps) int32
+        tokens on the device, state)."""
+        token = self._on_device(prompt)
+        out = []
+        with torch.no_grad():
+            for _ in range(num_steps):
+                logits, state = self._apply(token, state)
+                token = torch.argmax(logits, dim=-1).to(torch.int32)
+                out.append(token)
+        return torch.stack(out, dim=1), state
+
+    # -- slot serving (decode-side continuous batching) ----------------------
+
+    def init_slot_state(self, slots: int, cache_slots: int, dtype=torch.float32,
+                        total_pages: Optional[int] = None):
+        """Fixed-slot batched decode state with PER-ROW positions. Paged
+        engines return a ``PagedKVCache``: a shared pool of ``total_pages``
+        pages (default: the trash page 0 plus every slot at full
+        ``cache_slots`` residency) and an all-zero block table awaiting the
+        gateway's allocator. ``cache_slots`` must be a multiple of
+        ``page_size``."""
+        if self.paged:
+            ps = self.page_size
+            if cache_slots % ps:
+                raise ValueError(f"cache_slots ({cache_slots}) must be a multiple of "
+                                 f"page_size ({ps})")
+            blocks = cache_slots // ps
+            pages = (1 + slots * blocks) if total_pages is None else total_pages
+            if pages < 2:
+                raise ValueError("total_pages must be >= 2 (page 0 is the "
+                                 "reserved trash page)")
+            return M.init_paged_decode_state(self.cfg, slots, pages, ps, blocks, dtype,
+                                             self.device)
+        state = self.init_state(slots, cache_slots, dtype)
+        return state._replace(index=torch.zeros((slots,), dtype=torch.int32,
+                                                device=self.device))
+
+    def step_slots(self, token, state, active, sampling: Optional[SlotSampling] = None):
+        """One write-masked decode step over the slot batch.
+
+        ``token`` (slots,) feeds each row; rows where ``active`` is False
+        flow through the backbone (fixed batch shape) but keep their state
+        rows and positions. Returns (next token (slots,) int32 on the host,
+        state): greedy argmax, or per-row draws when ``sampling`` is given
+        (temperature-0 rows stay exact greedy). Bringing the tokens to the
+        host waits for the step, so a caller's clock around the call
+        covers the device work."""
+        with torch.no_grad():
+            logits, state = self._apply(self._on_device(token),
+                                        state, self._on_device(active, torch.bool))
+            if sampling is None:
+                toks = torch.argmax(logits, dim=-1).to(torch.int32)
+            else:
+                noise = gumbel_noise(sampling.seeds, sampling.counts, sampling.temps,
+                                     logits.shape[-1], self.device)
+                toks = sample_tokens(logits, noise,
+                                     self._on_device(sampling.temps, torch.float32),
+                                     self._on_device(sampling.top_ks, torch.int64),
+                                     self._on_device(sampling.top_ps, torch.float32))
+        return toks.cpu(), state
+
+    def prefill_slots(self, tokens, lengths, state, mask):
+        """Batched chunked prefill: feed ``tokens`` (slots, C) teacher-forced
+        into the rows where ``mask`` is True, row i consuming its first
+        ``lengths[i]`` columns (the rest are padding): one ``decode_apply``
+        per column, the rows with ``mask & (column < length)`` advancing, as
+        the reference's scan body does. Logits are discarded. On the card the
+        call waits for its work before returning, so the caller's clock
+        around it covers the device time."""
+        tokens = np.asarray(tokens)
+        lengths = np.asarray(lengths)
+        mask = np.asarray(mask, bool)
+        tok = self._on_device(tokens)
+        with torch.no_grad():
+            for t in range(tokens.shape[1]):
+                _, state = self._apply(tok[:, t], state,
+                                       self._on_device(mask & (t < lengths)))
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        return state
+
+    def reset_slots(self, state, free):
+        """Zero, in place, the rows where ``free`` is True (a fresh row at
+        position 0). Paged: the rows' block tables (-> trash page 0) and
+        positions; the shared pool is left alone."""
+        free = self._on_device(free, torch.bool)
+        for leaf, ax in zip(state, self._axes):
+            if ax == -1:
+                continue
+            shape = [1] * leaf.dim()
+            shape[ax] = free.shape[0]
+            leaf.masked_fill_(free.reshape(shape), 0)
+        return state
+
+    def with_block_table(self, state, table):
+        """Swap in the gateway allocator's host-side block table (paged
+        engines only): (slots, blocks_per_slot) page ids."""
+        return state._replace(block_table=self._on_device(table, torch.int32))
+
+
+def greedy_demo(engine: DecodeEngine, batch: int, steps: int, cache_slots: int,
+                prompt=None) -> tuple[Tensor, float]:
+    """Solo-decode demo loop (``launch/serve.py --mode decode`` without the
+    gateway): fresh dense state, ``steps`` greedy tokens from ``prompt``
+    (default all zeros); returns (tokens (batch, steps), ms per token, read
+    after the device has finished)."""
+    state = engine.init_state(batch, cache_slots)
+    if prompt is None:
+        prompt = torch.zeros((batch,), dtype=torch.int32, device=engine.device)
+    t0 = time.perf_counter()
+    tokens, _ = engine.greedy(prompt, state, steps)
+    tokens = tokens.cpu()
+    return tokens, (time.perf_counter() - t0) / steps * 1e3

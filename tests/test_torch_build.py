@@ -12,6 +12,8 @@ TPU_KERNELS = {
     "ns_update": "src/repro/kernels/ns_update/ns_update.py::ns_update",
     "flash_attention":
         "src/repro/kernels/flash_attention/flash_attention.py::flash_attention",
+    "paged_attention":
+        "src/repro/kernels/flash_attention/paged_attention.py::paged_attention",
 }
 
 

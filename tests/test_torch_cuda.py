@@ -111,6 +111,92 @@ def test_attend_reads_model_layout_in_place(dev):
                                rtol=TOL[torch.float32] * 4)
 
 
+def _paged_inputs(seed, B, KV, G, hd, ps, nb, q_dtype, page_dtype, dev, layers=1):
+    """q, a (layers, num_pages, ps, KV, hd) K and V pool, each row owning nb
+    shuffled (non-contiguous) pages past the trash page 0, ragged lengths."""
+    rng = np.random.default_rng(seed)
+    num_pages = 1 + B * nb
+    q = _randn(rng, (B, KV, G, hd), q_dtype, dev)
+    k = _randn(rng, (layers, num_pages, ps, KV, hd), page_dtype, dev)
+    v = _randn(rng, (layers, num_pages, ps, KV, hd), page_dtype, dev)
+    perm = rng.permutation(num_pages - 1)[:B * nb] + 1
+    table = torch.from_numpy(perm.reshape(B, nb).astype(np.int32)).to(dev)
+    lengths = torch.tensor([(i * ps + i + 1) % (nb * ps) + 1 for i in range(B)],
+                           dtype=torch.int32, device=dev)
+    return q, k, v, table, lengths
+
+
+def _check_paged(out, ref):
+    """f32 output: 4x the f32 TOL, as tests/test_kernels.py holds f32
+    attention. bf16 output: both versions keep scores, weights and sums in
+    f32 and round only the output, so they differ by at most one bf16 ulp of
+    |o|, which is <= 2**-7 |o|."""
+    assert out.dtype == ref.dtype and out.shape == ref.shape
+    if out.dtype == torch.float32:
+        torch.testing.assert_close(out, ref, atol=TOL[torch.float32] * 4,
+                                   rtol=TOL[torch.float32] * 4)
+        return
+    err = (out.float() - ref.float()).abs()
+    limit = 2.0 ** -7 * ref.float().abs() + 1e-6
+    assert bool((err <= limit).all()), float((err / limit).max())
+
+
+_PAGED_DTYPES = [(torch.float32, torch.float32), (torch.bfloat16, torch.float32),
+                 (torch.float32, torch.bfloat16), (torch.bfloat16, torch.bfloat16)]
+
+
+@pytest.mark.parametrize("q_dtype,page_dtype", _PAGED_DTYPES, ids=str)
+@pytest.mark.parametrize("B,KV,G,hd,ps,nb", [
+    (2, 2, 2, 64, 8, 4),        # tests/test_kernels.py sweep
+    (3, 1, 4, 32, 16, 2),
+    (1, 4, 1, 64, 8, 3),
+    (2, 2, 4, 80, 16, 3),       # hd=80
+    (3, 2, 7, 128, 4, 5),       # G=7, small pages
+    (8, 4, 8, 128, 16, 16),     # the decode cell: yi-6b heads, 256-position rows
+    (2, 4, 8, 128, 16, 64),     # 1024-position rows
+])
+def test_paged_attention_matches_plain(dev, B, KV, G, hd, ps, nb, q_dtype, page_dtype):
+    from repro_torch.kernels.flash_attention import paged_attention as pa_mod
+    from repro_torch.kernels.flash_attention.ref import paged_attention_ref
+
+    q, k, v, table, lengths = _paged_inputs(B + G + hd + nb, B, KV, G, hd, ps, nb,
+                                            q_dtype, page_dtype, dev)
+    before = pa_mod.COUNTER.launches
+    out = pa_mod.paged_attention(q, k[0], v[0], table, lengths)
+    torch.cuda.synchronize()
+    assert pa_mod.COUNTER.launches == before + 1
+    _check_paged(out, paged_attention_ref(q, k[0], v[0], table, lengths))
+
+
+@pytest.mark.parametrize("q_dtype,page_dtype", _PAGED_DTYPES, ids=str)
+def test_paged_attention_edge_rows(dev, q_dtype, page_dtype):
+    """A pool view of one layer; garbage (+-1e4) in a row's own pages past its
+    length; rows whose block table is all zeros (the trash page, as inactive
+    slots read it); a length past nb * page_size (the clamped write)."""
+    from repro_torch.kernels.flash_attention.paged_attention import paged_attention
+    from repro_torch.kernels.flash_attention.ref import paged_attention_ref
+
+    B, KV, G, hd, ps, nb = 4, 4, 8, 128, 16, 4
+    q, k, v, table, lengths = _paged_inputs(7, B, KV, G, hd, ps, nb, q_dtype,
+                                            page_dtype, dev, layers=3)
+    table[2] = 0
+    lengths[:] = torch.tensor([5, 37, 1, nb * ps + 9], dtype=torch.int32)
+    kl, vl = k[1], v[1]                    # per-layer views of the stacked pool
+    base = paged_attention(q, kl, vl, table, lengths)
+    _check_paged(base, paged_attention_ref(q, kl, vl, table, lengths))
+    torch.testing.assert_close(base, paged_attention(q, kl.clone(), vl.clone(), table,
+                                                     lengths), atol=0, rtol=0)
+    # poison row 0's own pages past its length 5 and row 1's past 37
+    for row, n in ((0, 5), (1, 37)):
+        for pos in range(n, nb * ps):
+            page = int(table[row, pos // ps])
+            kl[page, pos % ps] = 1e4 if pos % 2 else -1e4
+            vl[page, pos % ps] = -1e4 if pos % 2 else 1e4
+    poisoned = paged_attention(q, kl, vl, table, lengths)
+    torch.testing.assert_close(poisoned, base, atol=0, rtol=0)
+    _check_paged(poisoned, paged_attention_ref(q, kl, vl, table, lengths))
+
+
 def test_kernels_refuse_what_they_do_not_take(dev):
     x = torch.zeros(2, 8, device=dev, dtype=torch.float16)
     with pytest.raises(TypeError):
@@ -121,3 +207,17 @@ def test_kernels_refuse_what_they_do_not_take(dev):
     shifted = torch.zeros(1, 2, 16, 65, device=dev, dtype=torch.bfloat16)[..., 1:]
     with pytest.raises(ValueError, match="aligned"):
         flash_attention(shifted, shifted, shifted)
+
+    from repro_torch.kernels.flash_attention.paged_attention import paged_attention
+
+    q, k, v, table, lengths = _paged_inputs(0, 2, 2, 2, 64, 8, 2, torch.float32,
+                                            torch.float32, dev)
+    with pytest.raises(TypeError, match="int32"):
+        paged_attention(q, k[0], v[0], table.long(), lengths)
+    with pytest.raises(TypeError):
+        paged_attention(q.half(), k[0], v[0], table, lengths)
+    with pytest.raises(ValueError, match="head dims"):
+        paged_attention(q[..., :48].contiguous(), k[0][..., :48].contiguous(),
+                        v[0][..., :48].contiguous(), table, lengths)
+    with pytest.raises(ValueError, match="contiguous"):
+        paged_attention(q, k[0].transpose(0, 1), v[0].transpose(0, 1), table, lengths)

@@ -145,9 +145,58 @@ def test_serve_cli_exit_code_without_a_card():
     (["--bns-iters", "0", "--solver-artifact", "s.msgpack"], "ROADMAP Queue A item 3"),
     (["--bns-iters", "0", "--budgets", "4,8"], "ROADMAP Queue A item 4"),
     (["--bns-iters", "0", "--gateway"], "ROADMAP Queue A item 7"),
-    (["--bns-iters", "0", "--mode", "decode"], "ROADMAP Queue A item 9"),
+    (["--mode", "decode", "--gateway", "--trace-jsonl", "t.jsonl"], "ROADMAP Queue A item 11"),
+    (["--mode", "decode", "--gateway", "--metrics-json", "m.json"], "ROADMAP Queue A item 11"),
+    (["--mode", "decode", "--gateway", "--metrics-port", "0"], "ROADMAP Queue A item 11"),
+    (["--bns-iters", "0", "--stats-interval", "5"], "ROADMAP Queue A item 11"),
 ])
 def test_serve_refuses_what_it_does_not_serve(extra, item):
     with pytest.raises(SystemExit) as exc:
         serve.main(["--arch", "yi-6b", "--device", "cpu"] + extra)
     assert item in str(exc.value.code)
+
+
+_DECODE = ["--arch", "yi-6b", "--mode", "decode", "--device", "cpu"]
+
+
+def test_serve_decode_gateway_paged_kernel_on_cpu(capsys):
+    """The decode gateway through the paged-attention path (its plain version
+    on the CPU): every request finishes at its length with in-vocabulary
+    tokens, nothing fails, every page returns to the pool, and the gateway's
+    counts are the reference launcher's for the same flags (3 two-token
+    prompts on 2 slots: 2 prefill calls, 6 decode steps)."""
+    from repro_torch.kernels.flash_attention import paged_attention as pa_mod
+
+    before = pa_mod.COUNTER.launches
+    served = serve.main(_DECODE + ["--gateway", "--page-size", "4", "--paged-kernel",
+                                   "--max-slots", "2", "--slots", "16", "--requests", "3",
+                                   "--decode-lengths", "4,2", "--prefill-chunk", "4"])
+    assert pa_mod.COUNTER.launches == before
+    assert [r.meta["new_tokens"] for r in served.responses] == [4, 2, 4]
+    for r in served.responses:
+        assert r.meta["finish_reason"] == "length"
+        assert all(0 <= t < 256 for t in r.tokens.tolist())
+    s = served.stats
+    assert (s["completed"], s["failed"], s["pages_in_use"], s["tokens_out"]) == (3, 0, 0, 10)
+    assert (s["prefill_calls"], s["batches"], s["forwards"]) == (2, 6, 8)
+    assert served.metrics["device_dispatch_ms"]["count"] == 8
+    out = capsys.readouterr().out
+    assert "request 2: 4 tokens (length)" in out and "paged page_size=4" in out
+
+
+def test_serve_decode_greedy_demo_on_cpu(capsys):
+    """Decode mode without --gateway: the dense greedy demo."""
+    served = serve.main(_DECODE + ["--batch", "2", "--steps", "5", "--slots", "16"])
+    assert served.tokens.shape == (2, 5) and served.tokens.dtype == torch.int32
+    assert served.ms_per_token > 0
+    assert "decoded 5 tokens x 2 seqs" in capsys.readouterr().out
+
+
+def test_serve_decode_sampled_streamed_under_slo(capsys):
+    served = serve.main(_DECODE + ["--gateway", "--max-slots", "2", "--slots", "16",
+                                   "--requests", "2", "--decode-lengths", "3",
+                                   "--temperature", "0.8", "--top-k", "5", "--stream",
+                                   "--slo", "--deadline-ms", "1e6", "--priority", "1"])
+    assert [r.meta["new_tokens"] for r in served.responses] == [3, 3]
+    assert served.stats["goodput"] == 2
+    assert capsys.readouterr().out.count("3 streamed tokens") == 2
