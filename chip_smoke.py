@@ -11,11 +11,13 @@ Phases (any failure ends the run with a non-zero exit and no last line):
    started together, into build/repro_torch.
 3. Kernels against their plain versions on the card, at the main paths'
    shapes and a few others, with CUDA-event timing (100 launches after a
-   warm-up) of the kernel, the plain version and the one PyTorch call that
-   computes the same function where there is one (timed as a yardstick
-   only; the port never calls it). Paged attention has no such call: a
-   dense SDPA over a pre-gathered copy is timed beside it, labelled "dense
-   SDPA, gather excluded". TF32 is off.
+   warm-up; 10 for the plain gated linear recurrence) of the kernel, the
+   plain version and the one PyTorch call that computes the same function
+   where there is one (timed as a yardstick only; the port never calls it).
+   Paged attention has no such call: a dense SDPA over a pre-gathered copy
+   is timed beside it, labelled "dense SDPA, gather excluded". gla_scan has
+   none either, and is held against its step-by-step oracle, taken in f64
+   on the same inputs. TF32 is off.
 4. Flow path: ``repro_torch.launch.serve.main`` with yi-6b at full width
    (32 layers, bf16, random weights from a seeded generator on the card),
    NFE 8, batch 4, sequence 1024, 3 requests. Launch counts must be exact.
@@ -30,7 +32,17 @@ Phases (any failure ends the run with a non-zero exit and no last line):
 7. The decode path on the card (kernel) against the CPU (plain version):
    the same 2-layer f32 model and the same gateway requests; every step's
    logits within relative L2 1e-4 and the same greedy tokens.
-8. One JSON line listing the kernels, then the last line.
+8. Flow path of rwkv6-7b at full width (32 layers, bf16), as phase 4, after
+   the yi-6b weights are freed: gla_scan 32 x 8 x 3 = 768 launches,
+   ns_update 24, the attention kernels 0.
+9. Phase 5 for rwkv6-7b: its width cut to 2 layers, f32; gla_scan launches
+   2 x 4 times on the card, the CPU runs the plain chunked form.
+10. Decode path of rwkv6-7b at full width: 8 requests through the gateway
+    on 4 slots, max_tokens cycling 32/16; every request finishes at its
+    length with in-vocabulary tokens and no kernel launches (decode steps
+    the recurrence in plain torch, as the reference does).
+11. Phase 7 for rwkv6-7b's 2-layer f32 model.
+12. One JSON line listing the kernels, then the last line.
 """
 from __future__ import annotations
 
@@ -66,7 +78,11 @@ DECODE_ARGS = ["--arch", "yi-6b", "--mode", "decode", "--full", "--gateway",
                "--page-size", "16", "--paged-kernel", "--max-slots", "8", "--slots", "256",
                "--requests", "16", "--decode-lengths", "128,32,64,16",
                "--prefill-chunk", "64"]
-LAYERS = 32                                        # yi-6b
+RWKV_DECODE_ARGS = ["--arch", "rwkv6-7b", "--mode", "decode", "--full", "--gateway",
+                    "--max-slots", "4", "--requests", "8", "--decode-lengths", "32,16"]
+LAYERS = 32                                        # yi-6b and rwkv6-7b
+VOCAB = {"yi-6b": 64000, "rwkv6-7b": 65536}
+KERNELS = ("ns_update", "flash_attention", "paged_attention", "gla_scan")
 
 
 def time_ms(fn, iters: int = 100, warmup: int = 5) -> float:
@@ -268,47 +284,132 @@ def paged_cases(dev):
     return rows
 
 
-def main_path(dev, counters):
-    from repro_torch.launch import serve
+def gla_flops(L: int, chunk: int, dk: int, dv: int, inclusive: bool) -> float:
+    """Operations one (row, head) needs, chunk by chunk: the kept (lower)
+    triangle of the score cube (a difference, two products and a sum per
+    element) and of the intra-chunk product, the cross-chunk product and the
+    state update. Exponentials are not counted."""
+    total = 0.0
+    for l0 in range(0, L, chunk):
+        n = min(chunk, L - l0)
+        pairs = n * (n + 1) // 2 if inclusive else n * (n - 1) // 2
+        total += 4 * pairs * dk + 2 * pairs * dv + 4 * n * dk * dv
+    return total
 
+
+def gla_cases(dev):
+    from repro_torch.kernels.gla_scan.gla_scan import gla_scan
+    from repro_torch.kernels.gla_scan.ref import gla_ref
+    from repro_torch.models.linear_scan import gla_chunked
+
+    g = torch.Generator(device=dev).manual_seed(3)
+    f32, bf16 = torch.float32, torch.bfloat16
+    rows = []
+    # (B, L, H, dk, dv, chunk, inclusive, qkv dtype, ld dtype, decay, scalar decay, s0)
+    # decay: "model" draws ld as rwkv6 does (-exp(-6 + small noise)), a number
+    # scales -|N(0, 1)| as tests/test_kernels.py does (0.5 moderate, 30 strong)
+    cases = [(BATCH, SEQ, 64, 64, 64, 64, False, bf16, f32, "model", False, False),  # main path
+             (BATCH, SEQ, 64, 64, 64, 64, False, bf16, f32, 0.5, False, False),
+             (BATCH, SEQ, 64, 64, 64, 64, False, f32, f32, "model", False, False),
+             (2, SEQ, 80, 64, 64, 64, True, bf16, f32, 0.5, True, False),   # mamba2-style
+             (BATCH, 1000, 64, 64, 64, 64, False, bf16, f32, "model", False, False),
+             (2, 256, 8, 64, 64, 64, False, f32, f32, 0.5, False, True),    # given s0
+             (2, 256, 8, 64, 64, 64, True, bf16, bf16, 0.5, False, True),
+             (1, 128, 2, 16, 16, 32, False, f32, f32, 30.0, False, False),  # strong decay
+             (1, 128, 2, 16, 16, 32, False, bf16, f32, 30.0, False, False)]
+    for dtype in (f32, bf16):                        # tests/test_kernels.py sweep
+        for L, chunk, inclusive, dk, dv in [(128, 32, True, 64, 64), (128, 32, False, 64, 64),
+                                            (96, 16, False, 32, 48), (64, 64, True, 16, 128)]:
+            cases.append((2, L, 3, dk, dv, chunk, inclusive, dtype, f32, 0.5, False, False))
+    for B, L, H, dk, dv, chunk, inclusive, dtype, ld_dtype, decay, scalar, with_s0 in cases:
+        q, k = (torch.randn((B, L, H, dk), generator=g, device=dev).to(dtype) for _ in "qk")
+        v = torch.randn((B, L, H, dv), generator=g, device=dev).to(dtype)
+        noise = torch.randn((B, L, H, 1 if scalar else dk), generator=g, device=dev)
+        ld = (-torch.exp(-6.0 + 0.1 * noise) if decay == "model"
+              else -noise.abs() * decay).to(ld_dtype)
+        s0 = (torch.randn((B, H, dk, dv), generator=g, device=dev) if with_s0 else None)
+        shape = (f"B={B} L={L} H={H} dk={dk} dv={dv} chunk={chunk} "
+                 f"{'inclusive' if inclusive else 'exclusive'} qkv {str(dtype)[6:]} "
+                 f"ld {str(ld_dtype)[6:]}{' per head' if scalar else ''} decay {decay}"
+                 f"{' s0' if with_s0 else ''}")
+        o, s = gla_scan(q, k, v, ld, s0, inclusive=inclusive, chunk=chunk)
+        if not (bool(torch.isfinite(o.float()).all()) and bool(torch.isfinite(s).all())):
+            raise SystemExit(f"gla_scan [{shape}]: non-finite output")
+        # the oracle in f64 on the same inputs: over 1024 weakly decayed steps
+        # the f32 recurrence drifts from exact by more than the limit itself
+        o_ref, s_ref = gla_ref(*(t.double() for t in (q, k, v, ld)),
+                               None if s0 is None else s0.double(), inclusive=inclusive)
+        # tests/test_kernels.py: atol 20 TOL, rtol TOL; its strong-decay case atol 1e-3
+        atol = max(TOL[dtype] * 20, 1e-3 if decay == 30.0 else 0.0)
+        err = max(check_close(f"gla_scan [{shape}] o", o, o_ref, atol, TOL[dtype]),
+                  check_close(f"gla_scan [{shape}] state", s, s_ref, atol, TOL[dtype]))
+        if dtype == f32:
+            o32, _ = gla_ref(q, k, v, ld, s0, inclusive=inclusive)
+            shape += f" (f32 oracle's own error {float((o32.double() - o_ref).abs().max()):.3e})"
+        ld_elems = B * L * H * (1 if scalar else dk)
+        nbytes = (2 * q.numel() + v.numel()) * q.element_size() + \
+            ld_elems * ld.element_size() + o.numel() * o.element_size() + \
+            s.numel() * 4 * (2 if with_s0 else 1)
+        b_ms, b_by = bound(nbytes, B * H * gla_flops(L, chunk, dk, dv, inclusive), f32)
+        rows.append(dict(
+            shape=shape, max_abs_err=err,
+            ms=time_ms(lambda: gla_scan(q, k, v, ld, s0, inclusive=inclusive, chunk=chunk)),
+            plain_ms=time_ms(lambda: gla_chunked(q, k, v, ld, s0, inclusive=inclusive,
+                                                 chunk=chunk), iters=10, warmup=2),
+            library_ms=None, bound_ms=b_ms, bound_by=b_by))
+    return rows
+
+
+def reset(counters) -> None:
     for c in counters.values():
         c.reset()
+
+
+def free_device_memory(dev) -> None:
+    gc.collect()                       # the previous phase's weights go first
+    torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats(dev)
+
+
+def flow_path(dev, counters, arch: str, want: dict):
+    """serve.main in flow mode at full width; launch counts must be ``want``."""
+    from repro_torch.launch import serve
+
+    free_device_memory(dev)
+    reset(counters)
     t0 = time.perf_counter()
-    served = serve.main(["--arch", "yi-6b", "--mode", "flow", "--full",
+    served = serve.main(["--arch", arch, "--mode", "flow", "--full",
                          "--nfe", str(NFE), "--batch", str(BATCH), "--seq", str(SEQ),
                          "--requests", str(REQUESTS), "--bns-iters", "0"])
     wall = time.perf_counter() - t0
     launches = {name: c.launches for name, c in counters.items()}
-    want = {"ns_update": NFE * REQUESTS, "flash_attention": LAYERS * NFE * REQUESTS,
-            "paged_attention": 0}
     if launches != want:
-        raise SystemExit(f"main path launch counts {launches}, expected {want}")
+        raise SystemExit(f"{arch} flow path launch counts {launches}, expected {want}")
     if len(served) != REQUESTS:
         raise SystemExit(f"{len(served)} requests answered, expected {REQUESTS}")
     for s in served:
         if s.latents.shape != (BATCH, SEQ, 64) or not bool(torch.isfinite(s.latents).all()):
             raise SystemExit(f"bad latents: shape {tuple(s.latents.shape)}")
         if (s.tokens.shape != (BATCH, SEQ) or int(s.tokens.min()) < 0
-                or int(s.tokens.max()) >= 64000):
+                or int(s.tokens.max()) >= VOCAB[arch]):
             raise SystemExit(f"bad tokens: shape {tuple(s.tokens.shape)}")
     peak = torch.cuda.max_memory_allocated(dev)
-    print(f"main path: yi-6b full width, NFE {NFE}, batch {BATCH}, seq {SEQ}: "
+    print(f"flow path: {arch} full width, NFE {NFE}, batch {BATCH}, seq {SEQ}: "
           f"request ms {[round(s.ms, 3) for s in served]}, launches {launches}, "
           f"peak memory {peak / 2**30:.3f} GiB, main() wall {wall:.3f} s")
     return launches
 
 
-def small_model():
-    """yi-6b's width cut to 2 layers, f32, random weights on the CPU."""
+def small_model(arch: str):
+    """The arch's width cut to 2 layers, f32, random weights on the CPU."""
     from repro_torch.configs import get_config
     from repro_torch.models import model as M
 
-    cfg = dataclasses.replace(get_config("yi-6b"), n_layers=2, dtype="float32")
+    cfg = dataclasses.replace(get_config(arch), n_layers=2, dtype="float32")
     return cfg, M.init_params(torch.Generator().manual_seed(0), cfg, "cpu")
 
 
-def whole_path_against_cpu(dev, counters, cfg, params):
+def whole_path_against_cpu(dev, counters, cfg, params, want: dict):
     from repro_torch.core.schedulers import get_scheduler
     from repro_torch.data.synthetic import DataConfig, SyntheticTokens
     from repro_torch.models.transformer import params_to
@@ -323,15 +424,15 @@ def whole_path_against_cpu(dev, counters, cfg, params):
     on_card = FlowSampler(params=params_to(params, dev), **kw).sample_from(batch, x0)
     torch.cuda.synchronize(dev)
     ran = {name: c.launches - before[name] for name, c in counters.items()}
-    if ran != {"ns_update": 4, "flash_attention": 2 * 4, "paged_attention": 0}:
-        raise SystemExit(f"card run launched {ran}")
+    if ran != want:
+        raise SystemExit(f"{cfg.name} card run launched {ran}, expected {want}")
     on_cpu = FlowSampler(params=params, **kw).sample_from(batch, x0)
     rel = float(torch.linalg.vector_norm(on_card.cpu() - on_cpu)
                 / torch.linalg.vector_norm(on_cpu))
-    print(f"whole path, card kernels vs CPU plain (2 layers, f32, euler NFE 4): "
-          f"relative L2 {rel:.3e} (limit 1e-4)")
+    print(f"whole path, {cfg.name}, card kernels vs CPU plain (2 layers, f32, euler "
+          f"NFE 4): relative L2 {rel:.3e} (limit 1e-4)")
     if not rel <= 1e-4:
-        raise SystemExit(f"whole path: relative L2 {rel} over 1e-4")
+        raise SystemExit(f"whole path {cfg.name}: relative L2 {rel} over 1e-4")
 
 
 class CountCalls:
@@ -360,38 +461,42 @@ class CountCalls:
         self.module.decode_apply = self.inner
 
 
-def decode_path(dev, counters):
+def decode_path(dev, counters, args: list, per_call: dict):
+    """serve.main in decode mode at full width through the gateway: every
+    request finishes at its length with in-vocabulary tokens, nothing fails,
+    every page returns, and each kernel launches ``per_call[name]`` times a
+    ``decode_apply`` call (0 where it is not named)."""
     from repro_torch.launch import serve
 
-    gc.collect()                       # the flow phase's weights go first
-    torch.cuda.empty_cache()
-    torch.cuda.reset_peak_memory_stats(dev)
-    for c in counters.values():
-        c.reset()
+    free_device_memory(dev)
+    reset(counters)
     with CountCalls() as calls:
-        served = serve.main(DECODE_ARGS)
+        served = serve.main(args)
     launches = {name: c.launches for name, c in counters.items()}
+    arch = args[args.index("--arch") + 1]
+    n = int(args[args.index("--requests") + 1])
+    slots = args[args.index("--max-slots") + 1]
+    lengths = [int(x) for x in args[args.index("--decode-lengths") + 1].split(",")]
     s = served.stats
-    lengths = [128, 32, 64, 16]
-    want_lengths = [lengths[i % 4] for i in range(16)]
-    if len(served.responses) != 16 or any(r is None for r in served.responses):
-        raise SystemExit("decode path: a request was rejected or shed")
-    for r, n in zip(served.responses, want_lengths):
-        toks = r.tokens.tolist()
-        if r.meta["finish_reason"] != "length" or len(toks) != n:
-            raise SystemExit(f"decode path: {r.meta}, {len(toks)} tokens, expected {n}")
-        if min(toks) < 0 or max(toks) >= 64000:
-            raise SystemExit(f"decode path: token outside the vocabulary in {toks}")
-    if s["failed"] or s["pages_in_use"] or s["completed"] != 16:
-        raise SystemExit(f"decode path: failed {s['failed']}, pages in use "
-                         f"{s['pages_in_use']}, completed {s['completed']}")
-    want = {"ns_update": 0, "flash_attention": 0, "paged_attention": LAYERS * calls.calls}
+    if len(served.responses) != n or any(r is None for r in served.responses):
+        raise SystemExit(f"{arch} decode path: a request was rejected or shed")
+    for i, r in enumerate(served.responses):
+        toks, want_len = r.tokens.tolist(), lengths[i % len(lengths)]
+        if r.meta["finish_reason"] != "length" or len(toks) != want_len:
+            raise SystemExit(f"{arch} decode path: {r.meta}, {len(toks)} tokens, "
+                             f"expected {want_len}")
+        if min(toks) < 0 or max(toks) >= VOCAB[arch]:
+            raise SystemExit(f"{arch} decode path: token outside the vocabulary in {toks}")
+    if s["failed"] or s.get("pages_in_use", 0) or s["completed"] != n:
+        raise SystemExit(f"{arch} decode path: failed {s['failed']}, pages in use "
+                         f"{s.get('pages_in_use')}, completed {s['completed']}")
+    want = {name: per_call.get(name, 0) * calls.calls for name in KERNELS}
     if launches != want or calls.calls == 0:
-        raise SystemExit(f"decode path launch counts {launches}, expected {want} "
+        raise SystemExit(f"{arch} decode path launch counts {launches}, expected {want} "
                          f"({calls.calls} decode_apply calls)")
     d = served.metrics["device_dispatch_ms"]
     peak = torch.cuda.max_memory_allocated(dev)
-    print(f"decode path: yi-6b full width, 16 requests on 8 paged slots: "
+    print(f"decode path: {arch} full width, {n} requests on {slots} slots: "
           f"{s['tokens_out']} tokens in {served.wall_s:.3f} s ({s['tokens_per_s']:.1f} tokens/s "
           f"by the gateway clock), {s['forwards']} engine calls ({s['prefill_calls']} "
           f"prefill, {s['prefill_tokens']} prompt tokens), {calls.calls} decode_apply calls, "
@@ -400,13 +505,16 @@ def decode_path(dev, counters):
     return launches
 
 
-def decode_against_cpu(dev, counters, cfg, params):
+def decode_against_cpu(dev, counters, cfg, params, engine_kw: dict, per_call: dict):
+    """The same gateway requests on the card and on the CPU: every step's
+    logits within relative L2 1e-4 and the same greedy tokens; on the card
+    each kernel launches ``per_call[name]`` times a ``decode_apply`` call."""
     from repro_torch.models.transformer import params_to
     from repro_torch.serving.decode import DecodeGateway, DecodeRequest
     from repro_torch.serving.engine import DecodeEngine
 
     def serve_on(p):
-        engine = DecodeEngine(params=p, cfg=cfg, page_size=16, paged_kernel=True)
+        engine = DecodeEngine(params=p, cfg=cfg, **engine_kw)
         gw = DecodeGateway(engine, max_slots=2, cache_slots=32, prefill_chunk=4)
         futures = [gw.submit(DecodeRequest(prompt=[(3 * r + 1) % cfg.vocab,
                                                    (5 * r + 2) % cfg.vocab],
@@ -417,25 +525,27 @@ def decode_against_cpu(dev, counters, cfg, params):
                 gw.pump()
         return [f.result().tokens.tolist() for f in futures], rec.logits
 
-    before = counters["paged_attention"].launches
+    before = {name: c.launches for name, c in counters.items()}
     card_tokens, card_logits = serve_on(params_to(params, dev))
-    ran = counters["paged_attention"].launches - before
-    if ran != 2 * len(card_logits):
-        raise SystemExit(f"decode card run launched paged attention {ran} times for "
-                         f"{len(card_logits)} decode_apply calls")
+    ran = {name: c.launches - before[name] for name, c in counters.items()}
+    want = {name: per_call.get(name, 0) * len(card_logits) for name in KERNELS}
+    if ran != want:
+        raise SystemExit(f"{cfg.name} decode card run launched {ran} for "
+                         f"{len(card_logits)} decode_apply calls, expected {want}")
     cpu_tokens, cpu_logits = serve_on(params)
     rels = [float(torch.linalg.vector_norm(a - b) / torch.linalg.vector_norm(b))
             for a, b in zip(card_logits, cpu_logits)]
-    print(f"decode path, card kernel vs CPU plain (2 layers, f32, 4 requests): "
+    print(f"decode path, {cfg.name}, card vs CPU plain (2 layers, f32, 4 requests): "
           f"{len(rels)} steps, worst logits relative L2 {max(rels):.3e} (limit 1e-4), "
           f"tokens equal: {card_tokens == cpu_tokens}")
     if len(card_logits) != len(cpu_logits) or not max(rels) <= 1e-4:
-        raise SystemExit(f"decode path: per-step logits relative L2 {rels}")
+        raise SystemExit(f"{cfg.name} decode path: per-step logits relative L2 {rels}")
     if card_tokens != cpu_tokens:
         top2 = [torch.topk(lg, 2, dim=-1).values for lg in cpu_logits]
         margin = min(float((t[:, 0] - t[:, 1]).min()) for t in top2)
-        raise SystemExit(f"decode path: tokens differ ({card_tokens} vs {cpu_tokens}); "
-                         f"smallest top-2 logit margin on the CPU {margin:.3e}")
+        raise SystemExit(f"{cfg.name} decode path: tokens differ ({card_tokens} vs "
+                         f"{cpu_tokens}); smallest top-2 logit margin on the CPU "
+                         f"{margin:.3e}")
 
 
 def main() -> int:
@@ -447,6 +557,7 @@ def main() -> int:
     from repro_torch.kernels import build
     from repro_torch.kernels.flash_attention import flash_attention as fa
     from repro_torch.kernels.flash_attention import paged_attention as pa
+    from repro_torch.kernels.gla_scan import gla_scan as gs
     from repro_torch.kernels.ns_update import ns_update as nu
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -466,7 +577,7 @@ def main() -> int:
           f"({', '.join(f'{k} {v:.1f} s' for k, v in seconds.items()) or 'cached'})")
 
     rows = {"ns_update": ns_update_cases(dev), "flash_attention": flash_cases(dev),
-            "paged_attention": paged_cases(dev)}
+            "paged_attention": paged_cases(dev), "gla_scan": gla_cases(dev)}
     for name, cases in rows.items():
         for r in cases:
             lib = ("none" if r["library_ms"] is None else f"{r['library_ms']:.4f} ms")
@@ -477,12 +588,27 @@ def main() -> int:
                   f"library {lib}, bound {r['bound_ms']:.4f} ms ({r['bound_by']}){extra}")
 
     counters = {"ns_update": nu.COUNTER, "flash_attention": fa.COUNTER,
-                "paged_attention": pa.COUNTER}
-    launches = main_path(dev, counters)
-    cfg, params = small_model()
-    whole_path_against_cpu(dev, counters, cfg, params)
-    launches["paged_attention"] = decode_path(dev, counters)["paged_attention"]
-    decode_against_cpu(dev, counters, cfg, params)
+                "paged_attention": pa.COUNTER, "gla_scan": gs.COUNTER}
+    zero = dict.fromkeys(KERNELS, 0)
+    flows = NFE * REQUESTS
+    launches = flow_path(dev, counters, "yi-6b", {**zero, "ns_update": flows,
+                                                  "flash_attention": LAYERS * flows})
+    cfg, params = small_model("yi-6b")
+    whole_path_against_cpu(dev, counters, cfg, params,
+                           {**zero, "ns_update": 4, "flash_attention": 2 * 4})
+    launches["paged_attention"] = decode_path(
+        dev, counters, DECODE_ARGS, {"paged_attention": LAYERS})["paged_attention"]
+    decode_against_cpu(dev, counters, cfg, params,
+                       dict(page_size=16, paged_kernel=True), {"paged_attention": 2})
+    del cfg, params
+    launches["gla_scan"] = flow_path(
+        dev, counters, "rwkv6-7b",
+        {**zero, "ns_update": flows, "gla_scan": LAYERS * flows})["gla_scan"]
+    cfg, params = small_model("rwkv6-7b")
+    whole_path_against_cpu(dev, counters, cfg, params,
+                           {**zero, "ns_update": 4, "gla_scan": 2 * 4})
+    decode_path(dev, counters, RWKV_DECODE_ARGS, {})
+    decode_against_cpu(dev, counters, cfg, params, {}, {})
 
     meta = {
         "ns_update": ("src/repro_torch/kernels/csrc/ns_update.cu",
@@ -491,6 +617,8 @@ def main() -> int:
                             "src/repro/kernels/flash_attention/flash_attention.py:68"),
         "paged_attention": ("src/repro_torch/kernels/csrc/paged_attention.cu",
                             "src/repro/kernels/flash_attention/paged_attention.py:74"),
+        "gla_scan": ("src/repro_torch/kernels/csrc/gla_scan.cu",
+                     "src/repro/kernels/gla_scan/gla_scan.py:67"),
     }
     kernels = []
     for name, (source, replaces) in meta.items():

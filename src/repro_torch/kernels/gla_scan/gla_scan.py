@@ -1,0 +1,97 @@
+"""CUDA gated-linear-recurrence kernel (``csrc/gla_scan.cu``), bound through ctypes.
+
+    S_t = diag(exp(ld_t)) S_{t-1} + k_t v_t^T ;  o_t = q_t^T S_t (inclusive) or S_{t-1}
+
+Replaces the Pallas kernel ``repro.kernels.gla_scan.gla_scan``: one block per
+(batch row, head) walks its chunks in order with the state in shared memory.
+Unlike the Pallas kernel it takes any L (a ragged last chunk is padded with
+zeros in the kernel, as ``gla_chunked`` pads it), an initial state, and one
+decay per head (ld's last dim 1, read with a stride of 0).
+"""
+from __future__ import annotations
+
+import ctypes
+from typing import Optional
+
+import torch
+
+from repro_torch.kernels import build
+
+COUNTER = build.LaunchCounter("gla_scan")
+_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+MAX_SMEM_BYTES = 232448            # the H100's dynamic shared memory per block
+
+
+def _lib():
+    lib = build.load("gla_scan")
+    fn = lib.gla_scan_fwd
+    if fn.argtypes is None:
+        fn.argtypes = ([ctypes.c_int] * 3 + [ctypes.c_void_p] * 7 + [ctypes.c_int] * 6
+                       + [ctypes.c_void_p, ctypes.c_void_p])
+        fn.restype = ctypes.c_int
+        lib.gla_scan_smem_bytes.argtypes = [ctypes.c_int] * 3
+        lib.gla_scan_smem_bytes.restype = ctypes.c_longlong
+    return lib
+
+
+def gla_scan(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, ld: torch.Tensor,
+             s0: Optional[torch.Tensor] = None, *, inclusive: bool = True,
+             chunk: int = 64) -> tuple[torch.Tensor, torch.Tensor]:
+    """q, k: (B, L, H, dk); ld: (B, L, H, dk) or (B, L, H, 1); v: (B, L, H, dv);
+    s0: None or (B, H, dk, dv). Returns (o (B, L, H, dv) in v's dtype,
+    final state (B, H, dk, dv) f32).
+
+    CUDA tensors on one device. q, k and v share one dtype, f32 or bf16; ld is
+    f32 or bf16 on its own; s0 is cast to a contiguous f32 tensor. Any
+    strides: the kernel reads each input through its (b, l, h, d) strides.
+    ``chunk`` is cut to L, as ``gla_chunked`` cuts it.
+    """
+    if not (q.is_cuda and k.is_cuda and v.is_cuda and ld.is_cuda):
+        raise ValueError("gla_scan launches the CUDA kernel: q, k, v, ld must be "
+                         "CUDA tensors (ops.gla runs the plain version on the CPU)")
+    if q.dtype not in _DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
+        raise TypeError(f"gla_scan takes float32 or bfloat16 q, k, v of one dtype, "
+                        f"got {q.dtype}, {k.dtype}, {v.dtype}")
+    if ld.dtype not in _DTYPES:
+        raise TypeError(f"gla_scan takes a float32 or bfloat16 ld, got {ld.dtype}")
+    if q.dim() != 4 or k.shape != q.shape or v.dim() != 4 or ld.dim() != 4:
+        raise ValueError(f"shapes: q {tuple(q.shape)}, k {tuple(k.shape)}, "
+                         f"v {tuple(v.shape)}, ld {tuple(ld.shape)}")
+    B, L, H, dk = q.shape
+    dv = v.shape[-1]
+    if tuple(v.shape[:3]) != (B, L, H) or tuple(ld.shape[:3]) != (B, L, H) \
+            or ld.shape[3] not in (1, dk):
+        raise ValueError(f"shapes: q {tuple(q.shape)}, v {tuple(v.shape)}, "
+                         f"ld {tuple(ld.shape)}")
+    if min(B, L, H, dk, dv) < 1 or B > 65535 or H > 2 ** 31 - 1 or chunk < 1:
+        raise ValueError(f"unsupported extents B={B} L={L} H={H} dk={dk} dv={dv} "
+                         f"chunk={chunk}")
+    devices = {q.device, k.device, v.device, ld.device}
+    if s0 is not None:
+        if tuple(s0.shape) != (B, H, dk, dv):
+            raise ValueError(f"s0 has shape {tuple(s0.shape)}, expected {(B, H, dk, dv)}")
+        devices.add(s0.device)
+        s0 = s0.to(torch.float32).contiguous()
+    if len(devices) != 1:
+        raise ValueError("gla_scan arguments lie on different devices")
+    chunk = min(chunk, L)
+    lib = _lib()
+    smem = lib.gla_scan_smem_bytes(dk, dv, chunk)
+    if smem > MAX_SMEM_BYTES:
+        raise ValueError(f"gla_scan at dk={dk}, dv={dv}, chunk={chunk} needs {smem} "
+                         f"bytes of shared memory a block, over the {MAX_SMEM_BYTES} "
+                         "the card gives")
+    ld = ld.expand(B, L, H, dk)          # one decay per head: a stride of 0 on d
+    o = torch.empty((B, L, H, dv), dtype=v.dtype, device=q.device)
+    state = torch.empty((B, H, dk, dv), dtype=torch.float32, device=q.device)
+    strides = [s for t in (q, k, v, ld) for s in t.stride()]
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        err = lib.gla_scan_fwd(
+            _DTYPES[q.dtype], _DTYPES[ld.dtype], int(inclusive), q.data_ptr(),
+            k.data_ptr(), v.data_ptr(), ld.data_ptr(),
+            None if s0 is None else s0.data_ptr(), o.data_ptr(), state.data_ptr(),
+            B, L, H, dk, dv, chunk, (ctypes.c_longlong * 16)(*strides), stream)
+    build.check(lib, err, "gla_scan")
+    COUNTER.launches += 1
+    return o, state

@@ -7,6 +7,13 @@ Port of ``repro.launch.serve``:
   PYTHONPATH=src python -m repro_torch.launch.serve --arch yi-6b --mode decode \
       --full --gateway --page-size 16 --paged-kernel --max-slots 8 --slots 256 \
       --requests 16 --decode-lengths 128,32,64,16 --prefill-chunk 64
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch rwkv6-7b --mode flow \
+      --full --nfe 8 --batch 4 --seq 1024 --requests 3 --bns-iters 0
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch rwkv6-7b --mode decode \
+      --full --gateway --max-slots 4 --requests 8 --decode-lengths 32,16
+
+``--arch`` takes yi-6b (dense) or rwkv6-7b (ssm: its flow forward runs the
+gla_scan kernel, its decode steps the recurrence in plain torch).
 
 Runs on the card by default (``--device cuda``, an error without one);
 ``--device cpu`` runs the plain CPU path. Weights are random, drawn from a
@@ -25,7 +32,8 @@ Decode mode serves batched greedy decode (``greedy_demo``) or, with
 ``--gateway``, a continuous-batching ``DecodeGateway``: each request is one
 prompt ``[(3r+1) % vocab, (5r+2) % vocab]`` submitted to a pool of
 ``--max-slots`` state slots, ``--decode-lengths`` cycling its max_tokens.
-``--page-size`` pages the KV cache, ``--paged-kernel`` attends through the
+``--page-size`` pages the KV cache (a no-op for rwkv6-7b, whose recurrent
+state is O(1) a slot), ``--paged-kernel`` attends through the
 paged-attention kernel, ``--prefill-chunk`` sets the chunked prefill width
 (0 = token by token), ``--temperature``/``--top-k``/``--top-p`` sample
 instead of greedy, ``--stream`` submits through ``submit_stream``, and

@@ -1,16 +1,17 @@
-"""Unified model API — the dense family and the paper's flow substrate.
+"""Unified model API — the ported families and the paper's flow substrate.
 
-Port of the dense branch of ``repro.models.model``:
+Port of the dense (yi-6b) and ssm (rwkv6-7b) branches of ``repro.models.model``:
 
   init_params(generator, cfg, device)             -> params tree
   velocity(params, cfg, t, x, batch)              -> u_t(x) over latent sequences
   velocity_field(params, cfg, sched, batch)       -> VelocityField (with CFG)
-  init_decode_state(cfg, batch, slots, ...)       -> KV cache
+  init_decode_state(cfg, batch, slots, ...)       -> KV cache or RWKVState
   init_paged_decode_state(cfg, batch, pages, ...) -> paged KV cache
   decode_apply(params, cfg, token, state)         -> (logits, state)
 
-``batch`` is a dict: {"tokens": (B, S) long}. The other families raise
-``NotImplementedError`` naming their ROADMAP item.
+``batch`` is a dict: {"tokens": (B, S) long}. Every entry point dispatches
+on ``cfg.family``; the other families raise ``NotImplementedError`` naming
+their ROADMAP item.
 """
 from __future__ import annotations
 
@@ -22,14 +23,15 @@ from repro_torch import resolve_device
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.parametrization import VelocityField
 from repro_torch.core.schedulers import Scheduler
-from repro_torch.models import transformer
+from repro_torch.models import rwkv6, transformer
 from repro_torch.models.attention import KVCache, PagedKVCache
+from repro_torch.models.rwkv6 import RWKVState
 from repro_torch.models.transformer import latent_targets
 
 Tensor = torch.Tensor
 
 FAMILIES = ("dense", "moe", "ssm", "hybrid", "encdec", "vlm")
-PORTED_FAMILIES = ("dense",)
+PORTED_FAMILIES = ("dense", "ssm")
 PAGED_FAMILIES = ("dense", "moe", "vlm")   # KV-cache families that can page
 
 __all__ = ["FAMILIES", "PORTED_FAMILIES", "PAGED_FAMILIES", "init_params", "velocity",
@@ -45,7 +47,14 @@ def _require_ported(cfg: ModelConfig) -> None:
 
 def init_params(generator: torch.Generator, cfg: ModelConfig, device="cuda") -> dict:
     _require_ported(cfg)
-    return transformer.init_dense_params(generator, cfg, device)
+    init = {"dense": transformer.init_dense_params, "ssm": rwkv6.init_rwkv_params}
+    return init[cfg.family](generator, cfg, device)
+
+
+def _hidden_fn(cfg: ModelConfig):
+    """The family's hidden-state function for the flow head (dense: None,
+    ``flow_velocity``'s own ``dense_hidden``)."""
+    return {"dense": None, "ssm": rwkv6.rwkv_hidden}[cfg.family]
 
 
 def velocity(params: dict, cfg: ModelConfig, t, x: Tensor,
@@ -54,7 +63,8 @@ def velocity(params: dict, cfg: ModelConfig, t, x: Tensor,
     conditioning tokens; None = unconditional (CFG)."""
     _require_ported(cfg)
     cond = batch.get("tokens") if batch else None
-    return transformer.flow_velocity(params, cfg, t, x, cond)
+    return transformer.flow_velocity(params, cfg, t, x, cond,
+                                     hidden_fn=_hidden_fn(cfg))
 
 
 def velocity_field(params: dict, cfg: ModelConfig, sched: Scheduler,
@@ -79,7 +89,11 @@ def velocity_field(params: dict, cfg: ModelConfig, sched: Scheduler,
 
 def init_decode_state(cfg: ModelConfig, batch: int, slots: int, dtype=torch.bfloat16,
                       device="cuda"):
+    """A KV cache of ``slots`` positions (dense), or the recurrent state (ssm:
+    f32 whatever ``dtype``, and ``slots`` unused, as in the reference)."""
     _require_ported(cfg)
+    if cfg.family == "ssm":
+        return rwkv6.init_state(cfg, batch, device)
     return transformer.init_caches(cfg, batch, slots, dtype, resolve_device(device))
 
 
@@ -101,15 +115,20 @@ def decode_state_batch_axes(cfg: ModelConfig, paged: bool = False):
     ``paged=True``: the page pool has no per-row axis and reads ``-1``; rows
     are isolated there by page ownership and the trash page, not by masks."""
     _require_ported(cfg)
-    if paged:
+    if paged and cfg.family in PAGED_FAMILIES:
         return PagedKVCache(k_pages=-1, v_pages=-1, block_table=0, index=0)
+    if cfg.family == "ssm":
+        return RWKVState(shift_tm=1, shift_cm=1, wkv=1, index=0)
     return KVCache(k=1, v=1, index=0)
 
 
 def decode_apply(params: dict, cfg: ModelConfig, token: Tensor, state, *,
                  window: int = 0, paged_kernel: bool = False,
                  active: Optional[Tensor] = None):
-    """One decode step; ``state`` is updated in place (``transformer.decode_step``)."""
+    """One decode step; ``state`` is updated in place (``transformer.decode_step``,
+    ``rwkv6.decode_step``, which ignores ``window`` and ``paged_kernel``)."""
     _require_ported(cfg)
+    if cfg.family == "ssm":
+        return rwkv6.decode_step(params, cfg, token, state, active=active)
     return transformer.decode_step(params, cfg, token, state, window=window,
                                    paged_kernel=paged_kernel, active=active)

@@ -85,18 +85,10 @@ def init_dense_params(generator: torch.Generator, cfg: ModelConfig,
     ``device`` (which must be the generator's): each matrix is a normal draw
     in f32, scaled, then cast, as ``dense_init`` + ``cast_params`` do, so no
     f32 copy of the whole tree ever exists."""
-    dev = resolve_device(device)
-    if generator.device.type != dev.type:
-        raise ValueError(f"generator on {generator.device}, params on {dev}")
+    dev = generator_device(generator, device)
     dtype = getattr(torch, cfg.dtype)
-    layers = None
-    for i in range(cfg.n_layers):
-        layer = _layer_init(generator, cfg)
-        if layers is None:
-            layers = _tree_map(lambda x: torch.empty(
-                (cfg.n_layers,) + tuple(x.shape), dtype=dtype, device=dev), layer)
-        _copy_layer(layers, layer, i)
-        del layer
+    layers = init_stacked_layers(lambda: _layer_init(generator, cfg), cfg.n_layers,
+                                 dtype, dev)
     params = {
         "embed": dense_init(generator, cfg.vocab, cfg.d_model, scale=1.0).to(dtype),
         "layers": layers,
@@ -106,6 +98,29 @@ def init_dense_params(generator: torch.Generator, cfg: ModelConfig,
     if not cfg.tie_embeddings:
         params["lm_head"] = dense_init(generator, cfg.d_model, cfg.vocab).to(dtype)
     return params
+
+
+def generator_device(generator: torch.Generator, device) -> torch.device:
+    dev = resolve_device(device)
+    if generator.device.type != dev.type:
+        raise ValueError(f"generator on {generator.device}, params on {dev}")
+    return dev
+
+
+def init_stacked_layers(layer_init, n_layers: int, dtype: torch.dtype,
+                        device) -> dict:
+    """``n_layers`` draws of ``layer_init()`` (one layer's f32 tree), stacked on
+    a leading axis in ``dtype`` one layer at a time. Every stacked leaf is at
+    least 2-D, so ``cast_params``' rule gives them all ``dtype``."""
+    layers = None
+    for i in range(n_layers):
+        layer = layer_init()
+        if layers is None:
+            layers = _tree_map(lambda x: torch.empty(
+                (n_layers,) + tuple(x.shape), dtype=dtype, device=device), layer)
+        _copy_layer(layers, layer, i)
+        del layer
+    return layers
 
 
 def _copy_layer(stacked: dict, layer: dict, i: int) -> None:
@@ -136,10 +151,16 @@ def params_from_jax(tree: dict, cfg: ModelConfig, device="cuda", dtype=None) -> 
     ``dtype`` given, leaves are cast by ``cast_params``' rule; otherwise they
     keep the reference's dtypes.
     """
-    dev = resolve_device(device)
     expected = {"embed", "layers", "final_norm", "flow"}
     if not cfg.tie_embeddings:
         expected.add("lm_head")
+    return transfer_params(tree, expected, device, dtype)
+
+
+def transfer_params(tree: dict, expected: set, device="cuda", dtype=None) -> dict:
+    """A numpy param tree whose top-level keys must be ``expected``, as
+    tensors on ``device`` (cast by ``cast_params``' rule when ``dtype`` is given)."""
+    dev = resolve_device(device)
     if set(tree) != expected:
         raise ValueError(f"param tree has {sorted(tree)}, expected {sorted(expected)}")
     out = _tree_map(lambda a: _from_numpy(np.asarray(a)).to(dev), tree)
@@ -246,13 +267,14 @@ def decode_step(params: dict, cfg: ModelConfig, token: Tensor, caches, *,
 
 
 def flow_velocity(params: dict, cfg: ModelConfig, t, x: Tensor,
-                  cond_tokens: Optional[Tensor]) -> Tensor:
+                  cond_tokens: Optional[Tensor], *, hidden_fn=None) -> Tensor:
     """u_t(x): x (B, S, latent_dim) noisy latents -> velocity, same shape and dtype.
 
     Conditioning: token embeddings added to the input projection;
     ``cond_tokens=None`` is the unconditional branch (CFG). ``t`` is a scalar
-    or (B,); the flow path runs ``dense_hidden`` without a window, so its
-    attention is plain causal attention.
+    or (B,). ``hidden_fn(params, cfg, h, positions)`` lets non-dense families
+    reuse this head; by default the flow path runs ``dense_hidden`` without a
+    window, so its attention is plain causal attention.
     """
     f = params["flow"]
     h = x.to(f["proj_in"].dtype) @ f["proj_in"]
@@ -261,8 +283,11 @@ def flow_velocity(params: dict, cfg: ModelConfig, t, x: Tensor,
     temb = timestep_embedding(t, cfg.d_model, device=x.device).to(h.dtype)
     temb = F.silu(temb @ f["time_w1"]) @ f["time_w2"]
     h = h + temb[:, None, :]
-    h = dense_hidden(params, cfg, h, torch.arange(x.shape[1], device=x.device),
-                     causal=True)
+    positions = torch.arange(x.shape[1], device=x.device)
+    if hidden_fn is None:
+        h = dense_hidden(params, cfg, h, positions, causal=True)
+    else:
+        h = hidden_fn(params, cfg, h, positions)
     return (h @ f["proj_out"]).to(x.dtype)
 
 

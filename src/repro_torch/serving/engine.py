@@ -7,7 +7,8 @@ an NS solver (Algorithm 1). Each request batch costs exactly ``n`` backbone
 forwards, and every solver step's update runs the ``ns_update`` kernel on
 the card (its plain version on the CPU).
 
-``DecodeEngine`` — batched autoregressive decode over a KV cache: ``greedy``
+``DecodeEngine`` — batched autoregressive decode over a KV cache (the ssm
+family: its recurrent state, where ``page_size`` is a no-op): ``greedy``
 (a Python loop where the reference scans) and the slot API
 (``init_slot_state`` / ``step_slots`` / ``prefill_slots`` / ``reset_slots``)
 that ``serving.decode.DecodeGateway`` serves from. ``page_size > 0`` pages

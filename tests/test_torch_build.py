@@ -14,6 +14,7 @@ TPU_KERNELS = {
         "src/repro/kernels/flash_attention/flash_attention.py::flash_attention",
     "paged_attention":
         "src/repro/kernels/flash_attention/paged_attention.py::paged_attention",
+    "gla_scan": "src/repro/kernels/gla_scan/gla_scan.py::gla_scan",
 }
 
 

@@ -7,7 +7,10 @@ fixture, never at import). On the H100:
 
 TF32 is off for every f32 comparison. Tolerances follow tests/test_kernels.py
 (f32 2e-5, bf16 2e-2), scaled as it scales them: by n for the n-term update
-sum and by 4 for f32 attention. bf16 attention has the tighter limit of
+sum, by 4 for f32 attention, and atol 20x / rtol 1x for the gated linear
+recurrence (its strong-decay case at that test's atol 1e-3), held against its
+step-by-step oracle taken in f64 on the same inputs: over long weakly decayed
+sequences the f32 recurrence itself drifts from exact by more than that limit. bf16 attention has the tighter limit of
 chip_smoke.py, set from on-card readings.
 """
 import numpy as np
@@ -221,3 +224,139 @@ def test_kernels_refuse_what_they_do_not_take(dev):
                         v[0][..., :48].contiguous(), table, lengths)
     with pytest.raises(ValueError, match="contiguous"):
         paged_attention(q, k[0].transpose(0, 1), v[0].transpose(0, 1), table, lengths)
+
+
+# ---------------------------------------------------------------------------
+# gla_scan: the gated linear recurrence against its step-by-step oracle
+# ---------------------------------------------------------------------------
+
+
+def _gla_inputs(seed, B, L, H, dk, dv, dtype, ld_dtype, dev, scale=0.5, ld_dk=None):
+    rng = np.random.default_rng(seed)
+    q = _randn(rng, (B, L, H, dk), dtype, dev)
+    k = _randn(rng, (B, L, H, dk), dtype, dev)
+    v = _randn(rng, (B, L, H, dv), dtype, dev)
+    ld = -(_randn(rng, (B, L, H, ld_dk or dk), torch.float32, dev).abs() * scale)
+    return q, k, v, ld.to(ld_dtype)
+
+
+def _oracle(q, k, v, ld, s0=None, *, inclusive):
+
+    return gla_ref(*(t.double() for t in (q, k, v, ld)),
+                   None if s0 is None else s0.double(), inclusive=inclusive)
+
+
+def _check_gla(out, ref, dtype, atol=None):
+    (o, s), (o_ref, s_ref) = out, ref
+    assert o.dtype == dtype and o.shape == o_ref.shape
+    assert s.dtype == torch.float32 and s.shape == s_ref.shape
+    atol = TOL[dtype] * 20 if atol is None else atol
+    torch.testing.assert_close(o.double(), o_ref.double(), atol=atol, rtol=TOL[dtype])
+    torch.testing.assert_close(s.double(), s_ref.double(), atol=atol, rtol=TOL[dtype])
+
+
+_GLA_DTYPES = [(torch.float32, torch.float32), (torch.bfloat16, torch.float32),
+               (torch.bfloat16, torch.bfloat16), (torch.float32, torch.bfloat16)]
+
+
+@pytest.mark.parametrize("dtype,ld_dtype", _GLA_DTYPES, ids=str)
+@pytest.mark.parametrize("L,chunk,inclusive,dk,dv", [
+    (128, 32, True, 64, 64),     # tests/test_kernels.py sweep: mamba2-style
+    (128, 32, False, 64, 64),    # rwkv6-style exclusive
+    (96, 16, False, 32, 48),     # ragged head dims
+    (64, 64, True, 16, 128),     # single chunk
+    (1000, 64, False, 64, 64),   # ragged last chunk
+    (5, 64, True, 16, 16),       # L below the chunk
+    (130, 64, True, 64, 64),     # two positions past the last whole chunk
+])
+def test_gla_scan_matches_plain(dev, L, chunk, inclusive, dk, dv, dtype, ld_dtype):
+    from repro_torch.kernels.gla_scan import gla_scan as gs_mod
+
+    q, k, v, ld = _gla_inputs(L + chunk + dk, 2, L, 3, dk, dv, dtype, ld_dtype, dev)
+    before = gs_mod.COUNTER.launches
+    out = gs_mod.gla_scan(q, k, v, ld, inclusive=inclusive, chunk=chunk)
+    torch.cuda.synchronize()
+    assert gs_mod.COUNTER.launches == before + 1
+    _check_gla(out, _oracle(q, k, v, ld, inclusive=inclusive), dtype)
+
+
+@pytest.mark.parametrize("inclusive", [True, False])
+def test_gla_scan_initial_state_and_scalar_decay(dev, inclusive):
+    """A given s0 composes as the state carry does; one decay per head (ld's
+    last dim 1, read with a stride of 0) equals the decay broadcast to dk."""
+    from repro_torch.kernels.gla_scan.gla_scan import gla_scan
+
+    f32 = torch.float32
+    q, k, v, ld = _gla_inputs(3, 2, 200, 4, 64, 64, f32, f32, dev, ld_dk=1)
+    s0 = _randn(np.random.default_rng(4), (2, 4, 64, 64), f32, dev)
+    got = gla_scan(q, k, v, ld, s0, inclusive=inclusive, chunk=64)
+    _check_gla(got, _oracle(q, k, v, ld, s0, inclusive=inclusive), f32)
+    wide = gla_scan(q, k, v, ld.expand(-1, -1, -1, 64).contiguous(), s0,
+                    inclusive=inclusive, chunk=64)
+    torch.testing.assert_close(got, wide, atol=0, rtol=0)
+    first = gla_scan(q[:, :128], k[:, :128], v[:, :128], ld[:, :128], s0,
+                     inclusive=inclusive, chunk=64)
+    second = gla_scan(q[:, 128:], k[:, 128:], v[:, 128:], ld[:, 128:], first[1],
+                      inclusive=inclusive, chunk=64)
+    _check_gla((torch.cat([first[0], second[0]], dim=1), second[1]), got, f32)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_gla_scan_strong_decay_finite(dev, dtype):
+    """ld x30 (tests/test_kernels.py): within a 32-position chunk e^{-cum}
+    would reach e^{+960}; the kernel's exponents stay <= 0."""
+    from repro_torch.kernels.gla_scan.gla_scan import gla_scan
+
+    q, k, v, ld = _gla_inputs(1, 1, 128, 2, 16, 16, dtype, torch.float32, dev, scale=30.0)
+    o, s = gla_scan(q, k, v, ld, inclusive=False, chunk=32)
+    assert bool(torch.isfinite(o.float()).all()) and bool(torch.isfinite(s).all())
+    _check_gla((o, s), _oracle(q, k, v, ld, inclusive=False), dtype,
+               atol=max(1e-3, TOL[dtype] * 20))
+
+
+def test_gla_scan_reads_model_layout_in_place(dev):
+    """r, k, v as (B, L, H, 64) views of (B, L, d) products, and a strided
+    (non-contiguous) view: read through their strides, same result."""
+    from repro_torch.kernels.gla_scan.gla_scan import gla_scan
+
+    rng = np.random.default_rng(9)
+    B, L, H = 2, 150, 4
+    x = _randn(rng, (B, L, 3 * H * 64), torch.bfloat16, dev)
+    q, k, v = (x[..., i * H * 64:(i + 1) * H * 64].reshape(B, L, H, 64) for i in range(3))
+    assert not q.is_contiguous()
+    ld = -(_randn(rng, (B, H, L, 64), torch.float32, dev).abs() * 0.1).transpose(1, 2)
+    got = gla_scan(q, k, v, ld, inclusive=False, chunk=64)
+    _check_gla(got, _oracle(q, k, v, ld, inclusive=False), torch.bfloat16)
+    same = gla_scan(q.contiguous(), k.contiguous(), v.contiguous(), ld.contiguous(),
+                    inclusive=False, chunk=64)
+    torch.testing.assert_close(got, same, atol=0, rtol=0)
+
+
+def test_gla_dispatch_launches_the_kernel_on_the_card(dev):
+    from repro_torch.kernels.gla_scan import gla_scan as gs_mod
+    from repro_torch.kernels.gla_scan.ops import gla
+
+    q, k, v, ld = _gla_inputs(2, 1, 70, 2, 64, 64, torch.float32, torch.float32, dev)
+    before = gs_mod.COUNTER.launches
+    o, s = gla(q, k, v, ld, inclusive=False, chunk=64)
+    assert gs_mod.COUNTER.launches == before + 1
+    assert o.is_cuda and s.is_cuda
+
+
+def test_gla_scan_refuses_what_it_does_not_take(dev):
+    from repro_torch.kernels.gla_scan.gla_scan import gla_scan
+
+    q, k, v, ld = _gla_inputs(0, 1, 64, 2, 64, 64, torch.float32, torch.float32, dev)
+    with pytest.raises(TypeError):
+        gla_scan(q.half(), k.half(), v.half(), ld)
+    with pytest.raises(TypeError):
+        gla_scan(q, k, v.bfloat16(), ld)
+    with pytest.raises(ValueError, match="shape"):
+        gla_scan(q, k, v, ld[..., :3])
+    with pytest.raises(ValueError, match="s0"):
+        gla_scan(q, k, v, ld, torch.zeros(1, 2, 64, 32, device=dev))
+    with pytest.raises(ValueError, match="shared memory"):
+        big = torch.zeros(1, 64, 1, 512, device=dev)
+        gla_scan(big, big, big, big)
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        gla_scan(q.cpu(), k.cpu(), v.cpu(), ld.cpu())
