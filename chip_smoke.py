@@ -14,6 +14,10 @@ Phases (any failure ends the run with a non-zero exit and no last line):
    warm-up; 10 for the plain gated linear recurrence) of the kernel, the
    plain version and the one PyTorch call that computes the same function
    where there is one (timed as a yardstick only; the port never calls it).
+   ns_update is also timed at the solver's per-step calls (U[:1] and U[:8]
+   of an NFE-8 request), and its device time and addmv's are read from
+   torch.profiler beside the host-inclusive times. Flash attention prints
+   its achieved TFLOP/s and kernel / bound.
    Paged attention has no such call: a dense SDPA over a pre-gathered copy
    is timed beside it, labelled "dense SDPA, gather excluded". gla_scan has
    none either, and is held against its step-by-step oracle, taken in f64
@@ -100,6 +104,24 @@ def time_ms(fn, iters: int = 100, warmup: int = 5) -> float:
     return start.elapsed_time(end) / iters
 
 
+def device_ms(fn, kernel: str | None, iters: int = 100) -> float | None:
+    """Mean device time per call of ``fn`` from torch.profiler: the kernels
+    whose name holds ``kernel`` (every kernel if None), over ``iters`` calls.
+    None where the trace holds no device time."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    us = sum(e.time_range.elapsed_us() for e in prof.events()
+             if e.device_type == DeviceType.CUDA and (kernel is None or kernel in e.name))
+    return us / iters / 1e3 if us else None
+
+
 def bound(nbytes: float, flops: float, dtype: torch.dtype) -> tuple[float, str]:
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = flops / PEAK_FLOPS[dtype] * 1e3
@@ -150,16 +172,44 @@ def ns_update_cases(dev):
         err = check_close(f"ns_update n={n} B={B} D={D} {dtype}",
                           ns_update(x0, u, a, w), ns_update_ref(x0, u, a, w),
                           atol=TOL[dtype] * n, rtol=TOL[dtype])
-        beta, wl, xf, uf = a.item(), w.to(dtype), x0.view(-1), u.view(n, -1).t()
-        size = x0.element_size()
-        b_ms, b_by = bound((n + 2) * B * D * size, 2 * (n + 1) * B * D, dtype)
-        rows.append(dict(
-            shape=f"n={n} B={B} D={D} {str(dtype)[6:]}", max_abs_err=err,
-            ms=time_ms(lambda: ns_update(x0, u, a, w)),
-            plain_ms=time_ms(lambda: ns_update_ref(x0, u, a, w)),
-            library_ms=time_ms(lambda: torch.addmv(xf, uf, wl, beta=beta)),
-            bound_ms=b_ms, bound_by=b_by))
+        rows.append(ns_update_row(f"n={n} B={B} D={D} {str(dtype)[6:]}", err,
+                                  x0, u, a, w, timed_on_device=not rows))
+    # the main path's calls: step i of an NFE-8 request reads the i+1 rows the
+    # solver has filled, U[:i+1], with the weights b[i, :i+1] (views)
+    x0 = torch.randn((BATCH, SEQ * 64), generator=g, device=dev)
+    U = torch.randn((NFE, BATCH, SEQ * 64), generator=g, device=dev)
+    a = torch.randn((NFE,), generator=g, device=dev)
+    b = torch.randn((NFE, NFE), generator=g, device=dev)
+    for live in (1, NFE):
+        u, w = U[:live], b[live - 1, :live]
+        err = check_close(f"ns_update step {live} of {NFE}", ns_update(x0, u, a[live - 1], w),
+                          ns_update_ref(x0, u, a[live - 1], w), atol=TOL[torch.float32] * live,
+                          rtol=TOL[torch.float32])
+        rows.append(ns_update_row(f"step {live} of n={NFE}: U[:{live}] B={BATCH} "
+                                  f"D={SEQ * 64} float32", err, x0, u, a[live - 1], w,
+                                  timed_on_device=True))
     return rows
+
+
+def ns_update_row(shape, err, x0, u, a, w, timed_on_device: bool) -> dict:
+    """Host-inclusive back-to-back times of the kernel, its plain version and
+    addmv; with ``timed_on_device`` also the kernel's and addmv's device time
+    from the profiler."""
+    from repro_torch.kernels.ns_update.ns_update import ns_update
+    from repro_torch.kernels.ns_update.ref import ns_update_ref
+
+    n, N = u.shape[0], x0.numel()
+    beta, wl, xf, uf = a.item(), w.to(x0.dtype), x0.view(-1), u.view(n, -1).t()
+    b_ms, b_by = bound((n + 2) * N * x0.element_size(), 2 * (n + 1) * N, x0.dtype)
+    row = dict(shape=shape, max_abs_err=err,
+               ms=time_ms(lambda: ns_update(x0, u, a, w)),
+               plain_ms=time_ms(lambda: ns_update_ref(x0, u, a, w)),
+               library_ms=time_ms(lambda: torch.addmv(xf, uf, wl, beta=beta)),
+               bound_ms=b_ms, bound_by=b_by)
+    if timed_on_device:
+        row["device_ms"] = device_ms(lambda: ns_update(x0, u, a, w), "ns_update_kernel")
+        row["library_device_ms"] = device_ms(lambda: torch.addmv(xf, uf, wl, beta=beta), None)
+    return row
 
 
 def flash_cases(dev):
@@ -175,7 +225,10 @@ def flash_cases(dev):
             (BATCH, 32, 4, SEQ, 128, torch.bfloat16, False),
             (BATCH, 32, 4, 1000, 128, torch.bfloat16, True),   # ragged L
             (2, 8, 2, 512, 64, torch.float32, True),
-            (2, 8, 2, 512, 80, torch.float32, True)]:
+            (2, 8, 2, 512, 80, torch.float32, True),
+            (2, 8, 2, 512, 64, torch.bfloat16, True),          # hd 64
+            (2, 8, 2, 512, 80, torch.bfloat16, True),          # hd 80: 32-byte swizzle
+            (BATCH, 32, 4, 1, 128, torch.bfloat16, True)]:     # one position
         # transposed views of the model's (B, L, heads, hd) layout, as on the main path
         q = torch.randn((B, L, H, hd), generator=g, device=dev).to(dtype).transpose(1, 2)
         k = torch.randn((B, L, KV, hd), generator=g, device=dev).to(dtype).transpose(1, 2)
@@ -188,12 +241,13 @@ def flash_cases(dev):
             err = check_close(name, out, ref, atol=TOL[dtype] * 4, rtol=TOL[dtype] * 4)
         pairs = L * (L + 1) // 2 if causal else L * L
         size = q.element_size()
-        b_ms, b_by = bound((2 * B * H * L * hd + 2 * B * KV * L * hd) * size,
-                           4 * hd * pairs * B * H, dtype)
+        flops = 4 * hd * pairs * B * H
+        b_ms, b_by = bound((2 * B * H * L * hd + 2 * B * KV * L * hd) * size, flops, dtype)
+        ms = time_ms(lambda: flash_attention(q, k, v, causal=causal))
         rows.append(dict(
             shape=f"B={B} H={H} KV={KV} L={L} hd={hd} {str(dtype)[6:]} "
                   f"{'causal' if causal else 'full'}", max_abs_err=err,
-            ms=time_ms(lambda: flash_attention(q, k, v, causal=causal)),
+            ms=ms, tflops=flops / ms / 1e9,
             plain_ms=time_ms(lambda: attention_ref(q, k, v, causal=causal)),
             library_ms=time_ms(lambda: F.scaled_dot_product_attention(
                 q, k, v, is_causal=causal, enable_gqa=True)),
@@ -583,6 +637,13 @@ def main() -> int:
             lib = ("none" if r["library_ms"] is None else f"{r['library_ms']:.4f} ms")
             extra = (f", dense SDPA (gather excluded) {r['yardstick_ms']:.4f} ms, "
                      f"limit ratio {r['limit_ratio']:.4f}" if "yardstick_ms" in r else "")
+            if "tflops" in r:
+                extra += (f", {r['tflops']:.1f} TFLOP/s, kernel/bound "
+                          f"{r['ms'] / r['bound_ms']:.2f}")
+            for key, what in (("device_ms", "kernel"), ("library_device_ms", "addmv")):
+                if key in r:
+                    t = "not measured" if r[key] is None else f"{r[key]:.4f} ms"
+                    extra += f", {what} device time {t}"
             print(f"{name} [{r['shape']}]: err {r['max_abs_err']:.3e}, "
                   f"kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, "
                   f"library {lib}, bound {r['bound_ms']:.4f} ms ({r['bound_by']}){extra}")

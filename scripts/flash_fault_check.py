@@ -33,14 +33,17 @@ from repro_torch.kernels import build  # noqa: E402
 from repro_torch.kernels.flash_attention.flash_attention import flash_attention  # noqa: E402
 from repro_torch.kernels.flash_attention.ref import attention_ref  # noqa: E402
 
-LOOP = "for (int k0 = 0; k0 < k_end; k0 += kMmaBK) {"
+TILES = "const int n_tiles = (k_end + kWsBK - 1) / kWsBK;"
+LIMIT = "const int k_end = CAUSAL ? min(Lk, q_last + 1) : Lk;\n  " + TILES
 KEEP = "const bool keep = col < Lk && (!CAUSAL || col <= row);"
-# name -> (text in the tensor-core kernel, its faulty replacement)
+# name -> (text in the TMA + wgmma (bf16) kernel, its faulty replacement). The
+# two tile-count faults keep at least one tile: the kernel's consumers wait for
+# tile 0, so a block with none would wait for a load nobody issues.
 FAULTS = {
-    "tail tile dropped": (LOOP, "for (int k0 = 0; k0 + kMmaBK <= k_end; k0 += kMmaBK) {"),
+    "tail tile dropped": (TILES, "const int n_tiles = max(1, k_end / kWsBK);"),
     "causal limit one tile short": (
-        "const int k_end = CAUSAL ? min(Lk, q_last + 1) : Lk;\n\n  " + LOOP,
-        "const int k_end = CAUSAL ? min(Lk, q_last + 1) - kMmaBK : Lk;\n\n  " + LOOP),
+        LIMIT, LIMIT.replace("min(Lk, q_last + 1) : Lk",
+                             "max(1, min(Lk, q_last + 1) - kWsBK) : Lk")),
     "diagonal mask leaks one key": (KEEP, KEEP.replace("col <= row", "col <= row + 1")),
     "late rows leak one key": (KEEP, KEEP.replace("col <= row", "col <= row + (row >= Lq / 2)")),
 }
@@ -56,6 +59,14 @@ SHAPES = [  # (B, H, KV, L, hd, causal)
     (1, 4, 4, 1, 128, True),
     (1, 32, 4, 1000, 128, True),
     (1, 4, 2, 77, 80, False),
+    (2, 8, 2, 512, 64, True),        # chip_smoke.py: hd 64 and 80, one position
+    (2, 8, 2, 512, 80, True),
+    (4, 32, 4, 1, 128, True),
+    (2, 8, 8, 384, 80, False),       # tests/test_torch_cuda.py: tiles and heads
+    (1, 16, 2, 200, 64, True),
+    (1, 16, 2, 129, 80, True),
+    (2, 8, 1, 1000, 128, True),
+    (1, 4, 2, 127, 128, True),
 ]
 
 

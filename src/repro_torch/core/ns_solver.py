@@ -71,22 +71,24 @@ def ns_sample(
 
     Unlike the reference's immutable scan carry, the velocity buffer
     U (n, *x0.shape) is preallocated once and step i writes ``U[i] = u`` in
-    place; rows past step i stay zero and their weights are masked to zero.
-    ``a_i`` and ``w_i`` stay on x0's device, so no step synchronises.
+    place. Step i hands ``update_fn`` only the rows it has filled, as views:
+    ``U[:i+1]`` and the weights ``b[i, :i+1]`` (the reference passes the whole
+    buffer with the later weights masked to zero, which adds nothing). ``a``
+    and ``b`` are made f32 once, before the loop, and stay on x0's device, so
+    no step synchronises or launches anything besides ``u_fn`` and the update.
     """
     if update_fn is None:
         update_fn = fused_ns_update
     n = params.n
     dev = x0.device
     times, a, b = params.to(dev)
-    b = torch.where(tril_mask(n, dev), b, 0.0)
-    steps = torch.arange(n, device=dev)
+    a = a.to(torch.float32)
+    b = torch.where(tril_mask(n, dev), b, 0.0).to(torch.float32)
     U = torch.zeros((n,) + tuple(x0.shape), dtype=x0.dtype, device=dev)
     x = x0
     for i in range(n):
         U[i] = u_fn(times[i], x)
-        w = torch.where(steps <= i, b[i], 0.0)
-        x = update_fn(x0, U, a[i], w)
+        x = update_fn(x0, U[: i + 1], a[i], b[i, : i + 1])
     return x
 
 

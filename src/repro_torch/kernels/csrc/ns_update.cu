@@ -3,10 +3,11 @@
 // Replaces the TPU kernel src/repro/kernels/ns_update/ns_update.py::ns_update
 // (with ns_update_nd, which padded D to a multiple of 128 for the TPU's lanes).
 //
-//   out = a * x0 + sum_j w_j * U_j        coeff = [a, w_0, ..., w_{n-1}]  (f32)
+//   out = a * x0 + sum_j w_j * U_j        a, w_0, ..., w_{n-1}  (f32, on the card)
 //
-// x0 and out hold N = B*D elements, U holds n rows of N; rows of w past the
-// current solver step are already zero (the caller masks).
+// x0 and out hold N = B*D elements, U holds n rows of N. The solver hands step i
+// the live rows only (U[:i+1], the weights b[i, :i+1]), so the kernel reads i+1
+// rows at step i, not the whole buffer.
 //
 // What bounds it: memory. It reads (n+1)*N elements and writes N while doing
 // 2*(n+1)*N flops, under half a flop per byte in f32, far below the card's ridge. At the
@@ -17,8 +18,9 @@
 // byte written once, in one grid-stride pass with 16-byte vector loads (4 f32 or
 // 8 bf16 values) where N and the pointers allow, and a scalar pass for the rest,
 // so any D works without padding. The sum is kept in f32 registers. The n+1
-// coefficients come from device memory (staged in shared memory), so the solver
-// loop never waits on the host.
+// coefficients come from device memory as two pointers (a, and w with its stride:
+// a row of the solver's b), staged in shared memory, so the solver loop never
+// waits on the host and builds no coefficient vector.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -59,11 +61,12 @@ __device__ __forceinline__ void store16(T* p, const float (&f)[Vec<T>::kLen]) {
 template <typename T>
 __global__ void __launch_bounds__(kThreads)
 ns_update_kernel(const T* __restrict__ x0, const T* __restrict__ u,
-                 const float* __restrict__ coeff, T* __restrict__ out,
-                 long long N, int n, long long nvec) {
+                 const float* __restrict__ a, const float* __restrict__ w,
+                 long long w_stride, T* __restrict__ out, long long N, int n,
+                 long long nvec) {
   constexpr int V = Vec<T>::kLen;
   __shared__ float c[kMaxN + 1];
-  for (int j = threadIdx.x; j <= n; j += blockDim.x) c[j] = coeff[j];
+  for (int j = threadIdx.x; j <= n; j += blockDim.x) c[j] = j == 0 ? *a : w[(j - 1) * w_stride];
   __syncthreads();
 
   const long long stride = (long long)gridDim.x * blockDim.x;
@@ -91,8 +94,8 @@ ns_update_kernel(const T* __restrict__ x0, const T* __restrict__ u,
 }
 
 template <typename T>
-int launch(const void* x0, const void* u, const float* coeff, void* out,
-           long long N, int n, cudaStream_t stream) {
+int launch(const void* x0, const void* u, const float* a, const float* w,
+           long long w_stride, void* out, long long N, int n, cudaStream_t stream) {
   constexpr int V = Vec<T>::kLen;
   const bool vec = N % V == 0 && reinterpret_cast<uintptr_t>(x0) % 16 == 0 &&
                    reinterpret_cast<uintptr_t>(u) % 16 == 0 &&
@@ -107,22 +110,32 @@ int launch(const void* x0, const void* u, const float* coeff, void* out,
   if (blocks > cap) blocks = cap;
   if (blocks < 1) blocks = 1;
   ns_update_kernel<T><<<(unsigned)blocks, kThreads, 0, stream>>>(
-      static_cast<const T*>(x0), static_cast<const T*>(u), coeff,
+      static_cast<const T*>(x0), static_cast<const T*>(u), a, w, w_stride,
       static_cast<T*>(out), N, n, nvec);
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16. Returns cudaGetLastError() after the launch.
-extern "C" int ns_update_fwd(int dtype, const void* x0, const void* u,
-                             const float* coeff, void* out, long long N, int n,
-                             void* stream) {
-  if (n < 1 || n > kMaxN || N < 1) return (int)cudaErrorInvalidValue;
+// device: the card the tensors and the stream live on (made current for the
+// launch if it is not). dtype: 0 = float32, 1 = bfloat16. a points at one f32,
+// w at n f32 values w_stride apart. Returns cudaGetLastError() after the launch.
+extern "C" int ns_update_fwd(int device, int dtype, const void* x0, const void* u,
+                             const float* a, const float* w, long long w_stride, void* out,
+                             long long N, int n, void* stream) {
+  if (n < 1 || n > kMaxN || N < 1 || (dtype != 0 && dtype != 1))
+    return (int)cudaErrorInvalidValue;
+  int current = device;
+  cudaGetDevice(&current);
+  if (current != device) {
+    const cudaError_t err = cudaSetDevice(device);
+    if (err != cudaSuccess) return (int)err;
+  }
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) return launch<float>(x0, u, coeff, out, N, n, s);
-  if (dtype == 1) return launch<__nv_bfloat16>(x0, u, coeff, out, N, n, s);
-  return (int)cudaErrorInvalidValue;
+  const int err = dtype == 0 ? launch<float>(x0, u, a, w, w_stride, out, N, n, s)
+                             : launch<__nv_bfloat16>(x0, u, a, w, w_stride, out, N, n, s);
+  if (current != device) cudaSetDevice(current);
+  return err;
 }
 
 extern "C" const char* error_string(int err) {

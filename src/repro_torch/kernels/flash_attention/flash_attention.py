@@ -34,9 +34,9 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 
     CUDA tensors of one dtype, hd in ``HEAD_DIMS``, unit stride on hd; other
     strides are free, so transposed views of the model's (B, L, H, hd) layout
-    pass without copies. bf16 runs on the tensor cores and needs 16-byte
-    aligned data and strides that are multiples of 8; f32 runs on the CUDA
-    cores. The output is a (B, H, Lq, hd) view of a (B, Lq, H, hd) buffer,
+    pass without copies. bf16 runs on the tensor cores (TMA loads, wgmma) and
+    needs 16-byte aligned data and strides that are multiples of 8, as TMA's
+    tensor maps do; f32 runs on the CUDA cores. The output is a (B, H, Lq, hd) view of a (B, Lq, H, hd) buffer,
     the model's layout.
     """
     if not (q.is_cuda and k.is_cuda and v.is_cuda):

@@ -1,6 +1,7 @@
 """The port's kernel build and binding, as far as a machine without nvcc and
 without a card can check them: library naming, the missing-compiler error,
 launch counters, and the note each CUDA source opens with."""
+import importlib.util
 import re
 from pathlib import Path
 
@@ -54,3 +55,44 @@ def test_source_opens_with_its_note(name):
     text = " ".join(line.lstrip("/ ") for line in head.splitlines())
     assert f"Replaces the TPU kernel {TPU_KERNELS[name]}" in text
     assert "What bounds it" in text and "What the design does about it" in text
+
+
+def _script(name):
+    path = Path(__file__).resolve().parents[1] / "scripts" / f"{name}.py"
+    spec = importlib.util.spec_from_file_location(name, path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+@pytest.mark.parametrize("fault", ["tail tile dropped", "causal limit one tile short",
+                                   "diagonal mask leaks one key", "late rows leak one key"])
+def test_fault_check_plants_each_fault_in_the_kernel_source(fault):
+    """scripts/flash_fault_check.py replaces text of csrc/flash_attention.cu; each
+    target must occur exactly once, or the script errors or checks nothing."""
+    old, new = _script("flash_fault_check").FAULTS[fault]
+    src = Path(build.CSRC, "flash_attention.cu").read_text()
+    assert src.count(old) == 1 and new != old
+
+
+def test_bf16_flash_kernel_is_tma_and_wgmma():
+    """Both products of the bf16 kernel are wgmma, its tiles arrive by TMA on
+    mbarriers, and no mma.sync is left in the source."""
+    src = Path(build.CSRC, "flash_attention.cu").read_text()
+    asm = re.sub(r'"\s*"', "", src)   # adjacent string literals joined
+    assert "cp.async.bulk.tensor" in asm and "mbarrier::complete_tx" in asm
+    # S = Q K^T: both operands by descriptor; O += P V: A from four registers
+    assert re.search(r"m64n128k16\.f32\.bf16\.bf16 \{[^}]*\}, %\d+, %\d+,", asm)
+    four_regs = r"\{%\d+, %\d+, %\d+, %\d+\}"
+    for hd in (64, 80, 128):
+        assert re.search(rf"m64n{hd}k16\.f32\.bf16\.bf16 \{{[^}}]*\}}, {four_regs}", asm)
+    assert "mma.sync" not in src and "setmaxnreg" in src
+
+
+def test_flash_variants_apply_to_the_kernel_source():
+    """scripts/flash_variants.py edits csrc/flash_attention.cu by text; every
+    variant's targets occur exactly once, and each variant changes the text."""
+    variants = _script("flash_variants").sources()
+    base = variants.pop("kernel")
+    assert base == Path(build.CSRC, "flash_attention.cu").read_text()
+    assert variants and all(text != base for text in variants.values())

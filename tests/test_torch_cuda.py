@@ -66,6 +66,76 @@ def test_ns_update_matches_plain(dev, n, B, D, dtype):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_ns_update_takes_the_solvers_live_row_views(dev, dtype):
+    """ns_sample hands step i U[:i+1] and one row of b as views; here the
+    weights are a strided column view, so w's stride reaches the kernel."""
+    rng = np.random.default_rng(5)
+    n, B, D = 8, 4, 4096
+    x0 = _randn(rng, (B, D), dtype, dev)
+    U = _randn(rng, (n, B, D), dtype, dev)
+    a = _randn(rng, (n,), torch.float32, dev)
+    bt = _randn(rng, (n, n), torch.float32, dev).t()
+    for i in range(n):
+        u, w = U[: i + 1], bt[i, : i + 1]
+        assert w.stride(0) == n
+        out = ns_update(x0, u, a[i], w)
+        torch.cuda.synchronize()
+        torch.testing.assert_close(out.float(), ns_update_ref(x0, u, a[i], w).float(),
+                                   atol=TOL[dtype] * (i + 1), rtol=TOL[dtype])
+
+
+def test_ns_update_refuses_non_f32_coefficients_on_the_card(dev):
+    rng = np.random.default_rng(6)
+    x0, u = _randn(rng, (2, 64), torch.float32, dev), _randn(rng, (3, 2, 64), torch.float32, dev)
+    a, w = _randn(rng, (), torch.float32, dev), _randn(rng, (3,), torch.float32, dev)
+    before = nu_mod.COUNTER.launches
+    for args in ((a.double(), w), (a, w.bfloat16())):
+        with pytest.raises(TypeError, match="float32 a and w"):
+            ns_update(x0, u, *args)
+    assert nu_mod.COUNTER.launches == before
+
+
+def _check_flash_bf16(out, ref):
+    torch.testing.assert_close(out.float(), ref.float(), atol=FLASH_BF16_ATOL,
+                               rtol=FLASH_BF16_RTOL)
+    ref = ref.float()
+    row_err = (torch.linalg.vector_norm(out.float() - ref, dim=-1)
+               / torch.linalg.vector_norm(ref, dim=-1))
+    assert float(row_err.max()) <= FLASH_BF16_ROW_REL_L2
+
+
+@pytest.mark.parametrize("B,H,KV,L,hd,causal", [
+    (2, 8, 2, 512, 64, True),      # hd 64, L a multiple of the 128-row tiles
+    (2, 8, 2, 512, 80, True),      # hd 80: 16-column chunks, 32-byte swizzle
+    (2, 8, 2, 512, 128, True),
+    (2, 8, 8, 384, 64, False),     # G 1, full
+    (2, 8, 8, 384, 80, False),
+    (1, 16, 2, 384, 128, False),   # G 8, full
+    (1, 16, 2, 200, 64, True),     # ragged L, two query tiles
+    (1, 16, 2, 129, 80, True),     # one row past a tile
+    (2, 8, 1, 1000, 128, True),    # G 8, ragged L
+    (1, 8, 1, 1000, 128, False),
+    (1, 8, 2, 1, 64, True),        # one position
+    (1, 8, 2, 1, 80, False),
+    (2, 4, 4, 1, 128, False),
+    (1, 4, 2, 127, 128, True),     # one short of a tile
+])
+def test_flash_attention_bf16_tiles_and_heads(dev, B, H, KV, L, hd, causal):
+    """The TMA + wgmma kernel on transposed views of the model's (B, L, heads,
+    hd) layout, as attention_forward hands them over."""
+    rng = np.random.default_rng(B * 1000 + H + L + hd)
+    q = _randn(rng, (B, L, H, hd), torch.bfloat16, dev).transpose(1, 2)
+    k = _randn(rng, (B, L, KV, hd), torch.bfloat16, dev).transpose(1, 2)
+    v = _randn(rng, (B, L, KV, hd), torch.bfloat16, dev).transpose(1, 2)
+    before = fa_mod.COUNTER.launches
+    out = flash_attention(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    assert fa_mod.COUNTER.launches == before + 1
+    assert out.dtype == torch.bfloat16 and out.shape == q.shape
+    _check_flash_bf16(out, attention_ref(q, k, v, causal=causal))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("B,H,KV,L,hd,causal", [
     (1, 4, 2, 256, 64, True),
     (2, 8, 8, 128, 128, True),
@@ -90,12 +160,7 @@ def test_flash_attention_matches_plain(dev, B, H, KV, L, hd, causal, dtype):
     if dtype == torch.float32:
         torch.testing.assert_close(out, ref, atol=TOL[dtype] * 4, rtol=TOL[dtype] * 4)
         return
-    torch.testing.assert_close(out.float(), ref.float(), atol=FLASH_BF16_ATOL,
-                               rtol=FLASH_BF16_RTOL)
-    ref = ref.float()
-    row_err = (torch.linalg.vector_norm(out.float() - ref, dim=-1)
-               / torch.linalg.vector_norm(ref, dim=-1))
-    assert float(row_err.max()) <= FLASH_BF16_ROW_REL_L2
+    _check_flash_bf16(out, ref)
 
 
 def test_attend_reads_model_layout_in_place(dev):
@@ -241,6 +306,7 @@ def _gla_inputs(seed, B, L, H, dk, dv, dtype, ld_dtype, dev, scale=0.5, ld_dk=No
 
 
 def _oracle(q, k, v, ld, s0=None, *, inclusive):
+    from repro_torch.kernels.gla_scan.ref import gla_ref
 
     return gla_ref(*(t.double() for t in (q, k, v, ld)),
                    None if s0 is None else s0.double(), inclusive=inclusive)

@@ -84,6 +84,57 @@ def test_cpu_tensors_take_the_plain_version_and_the_kernel_refuses_them():
     assert nu_mod.COUNTER.launches == before
 
 
+@pytest.mark.parametrize("bad", ["a", "w"])
+@pytest.mark.parametrize("dtype", [torch.float64, torch.bfloat16])
+def test_kernel_wrapper_refuses_non_f32_coefficients_before_any_launch(bad, dtype):
+    """The kernel reads a and w as f32 on the card; other types are refused
+    before the device check and before any launch (ns_sample converts them
+    once), while the plain version keeps taking any type."""
+    _, (x0, u, a, w) = _inputs(2, 4, (2, 8), "float32")
+    args = {"a": a, "w": w}
+    args[bad] = args[bad].to(dtype)
+    before = nu_mod.COUNTER.launches
+    with pytest.raises(TypeError, match="float32 a and w"):
+        ns_update(x0, u, **args)
+    assert nu_mod.COUNTER.launches == before
+    np.testing.assert_allclose(fused_ns_update(x0, u, **args).numpy(),
+                               ns_update_ref(x0, u, a, w).numpy(),
+                               atol=TOL["bfloat16"] if dtype == torch.bfloat16 else 1e-6)
+
+
+@pytest.mark.parametrize("name,nfe", [("euler", 4), ("rk4", 8), ("ab2", 6)])
+def test_ns_sample_hands_each_step_only_its_live_rows(name, nfe):
+    """Step i gets U[:i+1] and b[i, :i+1] as views of the solver's buffers
+    (no copy, no mask launch), f32 coefficients, and the result equals the
+    full-buffer form with masked weights."""
+    params = treg.build_ns(name, nfe)
+    x0 = torch.from_numpy(np.random.default_rng(nfe).standard_normal((3, 5)).astype(np.float32))
+    seen = []
+
+    def spy(x0_, U, a_i, w_i):
+        seen.append((U, a_i, w_i))
+        return fused_ns_update(x0_, U, a_i, w_i)
+
+    got = tns.ns_sample(params, _linear_u_np, x0, update_fn=spy)
+    assert len(seen) == nfe
+    b = torch.where(tns.tril_mask(nfe), params.b, 0.0).to(torch.float32)
+    buffer = seen[-1][0]
+    for i, (U, a_i, w_i) in enumerate(seen):
+        assert U.shape == (i + 1,) + tuple(x0.shape) and w_i.shape == (i + 1,)
+        assert U.data_ptr() == buffer.data_ptr() and U.is_contiguous()
+        assert a_i.dtype == w_i.dtype == torch.float32 and a_i.numel() == 1
+        np.testing.assert_array_equal(w_i.numpy(), b[i, : i + 1].numpy())
+        np.testing.assert_array_equal(U.numpy(), buffer[: i + 1].numpy())
+    # the reference's form: the whole buffer, weights past step i masked to zero
+    x = x0
+    full = torch.zeros((nfe,) + tuple(x0.shape))
+    for i in range(nfe):
+        full[i] = _linear_u_np(params.times[i], x)
+        w = torch.where(torch.arange(nfe) <= i, b[i], 0.0)
+        x = ns_update_ref(x0, full, params.a[i], w)
+    np.testing.assert_allclose(got.numpy(), x.numpy(), atol=1e-6, rtol=1e-6)
+
+
 def _linear_u_np(t, x, rate=1.5, drift=0.7):
     """``repro.core.toy.linear_field``: u_t(x) = -rate x + drift t."""
     return -rate * x + drift * t
