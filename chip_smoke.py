@@ -8,7 +8,8 @@ Phases (any failure ends the run with a non-zero exit and no last line):
 
 1. Device: the card's name and power limit, as nvidia-smi prints them.
 2. Build: every source in src/repro_torch/kernels/csrc, one nvcc each, all
-   started together, into build/repro_torch.
+   started together, into build/repro_torch; each library's kernels,
+   registers and spill bytes from ptxas' report.
 3. Kernels against their plain versions on the card, at the main paths'
    shapes and a few others, with CUDA-event timing (100 launches after a
    warm-up; 10 for the plain gated linear recurrence) of the kernel, the
@@ -21,7 +22,12 @@ Phases (any failure ends the run with a non-zero exit and no last line):
    Paged attention has no such call: a dense SDPA over a pre-gathered copy
    is timed beside it, labelled "dense SDPA, gather excluded". gla_scan has
    none either, and is held against its step-by-step oracle, taken in f64
-   on the same inputs. TF32 is off.
+   on the same inputs; each case prints which of its two kernels ran
+   (tensor-core for bf16 q, k, v with dk, dv multiples of 16 up to 128 and a
+   chunk of 16, 32 or 64; CUDA-core otherwise) and fails if the library's
+   choice differs from that rule. Its bound takes the peak of the type the
+   products run in (bf16 for bf16 inputs), with the f32 CUDA-core count
+   beside it. TF32 is off.
 4. Flow path: ``repro_torch.launch.serve.main`` with yi-6b at full width
    (32 layers, bf16, random weights from a seeded generator on the card),
    NFE 8, batch 4, sequence 1024, 3 requests. Launch counts must be exact.
@@ -53,6 +59,7 @@ from __future__ import annotations
 import dataclasses
 import gc
 import json
+import re
 import subprocess
 import sys
 import time
@@ -351,8 +358,17 @@ def gla_flops(L: int, chunk: int, dk: int, dv: int, inclusive: bool) -> float:
     return total
 
 
+def gla_kernel_rule(dtype: torch.dtype, L: int, dk: int, dv: int, chunk: int) -> str:
+    """The selection rule csrc/gla_scan.cu states, written out apart from it:
+    bf16 q, k, v with dk and dv multiples of 16 up to 128 and a chunk (cut to
+    L) of 16, 32 or 64 take the tensor-core kernel."""
+    mma = (dtype == torch.bfloat16 and dk % 16 == 0 and dv % 16 == 0 and dk <= 128
+           and dv <= 128 and min(chunk, L) in (16, 32, 64))
+    return "tensor-core" if mma else "CUDA-core"
+
+
 def gla_cases(dev):
-    from repro_torch.kernels.gla_scan.gla_scan import gla_scan
+    from repro_torch.kernels.gla_scan.gla_scan import gla_scan, kernel_for
     from repro_torch.kernels.gla_scan.ref import gla_ref
     from repro_torch.models.linear_scan import gla_chunked
 
@@ -370,7 +386,9 @@ def gla_cases(dev):
              (2, 256, 8, 64, 64, 64, False, f32, f32, 0.5, False, True),    # given s0
              (2, 256, 8, 64, 64, 64, True, bf16, bf16, 0.5, False, True),
              (1, 128, 2, 16, 16, 32, False, f32, f32, 30.0, False, False),  # strong decay
-             (1, 128, 2, 16, 16, 32, False, bf16, f32, 30.0, False, False)]
+             (1, 128, 2, 16, 16, 32, False, bf16, f32, 30.0, False, False),
+             (2, 256, 8, 64, 64, 16, False, bf16, f32, "model", False, False),  # chunk 16
+             (2, 256, 8, 32, 96, 64, True, bf16, f32, 0.5, False, True)]     # dk != dv
     for dtype in (f32, bf16):                        # tests/test_kernels.py sweep
         for L, chunk, inclusive, dk, dv in [(128, 32, True, 64, 64), (128, 32, False, 64, 64),
                                             (96, 16, False, 32, 48), (64, 64, True, 16, 128)]:
@@ -386,6 +404,11 @@ def gla_cases(dev):
                  f"{'inclusive' if inclusive else 'exclusive'} qkv {str(dtype)[6:]} "
                  f"ld {str(ld_dtype)[6:]}{' per head' if scalar else ''} decay {decay}"
                  f"{' s0' if with_s0 else ''}")
+        kernel = kernel_for(dtype, L, dk, dv, chunk)
+        if kernel != gla_kernel_rule(dtype, L, dk, dv, chunk):
+            raise SystemExit(f"gla_scan [{shape}]: the library selects the {kernel} kernel, "
+                             f"the stated rule the {gla_kernel_rule(dtype, L, dk, dv, chunk)} one")
+        shape += f" [{kernel}]"
         o, s = gla_scan(q, k, v, ld, s0, inclusive=inclusive, chunk=chunk)
         if not (bool(torch.isfinite(o.float()).all()) and bool(torch.isfinite(s).all())):
             raise SystemExit(f"gla_scan [{shape}]: non-finite output")
@@ -404,14 +427,31 @@ def gla_cases(dev):
         nbytes = (2 * q.numel() + v.numel()) * q.element_size() + \
             ld_elems * ld.element_size() + o.numel() * o.element_size() + \
             s.numel() * 4 * (2 if with_s0 else 1)
-        b_ms, b_by = bound(nbytes, B * H * gla_flops(L, chunk, dk, dv, inclusive), f32)
+        # the bound at the peak of the type the products run in (bf16 tensor
+        # cores for bf16 q, k, v), and beside it the same count at the f32
+        # CUDA-core peak (the table's bound before the tensor-core kernel)
+        flops = B * H * gla_flops(L, chunk, dk, dv, inclusive)
+        b_ms, b_by = bound(nbytes, flops, dtype)
+        b32_ms, b32_by = bound(nbytes, flops, f32)
         rows.append(dict(
-            shape=shape, max_abs_err=err,
+            shape=shape, max_abs_err=err, kernel=kernel, bound_f32=(b32_ms, b32_by),
             ms=time_ms(lambda: gla_scan(q, k, v, ld, s0, inclusive=inclusive, chunk=chunk)),
             plain_ms=time_ms(lambda: gla_chunked(q, k, v, ld, s0, inclusive=inclusive,
                                                  chunk=chunk), iters=10, warmup=2),
             library_ms=None, bound_ms=b_ms, bound_by=b_by))
     return rows
+
+
+def ptxas_summary(name: str, log: Path) -> str:
+    """Kernels, registers and spill bytes from the -Xptxas=-v report kept
+    beside a library (build.py writes it when it compiles the source)."""
+    if not log.exists():
+        return f"ptxas {name}: no report (library not built in this run)"
+    text = log.read_text()
+    regs = [int(x) for x in re.findall(r"Used (\d+) registers", text)]
+    spills = sum(int(x) for x in re.findall(r"(\d+) bytes spill stores", text))
+    return (f"ptxas {name}: {len(regs)} kernels, {min(regs, default=0)}-"
+            f"{max(regs, default=0)} registers, {spills} bytes of spill stores")
 
 
 def reset(counters) -> None:
@@ -629,6 +669,8 @@ def main() -> int:
     seconds = build.build_all()
     print(f"build: {time.perf_counter() - t0:.1f} s "
           f"({', '.join(f'{k} {v:.1f} s' for k, v in seconds.items()) or 'cached'})")
+    for name in build.SOURCES:
+        print(ptxas_summary(name, build.library_path(name).with_suffix(".so.log")))
 
     rows = {"ns_update": ns_update_cases(dev), "flash_attention": flash_cases(dev),
             "paged_attention": paged_cases(dev), "gla_scan": gla_cases(dev)}
@@ -637,6 +679,9 @@ def main() -> int:
             lib = ("none" if r["library_ms"] is None else f"{r['library_ms']:.4f} ms")
             extra = (f", dense SDPA (gather excluded) {r['yardstick_ms']:.4f} ms, "
                      f"limit ratio {r['limit_ratio']:.4f}" if "yardstick_ms" in r else "")
+            if "bound_f32" in r and r["bound_f32"][0] != r["bound_ms"]:
+                extra += (f", bound at the f32 CUDA-core peak {r['bound_f32'][0]:.4f} ms "
+                          f"({r['bound_f32'][1]})")
             if "tflops" in r:
                 extra += (f", {r['tflops']:.1f} TFLOP/s, kernel/bound "
                           f"{r['ms'] / r['bound_ms']:.2f}")

@@ -69,13 +69,23 @@ def ns_sample(
     default is ``kernels.ns_update.ops.fused_ns_update``, which launches the
     CUDA kernel for tensors on the card and runs its plain version on the CPU.
 
-    Unlike the reference's immutable scan carry, the velocity buffer
-    U (n, *x0.shape) is preallocated once and step i writes ``U[i] = u`` in
-    place. Step i hands ``update_fn`` only the rows it has filled, as views:
-    ``U[:i+1]`` and the weights ``b[i, :i+1]`` (the reference passes the whole
-    buffer with the later weights masked to zero, which adds nothing). ``a``
-    and ``b`` are made f32 once, before the loop, and stay on x0's device, so
-    no step synchronises or launches anything besides ``u_fn`` and the update.
+    Step i hands ``update_fn`` only the i + 1 velocities computed so far,
+    ``U[:i+1]``, and the weights ``b[i, :i+1]`` (the reference passes the
+    whole buffer with the later weights masked to zero, which adds nothing).
+    ``a`` and ``b`` are made f32 once, before the loop, and stay on x0's
+    device, so no step synchronises or launches anything besides ``u_fn`` and
+    the update. How ``U[:i+1]`` is made depends on autograd:
+
+    * ``torch.is_grad_enabled()`` false (every serving engine samples under
+      ``torch.no_grad()``): the velocity buffer U (n, *x0.shape) is
+      preallocated once, step i writes ``U[i] = u`` in place and hands over
+      the view ``U[:i+1]``.
+    * grad enabled: nothing is written in place, since step i's update saved
+      ``U[:i+1]`` for backward; the velocities are kept in a list and step i
+      hands over ``torch.stack`` of them (i + 1 rows, a copy). Sampling is then
+      reverse-mode differentiable in a, b, x0 and whatever ``u_fn`` reads, as
+      the reference's ``lax.scan`` is. On the card ``fused_ns_update`` refuses
+      inputs that require grad (its kernel has no backward yet).
     """
     if update_fn is None:
         update_fn = fused_ns_update
@@ -84,8 +94,14 @@ def ns_sample(
     times, a, b = params.to(dev)
     a = a.to(torch.float32)
     b = torch.where(tril_mask(n, dev), b, 0.0).to(torch.float32)
-    U = torch.zeros((n,) + tuple(x0.shape), dtype=x0.dtype, device=dev)
     x = x0
+    if torch.is_grad_enabled():
+        us = []
+        for i in range(n):
+            us.append(u_fn(times[i], x))
+            x = update_fn(x0, torch.stack(us), a[i], b[i, : i + 1])
+        return x
+    U = torch.zeros((n,) + tuple(x0.shape), dtype=x0.dtype, device=dev)
     for i in range(n):
         U[i] = u_fn(times[i], x)
         x = update_fn(x0, U[: i + 1], a[i], b[i, : i + 1])

@@ -3,10 +3,16 @@
     S_t = diag(exp(ld_t)) S_{t-1} + k_t v_t^T ;  o_t = q_t^T S_t (inclusive) or S_{t-1}
 
 Replaces the Pallas kernel ``repro.kernels.gla_scan.gla_scan``: one block per
-(batch row, head) walks its chunks in order with the state in shared memory.
-Unlike the Pallas kernel it takes any L (a ragged last chunk is padded with
-zeros in the kernel, as ``gla_chunked`` pads it), an initial state, and one
-decay per head (ld's last dim 1, read with a stride of 0).
+(batch row, head) walks its chunks in order with the f32 state in shared
+memory. The C entry point picks one of two kernels by type and shape
+(``kernel_for`` names it): bf16 q, k, v with dk and dv multiples of 16 up to
+128 and a chunk of 16, 32 or 64 (every ported model's path) take the
+tensor-core kernel, whose chunks are cut into 16-row sub-chunks with the
+matrix products on ``mma.sync``; everything else (f32 q, k, v, other sizes)
+takes the CUDA-core kernel. Unlike the Pallas kernel it takes any L (a
+ragged last chunk is padded with zeros in the kernel, as ``gla_chunked``
+pads it), an initial state, and one decay per head (ld's last dim 1, read
+with a stride of 0).
 """
 from __future__ import annotations
 
@@ -29,9 +35,20 @@ def _lib():
         fn.argtypes = ([ctypes.c_int] * 3 + [ctypes.c_void_p] * 7 + [ctypes.c_int] * 6
                        + [ctypes.c_void_p, ctypes.c_void_p])
         fn.restype = ctypes.c_int
-        lib.gla_scan_smem_bytes.argtypes = [ctypes.c_int] * 3
+        lib.gla_scan_smem_bytes.argtypes = [ctypes.c_int] * 5
         lib.gla_scan_smem_bytes.restype = ctypes.c_longlong
+        lib.gla_scan_uses_mma.argtypes = [ctypes.c_int] * 4
+        lib.gla_scan_uses_mma.restype = ctypes.c_int
     return lib
+
+
+def kernel_for(dtype: torch.dtype, L: int, dk: int, dv: int, chunk: int = 64) -> str:
+    """Which kernel ``gla_scan`` launches for q, k, v of ``dtype`` at these
+    sizes: "tensor-core" or "CUDA-core" (the C library's own rule)."""
+    if dtype not in _DTYPES:
+        raise TypeError(f"gla_scan takes float32 or bfloat16 q, k, v, got {dtype}")
+    mma = _lib().gla_scan_uses_mma(_DTYPES[dtype], dk, dv, min(chunk, L))
+    return "tensor-core" if mma else "CUDA-core"
 
 
 def gla_scan(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, ld: torch.Tensor,
@@ -76,7 +93,7 @@ def gla_scan(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, ld: torch.Tensor
         raise ValueError("gla_scan arguments lie on different devices")
     chunk = min(chunk, L)
     lib = _lib()
-    smem = lib.gla_scan_smem_bytes(dk, dv, chunk)
+    smem = lib.gla_scan_smem_bytes(_DTYPES[q.dtype], _DTYPES[ld.dtype], dk, dv, chunk)
     if smem > MAX_SMEM_BYTES:
         raise ValueError(f"gla_scan at dk={dk}, dv={dv}, chunk={chunk} needs {smem} "
                          f"bytes of shared memory a block, over the {MAX_SMEM_BYTES} "

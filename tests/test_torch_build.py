@@ -96,3 +96,18 @@ def test_flash_variants_apply_to_the_kernel_source():
     base = variants.pop("kernel")
     assert base == Path(build.CSRC, "flash_attention.cu").read_text()
     assert variants and all(text != base for text in variants.values())
+
+
+def test_gla_scan_bf16_kernel_is_sub_chunked_on_the_tensor_cores():
+    """The bf16 kernel's four products are mma.sync m16n8k16 bf16 with f32
+    sums, its fragments come through ldmatrix, and the C entry point selects
+    it by type and shape alone (no launch is retried on the other kernel)."""
+    src = Path(build.CSRC, "gla_scan.cu").read_text()
+    assert "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32" in src
+    assert "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16" in src
+    rule = src[src.index("bool uses_mma("):].split("}")[0]
+    for term in ("qkv_dtype == 1", "dk % 16 == 0", "dv % 16 == 0", "dk <= 128", "dv <= 128",
+                 "c == 16 || c == 32 || c == 64"):
+        assert term in rule
+    entry = src[src.index('extern "C" int gla_scan_fwd('):]
+    assert entry.count("launch_mma<") == 2 and "if (uses_mma(" in entry

@@ -95,6 +95,30 @@ def test_ns_update_refuses_non_f32_coefficients_on_the_card(dev):
     assert nu_mod.COUNTER.launches == before
 
 
+@pytest.mark.parametrize("needs_grad", ["x0", "u", "a", "w"])
+def test_fused_ns_update_refuses_inputs_that_require_grad(dev, needs_grad):
+    """The kernel's output has no grad_fn: under grad, an input that requires
+    grad is refused before any launch instead of being cut from the graph;
+    under no_grad the same inputs launch the kernel."""
+    from repro_torch.kernels.ns_update.ops import fused_ns_update
+
+    rng = np.random.default_rng(7)
+    args = {"x0": _randn(rng, (2, 64), torch.float32, dev),
+            "u": _randn(rng, (3, 2, 64), torch.float32, dev),
+            "a": _randn(rng, (), torch.float32, dev),
+            "w": _randn(rng, (3,), torch.float32, dev)}
+    args[needs_grad].requires_grad_(True)
+    before = nu_mod.COUNTER.launches
+    with pytest.raises(RuntimeError, match="ROADMAP Queue A item 0"):
+        fused_ns_update(**args)
+    assert nu_mod.COUNTER.launches == before
+    with torch.no_grad():
+        out = fused_ns_update(**args)
+    assert nu_mod.COUNTER.launches == before + 1
+    torch.testing.assert_close(out, ns_update_ref(**args).detach(), atol=TOL[torch.float32] * 3,
+                               rtol=TOL[torch.float32])
+
+
 def _check_flash_bf16(out, ref):
     torch.testing.assert_close(out.float(), ref.float(), atol=FLASH_BF16_ATOL,
                                rtol=FLASH_BF16_RTOL)
@@ -344,6 +368,57 @@ def test_gla_scan_matches_plain(dev, L, chunk, inclusive, dk, dv, dtype, ld_dtyp
     torch.cuda.synchronize()
     assert gs_mod.COUNTER.launches == before + 1
     _check_gla(out, _oracle(q, k, v, ld, inclusive=inclusive), dtype)
+
+
+@pytest.mark.parametrize("dtype,L,dk,dv,chunk,want", [
+    (torch.bfloat16, 1024, 64, 64, 64, "tensor-core"),    # rwkv6-7b's time mix
+    (torch.bfloat16, 256, 32, 96, 64, "tensor-core"),
+    (torch.bfloat16, 96, 16, 128, 16, "tensor-core"),
+    (torch.bfloat16, 128, 128, 128, 32, "tensor-core"),
+    (torch.float32, 1024, 64, 64, 64, "CUDA-core"),       # f32: by type
+    (torch.bfloat16, 1024, 64, 72, 64, "CUDA-core"),      # dv not a multiple of 16
+    (torch.bfloat16, 1024, 144, 64, 64, "CUDA-core"),     # dk past 128
+    (torch.bfloat16, 1024, 64, 64, 8, "CUDA-core"),       # chunk not 16, 32 or 64
+    (torch.bfloat16, 40, 64, 64, 64, "CUDA-core"),        # chunk cut to L = 40
+])
+def test_gla_scan_selects_its_kernel_by_type_and_shape(dev, dtype, L, dk, dv, chunk, want):
+    """The C library's selection rule, as the source note states it; both
+    kernels agree with the oracle at a short L of the same sizes."""
+    from repro_torch.kernels.gla_scan.gla_scan import gla_scan, kernel_for
+
+    assert kernel_for(dtype, L, dk, dv, chunk) == want
+    L = min(L, 80)
+    q, k, v, ld = _gla_inputs(dk + dv, 1, L, 2, dk, dv, dtype, torch.float32, dev)
+    assert kernel_for(dtype, L, dk, dv, chunk) == want
+    _check_gla(gla_scan(q, k, v, ld, inclusive=False, chunk=chunk),
+               _oracle(q, k, v, ld, inclusive=False), dtype)
+
+
+@pytest.mark.parametrize("ld_dtype", [torch.float32, torch.bfloat16], ids=str)
+@pytest.mark.parametrize("L,chunk,inclusive,dk,dv", [
+    (256, 64, False, 64, 64),    # rwkv6-style, four sub-chunks a chunk
+    (200, 32, True, 48, 80),     # dk != dv, ragged tail
+    (80, 16, False, 128, 32),    # one sub-chunk a chunk
+    (64, 64, True, 128, 128),    # the largest tile
+])
+def test_gla_scan_tensor_core_kernel_with_s0_and_strong_decay(dev, L, chunk, inclusive, dk,
+                                                              dv, ld_dtype):
+    """The tensor-core kernel with an initial state, and under strong decay
+    (ld x30: factors underflow to 0, never overflow), against the f64
+    oracle."""
+    from repro_torch.kernels.gla_scan.gla_scan import gla_scan, kernel_for
+
+    bf16 = torch.bfloat16
+    assert kernel_for(bf16, L, dk, dv, chunk) == "tensor-core"
+    q, k, v, ld = _gla_inputs(L + dk, 2, L, 3, dk, dv, bf16, ld_dtype, dev)
+    s0 = _randn(np.random.default_rng(L), (2, 3, dk, dv), torch.float32, dev)
+    _check_gla(gla_scan(q, k, v, ld, s0, inclusive=inclusive, chunk=chunk),
+               _oracle(q, k, v, ld, s0, inclusive=inclusive), bf16)
+    q, k, v, ld = _gla_inputs(L + dv, 1, L, 2, dk, dv, bf16, ld_dtype, dev, scale=30.0)
+    o, s = gla_scan(q, k, v, ld, inclusive=inclusive, chunk=chunk)
+    assert bool(torch.isfinite(o.float()).all()) and bool(torch.isfinite(s).all())
+    _check_gla((o, s), _oracle(q, k, v, ld, inclusive=inclusive), bf16,
+               atol=max(1e-3, TOL[bf16] * 20))
 
 
 @pytest.mark.parametrize("inclusive", [True, False])

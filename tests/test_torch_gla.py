@@ -151,6 +151,85 @@ def test_plain_route_matches_the_reference_kernel(L, chunk, inclusive, dk, dv, d
     _close((o, s), (jo, js), atol=tol * 20, rtol=tol)
 
 
+def _subchunk_way(q, k, v, ld, s0, *, inclusive, chunk):
+    """The bf16 tensor-core kernel's algorithm (csrc/gla_scan.cu), written out
+    in f64 for a check of its algebra: each chunk is cut into 16-row
+    sub-chunks; query sub-chunk i takes its off-diagonal score blocks (key
+    sub-chunk j < i) as one product about the reference point r_i = cum at
+    the last row of sub-chunk i - 1,
+
+        scores_ij = (q_i e^{cum_q - r_i}) (k_j e^{r_i - cum_j})^T,
+
+    and the 16 x 16 diagonal blocks are cut once more, into 8-row halves:
+    the lower-left 8 x 8 block is the same product about cum at the 8th row,
+    and only the two 8 x 8 diagonal triangles keep the per-channel clamped
+    exponential. cum_q is the previous row of cum behind a zero row
+    (exclusive) or cum itself (inclusive). A ragged tail reads as zeros."""
+    B, L, H, dk = q.shape
+    dv = v.shape[-1]
+    pad = (-L) % chunk
+    q, k, v, ld = (torch.nn.functional.pad(a.double(), (0, 0, 0, 0, 0, pad)).transpose(1, 2)
+                   for a in (q, k, v, ld))
+    ld = ld.expand(B, H, L + pad, dk)
+    S = torch.zeros((B, H, dk, dv), dtype=torch.float64) if s0 is None else s0.double()
+    idx = torch.arange(16)
+    keep = idx[:, None] >= idx[None, :] if inclusive else idx[:, None] > idx[None, :]
+    outs = []
+    for l0 in range(0, L + pad, chunk):
+        qc, kc, vc, lc = (a[:, :, l0:l0 + chunk] for a in (q, k, v, ld))
+        cz = torch.nn.functional.pad(lc.cumsum(2), (0, 0, 1, 0))   # zero row, then cum
+        cum = cz[:, :, 1:]
+        cq = cum if inclusive else cz[:, :, :-1]
+        scores = torch.zeros((B, H, chunk, chunk), dtype=torch.float64)
+        for i in range(chunk // 16):
+            T = slice(16 * i, 16 * i + 16)
+            if i:
+                r = cum[:, :, 16 * i - 1:16 * i]
+                qp = qc[:, :, T] * torch.exp(cq[:, :, T] - r)
+                kp = kc[:, :, :16 * i] * torch.exp(r - cum[:, :, :16 * i])
+                scores[:, :, T, :16 * i] = qp @ kp.transpose(-1, -2)
+            diag = torch.zeros((B, H, 16, 16), dtype=torch.float64)
+            for h in (0, 8):                        # the two 8 x 8 diagonal triangles
+                R = slice(16 * i + h, 16 * i + h + 8)
+                dd = (cq[:, :, R, None, :] - cum[:, :, None, R, :]).clamp(max=0.0)
+                diag[:, :, h:h + 8, h:h + 8] = (qc[:, :, R, None, :] * kc[:, :, None, R, :]
+                                                * torch.exp(dd)).sum(-1)
+            lo, hi = slice(16 * i, 16 * i + 8), slice(16 * i + 8, 16 * i + 16)
+            rh = cum[:, :, 16 * i + 7:16 * i + 8]   # cum at the 8th row of the sub-chunk
+            diag[:, :, 8:, :8] = ((qc[:, :, hi] * torch.exp(cq[:, :, hi] - rh))
+                                  @ (kc[:, :, lo] * torch.exp(rh - cum[:, :, lo])).transpose(-1, -2))
+            scores[:, :, T, T] = torch.where(keep, diag, 0.0)
+        outs.append((qc * torch.exp(cq)) @ S + scores @ vc)
+        cend = cum[:, :, -1:]
+        S = torch.exp(cend[:, :, 0, :, None]) * S + (kc * torch.exp(cend - cum)).transpose(-1, -2) @ vc
+    return torch.cat(outs, 2).transpose(1, 2)[:, :L], S
+
+
+@pytest.mark.parametrize("decay", ["moderate", "strong", "per head"])
+@pytest.mark.parametrize("inclusive", [True, False])
+@pytest.mark.parametrize("chunk", [16, 32, 64])
+def test_subchunk_algebra_matches_chunked_form(chunk, inclusive, decay):
+    """The kernel's sub-chunk algebra (f64, _subchunk_way) against the f64
+    recurrence (1e-9) and against gla_chunked, over chunks of 16, 32 and 64,
+    both modes, moderate (x0.5) and strong (x30) per-channel decay and a
+    decay per head, a ragged tail and an s0. Every output is finite, so no
+    factor of the algebra overflows. gla_chunked computes in f32; it is held
+    at its tolerance against the recurrence (tests/test_models_units.py,
+    5e-4 / 2e-4), except under strong decay at chunks of 32 and 64, where its
+    f32 cumulative decays (|cum| ~ 1e3, one ulp ~ 1e-4) put it up to 2.1e-3
+    from the exact recurrence on these inputs: atol 3e-3 there."""
+    scale = 30.0 if decay == "strong" else 0.5
+    q, k, v, ld, s0 = _t(_inputs(chunk + 3 * inclusive, 2, 2 * chunk + 10, 2, 32, 48,
+                                 scale=scale, ld_dk=1 if decay == "per head" else None, s0=True))
+    o, s = _subchunk_way(q, k, v, ld, s0, inclusive=inclusive, chunk=chunk)
+    assert bool(torch.isfinite(o).all()) and bool(torch.isfinite(s).all())
+    exact = T.gla_recurrent(*(a.double() for a in (q, k, v, ld, s0)), inclusive=inclusive)
+    _close((o, s), [w.numpy() for w in exact], atol=1e-9, rtol=1e-9)
+    want = T.gla_chunked(q, k, v, ld, s0, inclusive=inclusive, chunk=chunk)
+    f32_drift = decay == "strong" and chunk > 16
+    _close((o, s), [w.numpy() for w in want], atol=3e-3 if f32_drift else 5e-4, rtol=2e-4)
+
+
 def test_ops_gla_on_cpu_is_the_chunked_form():
     q, k, v, ld, s0 = _t(_inputs(8, 2, 40, 2, 16, 16, s0=True))
     before = gs_mod.COUNTER.launches

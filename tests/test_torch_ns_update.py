@@ -104,9 +104,10 @@ def test_kernel_wrapper_refuses_non_f32_coefficients_before_any_launch(bad, dtyp
 
 @pytest.mark.parametrize("name,nfe", [("euler", 4), ("rk4", 8), ("ab2", 6)])
 def test_ns_sample_hands_each_step_only_its_live_rows(name, nfe):
-    """Step i gets U[:i+1] and b[i, :i+1] as views of the solver's buffers
-    (no copy, no mask launch), f32 coefficients, and the result equals the
-    full-buffer form with masked weights."""
+    """Under torch.no_grad() (how every serving engine samples), step i gets
+    U[:i+1] and b[i, :i+1] as views of the solver's buffers (no copy, no mask
+    launch), f32 coefficients, and the result equals the full-buffer form
+    with masked weights."""
     params = treg.build_ns(name, nfe)
     x0 = torch.from_numpy(np.random.default_rng(nfe).standard_normal((3, 5)).astype(np.float32))
     seen = []
@@ -115,7 +116,8 @@ def test_ns_sample_hands_each_step_only_its_live_rows(name, nfe):
         seen.append((U, a_i, w_i))
         return fused_ns_update(x0_, U, a_i, w_i)
 
-    got = tns.ns_sample(params, _linear_u_np, x0, update_fn=spy)
+    with torch.no_grad():
+        got = tns.ns_sample(params, _linear_u_np, x0, update_fn=spy)
     assert len(seen) == nfe
     b = torch.where(tns.tril_mask(nfe), params.b, 0.0).to(torch.float32)
     buffer = seen[-1][0]
@@ -133,6 +135,56 @@ def test_ns_sample_hands_each_step_only_its_live_rows(name, nfe):
         w = torch.where(torch.arange(nfe) <= i, b[i], 0.0)
         x = ns_update_ref(x0, full, params.a[i], w)
     np.testing.assert_allclose(got.numpy(), x.numpy(), atol=1e-6, rtol=1e-6)
+
+
+@pytest.mark.parametrize("name,nfe", [("euler", 4), ("rk4", 8), ("ab2", 6)])
+def test_ns_sample_under_grad_hands_each_step_fresh_live_rows(name, nfe):
+    """With grad enabled nothing is written in place: step i gets i + 1 rows
+    stacked anew (no view of an earlier step's rows, which that step's update
+    saved for backward), and the same values and result as under no_grad."""
+    params = treg.build_ns(name, nfe)
+    x0 = torch.from_numpy(np.random.default_rng(nfe).standard_normal((3, 5)).astype(np.float32))
+    seen = []
+
+    def spy(x0_, U, a_i, w_i):
+        seen.append(U)
+        return fused_ns_update(x0_, U, a_i, w_i)
+
+    got = tns.ns_sample(params, _linear_u_np, x0, update_fn=spy)
+    with torch.no_grad():
+        want = tns.ns_sample(params, _linear_u_np, x0)
+    assert [U.shape[0] for U in seen] == list(range(1, nfe + 1))
+    assert len({U.data_ptr() for U in seen}) == nfe
+    for i, U in enumerate(seen[:-1]):
+        np.testing.assert_array_equal(U.numpy(), seen[-1][: i + 1].numpy())
+    np.testing.assert_array_equal(got.numpy(), want.numpy())
+
+
+@pytest.mark.parametrize("name,nfe", [("euler", 4), ("rk4", 8), ("midpoint", 8)])
+def test_ns_sample_gradient_matches_jax_grad(name, nfe):
+    """The port's ns_sample is reverse-mode differentiable in a and b, as the
+    reference's is: d loss / d(a, b) against jax.grad of the reference on the
+    same x0, solver and linear field, f32, TOL scaled by n."""
+    import jax
+
+    x0 = np.random.default_rng(nfe + 7).standard_normal((4, 6)).astype(np.float32)
+    jfield = jtoy.linear_field(jsched.fm_ot())
+    jp = jreg.build_ns(name, nfe, jfield)
+
+    def jloss(a, b):
+        x = jns.ns_sample(jns.NSParams(jp.times, a, b), jfield.fn, jnp.asarray(x0))
+        return jnp.sum(x * x)
+
+    ja, jb = jax.grad(jloss, argnums=(0, 1))(jp.a, jp.b)
+    tp = treg.build_ns(name, nfe)
+    a = tp.a.clone().requires_grad_(True)
+    b = tp.b.clone().requires_grad_(True)
+    x = tns.ns_sample(tns.NSParams(tp.times, a, b), _linear_u_np, torch.from_numpy(x0))
+    (x * x).sum().backward()
+    for got, want in ((a.grad, ja), (b.grad, jb)):
+        np.testing.assert_allclose(got.numpy(), np.asarray(want),
+                                   atol=TOL["float32"] * nfe, rtol=TOL["float32"])
+    assert not np.triu(b.grad.numpy(), 1).any()
 
 
 def _linear_u_np(t, x, rate=1.5, drift=0.7):
