@@ -20,7 +20,9 @@ Phases (any failure ends the run with a non-zero exit and no last line):
    torch.profiler beside the host-inclusive times. Flash attention prints
    its achieved TFLOP/s and kernel / bound.
    Paged attention has no such call: a dense SDPA over a pre-gathered copy
-   is timed beside it, labelled "dense SDPA, gather excluded". gla_scan has
+   is timed beside it, labelled "dense SDPA, gather excluded"; its device
+   time is read from torch.profiler at the decode cell and the long rows,
+   beside the host-inclusive time. gla_scan has
    none either, and is held against its step-by-step oracle, taken in f64
    on the same inputs; each case prints which of its two kernels ran
    (tensor-core for bf16 q, k, v with dk, dv multiples of 16 up to 128 and a
@@ -39,6 +41,18 @@ Phases (any failure ends the run with a non-zero exit and no last line):
    request may fail, every page must return to the pool, and paged
    attention must launch 32 times per ``decode_apply`` call (counted apart
    from the kernel's own counter); the flow kernels launch 0 times.
+6b. Long-row decode step: the same yi-6b weights at full width over a paged
+   state of 8 rows of 256 pages of 16 (the decode cell's f32 slot state,
+   ~4.3 GB), each row on its own shuffled pages past the trash page 0 with
+   seeded random K/V, at positions LONG_LENGTHS - 1. One ``decode_apply``
+   call with the paged kernel and one with the reference's dense gather are
+   timed (CUDA events, 5 calls after 2 warm-up calls), with the kernel's
+   device time from torch.profiler; the kernel launches exactly 32 times a
+   call. With bf16 weights the dense gather rounds scores and softmax
+   weights to bf16 (the reference's rounding order), so the two paths'
+   logits are compared, by phase 7's rule (relative L2 <= 1e-4, the same
+   greedy tokens), on an f32 copy of the same weights; the bf16 difference
+   is printed beside it.
 7. The decode path on the card (kernel) against the CPU (plain version):
    the same 2-layer f32 model and the same gateway requests; every step's
    logits within relative L2 1e-4 and the same greedy tokens.
@@ -91,6 +105,7 @@ DECODE_ARGS = ["--arch", "yi-6b", "--mode", "decode", "--full", "--gateway",
                "--prefill-chunk", "64"]
 RWKV_DECODE_ARGS = ["--arch", "rwkv6-7b", "--mode", "decode", "--full", "--gateway",
                     "--max-slots", "4", "--requests", "8", "--decode-lengths", "32,16"]
+LONG_LENGTHS = [4096, 3001, 2048, 1, 777, 4095, 1500, 3333]   # positions a row
 LAYERS = 32                                        # yi-6b and rwkv6-7b
 VOCAB = {"yi-6b": 64000, "rwkv6-7b": 65536}
 KERNELS = ("ns_update", "flash_attention", "paged_attention", "gla_scan")
@@ -284,6 +299,17 @@ def paged_inputs(g, dev, B, KV, G, hd, ps, nb, q_dtype, page_dtype, lengths):
     return q, k, v, table, torch.tensor(lengths, dtype=torch.int32, device=dev)
 
 
+def poison_tails(k, v, table, lengths) -> None:
+    """Garbage (+-1e4, alternating) in each row's own pages past its length."""
+    ps, nb = k.shape[1], table.shape[1]
+    for b, n in enumerate(lengths):
+        pos = torch.arange(n, nb * ps, device=k.device)
+        page, off = table[b, pos // ps].long(), pos % ps
+        sign = (pos % 2 * 2 - 1).to(k.dtype)[:, None, None]
+        k[page, off] = 1e4 * sign
+        v[page, off] = -1e4 * sign
+
+
 def paged_cases(dev):
     import torch.nn.functional as F
 
@@ -293,12 +319,11 @@ def paged_cases(dev):
     g = torch.Generator(device=dev).manual_seed(2)
     bf16, f32 = torch.bfloat16, torch.float32
     decode_lengths = [129, 1, 17, 64, 100, 33, 128, 16]
-    long_lengths = [4096, 3001, 2048, 1, 777, 4095, 1500, 3333]
     rows = []
     for B, KV, G, hd, ps, nb, q_dtype, page_dtype, lengths, poison in [
             (8, 4, 8, 128, 16, 16, bf16, f32, decode_lengths, False),   # the decode cell
-            (8, 4, 8, 128, 16, 256, bf16, bf16, long_lengths, False),   # long rows
-            (8, 4, 8, 128, 16, 256, bf16, f32, long_lengths, False),
+            (8, 4, 8, 128, 16, 256, bf16, bf16, LONG_LENGTHS, False),   # long rows
+            (8, 4, 8, 128, 16, 256, bf16, f32, LONG_LENGTHS, False),
             (2, 2, 2, 64, 8, 4, f32, f32, [2, 12], False),              # tests/test_kernels.py
             (3, 1, 4, 32, 16, 2, f32, f32, [1, 19, 32], False),
             (1, 4, 1, 64, 8, 3, f32, f32, [9], False),
@@ -308,12 +333,8 @@ def paged_cases(dev):
         shape = (f"B={B} KV={KV} G={G} hd={hd} ps={ps} nb={nb} q {str(q_dtype)[6:]} "
                  f"pages {str(page_dtype)[6:]} lengths<={max(lengths)}")
         out = paged_attention(q, k, v, table, lens)
-        if poison:      # garbage in each row's own pages past its length
-            for b, n in enumerate(lengths):
-                for pos in range(n, nb * ps):
-                    page, off = int(table[b, pos // ps]), pos % ps
-                    k[page, off] = 1e4 if pos % 2 else -1e4
-                    v[page, off] = -1e4 if pos % 2 else 1e4
+        if poison:
+            poison_tails(k, v, table, lengths)
             if not torch.equal(paged_attention(q, k, v, table, lens), out):
                 raise SystemExit(f"paged_attention [{shape}]: positions past the "
                                  "length leak into the output")
@@ -341,6 +362,9 @@ def paged_cases(dev):
             yardstick_ms=time_ms(lambda: F.scaled_dot_product_attention(
                 qd, kd, vd, attn_mask=mask, enable_gqa=True)),
             bound_ms=b_ms, bound_by=b_by))
+        if len(rows) <= 3:    # the decode cell and the long rows
+            rows[-1]["device_ms"] = device_ms(
+                lambda: paged_attention(q, k, v, table, lens), "paged_attention")
         del kd, vd
     return rows
 
@@ -599,6 +623,82 @@ def decode_path(dev, counters, args: list, per_call: dict):
     return launches
 
 
+def long_row_decode_step(dev, counters) -> dict:
+    """Phase 6b: one yi-6b decode step at full width over 8 rows of up to
+    4096 positions, through the paged kernel and through the dense gather."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import model as M
+
+    free_device_memory(dev)
+    cfg = get_config("yi-6b")
+    params = M.init_params(torch.Generator(device=dev).manual_seed(0), cfg, dev)
+    B, ps, nb = len(LONG_LENGTHS), 16, 256
+    state = M.init_paged_decode_state(cfg, B, 1 + B * nb, ps, nb, torch.float32, dev)
+    g = torch.Generator(device=dev).manual_seed(4)
+    table = (torch.randperm(B * nb, generator=g, device=dev) + 1).reshape(B, nb)
+    state.block_table.copy_(table.to(torch.int32))
+    # random K/V a layer at a time, bf16 values in the f32 pool, as the bf16
+    # model's own writes to an f32 slot state are
+    for pool in (state.k_pages, state.v_pages):
+        for layer in pool:
+            layer.copy_(torch.randn(layer.shape, generator=g, device=dev).to(torch.bfloat16))
+    state = state._replace(
+        index=torch.tensor(LONG_LENGTHS, dtype=torch.int32, device=dev) - 1)
+    token = torch.arange(B, dtype=torch.int32, device=dev) * 7 + 3
+
+    def step(p, kernel: bool):
+        return M.decode_apply(p, cfg, token, state, paged_kernel=kernel)[0]
+
+    zero = dict.fromkeys(KERNELS, 0)
+    with torch.no_grad():
+        reset(counters)
+        logits = {kernel: step(params, kernel).float() for kernel in (True, False)}
+        torch.cuda.synchronize(dev)
+        launches = {name: c.launches for name, c in counters.items()}
+        if launches != {**zero, "paged_attention": LAYERS}:
+            raise SystemExit(f"long-row decode step launched {launches} for one kernel "
+                             f"call and one dense call, expected {LAYERS} paged")
+        kernel_ms = time_ms(lambda: step(params, True), iters=5, warmup=2)
+        dense_ms = time_ms(lambda: step(params, False), iters=5, warmup=2)
+        kernel_dev = device_ms(lambda: step(params, True), "paged_attention", iters=3)
+        all_dev = device_ms(lambda: step(params, True), None, iters=3)
+        rel16 = float(torch.linalg.vector_norm(logits[True] - logits[False])
+                      / torch.linalg.vector_norm(logits[False]))
+        params = _to_f32(params)                         # the f32 copy replaces it
+        torch.cuda.empty_cache()
+        logits32 = {kernel: step(params, kernel).float() for kernel in (True, False)}
+    rel32 = float(torch.linalg.vector_norm(logits32[True] - logits32[False])
+                  / torch.linalg.vector_norm(logits32[False]))
+    same = bool(torch.equal(logits32[True].argmax(-1), logits32[False].argmax(-1)))
+    peak = torch.cuda.max_memory_allocated(dev)
+    kd = "not measured" if kernel_dev is None else f"{kernel_dev:.4f} ms"
+    ad = "not measured" if all_dev is None else f"{all_dev:.3f} ms"
+    print(f"long-row decode step: yi-6b full width, {B} rows of up to "
+          f"{max(LONG_LENGTHS)} positions (f32 pages, {2 * state.k_pages.numel() * 4 / 1e9:.2f} GB): "
+          f"decode_apply with the paged kernel {kernel_ms:.3f} ms, with the dense gather "
+          f"{dense_ms:.3f} ms; paged kernel device time {kd} a call ({LAYERS} launches), "
+          f"all kernels' device time {ad} a call; logits kernel vs dense relative L2 "
+          f"{rel16:.3e} with bf16 weights (the dense gather rounds scores and weights "
+          f"to bf16), {rel32:.3e} with the f32 copy (limit 1e-4), greedy tokens equal "
+          f"(f32): {same}; peak memory {peak / 2**30:.3f} GiB")
+    if not (rel32 <= 1e-4 and same):
+        raise SystemExit(f"long-row decode step: kernel vs dense gather on the f32 weights: "
+                         f"relative L2 {rel32}, same tokens {same}")
+    del params, state, logits, logits32
+    free_device_memory(dev)
+    return {"kernel_path_ms": kernel_ms, "dense_gather_ms": dense_ms,
+            "kernel_device_ms": kernel_dev, "all_kernels_device_ms": all_dev}
+
+
+def _to_f32(tree):
+    """The parameter tree with every floating tensor in f32."""
+    if isinstance(tree, dict):
+        return {k: _to_f32(v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_to_f32(v) for v in tree)
+    return tree.float() if torch.is_floating_point(tree) else tree
+
+
 def decode_against_cpu(dev, counters, cfg, params, engine_kw: dict, per_call: dict):
     """The same gateway requests on the card and on the CPU: every step's
     logits within relative L2 1e-4 and the same greedy tokens; on the card
@@ -704,6 +804,7 @@ def main() -> int:
                            {**zero, "ns_update": 4, "flash_attention": 2 * 4})
     launches["paged_attention"] = decode_path(
         dev, counters, DECODE_ARGS, {"paged_attention": LAYERS})["paged_attention"]
+    long_step = long_row_decode_step(dev, counters)
     decode_against_cpu(dev, counters, cfg, params,
                        dict(page_size=16, paged_kernel=True), {"paged_attention": 2})
     del cfg, params
@@ -738,6 +839,9 @@ def main() -> int:
         if "yardstick_ms" in main_case:
             kernels[-1]["yardstick"] = {"what": "dense SDPA, gather excluded",
                                         "ms": main_case["yardstick_ms"]}
+        if name == "paged_attention":
+            kernels[-1]["device_ms"] = main_case["device_ms"]
+            kernels[-1]["long_row_decode_step"] = long_step
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

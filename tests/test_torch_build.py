@@ -111,3 +111,69 @@ def test_gla_scan_bf16_kernel_is_sub_chunked_on_the_tensor_cores():
         assert term in rule
     entry = src[src.index('extern "C" int gla_scan_fwd('):]
     assert entry.count("launch_mma<") == 2 and "if (uses_mma(" in entry
+
+
+PAGED_FAULTS = ["merge drops the last split", "merge skips the rescale",
+                "reads one position past the length", "split boundary moved by one"]
+
+
+@pytest.mark.parametrize("fault", PAGED_FAULTS)
+def test_paged_fault_check_plants_each_fault_in_the_kernel_source(fault):
+    """scripts/paged_fault_check.py replaces text of csrc/paged_attention.cu;
+    each target must occur exactly once, or the script errors or checks
+    nothing."""
+    old, new = _script("paged_fault_check").FAULTS[fault]
+    src = Path(build.CSRC, "paged_attention.cu").read_text()
+    assert src.count(old) == 1 and new != old
+
+
+def test_paged_attention_kernel_is_split_staged_and_merged_in_one_launch():
+    """The grid carries splits of a row's pages; each block stages its tiles
+    through a cp.async ring of at least 3 stages (zero-filling past the
+    split's end); the last split to arrive at a (row, head)'s counter merges
+    the partials and resets the counter, all in the one launch."""
+    src = Path(build.CSRC, "paged_attention.cu").read_text()
+    stages = re.search(r"kStages = sizeof\(TP\) == 4 \? (\d+) : (\d+);", src)
+    assert stages and min(int(stages[1]), int(stages[2])) >= 3
+    assert 'cp.async.cg.shared.global [%0], [%1], 16, %2;' in src      # src-size: zfill
+    assert "cp.async.commit_group" in src and "cp.async.wait_group %0" in src
+    assert "const dim3 grid((unsigned)(a.nsplit * a.KV), (unsigned)a.B);" in src
+    assert "if (split >= live) return;" in src
+    merge = src[src.index("several live splits: publish"):src.index("struct Args {")]
+    assert "last_sm = arrive(&counters[bh]) == live - 1" in merge
+    assert "atom.acq_rel.gpu.global.add.s32" in src
+    assert "counters[bh] = 0;" in merge and "__ldcg(" in merge
+    assert src.count("<<<") == 1                                      # one launch a call
+    # bf16 q over bf16 pages: both products on the tensor cores
+    assert "constexpr bool MMA = sizeof(TQ) == 2 && sizeof(TP) == 2;" in src
+    assert src.count("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32") == 1
+    assert "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16" in src
+
+
+def test_paged_attention_binding_matches_the_c_signature():
+    """The ctypes argument types the wrapper sets follow the C entry point's
+    parameters: int -> c_int, pointers -> c_void_p, float -> c_float."""
+    import ctypes
+
+    from repro_torch.kernels.flash_attention import paged_attention as pa_mod
+
+    src = Path(build.CSRC, "paged_attention.cu").read_text()
+    sig = src[src.index('extern "C" int paged_attention_fwd('):].split(")")[0]
+    params = [p.strip() for p in sig.split("(", 1)[1].split(",")]
+    want = [ctypes.c_void_p if "*" in p else ctypes.c_float if p.startswith("float ")
+            else ctypes.c_int for p in params]
+
+    class Lib:
+        paged_attention_fwd = type("Fn", (), {"argtypes": None, "restype": None})()
+
+    _, fn = pa_mod.bind(Lib())
+    assert fn.argtypes == want and fn.restype is ctypes.c_int
+
+
+def test_paged_variants_apply_to_the_kernel_source():
+    """scripts/paged_variants.py edits csrc/paged_attention.cu by text; every
+    variant's targets occur exactly once, and each variant changes the text."""
+    variants = _script("paged_variants").sources()
+    base = variants.pop("kernel")
+    assert base == Path(build.CSRC, "paged_attention.cu").read_text()
+    assert variants and all(text != base for text in variants.values())

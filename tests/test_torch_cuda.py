@@ -289,6 +289,120 @@ def test_paged_attention_edge_rows(dev, q_dtype, page_dtype):
     _check_paged(poisoned, paged_attention_ref(q, kl, vl, table, lengths))
 
 
+_LONG_LENGTHS = [4096, 3001, 2048, 1, 777, 4095, 1500, 3333]   # chip_smoke.py phase 3
+
+
+def _paged_case(seed, B, KV, G, hd, ps, nb, q_dtype, page_dtype, dev, lengths):
+    q, k, v, table, _ = _paged_inputs(seed, B, KV, G, hd, ps, nb, q_dtype, page_dtype, dev)
+    return q, k[0], v[0], table, torch.tensor(lengths, dtype=torch.int32, device=dev)
+
+
+def _check_paged_rows(out, q, k, v, table, lengths):
+    """Rows of length >= 1 against the plain version; a row of length 0
+    gives zeros, as the TPU kernel's does (the dense plain version averages
+    over the masked positions there)."""
+    from repro_torch.kernels.flash_attention.ref import paged_attention_ref
+
+    ref = paged_attention_ref(q, k, v, table, lengths)
+    nz = lengths > 0
+    _check_paged(out[nz], ref[nz])
+    assert bool((out[~nz] == 0).all())
+
+
+@pytest.mark.parametrize("q_dtype,page_dtype", _PAGED_DTYPES, ids=str)
+def test_paged_attention_long_ragged_rows(dev, q_dtype, page_dtype):
+    """Rows of up to 4096 positions (16 splits of 16 pages on the H100),
+    one of them a single position."""
+    from repro_torch.kernels.flash_attention.paged_attention import paged_attention
+
+    args = _paged_case(11, 8, 4, 8, 128, 16, 256, q_dtype, page_dtype, dev, _LONG_LENGTHS)
+    _check_paged_rows(paged_attention(*args), *args)
+
+
+@pytest.mark.parametrize("nb", [16, 64, 256])
+def test_paged_attention_lengths_at_split_boundaries(dev, nb):
+    """Every length k * span - 1, k * span, k * span + 1 for the span of
+    positions a split covers under the plan the wrapper picks on this card,
+    beside lengths 0 and nb * page_size."""
+    from repro_torch.kernels.flash_attention import paged_attention as pa_mod
+
+    KV, G, hd, ps = 4, 8, 128, 16
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    lengths = [0, nb * ps]
+    pps, splits, _ = pa_mod.split_plan(8, KV, nb, ps, sms)
+    span = pps * ps
+    lengths += [k * span + d for k in range(1, splits + 1) for d in (-1, 0, 1)
+                if 1 <= k * span + d <= nb * ps]
+    for f32_pages in (True, False):
+        page_dtype = torch.float32 if f32_pages else torch.bfloat16
+        for i in range(0, len(lengths), 8):
+            rows = (lengths[i:i + 8] + [1] * 8)[:8]
+            args = _paged_case(nb + i, 8, KV, G, hd, ps, nb, torch.bfloat16, page_dtype,
+                               dev, rows)
+            _check_paged_rows(pa_mod.paged_attention(*args), *args)
+
+
+@pytest.mark.parametrize("q_dtype,page_dtype", _PAGED_DTYPES, ids=str)
+def test_paged_attention_empty_rows_beside_full_rows(dev, q_dtype, page_dtype):
+    from repro_torch.kernels.flash_attention.paged_attention import paged_attention
+
+    nb, ps = 32, 16
+    args = _paged_case(5, 6, 4, 8, 128, ps, nb, q_dtype, page_dtype, dev,
+                       [0, nb * ps, 0, nb * ps, nb * ps + 7, 0])
+    _check_paged_rows(paged_attention(*args), *args)
+
+
+@pytest.mark.parametrize("q_dtype,page_dtype", _PAGED_DTYPES, ids=str)
+@pytest.mark.parametrize("hd", [32, 64, 80, 128])
+@pytest.mark.parametrize("G", list(range(1, 9)))
+def test_paged_attention_every_type_pair_head_dim_and_group(dev, G, hd, q_dtype,
+                                                            page_dtype):
+    from repro_torch.kernels.flash_attention.paged_attention import paged_attention
+
+    args = _paged_case(G * 1000 + hd, 4, 2, G, hd, 16, 24, q_dtype, page_dtype, dev,
+                       [384, 1, 200, 17])
+    _check_paged_rows(paged_attention(*args), *args)
+
+
+def test_paged_attention_counters_reset_between_calls_of_different_shapes(dev):
+    """Back-to-back calls of two shapes (different rows, heads and splits)
+    on one workspace: each output matches the plain version, a repeat is
+    bit-identical, and every arrival counter is back at 0."""
+    from repro_torch.kernels.flash_attention import paged_attention as pa_mod
+
+    a = _paged_case(1, 8, 4, 8, 128, 16, 64, torch.bfloat16, torch.float32, dev,
+                    [1024, 900, 17, 1, 512, 513, 33, 1000])
+    b = _paged_case(2, 3, 2, 4, 64, 8, 40, torch.float32, torch.float32, dev,
+                    [320, 9, 100])
+    outs = [pa_mod.paged_attention(*args) for args in (a, b, a, b)]
+    torch.cuda.synchronize()
+    for out, args in zip(outs, (a, b, a, b)):
+        _check_paged_rows(out, *args)
+    assert torch.equal(outs[0], outs[2]) and torch.equal(outs[1], outs[3])
+    assert not bool(pa_mod._DEVICES[dev.index or 0].counters.any())
+
+
+def test_paged_attention_poisoned_tails_over_many_splits(dev):
+    """Garbage (+-1e4) in each row's own pages past its length, with rows
+    that end inside a split, on a split boundary and inside a page."""
+    from repro_torch.kernels.flash_attention.paged_attention import paged_attention
+
+    nb, ps = 128, 16
+    lengths = [5, 16, 257, 1024, 2047, 1, 1500, 777]
+    q, k, v, table, lens = _paged_case(9, 8, 4, 8, 128, ps, nb, torch.bfloat16,
+                                       torch.float32, dev, lengths)
+    base = paged_attention(q, k, v, table, lens)
+    for row, n in enumerate(lengths):
+        pos = torch.arange(n, nb * ps, device=dev)
+        page, off = table[row, pos // ps].long(), pos % ps
+        sign = (pos % 2 * 2 - 1).to(k.dtype)[:, None, None]
+        k[page, off] = 1e4 * sign
+        v[page, off] = -1e4 * sign
+    poisoned = paged_attention(q, k, v, table, lens)
+    torch.testing.assert_close(poisoned, base, atol=0, rtol=0)
+    _check_paged_rows(poisoned, q, k, v, table, lens)
+
+
 def test_kernels_refuse_what_they_do_not_take(dev):
     x = torch.zeros(2, 8, device=dev, dtype=torch.float16)
     with pytest.raises(TypeError):

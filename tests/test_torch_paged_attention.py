@@ -132,3 +132,136 @@ def test_kernel_wrapper_refuses_cpu_tensors():
     with pytest.raises(ValueError, match="CUDA"):
         pa_mod.paged_attention(_torch(q), _torch(k)[0], _torch(v)[0],
                                torch.from_numpy(table), torch.from_numpy(lengths))
+
+
+# ---------------------------------------------------------------------------
+# The CUDA kernel's split-and-merge algebra, written out in f64
+# ---------------------------------------------------------------------------
+
+
+def _split_merge(q, k_pages, v_pages, table, lengths, pps, arrival_seed=0):
+    """csrc/paged_attention.cu's partition, in f64 torch: the row's pages cut
+    into splits of ``pps`` pages; a split past the length exits; each live
+    split runs an online softmax over tiles of ``TILE`` positions (masked
+    scores -1e30, positions past the split's end zero-filled) to its
+    (m, l, acc); one live split writes acc / max(l, 1e-30); otherwise the
+    splits arrive in a shuffled order, each adds one to the (row, head)'s
+    counter, and the one that finds live - 1 folds every live split, in
+    split order, into a running (M, L, O) and sets the counter back to 0."""
+    B, KV, G, hd = q.shape
+    ps, nb = k_pages.shape[1], table.shape[1]
+    qf = q.double() * hd ** -0.5
+    kf, vf = k_pages.double(), v_pages.double()
+    splits, span = -(-nb // pps), pps * ps
+    out = torch.zeros(B, KV, G, hd, dtype=torch.float64)
+    counters = torch.zeros(B, KV, dtype=torch.int64)
+    order = np.random.default_rng(arrival_seed)
+    for b in range(B):
+        n = min(max(int(lengths[b]), 0), nb * ps)
+        live = 1 if n == 0 else -(-n // span)
+        for h in range(KV):
+            parts = {}
+            for s in range(splits):
+                if s >= live:
+                    continue
+                start = s * span
+                end = min(start + span, n)
+                m = torch.full((G,), -1e30, dtype=torch.float64)
+                l = torch.zeros(G, dtype=torch.float64)
+                acc = torch.zeros(G, hd, dtype=torch.float64)
+                for p0 in range(start, end, pa_mod.TILE):
+                    pos = torch.arange(p0, p0 + pa_mod.TILE)
+                    kept = pos < end
+                    at = pos.clamp(max=end - 1)
+                    page = torch.as_tensor(table[b])[at // ps].long()
+                    kt = torch.where(kept[:, None], kf[page, at % ps, h], 0.0)
+                    vt = torch.where(kept[:, None], vf[page, at % ps, h], 0.0)
+                    sc = torch.where(kept[None, :], qf[b, h] @ kt.T, -1e30)   # (G, TILE)
+                    m_new = torch.maximum(m, sc.max(-1).values)
+                    p = torch.exp(sc - m_new[:, None])
+                    alpha = torch.exp(m - m_new)
+                    l = l * alpha + p.sum(-1)
+                    acc = acc * alpha[:, None] + p @ vt
+                    m = m_new
+                parts[s] = (m, l, acc)
+            if live == 1:
+                m, l, acc = parts[0]
+                out[b, h] = acc / l.clamp(min=1e-30)[:, None]
+                continue
+            merged = 0
+            for s in order.permutation(live):
+                last = int(counters[b, h]) == live - 1
+                counters[b, h] += 1
+                if last:        # one online pass over the splits, in order
+                    M = torch.full((G,), -1e30, dtype=torch.float64)
+                    L = torch.zeros(G, dtype=torch.float64)
+                    O = torch.zeros(G, hd, dtype=torch.float64)
+                    for i in range(live):
+                        m_i, l_i, acc_i = parts[i]
+                        mn = torch.maximum(M, m_i)
+                        keep, c = torch.exp(M - mn), torch.exp(m_i - mn)
+                        L, O, M = L * keep + l_i * c, O * keep[:, None] + acc_i * c[:, None], mn
+                    out[b, h] = O / L.clamp(min=1e-30)[:, None]
+                    counters[b, h] = 0
+                    merged += 1
+            assert merged == 1
+    assert not counters.any()
+    return out
+
+
+# lengths at and around page (ps = 4), tile (16) and split boundaries (pps
+# 1, 2 and 16 pages: 4, 8 and 64 positions), 0, nb * ps = 80, and past it
+_EDGE_LENGTHS = [0, 1, 4, 7, 8, 9, 15, 16, 17, 31, 33, 63, 64, 65, 79, 80, 95]
+
+
+@pytest.mark.parametrize("pps", [1, 2, 16, 23])          # 23 > nb = 20: one split
+@pytest.mark.parametrize("G", [1, 4, 8])
+@pytest.mark.parametrize("hd", [32, 80])
+def test_split_merge_algebra_matches_the_references(pps, G, hd):
+    """The kernel's split-and-merge, in f64, == the plain version == the jnp
+    oracle on every row of length >= 1, and == the Pallas kernel (interpret
+    mode) on every row; a row of length 0 gives zeros, as the Pallas kernel
+    does (the dense oracles average over the masked positions there)."""
+    B, KV, ps, nb = len(_EDGE_LENGTHS), 2, 4, 20
+    q, k, v, table, _ = _inputs(pps * 100 + G * 10 + hd, B, KV, G, hd, ps, nb,
+                                "float32", "float32")
+    lengths = np.asarray(_EDGE_LENGTHS, np.int32)
+    got = _split_merge(_torch(q), _torch(k)[0], _torch(v)[0], table, lengths, pps,
+                       arrival_seed=pps + G)
+    nz = lengths > 0
+    assert torch.equal(got[~torch.from_numpy(nz)], torch.zeros_like(got[~torch.from_numpy(nz)]))
+    plain = paged_attention_ref(_torch(q), _torch(k)[0], _torch(v)[0],
+                                torch.from_numpy(table), torch.from_numpy(lengths))
+    _close(got[nz].float(), np.asarray(plain)[nz], "float32")
+    jq, jk, jv = _jax(q), _jax(k)[0], _jax(v)[0]
+    jt, jl = jnp.asarray(table), jnp.asarray(lengths)
+    _close(got[nz].float(), np.asarray(jax_paged_ref(jq, jk, jv, jt, jl))[nz], "float32")
+    _close(got.float(), jax_paged(jq, jk, jv, jt, jl, interpret=True), "float32")
+
+
+@pytest.mark.parametrize("B,KV,nb,ps,sms", [
+    (8, 4, 256, 16, 132), (8, 4, 16, 16, 132), (1, 1, 1, 1, 132), (3, 2, 7, 4, 132),
+    (1, 8, 1000, 16, 132), (64, 8, 64, 16, 132), (2, 1, 37, 1, 16), (5, 3, 100, 32, 1),
+    (65535, 8, 128, 16, 132)])
+def test_split_plan_covers_every_page_once(B, KV, nb, ps, sms):
+    pps, splits, grid = pa_mod.split_plan(B, KV, nb, ps, sms)
+    covered = [p for s in range(splits) for p in range(s * pps, min((s + 1) * pps, nb))]
+    assert covered == list(range(nb))                    # in order, each once
+    assert 1 <= pps <= nb and (splits - 1) * pps < nb     # no split is empty
+    assert pps * ps >= min(pa_mod.TILE, nb * ps)          # a tile's worth where it can
+    assert grid == (splits * KV, B)
+
+
+def test_split_plan_grid_stays_within_cuda_limits_at_b_65535():
+    pps, splits, (gx, gy) = pa_mod.split_plan(65535, 8, 4096, 16, 132)
+    assert splits == 1 and pps == 4096                   # enough blocks without splitting
+    assert gy <= pa_mod.MAX_GRID_Y and gx <= 2 ** 31 - 1
+
+
+@pytest.mark.parametrize("nb,pps,blocks", [(256, 16, 512), (16, 1, 512)])
+def test_split_plan_at_chip_smoke_shapes(nb, pps, blocks):
+    """The long rows (nb 256) and the decode cell (nb 16) of chip_smoke.py
+    phase 3 (B 8, KV 4, ps 16) on the H100's 132 SMs: 16 splits a row, 512
+    blocks (PERF.md section 6)."""
+    got_pps, splits, (gx, gy) = pa_mod.split_plan(8, 4, nb, 16, 132)
+    assert (got_pps, splits, gx * gy) == (pps, 16, blocks)
