@@ -30,6 +30,16 @@ Phases (any failure ends the run with a non-zero exit and no last line):
    choice differs from that rule. Its bound takes the peak of the type the
    products run in (bf16 for bf16 inputs), with the f32 CUDA-core count
    beside it. TF32 is off.
+3c. Backward kernels against their plain versions on the same card inputs:
+   the ns_update backward at the flow cell's k = 1 and k = 8 live rows (and
+   bf16, a ragged D), its dot products held to TOL times the sum of their
+   terms' magnitudes; the flash backward in bf16 and f32 at the flow cell's
+   shape, non-causal, at a ragged L and at small GQA shapes (bf16 under
+   FLASH_BWD_BF16, f32 under 4 TOL), each after the forward kernel's lse is
+   held against the plain log-sum-exp. Timed (CUDA events) beside the plain
+   version and, for flash, torch autograd of SDPA's backward (a yardstick
+   only); flash prints achieved TFLOP/s and kernel / bound, the ns_update
+   backward its device time at the flow cell.
 4. Flow path: ``repro_torch.launch.serve.main`` with yi-6b at full width
    (32 layers, bf16, random weights from a seeded generator on the card),
    NFE 8, batch 4, sequence 1024, 3 requests. Launch counts must be exact.
@@ -66,7 +76,32 @@ Phases (any failure ends the run with a non-zero exit and no last line):
     length with in-vocabulary tokens and no kernel launches (decode steps
     the recurrence in plain torch, as the reference does).
 11. Phase 7 for rwkv6-7b's 2-layer f32 model.
-12. One JSON line listing the kernels, then the last line.
+12. Distillation at full width: ``repro_torch.launch.serve.main`` with
+    yi-6b, NFE 8, batch 4, seq 1024, ``--bns-iters`` DISTILL_ITERS and 2
+    requests: RK45 pairs (train and val), the initial solver's val PSNR,
+    DISTILL_ITERS training iterations (each layer recomputed in the
+    backward), the final validation, the requests with the distilled
+    solver. Launch counts must be exact. With R the RK45 evaluations of both
+    solves and K = DISTILL_ITERS: flash forward 32 (R + 8 + 8 + 2 * 8) for
+    the no-grad calls plus 32 * 8 * 2 * K in training (every layer's forward
+    and its recompute; the first velocity call of a step also differentiates,
+    since t_0 is an entry of the time grid built from theta), flash backward
+    32 * 8 * K, ns_update forward 8 (1 + 1 + 2 + K), ns_update backward 8 K:
+    an iteration is 512 flash forward, 256 flash backward, 8 and 8
+    ns_update launches, a request 256 flash forward and 8 ns_update. Loss and
+    PSNR finite, the distilled val PSNR at least the initial solver's (with K
+    under val_every, the final validation is the only one).
+13. The gradient on the card against the CPU: yi-6b's width cut to 2 layers,
+    f32, euler NFE 4, on shared pairs (numpy, seeded), each layer recomputed:
+    _loss_fn and d loss / d(time_logits, a, b) at theta0, relative L2 <= 1e-4
+    (phase 5's rule), with exactly 16 flash forward, 8 flash backward, 4 + 4
+    ns_update launches; then theta after DISTILL_CHECK_STEPS train_solver
+    steps. Adam's first steps are ~lr sign(g) per component, so a component
+    whose gradient is near 0 can step either way: components whose CPU
+    gradient at theta0 is at least 1e-3 of its largest must agree to 1e-3 of
+    the largest step (lr per step), the others to the most a flipped sign can
+    move them (2 lr per step).
+14. One JSON line listing the kernels, then the last line.
 """
 from __future__ import annotations
 
@@ -96,6 +131,17 @@ FLASH_BF16 = {"atol": 4e-3, "rtol": 2e-2, "row_rel_l2": 1e-2}
 # and sums in f32 and round only the output to bf16, so the two differ by at
 # most one bf16 ulp of |o|, which is <= 2**-7 |o| (atol covers outputs near 0).
 PAGED_BF16 = {"rel": 2.0 ** -7, "atol": 1e-6}
+# bf16 flash backward against its plain version (phase 3c). Both take the same
+# bf16 q, k, v, o, dO and the kernel's lse, sum in f32 (the kernel's P and dS
+# in two bf16 parts, ~16 bits) and round only dq, dk, dv to bf16, so they
+# differ by one bf16 rounding step at most: |err| <= atol + 2^-7 |ref|
+# elementwise (card readings: 0.88 of it for an exact-f32 first version, 0.97
+# for the tensor-core kernel), and each row's relative L2 error <= row_rel_l2,
+# over max(|ref row|, atol sqrt(hd)) (causal row 0 of dq is exactly 0: its one
+# key gives dS = P (dP - D) = 0); readings 1.7e-3 and 2.6e-3.
+# scripts/flash_bwd_fault_check.py shows the sound kernel inside and planted
+# faults outside.
+FLASH_BWD_BF16 = {"atol": 1e-3, "rtol": 2 ** -7, "row_rel_l2": 4e-3}
 HBM_BYTES_PER_S = 3.35e12                          # H100 SXM data sheet
 PEAK_FLOPS = {torch.float32: 67e12, torch.bfloat16: 989e12}  # CUDA-core f32, dense bf16
 NFE, BATCH, SEQ, REQUESTS = 8, 4, 1024, 3
@@ -107,8 +153,11 @@ RWKV_DECODE_ARGS = ["--arch", "rwkv6-7b", "--mode", "decode", "--full", "--gatew
                     "--max-slots", "4", "--requests", "8", "--decode-lengths", "32,16"]
 LONG_LENGTHS = [4096, 3001, 2048, 1, 777, 4095, 1500, 3333]   # positions a row
 LAYERS = 32                                        # yi-6b and rwkv6-7b
+DISTILL_ITERS, DISTILL_REQUESTS = 8, 2             # phase 12
+DISTILL_CHECK_STEPS, DISTILL_CHECK_LR = 3, 1e-3    # phase 13
 VOCAB = {"yi-6b": 64000, "rwkv6-7b": 65536}
-KERNELS = ("ns_update", "flash_attention", "paged_attention", "gla_scan")
+KERNELS = ("ns_update", "flash_attention", "paged_attention", "gla_scan", "ns_update_bwd",
+           "flash_attention_bwd")
 
 
 def time_ms(fn, iters: int = 100, warmup: int = 5) -> float:
@@ -274,6 +323,148 @@ def flash_cases(dev):
             library_ms=time_ms(lambda: F.scaled_dot_product_attention(
                 q, k, v, is_causal=causal, enable_gqa=True)),
             bound_ms=b_ms, bound_by=b_by))
+    return rows
+
+
+def ns_update_bwd_cases(dev):
+    """Phase 3c: the ns_update backward at the flow cell's shapes (k = 1 and 8
+    live rows of B=4 x D=65536), in bf16, at a ragged D and without dx0.
+    dU and dx0 are one f32 product each, as in the plain version (limit TOL);
+    da and dw are f32 sums over N products, held to TOL times the sum of the
+    products' magnitudes (the scale of a reordered f32 sum's error)."""
+    from repro_torch.kernels.ns_update.ns_update import ns_update_bwd
+    from repro_torch.kernels.ns_update.ref import ns_update_bwd_ref
+
+    g = torch.Generator(device=dev).manual_seed(5)
+    rows = []
+    for n, B, D, dtype, need_x0 in [(NFE, BATCH, SEQ * 64, torch.float32, False),  # main path
+                                    (1, BATCH, SEQ * 64, torch.float32, False),
+                                    (NFE, BATCH, SEQ * 64, torch.bfloat16, True),
+                                    (20, 3, 1000, torch.float32, True)]:          # ragged D
+        x0, grad = (torch.randn((B, D), generator=g, device=dev).to(dtype) for _ in "xg")
+        u = torch.randn((n, B, D), generator=g, device=dev).to(dtype)
+        a = torch.randn((), generator=g, device=dev)
+        w = torch.randn((n,), generator=g, device=dev)
+        shape = f"k={n} B={B} D={D} {str(dtype)[6:]}{' dx0' if need_x0 else ''}"
+        got = ns_update_bwd(grad, x0, u, a, w, need_x0=need_x0)
+        ref = ns_update_bwd_ref(grad, x0, u, a, w, need_x0=need_x0)
+        err = 0.0
+        for what, x, r in zip(("dx0", "du"), got[:2], ref[:2]):
+            if need_x0 or what != "dx0":
+                err = max(err, check_close(f"ns_update_bwd [{shape}] {what}", x, r,
+                                           atol=TOL[dtype], rtol=TOL[dtype]))
+        gf = grad.float()
+        scales = torch.cat([(x0.float() * gf).abs().sum().reshape(1),
+                            torch.tensordot(u.float().abs(), gf.abs(), dims=2)])
+        dots, dots_ref = torch.cat([got[2].reshape(1), got[3]]), torch.cat(
+            [ref[2].reshape(1), ref[3]])
+        ratio = float(((dots - dots_ref).abs() / (TOL[torch.float32] * scales)).max())
+        if not ratio <= 1:
+            raise SystemExit(f"ns_update_bwd [{shape}]: da, dw vs plain at {ratio:.3f} of "
+                             f"the limit (TOL x the sum of |terms|)")
+        err = max(err, float((dots - dots_ref).abs().max()))
+        N, size = x0.numel(), x0.element_size()
+        b_ms, b_by = bound((2 + 2 * n + need_x0) * N * size, (3 * n + 2 + need_x0) * N, dtype)
+        rows.append(dict(
+            shape=shape, max_abs_err=err, dot_limit_ratio=ratio,
+            ms=time_ms(lambda: ns_update_bwd(grad, x0, u, a, w, need_x0=need_x0)),
+            plain_ms=time_ms(lambda: ns_update_bwd_ref(grad, x0, u, a, w, need_x0=need_x0)),
+            library_ms=None, bound_ms=b_ms, bound_by=b_by))
+        if not len(rows) > 2:
+            rows[-1]["device_ms"] = device_ms(
+                lambda: ns_update_bwd(grad, x0, u, a, w, need_x0=need_x0), "ns_update_bwd")
+    return rows
+
+
+def flash_bwd_errors(out: torch.Tensor, ref: torch.Tensor) -> dict:
+    """Largest |err|, largest |err| / (atol + rtol |ref|), and largest row
+    relative L2 error over max(|ref row|, atol sqrt(hd)), under the
+    backward's bf16 limit."""
+    atol, rtol = FLASH_BWD_BF16["atol"], FLASH_BWD_BF16["rtol"]
+    ref = ref.float()
+    err = (out.float() - ref).abs()
+    floor = atol * ref.shape[-1] ** 0.5
+    row = (torch.linalg.vector_norm(err, dim=-1)
+           / torch.linalg.vector_norm(ref, dim=-1).clamp_min(floor))
+    return {"max_abs": float(err.max()),
+            "ratio": float((err / (atol + rtol * ref.abs())).max()),
+            "row_rel_l2": float(row.max())}
+
+
+def flash_bwd_passes(e: dict) -> bool:
+    return e["ratio"] <= 1 and e["row_rel_l2"] <= FLASH_BWD_BF16["row_rel_l2"]
+
+
+def flash_bwd_cases(dev):
+    """Phase 3c: the flash backward against its plain version on the same
+    inputs (q, k, v, dO drawn on the card; o and lse from the forward
+    kernel, whose lse is first held against the plain log-sum-exp), at the
+    flow cell's shape in bf16 and f32, non-causal, at a ragged L and at small
+    GQA shapes. Timed beside its plain version and torch autograd of SDPA's
+    backward (a yardstick only: the port never calls it)."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.flash_attention.flash_attention import (
+        flash_attention,
+        flash_attention_bwd,
+    )
+    from repro_torch.kernels.flash_attention.ref import attention_bwd_ref, attention_lse_ref
+
+    g = torch.Generator(device=dev).manual_seed(6)
+    bf16, f32 = torch.bfloat16, torch.float32
+    rows = []
+    for B, H, KV, L, dtype, causal in [(BATCH, 32, 4, SEQ, bf16, True),     # main path
+                                       (BATCH, 32, 4, SEQ, f32, True),
+                                       (BATCH, 32, 4, SEQ, bf16, False),
+                                       (BATCH, 32, 4, 1000, bf16, True),    # ragged L
+                                       (BATCH, 32, 4, 1000, f32, False),
+                                       (2, 8, 2, 77, f32, True),
+                                       (1, 4, 4, 33, bf16, False)]:
+        hd = 128
+        q, do = (torch.randn((B, L, H, hd), generator=g, device=dev).to(dtype).transpose(1, 2)
+                 for _ in "qo")
+        k, v = (torch.randn((B, L, KV, hd), generator=g, device=dev).to(dtype).transpose(1, 2)
+                for _ in "kv")
+        shape = (f"B={B} H={H} KV={KV} L={L} hd={hd} {str(dtype)[6:]} "
+                 f"{'causal' if causal else 'full'}")
+        o, lse = flash_attention(q, k, v, causal=causal, return_lse=True)
+        lse_ref = attention_lse_ref(q, k, causal=causal)
+        lse_ratio = float(((lse - lse_ref).abs() / (4 * TOL[f32] * (1 + lse_ref.abs()))).max())
+        if not lse_ratio <= 1:
+            raise SystemExit(f"flash_attention [{shape}]: lse vs plain at {lse_ratio:.3f} of "
+                             "the limit (4 TOL (1 + |lse|))")
+        got = flash_attention_bwd(q, k, v, o, lse, do, causal=causal)
+        ref = attention_bwd_ref(q, k, v, o, lse, do, causal=causal)
+        err, ratio = 0.0, 0.0
+        for what, x, r in zip(("dq", "dk", "dv"), got, ref):
+            if not bool(torch.isfinite(x.float()).all()):
+                raise SystemExit(f"flash_attention_bwd [{shape}] {what}: non-finite")
+            if dtype == bf16:
+                e = flash_bwd_errors(x, r)
+                if not flash_bwd_passes(e):
+                    raise SystemExit(f"flash_attention_bwd [{shape}] {what}: kernel vs plain "
+                                     f"outside the bf16 limit {FLASH_BWD_BF16}: {e}")
+                err, ratio = max(err, e["max_abs"]), max(ratio, e["ratio"])
+            else:
+                err = max(err, check_close(f"flash_attention_bwd [{shape}] {what}", x, r,
+                                           atol=TOL[f32] * 4, rtol=TOL[f32] * 4))
+        pairs = L * (L + 1) // 2 if causal else L * L
+        size = q.element_size()
+        flops = 10 * hd * pairs * B * H
+        nbytes = (4 * B * H * L * hd + 4 * B * KV * L * hd) * size + B * H * L * 4
+        b_ms, b_by = bound(nbytes, flops, dtype)
+        ms = time_ms(lambda: flash_attention_bwd(q, k, v, o, lse, do, causal=causal), iters=20)
+        qs, ks, vs = (t.detach().requires_grad_(True) for t in (q, k, v))
+        out = F.scaled_dot_product_attention(qs, ks, vs, is_causal=causal, enable_gqa=True)
+        rows.append(dict(
+            shape=shape, max_abs_err=err, limit_ratio=ratio, lse_limit_ratio=lse_ratio,
+            ms=ms, tflops=flops / ms / 1e9,
+            plain_ms=time_ms(lambda: attention_bwd_ref(q, k, v, o, lse, do, causal=causal),
+                             iters=5, warmup=1),
+            library_ms=time_ms(lambda: torch.autograd.grad(out, (qs, ks, vs), do,
+                                                           retain_graph=True), iters=20),
+            bound_ms=b_ms, bound_by=b_by))
+        del out, qs, ks, vs, got, ref
     return rows
 
 
@@ -742,6 +933,123 @@ def decode_against_cpu(dev, counters, cfg, params, engine_kw: dict, per_call: di
                          f"{margin:.3e}")
 
 
+def distill_path(dev, counters) -> dict:
+    """Phase 12: serve.main distils a BNS solver for yi-6b at full width and
+    serves with it; launch counts as the module docstring states them."""
+    from repro_torch.launch import serve
+
+    free_device_memory(dev)
+    reset(counters)
+    t0 = time.perf_counter()
+    served = serve.main(["--arch", "yi-6b", "--mode", "flow", "--full", "--nfe", str(NFE),
+                         "--batch", str(BATCH), "--seq", str(SEQ),
+                         "--bns-iters", str(DISTILL_ITERS),
+                         "--requests", str(DISTILL_REQUESTS)])
+    wall = time.perf_counter() - t0
+    d = served.distillation
+    K, R = DISTILL_ITERS, sum(d.rk45[part][0] for part in ("train", "val"))
+    no_grad_calls = R + NFE + NFE + DISTILL_REQUESTS * NFE
+    want = {**dict.fromkeys(KERNELS, 0),
+            "flash_attention": LAYERS * (no_grad_calls + 2 * NFE * K),
+            "flash_attention_bwd": LAYERS * NFE * K,
+            "ns_update": NFE * (2 + DISTILL_REQUESTS + K), "ns_update_bwd": NFE * K}
+    launches = {name: c.launches for name, c in counters.items()}
+    if launches != want:
+        raise SystemExit(f"distillation launch counts {launches}, expected {want} "
+                         f"(RK45 evaluations {R})")
+    losses = [h[1] for h in d.history]
+    if not (d.history and all(np.isfinite(losses)) and np.isfinite(d.val_psnr)
+            and np.isfinite(d.init_val_psnr)):
+        raise SystemExit(f"distillation: non-finite loss or PSNR: {d.history}, "
+                         f"init {d.init_val_psnr}")
+    if not d.val_psnr >= d.init_val_psnr:
+        raise SystemExit(f"distillation: val PSNR {d.val_psnr} below the initial "
+                         f"solver's {d.init_val_psnr}")
+    for s in served:
+        if s.latents.shape != (BATCH, SEQ, 64) or not bool(torch.isfinite(s.latents).all()):
+            raise SystemExit(f"distilled solver: bad latents {tuple(s.latents.shape)}")
+    peak = torch.cuda.max_memory_allocated(dev)
+    # train_bns' wall holds K iterations and one validation, which costs what
+    # the initial solver's validation did
+    iter_ms = (d.train_seconds - d.init_val_seconds) / K * 1e3
+    print(f"distillation: yi-6b full width, NFE {NFE}, batch {BATCH}, seq {SEQ}: RK45 "
+          f"train nfe/accepted/rejected {d.rk45['train']}, val {d.rk45['val']} "
+          f"({d.rk45_seconds:.3f} s); val PSNR initial {d.init_val_psnr:.4f} dB -> distilled "
+          f"{d.val_psnr:.4f} dB after {K} iterations (losses {[round(x, 5) for x in losses]}); "
+          f"train_bns {d.train_seconds:.3f} s, ~{iter_ms:.1f} ms an iteration (one "
+          f"validation {d.init_val_seconds * 1e3:.1f} ms taken off); request ms with the "
+          f"distilled solver {[round(x.ms, 3) for x in served]}; launches {launches}; peak "
+          f"memory {peak / 2**30:.3f} GiB; main() wall {wall:.3f} s")
+    return {"rk45": d.rk45, "rk45_s": d.rk45_seconds, "init_val_psnr": d.init_val_psnr,
+            "val_psnr": d.val_psnr, "iterations": K, "iteration_ms": iter_ms,
+            "request_ms": [x.ms for x in served], "peak_gib": peak / 2**30,
+            "launches": launches}
+
+
+def gradient_against_cpu(dev, counters, cfg, params) -> None:
+    """Phase 13: _loss_fn and its gradient in theta on the card (kernels)
+    against the CPU (plain versions), then theta after a few train_solver
+    steps; limits as the module docstring states them."""
+    from repro_torch.core import bns, ns_solver
+    from repro_torch.core.schedulers import get_scheduler
+    from repro_torch.data.synthetic import DataConfig, SyntheticTokens
+    from repro_torch.models import model as M
+    from repro_torch.models.transformer import params_to
+    from repro_torch.solvers.registry import build_ns
+
+    batch = SyntheticTokens(cfg, DataConfig(batch_size=2, seq_len=128, seed=0),
+                            device="cpu").batch(0)
+    rng = np.random.default_rng(13)
+    x0, x1 = (torch.from_numpy(rng.standard_normal((2, 128, cfg.latent_dim))
+                               .astype(np.float32)) for _ in "01")
+    theta0 = ns_solver.from_ns(build_ns("euler", 4))
+    fields = {"cpu": M.velocity_field(params, cfg, get_scheduler("fm_ot"), batch, remat=True),
+              "card": M.velocity_field(params_to(params, dev), cfg, get_scheduler("fm_ot"),
+                                       {k: v.to(dev) for k, v in batch.items()}, remat=True)}
+    got = {}
+    for where, field in fields.items():
+        d = dev if where == "card" else torch.device("cpu")
+        th = ns_solver.BNSParams(*(p.to(d).requires_grad_(True) for p in theta0))
+        before = {name: c.launches for name, c in counters.items()}
+        loss = bns._loss_fn(bns.ns_sampler(field), th, x0.to(d), x1.to(d))
+        grads = torch.autograd.grad(loss, list(th))
+        ran = {name: c.launches - before[name] for name, c in counters.items()}
+        want = ({**dict.fromkeys(KERNELS, 0), "flash_attention": 2 * 4 * 2,
+                 "flash_attention_bwd": 2 * 4, "ns_update": 4, "ns_update_bwd": 4}
+                if where == "card" else dict.fromkeys(KERNELS, 0))
+        if ran != want:
+            raise SystemExit(f"gradient on the {where}: launched {ran}, expected {want}")
+        got[where] = (loss.detach().cpu(), [g.cpu() for g in grads])
+    rels = [float(torch.linalg.vector_norm(a - b) / torch.linalg.vector_norm(b).clamp_min(1e-30))
+            for a, b in zip([got["card"][0], *got["card"][1]], [got["cpu"][0], *got["cpu"][1]])]
+    print(f"gradient, yi-6b 2 layers f32, euler NFE 4, remat: card vs CPU relative L2 of "
+          f"loss {rels[0]:.3e}, d/d time_logits {rels[1]:.3e}, d/da {rels[2]:.3e}, "
+          f"d/db {rels[3]:.3e} (limit 1e-4)")
+    if not max(rels) <= 1e-4:
+        raise SystemExit(f"gradient card vs CPU: relative L2 {rels} over 1e-4")
+    cfg_t = bns.BNSTrainConfig(nfe=4, init_solver="euler", lr=DISTILL_CHECK_LR,
+                               lr_schedule="cosine", iterations=DISTILL_CHECK_STEPS,
+                               val_every=100, batch_size=2)
+    thetas = {}
+    for where, field in fields.items():
+        d = dev if where == "card" else torch.device("cpu")
+        res = bns.train_solver(bns.ns_sampler(field), theta0, (x0.to(d), x1.to(d)),
+                               (x0.to(d), x1.to(d)), cfg_t)
+        thetas[where] = torch.cat([p.cpu().reshape(-1) for p in res.params])
+    g0 = torch.cat([g.reshape(-1) for g in got["cpu"][1]]).abs()
+    signed = g0 >= 1e-3 * g0.max()
+    diff = (thetas["card"] - thetas["cpu"]).abs()
+    step = DISTILL_CHECK_LR * DISTILL_CHECK_STEPS
+    r_signed = float((diff[signed] / (1e-3 * step)).max())
+    r_rest = float((diff[~signed] / (2 * step)).max()) if bool((~signed).any()) else 0.0
+    print(f"theta after {DISTILL_CHECK_STEPS} train_solver steps (lr {DISTILL_CHECK_LR}), card "
+          f"vs CPU: {int(signed.sum())} components with a clear gradient sign at "
+          f"{r_signed:.4f} of their limit (1e-3 of lr a step), {int((~signed).sum())} others at "
+          f"{r_rest:.4f} of theirs (2 lr a step); largest difference {float(diff.max()):.3e}")
+    if not (r_signed <= 1 and r_rest <= 1):
+        raise SystemExit(f"theta card vs CPU outside its limits: {r_signed}, {r_rest}")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is False)",
@@ -773,7 +1081,9 @@ def main() -> int:
         print(ptxas_summary(name, build.library_path(name).with_suffix(".so.log")))
 
     rows = {"ns_update": ns_update_cases(dev), "flash_attention": flash_cases(dev),
-            "paged_attention": paged_cases(dev), "gla_scan": gla_cases(dev)}
+            "paged_attention": paged_cases(dev), "gla_scan": gla_cases(dev),
+            "ns_update_bwd": ns_update_bwd_cases(dev),
+            "flash_attention_bwd": flash_bwd_cases(dev)}
     for name, cases in rows.items():
         for r in cases:
             lib = ("none" if r["library_ms"] is None else f"{r['library_ms']:.4f} ms")
@@ -785,6 +1095,12 @@ def main() -> int:
             if "tflops" in r:
                 extra += (f", {r['tflops']:.1f} TFLOP/s, kernel/bound "
                           f"{r['ms'] / r['bound_ms']:.2f}")
+            for key, what in (("dot_limit_ratio", "da, dw at"), ("lse_limit_ratio", "lse at")):
+                if key in r:
+                    extra += f", {what} {r[key]:.4f} of the limit"
+            if name == "flash_attention_bwd":
+                extra += (f", bf16 limit ratio {r['limit_ratio']:.4f}" if "bfloat16" in r["shape"]
+                          else "") + " (library: torch autograd of SDPA's backward)"
             for key, what in (("device_ms", "kernel"), ("library_device_ms", "addmv")):
                 if key in r:
                     t = "not measured" if r[key] is None else f"{r[key]:.4f} ms"
@@ -794,7 +1110,8 @@ def main() -> int:
                   f"library {lib}, bound {r['bound_ms']:.4f} ms ({r['bound_by']}){extra}")
 
     counters = {"ns_update": nu.COUNTER, "flash_attention": fa.COUNTER,
-                "paged_attention": pa.COUNTER, "gla_scan": gs.COUNTER}
+                "paged_attention": pa.COUNTER, "gla_scan": gs.COUNTER,
+                "ns_update_bwd": nu.BWD_COUNTER, "flash_attention_bwd": fa.BWD_COUNTER}
     zero = dict.fromkeys(KERNELS, 0)
     flows = NFE * REQUESTS
     launches = flow_path(dev, counters, "yi-6b", {**zero, "ns_update": flows,
@@ -816,6 +1133,12 @@ def main() -> int:
                            {**zero, "ns_update": 4, "gla_scan": 2 * 4})
     decode_path(dev, counters, RWKV_DECODE_ARGS, {})
     decode_against_cpu(dev, counters, cfg, params, {}, {})
+    del cfg, params
+    distill = distill_path(dev, counters)
+    for name in ("ns_update_bwd", "flash_attention_bwd"):
+        launches[name] = distill["launches"][name]
+    cfg, params = small_model("yi-6b")
+    gradient_against_cpu(dev, counters, cfg, params)
 
     meta = {
         "ns_update": ("src/repro_torch/kernels/csrc/ns_update.cu",
@@ -826,6 +1149,10 @@ def main() -> int:
                             "src/repro/kernels/flash_attention/paged_attention.py:74"),
         "gla_scan": ("src/repro_torch/kernels/csrc/gla_scan.cu",
                      "src/repro/kernels/gla_scan/gla_scan.py:67"),
+        "ns_update_bwd": ("src/repro_torch/kernels/csrc/ns_update.cu",
+                          "src/repro/kernels/ns_update/ns_update.py:36"),
+        "flash_attention_bwd": ("src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
+                                "src/repro/kernels/flash_attention/flash_attention.py:68"),
     }
     kernels = []
     for name, (source, replaces) in meta.items():
@@ -842,6 +1169,11 @@ def main() -> int:
         if name == "paged_attention":
             kernels[-1]["device_ms"] = main_case["device_ms"]
             kernels[-1]["long_row_decode_step"] = long_step
+        if name == "ns_update_bwd":
+            kernels[-1]["device_ms"] = main_case["device_ms"]
+        if name == "flash_attention_bwd":
+            kernels[-1]["library_is"] = "torch autograd of SDPA's backward"
+            kernels[-1]["distillation"] = {k: v for k, v in distill.items() if k != "launches"}
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

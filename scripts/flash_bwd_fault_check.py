@@ -1,0 +1,176 @@
+#!/usr/bin/env python3
+"""Show that the flash backward's limits pass the kernel and fail planted faults.
+
+    python3 scripts/flash_bwd_fault_check.py      # from the repository root, one card
+
+Builds ``csrc/flash_attention_bwd.cu`` as it is and copies of it, each with one
+fault planted by text replacement, into ``build/repro_torch/faults``. At the
+shapes of ``chip_smoke.py`` phase 3c, every build's dq, dk and dv are held
+against the plain version (``attention_bwd_ref``) on the same inputs, with o
+and lse from the forward kernel: bf16 under ``chip_smoke.FLASH_BWD_BF16``
+(elementwise ratio |err| / (atol + rtol |ref|) and row relative L2), f32 under
+4 TOL. Prints per shape and build the largest ratio to each limit. A fault
+must fail at some bf16 shape (the tensor-core path) and at some f32 shape (the
+CUDA-core path); the sound kernel must pass at every shape. Exits non-zero
+otherwise.
+"""
+from __future__ import annotations
+
+import ctypes
+import subprocess
+import sys
+from pathlib import Path
+
+import torch
+
+ROOT = Path(__file__).resolve().parents[1]
+sys.path.insert(0, str(ROOT / "src"))
+sys.path.insert(0, str(ROOT))
+
+from chip_smoke import FLASH_BWD_BF16, TOL, flash_bwd_errors, flash_bwd_passes  # noqa: E402
+from repro_torch.kernels import build  # noqa: E402
+from repro_torch.kernels.flash_attention.flash_attention import (  # noqa: E402
+    flash_attention,
+    flash_attention_bwd,
+)
+from repro_torch.kernels.flash_attention.ref import attention_bwd_ref  # noqa: E402
+
+SOURCE = "flash_attention_bwd"
+# name -> [(text in csrc/flash_attention_bwd.cu, its faulty replacement)]: each
+# fault is planted in both paths, the CUDA-core kernels (f32) and the
+# tensor-core kernels (bf16), so every shape below meets it.
+FAULTS = {
+    "D term dropped": [
+        ("Sw[r * kTile + lane] = p * (dp[r] - Dr[r]);", "Sw[r * kTile + lane] = p * dp[r];"),
+        ("Sw[r * kTile + lane] = p * (dp[r] - D_i);", "Sw[r * kTile + lane] = p * dp[r];"),
+        ("sc[nb][e] = pr * (dpv[nb][e] - D_r[e >> 1]);", "sc[nb][e] = pr * dpv[nb][e];"),
+        ("dpt[nb][e] = pt * (dpt[nb][e] - col_D[qc]);", "dpt[nb][e] = pt * dpt[nb][e];")],
+    "one head of the group missing from dK/dV": [
+        ("for (int hg = 0; hg < G; ++hg) {", "for (int hg = 0; hg < G - (G > 1); ++hg) {"),
+        ("for (int head = 0; head < G; ++head) {",
+         "for (int head = 0; head < G - (G > 1); ++head) {")],
+    "causal limit one tile short": [
+        ("const int q_begin = CAUSAL ? k0 : 0;", "const int q_begin = CAUSAL ? k0 + kTile : 0;"),
+        ("const int first_q = CAUSAL ? kb0 : 0;",
+         "const int first_q = CAUSAL ? kb0 + kQTile : 0;")],
+    "last key tile dropped": [
+        ("for (int k0 = 0; k0 < k_end; k0 += kTile) {",
+         "for (int k0 = 0; k0 < k_end && (k0 == 0 || k0 + kTile < k_end); k0 += kTile) {"),
+        ("for (int kt0 = 0; kt0 < key_end; kt0 += kKTile) {",
+         "for (int kt0 = 0; kt0 < key_end && (kt0 == 0 || kt0 + kKTile < key_end); "
+         "kt0 += kKTile) {")],
+    "scale missing on dK": [
+        ("dkb[j * sdk.l + lane + 32 * c] = acc_dk[r][c] * scale;",
+         "dkb[j * sdk.l + lane + 32 * c] = acc_dk[r][c];"),
+        ("pack_bf16(dk_acc[nb][2 * r] * scale, dk_acc[nb][2 * r + 1] * scale);",
+         "pack_bf16(dk_acc[nb][2 * r], dk_acc[nb][2 * r + 1]);")],
+}
+BF16, F32 = torch.bfloat16, torch.float32
+SHAPES = [  # (B, H, KV, L, dtype, causal): chip_smoke.py phase 3c
+    (4, 32, 4, 1024, BF16, True),
+    (4, 32, 4, 1024, F32, True),
+    (4, 32, 4, 1024, BF16, False),
+    (4, 32, 4, 1000, BF16, True),
+    (4, 32, 4, 1000, F32, False),
+    (2, 8, 2, 77, F32, True),
+    (1, 4, 4, 33, BF16, False),
+]
+
+
+def fault_sources() -> dict[str, str]:
+    src = (build.CSRC / f"{SOURCE}.cu").read_text()
+    out = {}
+    for name, edits in FAULTS.items():
+        text = src
+        for old, new in edits:
+            if text.count(old) != 1:
+                raise SystemExit(f"fault {name!r}: its target occurs {text.count(old)} times")
+            text = text.replace(old, new)
+        out[name] = text
+    return out
+
+
+def build_faults() -> dict[str, ctypes.CDLL]:
+    out_dir = build.BUILD_DIR / "faults"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    procs = {}
+    for i, (name, text) in enumerate(fault_sources().items()):
+        cu = out_dir / f"{SOURCE}_fault{i}.cu"
+        cu.write_text(text)
+        so = cu.with_suffix(".so")
+        procs[name] = (so, subprocess.Popen(
+            [build.nvcc_path(), *build.NVCC_FLAGS, "-o", str(so), str(cu)],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+    libs = {}
+    for name, (so, proc) in procs.items():
+        log, _ = proc.communicate()
+        if proc.returncode != 0:
+            raise SystemExit(f"nvcc failed for fault {name!r}:\n{log}")
+        lib = ctypes.CDLL(str(so))
+        lib.error_string.argtypes = [ctypes.c_int]
+        lib.error_string.restype = ctypes.c_char_p
+        libs[name] = lib
+    return libs
+
+
+def judge(got, ref, dtype) -> tuple[bool, str]:
+    """(passes, what it printed) for dq, dk, dv against the plain version."""
+    ok, parts = True, []
+    for what, x, r in zip(("dq", "dk", "dv"), got, ref):
+        if dtype == BF16:
+            e = flash_bwd_errors(x, r)
+            passed = flash_bwd_passes(e)
+            parts.append(f"{what} ratio {e['ratio']:.4g} row {e['row_rel_l2']:.3e}")
+        else:
+            lim = TOL[F32] * 4
+            ratio = float(((x - r).abs() / (lim + lim * r.abs())).max())
+            passed = ratio <= 1
+            parts.append(f"{what} ratio {ratio:.4g}")
+        ok &= passed
+    return ok, ", ".join(parts)
+
+
+def main() -> int:
+    if not torch.cuda.is_available():
+        print("flash_bwd_fault_check: no CUDA device", file=sys.stderr)
+        return 1
+    print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], check=True,
+                         capture_output=True, text=True).stdout.strip())
+    build.build_all(("flash_attention", SOURCE))
+    sound = build.load(SOURCE)
+    variants = {"sound": sound, **build_faults()}
+    print(f"limits: bf16 {FLASH_BWD_BF16}; f32 |err| <= 4 TOL (1 + |ref|), TOL "
+          f"{TOL[F32]}")
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(6)
+    caught = {(name, str(dtype)[6:]): False for name in FAULTS for dtype in (BF16, F32)}
+    sound_ok = True
+    for B, H, KV, L, dtype, causal in SHAPES:
+        q, do = (torch.randn((B, L, H, 128), generator=g, device=dev).to(dtype).transpose(1, 2)
+                 for _ in "qo")
+        k, v = (torch.randn((B, L, KV, 128), generator=g, device=dev).to(dtype).transpose(1, 2)
+                for _ in "kv")
+        o, lse = flash_attention(q, k, v, causal=causal, return_lse=True)
+        ref = attention_bwd_ref(q, k, v, o, lse, do, causal=causal)
+        for name, lib in variants.items():
+            build._LIBS[SOURCE] = lib   # the wrapper launches this build
+            try:
+                got = flash_attention_bwd(q, k, v, o, lse, do, causal=causal)
+                torch.cuda.synchronize()
+            finally:
+                build._LIBS[SOURCE] = sound
+            passed, text = judge(got, ref, dtype)
+            print(f"B={B} H={H} KV={KV} L={L} {str(dtype)[6:]} "
+                  f"{'causal' if causal else 'full'} [{name}]: {text}: "
+                  f"{'pass' if passed else 'FAIL'}")
+            if name == "sound":
+                sound_ok &= passed
+            else:
+                caught[name, str(dtype)[6:]] |= not passed
+    print(f"sound kernel passes every shape: {sound_ok}; faults caught: {caught}")
+    return 0 if sound_ok and all(caught.values()) else 1
+
+
+if __name__ == "__main__":
+    sys.exit(main())

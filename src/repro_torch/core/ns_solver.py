@@ -18,6 +18,7 @@ from __future__ import annotations
 
 from typing import Callable, NamedTuple
 
+import numpy as np
 import torch
 
 from repro_torch.kernels.ns_update.ops import fused_ns_update
@@ -84,8 +85,8 @@ def ns_sample(
       ``U[:i+1]`` for backward; the velocities are kept in a list and step i
       hands over ``torch.stack`` of them (i + 1 rows, a copy). Sampling is then
       reverse-mode differentiable in a, b, x0 and whatever ``u_fn`` reads, as
-      the reference's ``lax.scan`` is. On the card ``fused_ns_update`` refuses
-      inputs that require grad (its kernel has no backward yet).
+      the reference's ``lax.scan`` is; on the card the update's backward is
+      the ``ns_update`` backward kernel (``ops.NSUpdate``).
     """
     if update_fn is None:
         update_fn = fused_ns_update
@@ -106,6 +107,26 @@ def ns_sample(
         U[i] = u_fn(times[i], x)
         x = update_fn(x0, U[: i + 1], a[i], b[i, : i + 1])
     return x
+
+
+def ns_trajectory(
+    params: NSParams, u_fn: Callable[[Tensor, Tensor], Tensor], x0: Tensor
+) -> Tensor:
+    """Like ``ns_sample`` but returns all trajectory points (n+1, ...).
+
+    The update is the plain weighted sum over the velocities so far, as in
+    the reference (which uses no kernel here)."""
+    n = params.n
+    dev = x0.device
+    times, a, b = params.to(dev)
+    b = torch.where(tril_mask(n, dev), b, 0.0)
+    xs, us = [x0], []
+    x = x0
+    for i in range(n):
+        us.append(u_fn(times[i], x))
+        x = a[i] * x0 + torch.tensordot(b[i, : i + 1], torch.stack(us), dims=1)
+        xs.append(x)
+    return torch.stack(xs)
 
 
 # ---------------------------------------------------------------------------
@@ -140,3 +161,21 @@ def from_ns(params: NSParams) -> BNSParams:
     gaps = torch.diff(torch.cat([t, torch.ones((1,), dtype=t.dtype, device=t.device)]))
     logits = torch.log(torch.clamp(gaps, min=1e-8))
     return BNSParams(time_logits=logits, a=params.a, b=params.b)
+
+
+def count_parameters(n: int) -> int:
+    """Paper's parameter count for an n-step NS solver: n(n+5)/2 + 1."""
+    return n * (n + 5) // 2 + 1
+
+
+def ns_params_from_numpy(times, a, b, device="cpu") -> NSParams:
+    """``NSParams`` from the reference's arrays as numpy (``np.asarray`` of
+    each field), f32 on ``device``."""
+    return NSParams(*(torch.tensor(np.asarray(x, np.float32), device=device)
+                      for x in (times, a, b)))
+
+
+def bns_params_from_numpy(time_logits, a, b, device="cpu") -> BNSParams:
+    """``BNSParams`` from the reference's arrays as numpy, f32 on ``device``."""
+    return BNSParams(*(torch.tensor(np.asarray(x, np.float32), device=device)
+                       for x in (time_logits, a, b)))

@@ -23,7 +23,8 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
-SOURCES = ("ns_update", "flash_attention", "paged_attention", "gla_scan")
+SOURCES = ("ns_update", "flash_attention", "flash_attention_bwd", "paged_attention",
+           "gla_scan")
 
 _LIBS: dict[str, ctypes.CDLL] = {}
 

@@ -7,7 +7,10 @@
 //   o[b,h,i] = sum_j softmax_j(s_ij) v[b,h/G,j],  s_ij = hd^-0.5 q[b,h,i] . k[b,h/G,j]
 //
 // with s_ij = -1e30 where j > i under `causal`, the softmax in f32 and the
-// normaliser floored at 1e-30, as the TPU kernel does.
+// normaliser floored at 1e-30, as the TPU kernel does. Given an lse pointer (the
+// training path; null when serving), both kernels also write each query row's
+// natural log-sum-exp, lse[b,h,i] = log sum_j exp(s_ij) (f32, (B, H, Lq)), which
+// the backward (flash_attention_bwd.cu) recomputes the softmax from.
 //
 // What bounds it: operations. A causal call does 4*hd flops for each of the
 // B*H*L*(L+1)/2 (query, key) pairs it keeps and moves each input and the output
@@ -102,10 +105,14 @@ struct Plan {
   static constexpr size_t kBytes = kFloats * sizeof(float);
 };
 
-template <int HD, bool CAUSAL>
+// LSE: write each row's log-sum-exp (a template argument, as for the bf16
+// kernel below: ptxas gives these kernels 128 registers, and the store in
+// every variant made the hd-128 non-causal one spill 24 bytes).
+template <int HD, bool CAUSAL, bool LSE>
 __global__ void __launch_bounds__(kThreads)
 flash_fwd_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                     const float* __restrict__ v, float* __restrict__ o, Strides sq,
+                     const float* __restrict__ v, float* __restrict__ o,
+                     float* __restrict__ lse, Strides sq,
                      Strides sk, Strides sv, Strides so, int G, int Lq, int Lk,
                      float scale) {
   using P = Plan<HD>;
@@ -224,6 +231,8 @@ flash_fwd_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
         const int d = lane + 32 * c;
         if (d < HD) ob[i * so.l + d] = acc[r][c] / den;
       }
+      // scores were taken from q * scale, so m is already on the softmax's scale
+      if (LSE && lane == 0) lse[((long long)b * gridDim.y + h) * Lq + i] = m[r] + logf(den);
     }
   }
 }
@@ -239,6 +248,7 @@ constexpr int kConsumerWarps = 8;   // each releases a stage once it is done wit
 constexpr int kTurnBarrier = 1;     // named barriers 1, 2: the consumers' turns at the tensor cores
 constexpr int kSmemLimit = 232448;  // a block's shared memory on the H100
 constexpr float kLog2e = 1.4426950408889634f;
+constexpr float kLn2 = 0.6931471805599453f;
 
 // Shared memory for one head dim: Q (128 rows), then kStages of (K tile, V tile),
 // as many as fit up to 4 (3 at hd 128), then the mbarriers. Every tile is kChunks column chunks of CW values; a chunk is
@@ -480,12 +490,15 @@ __device__ __forceinline__ float fast_exp2(float x) {  // 2^x; results below 2^-
 // Persistent: one block an SM walks the items blockIdx.x, blockIdx.x + gridDim.x,
 // ... The K/V ring and the consumers' turns run on across items, so one item's
 // last products and output overlap the loads of the next.
-template <int HD, bool CAUSAL>
+// LSE: write each row's log-sum-exp to lse. A template argument, so the
+// serving path's kernel (no lse) is the one it was; built with lse for hd 128.
+template <int HD, bool CAUSAL, bool LSE>
 __global__ void __launch_bounds__(kWsThreads, 1)
 flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
                        const __grid_constant__ CUtensorMap tk,
                        const __grid_constant__ CUtensorMap tv, __nv_bfloat16* __restrict__ o,
-                       Strides so, int H, int B, int G, int Lq, int Lk, float scale_log2) {
+                       float* __restrict__ lse, Strides so, int H, int B, int G, int Lq, int Lk,
+                       float scale_log2) {
   using P = WsPlan<HD>;
   extern __shared__ uint8_t smem_raw[];
   const uint32_t sQ = (smem_u32(smem_raw) + 1023u) & ~1023u;
@@ -695,6 +708,11 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
             *reinterpret_cast<uint32_t*>(ob + row * so.l + j * 8 + 2 * t4) =
                 pack_bf16(acc[4 * j + 2 * r] * inv, acc[4 * j + 2 * r + 1] * inv);
         }
+        // m is the raw row max and l sums 2^(s c - m c), c = hd^-0.5 log2 e,
+        // so the natural log-sum-exp is (m c + log2 l) ln 2
+        if (LSE && row < Lq && t4 == 0)
+          lse[((long long)it.b * H + it.h) * Lq + row] =
+              (m[r] * scale_log2 + log2f(fmaxf(l[r], 1e-30f))) * kLn2;
       }
     }
   }
@@ -753,7 +771,8 @@ int encode_map(CUtensorMap* map, const void* ptr, int L, int heads, int B, const
 }
 
 template <int HD, bool CAUSAL>
-int launch_wgmma(const void* q, const void* k, const void* v, void* o, int B, int H, int KV,
+int launch_wgmma(const void* q, const void* k, const void* v, void* o, float* lse, int B,
+                 int H, int KV,
                  int Lq, int Lk, const long long* st, float scale, cudaStream_t stream) {
   using P = WsPlan<HD>;
   static_assert(kWsBQ == kWsBK, "one box shape serves q, k and v");
@@ -762,7 +781,11 @@ int launch_wgmma(const void* q, const void* k, const void* v, void* o, int B, in
   if (err == 0) err = encode_map<HD>(&tk, k, Lk, KV, B, st + 3);
   if (err == 0) err = encode_map<HD>(&tv, v, Lk, KV, B, st + 6);
   if (err != 0) return err;
-  const auto kern = flash_fwd_wgmma_kernel<HD, CAUSAL>;
+  // the lse variant is built for the head dim the backward takes
+  constexpr bool kLseBuilt = HD == 128;
+  if (lse != nullptr && !kLseBuilt) return (int)cudaErrorInvalidValue;
+  const auto kern = lse != nullptr ? flash_fwd_wgmma_kernel<HD, CAUSAL, kLseBuilt>
+                                   : flash_fwd_wgmma_kernel<HD, CAUSAL, false>;
   const cudaError_t attr =
       cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)P::kBytes);
   if (attr != cudaSuccess) return (int)attr;
@@ -772,15 +795,19 @@ int launch_wgmma(const void* q, const void* k, const void* v, void* o, int B, in
   const long long items = (long long)((Lq + kWsBQ - 1) / kWsBQ) * H * B;
   const int grid = (int)(items < sms ? items : sms);
   const Strides so{st[9], st[10], st[11]};
-  kern<<<grid, kWsThreads, P::kBytes, stream>>>(tq, tk, tv, static_cast<__nv_bfloat16*>(o), so,
-                                                H, B, H / KV, Lq, Lk, scale * kLog2e);
+  kern<<<grid, kWsThreads, P::kBytes, stream>>>(tq, tk, tv, static_cast<__nv_bfloat16*>(o), lse,
+                                                so, H, B, H / KV, Lq, Lk, scale * kLog2e);
   return (int)cudaGetLastError();
 }
 
 template <int HD, bool CAUSAL>
-int launch_f32(const void* q, const void* k, const void* v, void* o, int B, int H, int G,
+int launch_f32(const void* q, const void* k, const void* v, void* o, float* lse, int B, int H,
+               int G,
                int Lq, int Lk, const long long* st, float scale, cudaStream_t stream) {
-  const auto kern = flash_fwd_f32_kernel<HD, CAUSAL>;
+  constexpr bool kLseBuilt = HD == 128;  // the head dim the backward takes
+  if (lse != nullptr && !kLseBuilt) return (int)cudaErrorInvalidValue;
+  const auto kern = lse != nullptr ? flash_fwd_f32_kernel<HD, CAUSAL, kLseBuilt>
+                                   : flash_fwd_f32_kernel<HD, CAUSAL, false>;
   const cudaError_t err = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)Plan<HD>::kBytes);
   if (err != cudaSuccess) return (int)err;
@@ -789,16 +816,17 @@ int launch_f32(const void* q, const void* k, const void* v, void* o, int B, int 
   const Strides sv{st[6], st[7], st[8]}, so{st[9], st[10], st[11]};
   kern<<<grid, kThreads, Plan<HD>::kBytes, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
-      static_cast<float*>(o), sq, sk, sv, so, G, Lq, Lk, scale);
+      static_cast<float*>(o), lse, sq, sk, sv, so, G, Lq, Lk, scale);
   return (int)cudaGetLastError();
 }
 
 template <int HD, bool CAUSAL>
-int launch_hd(int dtype, const void* q, const void* k, const void* v, void* o, int B, int H,
-              int KV, int Lq, int Lk, const long long* st, float scale, cudaStream_t s) {
+int launch_hd(int dtype, const void* q, const void* k, const void* v, void* o, float* lse,
+              int B, int H, int KV, int Lq, int Lk, const long long* st, float scale,
+              cudaStream_t s) {
   if (dtype == 0)
-    return launch_f32<HD, CAUSAL>(q, k, v, o, B, H, H / KV, Lq, Lk, st, scale, s);
-  return launch_wgmma<HD, CAUSAL>(q, k, v, o, B, H, KV, Lq, Lk, st, scale, s);
+    return launch_f32<HD, CAUSAL>(q, k, v, o, lse, B, H, H / KV, Lq, Lk, st, scale, s);
+  return launch_wgmma<HD, CAUSAL>(q, k, v, o, lse, B, H, KV, Lq, Lk, st, scale, s);
 }
 
 bool aligned16(const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 == 0; }
@@ -808,9 +836,10 @@ bool aligned16(const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 == 0;
 // dtype: 0 = float32 (CUDA cores), 1 = bfloat16 (TMA + wgmma; needs 16-byte
 // aligned pointers and strides that are multiples of 8); hd in {64, 80, 128}.
 // strides holds 12 element strides: (batch, head, position) for q, k, v and o in
-// that order. Returns cudaGetLastError() after the launch, or an error_string code.
+// that order. lse is null or receives (B, H, Lq) f32 log-sum-exps. Returns
+// cudaGetLastError() after the launch, or an error_string code.
 extern "C" int flash_attention_fwd(int dtype, int hd, int causal, const void* q,
-                                   const void* k, const void* v, void* o, int B, int H,
+                                   const void* k, const void* v, void* o, float* lse, int B, int H,
                                    int KV, int Lq, int Lk, const long long* strides,
                                    float scale, void* stream) {
   if (B < 1 || H < 1 || KV < 1 || H % KV != 0 || Lq < 1 || Lk < 1 || B > 65535 ||
@@ -827,10 +856,10 @@ extern "C" int flash_attention_fwd(int dtype, int hd, int causal, const void* q,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
 #define REPRO_FLASH_CASE(HDV)                                                               \
   if (hd == HDV)                                                                           \
-    return causal ? launch_hd<HDV, true>(dtype, q, k, v, o, B, H, KV, Lq, Lk, strides,      \
-                                         scale, s)                                         \
-                  : launch_hd<HDV, false>(dtype, q, k, v, o, B, H, KV, Lq, Lk, strides,     \
-                                          scale, s);
+    return causal ? launch_hd<HDV, true>(dtype, q, k, v, o, lse, B, H, KV, Lq, Lk,         \
+                                         strides, scale, s)                                \
+                  : launch_hd<HDV, false>(dtype, q, k, v, o, lse, B, H, KV, Lq, Lk,        \
+                                          strides, scale, s);
   REPRO_FLASH_CASE(64)
   REPRO_FLASH_CASE(80)
   REPRO_FLASH_CASE(128)

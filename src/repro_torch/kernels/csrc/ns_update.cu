@@ -21,6 +21,21 @@
 // coefficients come from device memory as two pointers (a, and w with its stride:
 // a row of the solver's b), staged in shared memory, so the solver loop never
 // waits on the host and builds no coefficient vector.
+//
+// Backward (ns_update_bwd; the TPU kernel has none: the reference differentiates
+// its jnp form). Given the incoming gradient g (x0's shape):
+//
+//   dU_j = w_j * g,   dx0 = a * g (when x0 needs it),   da = <x0, g>,   dw_j = <U_j, g>
+//
+// One launch. Bounded by memory as the forward is: it reads g, x0 and the k rows
+// of U and writes k rows of dU (and dx0), 18.9 MB at the flow cell's last step
+// (k = 8, N = 4*65536 f32), ~5.6 us at 3.35 TB/s. Each block walks the rows one
+// after another over its grid-stride slice (g is re-read per row, from L2), writes
+// dU_j and reduces its share of each dot product over its warps; the per-block
+// sums go to a workspace, and the last block to count itself on an arrival counter
+// (one acquire-release atomic after a block barrier) adds them up in block order
+// and sets the counter back to 0, so no memset is launched and two runs give the
+// same bits: no float atomics touch the result.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -115,7 +130,147 @@ int launch(const void* x0, const void* u, const float* a, const float* w,
   return (int)cudaGetLastError();
 }
 
+// ---------------------------------------------------------------------------
+// backward
+// ---------------------------------------------------------------------------
+
+__device__ __forceinline__ float warp_sum(float x) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) x += __shfl_xor_sync(0xffffffffu, x, o);
+  return x;
+}
+
+// Adds one to an arrival counter, in the GPU's order: what this block wrote
+// before (through a preceding barrier) is visible to whoever counts after, and
+// what they wrote before counting is visible here. Returns the count before.
+__device__ __forceinline__ int arrive(int* counter) {
+  int before;
+  asm volatile("atom.acq_rel.gpu.global.add.s32 %0, [%1], 1;\n"
+               : "=r"(before) : "l"(counter) : "memory");
+  return before;
+}
+
+// Row 0 is x0 (coefficient a, gradient dx0), rows 1..n are U (w_j, dU_j).
+// grads receives (da, dw_0, ..., dw_{n-1}); partials holds gridDim.x * (n + 1)
+// floats; counter is 0 on entry and is left at 0.
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+ns_update_bwd_kernel(const T* __restrict__ g, const T* __restrict__ x0, const T* __restrict__ u,
+                     const float* __restrict__ a, const float* __restrict__ w,
+                     long long w_stride, T* __restrict__ du, T* __restrict__ dx0,
+                     float* __restrict__ grads, float* __restrict__ partials,
+                     int* __restrict__ counter, long long N, int n, long long nvec) {
+  constexpr int V = Vec<T>::kLen;
+  constexpr int kWarpsPerBlock = kThreads / 32;
+  __shared__ float c[kMaxN + 1];
+  __shared__ float red[kMaxN + 1][kWarpsPerBlock];
+  __shared__ int last;
+  for (int j = threadIdx.x; j <= n; j += blockDim.x) c[j] = j == 0 ? *a : w[(j - 1) * w_stride];
+  __syncthreads();
+
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const long long stride = (long long)gridDim.x * blockDim.x;
+  const long long first = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  for (int j = 0; j <= n; ++j) {
+    const T* src = j == 0 ? x0 : u + (j - 1) * N;
+    T* dst = j == 0 ? dx0 : du + (j - 1) * N;  // dx0 may be null: then only da
+    const float cj = c[j];
+    float dot = 0.f;
+    for (long long i = first; i < nvec; i += stride) {
+      const long long e = i * V;
+      float gf[V], sf[V];
+      load16(g + e, gf);
+      load16(src + e, sf);
+#pragma unroll
+      for (int t = 0; t < V; ++t) dot = fmaf(sf[t], gf[t], dot);
+      if (dst != nullptr) {
+#pragma unroll
+        for (int t = 0; t < V; ++t) gf[t] *= cj;
+        store16(dst + e, gf);
+      }
+    }
+    for (long long e = nvec * V + first; e < N; e += stride) {
+      const float gf = to_f32(g[e]);
+      dot = fmaf(to_f32(src[e]), gf, dot);
+      if (dst != nullptr) dst[e] = from_f32<T>(cj * gf);
+    }
+    dot = warp_sum(dot);
+    if (lane == 0) red[j][warp] = dot;
+  }
+  __syncthreads();
+  for (int j = threadIdx.x; j <= n; j += blockDim.x) {
+    float s = 0.f;
+#pragma unroll
+    for (int wp = 0; wp < kWarpsPerBlock; ++wp) s += red[j][wp];
+    partials[(long long)blockIdx.x * (n + 1) + j] = s;
+  }
+  // the block's partials, then one count by thread 0: the block that counts
+  // last sees every other block's partials and adds them up in block order
+  __syncthreads();
+  if (threadIdx.x == 0) last = arrive(counter) == (int)gridDim.x - 1;
+  __syncthreads();
+  if (!last) return;
+  for (int j = threadIdx.x; j <= n; j += blockDim.x) {
+    float s = 0.f;
+    for (int blk = 0; blk < (int)gridDim.x; ++blk)
+      s += __ldcg(partials + (long long)blk * (n + 1) + j);
+    grads[j] = s;
+  }
+  if (threadIdx.x == 0) *counter = 0;  // ready for the next call
+}
+
+template <typename T>
+int launch_bwd(const void* g, const void* x0, const void* u, const float* a, const float* w,
+               long long w_stride, void* du, void* dx0, float* grads, float* partials,
+               int max_blocks, int* counter, long long N, int n, cudaStream_t stream) {
+  constexpr int V = Vec<T>::kLen;
+  const auto al16 = [](const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 == 0; };
+  const bool vec = N % V == 0 && al16(g) && al16(x0) && al16(u) && al16(du) &&
+                   al16(dx0);  // a null dx0 passes
+  const long long nvec = vec ? N / V : 0;
+  const long long work = vec ? nvec : N;
+  long long blocks = (work + kThreads - 1) / kThreads;
+  if (blocks > max_blocks) blocks = max_blocks;
+  if (blocks < 1) blocks = 1;
+  ns_update_bwd_kernel<T><<<(unsigned)blocks, kThreads, 0, stream>>>(
+      static_cast<const T*>(g), static_cast<const T*>(x0), static_cast<const T*>(u), a, w,
+      w_stride, static_cast<T*>(du), static_cast<T*>(dx0), grads, partials, counter, N, n,
+      nvec);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
+
+// The most blocks ns_update_bwd launches on a card with `sms` SMs; its
+// workspace holds that many times (n + 1) floats.
+extern "C" int ns_update_bwd_max_blocks(int sms) { return 8 * sms; }
+
+// Backward of ns_update_fwd. g, x0 and u as the forward's x0 and u (one dtype);
+// du receives n rows of N, dx0 N values or is null (then dx0 is not computed),
+// grads n + 1 f32 values (da, then dw). workspace holds max_blocks * (n + 1)
+// f32 values; counter points at one int that is 0 and is left at 0. Returns
+// cudaGetLastError() after the launch.
+extern "C" int ns_update_bwd(int device, int dtype, const void* g, const void* x0,
+                             const void* u, const float* a, const float* w, long long w_stride,
+                             void* du, void* dx0, float* grads, float* workspace,
+                             int max_blocks, int* counter, long long N, int n, void* stream) {
+  if (n < 1 || n > kMaxN || N < 1 || max_blocks < 1 || (dtype != 0 && dtype != 1))
+    return (int)cudaErrorInvalidValue;
+  int current = device;
+  cudaGetDevice(&current);
+  if (current != device) {
+    const cudaError_t err = cudaSetDevice(device);
+    if (err != cudaSuccess) return (int)err;
+  }
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int err =
+      dtype == 0 ? launch_bwd<float>(g, x0, u, a, w, w_stride, du, dx0, grads, workspace,
+                                     max_blocks, counter, N, n, s)
+                 : launch_bwd<__nv_bfloat16>(g, x0, u, a, w, w_stride, du, dx0, grads,
+                                             workspace, max_blocks, counter, N, n, s);
+  if (current != device) cudaSetDevice(current);
+  return err;
+}
 
 // device: the card the tensors and the stream live on (made current for the
 // launch if it is not). dtype: 0 = float32, 1 = bfloat16. a points at one f32,

@@ -4,19 +4,54 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.kernels.flash_attention.flash_attention import flash_attention
+from repro_torch.kernels.flash_attention.flash_attention import (
+    flash_attention,
+    flash_attention_bwd,
+)
 from repro_torch.kernels.flash_attention.paged_attention import paged_attention
 from repro_torch.kernels.flash_attention.ref import attention_ref, paged_attention_ref
 
 
+class FlashAttention(torch.autograd.Function):
+    """The flash kernel with its backward kernel, for CUDA tensors under grad.
+
+    The forward also writes each row's log-sum-exp and saves q, k, v, o and
+    lse; the backward is ``flash_attention_bwd``. Under
+    ``torch.utils.checkpoint`` the forward runs twice (the saving pass and
+    the recompute before the backward)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal):
+        o, lse = flash_attention(q, k, v, causal=causal, return_lse=True)
+        ctx.save_for_backward(q, k, v, o, lse)
+        ctx.causal = causal
+        return o
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, o, lse = ctx.saved_tensors
+        if do.stride(3) != 1:
+            do = do.contiguous()
+        dq, dk, dv = flash_attention_bwd(q, k, v, o, lse, do, causal=ctx.causal)
+        return dq, dk, dv, None
+
+
 def attend(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
            causal: bool = True) -> torch.Tensor:
-    """q: (B, L, H, hd); k, v: (B, L, KV, hd) — model layout, returned as q."""
+    """q: (B, L, H, hd); k, v: (B, L, KV, hd) — model layout, returned as q.
+
+    On the card: the kernel, through ``FlashAttention`` (forward with
+    log-sum-exp, backward kernel) where autograd needs the gradient of an
+    input, otherwise one plain forward launch. On the CPU: the plain version,
+    which autograd differentiates."""
     qt, kt, vt = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
-    if q.is_cuda:
-        out = flash_attention(qt, kt, vt, causal=causal)
-    else:
+    if not q.is_cuda:
         out = attention_ref(qt, kt, vt, causal=causal)
+    elif torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
+                                      or v.requires_grad):
+        out = FlashAttention.apply(qt, kt, vt, causal)
+    else:
+        out = flash_attention(qt, kt, vt, causal=causal)
     return out.transpose(1, 2)
 
 

@@ -1,26 +1,40 @@
-"""Dispatch for the NS update: the CUDA kernel for tensors on the card, the
-plain version for tensors on the CPU. ``make_update_fn`` plugs into
+"""Dispatch for the NS update: the CUDA kernels for tensors on the card, the
+plain versions for tensors on the CPU. ``make_update_fn`` plugs into
 ``ns_solver.ns_sample(update_fn=...)``."""
 from __future__ import annotations
 
 import torch
 
-from repro_torch.kernels.ns_update.ns_update import ns_update
-from repro_torch.kernels.ns_update.ref import ns_update_ref
+from repro_torch.kernels.ns_update.ns_update import ns_update, ns_update_bwd
+from repro_torch.kernels.ns_update.ref import ns_update_bwd_ref, ns_update_ref
+
+
+class NSUpdate(torch.autograd.Function):
+    """``a * x0 + sum_j w_j u_j`` with a backward: the kernels on the card, the
+    plain versions on the CPU (chosen by where x0 lies)."""
+
+    @staticmethod
+    def forward(ctx, x0, u, a, w):
+        ctx.save_for_backward(x0, u, a, w)
+        return ns_update(x0, u, a, w) if x0.is_cuda else ns_update_ref(x0, u, a, w)
+
+    @staticmethod
+    def backward(ctx, g):
+        x0, u, a, w = ctx.saved_tensors
+        bwd = ns_update_bwd if g.is_cuda else ns_update_bwd_ref
+        return bwd(g.contiguous(), x0, u, a, w, need_x0=ctx.needs_input_grad[0])
 
 
 def fused_ns_update(x0: torch.Tensor, u: torch.Tensor, a: torch.Tensor,
                     w: torch.Tensor) -> torch.Tensor:
-    """``a * x0 + sum_j w_j u_j``. On the card the kernel's output has no
-    ``grad_fn``, so inputs that require grad are refused there rather than
-    cut from the graph."""
+    """``a * x0 + sum_j w_j u_j``. Where autograd needs the result's gradient
+    it goes through ``NSUpdate``, whose backward is the backward kernel on the
+    card; otherwise it is one call of the kernel (or the plain version on the
+    CPU)."""
+    if torch.is_grad_enabled() and (x0.requires_grad or u.requires_grad
+                                    or a.requires_grad or w.requires_grad):
+        return NSUpdate.apply(x0, u, a, w)
     if x0.is_cuda:
-        if torch.is_grad_enabled() and (x0.requires_grad or u.requires_grad
-                                        or a.requires_grad or w.requires_grad):
-            raise RuntimeError(
-                "fused_ns_update: the CUDA ns_update kernel has no backward yet "
-                "(its torch.autograd.Function comes with ROADMAP Queue A item 0); "
-                "sample under torch.no_grad() or with inputs that do not require grad")
         return ns_update(x0, u, a, w)
     return ns_update_ref(x0, u, a, w)
 

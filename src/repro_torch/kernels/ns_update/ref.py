@@ -1,4 +1,5 @@
-"""Plain PyTorch version of the NS update kernel (twin of the reference's ref.py)."""
+"""Plain PyTorch versions of the NS update kernel and its backward (twin of
+the reference's ref.py; the backward is the reverse of the same weighted sum)."""
 import torch
 
 
@@ -9,3 +10,18 @@ def ns_update_ref(x0: torch.Tensor, u: torch.Tensor, a: torch.Tensor,
     acc = acc + torch.tensordot(w.to(torch.float32), u.to(torch.float32),
                                 dims=([0], [0]))
     return acc.to(x0.dtype)
+
+
+def ns_update_bwd_ref(g: torch.Tensor, x0: torch.Tensor, u: torch.Tensor,
+                      a: torch.Tensor, w: torch.Tensor, *, need_x0: bool = True):
+    """Backward of ``ns_update_ref`` for the output gradient ``g``:
+    (dx0 = a g or None, du_j = w_j g, da = <x0, g>, dw_j = <u_j, g>), products
+    and sums in f32; dx0 and du in x0's and u's dtypes, da and dw in a's and
+    w's."""
+    gf = g.to(torch.float32)
+    wf = w.to(torch.float32).reshape((-1,) + (1,) * g.dim())
+    du = (wf * gf).to(u.dtype)
+    dx0 = (a.to(torch.float32) * gf).to(x0.dtype) if need_x0 else None
+    da = (x0.to(torch.float32) * gf).sum().reshape(a.shape).to(a.dtype)
+    dw = torch.tensordot(u.to(torch.float32), gf, dims=g.dim()).to(w.dtype)
+    return dx0, du, da, dw

@@ -4,6 +4,8 @@ Port of ``repro.launch.serve``:
 
   PYTHONPATH=src python -m repro_torch.launch.serve --arch yi-6b --mode flow \
       --full --nfe 8 --batch 4 --seq 1024 --requests 3 --bns-iters 0
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch yi-6b --mode flow \
+      --full --nfe 8 --batch 4 --seq 1024 --requests 2 --bns-iters 8
   PYTHONPATH=src python -m repro_torch.launch.serve --arch yi-6b --mode decode \
       --full --gateway --page-size 16 --paged-kernel --max-slots 8 --slots 256 \
       --requests 16 --decode-lengths 128,32,64,16 --prefill-chunk 64
@@ -22,11 +24,15 @@ Runs on the card by default (``--device cuda``, an error without one);
 
 Flow mode: without an artifact the reference distills the solver its
 ``_requested_spec`` names (euler at ``--nfe``, BNS mode), starting from
-``build_ns("euler", nfe)``. The port serves that initial solver when
-``--bns-iters 0`` is given; distillation, artifacts, anytime budgets and the
-flow gateway tiers exit with the ROADMAP item that brings them — the
-launcher never serves something else in their place. Each request prints
-its shape, its NFE and its wall time, read after the device has finished.
+``build_ns("euler", nfe)``, and so does the port with ``--bns-iters N`` > 0
+(``_distill``: RK45 pairs from two seeded generators, then ``train_bns`` on
+a field that recomputes each layer in the backward), then serves the
+distilled solver; ``--bns-iters 0`` serves the initial solver. rwkv6-7b
+does not distill on the card yet (its ``gla_scan`` kernel has no backward;
+the CPU runs). Artifacts, anytime budgets and the flow gateway tiers exit
+with the ROADMAP item that brings them — the launcher never serves
+something else in their place. Each request prints its shape, its NFE and
+its wall time, read after the device has finished.
 
 Decode mode serves batched greedy decode (``greedy_demo``) or, with
 ``--gateway``, a continuous-batching ``DecodeGateway``: each request is one
@@ -52,8 +58,12 @@ import torch
 
 from repro_torch import resolve_device
 from repro_torch.configs import get_config
+from repro_torch.core import ns_solver
+from repro_torch.core.bns import BNSTrainConfig, psnr, train_bns
+from repro_torch.core.rk45 import rk45_solve
 from repro_torch.core.schedulers import get_scheduler
 from repro_torch.data.synthetic import DataConfig, SyntheticTokens
+from repro_torch.kernels.gla_scan.ops import BACKWARD_ROADMAP as GLA_BACKWARD_ROADMAP
 from repro_torch.models import model as M
 from repro_torch.observability import format_stats_line
 from repro_torch.serving.decode import DecodeGateway, DecodeRequest
@@ -65,8 +75,6 @@ DEFAULT_NFE = 8
 
 # Options of the reference launcher that this slice does not serve yet.
 _NOT_YET = {
-    "bns_iters": "BNS distillation on the card (ROADMAP Queue A item 0); "
-                 "pass --bns-iters 0 to serve the initial euler solver",
     "solver_artifact": "solver artifacts (ROADMAP Queue A item 3)",
     "budgets": "anytime multi-budget serving (ROADMAP Queue A item 4)",
     "gateway": "the flow gateway tiers (ROADMAP Queue A item 7); decode mode "
@@ -87,6 +95,29 @@ class Served:
     tokens: torch.Tensor      # (B, S) long
     nfe: int
     ms: float                 # wall time, device work included
+
+
+@dataclasses.dataclass
+class Distillation:
+    """What ``--bns-iters`` distilled before serving."""
+
+    rk45: dict                # {"train"|"val": (nfe, accepted, rejected)}
+    rk45_seconds: float       # both RK45 solves, device work included
+    init_val_psnr: float      # the initial euler solver on the val pairs, dB
+    init_val_seconds: float   # that one validation sample
+    val_psnr: float           # the distilled (best-validation) solver, dB
+    iterations: int
+    train_seconds: float      # train_bns, device work included
+    num_parameters: int
+    history: list             # (iter, train_loss, val_psnr)
+    solver: object            # the distilled NSParams
+
+
+class FlowServed(list):
+    """The flow mode's ``Served`` list; ``distillation`` is set when the
+    solver was distilled (``--bns-iters`` > 0)."""
+
+    distillation: Distillation | None = None
 
 
 @dataclasses.dataclass
@@ -133,8 +164,8 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--cfg-scale", type=float, default=0.0)
     ap.add_argument("--bns-iters", type=int, default=300,
-                    help="BNS distillation iterations; only 0 (serve the "
-                         "initial euler solver) is served by the port yet")
+                    help="BNS distillation iterations before serving (0 = serve "
+                         "the initial euler solver)")
     ap.add_argument("--device", choices=["cuda", "cpu"], default="cuda")
     ap.add_argument("--solver-artifact", default=None,
                     help="not served yet: " + _NOT_YET["solver_artifact"])
@@ -194,8 +225,14 @@ def build_parser() -> argparse.ArgumentParser:
 
 def _refuse_unported(args) -> None:
     if args.mode == "flow":
-        for name, on in (("bns_iters", args.bns_iters != 0),
-                         ("solver_artifact", args.solver_artifact is not None),
+        if (args.bns_iters > 0 and args.device == "cuda"
+                and get_config(args.arch, smoke=args.smoke).family == "ssm"):
+            raise SystemExit(
+                f"not served by the port yet: BNS distillation of {args.arch} on the "
+                f"card: its gla_scan kernel has no backward ({GLA_BACKWARD_ROADMAP}); "
+                "--device cpu distills through the plain chunked form, --bns-iters 0 "
+                "serves the initial euler solver")
+        for name, on in (("solver_artifact", args.solver_artifact is not None),
                          ("budgets", args.budgets is not None),
                          ("gateway", args.gateway)):
             if on:
@@ -206,7 +243,60 @@ def _refuse_unported(args) -> None:
                              "surfaces (ROADMAP Queue A item 11)")
 
 
-def serve_flow(args, device: torch.device) -> list[Served]:
+def _distill(args, params, cfg, sched, cond, nfe: int,
+             device: torch.device) -> Distillation:
+    """Algorithm 2 on fresh RK45 pairs, as the reference's
+    ``_distill_artifact``: train and held-out val x0 of (batch, seq,
+    latent_dim) from two generators seeded from ``--seed``, each integrated by
+    RK45 (rtol = atol = 1e-5) under no_grad, then ``train_bns`` from euler at
+    ``--nfe`` (lr 1e-3, cosine, ``--bns-iters`` iterations, validation every
+    100 and at the end, full batches), differentiating a field that
+    recomputes each layer in the backward. No artifact is written (ROADMAP
+    Queue A item 3)."""
+    print(f"distilling BNS solver (NFE={nfe}) ...")
+    field = M.velocity_field(params, cfg, sched, cond, cfg_scale=args.cfg_scale,
+                             remat=True)
+    shape = (args.batch, args.seq, cfg.latent_dim)
+    pairs, rk45 = {}, {}
+    t0 = time.perf_counter()
+    for i, part in enumerate(("train", "val")):
+        gen = torch.Generator(device=device).manual_seed(args.seed + 1 + i)
+        x0 = torch.randn(shape, generator=gen, device=device)
+        with torch.no_grad():
+            res = rk45_solve(field.fn, x0, rtol=1e-5, atol=1e-5)
+        pairs[part] = (x0, res.x1)
+        rk45[part] = (res.nfe, res.accepted, res.rejected)
+    _sync(device)
+    rk45_s = time.perf_counter() - t0
+    print(f"RK45 pairs: train nfe {rk45['train'][0]} (accepted {rk45['train'][1]}, "
+          f"rejected {rk45['train'][2]}), val nfe {rk45['val'][0]} (accepted "
+          f"{rk45['val'][1]}, rejected {rk45['val'][2]}), {rk45_s:.1f}s")
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        x0v, x1v = pairs["val"]
+        init_psnr = float(torch.mean(psnr(
+            ns_solver.ns_sample(build_ns("euler", nfe), field.fn, x0v), x1v)))
+    _sync(device)
+    init_s = time.perf_counter() - t0
+    print(f"initial euler solver: val PSNR {init_psnr:.2f} dB")
+    t0 = time.perf_counter()
+    res = train_bns(field, pairs["train"], pairs["val"],
+                    BNSTrainConfig(nfe=nfe, init_solver="euler", lr=1e-3,
+                                   lr_schedule="cosine", iterations=args.bns_iters,
+                                   val_every=100, batch_size=args.batch),
+                    log=print)
+    _sync(device)
+    train_s = time.perf_counter() - t0
+    print(f"solver ready: {res.num_parameters} params, val PSNR {res.val_psnr:.2f} dB, "
+          f"{res.wall_seconds:.0f}s")
+    return Distillation(rk45=rk45, rk45_seconds=rk45_s, init_val_psnr=init_psnr,
+                        init_val_seconds=init_s, val_psnr=res.val_psnr,
+                        iterations=args.bns_iters, train_seconds=train_s,
+                        num_parameters=res.num_parameters, history=res.history,
+                        solver=ns_solver.materialize(res.params))
+
+
+def serve_flow(args, device: torch.device) -> FlowServed:
     cfg = get_config(args.arch, smoke=args.smoke)
     sched = get_scheduler(args.scheduler)
     params = M.init_params(torch.Generator(device=device).manual_seed(args.seed),
@@ -216,10 +306,16 @@ def serve_flow(args, device: torch.device) -> list[Served]:
                            device=device)
     cond = data.batch(0)
     nfe = args.nfe or DEFAULT_NFE
-    print(f"serving the initial euler solver at NFE {nfe} (no distillation)")
-    sampler = FlowSampler(params=params, cfg=cfg, sched=sched,
-                          solver=build_ns("euler", nfe), cfg_scale=args.cfg_scale)
-    served = []
+    served = FlowServed()
+    if args.bns_iters > 0:
+        served.distillation = _distill(args, params, cfg, sched, cond, nfe, device)
+        solver = served.distillation.solver
+        print(f"serving the distilled BNS solver at NFE {nfe}")
+    else:
+        solver = build_ns("euler", nfe)
+        print(f"serving the initial euler solver at NFE {nfe} (no distillation)")
+    sampler = FlowSampler(params=params, cfg=cfg, sched=sched, solver=solver,
+                          cfg_scale=args.cfg_scale)
     for req in range(args.requests):
         _sync(device)
         t0 = time.perf_counter()

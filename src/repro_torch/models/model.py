@@ -51,32 +51,37 @@ def init_params(generator: torch.Generator, cfg: ModelConfig, device="cuda") -> 
     return init[cfg.family](generator, cfg, device)
 
 
-def _hidden_fn(cfg: ModelConfig):
-    """The family's hidden-state function for the flow head (dense: None,
-    ``flow_velocity``'s own ``dense_hidden``)."""
-    return {"dense": None, "ssm": rwkv6.rwkv_hidden}[cfg.family]
+def _hidden_fn(cfg: ModelConfig, remat: bool = False):
+    """The family's hidden-state function for the flow head; every family
+    gets ``remat``, as in the reference."""
+    if cfg.family == "ssm":
+        return lambda p, c, h, pos: rwkv6.rwkv_hidden(p, c, h, remat=remat)
+    return lambda p, c, h, pos: transformer.dense_hidden(p, c, h, pos, remat=remat)
 
 
 def velocity(params: dict, cfg: ModelConfig, t, x: Tensor,
-             batch: Optional[dict] = None) -> Tensor:
+             batch: Optional[dict] = None, *, remat: bool = False) -> Tensor:
     """u_t(x): x (B, S, latent_dim) -> velocity. ``batch`` provides the
-    conditioning tokens; None = unconditional (CFG)."""
+    conditioning tokens; None = unconditional (CFG). ``remat`` recomputes
+    each layer in the backward (BNS training at full size needs it)."""
     _require_ported(cfg)
     cond = batch.get("tokens") if batch else None
     return transformer.flow_velocity(params, cfg, t, x, cond,
-                                     hidden_fn=_hidden_fn(cfg))
+                                     hidden_fn=_hidden_fn(cfg, remat))
 
 
 def velocity_field(params: dict, cfg: ModelConfig, sched: Scheduler,
-                   batch: Optional[dict] = None, *, cfg_scale: float = 0.0
-                   ) -> VelocityField:
-    """Wrap the model for the NS sampler, with classifier-free guidance."""
+                   batch: Optional[dict] = None, *, cfg_scale: float = 0.0,
+                   remat: bool = False) -> VelocityField:
+    """Wrap the model for the NS sampler, with classifier-free guidance.
+    ``remat`` is passed to ``velocity`` (off for serving, which samples
+    under ``torch.no_grad()``)."""
 
     def u(t, x):
-        uc = velocity(params, cfg, t, x, batch)
+        uc = velocity(params, cfg, t, x, batch, remat=remat)
         if cfg_scale == 0.0:
             return uc
-        uu = velocity(params, cfg, t, x, None)
+        uu = velocity(params, cfg, t, x, None, remat=remat)
         return (1.0 + cfg_scale) * uc - cfg_scale * uu
 
     return VelocityField(fn=u, scheduler=sched)

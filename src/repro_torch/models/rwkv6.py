@@ -22,6 +22,7 @@ from typing import NamedTuple, Optional
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch import resolve_device
 from repro_torch.configs.base import ModelConfig
@@ -167,20 +168,28 @@ def _channel_mix(p: dict, x: Tensor, x_prev: Tensor) -> Tensor:
     return torch.sigmoid(m_r @ p["wr"]) * (k @ p["wv"])
 
 
+def _seq_layer(p: dict, cfg: ModelConfig, h: Tensor, zero: Tensor, chunk: int) -> Tensor:
+    tm_out, _, _ = _time_mix_seq(p["tm"], rms_norm(h, p["norm1"], cfg.norm_eps),
+                                 zero, chunk)
+    h = h + tm_out
+    hn = rms_norm(h, p["norm2"], cfg.norm_eps)
+    hn_prev = torch.cat([zero[:, None], hn[:, :-1]], dim=1)
+    return h + _channel_mix(p["cm"], hn, hn_prev)
+
+
 def rwkv_hidden(params: dict, cfg: ModelConfig, h: Tensor, positions=None, *,
-                chunk: int = 0) -> Tensor:
-    """Full-sequence forward (flow): h (B, L, d) -> final-normed hidden."""
+                chunk: int = 0, remat: bool = False) -> Tensor:
+    """Full-sequence forward (flow): h (B, L, d) -> final-normed hidden.
+    ``remat`` recomputes each layer in the backward, as ``dense_hidden``'s."""
     chunk = chunk or (cfg.ssm.chunk if cfg.ssm else 64)
     B, L, d = h.shape
     zero = torch.zeros((B, d), dtype=h.dtype, device=h.device)
     for i in range(cfg.n_layers):
         p = _layer(params["layers"], i)
-        tm_out, _, _ = _time_mix_seq(p["tm"], rms_norm(h, p["norm1"], cfg.norm_eps),
-                                     zero, chunk)
-        h = h + tm_out
-        hn = rms_norm(h, p["norm2"], cfg.norm_eps)
-        hn_prev = torch.cat([zero[:, None], hn[:, :-1]], dim=1)
-        h = h + _channel_mix(p["cm"], hn, hn_prev)
+        if remat:
+            h = checkpoint(_seq_layer, p, cfg, h, zero, chunk, use_reentrant=False)
+        else:
+            h = _seq_layer(p, cfg, h, zero, chunk)
     return rms_norm(h, params["final_norm"], cfg.norm_eps)
 
 

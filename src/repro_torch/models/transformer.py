@@ -18,6 +18,7 @@ from typing import Optional
 import numpy as np
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch import resolve_device
 from repro_torch.configs.base import ModelConfig
@@ -188,9 +189,19 @@ def _block(p: dict, cfg: ModelConfig, h: Tensor, positions: Tensor,
 
 
 def dense_hidden(params: dict, cfg: ModelConfig, h: Tensor, positions: Tensor,
-                 *, causal: bool = True, window: int = 0) -> Tensor:
+                 *, causal: bool = True, window: int = 0,
+                 remat: bool = False) -> Tensor:
+    """The layer stack and the final norm. ``remat`` recomputes each layer
+    in the backward instead of keeping its activations (the reference's
+    ``jax.checkpoint`` around the scan body): only each layer's input is
+    saved, and the layer runs twice under grad."""
     for i in range(cfg.n_layers):
-        h = _block(_layer(params["layers"], i), cfg, h, positions, causal, window)
+        p = _layer(params["layers"], i)
+        if remat:
+            h = checkpoint(_block, p, cfg, h, positions, causal, window,
+                           use_reentrant=False)
+        else:
+            h = _block(p, cfg, h, positions, causal, window)
     return rms_norm(h, params["final_norm"], cfg.norm_eps)
 
 

@@ -16,6 +16,9 @@ TPU_KERNELS = {
     "paged_attention":
         "src/repro/kernels/flash_attention/paged_attention.py::paged_attention",
     "gla_scan": "src/repro/kernels/gla_scan/gla_scan.py::gla_scan",
+    # the backward of the port's flash kernel (the TPU kernel has none)
+    "flash_attention_bwd":
+        "src/repro/kernels/flash_attention/flash_attention.py::flash_attention",
 }
 
 
@@ -177,3 +180,74 @@ def test_paged_variants_apply_to_the_kernel_source():
     base = variants.pop("kernel")
     assert base == Path(build.CSRC, "paged_attention.cu").read_text()
     assert variants and all(text != base for text in variants.values())
+
+
+@pytest.mark.parametrize("fault", ["D term dropped", "one head of the group missing from dK/dV",
+                                   "causal limit one tile short", "last key tile dropped",
+                                   "scale missing on dK"])
+def test_flash_bwd_fault_check_plants_each_fault_in_the_kernel_source(fault):
+    """scripts/flash_bwd_fault_check.py edits csrc/flash_attention_bwd.cu by
+    text; each target occurs exactly once and each fault changes the text."""
+    mod = _script("flash_bwd_fault_check")
+    src = Path(build.CSRC, "flash_attention_bwd.cu").read_text()
+    for old, new in mod.FAULTS[fault]:
+        assert src.count(old) == 1 and new != old
+    assert mod.fault_sources()[fault] != src
+
+
+def _c_params(source: str, entry: str) -> list[str]:
+    src = Path(build.CSRC, source).read_text()
+    sig = src[src.index(f'extern "C" int {entry}('):].split(")")[0]
+    return [p.strip() for p in sig.split("(", 1)[1].split(",")]
+
+
+def _ctypes_of(params):
+    import ctypes
+
+    return [ctypes.c_void_p if "*" in p else ctypes.c_float if p.startswith("float ")
+            else ctypes.c_longlong if p.startswith("long long") else ctypes.c_int
+            for p in params]
+
+
+class _FakeFn:
+    def __init__(self):
+        self.argtypes = self.restype = None
+
+
+def test_backward_bindings_match_the_c_signatures(monkeypatch):
+    """The ctypes argument types the wrappers set follow the C entry points'
+    parameters, for the flash forward (with its lse pointer), the flash
+    backward and the ns_update backward."""
+    import ctypes
+
+    from repro_torch.kernels.flash_attention import flash_attention as fa_mod
+    from repro_torch.kernels.ns_update import ns_update as nu_mod
+
+    class Lib:
+        flash_attention_fwd = _FakeFn()
+        flash_attention_bwd = _FakeFn()
+        ns_update_fwd = _FakeFn()
+        ns_update_bwd = _FakeFn()
+        ns_update_bwd_max_blocks = _FakeFn()
+
+    lib = Lib()
+    monkeypatch.setattr(build, "load", lambda name: lib)
+    monkeypatch.setattr(nu_mod, "_BOUND", None)
+    fa_mod._lib()
+    fa_mod._bwd_lib()
+    nu_mod._entry()
+    for entry, source in (("flash_attention_fwd", "flash_attention.cu"),
+                          ("flash_attention_bwd", "flash_attention_bwd.cu"),
+                          ("ns_update_fwd", "ns_update.cu"),
+                          ("ns_update_bwd", "ns_update.cu")):
+        fn = getattr(lib, entry)
+        assert fn.argtypes == _ctypes_of(_c_params(source, entry)), entry
+        assert fn.restype is ctypes.c_int
+
+
+def test_flash_backward_kernel_is_two_passes_without_atomics():
+    """dq (with D) then dk/dv, one block a tile, no atomics: deterministic."""
+    src = Path(build.CSRC, "flash_attention_bwd.cu").read_text()
+    assert "flash_bwd_dq_kernel" in src and "flash_bwd_dkdv_kernel" in src
+    assert "atomicAdd" not in src and "atom." not in src and "red." not in src
+    assert src.index("dq_kern<<<") < src.index("dkdv_kern<<<")

@@ -32,6 +32,10 @@ TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
 # |err| <= 4e-3 + 2e-2 |ref|, and the relative L2 error of each output row
 # <= 1e-2 (scripts/flash_fault_check.py shows planted faults fail it).
 FLASH_BF16_ATOL, FLASH_BF16_RTOL, FLASH_BF16_ROW_REL_L2 = 4e-3, 2e-2, 1e-2
+# bf16 flash backward, as chip_smoke.py's FLASH_BWD_BF16 holds it: one bf16
+# rounding step elementwise, and each row's relative L2 error over
+# max(|ref row|, atol sqrt(hd)).
+FLASH_BWD_ATOL, FLASH_BWD_RTOL, FLASH_BWD_ROW_REL_L2 = 1e-3, 2 ** -7, 4e-3
 
 
 @pytest.fixture
@@ -96,10 +100,11 @@ def test_ns_update_refuses_non_f32_coefficients_on_the_card(dev):
 
 
 @pytest.mark.parametrize("needs_grad", ["x0", "u", "a", "w"])
-def test_fused_ns_update_refuses_inputs_that_require_grad(dev, needs_grad):
-    """The kernel's output has no grad_fn: under grad, an input that requires
-    grad is refused before any launch instead of being cut from the graph;
-    under no_grad the same inputs launch the kernel."""
+def test_fused_ns_update_under_grad_launches_forward_and_backward(dev, needs_grad):
+    """Under grad, an input that requires grad goes through NSUpdate: one
+    forward launch, and one backward launch when the gradient is taken; the
+    gradient matches autograd of the plain version. Under no_grad the same
+    inputs launch the forward kernel alone."""
     from repro_torch.kernels.ns_update.ops import fused_ns_update
 
     rng = np.random.default_rng(7)
@@ -108,15 +113,67 @@ def test_fused_ns_update_refuses_inputs_that_require_grad(dev, needs_grad):
             "a": _randn(rng, (), torch.float32, dev),
             "w": _randn(rng, (3,), torch.float32, dev)}
     args[needs_grad].requires_grad_(True)
-    before = nu_mod.COUNTER.launches
-    with pytest.raises(RuntimeError, match="ROADMAP Queue A item 0"):
-        fused_ns_update(**args)
-    assert nu_mod.COUNTER.launches == before
+    before = (nu_mod.COUNTER.launches, nu_mod.BWD_COUNTER.launches)
+    out = fused_ns_update(**args)
+    (got,) = torch.autograd.grad(out.square().sum(), args[needs_grad])
+    assert (nu_mod.COUNTER.launches, nu_mod.BWD_COUNTER.launches) == (before[0] + 1,
+                                                                      before[1] + 1)
+    (want,) = torch.autograd.grad(ns_update_ref(**args).square().sum(), args[needs_grad])
+    torch.testing.assert_close(got, want, atol=TOL[torch.float32] * 2 * 64,
+                               rtol=TOL[torch.float32] * 3)
     with torch.no_grad():
         out = fused_ns_update(**args)
-    assert nu_mod.COUNTER.launches == before + 1
+    assert nu_mod.COUNTER.launches == before[0] + 2
     torch.testing.assert_close(out, ns_update_ref(**args).detach(), atol=TOL[torch.float32] * 3,
                                rtol=TOL[torch.float32])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("n,B,D", [(1, 4, 65536), (8, 4, 65536), (20, 3, 1000), (3, 1, 7),
+                                   (64, 2, 4096)])
+@pytest.mark.parametrize("need_x0", [True, False])
+def test_ns_update_bwd_matches_plain(dev, n, B, D, dtype, need_x0):
+    """dU and dx0 one f32 product each (TOL); da and dw f32 sums over B*D
+    products, held to TOL times the sum of their magnitudes."""
+    from repro_torch.kernels.ns_update.ns_update import ns_update_bwd
+    from repro_torch.kernels.ns_update.ref import ns_update_bwd_ref
+
+    rng = np.random.default_rng(n + B + D)
+    x0, g = _randn(rng, (B, D), dtype, dev), _randn(rng, (B, D), dtype, dev)
+    u = _randn(rng, (n, B, D), dtype, dev)
+    a, w = _randn(rng, (), torch.float32, dev), _randn(rng, (n,), torch.float32, dev)
+    before = nu_mod.BWD_COUNTER.launches
+    got = ns_update_bwd(g, x0, u, a, w, need_x0=need_x0)
+    torch.cuda.synchronize()
+    assert nu_mod.BWD_COUNTER.launches == before + 1
+    want = ns_update_bwd_ref(g, x0, u, a, w, need_x0=need_x0)
+    assert (got[0] is None) == (not need_x0)
+    for x, r in zip(got[:2], want[:2]):
+        if r is not None:
+            assert x.dtype == r.dtype and x.shape == r.shape
+            torch.testing.assert_close(x.float(), r.float(), atol=TOL[dtype], rtol=TOL[dtype])
+    scale = torch.cat([(x0.float() * g.float()).abs().sum().reshape(1),
+                       torch.tensordot(u.float().abs(), g.float().abs(), dims=2)])
+    err = (torch.cat([got[2].reshape(1), got[3]]) - torch.cat([want[2].reshape(1), want[3]]))
+    assert float((err.abs() / (TOL[torch.float32] * scale)).max()) <= 1
+    assert got[2].shape == a.shape and got[3].shape == w.shape
+
+
+def test_ns_update_bwd_is_deterministic_across_shapes(dev):
+    """Two runs give the same bits (a fixed-order reduction, no float
+    atomics), also after a call of another shape (the arrival counter is
+    back at 0 after every call)."""
+    from repro_torch.kernels.ns_update.ns_update import ns_update_bwd
+
+    rng = np.random.default_rng(9)
+    big = [_randn(rng, s, torch.float32, dev) for s in ((4, 65536), (4, 65536), (8, 4, 65536))]
+    small = [_randn(rng, s, torch.float32, dev) for s in ((3, 100), (3, 100), (2, 3, 100))]
+    a, w8, w2 = (_randn(rng, s, torch.float32, dev) for s in ((), (8,), (2,)))
+    first = ns_update_bwd(*big, a, w8)
+    ns_update_bwd(*small, a, w2)
+    again = ns_update_bwd(*big, a, w8)
+    for x, y in zip(first, again):
+        assert torch.equal(x, y)
 
 
 def _check_flash_bf16(out, ref):
@@ -615,3 +672,149 @@ def test_gla_scan_refuses_what_it_does_not_take(dev):
         gla_scan(big, big, big, big)
     with pytest.raises(ValueError, match="CUDA tensors"):
         gla_scan(q.cpu(), k.cpu(), v.cpu(), ld.cpu())
+
+
+# ---------------------------------------------------------------------------
+# flash attention under grad: the forward's log-sum-exp and the backward
+# ---------------------------------------------------------------------------
+
+
+def _check_flash_bwd(out, ref, dtype):
+    if dtype == torch.float32:
+        torch.testing.assert_close(out, ref, atol=TOL[dtype] * 4, rtol=TOL[dtype] * 4)
+        return
+    ref = ref.float()
+    err = (out.float() - ref).abs()
+    assert float((err / (FLASH_BWD_ATOL + FLASH_BWD_RTOL * ref.abs())).max()) <= 1
+    floor = FLASH_BWD_ATOL * ref.shape[-1] ** 0.5
+    row = (torch.linalg.vector_norm(err, dim=-1)
+           / torch.linalg.vector_norm(ref, dim=-1).clamp_min(floor))
+    assert float(row.max()) <= FLASH_BWD_ROW_REL_L2
+
+
+def _bwd_inputs(seed, B, H, KV, Lq, Lk, dtype, dev):
+    rng = np.random.default_rng(seed)
+    # transposed views of the model's (B, L, heads, hd) layout
+    q, do = (_randn(rng, (B, Lq, H, 128), dtype, dev).transpose(1, 2) for _ in "qo")
+    k, v = (_randn(rng, (B, Lk, KV, 128), dtype, dev).transpose(1, 2) for _ in "kv")
+    return q, k, v, do
+
+
+_BWD_SHAPES = [  # B, H, KV, Lq, Lk, causal
+    (4, 32, 4, 1024, 1024, True),   # the flow cell
+    (2, 8, 2, 77, 77, True),
+    (2, 8, 2, 77, 77, False),
+    (1, 4, 4, 33, 33, True),        # G 1
+    (1, 16, 2, 200, 200, False),    # G 8
+    (2, 8, 1, 1000, 1000, True),    # ragged L
+    (1, 4, 2, 1, 1, True),          # one position
+    (1, 4, 2, 40, 97, False),       # Lq != Lk
+    (1, 4, 2, 50, 70, True),
+]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,H,KV,Lq,Lk,causal", _BWD_SHAPES)
+def test_flash_attention_lse_matches_plain(dev, B, H, KV, Lq, Lk, causal, dtype):
+    from repro_torch.kernels.flash_attention.ref import attention_lse_ref
+
+    q, k, v, _ = _bwd_inputs(Lq + H, B, H, KV, Lq, Lk, dtype, dev)
+    o, lse = flash_attention(q, k, v, causal=causal, return_lse=True)
+    assert lse.shape == (B, H, Lq) and lse.dtype == torch.float32 and lse.is_contiguous()
+    ref = attention_lse_ref(q, k, causal=causal)
+    torch.testing.assert_close(lse, ref, atol=TOL[torch.float32] * 4,
+                               rtol=TOL[torch.float32] * 4)
+    assert torch.equal(o, flash_attention(q, k, v, causal=causal))  # same output either way
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,H,KV,Lq,Lk,causal", _BWD_SHAPES)
+def test_flash_attention_bwd_matches_plain(dev, B, H, KV, Lq, Lk, causal, dtype):
+    from repro_torch.kernels.flash_attention.flash_attention import flash_attention_bwd
+    from repro_torch.kernels.flash_attention.ref import attention_bwd_ref
+
+    q, k, v, do = _bwd_inputs(Lq + Lk + H, B, H, KV, Lq, Lk, dtype, dev)
+    o, lse = flash_attention(q, k, v, causal=causal, return_lse=True)
+    before = fa_mod.BWD_COUNTER.launches
+    got = flash_attention_bwd(q, k, v, o, lse, do, causal=causal)
+    torch.cuda.synchronize()
+    assert fa_mod.BWD_COUNTER.launches == before + 1
+    want = attention_bwd_ref(q, k, v, o, lse, do, causal=causal)
+    for x, r, like in zip(got, want, (q, k, v)):
+        assert x.shape == like.shape and x.dtype == dtype
+        _check_flash_bwd(x, r, dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attention_bwd_is_deterministic(dev, dtype):
+    from repro_torch.kernels.flash_attention.flash_attention import flash_attention_bwd
+
+    q, k, v, do = _bwd_inputs(1, 2, 16, 2, 300, 300, dtype, dev)
+    o, lse = flash_attention(q, k, v, return_lse=True)
+    first = flash_attention_bwd(q, k, v, o, lse, do)
+    again = flash_attention_bwd(q, k, v, o, lse, do)
+    for x, y in zip(first, again):
+        assert torch.equal(x, y)
+
+
+@pytest.mark.parametrize("causal", [True, False])
+def test_attend_gradient_through_the_kernels_matches_autograd_of_the_plain_version(dev, causal):
+    """The FlashAttention Function in f32 (a gradcheck-style comparison): the
+    gradient of a scalar of attend's output through the kernels (forward with
+    lse, backward) against autograd of the plain version, on the card; the
+    forward and backward kernels launch once each, the plain version never."""
+    B, L, H, KV = 2, 150, 8, 2
+    rng = np.random.default_rng(12)
+    q = _randn(rng, (B, L, H, 128), torch.float32, dev).requires_grad_(True)
+    k = _randn(rng, (B, L, KV, 128), torch.float32, dev).requires_grad_(True)
+    v = _randn(rng, (B, L, KV, 128), torch.float32, dev).requires_grad_(True)
+    weight = _randn(rng, (B, L, H, 128), torch.float32, dev)
+    before = (fa_mod.COUNTER.launches, fa_mod.BWD_COUNTER.launches)
+    out = attend(q, k, v, causal=causal)
+    assert type(out.grad_fn).__name__ == "TransposeBackward0"
+    got = torch.autograd.grad((out * weight).sum(), (q, k, v))
+    assert (fa_mod.COUNTER.launches, fa_mod.BWD_COUNTER.launches) == (before[0] + 1,
+                                                                      before[1] + 1)
+    ref = attention_ref(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+                        causal=causal).transpose(1, 2)
+    want = torch.autograd.grad((ref * weight).sum(), (q, k, v))
+    for x, r in zip(got, want):
+        torch.testing.assert_close(x, r, atol=TOL[torch.float32] * 4, rtol=TOL[torch.float32] * 4)
+    with torch.no_grad():
+        attend(q, k, v, causal=causal)
+    assert (fa_mod.COUNTER.launches, fa_mod.BWD_COUNTER.launches) == (before[0] + 2,
+                                                                      before[1] + 1)
+
+
+def test_flash_attention_bwd_refuses_what_it_does_not_take(dev):
+    from repro_torch.kernels.flash_attention.flash_attention import flash_attention_bwd
+
+    q = torch.zeros(1, 2, 16, 64, device=dev)
+    with pytest.raises(ValueError, match="ROADMAP Queue B item 7"):
+        flash_attention_bwd(q, q, q, q, torch.zeros(1, 2, 16, device=dev), q)
+    with pytest.raises(ValueError, match="ROADMAP Queue B item 7"):
+        flash_attention(q, q, q, return_lse=True)
+    q = torch.zeros(1, 2, 16, 128, device=dev)
+    with pytest.raises(ValueError, match="lse"):
+        flash_attention_bwd(q, q, q, q, torch.zeros(1, 2, 8, device=dev), q)
+    with pytest.raises(ValueError, match="do must be like q"):
+        flash_attention_bwd(q, q, q, q, torch.zeros(1, 2, 16, device=dev), q.bfloat16())
+
+
+@pytest.mark.parametrize("needs_grad", ["q", "v", "ld"])
+def test_gla_refuses_inputs_that_require_grad_on_the_card(dev, needs_grad):
+    """gla_scan has no backward yet: under grad, an input that requires grad
+    is refused before any launch; under no_grad the kernel launches."""
+    from repro_torch.kernels.gla_scan import gla_scan as gs_mod
+    from repro_torch.kernels.gla_scan.ops import gla
+
+    q, k, v, ld = _gla_inputs(3, 1, 64, 2, 64, 64, torch.float32, torch.float32, dev)
+    args = {"q": q, "k": k, "v": v, "ld": ld}
+    args[needs_grad].requires_grad_(True)
+    before = gs_mod.COUNTER.launches
+    with pytest.raises(RuntimeError, match="ROADMAP Queue B item 6"):
+        gla(**args, chunk=64)
+    assert gs_mod.COUNTER.launches == before
+    with torch.no_grad():
+        gla(**args, chunk=64)
+    assert gs_mod.COUNTER.launches == before + 1

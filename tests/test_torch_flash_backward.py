@@ -1,0 +1,252 @@
+"""The flash backward's plain version and its tiled algebra, on the CPU.
+
+``attention_bwd_ref`` (the formulas the CUDA backward kernel computes, from
+the forward's output and per-row log-sum-exp) is held against torch autograd
+of ``attention_ref`` and against ``jax.vjp`` of the reference's
+``_grouped_attend`` (the attention its training path differentiates), for
+GQA, causal and not, and ragged lengths; f32, tolerance
+``tests/test_kernels.py``'s 2e-5 times 4, as that file scales attention. The
+kernel's partition (32-query tiles for dq with the causal key limit; 32-key
+tiles for dk/dv summed over the group's heads, query tiles from the diagonal
+on; D = rowsum(dO O); P recomputed from lse) is written out in f64 and must
+agree with autograd of an f64 attention to 1e-10. The kernel itself runs only
+on the card (``tests/test_torch_cuda.py``).
+"""
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.models.attention import _grouped_attend
+from repro_torch.kernels.flash_attention import flash_attention as fa_mod
+from repro_torch.kernels.flash_attention.flash_attention import (
+    flash_attention,
+    flash_attention_bwd,
+)
+from repro_torch.kernels.flash_attention.ops import attend
+from repro_torch.kernels.flash_attention.ref import (
+    attention_bwd_ref,
+    attention_lse_ref,
+    attention_ref,
+)
+
+TOL = 2e-5 * 4
+TILE = 32                       # the kernel's tile, both kernels
+
+
+@pytest.fixture(autouse=True)
+def _one_torch_thread():
+    """These tests run thousands of tiny eager ops (RK45 steps, training
+    iterations); beside other test workers, torch's intra-op threads only
+    contend for the cores, so each test runs on one and restores the count."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+class OnCard(torch.Tensor):
+    """A CPU tensor that reports ``is_cuda``: reaches the wrapper's checks
+    that come after the device test, which must refuse before any launch."""
+
+    @property
+    def is_cuda(self):
+        return True
+
+
+def _inputs(seed, B, H, KV, Lq, Lk, hd=128, dtype=np.float32):
+    rng = np.random.default_rng(seed)
+    return [rng.standard_normal(s).astype(dtype)
+            for s in ((B, H, Lq, hd), (B, KV, Lk, hd), (B, KV, Lk, hd), (B, H, Lq, hd))]
+
+
+def _mask(Lq, Lk, causal):
+    return np.arange(Lq)[:, None] >= np.arange(Lk)[None, :] if causal else None
+
+
+def _jax_vjp(q, k, v, do, causal):
+    """jax.vjp of the reference's _grouped_attend, in the port's layout."""
+    B, H, Lq, hd = q.shape
+    KV, Lk = k.shape[1], k.shape[2]
+    G = H // KV
+    to_q = lambda x: jnp.asarray(x).reshape(B, KV, G, Lq, hd).transpose(0, 3, 1, 2, 4)  # noqa: E731
+    to_k = lambda x: jnp.asarray(x).transpose(0, 2, 1, 3)  # noqa: E731
+    m = _mask(Lq, Lk, causal)
+    mask = None if m is None else jnp.asarray(m)[None]
+    _, vjp = jax.vjp(lambda a, b, c: _grouped_attend(a, b, c, mask), to_q(q), to_k(k), to_k(v))
+    dq, dk, dv = vjp(to_q(do))
+    return (np.asarray(dq.transpose(0, 2, 3, 1, 4)).reshape(B, H, Lq, hd),
+            np.asarray(dk.transpose(0, 2, 1, 3)), np.asarray(dv.transpose(0, 2, 1, 3)))
+
+
+SHAPES = [  # B, H, KV, Lq, Lk, causal
+    (2, 8, 2, 77, 77, True),
+    (2, 8, 2, 77, 77, False),
+    (1, 4, 4, 33, 33, True),     # G = 1
+    (1, 8, 1, 64, 64, True),     # G = 8, L a multiple of the tile
+    (1, 6, 2, 100, 100, False),
+    (1, 4, 2, 1, 1, True),       # one position
+]
+
+
+@pytest.mark.parametrize("B,H,KV,Lq,Lk,causal", SHAPES)
+def test_attention_bwd_ref_matches_autograd_and_jax_vjp(B, H, KV, Lq, Lk, causal):
+    q, k, v, do = (torch.from_numpy(a) for a in _inputs(Lq + H, B, H, KV, Lq, Lk))
+    qs, ks, vs = (t.clone().requires_grad_(True) for t in (q, k, v))
+    o = attention_ref(qs, ks, vs, causal=causal)
+    want = torch.autograd.grad(o, (qs, ks, vs), do)
+    lse = attention_lse_ref(q, k, causal=causal)
+    got = attention_bwd_ref(q, k, v, o.detach(), lse, do, causal=causal)
+    jwant = _jax_vjp(*(t.numpy() for t in (q, k, v, do)), causal)
+    for g, w, jw in zip(got, want, jwant):
+        assert g.shape == w.shape and g.dtype == torch.float32
+        np.testing.assert_allclose(g.numpy(), w.numpy(), rtol=TOL, atol=TOL)
+        np.testing.assert_allclose(g.numpy(), jw, rtol=TOL, atol=TOL)
+
+
+@pytest.mark.parametrize("causal", [True, False])
+def test_attention_bwd_ref_in_bf16_returns_bf16(causal):
+    q, k, v, do = (torch.from_numpy(a).bfloat16() for a in _inputs(3, 1, 4, 2, 40, 40))
+    o = attention_ref(q, k, v, causal=causal)
+    got = attention_bwd_ref(q, k, v, o, attention_lse_ref(q, k, causal=causal), do,
+                            causal=causal)
+    want = attention_bwd_ref(*(t.float() for t in (q, k, v, o)),
+                             attention_lse_ref(q, k, causal=causal), do.float(), causal=causal)
+    for g, w in zip(got, want):
+        assert g.dtype == torch.bfloat16
+        np.testing.assert_allclose(g.float().numpy(), w.numpy(), rtol=2 ** -7, atol=1e-6)
+
+
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("Lq,Lk", [(50, 50), (30, 90)])
+def test_lse_ref_matches_reference_scores(causal, Lq, Lk):
+    q, k, _, _ = _inputs(Lq, 2, 4, 2, Lq, Lk, hd=64)
+    s = jnp.einsum("bkgqh,bksh->bkgqs", jnp.asarray(q).reshape(2, 2, 2, Lq, 64) * 64 ** -0.5,
+                   jnp.asarray(k))
+    m = _mask(Lq, Lk, causal)
+    if m is not None:
+        s = jnp.where(jnp.asarray(m), s, -1e30)
+    want = np.asarray(jax.nn.logsumexp(s, axis=-1)).reshape(2, 4, Lq)
+    got = attention_lse_ref(torch.from_numpy(q), torch.from_numpy(k), causal=causal)
+    np.testing.assert_allclose(got.numpy(), want, rtol=2e-5, atol=2e-5)
+
+
+def _f64_attention(q, k, v, causal):
+    B, H, Lq, hd = q.shape
+    KV, Lk = k.shape[1], k.shape[2]
+    G = H // KV
+    s = torch.einsum("bkgqh,bksh->bkgqs", q.reshape(B, KV, G, Lq, hd), k) * hd ** -0.5
+    if causal:
+        s = torch.where(torch.from_numpy(_mask(Lq, Lk, True)), s, -torch.inf)
+    return torch.einsum("bkgqs,bksh->bkgqh", torch.softmax(s, -1), v).reshape(B, H, Lq, hd)
+
+
+def _tiled_backward(q, k, v, o, lse, do, causal):
+    """The CUDA kernel's partition, in f64: what each block computes."""
+    B, H, Lq, hd = q.shape
+    KV, Lk = k.shape[1], k.shape[2]
+    G, scale = H // KV, hd ** -0.5
+    dq, dk, dv = torch.zeros_like(q), torch.zeros_like(k), torch.zeros_like(v)
+    dsum = torch.zeros((B, H, Lq), dtype=q.dtype)
+
+    def keep(i0, ni, j0, nj):
+        i = torch.arange(i0, i0 + ni)[:, None]
+        j = torch.arange(j0, j0 + nj)[None, :]
+        return (i < Lq) & (j < Lk) & ((j <= i) if causal else True)
+
+    # dq kernel: one block a (32-query tile, head, batch)
+    for b in range(B):
+        for h in range(H):
+            kvh = h // G
+            for q0 in range(0, Lq, TILE):
+                rows = slice(q0, min(q0 + TILE, Lq))
+                n = rows.stop - q0
+                D = (do[b, h, rows] * o[b, h, rows]).sum(-1)
+                dsum[b, h, rows] = D
+                acc = torch.zeros((n, hd), dtype=q.dtype)
+                k_end = min(Lk, q0 + n) if causal else Lk
+                for k0 in range(0, k_end, TILE):
+                    cols = slice(k0, min(k0 + TILE, Lk))
+                    s = q[b, h, rows] @ k[b, kvh, cols].T
+                    dp = do[b, h, rows] @ v[b, kvh, cols].T
+                    p = torch.where(keep(q0, n, k0, cols.stop - k0),
+                                    torch.exp(s * scale - lse[b, h, rows, None]), 0.0)
+                    acc += (p * (dp - D[:, None])) @ k[b, kvh, cols]
+                dq[b, h, rows] = acc * scale
+    # dk/dv kernel: one block a (32-key tile, KV head, batch), the group's heads
+    for b in range(B):
+        for kvh in range(KV):
+            for k0 in range(0, Lk, TILE):
+                cols = slice(k0, min(k0 + TILE, Lk))
+                m = cols.stop - k0
+                adk = torch.zeros((m, hd), dtype=q.dtype)
+                adv = torch.zeros((m, hd), dtype=q.dtype)
+                for hg in range(G):
+                    h = kvh * G + hg
+                    for q0 in range(k0 if causal else 0, Lq, TILE):
+                        rows = slice(q0, min(q0 + TILE, Lq))
+                        n = rows.stop - q0
+                        s = k[b, kvh, cols] @ q[b, h, rows].T          # (keys, queries)
+                        dp = v[b, kvh, cols] @ do[b, h, rows].T
+                        p = torch.where(keep(q0, n, k0, m).T,
+                                        torch.exp(s * scale - lse[b, h, None, rows]), 0.0)
+                        ds = p * (dp - dsum[b, h, None, rows])
+                        adv += p @ do[b, h, rows]
+                        adk += ds @ q[b, h, rows]
+                dk[b, kvh, cols] = adk * scale
+                dv[b, kvh, cols] = adv
+    return dq, dk, dv
+
+
+@pytest.mark.parametrize("B,H,KV,Lq,Lk,causal", SHAPES + [
+    (1, 4, 2, 50, 70, True),     # causal, Lq < Lk: top-left aligned mask
+    (1, 4, 2, 70, 50, True),     # causal, Lq > Lk: late rows see every key
+    (1, 4, 2, 40, 97, False)])
+def test_tiled_algebra_matches_autograd_in_f64(B, H, KV, Lq, Lk, causal):
+    """Recompute from lse, D from dO and O, the sum over the group's heads,
+    and the causal tile skipping (no query tile before the key tile's
+    diagonal, no key tile past the query tile's last row) lose nothing."""
+    q, k, v, do = (torch.from_numpy(a).double() for a in _inputs(Lk + 7, B, H, KV, Lq, Lk))
+    qs, ks, vs = (t.clone().requires_grad_(True) for t in (q, k, v))
+    o = _f64_attention(qs, ks, vs, causal)
+    want = torch.autograd.grad(o, (qs, ks, vs), do)
+    s = torch.einsum("bkgqh,bksh->bkgqs", q.reshape(B, KV, H // KV, Lq, 128), k) * 128 ** -0.5
+    if causal:
+        s = torch.where(torch.from_numpy(_mask(Lq, Lk, True)), s, -torch.inf)
+    lse = torch.logsumexp(s, -1).reshape(B, H, Lq)
+    got = _tiled_backward(q, k, v, o.detach(), lse, do, causal)
+    for g, w in zip(got, want):
+        np.testing.assert_allclose(g.numpy(), w.numpy(), rtol=1e-10, atol=1e-10)
+
+
+@pytest.mark.parametrize("causal", [True, False])
+def test_attend_under_grad_on_cpu_is_differentiated_like_the_reference(causal):
+    """The CPU route (the plain version) keeps its graph: the output has a
+    grad_fn and its gradient is jax.vjp of the reference's _grouped_attend."""
+    B, H, KV, L, hd = 2, 8, 2, 45, 64
+    q, k, v, do = _inputs(9, B, H, KV, L, L, hd=hd)
+    # attend takes the model's (B, L, heads, hd) layout
+    qm, km, vm = (torch.from_numpy(a).transpose(1, 2).contiguous().requires_grad_(True)
+                  for a in (q, k, v))
+    out = attend(qm, km, vm, causal=causal)
+    assert out.grad_fn is not None
+    got = torch.autograd.grad(out, (qm, km, vm), torch.from_numpy(do).transpose(1, 2))
+    want = _jax_vjp(q, k, v, do, causal)
+    for g, w in zip(got, want):
+        np.testing.assert_allclose(g.transpose(1, 2).numpy(), w, rtol=TOL, atol=TOL)
+
+
+def test_backward_wrapper_refuses_cpu_tensors_and_other_head_dims_before_any_launch():
+    q, k, v, do = (torch.from_numpy(a) for a in _inputs(1, 1, 4, 2, 8, 8))
+    lse = attention_lse_ref(q, k)
+    before = (fa_mod.COUNTER.launches, fa_mod.BWD_COUNTER.launches)
+    with pytest.raises(ValueError, match="CUDA"):
+        flash_attention_bwd(q, k, v, q, lse, do)
+    q64, k64, v64, do64 = (torch.from_numpy(a).as_subclass(OnCard)
+                           for a in _inputs(2, 1, 4, 2, 8, 8, hd=64))
+    with pytest.raises(ValueError, match="ROADMAP Queue B item 7"):
+        flash_attention_bwd(q64, k64, v64, q64, lse, do64)
+    with pytest.raises(ValueError, match="ROADMAP Queue B item 7"):
+        flash_attention(q64, k64, v64, return_lse=True)
+    assert (fa_mod.COUNTER.launches, fa_mod.BWD_COUNTER.launches) == before

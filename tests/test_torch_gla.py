@@ -248,3 +248,35 @@ def test_kernel_wrapper_refuses_cpu_tensors():
     q, k, v, ld = _t(_inputs(0, 1, 8, 1, 8, 8))
     with pytest.raises(ValueError, match="CUDA tensors"):
         gs_mod.gla_scan(q, k, v, ld)
+
+
+class _OnCard(torch.Tensor):
+    """A CPU tensor that reports ``is_cuda``, so ``ops.gla`` takes its card
+    route: the refusal under grad must come before any launch."""
+
+    @property
+    def is_cuda(self):
+        return True
+
+
+@pytest.mark.parametrize("needs_grad", ["q", "k", "v", "ld", "s0"])
+def test_card_route_refuses_inputs_that_require_grad(needs_grad, monkeypatch):
+    """The kernel's outputs have no grad_fn: on the card, an input that
+    requires grad under grad mode is refused, naming the ROADMAP entry of the
+    kernel's backward, before the kernel is called; under no_grad the same
+    inputs reach the kernel. The CPU route stays differentiable."""
+    from repro_torch.kernels.gla_scan import ops as gla_ops
+
+    arrays = dict(zip(("q", "k", "v", "ld", "s0"),
+                      _t(_inputs(3, 1, 8, 2, 4, 4, s0=True))))
+    arrays[needs_grad].requires_grad_(True)
+    calls = []
+    monkeypatch.setattr(gla_ops, "gla_scan", lambda *a, **kw: calls.append(a) or "launched")
+    card = {name: t.as_subclass(_OnCard) for name, t in arrays.items()}
+    with pytest.raises(RuntimeError, match="ROADMAP Queue B item 6"):
+        gla(card["q"], card["k"], card["v"], card["ld"], card["s0"])
+    assert calls == []
+    with torch.no_grad():
+        assert gla(card["q"], card["k"], card["v"], card["ld"], card["s0"]) == "launched"
+    o, _ = gla(arrays["q"], arrays["k"], arrays["v"], arrays["ld"], arrays["s0"])
+    assert o.grad_fn is not None

@@ -7,6 +7,7 @@ runs its Pallas kernel in interpret mode and its jnp oracle. Tolerances are
 ``tests/test_kernels.py``'s (f32 2e-5, bf16 2e-2), scaled by n for the
 n-term sum as that file does.
 """
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -27,7 +28,7 @@ from repro_torch.core.taxonomy import run_direct, to_ns
 from repro_torch.kernels.ns_update import ns_update as nu_mod
 from repro_torch.kernels.ns_update.ns_update import ns_update
 from repro_torch.kernels.ns_update.ops import fused_ns_update, make_update_fn
-from repro_torch.kernels.ns_update.ref import ns_update_ref
+from repro_torch.kernels.ns_update.ref import ns_update_bwd_ref, ns_update_ref
 from repro_torch.solvers import registry as treg
 
 TOL = {"float32": 2e-5, "bfloat16": 2e-2}
@@ -250,3 +251,69 @@ def test_unported_solvers_name_their_roadmap_item(name):
 def test_sigma0_preconditioning_names_its_roadmap_item():
     with pytest.raises(NotImplementedError, match="ROADMAP Queue A item 2"):
         treg.build_ns("euler", 8, sigma0=2.0)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("n,shape", [(1, (4, 64)), (8, (2, 16, 8)), (5, (3, 7))])
+@pytest.mark.parametrize("need_x0", [True, False])
+def test_bwd_ref_matches_autograd_and_jax_grad(dtype, n, shape, need_x0):
+    """ns_update_bwd_ref (the backward kernel's formulas) against torch
+    autograd of ns_update_ref and jax.vjp of the reference's jnp oracle, on
+    the same inputs and output gradient; f32 sums, TOL scaled by n as above
+    and by the element count for the dot products (da, dw)."""
+    jx, tx = _inputs(n * 10 + len(shape), n, shape, dtype)
+    g = np.random.default_rng(n).standard_normal(shape).astype(np.float32)
+    tg = torch.from_numpy(g).to(getattr(torch, dtype))
+    dx0, du, da, dw = ns_update_bwd_ref(tg, *tx, need_x0=need_x0)
+    assert (dx0 is None) == (not need_x0)
+    leaves = [t.clone().requires_grad_(True) for t in tx]
+    want = torch.autograd.grad(ns_update_ref(*leaves), leaves, tg)
+    _, vjp = jax.vjp(jax_ns_update_ref, *jx)
+    jwant = vjp(jnp.asarray(g).astype(dtype))
+    N = int(np.prod(shape))
+    for got, w, jw, atol in ((dx0, want[0], jwant[0], TOL[dtype]),
+                             (du, want[1], jwant[1], TOL[dtype] * n),
+                             (da, want[2], jwant[2], TOL["float32"] * N),
+                             (dw, want[3], jwant[3], TOL["float32"] * N)):
+        if got is None:
+            continue
+        assert got.dtype == w.dtype and got.shape == w.shape
+        np.testing.assert_allclose(_f32(got), _f32(w), atol=atol, rtol=TOL[dtype])
+        np.testing.assert_allclose(_f32(got), _f32(jw), atol=atol, rtol=TOL[dtype])
+
+
+def test_fused_update_under_grad_goes_through_the_function_with_its_plain_backward():
+    """Under grad, fused_ns_update is the NSUpdate Function (whose backward is
+    the kernel on the card and ns_update_bwd_ref on the CPU); without grad it
+    is the plain call, with no graph."""
+    from repro_torch.kernels.ns_update import ops as nu_ops
+
+    _, (x0, u, a, w) = _inputs(4, 3, (2, 8), "float32")
+    a, w = a.clone().requires_grad_(True), w.clone().requires_grad_(True)
+    out = fused_ns_update(x0, u, a, w)
+    assert type(out.grad_fn).__name__ == "NSUpdateBackward"
+    calls = []
+    real = nu_ops.ns_update_bwd_ref
+
+    def spy(*args, **kw):
+        calls.append(kw)
+        return real(*args, **kw)
+
+    nu_ops.ns_update_bwd_ref = spy
+    try:
+        da, dw = torch.autograd.grad(out.sum(), (a, w))
+    finally:
+        nu_ops.ns_update_bwd_ref = real
+    assert calls == [{"need_x0": False}]
+    torch.testing.assert_close(da, (x0).sum().reshape(()))
+    torch.testing.assert_close(dw, u.sum(dim=(1, 2)))
+    with torch.no_grad():
+        assert fused_ns_update(x0, u, a, w).grad_fn is None
+
+
+def test_bwd_kernel_wrapper_refuses_cpu_tensors_before_any_launch():
+    _, (x0, u, a, w) = _inputs(6, 2, (2, 8), "float32")
+    before = nu_mod.BWD_COUNTER.launches
+    with pytest.raises(ValueError, match="CUDA"):
+        nu_mod.ns_update_bwd(torch.ones_like(x0), x0, u, a, w)
+    assert nu_mod.BWD_COUNTER.launches == before

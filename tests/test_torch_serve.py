@@ -140,8 +140,10 @@ def test_serve_cli_exit_code_without_a_card():
 
 
 @pytest.mark.parametrize("extra,item", [
-    (["--bns-iters", "300"], "ROADMAP Queue A item 0"),
-    ([], "ROADMAP Queue A item 0"),                       # the reference's default
+    # distillation of rwkv6-7b on the card waits for gla_scan's backward
+    (["--arch", "rwkv6-7b", "--device", "cuda", "--bns-iters", "300"],
+     "ROADMAP Queue B item 6"),
+    (["--arch", "rwkv6-7b", "--device", "cuda"], "ROADMAP Queue B item 6"),  # default 300
     (["--bns-iters", "0", "--solver-artifact", "s.msgpack"], "ROADMAP Queue A item 3"),
     (["--bns-iters", "0", "--budgets", "4,8"], "ROADMAP Queue A item 4"),
     (["--bns-iters", "0", "--gateway"], "ROADMAP Queue A item 7"),
