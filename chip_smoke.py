@@ -38,8 +38,11 @@ Phases (any failure ends the run with a non-zero exit and no last line):
    FLASH_BWD_BF16, f32 under 4 TOL), each after the forward kernel's lse is
    held against the plain log-sum-exp. Timed (CUDA events) beside the plain
    version and, for flash, torch autograd of SDPA's backward (a yardstick
-   only); flash prints achieved TFLOP/s and kernel / bound, the ns_update
-   backward its device time at the flow cell.
+   only); flash prints achieved TFLOP/s at the algorithm's 10 hd flops a
+   kept pair and at the executed count (20 hd in bf16: S and dP in both
+   passes, P and dS in two parts; 14 in f32), kernel / bound, and the device
+   time of each pass (dq, dk/dv) from torch.profiler by kernel name; the
+   ns_update backward its device time at the flow cell.
 4. Flow path: ``repro_torch.launch.serve.main`` with yi-6b at full width
    (32 layers, bf16, random weights from a seeded generator on the card),
    NFE 8, batch 4, sequence 1024, 3 requests. Launch counts must be exact.
@@ -158,6 +161,8 @@ DISTILL_CHECK_STEPS, DISTILL_CHECK_LR = 3, 1e-3    # phase 13
 VOCAB = {"yi-6b": 64000, "rwkv6-7b": 65536}
 KERNELS = ("ns_update", "flash_attention", "paged_attention", "gla_scan", "ns_update_bwd",
            "flash_attention_bwd")
+# the flash backward's passes by kernel name (in bf16 and f32 alike)
+BWD_PASSES = ("flash_bwd_dq", "flash_bwd_dkdv")
 
 
 def time_ms(fn, iters: int = 100, warmup: int = 5) -> float:
@@ -191,6 +196,27 @@ def device_ms(fn, kernel: str | None, iters: int = 100) -> float | None:
     us = sum(e.time_range.elapsed_us() for e in prof.events()
              if e.device_type == DeviceType.CUDA and (kernel is None or kernel in e.name))
     return us / iters / 1e3 if us else None
+
+
+def device_ms_by_kernel(fn, kernels: tuple, iters: int = 20) -> dict:
+    """Mean device time per call of ``fn`` from torch.profiler, for each name
+    in ``kernels``: the kernels whose name holds it (None where none ran)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    us = dict.fromkeys(kernels, 0.0)
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            for k in kernels:
+                if k in e.name:
+                    us[k] += e.time_range.elapsed_us()
+    return {k: v / iters / 1e3 if v else None for k, v in us.items()}
 
 
 def bound(nbytes: float, flops: float, dtype: torch.dtype) -> tuple[float, str]:
@@ -454,11 +480,15 @@ def flash_bwd_cases(dev):
         nbytes = (4 * B * H * L * hd + 4 * B * KV * L * hd) * size + B * H * L * 4
         b_ms, b_by = bound(nbytes, flops, dtype)
         ms = time_ms(lambda: flash_attention_bwd(q, k, v, o, lse, do, causal=causal), iters=20)
+        passes = device_ms_by_kernel(
+            lambda: flash_attention_bwd(q, k, v, o, lse, do, causal=causal), BWD_PASSES)
+        executed = (20 if dtype == bf16 else 14) * hd * pairs * B * H
         qs, ks, vs = (t.detach().requires_grad_(True) for t in (q, k, v))
         out = F.scaled_dot_product_attention(qs, ks, vs, is_causal=causal, enable_gqa=True)
         rows.append(dict(
             shape=shape, max_abs_err=err, limit_ratio=ratio, lse_limit_ratio=lse_ratio,
-            ms=ms, tflops=flops / ms / 1e9,
+            ms=ms, tflops=flops / ms / 1e9, executed_tflops=executed / ms / 1e9,
+            pass_device_ms=passes,
             plain_ms=time_ms(lambda: attention_bwd_ref(q, k, v, o, lse, do, causal=causal),
                              iters=5, warmup=1),
             library_ms=time_ms(lambda: torch.autograd.grad(out, (qs, ks, vs), do,
@@ -1099,6 +1129,10 @@ def main() -> int:
                 if key in r:
                     extra += f", {what} {r[key]:.4f} of the limit"
             if name == "flash_attention_bwd":
+                passes = ", ".join(f"{k[10:]} {'-' if t is None else f'{t:.4f} ms'}"
+                                   for k, t in r["pass_device_ms"].items())
+                extra += (f", executed {r['executed_tflops']:.1f} TFLOP/s, device time a "
+                          f"pass: {passes}")
                 extra += (f", bf16 limit ratio {r['limit_ratio']:.4f}" if "bfloat16" in r["shape"]
                           else "") + " (library: torch autograd of SDPA's backward)"
             for key, what in (("device_ms", "kernel"), ("library_device_ms", "addmv")):
@@ -1173,6 +1207,7 @@ def main() -> int:
             kernels[-1]["device_ms"] = main_case["device_ms"]
         if name == "flash_attention_bwd":
             kernels[-1]["library_is"] = "torch autograd of SDPA's backward"
+            kernels[-1]["pass_device_ms"] = main_case["pass_device_ms"]
             kernels[-1]["distillation"] = {k: v for k, v in distill.items() if k != "launches"}
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -37,33 +37,31 @@ from repro_torch.kernels.flash_attention.ref import attention_bwd_ref  # noqa: E
 
 SOURCE = "flash_attention_bwd"
 # name -> [(text in csrc/flash_attention_bwd.cu, its faulty replacement)]: each
-# fault is planted in both paths, the CUDA-core kernels (f32) and the
-# tensor-core kernels (bf16), so every shape below meets it.
+# fault is planted in both paths, the CUDA-core kernels (f32) and the TMA +
+# wgmma kernels (bf16), so every shape below meets it.
 FAULTS = {
     "D term dropped": [
         ("Sw[r * kTile + lane] = p * (dp[r] - Dr[r]);", "Sw[r * kTile + lane] = p * dp[r];"),
         ("Sw[r * kTile + lane] = p * (dp[r] - D_i);", "Sw[r * kTile + lane] = p * dp[r];"),
-        ("sc[nb][e] = pr * (dpv[nb][e] - D_r[e >> 1]);", "sc[nb][e] = pr * dpv[nb][e];"),
-        ("dpt[nb][e] = pt * (dpt[nb][e] - col_D[qc]);", "dpt[nb][e] = pt * dpt[nb][e];")],
+        ("sc[e] = p * (dp[e] - D_r[r]);", "sc[e] = p * dp[e];"),
+        ("const float2 dd = *reinterpret_cast<const float2*>(col_D + 8 * j + 2 * t4);",
+         "const float2 dd = make_float2(0.f, 0.f);")],
     "one head of the group missing from dK/dV": [
         ("for (int hg = 0; hg < G; ++hg) {", "for (int hg = 0; hg < G - (G > 1); ++hg) {"),
-        ("for (int head = 0; head < G; ++head) {",
-         "for (int head = 0; head < G - (G > 1); ++head) {")],
+        ("const int n_items = G * n_q;", "const int n_items = (G - (G > 1)) * n_q;")],
     "causal limit one tile short": [
         ("const int q_begin = CAUSAL ? k0 : 0;", "const int q_begin = CAUSAL ? k0 + kTile : 0;"),
-        ("const int first_q = CAUSAL ? kb0 : 0;",
-         "const int first_q = CAUSAL ? kb0 + kQTile : 0;")],
+        ("const int first_q = CAUSAL ? k0 : 0;",
+         "const int first_q = CAUSAL ? k0 + kKvQueries : 0;")],
     "last key tile dropped": [
         ("for (int k0 = 0; k0 < k_end; k0 += kTile) {",
          "for (int k0 = 0; k0 < k_end && (k0 == 0 || k0 + kTile < k_end); k0 += kTile) {"),
-        ("for (int kt0 = 0; kt0 < key_end; kt0 += kKTile) {",
-         "for (int kt0 = 0; kt0 < key_end && (kt0 == 0 || kt0 + kKTile < key_end); "
-         "kt0 += kKTile) {")],
+        ("const int n_tiles = (key_end + kDqKeys - 1) / kDqKeys;",
+         "const int n_tiles = max(1, (key_end + kDqKeys - 1) / kDqKeys - 1);")],
     "scale missing on dK": [
         ("dkb[j * sdk.l + lane + 32 * c] = acc_dk[r][c] * scale;",
          "dkb[j * sdk.l + lane + 32 * c] = acc_dk[r][c];"),
-        ("pack_bf16(dk_acc[nb][2 * r] * scale, dk_acc[nb][2 * r + 1] * scale);",
-         "pack_bf16(dk_acc[nb][2 * r], dk_acc[nb][2 * r + 1]);")],
+        ("const float m = cw == 0 ? 1.f : scale;", "const float m = 1.f;")],
 }
 BF16, F32 = torch.bfloat16, torch.float32
 SHAPES = [  # (B, H, KV, L, dtype, causal): chip_smoke.py phase 3c

@@ -19,6 +19,7 @@ BWD_COUNTER = build.LaunchCounter("flash_attention_bwd")
 HEAD_DIMS = (64, 80, 128)
 BWD_HEAD_DIMS = (128,)        # the head dims the ported models train at
 BWD_ROADMAP = "ROADMAP Queue B item 7"
+BWD_QUERY_TILE = 128          # bf16 dq pass: query rows a block (the row workspace's padding)
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 
@@ -140,8 +141,8 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise ValueError(f"flash_attention_bwd: lse must be a contiguous (B, H, Lq) "
                          f"float32 tensor, got {tuple(lse.shape)} {lse.dtype}")
     if q.dtype == torch.bfloat16:
-        # the tensor-core path copies rows in 16 bytes: the forward's alignment
-        # rule for q, k, v, o; the incoming gradient is made contiguous if needed
+        # the tensor-core path reads rows by TMA: the forward's alignment rule
+        # for q, k, v, o; the incoming gradient is made contiguous if needed
         if any(s % 8 for t in (q, k, v, o) for s in t.stride()[:3]) or any(
                 t.data_ptr() % 16 for t in (q, k, v, o)):
             raise ValueError("bf16 flash_attention_bwd needs 16-byte aligned q, k, v, o "
@@ -151,7 +152,9 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     dq = torch.empty((B, Lq, H, hd), dtype=q.dtype, device=q.device).transpose(1, 2)
     dk = torch.empty((B, Lk, KV, hd), dtype=q.dtype, device=q.device).transpose(1, 2)
     dv = torch.empty((B, Lk, KV, hd), dtype=q.dtype, device=q.device).transpose(1, 2)
-    dsum = torch.empty((B, H, Lq), dtype=torch.float32, device=q.device)
+    # each row's lse and D, padded to whole dq tiles
+    lpad = -(-Lq // BWD_QUERY_TILE) * BWD_QUERY_TILE
+    rows = torch.empty(B * H * 2 * lpad, dtype=torch.float32, device=q.device)
     strides = [s for t in (q, k, v, o, do, dq, dk, dv) for s in t.stride()[:3]]
     lib = _bwd_lib()
     with torch.cuda.device(q.device):
@@ -159,7 +162,7 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         err = lib.flash_attention_bwd(
             _DTYPES[q.dtype], hd, int(causal), q.data_ptr(), k.data_ptr(), v.data_ptr(),
             o.data_ptr(), do.data_ptr(), lse.data_ptr(), dq.data_ptr(), dk.data_ptr(),
-            dv.data_ptr(), dsum.data_ptr(), B, H, KV, Lq, Lk,
+            dv.data_ptr(), rows.data_ptr(), B, H, KV, Lq, Lk,
             (ctypes.c_longlong * 24)(*strides), hd ** -0.5, stream)
     build.check(lib, err, "flash_attention_bwd")
     BWD_COUNTER.launches += 1

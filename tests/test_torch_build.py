@@ -92,6 +92,27 @@ def test_bf16_flash_kernel_is_tma_and_wgmma():
     assert "mma.sync" not in src and "setmaxnreg" in src
 
 
+def test_bf16_flash_backward_is_tma_and_wgmma():
+    """Both passes of the bf16 backward take their tiles by TMA on mbarriers
+    (and the rows' lse and D by 1-d bulk copies), compute every product with
+    wgmma (S and dP from shared memory or with K, V as register A operands;
+    dQ, dV, dK with P or dS as register A operands over an MN-major B), and
+    no mma.sync is left in the source."""
+    src = Path(build.CSRC, "flash_attention_bwd.cu").read_text()
+    asm = re.sub(r'"(?:\s|\\)*"', "", src)   # adjacent literals joined, in macros too
+    assert "cp.async.bulk.tensor.4d" in asm and "mbarrier::complete_tx" in asm
+    assert "cp.async.bulk.shared::cluster.global" in asm and "mbarrier.try_wait" in asm
+    four_regs = r"\{%\d+, %\d+, %\d+, %\d+\}"
+    # S, dP: m64n64k16 with both operands by descriptor, or A in registers
+    assert re.search(r"m64n64k16\.f32\.bf16\.bf16 \{[^}]*\}, %\d+, %\d+, p, 1, 1, 0, 0;", asm)
+    assert re.search(rf"m64n64k16\.f32\.bf16\.bf16 \{{[^}}]*\}}, {four_regs}, %\d+, p, 1, 1, 0;",
+                     asm)
+    # dQ, dV, dK: m64n128k16, A in registers, B transposed (MN-major)
+    assert re.search(rf"m64n128k16\.f32\.bf16\.bf16 \{{[^}}]*\}}, {four_regs}, %\d+, p, 1, 1, 1;",
+                     asm)
+    assert "mma.sync" not in src and "setmaxnreg" in src and "ldmatrix" in src
+
+
 def test_flash_variants_apply_to_the_kernel_source():
     """scripts/flash_variants.py edits csrc/flash_attention.cu by text; every
     variant's targets occur exactly once, and each variant changes the text."""
@@ -182,6 +203,16 @@ def test_paged_variants_apply_to_the_kernel_source():
     assert variants and all(text != base for text in variants.values())
 
 
+def test_flash_bwd_variants_apply_to_the_kernel_source():
+    """scripts/flash_bwd_variants.py edits csrc/flash_attention_bwd.cu by
+    text; each variant's targets occur as often as it states, and each
+    variant changes the text."""
+    variants = _script("flash_bwd_variants").sources()
+    base = variants.pop("kernel")
+    assert base == Path(build.CSRC, "flash_attention_bwd.cu").read_text()
+    assert variants and all(text != base for text in variants.values())
+
+
 @pytest.mark.parametrize("fault", ["D term dropped", "one head of the group missing from dK/dV",
                                    "causal limit one tile short", "last key tile dropped",
                                    "scale missing on dK"])
@@ -248,6 +279,13 @@ def test_backward_bindings_match_the_c_signatures(monkeypatch):
 def test_flash_backward_kernel_is_two_passes_without_atomics():
     """dq (with D) then dk/dv, one block a tile, no atomics: deterministic."""
     src = Path(build.CSRC, "flash_attention_bwd.cu").read_text()
-    assert "flash_bwd_dq_kernel" in src and "flash_bwd_dkdv_kernel" in src
-    assert "atomicAdd" not in src and "atom." not in src and "red." not in src
-    assert src.index("dq_kern<<<") < src.index("dkdv_kern<<<")
+    for kernel in ("flash_bwd_dq_kernel", "flash_bwd_dkdv_kernel", "flash_bwd_dq_wgmma_kernel",
+                   "flash_bwd_dkdv_wgmma_kernel"):
+        assert f"{kernel}(" in src
+    # no atomic function and no PTX atomic or reduction opcode (as a whole
+    # token, so prose such as "stored." does not count)
+    assert "atomicAdd" not in src and not re.search(r"\b(atom|red)\.", src)
+    wgmma = src[src.index("int launch_wgmma("):src.index("int launch_f32(")]
+    f32 = src[src.index("int launch_f32("):]
+    for launcher, second in ((wgmma, "kv_kern<<<"), (f32, "dkdv_kern<<<")):
+        assert launcher.count("<<<") == 2 and launcher.index("dq_kern<<<") < launcher.index(second)

@@ -6,10 +6,12 @@ of ``attention_ref`` and against ``jax.vjp`` of the reference's
 ``_grouped_attend`` (the attention its training path differentiates), for
 GQA, causal and not, and ragged lengths; f32, tolerance
 ``tests/test_kernels.py``'s 2e-5 times 4, as that file scales attention. The
-kernel's partition (32-query tiles for dq with the causal key limit; 32-key
-tiles for dk/dv summed over the group's heads, query tiles from the diagonal
-on; D = rowsum(dO O); P recomputed from lse) is written out in f64 and must
-agree with autograd of an f64 attention to 1e-10. The kernel itself runs only
+kernels' partitions are written out in f64 and must agree with autograd of
+an f64 attention to 1e-10: the bf16 kernels' (dq in 128-query tiles over
+64-key tiles up to the causal key limit; dk/dv in 64-key tiles over 64-query
+tiles from the diagonal on; rows past Lq with lse +inf, so P = 0 there) and
+the f32 kernels' (32 and 32); both summing over a group's heads in one block,
+with D = rowsum(dO O) and P recomputed from lse. The kernel itself runs only
 on the card (``tests/test_torch_cuda.py``).
 """
 import jax
@@ -32,7 +34,11 @@ from repro_torch.kernels.flash_attention.ref import (
 )
 
 TOL = 2e-5 * 4
-TILE = 32                       # the kernel's tile, both kernels
+# The kernels' partitions: dq's query and key tiles, dk/dv's key and query tiles.
+PARTITIONS = {
+    "bf16 wgmma": dict(dq_rows=128, dq_keys=64, kv_keys=64, kv_queries=64),
+    "f32 CUDA cores": dict(dq_rows=32, dq_keys=32, kv_keys=32, kv_queries=32),
+}
 
 
 @pytest.fixture(autouse=True)
@@ -142,71 +148,77 @@ def _f64_attention(q, k, v, causal):
     return torch.einsum("bkgqs,bksh->bkgqh", torch.softmax(s, -1), v).reshape(B, H, Lq, hd)
 
 
-def _tiled_backward(q, k, v, o, lse, do, causal):
-    """The CUDA kernel's partition, in f64: what each block computes."""
+def _tiled_backward(q, k, v, o, lse, do, causal, part):
+    """A kernel's partition in f64: what each block computes. Rows past Lq
+    and keys past Lk are zeros, as the kernels' tile loads give them, and rows
+    past Lq have lse +inf, as the bf16 kernels' row workspace holds (P = 0)."""
     B, H, Lq, hd = q.shape
     KV, Lk = k.shape[1], k.shape[2]
     G, scale = H // KV, hd ** -0.5
-    dq, dk, dv = torch.zeros_like(q), torch.zeros_like(k), torch.zeros_like(v)
-    dsum = torch.zeros((B, H, Lq), dtype=q.dtype)
+    pad_q, pad_k = -Lq % 128, -Lk % 128
+    qp, dop = (torch.nn.functional.pad(x, (0, 0, 0, pad_q)) for x in (q, do))
+    kp, vp = (torch.nn.functional.pad(x, (0, 0, 0, pad_k)) for x in (k, v))
+    D = torch.nn.functional.pad((do * o).sum(-1), (0, pad_q))
+    lse2 = torch.nn.functional.pad(lse, (0, pad_q), value=torch.inf)
+    dq, dk, dv = torch.zeros_like(qp), torch.zeros_like(kp), torch.zeros_like(vp)
 
-    def keep(i0, ni, j0, nj):
+    def keep(i0, ni, j0, nj):  # the (query, key) pairs the kernels keep
         i = torch.arange(i0, i0 + ni)[:, None]
         j = torch.arange(j0, j0 + nj)[None, :]
-        return (i < Lq) & (j < Lk) & ((j <= i) if causal else True)
+        return (j < Lk) & ((j <= i) if causal else True)
 
-    # dq kernel: one block a (32-query tile, head, batch)
+    # dq pass: one block a (query tile, head, batch), key tiles to the causal limit
+    nq, nk = part["dq_rows"], part["dq_keys"]
     for b in range(B):
         for h in range(H):
             kvh = h // G
-            for q0 in range(0, Lq, TILE):
-                rows = slice(q0, min(q0 + TILE, Lq))
-                n = rows.stop - q0
-                D = (do[b, h, rows] * o[b, h, rows]).sum(-1)
-                dsum[b, h, rows] = D
-                acc = torch.zeros((n, hd), dtype=q.dtype)
-                k_end = min(Lk, q0 + n) if causal else Lk
-                for k0 in range(0, k_end, TILE):
-                    cols = slice(k0, min(k0 + TILE, Lk))
-                    s = q[b, h, rows] @ k[b, kvh, cols].T
-                    dp = do[b, h, rows] @ v[b, kvh, cols].T
-                    p = torch.where(keep(q0, n, k0, cols.stop - k0),
-                                    torch.exp(s * scale - lse[b, h, rows, None]), 0.0)
-                    acc += (p * (dp - D[:, None])) @ k[b, kvh, cols]
+            for q0 in range(0, Lq, nq):
+                rows = slice(q0, q0 + nq)
+                k_end = min(Lk, min(q0 + nq, Lq)) if causal else Lk
+                acc = torch.zeros((nq, hd), dtype=q.dtype)
+                for k0 in range(0, k_end, nk):
+                    cols = slice(k0, k0 + nk)
+                    s = qp[b, h, rows] @ kp[b, kvh, cols].T
+                    dp = dop[b, h, rows] @ vp[b, kvh, cols].T
+                    p = torch.where(keep(q0, nq, k0, nk),
+                                    torch.exp(s * scale - lse2[b, h, rows, None]), 0.0)
+                    acc += (p * (dp - D[b, h, rows, None])) @ kp[b, kvh, cols]
                 dq[b, h, rows] = acc * scale
-    # dk/dv kernel: one block a (32-key tile, KV head, batch), the group's heads
+    # dk/dv pass: one block a (key tile, KV head, batch), the query tiles of
+    # the group's heads from the diagonal on
+    nk, nq = part["kv_keys"], part["kv_queries"]
     for b in range(B):
         for kvh in range(KV):
-            for k0 in range(0, Lk, TILE):
-                cols = slice(k0, min(k0 + TILE, Lk))
-                m = cols.stop - k0
-                adk = torch.zeros((m, hd), dtype=q.dtype)
-                adv = torch.zeros((m, hd), dtype=q.dtype)
+            for k0 in range(0, Lk, nk):
+                cols = slice(k0, k0 + nk)
+                adk = torch.zeros((nk, hd), dtype=q.dtype)
+                adv = torch.zeros((nk, hd), dtype=q.dtype)
                 for hg in range(G):
                     h = kvh * G + hg
-                    for q0 in range(k0 if causal else 0, Lq, TILE):
-                        rows = slice(q0, min(q0 + TILE, Lq))
-                        n = rows.stop - q0
-                        s = k[b, kvh, cols] @ q[b, h, rows].T          # (keys, queries)
-                        dp = v[b, kvh, cols] @ do[b, h, rows].T
-                        p = torch.where(keep(q0, n, k0, m).T,
-                                        torch.exp(s * scale - lse[b, h, None, rows]), 0.0)
-                        ds = p * (dp - dsum[b, h, None, rows])
-                        adv += p @ do[b, h, rows]
-                        adk += ds @ q[b, h, rows]
+                    for q0 in range(k0 if causal else 0, Lq, nq):
+                        rows = slice(q0, q0 + nq)
+                        st = kp[b, kvh, cols] @ qp[b, h, rows].T     # (keys, queries)
+                        dpt = vp[b, kvh, cols] @ dop[b, h, rows].T
+                        p = torch.where(keep(q0, nq, k0, nk).T,
+                                        torch.exp(st * scale - lse2[b, h, None, rows]), 0.0)
+                        ds = p * (dpt - D[b, h, None, rows])
+                        adv += p @ dop[b, h, rows]
+                        adk += ds @ qp[b, h, rows]
                 dk[b, kvh, cols] = adk * scale
                 dv[b, kvh, cols] = adv
-    return dq, dk, dv
+    return dq[:, :, :Lq], dk[:, :, :Lk], dv[:, :, :Lk]
 
 
 @pytest.mark.parametrize("B,H,KV,Lq,Lk,causal", SHAPES + [
     (1, 4, 2, 50, 70, True),     # causal, Lq < Lk: top-left aligned mask
     (1, 4, 2, 70, 50, True),     # causal, Lq > Lk: late rows see every key
-    (1, 4, 2, 40, 97, False)])
-def test_tiled_algebra_matches_autograd_in_f64(B, H, KV, Lq, Lk, causal):
+    (1, 4, 2, 40, 97, False),
+    (1, 8, 1, 200, 150, True)])  # more rows than the bf16 dq tile
+@pytest.mark.parametrize("partition", sorted(PARTITIONS))
+def test_tiled_algebra_matches_autograd_in_f64(B, H, KV, Lq, Lk, causal, partition):
     """Recompute from lse, D from dO and O, the sum over the group's heads,
-    and the causal tile skipping (no query tile before the key tile's
-    diagonal, no key tile past the query tile's last row) lose nothing."""
+    and the causal tile skipping (no query tile before the key tile's diagonal, no key tile past
+    the query tile's last row) lose nothing."""
     q, k, v, do = (torch.from_numpy(a).double() for a in _inputs(Lk + 7, B, H, KV, Lq, Lk))
     qs, ks, vs = (t.clone().requires_grad_(True) for t in (q, k, v))
     o = _f64_attention(qs, ks, vs, causal)
@@ -215,7 +227,7 @@ def test_tiled_algebra_matches_autograd_in_f64(B, H, KV, Lq, Lk, causal):
     if causal:
         s = torch.where(torch.from_numpy(_mask(Lq, Lk, True)), s, -torch.inf)
     lse = torch.logsumexp(s, -1).reshape(B, H, Lq)
-    got = _tiled_backward(q, k, v, o.detach(), lse, do, causal)
+    got = _tiled_backward(q, k, v, o.detach(), lse, do, causal, PARTITIONS[partition])
     for g, w in zip(got, want):
         np.testing.assert_allclose(g.numpy(), w.numpy(), rtol=1e-10, atol=1e-10)
 
