@@ -80,11 +80,13 @@ Phases (any failure ends the run with a non-zero exit and no last line):
     the recurrence in plain torch, as the reference does).
 11. Phase 7 for rwkv6-7b's 2-layer f32 model.
 12. Distillation at full width: ``repro_torch.launch.serve.main`` with
-    yi-6b, NFE 8, batch 4, seq 1024, ``--bns-iters`` DISTILL_ITERS and 2
-    requests: RK45 pairs (train and val), the initial solver's val PSNR,
-    DISTILL_ITERS training iterations (each layer recomputed in the
-    backward), the final validation, the requests with the distilled
-    solver. Launch counts must be exact. With R the RK45 evaluations of both
+    yi-6b, NFE 8, batch 4, seq 1024, ``--bns-iters`` DISTILL_ITERS, 2
+    requests and ``--solver-artifact`` BNS_ARTIFACT (deleted first, so the
+    solver zoo misses and distils): RK45 pairs (train and val), the initial
+    solver's val PSNR, DISTILL_ITERS training iterations (each layer
+    recomputed in the backward), the final validation, the artifact saved
+    and reloaded (no launches), the requests with the reloaded solver. The
+    zoo must report distills=1. Launch counts must be exact. With R the RK45 evaluations of both
     solves and K = DISTILL_ITERS: flash forward 32 (R + 8 + 8 + 2 * 8) for
     the no-grad calls plus 32 * 8 * 2 * K in training (every layer's forward
     and its recompute; the first velocity call of a step also differentiates,
@@ -94,6 +96,28 @@ Phases (any failure ends the run with a non-zero exit and no last line):
     ns_update launches, a request 256 flash forward and 8 ns_update. Loss and
     PSNR finite, the distilled val PSNR at least the initial solver's (with K
     under val_every, the final validation is the only one).
+12b. The artifact reload: phase 12's flags again, in a fresh ``main``
+    call. It must print "no retraining", report zoo loads=1 and distills=0,
+    launch exactly what 2 requests launch (flash forward 32 x 8 x 2, ns_update
+    16, no backward kernel, no RK45 evaluation), serve NSParams equal to
+    phase 12's to the bit and give both requests' latents equal to phase
+    12's to the bit (same seeds, weights and deterministic kernels).
+12c. Anytime at full width: yi-6b, ``--budgets 4,8 --request-budgets
+    4,8,16``, batch 4, seq ANYTIME_SEQ, ``--bns-iters`` ANYTIME_ITERS, 3
+    requests, ``--solver-artifact`` ANYTIME_ARTIFACT (deleted first). With R
+    the RK45 evaluations of both solves and K = ANYTIME_ITERS: flash forward
+    32 (R + 8 + 8 + 20) for the no-grad calls (the initial solver's and the
+    final validation's shared trajectory, 8 evaluations each; the requests
+    at 4, 8 and 16 -> 8 NFE) plus 32 x 8 x 2 K in training, flash backward
+    32 x 8 K, ns_update 9 + 9 + 20 + 9 K (a trajectory runs 8 intermediate
+    rules and the budget-4 exit; a request at m NFE m rules), ns_update
+    backward 9 K: an iteration is 512 flash forward, 256 flash backward, 9
+    and 9 ns_update launches. The nearest-budget WARNING for 16 is printed
+    exactly once; loss and PSNR finite. Then, on the served
+    ``AnytimeFlowSampler`` and one seeded x0, each equal to the bit:
+    ``sample_all_from(x0)[m]`` and ``sample_from(x0, m)`` for m in (4, 8);
+    ``carry_start`` -> ``carry_extend(4)`` -> ``carry_extend(8)`` and
+    ``sample_all_from``.
 13. The gradient on the card against the CPU: yi-6b's width cut to 2 layers,
     f32, euler NFE 4, on shared pairs (numpy, seeded), each layer recomputed:
     _loss_fn and d loss / d(time_logits, a, b) at theta0, relative L2 <= 1e-4
@@ -104,7 +128,15 @@ Phases (any failure ends the run with a non-zero exit and no last line):
     gradient at theta0 is at least 1e-3 of its largest must agree to 1e-3 of
     the largest step (lr per step), the others to the most a flipped sign can
     move them (2 lr per step).
-14. One JSON line listing the kernels, then the last line.
+13b. Phase 13 for the anytime loss: the same 2-layer f32 model and pairs,
+    budgets (2, 4), theta the nested initial solver jittered with numpy from
+    a seed: ``anytime_loss`` and its gradient in every field of
+    ``AnytimeParams``, card against CPU, relative L2 <= 1e-4, with exactly 16
+    flash forward, 8 flash backward, 5 + 5 ns_update launches (4
+    intermediate rules and the budget-2 exit).
+14. The script's wall time, one JSON line listing the kernels (the
+    ns_update and flash entries, forward and backward, with phases 12b, 12c
+    and 13b's launches and ms beside the main path's), then the last line.
 """
 from __future__ import annotations
 
@@ -117,10 +149,12 @@ import sys
 import time
 from pathlib import Path
 
+import msgpack
 import numpy as np
 import torch
 
 ROOT = Path(__file__).resolve().parent
+T_START = time.perf_counter()
 TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}   # tests/test_kernels.py
 # bf16 flash attention against its plain version. The kernel rounds the
 # softmax weights P to bf16 before P·V and the output to bf16; the plain
@@ -158,6 +192,10 @@ LONG_LENGTHS = [4096, 3001, 2048, 1, 777, 4095, 1500, 3333]   # positions a row
 LAYERS = 32                                        # yi-6b and rwkv6-7b
 DISTILL_ITERS, DISTILL_REQUESTS = 8, 2             # phase 12
 DISTILL_CHECK_STEPS, DISTILL_CHECK_LR = 3, 1e-3    # phase 13
+BNS_ARTIFACT = ROOT / "build" / "chip_smoke" / "bns_nfe8.msgpack"          # phases 12, 12b
+ANYTIME_ARTIFACT = ROOT / "build" / "chip_smoke" / "anytime_4_8.msgpack"   # phase 12c
+ANYTIME_SEQ, ANYTIME_ITERS, ANYTIME_BUDGETS = 256, 4, (4, 8)              # phase 12c
+ANYTIME_REQUEST_BUDGETS = (4, 8, 16)
 VOCAB = {"yi-6b": 64000, "rwkv6-7b": 65536}
 KERNELS = ("ns_update", "flash_attention", "paged_attention", "gla_scan", "ns_update_bwd",
            "flash_attention_bwd")
@@ -963,18 +1001,47 @@ def decode_against_cpu(dev, counters, cfg, params, engine_kw: dict, per_call: di
                          f"{margin:.3e}")
 
 
+class Tee:
+    """Copies what is printed to stdout into ``text`` while it still goes out."""
+
+    def __enter__(self):
+        self.out, self.parts = sys.stdout, []
+        sys.stdout = self
+        return self
+
+    def write(self, data):
+        self.parts.append(data)
+        return self.out.write(data)
+
+    def flush(self):
+        self.out.flush()
+
+    def __exit__(self, *exc):
+        sys.stdout = self.out
+
+    @property
+    def text(self) -> str:
+        return "".join(self.parts)
+
+
+def distill_args() -> list:
+    """Phase 12's (and 12b's) flags."""
+    return ["--arch", "yi-6b", "--mode", "flow", "--full", "--nfe", str(NFE),
+            "--batch", str(BATCH), "--seq", str(SEQ), "--bns-iters", str(DISTILL_ITERS),
+            "--requests", str(DISTILL_REQUESTS), "--solver-artifact", str(BNS_ARTIFACT)]
+
+
 def distill_path(dev, counters) -> dict:
-    """Phase 12: serve.main distils a BNS solver for yi-6b at full width and
-    serves with it; launch counts as the module docstring states them."""
+    """Phase 12: serve.main distils a BNS solver for yi-6b at full width,
+    saves it as an artifact and serves the reloaded copy; launch counts as
+    the module docstring states them."""
     from repro_torch.launch import serve
 
+    BNS_ARTIFACT.unlink(missing_ok=True)
     free_device_memory(dev)
     reset(counters)
     t0 = time.perf_counter()
-    served = serve.main(["--arch", "yi-6b", "--mode", "flow", "--full", "--nfe", str(NFE),
-                         "--batch", str(BATCH), "--seq", str(SEQ),
-                         "--bns-iters", str(DISTILL_ITERS),
-                         "--requests", str(DISTILL_REQUESTS)])
+    served = serve.main(distill_args())
     wall = time.perf_counter() - t0
     d = served.distillation
     K, R = DISTILL_ITERS, sum(d.rk45[part][0] for part in ("train", "val"))
@@ -987,6 +1054,14 @@ def distill_path(dev, counters) -> dict:
     if launches != want:
         raise SystemExit(f"distillation launch counts {launches}, expected {want} "
                          f"(RK45 evaluations {R})")
+    z, art = served.zoo, served.artifact
+    saved_as_trained = all(torch.equal(a.cpu(), b.cpu())   # the artifact loads on the CPU
+                           for a, b in zip(art.params, d.params))
+    if ((z.distills, z.loads, art.kind) != (1, 0, "bns") or not BNS_ARTIFACT.exists()
+            or not saved_as_trained):
+        raise SystemExit(f"distillation: zoo {z}, kind {art.kind}, artifact saved "
+                         f"{BNS_ARTIFACT.exists()}, its BNSParams equal to the distilled "
+                         f"ones: {saved_as_trained}")
     losses = [h[1] for h in d.history]
     if not (d.history and all(np.isfinite(losses)) and np.isfinite(d.val_psnr)
             and np.isfinite(d.init_val_psnr)):
@@ -1007,13 +1082,145 @@ def distill_path(dev, counters) -> dict:
           f"({d.rk45_seconds:.3f} s); val PSNR initial {d.init_val_psnr:.4f} dB -> distilled "
           f"{d.val_psnr:.4f} dB after {K} iterations (losses {[round(x, 5) for x in losses]}); "
           f"train_bns {d.train_seconds:.3f} s, ~{iter_ms:.1f} ms an iteration (one "
-          f"validation {d.init_val_seconds * 1e3:.1f} ms taken off); request ms with the "
+          f"validation {d.init_val_seconds * 1e3:.1f} ms taken off; each, the last with "
+          f"its validation, {[round(x * 1e3, 1) for x in d.iteration_seconds]}); artifact "
+          f"saved and reloaded (its BNSParams equal to the distilled ones to the bit), zoo "
+          f"{z}; request ms with the "
           f"distilled solver {[round(x.ms, 3) for x in served]}; launches {launches}; peak "
           f"memory {peak / 2**30:.3f} GiB; main() wall {wall:.3f} s")
     return {"rk45": d.rk45, "rk45_s": d.rk45_seconds, "init_val_psnr": d.init_val_psnr,
             "val_psnr": d.val_psnr, "iterations": K, "iteration_ms": iter_ms,
             "request_ms": [x.ms for x in served], "peak_gib": peak / 2**30,
-            "launches": launches}
+            "launches": launches, "wall_s": wall,
+            "each_iteration_ms": [x * 1e3 for x in d.iteration_seconds],
+            "solver": [t.cpu() for t in served.sampler.solver],
+            "latents": [x.latents.cpu() for x in served]}
+
+
+def artifact_reload(dev, counters, distilled: dict) -> dict:
+    """Phase 12b: phase 12's flags in a fresh serve.main call load the saved
+    artifact: no retraining, exact launch counts, solver and latents equal
+    to phase 12's to the bit."""
+    from repro_torch.launch import serve
+
+    free_device_memory(dev)
+    reset(counters)
+    t0 = time.perf_counter()
+    with Tee() as out:
+        served = serve.main(distill_args())
+    wall = time.perf_counter() - t0
+    launches = {name: c.launches for name, c in counters.items()}
+    want = {**dict.fromkeys(KERNELS, 0), "flash_attention": LAYERS * NFE * DISTILL_REQUESTS,
+            "ns_update": NFE * DISTILL_REQUESTS}
+    if launches != want:
+        raise SystemExit(f"artifact reload launch counts {launches}, expected {want}")
+    z = served.zoo
+    if "no retraining" not in out.text or (z.loads, z.distills) != (1, 0) \
+            or served.distillation is not None:
+        raise SystemExit(f"artifact reload: zoo {z}, distillation {served.distillation}, "
+                         f"'no retraining' printed: {'no retraining' in out.text}")
+    solver = [t.cpu() for t in served.sampler.solver]
+    same_solver = all(torch.equal(a, b) for a, b in zip(solver, distilled["solver"]))
+    same_latents = [torch.equal(s.latents.cpu(), ref)
+                    for s, ref in zip(served, distilled["latents"])]
+    diff = [float((s.latents.cpu() - ref).abs().max())
+            for s, ref in zip(served, distilled["latents"])]
+    print(f"artifact reload: zoo {z}; launches {launches}; request ms "
+          f"{[round(x.ms, 3) for x in served]}; NSParams equal to phase 12's: {same_solver}; "
+          f"latents equal to phase 12's: {same_latents} (max |diff| {diff}); "
+          f"main() wall {wall:.3f} s")
+    if not (same_solver and all(same_latents) and len(same_latents) == DISTILL_REQUESTS):
+        raise SystemExit("artifact reload: the served solver or latents differ from phase 12's")
+    return {"launches": launches, "request_ms": [x.ms for x in served], "wall_s": wall}
+
+
+def anytime_path(dev, counters) -> dict:
+    """Phase 12c: serve.main distils an anytime solver over budgets (4, 8)
+    for yi-6b at full width, saves and reloads it and routes 3 requests;
+    launch counts as the module docstring states them; then the served
+    sampler's exits against per-budget sampling and carry legs, to the bit."""
+    from repro_torch.data.synthetic import DataConfig, SyntheticTokens
+    from repro_torch.launch import serve
+    from repro_torch.serving import nearest_budget
+
+    ANYTIME_ARTIFACT.unlink(missing_ok=True)
+    free_device_memory(dev)
+    reset(counters)
+    t0 = time.perf_counter()
+    with Tee() as out:
+        served = serve.main(["--arch", "yi-6b", "--mode", "flow", "--full",
+                             "--budgets", ",".join(map(str, ANYTIME_BUDGETS)),
+                             "--request-budgets", ",".join(map(str, ANYTIME_REQUEST_BUDGETS)),
+                             "--batch", str(BATCH), "--seq", str(ANYTIME_SEQ),
+                             "--bns-iters", str(ANYTIME_ITERS),
+                             "--requests", str(len(ANYTIME_REQUEST_BUDGETS)),
+                             "--solver-artifact", str(ANYTIME_ARTIFACT)])
+    wall = time.perf_counter() - t0
+    launches = {name: c.launches for name, c in counters.items()}
+    d = served.distillation
+    K, R = ANYTIME_ITERS, sum(d.rk45[part][0] for part in ("train", "val"))
+    top = ANYTIME_BUDGETS[-1]
+    rules = top + len(ANYTIME_BUDGETS) - 1            # intermediate rules + exits
+    served_nfe = [nearest_budget(ANYTIME_BUDGETS, m) for m in ANYTIME_REQUEST_BUDGETS]
+    want = {**dict.fromkeys(KERNELS, 0),
+            "flash_attention": LAYERS * (R + 2 * top + sum(served_nfe) + 2 * top * K),
+            "flash_attention_bwd": LAYERS * top * K,
+            "ns_update": 2 * rules + sum(served_nfe) + rules * K, "ns_update_bwd": rules * K}
+    if launches != want:
+        raise SystemExit(f"anytime launch counts {launches}, expected {want} "
+                         f"(RK45 evaluations {R})")
+    warnings = out.text.count("WARNING: requested NFE 16 not served")
+    losses = [h[1] for h in d.history]
+    if (warnings != 1 or [s.nfe for s in served] != served_nfe
+            or (served.zoo.distills, served.artifact.kind, served.artifact.budgets)
+            != (1, "anytime", ANYTIME_BUDGETS)
+            or not (d.history and all(np.isfinite(losses)) and np.isfinite(d.val_psnr)
+                    and np.isfinite(d.init_val_psnr))):
+        raise SystemExit(f"anytime: {warnings} nearest-budget warnings, served NFE "
+                         f"{[s.nfe for s in served]}, zoo {served.zoo}, kind "
+                         f"{served.artifact.kind}, "
+                         f"history {d.history}, init PSNR {d.init_val_psnr}")
+    for s in served:
+        if s.latents.shape != (BATCH, ANYTIME_SEQ, 64) or not bool(
+                torch.isfinite(s.latents).all()):
+            raise SystemExit(f"anytime: bad latents {tuple(s.latents.shape)}")
+    peak = torch.cuda.max_memory_allocated(dev)
+    iter_ms = (d.train_seconds - d.init_val_seconds) / K * 1e3
+    # the exits on one seeded x0, to the bit
+    sampler = served.sampler
+    cond = SyntheticTokens(sampler.cfg, DataConfig(batch_size=BATCH, seq_len=ANYTIME_SEQ,
+                                                   seed=0), device=dev).batch(0)
+    x0 = torch.randn((BATCH, ANYTIME_SEQ, sampler.cfg.latent_dim), device=dev,
+                     generator=torch.Generator(device=dev).manual_seed(12))
+    every = sampler.sample_all_from(cond, x0)
+    carry, exits = sampler.carry_start(cond, x0), {}
+    for stop in ANYTIME_BUDGETS:
+        carry, e = sampler.carry_extend(cond, carry, stop)
+        exits.update(e)
+    checks = {}
+    for m in ANYTIME_BUDGETS:
+        checks[f"sample_all_from[{m}] == sample_from({m})"] = torch.equal(
+            every[m], sampler.sample_from(cond, x0, m))
+        checks[f"carry legs [{m}] == sample_all_from[{m}]"] = torch.equal(exits[m], every[m])
+    print(f"anytime: yi-6b full width, budgets {ANYTIME_BUDGETS}, batch {BATCH}, seq "
+          f"{ANYTIME_SEQ}: RK45 train {d.rk45['train']}, val {d.rk45['val']} "
+          f"({d.rk45_seconds:.3f} s); mean val PSNR initial {d.init_val_psnr:.4f} dB -> "
+          f"distilled {d.val_psnr:.4f} dB after {K} iterations (losses "
+          f"{[round(x, 5) for x in losses]}); train_anytime {d.train_seconds:.3f} s, "
+          f"~{iter_ms:.1f} ms an iteration (one validation {d.init_val_seconds * 1e3:.1f} ms "
+          f"taken off; each, the last with its validation, "
+          f"{[round(x * 1e3, 1) for x in d.iteration_seconds]}); requests "
+          f"{list(ANYTIME_REQUEST_BUDGETS)} served at {served_nfe} NFE "
+          f"in {[round(x.ms, 3) for x in served]} ms; nearest-budget warnings {warnings}; "
+          f"zoo {served.zoo}; launches {launches}; peak memory {peak / 2**30:.3f} GiB; "
+          f"main() wall {wall:.3f} s; to the bit: {checks}")
+    if not all(checks.values()):
+        raise SystemExit(f"anytime: exits differ: {checks}")
+    return {"rk45": d.rk45, "rk45_s": d.rk45_seconds, "init_val_psnr": d.init_val_psnr,
+            "val_psnr": d.val_psnr, "iterations": K, "iteration_ms": iter_ms,
+            "each_iteration_ms": [x * 1e3 for x in d.iteration_seconds],
+            "request_ms": [x.ms for x in served], "request_nfe": served_nfe,
+            "peak_gib": peak / 2**30, "launches": launches, "wall_s": wall}
 
 
 def gradient_against_cpu(dev, counters, cfg, params) -> None:
@@ -1080,6 +1287,55 @@ def gradient_against_cpu(dev, counters, cfg, params) -> None:
         raise SystemExit(f"theta card vs CPU outside its limits: {r_signed}, {r_rest}")
 
 
+def anytime_gradient_against_cpu(dev, counters, cfg, params) -> dict:
+    """Phase 13b: anytime_loss and its gradient in every field of
+    AnytimeParams on the card (kernels) against the CPU (plain versions);
+    limits as the module docstring states them."""
+    from repro_torch.core import anytime
+    from repro_torch.core.schedulers import get_scheduler
+    from repro_torch.data.synthetic import DataConfig, SyntheticTokens
+    from repro_torch.models import model as M
+    from repro_torch.models.transformer import params_to
+
+    budgets = (2, 4)
+    batch = SyntheticTokens(cfg, DataConfig(batch_size=2, seq_len=128, seed=0),
+                            device="cpu").batch(0)
+    rng = np.random.default_rng(14)
+    x0, x1 = (torch.from_numpy(rng.standard_normal((2, 128, cfg.latent_dim))
+                               .astype(np.float32)) for _ in "01")
+    theta0 = anytime.AnytimeParams(*(
+        p + torch.from_numpy(0.1 * rng.standard_normal(tuple(p.shape)).astype(np.float32))
+        for p in anytime.init_anytime(None, budgets)))
+    fields = {"cpu": M.velocity_field(params, cfg, get_scheduler("fm_ot"), batch, remat=True),
+              "card": M.velocity_field(params_to(params, dev), cfg, get_scheduler("fm_ot"),
+                                       {k: v.to(dev) for k, v in batch.items()}, remat=True)}
+    rules = budgets[-1] + len(budgets) - 1
+    got, launched = {}, {}
+    for where, field in fields.items():
+        d = dev if where == "card" else torch.device("cpu")
+        th = anytime.AnytimeParams(*(p.to(d).requires_grad_(True) for p in theta0))
+        before = {name: c.launches for name, c in counters.items()}
+        loss = anytime.anytime_loss(th, budgets, field.fn, x0.to(d), x1.to(d))
+        grads = torch.autograd.grad(loss, list(th))
+        ran = {name: c.launches - before[name] for name, c in counters.items()}
+        want = ({**dict.fromkeys(KERNELS, 0), "flash_attention": 2 * 4 * 2,
+                 "flash_attention_bwd": 2 * 4, "ns_update": rules, "ns_update_bwd": rules}
+                if where == "card" else dict.fromkeys(KERNELS, 0))
+        if ran != want:
+            raise SystemExit(f"anytime gradient on the {where}: launched {ran}, expected {want}")
+        launched[where] = ran
+        got[where] = [loss.detach().cpu(), *(g.cpu() for g in grads)]
+    rels = [float(torch.linalg.vector_norm(a - b) / torch.linalg.vector_norm(b).clamp_min(1e-30))
+            for a, b in zip(got["card"], got["cpu"])]
+    names = ["loss"] + [f"d/d {f}" for f in anytime.AnytimeParams._fields]
+    print(f"anytime gradient, yi-6b 2 layers f32, budgets {budgets}, remat: card vs CPU "
+          f"relative L2 " + ", ".join(f"{n} {r:.3e}" for n, r in zip(names, rels))
+          + f" (limit 1e-4); card launches {launched['card']}")
+    if not max(rels) <= 1e-4:
+        raise SystemExit(f"anytime gradient card vs CPU: relative L2 {rels} over 1e-4")
+    return {"launches": launched["card"], "relative_l2": dict(zip(names, rels))}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is False)",
@@ -1100,7 +1356,8 @@ def main() -> int:
                            "--format=csv,noheader"], check=True,
                           capture_output=True, text=True).stdout.strip()
     print(card)
-    print(f"torch {torch.__version__} (CUDA {torch.version.cuda}), "
+    print(f"msgpack {'.'.join(map(str, msgpack.version))}, "
+          f"torch {torch.__version__} (CUDA {torch.version.cuda}), "
           f"{torch.cuda.get_device_name(0)}, {torch.cuda.device_count()} device(s)")
 
     t0 = time.perf_counter()
@@ -1168,11 +1425,34 @@ def main() -> int:
     decode_path(dev, counters, RWKV_DECODE_ARGS, {})
     decode_against_cpu(dev, counters, cfg, params, {}, {})
     del cfg, params
+    phase_s = {}
+    t0 = time.perf_counter()
     distill = distill_path(dev, counters)
     for name in ("ns_update_bwd", "flash_attention_bwd"):
         launches[name] = distill["launches"][name]
+    phase_s["12"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    reload = artifact_reload(dev, counters, distill)
+    phase_s["12b"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    any_run = anytime_path(dev, counters)
+    phase_s["12c"] = time.perf_counter() - t0
     cfg, params = small_model("yi-6b")
+    t0 = time.perf_counter()
     gradient_against_cpu(dev, counters, cfg, params)
+    phase_s["13"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    any_grad = anytime_gradient_against_cpu(dev, counters, cfg, params)
+    phase_s["13b"] = time.perf_counter() - t0
+    print("phase wall s: " + ", ".join(f"{k} {v:.1f}" for k, v in phase_s.items()))
+    new_phases = {
+        "12b": {"what": "artifact reload, 2 requests", "request_ms": reload["request_ms"]},
+        "12c": {"what": "anytime distillation and serving",
+                "iteration_ms": any_run["iteration_ms"],
+                "each_iteration_ms": any_run["each_iteration_ms"],
+                "request_ms": any_run["request_ms"],
+                "request_nfe": any_run["request_nfe"]},
+        "13b": {"what": "anytime gradient, 2 layers f32"}}
 
     meta = {
         "ns_update": ("src/repro_torch/kernels/csrc/ns_update.cu",
@@ -1208,7 +1488,13 @@ def main() -> int:
         if name == "flash_attention_bwd":
             kernels[-1]["library_is"] = "torch autograd of SDPA's backward"
             kernels[-1]["pass_device_ms"] = main_case["pass_device_ms"]
-            kernels[-1]["distillation"] = {k: v for k, v in distill.items() if k != "launches"}
+            kernels[-1]["distillation"] = {k: v for k, v in distill.items()
+                                           if k not in ("launches", "solver", "latents")}
+        if name in ("ns_update", "flash_attention", "ns_update_bwd", "flash_attention_bwd"):
+            runs = {"12b": reload, "12c": any_run, "13b": any_grad}
+            kernels[-1]["phases"] = {k: {**v, "launches": runs[k]["launches"][name]}
+                                     for k, v in new_phases.items()}
+    print(f"chip_smoke wall {time.perf_counter() - T_START:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

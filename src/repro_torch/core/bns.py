@@ -120,6 +120,9 @@ class TrainResult:
     wall_seconds: float
     nfe: int
     num_parameters: int
+    # each iteration's host-clock seconds (see ``fit``); an attribute, not a
+    # field, so that the fields stay the reference's
+    iteration_seconds = ()
 
 
 def psnr(x: Tensor, ref: Tensor, max_val: float = 1.0) -> Tensor:
@@ -149,6 +152,39 @@ def train_solver(
     theta lives on the pairs' device. Mini-batch indices come from
     ``np.random.default_rng(cfg.seed)`` exactly as in the reference, so both
     frameworks train on the same batches."""
+    def val_psnr_fn(theta) -> float:
+        return float(torch.mean(psnr(sampler(theta, val_pairs[0]), val_pairs[1],
+                                     cfg.max_val)))
+
+    return fit(lambda th, x0, x1: _loss_fn(sampler, th, x0, x1), val_psnr_fn, theta0,
+               train_pairs, cfg, log=log,
+               line=lambda it, loss, vp: f"iter {it}: loss={loss:.4f} val_psnr={vp:.2f}dB")
+
+
+def fit(
+    loss_fn: Callable,
+    val_psnr_fn: Callable,
+    theta0,
+    train_pairs: tuple[Tensor, Tensor],
+    cfg: BNSTrainConfig,
+    *,
+    log: Callable[[str], None] | None = None,
+    line: Callable[[int, float, float], str],
+) -> TrainResult:
+    """Algorithm 2's loop, shared by ``train_solver`` and
+    ``anytime.train_anytime`` (the reference writes it out in each): Adam on
+    ``loss_fn(theta, x0b, x1b)`` over mini-batches of the train pairs, each
+    step eager (``torch.autograd.grad``, then ``adam_update`` under
+    ``torch.no_grad()``); ``val_psnr_fn(theta)`` under ``torch.no_grad()``
+    every ``cfg.val_every`` iterations and at the last, logged through
+    ``line(iteration, loss, val_psnr)``; returns the best-validation theta.
+    A field of theta the loss does not reach gets a zero gradient, as
+    ``jax.grad`` gives it. ``iteration_seconds`` holds each iteration's
+    host-clock time, from its mini-batch's arrival on the pairs' device to
+    the next one's (the last: to the end of its validation). On the card
+    that copy from pageable memory waits for the work queued before it, so
+    each span holds the iteration's device work, and a validation where the
+    iteration ran one, with no synchronisation added."""
     x0_tr, x1_tr = train_pairs
     num = x0_tr.shape[0]
     lr_fn = (poly_decay(cfg.lr, cfg.iterations) if cfg.lr_schedule == "poly"
@@ -156,22 +192,20 @@ def train_solver(
 
     def step(theta, opt, it, x0b, x1b):
         th = tree_map(lambda p: p.detach().requires_grad_(True), theta)
-        loss = _loss_fn(sampler, th, x0b, x1b)
-        grads = tree_unflatten(th, torch.autograd.grad(loss, tree_leaves(th)))
+        loss = loss_fn(th, x0b, x1b)
+        leaves = tree_leaves(th)
+        grads = torch.autograd.grad(loss, leaves, allow_unused=True)
+        grads = tree_unflatten(th, [torch.zeros_like(p) if g is None else g
+                                    for p, g in zip(leaves, grads)])
         with torch.no_grad():
             theta, opt = adam_update(grads, opt, theta, lr_fn(it))
         return theta, opt, loss.detach()
-
-    def val_psnr_fn(theta) -> float:
-        with torch.no_grad():
-            return float(torch.mean(psnr(sampler(theta, val_pairs[0]), val_pairs[1],
-                                         cfg.max_val)))
 
     theta = tree_map(lambda p: p.detach().to(x0_tr.device), theta0)
     opt = adam_init(theta)
     rng = np.random.default_rng(cfg.seed)
     best = (-np.inf, theta)
-    history = []
+    history, starts = [], []
     t_start = time.time()
     full_batch = cfg.batch_size >= num
     for it in range(cfg.iterations):
@@ -181,18 +215,23 @@ def train_solver(
         idx = np.arange(num) if full_batch else \
             rng.choice(num, size=cfg.batch_size, replace=False)
         idx = torch.as_tensor(idx, device=x0_tr.device)
+        starts.append(time.perf_counter())
         theta, opt, loss = step(theta, opt, it, x0_tr[idx], x1_tr[idx])
         if (it + 1) % cfg.val_every == 0 or it == cfg.iterations - 1:
-            vp = val_psnr_fn(theta)
+            with torch.no_grad():
+                vp = val_psnr_fn(theta)
             history.append((it + 1, float(loss), vp))
             if vp > best[0]:
                 best = (vp, tree_map(lambda x: x.detach().clone(), theta))
             if log:
-                log(f"iter {it+1}: loss={float(loss):.4f} val_psnr={vp:.2f}dB")
+                log(line(it + 1, float(loss), vp))
+    starts.append(time.perf_counter())
     n_params = sum(int(np.prod(p.shape)) for p in tree_leaves(best[1]))
-    return TrainResult(params=best[1], val_psnr=best[0], history=history,
-                       wall_seconds=time.time() - t_start, nfe=cfg.nfe,
-                       num_parameters=n_params)
+    res = TrainResult(params=best[1], val_psnr=best[0], history=history,
+                      wall_seconds=time.time() - t_start, nfe=cfg.nfe,
+                      num_parameters=n_params)
+    res.iteration_seconds = [b - a for a, b in zip(starts, starts[1:])]
+    return res
 
 
 def train_bns(

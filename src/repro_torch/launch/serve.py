@@ -5,7 +5,11 @@ Port of ``repro.launch.serve``:
   PYTHONPATH=src python -m repro_torch.launch.serve --arch yi-6b --mode flow \
       --full --nfe 8 --batch 4 --seq 1024 --requests 3 --bns-iters 0
   PYTHONPATH=src python -m repro_torch.launch.serve --arch yi-6b --mode flow \
-      --full --nfe 8 --batch 4 --seq 1024 --requests 2 --bns-iters 8
+      --full --nfe 8 --batch 4 --seq 1024 --requests 2 --bns-iters 8 \
+      --solver-artifact solver.msgpack
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch yi-6b --mode flow \
+      --full --budgets 4,8 --request-budgets 4,8,16 --batch 4 --seq 256 \
+      --requests 3 --bns-iters 4 --solver-artifact anytime.msgpack
   PYTHONPATH=src python -m repro_torch.launch.serve --arch yi-6b --mode decode \
       --full --gateway --page-size 16 --paged-kernel --max-slots 8 --slots 256 \
       --requests 16 --decode-lengths 128,32,64,16 --prefill-chunk 64
@@ -22,17 +26,24 @@ Runs on the card by default (``--device cuda``, an error without one);
 ``torch.Generator`` seeded with ``--seed``; conditioning tokens come from
 ``SyntheticTokens``.
 
-Flow mode: without an artifact the reference distills the solver its
-``_requested_spec`` names (euler at ``--nfe``, BNS mode), starting from
-``build_ns("euler", nfe)``, and so does the port with ``--bns-iters N`` > 0
-(``_distill``: RK45 pairs from two seeded generators, then ``train_bns`` on
-a field that recomputes each layer in the backward), then serves the
-distilled solver; ``--bns-iters 0`` serves the initial solver. rwkv6-7b
-does not distill on the card yet (its ``gla_scan`` kernel has no backward;
-the CPU runs). Artifacts, anytime budgets and the flow gateway tiers exit
-with the ROADMAP item that brings them — the launcher never serves
+Flow mode acquires its solver through a ``SolverZoo``, as the reference's
+does: an existing ``--solver-artifact`` file (or anything ``--zoo-dir``
+indexes for the requested spec) is loaded without retraining; a miss
+distils the spec ``_requested_spec`` names (euler at ``--nfe``, BNS mode;
+or, with ``--budgets``, one anytime solver over those budgets) with
+``--bns-iters N`` > 0 (``_distill_artifact``: RK45 pairs from two seeded
+generators, then ``SolverSpec.distill`` on a field that recomputes each
+layer in the backward), saves the artifact (at ``--solver-artifact``, else
+in a temporary directory) and serves the reloaded copy. ``--bns-iters 0``
+serves the initial solver without an artifact. An anytime artifact routes
+each request (``--request-budgets``, cycled) to its early exit; a budget the
+solver does not serve goes to the nearest one with a WARNING, or exits under
+``--strict-nfe``. rwkv6-7b does not distil on the card yet (its
+``gla_scan`` kernel has no backward; the CPU runs). The flow gateway tiers
+exit with the ROADMAP item that brings them — the launcher never serves
 something else in their place. Each request prints its shape, its NFE and
-its wall time, read after the device has finished.
+its wall time, read after the device has finished; the run ends with the
+zoo's counts.
 
 Decode mode serves batched greedy decode (``greedy_demo``) or, with
 ``--gateway``, a continuous-batching ``DecodeGateway``: each request is one
@@ -45,13 +56,16 @@ paged-attention kernel, ``--prefill-chunk`` sets the chunked prefill width
 instead of greedy, ``--stream`` submits through ``submit_stream``, and
 ``--slo``/``--deadline-ms``/``--priority`` attach an ``SLOConfig``. The
 telemetry flags exit naming their ROADMAP item. ``main`` returns what the
-run served: the flow mode's ``Served`` list, ``GreedyDecoded``, or
+run served: the flow mode's ``FlowServed`` list, ``GreedyDecoded``, or
 ``DecodeServed`` (the responses and the gateway's ``stats()``).
 """
 from __future__ import annotations
 
 import argparse
 import dataclasses
+import math
+import os
+import tempfile
 import time
 
 import torch
@@ -59,7 +73,8 @@ import torch
 from repro_torch import resolve_device
 from repro_torch.configs import get_config
 from repro_torch.core import ns_solver
-from repro_torch.core.bns import BNSTrainConfig, psnr, train_bns
+from repro_torch.core.anytime import evaluate_anytime, init_anytime
+from repro_torch.core.bns import BNSTrainConfig, psnr
 from repro_torch.core.rk45 import rk45_solve
 from repro_torch.core.schedulers import get_scheduler
 from repro_torch.data.synthetic import DataConfig, SyntheticTokens
@@ -67,19 +82,22 @@ from repro_torch.kernels.gla_scan.ops import BACKWARD_ROADMAP as GLA_BACKWARD_RO
 from repro_torch.models import model as M
 from repro_torch.observability import format_stats_line
 from repro_torch.serving.decode import DecodeGateway, DecodeRequest
-from repro_torch.serving.engine import DecodeEngine, FlowSampler, SamplingParams, greedy_demo
+from repro_torch.serving.engine import (
+    AnytimeFlowSampler,
+    DecodeEngine,
+    FlowSampler,
+    SamplingParams,
+    greedy_demo,
+)
 from repro_torch.serving.slo import AdmissionRejected, DeadlineExceeded, SLOConfig
-from repro_torch.solvers.registry import build_ns
+from repro_torch.serving.zoo import SolverZoo
+from repro_torch.solvers import SolverArtifact, SolverSpec
 
 DEFAULT_NFE = 8
 
-# Options of the reference launcher that this slice does not serve yet.
-_NOT_YET = {
-    "solver_artifact": "solver artifacts (ROADMAP Queue A item 3)",
-    "budgets": "anytime multi-budget serving (ROADMAP Queue A item 4)",
-    "gateway": "the flow gateway tiers (ROADMAP Queue A item 7); decode mode "
-               "serves --gateway",
-}
+# The reference launcher's flow --gateway, not served by the port yet.
+_FLOW_GATEWAY = ("the flow gateway tiers (ROADMAP Queue A item 7); decode mode "
+                 "serves --gateway")
 # The gateway modes' telemetry surfaces (ROADMAP Queue A item 11).
 _TELEMETRY = {
     "metrics_port": "--metrics-port", "metrics_json": "--metrics-json",
@@ -99,25 +117,33 @@ class Served:
 
 @dataclasses.dataclass
 class Distillation:
-    """What ``--bns-iters`` distilled before serving."""
+    """What a miss distilled before serving (``--bns-iters`` > 0)."""
 
     rk45: dict                # {"train"|"val": (nfe, accepted, rejected)}
     rk45_seconds: float       # both RK45 solves, device work included
-    init_val_psnr: float      # the initial euler solver on the val pairs, dB
+    init_val_psnr: float      # the initial solver on the val pairs, dB (anytime:
+    #                           the mean over budgets)
     init_val_seconds: float   # that one validation sample
     val_psnr: float           # the distilled (best-validation) solver, dB
     iterations: int
-    train_seconds: float      # train_bns, device work included
+    train_seconds: float      # SolverSpec.distill, device work included
+    iteration_seconds: list   # each training iteration's (bns.fit's)
     num_parameters: int
     history: list             # (iter, train_loss, val_psnr)
-    solver: object            # the distilled NSParams
+    params: object            # the distilled BNSParams or AnytimeParams, as saved
+    solver: object            # the distilled NSParams (AnytimeParams for anytime)
 
 
 class FlowServed(list):
-    """The flow mode's ``Served`` list; ``distillation`` is set when the
-    solver was distilled (``--bns-iters`` > 0)."""
+    """The flow mode's ``Served`` list, and how its solver was acquired:
+    ``distillation`` where a miss distilled it, ``zoo`` the zoo's counts
+    (``ZooStats``), ``artifact`` the served ``SolverArtifact`` and
+    ``sampler`` the serving session."""
 
     distillation: Distillation | None = None
+    zoo = None
+    artifact = None
+    sampler = None
 
 
 @dataclasses.dataclass
@@ -168,13 +194,23 @@ def build_parser() -> argparse.ArgumentParser:
                          "the initial euler solver)")
     ap.add_argument("--device", choices=["cuda", "cpu"], default="cuda")
     ap.add_argument("--solver-artifact", default=None,
-                    help="not served yet: " + _NOT_YET["solver_artifact"])
-    ap.add_argument("--budgets", default=None,
-                    help="not served yet: " + _NOT_YET["budgets"])
+                    help="load the solver from this artifact if it exists; "
+                         "otherwise distill and save it here")
+    ap.add_argument("--budgets", type=_int_list, default=None,
+                    help="serve an anytime solver at these NFE budgets, e.g. 4,8,16 "
+                         "(one shared artifact, per-request budget routing)")
+    ap.add_argument("--request-budgets", type=_int_list, default=None,
+                    help="per-request NFE budgets, cycled over --requests "
+                         "(default: cycle the artifact's budgets)")
+    ap.add_argument("--strict-nfe", action="store_true",
+                    help="reject budgets the artifact does not serve instead of "
+                         "routing to the nearest one")
+    ap.add_argument("--zoo-dir", default=None,
+                    help="scan this directory for saved solver artifacts")
+    ap.add_argument("--zoo-capacity", type=int, default=4)
     ap.add_argument("--gateway", action="store_true",
                     help="decode: serve through the continuous-batching "
-                         "DecodeGateway; flow: not served yet, "
-                         + _NOT_YET["gateway"])
+                         "DecodeGateway; flow: not served yet, " + _FLOW_GATEWAY)
     # decode mode, as the reference's flags
     ap.add_argument("--steps", type=int, default=32)
     ap.add_argument("--slots", type=int, default=128,
@@ -225,35 +261,55 @@ def build_parser() -> argparse.ArgumentParser:
 
 def _refuse_unported(args) -> None:
     if args.mode == "flow":
-        if (args.bns_iters > 0 and args.device == "cuda"
+        loads = bool(args.solver_artifact) and os.path.exists(args.solver_artifact)
+        if (args.bns_iters > 0 and args.device == "cuda" and not loads
                 and get_config(args.arch, smoke=args.smoke).family == "ssm"):
             raise SystemExit(
                 f"not served by the port yet: BNS distillation of {args.arch} on the "
                 f"card: its gla_scan kernel has no backward ({GLA_BACKWARD_ROADMAP}); "
                 "--device cpu distills through the plain chunked form, --bns-iters 0 "
                 "serves the initial euler solver")
-        for name, on in (("solver_artifact", args.solver_artifact is not None),
-                         ("budgets", args.budgets is not None),
-                         ("gateway", args.gateway)):
-            if on:
-                raise SystemExit(f"not served by the port yet: {_NOT_YET[name]}")
+        if args.gateway:
+            raise SystemExit(f"not served by the port yet: {_FLOW_GATEWAY}")
     for dest, flag in _TELEMETRY.items():
         if getattr(args, dest) is not None:
             raise SystemExit(f"not served by the port yet: {flag}, the telemetry "
                              "surfaces (ROADMAP Queue A item 11)")
 
 
-def _distill(args, params, cfg, sched, cond, nfe: int,
-             device: torch.device) -> Distillation:
+def _requested_spec(args) -> SolverSpec:
+    """The solver the CLI asks for: anytime over --budgets, else fixed-NFE BNS."""
+    if args.budgets:
+        return SolverSpec(name="midpoint", mode="anytime",
+                          budgets=args.budgets, cfg_scale=args.cfg_scale)
+    return SolverSpec(name="euler", nfe=args.nfe or DEFAULT_NFE,
+                      cfg_scale=args.cfg_scale, mode="bns")
+
+
+def _initial_artifact(spec: SolverSpec) -> SolverArtifact:
+    """``--bns-iters 0``: the spec's initial solver, in memory (no file):
+    euler at the spec's NFE, or the nested-grid anytime solver."""
+    if spec.mode == "anytime":
+        return SolverArtifact(spec=spec, params=init_anytime(None, spec.budgets),
+                              val_psnr=math.nan)
+    return SolverArtifact(spec=dataclasses.replace(spec, mode="baseline"),
+                          params=spec.build(), val_psnr=math.nan)
+
+
+def _distill_artifact(args, params, cfg, sched, cond, spec: SolverSpec,
+                      device: torch.device) -> tuple[Distillation, SolverArtifact]:
     """Algorithm 2 on fresh RK45 pairs, as the reference's
-    ``_distill_artifact``: train and held-out val x0 of (batch, seq,
-    latent_dim) from two generators seeded from ``--seed``, each integrated by
-    RK45 (rtol = atol = 1e-5) under no_grad, then ``train_bns`` from euler at
-    ``--nfe`` (lr 1e-3, cosine, ``--bns-iters`` iterations, validation every
-    100 and at the end, full batches), differentiating a field that
-    recomputes each layer in the backward. No artifact is written (ROADMAP
-    Queue A item 3)."""
-    print(f"distilling BNS solver (NFE={nfe}) ...")
+    ``_distill_artifact``; returns the record and the saved-and-reloaded
+    artifact. Train and held-out val x0 of (batch, seq, latent_dim) from two
+    generators seeded from ``--seed``, each integrated by RK45 (rtol = atol =
+    1e-5) under no_grad; the initial solver's val PSNR; then
+    ``spec.distill`` (lr 1e-3, cosine, ``--bns-iters`` iterations, validation
+    every 100 and at the end, full batches), differentiating a field that
+    recomputes each layer in the backward."""
+    anytime = spec.mode == "anytime"
+    what = (f"anytime solver (budgets={spec.budgets})" if anytime
+            else f"BNS solver (NFE={spec.nfe})")
+    print(f"distilling {what} ...")
     field = M.velocity_field(params, cfg, sched, cond, cfg_scale=args.cfg_scale,
                              remat=True)
     shape = (args.batch, args.seq, cfg.latent_dim)
@@ -272,28 +328,74 @@ def _distill(args, params, cfg, sched, cond, nfe: int,
           f"rejected {rk45['train'][2]}), val nfe {rk45['val'][0]} (accepted "
           f"{rk45['val'][1]}, rejected {rk45['val'][2]}), {rk45_s:.1f}s")
     t0 = time.perf_counter()
-    with torch.no_grad():
-        x0v, x1v = pairs["val"]
-        init_psnr = float(torch.mean(psnr(
-            ns_solver.ns_sample(build_ns("euler", nfe), field.fn, x0v), x1v)))
+    x0v, x1v = pairs["val"]
+    if anytime:
+        scores = evaluate_anytime(init_anytime(None, spec.budgets), spec.budgets, field,
+                                  pairs["val"])
+        init_psnr = sum(scores.values()) / len(scores)
+    else:
+        with torch.no_grad():
+            init_psnr = float(torch.mean(psnr(
+                ns_solver.ns_sample(spec.build(field), field.fn, x0v), x1v)))
     _sync(device)
     init_s = time.perf_counter() - t0
-    print(f"initial euler solver: val PSNR {init_psnr:.2f} dB")
+    print(f"initial {'anytime (nested grid)' if anytime else spec.name} solver: "
+          f"{'mean ' if anytime else ''}val PSNR {init_psnr:.2f} dB")
     t0 = time.perf_counter()
-    res = train_bns(field, pairs["train"], pairs["val"],
-                    BNSTrainConfig(nfe=nfe, init_solver="euler", lr=1e-3,
-                                   lr_schedule="cosine", iterations=args.bns_iters,
-                                   val_every=100, batch_size=args.batch),
-                    log=print)
+    res = spec.distill(field, pairs["train"], pairs["val"],
+                       BNSTrainConfig(lr=1e-3, lr_schedule="cosine",
+                                      iterations=args.bns_iters, val_every=100,
+                                      batch_size=args.batch), log=print)
     _sync(device)
     train_s = time.perf_counter() - t0
     print(f"solver ready: {res.num_parameters} params, val PSNR {res.val_psnr:.2f} dB, "
           f"{res.wall_seconds:.0f}s")
-    return Distillation(rk45=rk45, rk45_seconds=rk45_s, init_val_psnr=init_psnr,
-                        init_val_seconds=init_s, val_psnr=res.val_psnr,
-                        iterations=args.bns_iters, train_seconds=train_s,
-                        num_parameters=res.num_parameters, history=res.history,
-                        solver=ns_solver.materialize(res.params))
+    path = args.solver_artifact or os.path.join(
+        tempfile.mkdtemp(prefix="bns_solver_"), "solver.msgpack")
+    res.artifact(provenance={"arch": args.arch, "scheduler": args.scheduler,
+                             "seed": args.seed, "bns_iters": args.bns_iters}).save(path)
+    print(f"solver artifact saved to {path}")
+    record = Distillation(
+        rk45=rk45, rk45_seconds=rk45_s, init_val_psnr=init_psnr,
+        init_val_seconds=init_s, val_psnr=res.val_psnr, iterations=args.bns_iters,
+        train_seconds=train_s, iteration_seconds=res.iteration_seconds,
+        num_parameters=res.num_parameters, history=res.history, params=res.params,
+        solver=res.params if anytime else ns_solver.materialize(res.params))
+    return record, SolverArtifact.load(path)
+
+
+def _resolve_budget(artifact: SolverArtifact, nfe: int, strict: bool, warned: set) -> int:
+    """Route a requested NFE to a budget the artifact serves: an exact match
+    passes through; otherwise --strict-nfe exits, and the default picks the
+    nearest served budget with one WARNING per distinct mismatch."""
+    if nfe in artifact.budgets:
+        return nfe
+    if strict:
+        raise SystemExit(f"--strict-nfe: requested NFE {nfe} but the "
+                         f"artifact serves {artifact.budgets}")
+    near = artifact.nearest_budget(nfe)
+    if nfe not in warned:
+        warned.add(nfe)
+        print(f"WARNING: requested NFE {nfe} not served by the artifact "
+              f"(budgets {artifact.budgets}); using nearest budget {near}")
+    return near
+
+
+def _load_artifact(args, zoo: SolverZoo) -> SolverArtifact:
+    """The existing ``--solver-artifact`` file, through the zoo (a load)."""
+    artifact = zoo.load(args.solver_artifact)
+    print(f"loaded solver artifact {args.solver_artifact}: "
+          f"{artifact.spec.mode}/{artifact.spec.name} budgets={artifact.budgets}, "
+          f"val PSNR {artifact.val_psnr:.2f} dB (no retraining)")
+    for key, want in [("arch", args.arch), ("scheduler", args.scheduler)]:
+        have = artifact.provenance.get(key)
+        if have is not None and have != want:
+            print(f"WARNING: artifact was distilled for {key}={have!r} "
+                  f"but serving {key}={want!r} — samples will be degraded")
+    if args.budgets and tuple(sorted(args.budgets)) != artifact.budgets:
+        print(f"WARNING: --budgets {','.join(map(str, args.budgets))} "
+              f"ignored; the loaded artifact serves {artifact.budgets}")
+    return artifact
 
 
 def serve_flow(args, device: torch.device) -> FlowServed:
@@ -305,28 +407,67 @@ def serve_flow(args, device: torch.device) -> FlowServed:
                                            seq_len=args.seq, seed=args.seed),
                            device=device)
     cond = data.batch(0)
-    nfe = args.nfe or DEFAULT_NFE
     served = FlowServed()
-    if args.bns_iters > 0:
-        served.distillation = _distill(args, params, cfg, sched, cond, nfe, device)
-        solver = served.distillation.solver
-        print(f"serving the distilled BNS solver at NFE {nfe}")
+
+    def distill(spec: SolverSpec) -> SolverArtifact:
+        served.distillation, artifact = _distill_artifact(args, params, cfg, sched, cond,
+                                                          spec, device)
+        return artifact
+
+    scan_dirs = [d for d in (args.zoo_dir, os.path.dirname(args.solver_artifact)
+                             if args.solver_artifact else None) if d]
+    zoo = SolverZoo(capacity=args.zoo_capacity,
+                    distill_fn=distill if args.bns_iters > 0 else None,
+                    scan_dirs=scan_dirs)
+    spec = _requested_spec(args)
+    if args.solver_artifact and os.path.exists(args.solver_artifact):
+        artifact = _load_artifact(args, zoo)
     else:
-        solver = build_ns("euler", nfe)
-        print(f"serving the initial euler solver at NFE {nfe} (no distillation)")
-    sampler = FlowSampler(params=params, cfg=cfg, sched=sched, solver=solver,
-                          cfg_scale=args.cfg_scale)
+        try:
+            artifact = zoo.get(spec, log=print)
+        except KeyError:            # --bns-iters 0 and no saved solver for the spec
+            if args.bns_iters > 0:
+                raise
+            artifact = _initial_artifact(spec)
+            what = (f"anytime solver at budgets {spec.budgets}" if spec.budgets
+                    else f"euler solver at NFE {spec.nfe}")
+            print(f"serving the initial {what} (no distillation)")
+    if served.distillation is not None:
+        print(f"serving the distilled {'anytime' if spec.budgets else 'BNS'} solver at "
+              + (f"budgets {spec.budgets}" if spec.budgets else f"NFE {spec.nfe}"))
+    anytime = artifact.kind == "anytime"
+    if anytime:
+        sampler = AnytimeFlowSampler.from_artifact(artifact, params=params, cfg=cfg,
+                                                   sched=sched)
+    else:   # what FlowSampler.from_artifact builds
+        sampler = FlowSampler(params=params, cfg=cfg, sched=sched,
+                              solver=artifact.ns_params, cfg_scale=artifact.spec.cfg_scale)
+    served.artifact, served.sampler = artifact, sampler
+    if args.request_budgets:
+        request_budgets = args.request_budgets
+    elif args.nfe is not None:
+        # an explicit --nfe is a request, never silently ignored
+        request_budgets = (args.nfe,)
+    else:
+        request_budgets = artifact.budgets
+    warned: set = set()
     for req in range(args.requests):
+        nfe = _resolve_budget(artifact, request_budgets[req % len(request_budgets)],
+                              args.strict_nfe, warned)
         _sync(device)
         t0 = time.perf_counter()
         gen = torch.Generator(device=device).manual_seed(1000 + req)
-        latents = sampler.sample(cond, gen)
+        latents = (sampler.sample(cond, gen, budget=nfe) if anytime
+                   else sampler.sample(cond, gen))
         tokens = sampler.nearest_tokens(latents)
         _sync(device)
         ms = (time.perf_counter() - t0) * 1e3
         print(f"request {req}: sampled {tuple(tokens.shape)} in {ms:.1f} ms "
               f"({nfe} NFE)")
         served.append(Served(latents=latents, tokens=tokens, nfe=nfe, ms=ms))
+    served.zoo = zoo.stats
+    print(f"zoo stats: hits={served.zoo.hits} misses={served.zoo.misses} "
+          f"loads={served.zoo.loads} distills={served.zoo.distills}")
     return served
 
 

@@ -3,9 +3,21 @@
 Port of ``repro.serving.engine``:
 
 ``FlowSampler`` — the paper's product: batched sampling of a flow model with
-an NS solver (Algorithm 1). Each request batch costs exactly ``n`` backbone
-forwards, and every solver step's update runs the ``ns_update`` kernel on
-the card (its plain version on the CPU).
+an NS solver (Algorithm 1), built from any NS solver or from a loaded
+``SolverArtifact`` (``from_artifact``). Each request batch costs exactly
+``n`` backbone forwards, and every solver step's update runs the
+``ns_update`` kernel on the card (its plain version on the CPU).
+
+``AnytimeFlowSampler`` — multi-NFE serving from ONE anytime artifact.
+Budget routing: ``sample(batch, generator, budget=m)`` with m served runs
+the extracted m-step early-exit solver (``core.anytime.extract_ns``, made
+once a budget and kept): exactly m backbone forwards. An m not served goes
+to the nearest served budget (ties to the cheaper), or raises under
+``strict``. ``sample_all`` runs the one shared trajectory to the top budget
+and returns every exit; ``carry_start``/``carry_extend`` advance it leg by
+leg (the continuous gateway's surface, ROADMAP Queue A item 7). Where the
+reference compiles one jit program a budget or leg, the port runs eagerly
+under ``torch.no_grad()`` on the params' device (CUDA graphs: item 6).
 
 ``DecodeEngine`` — batched autoregressive decode over a KV cache (the ssm
 family: its recurrent state, where ``page_size`` is a no-op): ``greedy``
@@ -15,9 +27,6 @@ that ``serving.decode.DecodeGateway`` serves from. ``page_size > 0`` pages
 the cache (``PagedKVCache``), and ``paged_kernel`` attends through the
 paged-attention kernel. ``SamplingParams`` / ``sample_tokens`` add
 temperature / top-k / top-p sampling beside greedy.
-
-``FlowSampler.from_artifact`` (ROADMAP Queue A item 3) and
-``AnytimeFlowSampler`` (item 4) come with their slices.
 """
 from __future__ import annotations
 
@@ -29,6 +38,7 @@ import numpy as np
 import torch
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.core import anytime as anytime_mod
 from repro_torch.core import ns_solver
 from repro_torch.core.ns_solver import NSParams
 from repro_torch.core.schedulers import Scheduler
@@ -72,6 +82,24 @@ class FlowSampler:
         self.device = self.params["final_norm"].device
         self.solver = self.solver.to(self.device)
 
+    @classmethod
+    def from_artifact(cls, artifact, *, params: dict, cfg: ModelConfig,
+                      sched: Scheduler, budget: Optional[int] = None) -> "FlowSampler":
+        """Serving session from a loaded ``repro_torch.solvers.SolverArtifact``.
+
+        The artifact carries the solver and the CFG scale it was distilled
+        under; the backbone (params/cfg/sched) comes from the launcher.
+        ``budget`` selects one early exit of an anytime artifact (required
+        there — ``AnytimeFlowSampler`` serves them all)."""
+        if budget is None and artifact.kind == "anytime":
+            raise TypeError(
+                "anytime artifacts serve several budgets; pass budget=m for "
+                "a fixed-NFE session or use AnytimeFlowSampler.from_artifact")
+        solver = (artifact.ns_params if budget is None
+                  else artifact.ns_at_budget(budget))
+        return cls(params=params, cfg=cfg, sched=sched, solver=solver,
+                   cfg_scale=artifact.spec.cfg_scale)
+
     def _sample(self, batch: Optional[dict], x0: Tensor) -> Tensor:
         if batch is not None:
             batch = {k: v.to(self.device) for k, v in batch.items()}
@@ -111,6 +139,107 @@ class FlowSampler:
         x0 = torch.randn((B, S, self.cfg.latent_dim), generator=generator,
                          dtype=torch.float32, device=self.device)
         return self._sample(batch, x0)
+
+    def nearest_tokens(self, latents: Tensor) -> Tensor:
+        """Decode sampled latents to tokens by nearest latent embedding."""
+        return nearest_latent_tokens(self.params, latents)
+
+
+@dataclasses.dataclass
+class AnytimeFlowSampler:
+    """Budget-aware serving session over ONE anytime solver, on the device
+    that holds ``params`` (routing contract: module docstring)."""
+
+    params: dict
+    cfg: ModelConfig
+    sched: Scheduler
+    anytime: anytime_mod.AnytimeParams
+    budgets: tuple[int, ...]
+    cfg_scale: float = 0.0
+
+    def __post_init__(self):
+        self.budgets = tuple(sorted(self.budgets))
+        self.device = self.params["final_norm"].device
+        self.anytime = anytime_mod.AnytimeParams(*(p.to(self.device) for p in self.anytime))
+        self._per_budget: dict[int, NSParams] = {}
+
+    @classmethod
+    def from_artifact(cls, artifact, *, params: dict, cfg: ModelConfig,
+                      sched: Scheduler) -> "AnytimeFlowSampler":
+        """Serving session from a loaded anytime ``SolverArtifact``."""
+        if artifact.kind != "anytime":
+            raise TypeError(f"{artifact.kind!r} artifacts serve one budget; "
+                            "use FlowSampler.from_artifact")
+        return cls(params=params, cfg=cfg, sched=sched, anytime=artifact.params,
+                   budgets=artifact.budgets, cfg_scale=artifact.spec.cfg_scale)
+
+    def _field(self, batch: Optional[dict]):
+        if batch is not None:
+            batch = {k: v.to(self.device) for k, v in batch.items()}
+        return M.velocity_field(self.params, self.cfg, self.sched, batch,
+                                cfg_scale=self.cfg_scale)
+
+    def _noise(self, batch: dict, generator: torch.Generator) -> Tensor:
+        B, S = batch["tokens"].shape
+        return torch.randn((B, S, self.cfg.latent_dim), generator=generator,
+                           dtype=torch.float32, device=self.device)
+
+    def _x0(self, x0) -> Tensor:
+        return torch.as_tensor(x0, dtype=torch.float32).to(self.device)
+
+    def resolve_budget(self, m: int, strict: bool = False) -> int:
+        """Route a requested NFE to a served budget (nearest; ties cheaper)."""
+        return nearest_budget(self.budgets, m, strict)
+
+    def ns_at_budget(self, m: int) -> NSParams:
+        """The extracted m-step solver, made once a budget (raises on an
+        unserved budget)."""
+        ns = self._per_budget.get(m)
+        if ns is None:
+            ns = self._per_budget[m] = anytime_mod.extract_ns(self.anytime, self.budgets, m)
+        return ns
+
+    def sample_from(self, batch: Optional[dict], x0, budget: int) -> Tensor:
+        """Integrate given noise ``x0`` at exactly ``budget`` NFE."""
+        ns = self.ns_at_budget(budget)
+        x0 = self._x0(x0)
+        with torch.no_grad():
+            return ns_solver.ns_sample(ns, self._field(batch).fn, x0)
+
+    def sample(self, batch: dict, generator: torch.Generator, budget: int,
+               strict: bool = False) -> Tensor:
+        """Latents for ``batch`` at the requested NFE budget, from noise drawn
+        with ``generator`` (on the sampler's device)."""
+        budget = self.resolve_budget(budget, strict=strict)
+        return self.sample_from(batch, self._noise(batch, generator), budget)
+
+    def sample_all_from(self, batch: Optional[dict], x0) -> dict[int, Tensor]:
+        """One shared trajectory from ``x0``; every budget's output, at
+        max(budgets) forwards in all."""
+        x0 = self._x0(x0)
+        with torch.no_grad():
+            return anytime_mod.anytime_sample(self.anytime, self.budgets,
+                                              self._field(batch).fn, x0)
+
+    def sample_all(self, batch: dict, generator: torch.Generator) -> dict[int, Tensor]:
+        return self.sample_all_from(batch, self._noise(batch, generator))
+
+    # -- carry protocol (continuous batching, ROADMAP Queue A item 7) --------
+
+    def carry_start(self, batch: Optional[dict], x0) -> anytime_mod.AnytimeCarry:
+        """A fresh shared-trajectory carry over ``x0`` (no forwards spent)."""
+        return anytime_mod.anytime_carry(self.anytime, self.budgets, self._x0(x0))
+
+    def carry_extend(self, batch: Optional[dict], carry: anytime_mod.AnytimeCarry,
+                     stop: int) -> tuple[anytime_mod.AnytimeCarry, dict[int, Tensor]]:
+        """Advance the shared trajectory to ``stop`` evals: the new carry plus
+        the early-exit outputs crossed on the way, at exactly
+        ``stop - carry.step`` backbone forwards. Row i of ``exits[k]`` is the
+        sample a budget-k request with row i's noise gets from
+        ``sample_from`` (the join invariant of ``anytime_extend``)."""
+        with torch.no_grad():
+            return anytime_mod.anytime_extend(self.anytime, self.budgets,
+                                              self._field(batch).fn, carry, stop)
 
     def nearest_tokens(self, latents: Tensor) -> Tensor:
         """Decode sampled latents to tokens by nearest latent embedding."""

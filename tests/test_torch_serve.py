@@ -1,5 +1,7 @@
 """The port's flow serving slice against the JAX reference, on the CPU:
-``FlowSampler``, the synthetic tokens, latent decoding and the launcher.
+``FlowSampler``, the synthetic tokens, latent decoding and the launcher
+(solver artifacts distilled, saved and reloaded, anytime budgets, artifacts
+the reference's launcher wrote).
 
 yi-6b's smoke config in f32; the reference's params go through
 ``params_from_jax`` and the noise x0 is one numpy array handed to both
@@ -144,8 +146,6 @@ def test_serve_cli_exit_code_without_a_card():
     (["--arch", "rwkv6-7b", "--device", "cuda", "--bns-iters", "300"],
      "ROADMAP Queue B item 6"),
     (["--arch", "rwkv6-7b", "--device", "cuda"], "ROADMAP Queue B item 6"),  # default 300
-    (["--bns-iters", "0", "--solver-artifact", "s.msgpack"], "ROADMAP Queue A item 3"),
-    (["--bns-iters", "0", "--budgets", "4,8"], "ROADMAP Queue A item 4"),
     (["--bns-iters", "0", "--gateway"], "ROADMAP Queue A item 7"),
     (["--mode", "decode", "--gateway", "--trace-jsonl", "t.jsonl"], "ROADMAP Queue A item 11"),
     (["--mode", "decode", "--gateway", "--metrics-json", "m.json"], "ROADMAP Queue A item 11"),
@@ -202,3 +202,153 @@ def test_serve_decode_sampled_streamed_under_slo(capsys):
     assert [r.meta["new_tokens"] for r in served.responses] == [3, 3]
     assert served.stats["goodput"] == 2
     assert capsys.readouterr().out.count("3 streamed tokens") == 2
+
+
+_FLOW = ["--arch", "yi-6b", "--mode", "flow", "--batch", "2", "--seq", "8", "--device", "cpu"]
+
+
+@pytest.fixture(autouse=False)
+def one_thread():
+    """Distillation runs thousands of tiny eager ops: one intra-op thread
+    beside the other test workers (as the distillation test files do)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+@pytest.fixture(scope="module")
+def distilled(tmp_path_factory):
+    """One launcher run that distils an NFE-4 BNS solver into an artifact,
+    and what it printed."""
+    import contextlib
+    import io
+
+    path = str(tmp_path_factory.mktemp("artifact") / "bns.msgpack")
+    out = io.StringIO()
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        with contextlib.redirect_stdout(out):
+            served = serve.main(_FLOW + ["--nfe", "4", "--bns-iters", "5", "--requests", "2",
+                                         "--solver-artifact", path])
+    finally:
+        torch.set_num_threads(n)
+    return path, served, out.getvalue()
+
+
+def test_serve_distils_saves_the_artifact_and_serves_the_reloaded_copy(distilled):
+    from repro_torch.solvers import SolverArtifact, SolverSpec
+
+    path, served, out = distilled
+    assert f"solver artifact saved to {path}" in out
+    assert "zoo stats: hits=0 misses=1 loads=0 distills=1" in out
+    assert (served.zoo.distills, served.zoo.loads) == (1, 0)
+    assert (served.artifact.kind, served.artifact.budgets) == ("bns", (4,))
+    for a, b in zip(served.artifact.params, served.distillation.params):
+        assert torch.equal(a, b)                      # the saved copy is the distilled one
+    assert len(served.distillation.iteration_seconds) == 5
+    assert all(t > 0 for t in served.distillation.iteration_seconds)
+    art = SolverArtifact.load(path)
+    assert art.spec == SolverSpec("euler", 4, mode="bns")
+    assert art.provenance == {"arch": "yi-6b", "scheduler": "fm_ot", "seed": 0,
+                              "bns_iters": 5}
+    assert art.val_psnr == served.distillation.val_psnr
+    for a, b in zip(served.sampler.solver, art.ns_params):
+        assert torch.equal(a, b)                      # the reloaded copy is served
+
+
+def test_serve_second_run_loads_the_artifact_with_no_retraining(distilled, capsys, one_thread):
+    """The same flags again: the artifact is loaded (a zoo load, no
+    distillation) and the requests' latents equal the first run's, to the bit."""
+    path, first, _ = distilled
+    served = serve.main(_FLOW + ["--nfe", "4", "--bns-iters", "5", "--requests", "2",
+                                 "--solver-artifact", path])
+    out = capsys.readouterr().out
+    assert "(no retraining)" in out and "distilling" not in out
+    assert "zoo stats: hits=0 misses=1 loads=1 distills=0" in out
+    assert served.distillation is None and served.zoo.loads == 1
+    for a, b in zip(served.sampler.solver, first.sampler.solver):
+        assert torch.equal(a, b)
+    for a, b in zip(served, first):
+        assert torch.equal(a.latents, b.latents) and torch.equal(a.tokens, b.tokens)
+
+
+def test_serve_anytime_budgets_route_requests_and_warn_once(tmp_path, capsys, one_thread):
+    path = str(tmp_path / "any.msgpack")
+    served = serve.main(_FLOW + ["--budgets", "2,4", "--request-budgets", "2,4,8",
+                                 "--requests", "6", "--bns-iters", "3",
+                                 "--solver-artifact", path])
+    out = capsys.readouterr().out
+    assert "distilling anytime solver (budgets=(2, 4))" in out
+    assert out.count("WARNING: requested NFE 8 not served by the artifact (budgets (2, 4)); "
+                     "using nearest budget 4") == 1
+    assert [s.nfe for s in served] == [2, 4, 4, 2, 4, 4]
+    assert (served.artifact.kind, served.artifact.budgets) == ("anytime", (2, 4))
+    assert served.zoo.distills == 1
+    assert isinstance(served.sampler, serve.AnytimeFlowSampler)
+    again = serve.main(_FLOW + ["--budgets", "2,4", "--request-budgets", "2,4", "--requests",
+                                "2", "--solver-artifact", path])
+    assert "(no retraining)" in capsys.readouterr().out
+    for a, b in zip(again, served):
+        assert torch.equal(a.latents, b.latents)
+
+
+def test_serve_strict_nfe_exits_nonzero(tmp_path, one_thread):
+    path = str(tmp_path / "any.msgpack")
+    serve.main(_FLOW + ["--budgets", "2,4", "--requests", "1", "--bns-iters", "2",
+                        "--solver-artifact", path])
+    with pytest.raises(SystemExit) as exc:
+        serve.main(_FLOW + ["--budgets", "2,4", "--request-budgets", "2,8", "--requests", "2",
+                            "--strict-nfe", "--solver-artifact", path])
+    assert exc.value.code not in (0, None) and "--strict-nfe" in str(exc.value.code)
+    with pytest.raises(SystemExit) as exc:
+        serve.main(_FLOW + ["--nfe", "8", "--strict-nfe", "--requests", "1",
+                            "--bns-iters", "0", "--solver-artifact", path])
+    assert "serves (2, 4)" in str(exc.value.code)
+
+
+def test_serve_initial_anytime_solver_without_distillation(capsys):
+    served = serve.main(_FLOW + ["--budgets", "2,4", "--requests", "2", "--bns-iters", "0"])
+    out = capsys.readouterr().out
+    assert "serving the initial anytime solver at budgets (2, 4) (no distillation)" in out
+    assert [s.nfe for s in served] == [2, 4] and served.distillation is None
+    assert "distilling" not in out and served.zoo.distills == 0
+
+
+def test_serve_loads_an_artifact_the_reference_launcher_wrote(tmp_path, capsys, one_thread):
+    """``repro.launch.serve`` distils and saves; the port's launcher serves
+    that file with no retraining, its solver bit-equal to the file's."""
+    from repro.launch import serve as jserve
+    from repro.solvers import SolverArtifact as JaxArtifact
+
+    path = str(tmp_path / "ref.msgpack")
+    jserve.serve_flow(jserve.build_parser().parse_args(
+        ["--arch", "yi-6b", "--mode", "flow", "--nfe", "2", "--batch", "2", "--seq", "8",
+         "--bns-iters", "2", "--requests", "1", "--solver-artifact", path]))
+    assert f"solver artifact saved to {path}" in capsys.readouterr().out
+    served = serve.main(_FLOW + ["--nfe", "2", "--requests", "1", "--solver-artifact", path])
+    out = capsys.readouterr().out
+    assert "loaded solver artifact" in out and "(no retraining)" in out
+    assert "WARNING" not in out and served.zoo.distills == 0 and served.zoo.loads == 1
+    want = JaxArtifact.load(path).ns_params
+    for a, b in zip(served.sampler.solver, want):
+        np.testing.assert_array_equal(a.numpy(), np.asarray(b))
+    assert served[0].latents.shape == (2, 8, 64) and bool(torch.isfinite(served[0].latents).all())
+
+
+def test_serve_zoo_dir_written_by_the_reference(tmp_path, capsys):
+    """--zoo-dir indexes a directory the reference's SolverZoo saved into:
+    the requested spec loads from it, no distillation."""
+    from repro.core import ns_solver as jns
+    from repro.serving import SolverZoo as JaxZoo
+    from repro.solvers import SolverArtifact as JaxArtifact
+    from repro.solvers import SolverSpec as JaxSpec
+
+    spec = JaxSpec("euler", 4, mode="bns")
+    JaxZoo(save_dir=str(tmp_path), distill_fn=lambda s: JaxArtifact(
+        spec=s, params=jns.from_ns(jreg.build_ns("euler", 4, None)), val_psnr=1.0)).get(spec)
+    served = serve.main(_FLOW + ["--nfe", "4", "--requests", "1", "--zoo-dir", str(tmp_path)])
+    out = capsys.readouterr().out
+    assert "zoo: loaded bns/euler from" in out and "distilling" not in out
+    assert (served.zoo.loads, served.zoo.distills, served.artifact.kind) == (1, 0, "bns")
