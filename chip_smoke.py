@@ -46,8 +46,26 @@ Phases (any failure ends the run with a non-zero exit and no last line):
 4. Flow path: ``repro_torch.launch.serve.main`` with yi-6b at full width
    (32 layers, bf16, random weights from a seeded generator on the card),
    NFE 8, batch 4, sequence 1024, 3 requests. Launch counts must be exact.
+4b. Baselines served at full width: for each of ddim, dpm2m and edm_heun
+   (BASELINES), ``SolverSpec(name, 8).build`` for yi-6b's fm_ot field, saved
+   as a baseline ``ns`` artifact under build/chip_smoke/ and served by
+   ``serve.main`` with phase 4's flags plus ``--requests 2
+   --solver-artifact`` (``FlowSampler.from_artifact``). Each request must
+   launch ns_update 8 and flash attention 256 times, exactly; the zoo must
+   report loads=1 distills=0, "no retraining" be printed, the served
+   NSParams equal the built ones to the bit and the latents be finite.
+   Each request's ms is printed beside the card's name and power limit.
 5. The flow path on the card (kernels) against the CPU (plain versions):
    yi-6b width cut to 2 layers, f32, euler NFE 4, relative L2 <= 1e-4.
+5b. The new solver paths on the card against the CPU, phase 5's model and
+   limit: ddim, dpm2m and edm_heun at NFE 8 under fm_ot and vp (each 8
+   ns_update and 16 flash launches), midpoint with sigma0 = 2, and a
+   BST-Euler solver at NFE 4 with random knots, once run directly
+   (``taxonomy.run_direct``: 8 flash launches, no ns_update) and once
+   through its ``to_ns`` parameters sampled by ``ns_sample`` (4 ns_update
+   launches), both against the CPU's direct run. Each case prints its error
+   (the baselines beside their largest |a| and |b|); all are run before a
+   failure ends the phase.
 6. Decode path: ``repro_torch.launch.serve.main`` in decode mode, yi-6b at
    full width, 16 requests through the paged gateway with the paged kernel.
    Every request must finish at its length with in-vocabulary tokens, no
@@ -118,6 +136,21 @@ Phases (any failure ends the run with a non-zero exit and no last line):
     ``sample_all_from(x0)[m]`` and ``sample_from(x0, m)`` for m in (4, 8);
     ``carry_start`` -> ``carry_extend(4)`` -> ``carry_extend(8)`` and
     ``sample_all_from``.
+12d. BST distilled at full width: yi-6b's field with each layer recomputed
+    (as ``serve._distill_artifact`` builds it), one ``bns.generate_pairs``
+    call of BST_PAIRS = 8 samples at seq BST_SEQ = 256 (one RK45 solve; the
+    conditioning batch of 4 rows taken twice, so the 4 train and 4 val rows
+    share it; flash forward 32 per evaluation), Euler's val PSNR through
+    ``ns_sample`` (8 ns_update, 256 flash), then ``SolverSpec("euler", 8,
+    mode="bst").distill`` for BST_ITERS = 4 full-batch iterations: flash
+    forward 512 and backward 256 an iteration plus 256 forward for the
+    final validation, and no ns_update launch (``run_direct`` bypasses it).
+    Loss and PSNR finite, the BST val PSNR at least Euler's - 0.2 dB (the
+    reference's BST claim) and above Euler's, the trained knots off
+    ``identity_bst(8, "euler")`` (which samples as Euler does, so a lost
+    gradient would pass the claim alone), the ``bst`` artifact saved and reloaded
+    bit-equal and its ``ns_params`` refused with TypeError. Prints each
+    iteration's ms (``bns.fit``'s stamps) and the peak memory.
 13. The gradient on the card against the CPU: yi-6b's width cut to 2 layers,
     f32, euler NFE 4, on shared pairs (numpy, seeded), each layer recomputed:
     _loss_fn and d loss / d(time_logits, a, b) at theta0, relative L2 <= 1e-4
@@ -134,9 +167,16 @@ Phases (any failure ends the run with a non-zero exit and no last line):
     ``AnytimeParams``, card against CPU, relative L2 <= 1e-4, with exactly 16
     flash forward, 8 flash backward, 5 + 5 ns_update launches (4
     intermediate rules and the budget-2 exit).
+13c. Phase 13 for BST, the gradient that phase 12d trains on: the same
+    2-layer f32 model and pairs, BST-Euler at NFE 4, knots the identity
+    jittered with numpy from a seed: ``_loss_fn`` through ``bst_sampler``
+    (``run_direct`` under autograd into ``materialize_bst``) and its gradient
+    in every field of ``BSTParams``, card against CPU, relative L2 <= 1e-4,
+    with exactly 16 flash forward, 8 flash backward and no ns_update launch.
 14. The script's wall time, one JSON line listing the kernels (the
-    ns_update and flash entries, forward and backward, with phases 12b, 12c
-    and 13b's launches and ms beside the main path's), then the last line.
+    ns_update and flash entries, forward and backward, with phases 4b, 5b,
+    12b, 12c, 12d, 13b and 13c's launches and ms beside the main path's), then
+    the last line.
 """
 from __future__ import annotations
 
@@ -196,6 +236,10 @@ BNS_ARTIFACT = ROOT / "build" / "chip_smoke" / "bns_nfe8.msgpack"          # pha
 ANYTIME_ARTIFACT = ROOT / "build" / "chip_smoke" / "anytime_4_8.msgpack"   # phase 12c
 ANYTIME_SEQ, ANYTIME_ITERS, ANYTIME_BUDGETS = 256, 4, (4, 8)              # phase 12c
 ANYTIME_REQUEST_BUDGETS = (4, 8, 16)
+BASELINES = ("ddim", "dpm2m", "edm_heun")                                    # phases 4b, 5b
+BASELINE_REQUESTS = 2                                                        # phase 4b
+BST_SEQ, BST_PAIRS, BST_ITERS = 256, 8, 4                                    # phase 12d
+BST_ARTIFACT = ROOT / "build" / "chip_smoke" / "bst_euler_nfe8.msgpack"
 VOCAB = {"yi-6b": 64000, "rwkv6-7b": 65536}
 KERNELS = ("ns_update", "flash_attention", "paged_attention", "gla_scan", "ns_update_bwd",
            "flash_attention_bwd")
@@ -789,6 +833,7 @@ def small_model(arch: str):
 def whole_path_against_cpu(dev, counters, cfg, params, want: dict):
     from repro_torch.core.schedulers import get_scheduler
     from repro_torch.data.synthetic import DataConfig, SyntheticTokens
+    from repro_torch.models import model as M
     from repro_torch.models.transformer import params_to
     from repro_torch.serving.engine import FlowSampler
     from repro_torch.solvers.registry import build_ns
@@ -796,7 +841,8 @@ def whole_path_against_cpu(dev, counters, cfg, params, want: dict):
     batch = SyntheticTokens(cfg, DataConfig(batch_size=2, seq_len=128, seed=0),
                             device="cpu").batch(0)
     x0 = np.random.default_rng(0).standard_normal((2, 128, cfg.latent_dim)).astype(np.float32)
-    kw = dict(cfg=cfg, sched=get_scheduler("fm_ot"), solver=build_ns("euler", 4))
+    field = M.velocity_field(params, cfg, get_scheduler("fm_ot"), batch)
+    kw = dict(cfg=cfg, sched=field.scheduler, solver=build_ns("euler", 4, field))
     before = {name: c.launches for name, c in counters.items()}
     on_card = FlowSampler(params=params_to(params, dev), **kw).sample_from(batch, x0)
     torch.cuda.synchronize(dev)
@@ -810,6 +856,182 @@ def whole_path_against_cpu(dev, counters, cfg, params, want: dict):
           f"NFE 4): relative L2 {rel:.3e} (limit 1e-4)")
     if not rel <= 1e-4:
         raise SystemExit(f"whole path {cfg.name}: relative L2 {rel} over 1e-4")
+
+
+class PerRequest:
+    """Each ``FlowSampler.sample`` call's kernel launches, read from the
+    counters around it (the launcher samples each request through it)."""
+
+    def __init__(self, counters):
+        from repro_torch.serving import engine
+
+        self.cls, self.inner, self.counters, self.runs = engine.FlowSampler, None, counters, []
+
+    def __enter__(self):
+        self.inner = self.cls.sample
+
+        def counted(sampler, *args, **kwargs):
+            before = {name: c.launches for name, c in self.counters.items()}
+            out = self.inner(sampler, *args, **kwargs)
+            self.runs.append({name: c.launches - before[name]
+                              for name, c in self.counters.items()})
+            return out
+
+        self.cls.sample = counted
+        return self
+
+    def __exit__(self, *exc):
+        self.cls.sample = self.inner
+
+
+def baselines_served(dev, counters, card: str) -> dict:
+    """Phase 4b: each baseline at NFE 8, built for yi-6b's fm_ot field, saved
+    as a baseline ``ns`` artifact and served by serve.main with phase 4's
+    flags plus --requests 2 and --solver-artifact: exact launches a request,
+    a load and no distillation, the served NSParams equal to the built ones
+    to the bit, finite latents."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.schedulers import get_scheduler
+    from repro_torch.launch import serve
+    from repro_torch.models import model as M
+    from repro_torch.solvers import SolverArtifact, SolverSpec
+
+    # the build reads the field's scheduler only: no weights behind this closure
+    field = M.velocity_field({}, get_config("yi-6b", smoke=False), get_scheduler("fm_ot"))
+    per_request = {**dict.fromkeys(KERNELS, 0), "ns_update": NFE,
+                   "flash_attention": LAYERS * NFE}
+    out = {"launches": dict.fromkeys(KERNELS, 0), "request_ms": {}}
+    for name in BASELINES:
+        spec = SolverSpec(name, NFE)
+        built = spec.build(field)
+        path = ROOT / "build" / "chip_smoke" / f"{name}_nfe{NFE}.msgpack"
+        path.parent.mkdir(parents=True, exist_ok=True)
+        path.unlink(missing_ok=True)
+        SolverArtifact(spec=spec, params=built, val_psnr=float("nan"),
+                       provenance={"arch": "yi-6b", "scheduler": "fm_ot"}).save(str(path))
+        free_device_memory(dev)
+        reset(counters)
+        t0 = time.perf_counter()
+        with Tee() as text, PerRequest(counters) as runs:
+            served = serve.main(["--arch", "yi-6b", "--mode", "flow", "--full",
+                                 "--nfe", str(NFE), "--batch", str(BATCH), "--seq", str(SEQ),
+                                 "--requests", str(BASELINE_REQUESTS), "--bns-iters", "0",
+                                 "--solver-artifact", str(path)])
+        wall = time.perf_counter() - t0
+        launches = {k: c.launches for k, c in counters.items()}
+        same = all(torch.equal(a.cpu(), b) for a, b in zip(served.sampler.solver, built))
+        z = served.zoo
+        finite = [bool(torch.isfinite(x.latents).all()) and x.latents.shape == (BATCH, SEQ, 64)
+                  for x in served]
+        a_max, b_max = float(built.a.abs().max()), float(built.b.abs().max())
+        print(f"baseline {name} NFE {NFE} served (yi-6b full width, batch {BATCH}, seq "
+              f"{SEQ}, {card}): request ms {[round(x.ms, 3) for x in served]}, launches a "
+              f"request {runs.runs}, zoo {z}, NSParams equal to the built ones: {same}, "
+              f"max |a| {a_max:.4g}, max |b| {b_max:.4g}, main() wall {wall:.3f} s")
+        if (runs.runs != [per_request] * BASELINE_REQUESTS
+                or launches != {k: v * BASELINE_REQUESTS for k, v in per_request.items()}
+                or (z.loads, z.distills) != (1, 0) or "no retraining" not in text.text
+                or served.artifact.spec != spec or not same or not all(finite)
+                or len(served) != BASELINE_REQUESTS):
+            raise SystemExit(f"baseline {name} served wrong: launches {runs.runs} (expected "
+                             f"{per_request} a request), zoo {z}, solver equal {same}, "
+                             f"finite latents {finite}")
+        out["request_ms"][name] = [x.ms for x in served]
+        for k in KERNELS:
+            out["launches"][k] += launches[k]
+    return out
+
+
+def relative_l2(a: torch.Tensor, b: torch.Tensor) -> float:
+    return float(torch.linalg.vector_norm(a.cpu() - b) / torch.linalg.vector_norm(b))
+
+
+def baselines_against_cpu(dev, counters, cfg, params) -> dict:
+    """Phase 5b: the new solver paths on the card (kernels) against the CPU
+    (plain versions), phase 5's 2-layer f32 model, relative L2 <= 1e-4:
+    ddim, dpm2m and edm_heun at NFE 8 under fm_ot and vp, midpoint with
+    sigma0 = 2, and a BST-Euler solver at NFE 4 with random knots, run
+    directly (no ns_update launch) and through its to_ns parameters sampled
+    by ns_sample (the ST ⊂ NS inclusion of Theorem 3.2)."""
+    from repro_torch.core import bst_solver, taxonomy
+    from repro_torch.core.ns_solver import ns_sample
+    from repro_torch.core.schedulers import get_scheduler
+    from repro_torch.data.synthetic import DataConfig, SyntheticTokens
+    from repro_torch.models import model as M
+    from repro_torch.models.transformer import params_to
+    from repro_torch.solvers.registry import build_ns
+
+    batch = SyntheticTokens(cfg, DataConfig(batch_size=2, seq_len=128, seed=0),
+                            device="cpu").batch(0)
+    card_params = params_to(params, dev)
+    x0 = torch.from_numpy(np.random.default_rng(5).standard_normal(
+        (2, 128, cfg.latent_dim)).astype(np.float32))
+
+    def fields(sname):
+        sched = get_scheduler(sname)
+        return (M.velocity_field(params, cfg, sched, batch),
+                M.velocity_field(card_params, cfg, sched,
+                                 {k: v.to(dev) for k, v in batch.items()}))
+
+    total = dict.fromkeys(KERNELS, 0)
+
+    def on_card(fn, want):
+        before = {name: c.launches for name, c in counters.items()}
+        with torch.no_grad():
+            out = fn()
+        torch.cuda.synchronize(dev)
+        ran = {name: c.launches - before[name] for name, c in counters.items()}
+        for name in KERNELS:
+            total[name] += ran[name]
+        return out, ran == {**dict.fromkeys(KERNELS, 0), **want}, ran
+
+    cases, failed = {}, []
+    for sname in ("fm_ot", "vp"):
+        cpu_f, card_f = fields(sname)
+        runs = [(name, build_ns(name, NFE, cpu_f)) for name in BASELINES]
+        if sname == "fm_ot":
+            runs.append(("midpoint sigma0=2", build_ns("midpoint", NFE, cpu_f, sigma0=2.0)))
+        for name, ns in runs:
+            with torch.no_grad():
+                ref = ns_sample(ns, cpu_f.fn, x0)
+            got, ok, ran = on_card(lambda: ns_sample(ns, card_f.fn, x0.to(dev)),
+                                   {"ns_update": NFE, "flash_attention": 2 * NFE})
+            key = f"{name} {sname}"
+            cases[key] = {"rel_l2": relative_l2(got, ref), "max_abs_a": float(ns.a.abs().max()),
+                          "max_abs_b": float(ns.b.abs().max()), "launches_ok": ok}
+            if not ok:
+                failed.append(f"{key}: launched {ran}")
+    cpu_f, card_f = fields("fm_ot")
+    rng = np.random.default_rng(17)
+    k = bst_solver.knot_positions(4, "euler").shape[0]
+    theta = bst_solver.bst_params_from_numpy(*((0.2 * rng.standard_normal(n)).astype(
+        np.float32) for n in (k - 1, k, k, k)))
+    knots = bst_solver.materialize_bst(theta)
+    prog = bst_solver.bst_euler_program
+    with torch.no_grad():
+        ref = taxonomy.run_direct(prog, cpu_f, x0, knots)
+    got, ok, ran = on_card(lambda: taxonomy.run_direct(
+        prog, card_f, x0.to(dev), bst_solver.materialize_bst(
+            bst_solver.BSTParams(*(p.to(dev) for p in theta)))), {"flash_attention": 2 * 4})
+    cases["bst euler run_direct"] = {"rel_l2": relative_l2(got, ref), "launches_ok": ok}
+    if not ok:
+        failed.append(f"bst run_direct: launched {ran}")
+    ns = taxonomy.to_ns(prog, knots)
+    got, ok, ran = on_card(lambda: ns_sample(ns, card_f.fn, x0.to(dev)),
+                           {"ns_update": 4, "flash_attention": 2 * 4})
+    cases["bst euler to_ns, ns_sample"] = {"rel_l2": relative_l2(got, ref), "launches_ok": ok}
+    if not ok:
+        failed.append(f"bst to_ns: launched {ran}")
+    for key, c in cases.items():
+        extra = (f", max |a| {c['max_abs_a']:.4g}, max |b| {c['max_abs_b']:.4g}"
+                 if "max_abs_a" in c else "")
+        print(f"5b {key}, yi-6b 2 layers f32, card vs CPU: relative L2 {c['rel_l2']:.3e} "
+              f"(limit 1e-4){extra}")
+        if not c["rel_l2"] <= 1e-4:
+            failed.append(f"{key}: relative L2 {c['rel_l2']} over 1e-4")
+    if failed:
+        raise SystemExit("phase 5b: " + "; ".join(failed))
+    return {"cases": cases, "launches": total}
 
 
 class CountCalls:
@@ -1223,6 +1445,108 @@ def anytime_path(dev, counters) -> dict:
             "peak_gib": peak / 2**30, "launches": launches, "wall_s": wall}
 
 
+def bst_distill_path(dev, counters) -> dict:
+    """Phase 12d: a BST-Euler solver distilled at yi-6b's full width: the
+    launcher's field (each layer recomputed in the backward), one
+    generate_pairs call of BST_PAIRS samples at seq BST_SEQ (one RK45 solve
+    over a conditioning batch of BATCH rows taken twice, so train rows 0..3
+    and val rows 4..7 share it), then SolverSpec("euler", 8, mode="bst")
+    .distill for BST_ITERS full-batch iterations; launch counts exact per
+    stage, the BST claim (val PSNR >= Euler's - 0.2 dB), the artifact saved
+    and reloaded bit-equal, and its ns_params refused with TypeError."""
+    from repro_torch.configs import get_config
+    from repro_torch.core import bns, bst_solver
+    from repro_torch.core.parametrization import VelocityField
+    from repro_torch.core.schedulers import get_scheduler
+    from repro_torch.data.synthetic import DataConfig, SyntheticTokens
+    from repro_torch.models import model as M
+    from repro_torch.solvers import SolverArtifact, SolverSpec
+
+    BST_ARTIFACT.unlink(missing_ok=True)
+    free_device_memory(dev)
+    t_phase = time.perf_counter()
+    cfg = get_config("yi-6b", smoke=False)
+    params = M.init_params(torch.Generator(device=dev).manual_seed(0), cfg, dev)
+    cond = SyntheticTokens(cfg, DataConfig(batch_size=BATCH, seq_len=BST_SEQ, seed=0),
+                           device=dev).batch(0)
+    sched = get_scheduler("fm_ot")
+    field = M.velocity_field(params, cfg, sched, cond, remat=True)
+    twice = M.velocity_field(params, cfg, sched,
+                             {k: torch.cat([v, v]) for k, v in cond.items()})
+    calls = [0]
+
+    def counted(t, x):
+        calls[0] += 1
+        return twice.fn(t, x)
+
+    stages, zero = {}, dict.fromkeys(KERNELS, 0)
+
+    def stage(name, fn, want_of):
+        reset(counters)
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize(dev)
+        ms = (time.perf_counter() - t0) * 1e3
+        launches = {k: c.launches for k, c in counters.items()}
+        want = {**zero, **want_of()}
+        stages[name] = {"launches": launches, "ms": ms}
+        if launches != want:
+            raise SystemExit(f"BST {name}: launched {launches}, expected {want}")
+        return out
+
+    x0, x1 = stage("rk45", lambda: bns.generate_pairs(
+        VelocityField(fn=counted, scheduler=sched),
+        torch.Generator(device=dev).manual_seed(1), BST_PAIRS, (BST_SEQ, cfg.latent_dim)),
+        lambda: {"flash_attention": LAYERS * calls[0]})
+    train, val = (x0[:BATCH], x1[:BATCH]), (x0[BATCH:], x1[BATCH:])
+    euler = stage("euler init", lambda: SolverSpec("euler", NFE).sampler(field).psnr(val),
+                  lambda: {"ns_update": NFE, "flash_attention": LAYERS * NFE})
+    K = BST_ITERS
+    spec = SolverSpec("euler", NFE, mode="bst")
+    res = stage("training", lambda: spec.distill(
+        field, train, val, bns.BNSTrainConfig(lr=1e-3, lr_schedule="cosine", iterations=K,
+                                              val_every=100, batch_size=BATCH)),
+        lambda: {"flash_attention": LAYERS * (2 * NFE * K + NFE),
+                 "flash_attention_bwd": LAYERS * NFE * K})
+    peak = torch.cuda.max_memory_allocated(dev)
+    reset(counters)
+    res.artifact(provenance={"arch": "yi-6b", "scheduler": "fm_ot"}).save(str(BST_ARTIFACT))
+    back = SolverArtifact.load(str(BST_ARTIFACT))
+    same = all(torch.equal(a.cpu(), b) for a, b in zip(res.params, back.params))
+    try:
+        back.ns_params
+        refused = False
+    except TypeError:
+        refused = True
+    moved = not all(torch.equal(p.cpu(), q)
+                    for p, q in zip(res.params, bst_solver.identity_bst(NFE, "euler")))
+    losses = [h[1] for h in res.history]
+    iteration_ms = [x * 1e3 for x in res.iteration_seconds]
+    print(f"BST distillation: yi-6b full width, euler NFE {NFE}, {BST_PAIRS} pairs at seq "
+          f"{BST_SEQ} ({calls[0]} RK45 evaluations, {stages['rk45']['ms'] / 1e3:.3f} s), "
+          f"{BATCH} train / {BATCH} val: val PSNR Euler {euler:.4f} dB -> BST "
+          f"{res.val_psnr:.4f} dB after {K} iterations, knots moved off the identity: "
+          f"{moved} (losses "
+          f"{[round(x, 5) for x in losses]}); ms an iteration (bns.fit's, the last with its "
+          f"validation) {[round(x, 1) for x in iteration_ms]}; launches by stage "
+          f"{ {k: v['launches'] for k, v in stages.items()} }; artifact {back.kind} reloaded "
+          f"bit-equal: {same}, ns_params refused: {refused}; peak memory "
+          f"{peak / 2**30:.3f} GiB; phase wall {time.perf_counter() - t_phase:.3f} s")
+    if not (np.isfinite(res.val_psnr) and all(np.isfinite(losses)) and losses):
+        raise SystemExit(f"BST distillation: non-finite loss or PSNR {res.history}")
+    if not (res.val_psnr >= euler - 0.2 and res.val_psnr > euler and moved):
+        raise SystemExit(f"BST distillation learned nothing: val PSNR {res.val_psnr} against "
+                         f"Euler's {euler}, knots moved off the identity: {moved}")
+    if not (same and refused and back.kind == "bst"):
+        raise SystemExit(f"BST artifact: reloaded equal {same}, kind {back.kind}, "
+                         f"ns_params refused {refused}")
+    launches = {k: sum(v["launches"][k] for v in stages.values()) for k in KERNELS}
+    return {"launches": launches, "training_launches": stages["training"]["launches"],
+            "rk45_evaluations": calls[0], "rk45_s": stages["rk45"]["ms"] / 1e3,
+            "euler_val_psnr": euler, "val_psnr": res.val_psnr, "iterations": K,
+            "each_iteration_ms": iteration_ms, "peak_gib": peak / 2**30}
+
+
 def gradient_against_cpu(dev, counters, cfg, params) -> None:
     """Phase 13: _loss_fn and its gradient in theta on the card (kernels)
     against the CPU (plain versions), then theta after a few train_solver
@@ -1239,7 +1563,7 @@ def gradient_against_cpu(dev, counters, cfg, params) -> None:
     rng = np.random.default_rng(13)
     x0, x1 = (torch.from_numpy(rng.standard_normal((2, 128, cfg.latent_dim))
                                .astype(np.float32)) for _ in "01")
-    theta0 = ns_solver.from_ns(build_ns("euler", 4))
+    theta0 = ns_solver.from_ns(build_ns("euler", 4, None))
     fields = {"cpu": M.velocity_field(params, cfg, get_scheduler("fm_ot"), batch, remat=True),
               "card": M.velocity_field(params_to(params, dev), cfg, get_scheduler("fm_ot"),
                                        {k: v.to(dev) for k, v in batch.items()}, remat=True)}
@@ -1336,6 +1660,53 @@ def anytime_gradient_against_cpu(dev, counters, cfg, params) -> dict:
     return {"launches": launched["card"], "relative_l2": dict(zip(names, rels))}
 
 
+def bst_gradient_against_cpu(dev, counters, cfg, params) -> dict:
+    """Phase 13c: _loss_fn through bst_sampler and its gradient in every
+    field of BSTParams on the card (kernels) against the CPU (plain
+    versions); limits as the module docstring states them."""
+    from repro_torch.core import bns, bst_solver
+    from repro_torch.core.schedulers import get_scheduler
+    from repro_torch.data.synthetic import DataConfig, SyntheticTokens
+    from repro_torch.models import model as M
+    from repro_torch.models.transformer import params_to
+
+    batch = SyntheticTokens(cfg, DataConfig(batch_size=2, seq_len=128, seed=0),
+                            device="cpu").batch(0)
+    rng = np.random.default_rng(15)
+    x0, x1 = (torch.from_numpy(rng.standard_normal((2, 128, cfg.latent_dim))
+                               .astype(np.float32)) for _ in "01")
+    theta0 = bst_solver.BSTParams(*(
+        p + torch.from_numpy(0.1 * rng.standard_normal(tuple(p.shape)).astype(np.float32))
+        for p in bst_solver.identity_bst(4, "euler")))
+    fields = {"cpu": M.velocity_field(params, cfg, get_scheduler("fm_ot"), batch, remat=True),
+              "card": M.velocity_field(params_to(params, dev), cfg, get_scheduler("fm_ot"),
+                                       {k: v.to(dev) for k, v in batch.items()}, remat=True)}
+    got, launched = {}, {}
+    for where, field in fields.items():
+        d = dev if where == "card" else torch.device("cpu")
+        th = bst_solver.BSTParams(*(p.to(d).requires_grad_(True) for p in theta0))
+        before = {name: c.launches for name, c in counters.items()}
+        loss = bns._loss_fn(bns.bst_sampler(field), th, x0.to(d), x1.to(d))
+        grads = torch.autograd.grad(loss, list(th))
+        ran = {name: c.launches - before[name] for name, c in counters.items()}
+        want = ({**dict.fromkeys(KERNELS, 0), "flash_attention": 2 * 4 * 2,
+                 "flash_attention_bwd": 2 * 4}
+                if where == "card" else dict.fromkeys(KERNELS, 0))
+        if ran != want:
+            raise SystemExit(f"BST gradient on the {where}: launched {ran}, expected {want}")
+        launched[where] = ran
+        got[where] = [loss.detach().cpu(), *(g.cpu() for g in grads)]
+    rels = [float(torch.linalg.vector_norm(a - b) / torch.linalg.vector_norm(b).clamp_min(1e-30))
+            for a, b in zip(got["card"], got["cpu"])]
+    names = ["loss"] + [f"d/d {f}" for f in bst_solver.BSTParams._fields]
+    print(f"BST gradient, yi-6b 2 layers f32, euler NFE 4, remat: card vs CPU relative L2 "
+          + ", ".join(f"{n} {r:.3e}" for n, r in zip(names, rels))
+          + f" (limit 1e-4); card launches {launched['card']}")
+    if not max(rels) <= 1e-4:
+        raise SystemExit(f"BST gradient card vs CPU: relative L2 {rels} over 1e-4")
+    return {"launches": launched["card"], "relative_l2": dict(zip(names, rels))}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is False)",
@@ -1407,9 +1778,16 @@ def main() -> int:
     flows = NFE * REQUESTS
     launches = flow_path(dev, counters, "yi-6b", {**zero, "ns_update": flows,
                                                   "flash_attention": LAYERS * flows})
+    phase_s = {}
+    t0 = time.perf_counter()
+    baselines = baselines_served(dev, counters, card)
+    phase_s["4b"] = time.perf_counter() - t0
     cfg, params = small_model("yi-6b")
     whole_path_against_cpu(dev, counters, cfg, params,
                            {**zero, "ns_update": 4, "flash_attention": 2 * 4})
+    t0 = time.perf_counter()
+    baselines_cpu = baselines_against_cpu(dev, counters, cfg, params)
+    phase_s["5b"] = time.perf_counter() - t0
     launches["paged_attention"] = decode_path(
         dev, counters, DECODE_ARGS, {"paged_attention": LAYERS})["paged_attention"]
     long_step = long_row_decode_step(dev, counters)
@@ -1425,7 +1803,6 @@ def main() -> int:
     decode_path(dev, counters, RWKV_DECODE_ARGS, {})
     decode_against_cpu(dev, counters, cfg, params, {}, {})
     del cfg, params
-    phase_s = {}
     t0 = time.perf_counter()
     distill = distill_path(dev, counters)
     for name in ("ns_update_bwd", "flash_attention_bwd"):
@@ -1437,6 +1814,9 @@ def main() -> int:
     t0 = time.perf_counter()
     any_run = anytime_path(dev, counters)
     phase_s["12c"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    bst_run = bst_distill_path(dev, counters)
+    phase_s["12d"] = time.perf_counter() - t0
     cfg, params = small_model("yi-6b")
     t0 = time.perf_counter()
     gradient_against_cpu(dev, counters, cfg, params)
@@ -1444,6 +1824,9 @@ def main() -> int:
     t0 = time.perf_counter()
     any_grad = anytime_gradient_against_cpu(dev, counters, cfg, params)
     phase_s["13b"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    bst_grad = bst_gradient_against_cpu(dev, counters, cfg, params)
+    phase_s["13c"] = time.perf_counter() - t0
     print("phase wall s: " + ", ".join(f"{k} {v:.1f}" for k, v in phase_s.items()))
     new_phases = {
         "12b": {"what": "artifact reload, 2 requests", "request_ms": reload["request_ms"]},
@@ -1452,7 +1835,16 @@ def main() -> int:
                 "each_iteration_ms": any_run["each_iteration_ms"],
                 "request_ms": any_run["request_ms"],
                 "request_nfe": any_run["request_nfe"]},
-        "13b": {"what": "anytime gradient, 2 layers f32"}}
+        "13b": {"what": "anytime gradient, 2 layers f32"},
+        "13c": {"what": "BST gradient, 2 layers f32",
+                "relative_l2": bst_grad["relative_l2"]},
+        "4b": {"what": f"baselines {', '.join(BASELINES)} served, {BASELINE_REQUESTS} "
+                       "requests each", "request_ms": baselines["request_ms"]},
+        "5b": {"what": "baselines, sigma0 and BST card vs CPU, 2 layers f32",
+               "rel_l2": {k: v["rel_l2"] for k, v in baselines_cpu["cases"].items()}},
+        "12d": {"what": "BST-Euler distillation, seq 256",
+                "each_iteration_ms": bst_run["each_iteration_ms"],
+                "training_launches": bst_run["training_launches"]}}
 
     meta = {
         "ns_update": ("src/repro_torch/kernels/csrc/ns_update.cu",
@@ -1491,7 +1883,9 @@ def main() -> int:
             kernels[-1]["distillation"] = {k: v for k, v in distill.items()
                                            if k not in ("launches", "solver", "latents")}
         if name in ("ns_update", "flash_attention", "ns_update_bwd", "flash_attention_bwd"):
-            runs = {"12b": reload, "12c": any_run, "13b": any_grad}
+            runs = {"12b": reload, "12c": any_run, "13b": any_grad, "13c": bst_grad,
+                    "4b": baselines,
+                    "5b": baselines_cpu, "12d": bst_run}
             kernels[-1]["phases"] = {k: {**v, "launches": runs[k]["launches"][name]}
                                      for k, v in new_phases.items()}
     print(f"chip_smoke wall {time.perf_counter() - T_START:.1f} s")

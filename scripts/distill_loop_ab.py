@@ -88,7 +88,7 @@ def main() -> int:
         return call
 
     train(bns, iterations=1)                               # the process's first backward
-    theta = build_ns("euler", NFE)
+    theta = build_ns("euler", NFE, None)
     with torch.no_grad():
         torch.cuda.synchronize()
         t0 = time.perf_counter()

@@ -61,7 +61,7 @@ def main() -> int:
     dev = torch.device("cuda")
     cfg = get_config("yi-6b")
     params = M.init_params(torch.Generator(device=dev).manual_seed(0), cfg, dev)
-    thetas = {"bns": ns_solver.from_ns(build_ns("euler", 8)),
+    thetas = {"bns": ns_solver.from_ns(build_ns("euler", 8, None)),
               "anytime": anytime.init_anytime(None, (4, 8))}
     for seq in args.seqs:
         cond = SyntheticTokens(cfg, DataConfig(batch_size=BATCH, seq_len=seq, seed=0),

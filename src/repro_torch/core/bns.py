@@ -2,7 +2,8 @@
 
 Port of ``repro.core.bns``. Pipeline:
   1. generate (x0, x(1)) pairs with adaptive RK45 from the frozen model;
-  2. initialize theta from a generic solver converted to NS parameters;
+  2. initialize theta from a generic solver (optionally sigma0-preconditioned
+     via a Scale-Time scheduler change, eq. 14) converted to NS parameters;
   3. minimize the PSNR loss  L(theta) = E log ||x_n^theta - x(1)||^2  with
      Adam, tracking PSNR on a validation set and returning the best iterate.
 
@@ -10,9 +11,12 @@ Each step runs eagerly (the reference jits it): ``ns_sample`` under grad,
 ``torch.autograd.grad`` for theta's gradient, and ``adam_update`` under
 ``torch.no_grad()``. On the card the gradient flows through the backward
 kernels of the NS update and of flash attention. Validation samples under
-``torch.no_grad()``, which takes ``ns_sample``'s in-place buffer path. The
-BST sampler and ``train_bst`` come with ROADMAP Queue A item 2,
-``make_distributed_bns_step`` with item 8.
+``torch.no_grad()``, which takes ``ns_sample``'s in-place buffer path.
+
+The same harness trains BST solvers (the prior-work baseline) by swapping
+the sampler closure: ``bst_sampler`` runs the BST program directly
+(``taxonomy.run_direct``), so its training launches no ``ns_update``.
+``make_distributed_bns_step`` comes with ROADMAP Queue A item 8.
 """
 from __future__ import annotations
 
@@ -23,10 +27,11 @@ from typing import Callable
 import numpy as np
 import torch
 
-from repro_torch.core import ns_solver
+from repro_torch.core import bst_solver, ns_solver, st_transform
 from repro_torch.core.ns_solver import BNSParams, NSParams
 from repro_torch.core.parametrization import VelocityField
 from repro_torch.core.rk45 import rk45_solve
+from repro_torch.core.taxonomy import run_direct
 from repro_torch.optim.adam import adam_init, adam_update, tree_leaves, tree_map, tree_unflatten
 from repro_torch.optim.schedule import cosine_annealing, poly_decay
 
@@ -89,6 +94,16 @@ def solver_to_ns(
 def ns_sampler(field: VelocityField) -> Callable[[BNSParams, Tensor], Tensor]:
     def sample(theta: BNSParams, x0: Tensor) -> Tensor:
         return ns_solver.ns_sample(ns_solver.materialize(theta), field.fn, x0)
+
+    return sample
+
+
+def bst_sampler(field: VelocityField, base: str = "euler"):
+    prog = (bst_solver.bst_euler_program if base == "euler"
+            else bst_solver.bst_midpoint_program)
+
+    def sample(theta: bst_solver.BSTParams, x0: Tensor) -> Tensor:
+        return run_direct(prog, field, x0, bst_solver.materialize_bst(theta))
 
     return sample
 
@@ -250,3 +265,22 @@ def train_bns(
     # Report the paper's parameter count (canonical dimension of the family).
     res.num_parameters = ns_solver.count_parameters(cfg.nfe)
     return res
+
+
+def train_bst(
+    field: VelocityField,
+    train_pairs,
+    val_pairs,
+    cfg: BNSTrainConfig,
+    *,
+    base: str = "euler",
+    log=None,
+) -> TrainResult:
+    if cfg.sigma0 != 1.0:
+        target = st_transform.scaled_sigma(field.scheduler, cfg.sigma0)
+        st = st_transform.scheduler_change_st(field.scheduler, target)
+        theta0 = bst_solver.from_st_transform(st, cfg.nfe, base)
+    else:
+        theta0 = bst_solver.identity_bst(cfg.nfe, base)
+    return train_solver(bst_sampler(field, base), theta0, train_pairs, val_pairs,
+                        cfg, log=log)

@@ -50,6 +50,10 @@ class Scheduler:
     def snr(self, t: Tensor) -> Tensor:
         return self.alpha(t) / self.sigma(t)
 
+    def lam(self, t: Tensor) -> Tensor:
+        """Half log-SNR's big brother: lambda_t = log snr(t) (paper's eq. 22)."""
+        return torch.log(self.snr(t))
+
     def dalpha(self, t: Tensor) -> Tensor:
         return _d(self.alpha, t)
 
@@ -132,6 +136,21 @@ def ve(sigma_max: float = 80.0) -> Scheduler:
         sigma=lambda t: sigma_max * (1.0 - t),
         # snr = 1 / (sigma_max (1 - r))  =>  r = 1 - 1/(sigma_max v)
         snr_inverse=lambda v: 1.0 - 1.0 / (sigma_max * v),
+    )
+
+
+def scaled_sigma(base: Scheduler, sigma0: float) -> Scheduler:
+    """Preconditioning scheduler change of eq. 14: sigma->sigma0*sigma, alpha kept.
+
+    Corresponds to a source distribution with std sigma0.
+    """
+
+    return Scheduler(
+        name=f"{base.name}_s{sigma0:g}",
+        alpha=base.alpha,
+        sigma=lambda t: sigma0 * base.sigma(t),
+        # snr_new(t) = snr_base(t)/sigma0  =>  inverse(v) = base_inverse(v*sigma0)
+        snr_inverse=lambda v: base.snr_inverse(v * sigma0),
     )
 
 

@@ -40,8 +40,16 @@ each request (``--request-budgets``, cycled) to its early exit; a budget the
 solver does not serve goes to the nearest one with a WARNING, or exits under
 ``--strict-nfe``. rwkv6-7b does not distil on the card yet (its
 ``gla_scan`` kernel has no backward; the CPU runs). The flow gateway tiers
-exit with the ROADMAP item that brings them — the launcher never serves
-something else in their place. Each request prints its shape, its NFE and
+exit with the ROADMAP item that brings them, as do the reference's
+``--continuous``, ``--tiers``, ``--max-batch``, ``--max-wait-ms`` and
+``--mixed-budget-policy`` (item 7), ``--mesh`` and ``--fleet`` (item 8),
+``--ckpt`` and ``--profile`` (item 11) when set off their defaults — the
+launcher never serves something else in their place. ``--kernel-update`` is
+accepted and changes nothing: the card always runs the ``ns_update``
+kernel. A loaded ``--solver-artifact`` of any single-budget kind serves
+through ``FlowSampler.from_artifact`` (a baseline ``ns`` artifact of ddim,
+dpm2m or edm_heun included), an anytime one through
+``AnytimeFlowSampler.from_artifact``. Each request prints its shape, its NFE and
 its wall time, read after the device has finished; the run ends with the
 zoo's counts.
 
@@ -98,10 +106,30 @@ DEFAULT_NFE = 8
 # The reference launcher's flow --gateway, not served by the port yet.
 _FLOW_GATEWAY = ("the flow gateway tiers (ROADMAP Queue A item 7); decode mode "
                  "serves --gateway")
-# The gateway modes' telemetry surfaces (ROADMAP Queue A item 11).
-_TELEMETRY = {
-    "metrics_port": "--metrics-port", "metrics_json": "--metrics-json",
-    "stats_interval": "--stats-interval", "trace_jsonl": "--trace-jsonl",
+# The reference's flags for what the port does not serve yet: dest -> (flag,
+# what it selects, the ROADMAP Queue A item that brings it, the reference's
+# add_argument keywords). A value off that default exits naming the item.
+_UNPORTED = {
+    "continuous": ("--continuous", "the continuous flow gateway", 7,
+                   dict(action="store_true", default=False)),
+    "tiers": ("--tiers", "the flow gateway's shape tiers", 7, dict(default=None)),
+    "max_batch": ("--max-batch", "the flow gateway's coalescing", 7,
+                  dict(type=int, default=8)),
+    "max_wait_ms": ("--max-wait-ms", "the flow gateway's coalescing", 7,
+                    dict(type=float, default=10.0)),
+    "mixed_budget_policy": ("--mixed-budget-policy", "the flow gateway's "
+                            "multi-budget routing", 7,
+                            dict(default="auto", choices=["never", "auto", "always"])),
+    "mesh": ("--mesh", "backbone sharding over a serving mesh", 8,
+             dict(default="none", choices=["none", "host", "production", "multipod"])),
+    "fleet": ("--fleet", "the fleet gateway", 8, dict(type=int, default=1)),
+    "ckpt": ("--ckpt", "restoring backbone weights from a checkpoint", 11,
+             dict(default=None)),
+    "profile": ("--profile", "the launch profiles", 11,
+                dict(default="default", choices=["default", "tuned"])),
+    **{dest: (flag, "the telemetry surfaces", 11, dict(default=None)) for dest, flag in (
+        ("metrics_port", "--metrics-port"), ("metrics_json", "--metrics-json"),
+        ("stats_interval", "--stats-interval"), ("trace_jsonl", "--trace-jsonl"))},
 }
 
 
@@ -252,10 +280,12 @@ def build_parser() -> argparse.ArgumentParser:
                     help="decode gateway: per-request deadline in ms from submit")
     ap.add_argument("--priority", type=int, default=0,
                     help="decode gateway: request priority (higher first under --slo)")
-    for dest, flag in _TELEMETRY.items():
-        ap.add_argument(flag, dest=dest, default=None,
-                        help="not served yet: telemetry surfaces (ROADMAP Queue A "
-                             "item 11)")
+    ap.add_argument("--kernel-update", action="store_true",
+                    help="accepted for the reference's CLI; the port always runs "
+                         "the ns_update kernel on the card")
+    for dest, (flag, what, item, kw) in _UNPORTED.items():
+        ap.add_argument(flag, dest=dest, **kw,
+                        help=f"not served yet: {what} (ROADMAP Queue A item {item})")
     return ap
 
 
@@ -271,10 +301,10 @@ def _refuse_unported(args) -> None:
                 "serves the initial euler solver")
         if args.gateway:
             raise SystemExit(f"not served by the port yet: {_FLOW_GATEWAY}")
-    for dest, flag in _TELEMETRY.items():
-        if getattr(args, dest) is not None:
-            raise SystemExit(f"not served by the port yet: {flag}, the telemetry "
-                             "surfaces (ROADMAP Queue A item 11)")
+    for dest, (flag, what, item, kw) in _UNPORTED.items():
+        if getattr(args, dest) != kw["default"]:
+            raise SystemExit(f"not served by the port yet: {flag}, {what} "
+                             f"(ROADMAP Queue A item {item})")
 
 
 def _requested_spec(args) -> SolverSpec:
@@ -286,14 +316,14 @@ def _requested_spec(args) -> SolverSpec:
                       cfg_scale=args.cfg_scale, mode="bns")
 
 
-def _initial_artifact(spec: SolverSpec) -> SolverArtifact:
-    """``--bns-iters 0``: the spec's initial solver, in memory (no file):
-    euler at the spec's NFE, or the nested-grid anytime solver."""
+def _initial_artifact(spec: SolverSpec, field) -> SolverArtifact:
+    """``--bns-iters 0``: the spec's initial solver for ``field``, in memory
+    (no file): euler at the spec's NFE, or the nested-grid anytime solver."""
     if spec.mode == "anytime":
-        return SolverArtifact(spec=spec, params=init_anytime(None, spec.budgets),
+        return SolverArtifact(spec=spec, params=init_anytime(field, spec.budgets),
                               val_psnr=math.nan)
     return SolverArtifact(spec=dataclasses.replace(spec, mode="baseline"),
-                          params=spec.build(), val_psnr=math.nan)
+                          params=spec.build(field), val_psnr=math.nan)
 
 
 def _distill_artifact(args, params, cfg, sched, cond, spec: SolverSpec,
@@ -428,7 +458,8 @@ def serve_flow(args, device: torch.device) -> FlowServed:
         except KeyError:            # --bns-iters 0 and no saved solver for the spec
             if args.bns_iters > 0:
                 raise
-            artifact = _initial_artifact(spec)
+            artifact = _initial_artifact(spec, M.velocity_field(
+                params, cfg, sched, cond, cfg_scale=args.cfg_scale))
             what = (f"anytime solver at budgets {spec.budgets}" if spec.budgets
                     else f"euler solver at NFE {spec.nfe}")
             print(f"serving the initial {what} (no distillation)")
@@ -439,9 +470,8 @@ def serve_flow(args, device: torch.device) -> FlowServed:
     if anytime:
         sampler = AnytimeFlowSampler.from_artifact(artifact, params=params, cfg=cfg,
                                                    sched=sched)
-    else:   # what FlowSampler.from_artifact builds
-        sampler = FlowSampler(params=params, cfg=cfg, sched=sched,
-                              solver=artifact.ns_params, cfg_scale=artifact.spec.cfg_scale)
+    else:
+        sampler = FlowSampler.from_artifact(artifact, params=params, cfg=cfg, sched=sched)
     served.artifact, served.sampler = artifact, sampler
     if args.request_budgets:
         request_budgets = args.request_budgets
@@ -548,6 +578,9 @@ def _sync(device: torch.device) -> None:
 def main(argv=None):
     args = build_parser().parse_args(argv)
     _refuse_unported(args)
+    if args.kernel_update:
+        print("--kernel-update: a no-op in the port, which always runs its ns_update "
+              "kernel on the card (its plain version on the CPU)")
     try:
         device = resolve_device(args.device)
     except RuntimeError as e:

@@ -144,7 +144,7 @@ def attention_forward(
         if window:
             raise NotImplementedError(
                 "sliding-window attention has no CUDA kernel yet "
-                "(ROADMAP Queue A item 9)")
+                "(ROADMAP Queue A item 10)")
         out = attend(q, k, v, causal=causal)                  # (B, L, H, hd)
     else:
         mask = None

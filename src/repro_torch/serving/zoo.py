@@ -99,9 +99,8 @@ class SolverZoo:
         """Index saved ``.msgpack`` solver artifacts under ``directory``.
 
         Reads only each file's JSON meta (cheap); artifacts load lazily on
-        ``get``. Non-artifact msgpack files are skipped, and so are artifacts
-        of a kind the port cannot serve yet (``bst``, ROADMAP Queue A item 2).
-        Returns how many artifacts were indexed.
+        ``get``. Non-artifact msgpack files are skipped. Returns how many
+        artifacts were indexed.
         """
         found = 0
         if not os.path.isdir(directory):
@@ -114,7 +113,7 @@ class SolverZoo:
                 meta = checkpointer.load_meta(path)
             except Exception:
                 continue
-            if not meta or meta.get("format") != FORMAT or meta.get("kind") == "bst":
+            if not meta or meta.get("format") != FORMAT:
                 continue
             self._paths[SolverSpec.from_dict(meta["spec"])] = path
             found += 1

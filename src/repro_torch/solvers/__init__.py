@@ -6,8 +6,7 @@
     art.save("solver.msgpack")   # serve: SolverArtifact.load(...).sampler(field)
 
 ``registry`` — ``@register_solver`` + capability-filtered ``list_solvers()``;
-``spec``     — ``SolverSpec.build/distill`` for baseline/BNS/anytime (the
-               reference's BST mode is ROADMAP Queue A item 2);
+``spec``     — ``SolverSpec.build/distill`` for baseline/BNS/BST/anytime;
 ``artifact`` — serializable solver product (spec + params + PSNR +
                provenance), in the reference's file format;
 ``pipeline`` — ``Sampler``, the thin Algorithm-1 session.

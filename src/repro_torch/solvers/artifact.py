@@ -5,9 +5,9 @@ parameters, the validation PSNR they earned and free-form provenance, in one
 ``.msgpack`` file written by ``checkpoint.checkpointer`` (msgpack leaves of
 numpy bytes + JSON meta). The format is the reference's: an artifact either
 package writes loads in the other with bit-equal parameters, and the same
-solver and meta give the same bytes. Kinds: ``ns``, ``bns`` and ``anytime``;
-a ``bst`` artifact raises on load, naming ROADMAP Queue A item 2, and is
-never served as something else.
+solver and meta give the same bytes. Kinds: ``ns``, ``bns``, ``bst`` and
+``anytime``; a ``bst`` artifact's ``ns_params`` raises ``TypeError`` (its
+solver runs through ``bns.bst_sampler``), as in the reference.
 """
 from __future__ import annotations
 
@@ -18,11 +18,11 @@ import torch
 
 from repro_torch.checkpoint import checkpointer
 from repro_torch.core import anytime as anytime_mod
-from repro_torch.core import ns_solver
+from repro_torch.core import bst_solver, ns_solver
 from repro_torch.core.ns_solver import NSParams
 from repro_torch.core.parametrization import VelocityField
 from repro_torch.solvers.pipeline import Sampler
-from repro_torch.solvers.spec import BST_ROADMAP, SolverSpec, ns_at_budget, reduce_to_ns
+from repro_torch.solvers.spec import SolverSpec, ns_at_budget, reduce_to_ns
 
 FORMAT = "bns-solver-artifact"
 FORMAT_VERSION = 1
@@ -30,6 +30,7 @@ FORMAT_VERSION = 1
 _KINDS = {
     NSParams: "ns",
     ns_solver.BNSParams: "bns",
+    bst_solver.BSTParams: "bst",
     anytime_mod.AnytimeParams: "anytime",
 }
 
@@ -43,7 +44,9 @@ def _param_template(kind: str, spec: SolverSpec):
     if kind == "bns":
         return ns_solver.BNSParams(time_logits=z((n,)), a=z((n,)), b=z((n, n)))
     if kind == "bst":
-        raise NotImplementedError(BST_ROADMAP)
+        k = bst_solver.knot_positions(n, spec.name).shape[0]
+        return bst_solver.BSTParams(time_logits=z((k - 1,)), log_s=z((k,)),
+                                    log_dt=z((k,)), ds=z((k,)))
     if kind == "anytime":
         m = len(spec.budgets) - 1
         return anytime_mod.AnytimeParams(time_raw=z((n,)), a=z((n,)), b=z((n, n)),
@@ -112,8 +115,6 @@ class SolverArtifact:
         meta = checkpointer.load_meta(path)
         if meta is None or meta.get("format") != FORMAT:
             raise ValueError(f"{path} is not a solver artifact")
-        if meta["kind"] == "bst":
-            raise NotImplementedError(f"{path}: {BST_ROADMAP}")
         spec = SolverSpec.from_dict(meta["spec"])
         template = _param_template(meta["kind"], spec)
         params = checkpointer.restore(path, template, device)

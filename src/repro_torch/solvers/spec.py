@@ -7,13 +7,15 @@ scale) and a ``mode``:
     baseline — the named solver as-is (no training);
     bns      — Bespoke Non-Stationary training (Algorithm 2), initialized
                from the named solver;
+    bst      — Bespoke Scale-Time training (prior-work baseline), base =
+               the named solver (euler | midpoint);
     anytime  — one shared solver serving every budget in ``budgets``.
 
-``bst`` (Bespoke Scale-Time, the prior-work baseline) is a mode of the
-reference whose solver the port does not have yet: a spec naming it raises,
-naming ROADMAP Queue A item 2. ``to_dict``/``from_dict`` are the reference's
-key for key, so the spec of an artifact either package wrote is the same
-value in both, and hashes the same as a ``SolverZoo`` key.
+``build(field)`` returns exact NS parameters; ``distill(field, ...)`` runs
+the matching trainer and returns a ``TrainedSolver`` that converts to a
+serializable ``SolverArtifact``. ``to_dict``/``from_dict`` are the
+reference's key for key, so the spec of an artifact either package wrote is
+the same value in both, and hashes the same as a ``SolverZoo`` key.
 """
 from __future__ import annotations
 
@@ -21,15 +23,13 @@ import dataclasses
 from typing import Any, Optional
 
 from repro_torch.core import ns_solver
-from repro_torch.core.bns import BNSTrainConfig, train_bns
+from repro_torch.core.bns import BNSTrainConfig, train_bns, train_bst
 from repro_torch.core.ns_solver import NSParams
 from repro_torch.core.parametrization import VelocityField
 from repro_torch.solvers import registry
 from repro_torch.solvers.pipeline import Sampler, evaluate_psnr
 
 MODES = ("baseline", "bns", "bst", "anytime")
-BST_ROADMAP = ("Bespoke Scale-Time (bst) solvers need core/bst_solver.py, not "
-               "ported yet (ROADMAP Queue A item 2)")
 
 
 def reduce_to_ns(params) -> NSParams:
@@ -83,8 +83,6 @@ class SolverSpec:
     def __post_init__(self):
         if self.mode not in MODES:
             raise ValueError(f"mode {self.mode!r} not in {MODES}")
-        if self.mode == "bst":
-            raise NotImplementedError(BST_ROADMAP)
         if self.mode == "anytime":
             if not self.budgets:
                 raise ValueError("anytime mode needs budgets, e.g. (4, 8, 16)")
@@ -98,8 +96,8 @@ class SolverSpec:
     def info(self) -> registry.SolverInfo:
         return registry.get_solver(self.name)
 
-    def build(self, field: Optional[VelocityField] = None) -> NSParams:
-        """Exact NS parameters of the (baseline / init) solver."""
+    def build(self, field: Optional[VelocityField]) -> NSParams:
+        """Exact NS parameters of the (baseline / init) solver for ``field``."""
         import numpy as np
 
         grid = None if self.grid is None else np.asarray(self.grid)
@@ -125,8 +123,8 @@ class SolverSpec:
         *,
         log=None,
     ) -> "TrainedSolver":
-        """Run the mode's trainer: ``train_bns`` or ``train_anytime`` (or no
-        training, for a baseline)."""
+        """Run the mode's trainer: ``train_bns``, ``train_bst`` or
+        ``train_anytime`` (or no training, for a baseline)."""
         cfg = self.train_config(train_cfg)
         if self.mode == "baseline":
             params = self.build(field)
@@ -136,6 +134,11 @@ class SolverSpec:
                                  num_parameters=params.num_parameters())
         if self.mode == "bns":
             res = train_bns(field, train_pairs, val_pairs, cfg, log=log)
+        elif self.mode == "bst":
+            if self.name not in ("euler", "midpoint"):
+                raise ValueError("bst mode needs base euler or midpoint")
+            res = train_bst(field, train_pairs, val_pairs, cfg,
+                            base=self.name, log=log)
         else:  # anytime — imported lazily (core.anytime imports this package)
             from repro_torch.core.anytime import train_anytime
 
@@ -169,7 +172,7 @@ class TrainedSolver:
     """Output of ``SolverSpec.distill``: spec + trained parameters + score."""
 
     spec: SolverSpec
-    params: Any          # NSParams | BNSParams | AnytimeParams
+    params: Any          # NSParams | BNSParams | BSTParams | AnytimeParams
     val_psnr: float
     history: list
     wall_seconds: float

@@ -135,7 +135,7 @@ def test_prefix_init_matches_generic_solver(toy):
     theta = anytime.init_anytime(tfield, [4, 8], "prefix", "midpoint")
     with torch.no_grad():
         outs = anytime.anytime_sample(theta, [4, 8], tfield.fn, x0)
-        ref8 = tns.ns_sample(build_ns("midpoint", 8), tfield.fn, x0)
+        ref8 = tns.ns_sample(build_ns("midpoint", 8, None), tfield.fn, x0)
     # time clipping (t=0 -> 0.02) perturbs the first eval slightly
     np.testing.assert_allclose(_np(outs[8]), _np(ref8), atol=2e-2)
     assert bool(torch.isfinite(outs[4]).all())
@@ -410,7 +410,7 @@ def test_anytime_all_budgets_beat_generic_baseline(toy):
     x0v, x1v = _t(val)
     for m in (4, 8):
         with torch.no_grad():
-            base = float(torch.mean(psnr(tns.ns_sample(build_ns("midpoint", m), tfield.fn,
+            base = float(torch.mean(psnr(tns.ns_sample(build_ns("midpoint", m, None), tfield.fn,
                                                        x0v), x1v)))
         assert scores[m] > base, (m, scores[m], base)
 

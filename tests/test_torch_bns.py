@@ -79,7 +79,7 @@ def _tpairs(p):
 
 def _theta0(name, nfe):
     jt = jns.from_ns(jreg.build_ns(name, nfe, None))
-    tt = tns.from_ns(treg.build_ns(name, nfe))
+    tt = tns.from_ns(treg.build_ns(name, nfe, None))
     for a, b in zip(jt, tt):
         np.testing.assert_allclose(_np(b), np.asarray(a), rtol=1e-6, atol=1e-7)
     return jt, tns.bns_params_from_numpy(*(np.asarray(x) for x in jt))
@@ -214,7 +214,7 @@ def test_train_bns_trained_beats_its_init(toy, schedule):
     x0v, x1v = _tpairs(val)
     with torch.no_grad():
         init = float(torch.mean(tbns.psnr(
-            tns.ns_sample(treg.build_ns("euler", 4), tfield.fn, x0v), x1v)))
+            tns.ns_sample(treg.build_ns("euler", 4, None), tfield.fn, x0v), x1v)))
     assert res.val_psnr > init + 1.0, (res.val_psnr, init)
     assert [h[0] for h in res.history] == [50, 100, 150]
 
@@ -234,7 +234,7 @@ def test_bns_init_matches_init_solver(toy, name):
     """Before training, theta0 must reproduce the initial solver exactly."""
     _, tfield, _, val = toy
     x0 = torch.from_numpy(val[0])
-    ns0 = treg.build_ns(name, 8)
+    ns0 = treg.build_ns(name, 8, None)
     with torch.no_grad():
         xh = tns.ns_sample(tns.materialize(tns.from_ns(ns0)), tfield.fn, x0)
         xh_ref = tns.ns_sample(ns0, tfield.fn, x0)
@@ -251,11 +251,11 @@ def test_ns_trajectory_matches_reference(toy, name, nfe):
     jfield, tfield, _, val = toy
     x0 = val[0][:16]
     want = jns.ns_trajectory(jreg.build_ns(name, nfe, jfield), jfield.fn, jnp.asarray(x0))
-    got = tns.ns_trajectory(treg.build_ns(name, nfe), tfield.fn, torch.from_numpy(x0))
+    got = tns.ns_trajectory(treg.build_ns(name, nfe, None), tfield.fn, torch.from_numpy(x0))
     assert got.shape == (nfe + 1, 16, 2)
     np.testing.assert_allclose(_np(got), np.asarray(want), rtol=TOL, atol=TOL)
     with torch.no_grad():
-        last = tns.ns_sample(treg.build_ns(name, nfe), tfield.fn, torch.from_numpy(x0))
+        last = tns.ns_sample(treg.build_ns(name, nfe, None), tfield.fn, torch.from_numpy(x0))
     np.testing.assert_allclose(_np(got[-1]), _np(last), rtol=TOL, atol=TOL)
 
 
@@ -273,7 +273,7 @@ def test_solver_to_ns_is_a_deprecated_shim(toy):
     _, tfield, _, _ = toy
     with pytest.warns(DeprecationWarning):
         got = tbns.solver_to_ns("midpoint", 4, tfield)
-    for a, b in zip(got, treg.build_ns("midpoint", 4)):
+    for a, b in zip(got, treg.build_ns("midpoint", 4, None)):
         torch.testing.assert_close(a, b)
 
 
@@ -316,21 +316,25 @@ def test_serve_distills_then_serves_on_cpu(capsys):
 
 
 def test_serve_distillation_serves_the_distilled_solver(monkeypatch):
-    """The requests sample with the distilled NSParams, not the initial one."""
+    """The requests sample with the distilled NSParams, not the initial one:
+    the launcher builds its session through ``FlowSampler.from_artifact``
+    (as the reference's does), and the session holds the distilled solver."""
     seen = []
-    real = serve.FlowSampler
+    real = serve.FlowSampler.from_artifact
 
-    def spy(**kw):
-        seen.append(kw["solver"])
-        return real(**kw)
+    def spy(artifact, **kw):
+        seen.append(artifact)
+        return real(artifact, **kw)
 
-    monkeypatch.setattr(serve, "FlowSampler", spy)
+    monkeypatch.setattr(serve.FlowSampler, "from_artifact", spy)
     served = serve.main(["--arch", "yi-6b", "--nfe", "4", "--batch", "2", "--seq", "8",
                          "--bns-iters", "5", "--requests", "1", "--device", "cpu"])
-    (solver,) = seen
+    (artifact,) = seen
+    assert artifact is served.artifact and artifact.kind == "bns"
+    solver = served.sampler.solver
     for a, b in zip(solver, served.distillation.solver):
         torch.testing.assert_close(a, b)
-    assert not torch.equal(solver.b, treg.build_ns("euler", 4).b)
+    assert not torch.equal(solver.b, treg.build_ns("euler", 4, None).b)
 
 
 def test_serve_without_distillation_is_unchanged(capsys):

@@ -109,7 +109,7 @@ def test_ns_sample_hands_each_step_only_its_live_rows(name, nfe):
     U[:i+1] and b[i, :i+1] as views of the solver's buffers (no copy, no mask
     launch), f32 coefficients, and the result equals the full-buffer form
     with masked weights."""
-    params = treg.build_ns(name, nfe)
+    params = treg.build_ns(name, nfe, None)
     x0 = torch.from_numpy(np.random.default_rng(nfe).standard_normal((3, 5)).astype(np.float32))
     seen = []
 
@@ -143,7 +143,7 @@ def test_ns_sample_under_grad_hands_each_step_fresh_live_rows(name, nfe):
     """With grad enabled nothing is written in place: step i gets i + 1 rows
     stacked anew (no view of an earlier step's rows, which that step's update
     saved for backward), and the same values and result as under no_grad."""
-    params = treg.build_ns(name, nfe)
+    params = treg.build_ns(name, nfe, None)
     x0 = torch.from_numpy(np.random.default_rng(nfe).standard_normal((3, 5)).astype(np.float32))
     seen = []
 
@@ -177,7 +177,7 @@ def test_ns_sample_gradient_matches_jax_grad(name, nfe):
         return jnp.sum(x * x)
 
     ja, jb = jax.grad(jloss, argnums=(0, 1))(jp.a, jp.b)
-    tp = treg.build_ns(name, nfe)
+    tp = treg.build_ns(name, nfe, None)
     a = tp.a.clone().requires_grad_(True)
     b = tp.b.clone().requires_grad_(True)
     x = tns.ns_sample(tns.NSParams(tp.times, a, b), _linear_u_np, torch.from_numpy(x0))
@@ -202,7 +202,7 @@ def test_ns_sample_matches_reference_on_linear_field(name, nfe):
     want = np.asarray(jns.ns_sample(jparams, jfield.fn, jnp.asarray(x0)))
     want_kernel = np.asarray(jns.ns_sample(jparams, jfield.fn, jnp.asarray(x0),
                                            update_fn=jax_make_update_fn(interpret=True)))
-    got = tns.ns_sample(treg.build_ns(name, nfe), _linear_u_np, torch.from_numpy(x0))
+    got = tns.ns_sample(treg.build_ns(name, nfe, None), _linear_u_np, torch.from_numpy(x0))
     for ref in (want, want_kernel):
         np.testing.assert_allclose(got.numpy(), ref, atol=TOL["float32"] * nfe,
                                    rtol=TOL["float32"])
@@ -225,14 +225,14 @@ def test_ns_sample_equals_direct_solver_run():
 def test_registry_matches_reference(name, nfe):
     jfield = jtoy.linear_field(jsched.fm_ot())
     want = jreg.build_ns(name, nfe, jfield)
-    got = treg.build_ns(name, nfe)
+    got = treg.build_ns(name, nfe, None)
     for j, t in zip(want, got):
         np.testing.assert_array_equal(t.numpy(), np.asarray(j))
 
 
 def test_bns_reparameterization_matches_reference():
     jp = jreg.build_ns("midpoint", 8, jtoy.linear_field(jsched.fm_ot()))
-    tp = treg.build_ns("midpoint", 8)
+    tp = treg.build_ns("midpoint", 8, None)
     jb, tb = jns.from_ns(jp), tns.from_ns(tp)
     for j, t in zip(jb, tb):
         np.testing.assert_allclose(t.numpy(), np.asarray(j), atol=1e-6)
@@ -243,14 +243,27 @@ def test_bns_reparameterization_matches_reference():
 
 @pytest.mark.parametrize("name", ["ddim", "dpm2m", "edm_heun"])
 def test_unported_solvers_name_their_roadmap_item(name):
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue A item 2"):
-        treg.build_ns(name, 8)
-    assert name not in treg.solver_names()
+    """Once refused naming ROADMAP Queue A item 2, now ported: registered,
+    and their NS parameters on fm_ot equal the reference's to f32 TOL
+    (tests/test_torch_baselines.py holds every scheduler and NFE)."""
+    assert name in treg.solver_names()
+    want = jreg.build_ns(name, 8, jtoy.linear_field(jsched.fm_ot()))
+    got = treg.build_ns(name, 8, VelocityField(fn=_linear_u_np, scheduler=fm_ot()))
+    for j, t in zip(want, got):
+        np.testing.assert_allclose(t.numpy(), np.asarray(j), rtol=TOL["float32"],
+                                   atol=TOL["float32"])
 
 
 def test_sigma0_preconditioning_names_its_roadmap_item():
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue A item 2"):
-        treg.build_ns("euler", 8, sigma0=2.0)
+    """Once refused naming ROADMAP Queue A item 2, now ported: euler with
+    sigma0 = 2 through the field's scheduler equals the reference's."""
+    want = jreg.build_ns("euler", 8, jtoy.linear_field(jsched.fm_ot()), sigma0=2.0)
+    got = treg.build_ns("euler", 8, VelocityField(fn=_linear_u_np, scheduler=fm_ot()),
+                        sigma0=2.0)
+    for j, t in zip(want, got):
+        np.testing.assert_allclose(t.numpy(), np.asarray(j), rtol=TOL["float32"],
+                                   atol=TOL["float32"])
+    assert not torch.equal(got.a, treg.build_ns("euler", 8, None).a)
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])

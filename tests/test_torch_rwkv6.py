@@ -187,7 +187,7 @@ def test_sample_from_matches_reference(models, L):
     want = JaxFlowSampler(params=jparams, cfg=jcfg, sched=js, solver=jsolver
                           ).sample_from({"tokens": jnp.asarray(tok)}, jnp.asarray(x0))
     sampler = FlowSampler(params=params, cfg=cfg, sched=tsched.fm_ot(),
-                          solver=treg.build_ns("euler", 4))
+                          solver=treg.build_ns("euler", 4, None))
     before = (nu_mod.COUNTER.launches, gs_mod.COUNTER.launches)
     got = sampler.sample_from({"tokens": torch.from_numpy(tok)}, x0)
     assert (nu_mod.COUNTER.launches, gs_mod.COUNTER.launches) == before

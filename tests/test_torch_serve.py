@@ -59,7 +59,7 @@ def test_sample_from_matches_reference(setup, name):
     want = JaxFlowSampler(params=jparams, cfg=jcfg, sched=jsched_, solver=jsolver
                           ).sample_from({"tokens": jnp.asarray(tok)}, jnp.asarray(x0))
     sampler = FlowSampler(params=params, cfg=cfg, sched=tsched.fm_ot(),
-                          solver=treg.build_ns(name, 4))
+                          solver=treg.build_ns(name, 4, None))
     before = (nu_mod.COUNTER.launches, fa_mod.COUNTER.launches)
     got = sampler.sample_from({"tokens": torch.from_numpy(tok)}, x0)
     assert (nu_mod.COUNTER.launches, fa_mod.COUNTER.launches) == before  # CPU: plain path
@@ -73,7 +73,7 @@ def test_sample_from_matches_reference(setup, name):
 def test_sample_draws_from_the_generator(setup):
     _, _, cfg, params, tok = setup
     sampler = FlowSampler(params=params, cfg=cfg, sched=tsched.fm_ot(),
-                          solver=treg.build_ns("euler", 2))
+                          solver=treg.build_ns("euler", 2, None))
     batch = {"tokens": torch.from_numpy(tok)}
     a = sampler.sample(batch, torch.Generator().manual_seed(1000))
     b = sampler.sample(batch, torch.Generator().manual_seed(1000))
@@ -352,3 +352,90 @@ def test_serve_zoo_dir_written_by_the_reference(tmp_path, capsys):
     out = capsys.readouterr().out
     assert "zoo: loaded bns/euler from" in out and "distilling" not in out
     assert (served.zoo.loads, served.zoo.distills, served.artifact.kind) == (1, 0, "bns")
+
+
+# ---------------------------------------------------------------------------
+# The reference's flags, and baselines served from artifacts
+# ---------------------------------------------------------------------------
+
+
+def _option_strings(parser) -> set:
+    return {s for a in parser._actions for s in a.option_strings}
+
+
+def test_reference_flags_are_a_subset_of_the_ports():
+    """Every option string of ``repro.launch.serve``'s parser parses in the
+    port's (both parsers load on the CPU)."""
+    from repro.launch import serve as jserve
+
+    ref, port = _option_strings(jserve.build_parser()), _option_strings(serve.build_parser())
+    assert ref <= port, sorted(ref - port)
+    ref_args = vars(jserve.build_parser().parse_args(["--arch", "yi-6b"]))
+    port_args = vars(serve.build_parser().parse_args(["--arch", "yi-6b"]))
+    for dest in ("ckpt", "continuous", "fleet", "kernel_update", "max_batch", "max_wait_ms",
+                 "mesh", "mixed_budget_policy", "profile", "tiers"):
+        assert port_args[dest] == ref_args[dest], dest
+
+
+@pytest.mark.parametrize("extra,item", [
+    (["--continuous"], 7), (["--tiers", "8,16"], 7), (["--max-batch", "4"], 7),
+    (["--max-wait-ms", "5"], 7), (["--mixed-budget-policy", "never"], 7),
+    (["--mesh", "host"], 8), (["--fleet", "2"], 8),
+    (["--ckpt", "params.msgpack"], 11), (["--profile", "tuned"], 11),
+])
+def test_serve_refuses_each_unported_reference_flag_naming_its_item(extra, item):
+    with pytest.raises(SystemExit) as exc:
+        serve.main(["--arch", "yi-6b", "--device", "cpu", "--bns-iters", "0"] + extra)
+    assert f"ROADMAP Queue A item {item}" in str(exc.value.code)
+    assert extra[0] in str(exc.value.code)
+
+
+def test_serve_reference_flags_at_their_defaults_change_nothing(capsys):
+    """The unported flags given at their defaults serve as without them."""
+    served = serve.main(_FLOW + ["--nfe", "2", "--requests", "1", "--bns-iters", "0",
+                                 "--max-batch", "8", "--max-wait-ms", "10", "--mesh", "none",
+                                 "--fleet", "1", "--mixed-budget-policy", "auto",
+                                 "--profile", "default"])
+    assert len(served) == 1 and "not served" not in capsys.readouterr().out
+
+
+def test_serve_kernel_update_is_an_accepted_no_op(capsys):
+    served = serve.main(_FLOW + ["--nfe", "2", "--requests", "1", "--bns-iters", "0",
+                                 "--kernel-update"])
+    out = capsys.readouterr().out
+    assert out.count("--kernel-update: a no-op") == 1 and "ns_update kernel" in out
+    assert len(served) == 1 and bool(torch.isfinite(served[0].latents).all())
+
+
+def test_serve_a_dpm2m_baseline_artifact_the_reference_wrote(setup, tmp_path, capsys,
+                                                              monkeypatch):
+    """A dpm2m baseline written by the reference's SolverArtifact serves in
+    the port's launcher through FlowSampler.from_artifact, no retraining,
+    its NSParams bit-equal to the file's; on the reference's weights and one
+    shared x0 the served session's latents are the reference's."""
+    from repro.solvers import SolverArtifact as JaxArtifact
+    from repro.solvers import SolverSpec as JaxSpec
+
+    jcfg, jparams, cfg, params, _ = setup
+    jspec = JaxSpec("dpm2m", 4)
+    jfield = jmodel.velocity_field(jparams, jcfg, jsched.fm_ot())
+    path = str(tmp_path / "dpm2m.msgpack")
+    JaxArtifact(spec=jspec, params=jspec.build(jfield), val_psnr=0.0,
+                provenance={"arch": "yi-6b", "scheduler": "fm_ot"}).save(path)
+    monkeypatch.setattr(serve.M, "init_params", lambda generator, cfg_, device: params)
+    served = serve.main(_FLOW + ["--nfe", "4", "--requests", "1", "--solver-artifact", path])
+    out = capsys.readouterr().out
+    assert "loaded solver artifact" in out and "baseline/dpm2m" in out
+    assert "WARNING" not in out and (served.zoo.loads, served.zoo.distills) == (1, 0)
+    ref = JaxArtifact.load(path)
+    for a, b in zip(served.sampler.solver, ref.ns_params):
+        np.testing.assert_array_equal(a.numpy(), np.asarray(b))
+    tok = np.array(JaxSyntheticTokens(jcfg, JaxDataConfig(batch_size=2, seq_len=8, seed=0))
+                   .batch(0)["tokens"])
+    x0 = np.random.default_rng(21).standard_normal((2, 8, cfg.latent_dim)).astype(np.float32)
+    want = JaxFlowSampler.from_artifact(ref, params=jparams, cfg=jcfg, sched=jsched.fm_ot()
+                                        ).sample_from({"tokens": jnp.asarray(tok)},
+                                                      jnp.asarray(x0))
+    got = served.sampler.sample_from({"tokens": torch.from_numpy(tok)}, x0)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=TOL * 4, rtol=TOL * 4)
+    assert served[0].nfe == 4 and bool(torch.isfinite(served[0].latents).all())

@@ -1,12 +1,14 @@
 """The port's solver product API (``repro_torch.solvers`` and
 ``repro_torch.checkpoint``) against ``repro.solvers``, on the CPU.
 
-Mirrors ``tests/test_solver_api.py`` where no ROADMAP Queue A item 2 solver
-(ddim, dpm2m, edm_heun, sigma0 != 1, BST) is needed, and adds what the port
-must share with the reference: artifacts written by either package load in
-the other with bit-equal parameters (``ns``, ``bns``, ``anytime``), the
-same solver and meta give byte-identical files, ``bst`` is refused naming
-item 2, and a JAX-written artifact serves the reference's samples. The toy
+Mirrors ``tests/test_solver_api.py`` and adds what the port must share with
+the reference: artifacts written by either package load in the other with
+bit-equal parameters (``ns``, ``bns``, ``bst``, ``anytime``), the same
+solver and meta give byte-identical files, and a JAX-written artifact serves
+the reference's samples. The generic solvers' NS parameters equal the
+reference's to the bit; ddim, dpm2m and edm_heun compute theirs through f32
+``exp``/``log``/``sin``, where XLA and torch differ by an ulp, and agree to
+f32 TOL. The toy
 field is the two-moons mixture of ``tests/test_bns.py``; pairs are numpy
 x0 from a seed and the reference's RK45 solve of it.
 """
@@ -20,6 +22,7 @@ import torch
 
 from repro.checkpoint import checkpointer as jckpt
 from repro.core import anytime as janytime
+from repro.core import bst_solver as jbst
 from repro.core import ns_solver as jns
 from repro.core import schedulers as jsched
 from repro.core import toy as jtoy
@@ -29,6 +32,7 @@ from repro.solvers import SolverArtifact as JaxArtifact
 from repro.solvers import SolverSpec as JaxSpec
 from repro_torch.checkpoint import checkpointer
 from repro_torch.core import anytime
+from repro_torch.core import bst_solver as tbst
 from repro_torch.core import ns_solver as tns
 from repro_torch.core import schedulers as tsched
 from repro_torch.core import toy as ttoy
@@ -47,7 +51,6 @@ from repro_torch.solvers.artifact import FORMAT, FORMAT_VERSION, _param_template
 
 NFE = 8
 TOL = 2e-5
-ITEM_2 = "ROADMAP Queue A item 2"
 
 
 @pytest.fixture(autouse=True)
@@ -114,7 +117,11 @@ def test_registry_matches_solver_to_ns_and_the_reference(fields, name):
         old = solver_to_ns(name, NFE, tfield)
     for a, b in zip(new, old):
         assert torch.equal(a, b), name
-    _equal_leaves(new, JaxSpec(name, NFE).build(jfield))
+    if get_solver(name).family == "generic":
+        _equal_leaves(new, JaxSpec(name, NFE).build(jfield))
+    else:
+        for a, b in zip(new, JaxSpec(name, NFE).build(jfield)):
+            np.testing.assert_allclose(_np(a), np.asarray(b), rtol=TOL, atol=TOL)
     x0 = np.random.default_rng(0).standard_normal((16, 2)).astype(np.float32)
     with torch.no_grad():
         got = tns.ns_sample(new, tfield.fn, torch.from_numpy(x0))
@@ -123,23 +130,36 @@ def test_registry_matches_solver_to_ns_and_the_reference(fields, name):
 
 
 def test_registry_contents_and_capabilities():
-    assert set(solver_names()) == {"euler", "midpoint", "heun", "rk4", "ab2", "ab4"}
-    assert solver_names(baseline=True) == ["euler", "midpoint"]
+    """The reference's test_registry_contents_and_capabilities, and the
+    reference's names in its order (the families of ROADMAP Queue A item 2
+    were refused here before they were ported)."""
+    from repro.solvers import registry as jreg
+
+    assert solver_names() == jreg.solver_names()
+    assert set(solver_names()) >= {"euler", "midpoint", "heun", "rk4", "ab2", "ab4",
+                                   "ddim", "dpm2m", "edm_heun"}
+    assert set(solver_names(baseline=True)) == {"euler", "midpoint", "ddim", "dpm2m"}
+    assert set(solver_names(family="exponential")) == {"ddim", "dpm2m"}
+    assert "edm_heun" in solver_names(family="scale-time")
     assert solver_names(family="generic", baseline=True) == ["euler", "midpoint"]
+    assert set(solver_names(supports_sigma0=True)) == set(solver_names(family="generic"))
+    assert get_solver("ddim").grid_family == "lambda"
+    assert get_solver("ddim").needs_scheduler and not get_solver("ddim").supports_sigma0
     assert get_solver("rk4").evals_per_interval == 4
-    for name in ("ddim", "dpm2m", "edm_heun"):
-        with pytest.raises(NotImplementedError, match=ITEM_2):
-            get_solver(name)
+    assert get_solver("midpoint").valid_nfe(8) and not get_solver("midpoint").valid_nfe(7)
 
 
 def test_registry_unknown_and_bad_sigma0(fields):
-    _, tfield = fields
+    jfield, tfield = fields
     with pytest.raises(KeyError):
         build_ns("nonexistent", NFE, tfield)
-    with pytest.raises(NotImplementedError, match=ITEM_2):
-        build_ns("euler", NFE, tfield, sigma0=2.0)
-    with pytest.raises(NotImplementedError, match=ITEM_2):
-        SolverSpec("euler", NFE, sigma0=3.0).build(tfield)
+    with pytest.raises(ValueError, match="sigma0"):
+        build_ns("ddim", NFE, tfield, sigma0=2.0)
+    # sigma0 != 1 on a generic solver is preconditioning (once refused naming
+    # ROADMAP Queue A item 2): the reference's parameters
+    for a, b in zip(SolverSpec("euler", NFE, sigma0=3.0).build(tfield),
+                    JaxSpec("euler", NFE, sigma0=3.0).build(jfield)):
+        np.testing.assert_allclose(_np(a), np.asarray(b), rtol=TOL, atol=TOL)
 
 
 def test_solver_to_ns_shim_warns(fields):
@@ -208,9 +228,14 @@ def test_spec_anytime_normalizes_budgets():
     assert MODES == ("baseline", "bns", "bst", "anytime")
 
 
-def test_spec_bst_mode_names_item_2():
-    with pytest.raises(NotImplementedError, match=ITEM_2):
-        SolverSpec("euler", 4, mode="bst")
+def test_spec_bst_mode_names_item_2(fields):
+    """BST mode, once refused naming ROADMAP Queue A item 2: a spec the
+    reference's is key for key, and a base other than euler or midpoint is
+    refused at distill, as there."""
+    spec = SolverSpec("euler", 4, mode="bst")
+    assert spec.to_dict() == JaxSpec("euler", 4, mode="bst").to_dict()
+    with pytest.raises(ValueError, match="euler or midpoint"):
+        SolverSpec("heun", 4, mode="bst").distill(fields[1], None, None)
 
 
 SPECS = [dict(name="euler", nfe=8),
@@ -259,11 +284,12 @@ def test_artifact_roundtrip_bit_exact(fields, pairs, tmp_path):
 
 
 def test_artifact_baseline_roundtrip(fields, pairs, tmp_path):
-    """The reference's case runs ddim (item 2); the port's runs midpoint."""
+    """The reference's case: a ddim baseline (no training) round trips."""
     _, tfield = fields
     val = _t(pairs[1])
-    res = SolverSpec("midpoint", NFE).distill(tfield, None, val)
-    path = str(tmp_path / "mid.msgpack")
+    res = SolverSpec("ddim", NFE).distill(tfield, None, val)
+    assert res.num_parameters > 0 and np.isfinite(res.val_psnr)
+    path = str(tmp_path / "ddim.msgpack")
     res.artifact().save(path)
     art = SolverArtifact.load(path)
     assert art.kind == "ns"
@@ -336,18 +362,22 @@ def _reference_artifacts(jfield):
         "anytime": JaxArtifact(spec=JaxSpec("midpoint", mode="anytime", budgets=(2, 4, 8)),
                                params=jitter(janytime.init_anytime(None, (2, 4, 8))),
                                val_psnr=19.0),
+        "bst": JaxArtifact(spec=JaxSpec("midpoint", 4, mode="bst"),
+                           params=jitter(jbst.identity_bst(4, "midpoint")), val_psnr=20.5,
+                           provenance={"base": "midpoint"}),
     }
 
 
 def _port_twin(art):
     conv = {"ns": tns.ns_params_from_numpy, "bns": tns.bns_params_from_numpy,
-            "anytime": anytime.anytime_params_from_numpy}[art.kind]
+            "anytime": anytime.anytime_params_from_numpy,
+            "bst": tbst.bst_params_from_numpy}[art.kind]
     return SolverArtifact(spec=SolverSpec.from_dict(art.spec.to_dict()),
                           params=conv(*(np.asarray(x) for x in art.params)),
                           val_psnr=art.val_psnr, provenance=dict(art.provenance))
 
 
-@pytest.mark.parametrize("kind", ["ns", "bns", "anytime"])
+@pytest.mark.parametrize("kind", ["ns", "bns", "anytime", "bst"])
 def test_reference_artifact_loads_in_the_port_bit_equal(fields, tmp_path, kind):
     ref = _reference_artifacts(fields[0])[kind]
     path = str(tmp_path / f"{kind}.msgpack")
@@ -359,7 +389,7 @@ def test_reference_artifact_loads_in_the_port_bit_equal(fields, tmp_path, kind):
     _equal_leaves(art.params, ref.params)
 
 
-@pytest.mark.parametrize("kind", ["ns", "bns", "anytime"])
+@pytest.mark.parametrize("kind", ["ns", "bns", "anytime", "bst"])
 def test_port_artifact_loads_in_the_reference_bit_equal(fields, tmp_path, kind):
     ref = _reference_artifacts(fields[0])[kind]
     path = str(tmp_path / f"{kind}.msgpack")
@@ -372,7 +402,7 @@ def test_port_artifact_loads_in_the_reference_bit_equal(fields, tmp_path, kind):
         assert np.asarray(a).tobytes() == np.asarray(b).tobytes()
 
 
-@pytest.mark.parametrize("kind", ["ns", "bns", "anytime"])
+@pytest.mark.parametrize("kind", ["ns", "bns", "anytime", "bst"])
 def test_port_writes_byte_identical_files(fields, tmp_path, kind):
     ref = _reference_artifacts(fields[0])[kind]
     ref.save(str(tmp_path / "ref.msgpack"))
@@ -406,24 +436,30 @@ def test_checkpointer_trees_and_steps_match_the_reference(tmp_path):
 
 
 def test_bst_artifact_is_refused_naming_item_2(fields, tmp_path):
-    """A reference BST artifact never loads as something else in the port."""
+    """A reference BST artifact (once refused on load, naming ROADMAP Queue A
+    item 2) loads in the port with bit-equal parameters and is never served
+    as something else: its ns_params raise TypeError, as the reference's."""
     from repro.core import bst_solver
 
     spec = JaxSpec("euler", 4, mode="bst")
     k = bst_solver.knot_positions(4, "euler").shape[0]
-    params = bst_solver.BSTParams(time_logits=jnp.zeros((k - 1,)), log_s=jnp.zeros((k,)),
-                                  log_dt=jnp.zeros((k,)), ds=jnp.zeros((k,)))
+    rng = np.random.default_rng(4)
+    params = bst_solver.BSTParams(*(jnp.asarray(rng.standard_normal(n), jnp.float32)
+                                    for n in (k - 1, k, k, k)))
     path = str(tmp_path / "bst.msgpack")
     JaxArtifact(spec=spec, params=params, val_psnr=0.0).save(path)
-    with pytest.raises(NotImplementedError, match=ITEM_2):
-        SolverArtifact.load(path)
-    with pytest.raises(NotImplementedError, match=ITEM_2):
-        _param_template("bst", SolverSpec("euler", 4))
+    art = SolverArtifact.load(path)
+    assert art.kind == "bst" and art.spec == SolverSpec("euler", 4, mode="bst")
+    _equal_leaves(art.params, params)
+    with pytest.raises(TypeError, match="BSTParams"):
+        art.ns_params
+    assert [tuple(x.shape) for x in _param_template("bst", SolverSpec("euler", 4))] == \
+        [(k - 1,), (k,), (k,), (k,)]
 
 
 def test_param_templates_match_the_reference():
     for kind, spec in [("ns", ("euler", 5)), ("bns", ("euler", 5)),
-                       ("anytime", ("midpoint", 8))]:
+                       ("bst", ("midpoint", 6)), ("anytime", ("midpoint", 8))]:
         kw = dict(mode="anytime", budgets=(2, 8)) if kind == "anytime" else {}
         from repro.solvers.artifact import _param_template as jtemplate
 

@@ -266,7 +266,8 @@ def test_reference_zoo_dir_is_served_without_distilling(tmp_path, distiller):
     """A directory the reference's SolverZoo wrote (save on distill, spill on
     eviction) is indexed and loaded by the port's zoo under the same file
     names, with bit-equal parameters and no distillation; a reference BST
-    artifact beside them is skipped, never served as something else."""
+    artifact beside them (skipped before the port had BST) is indexed and
+    loaded as what it is, a ``bst`` artifact."""
     import jax
     import jax.numpy as jnp
 
@@ -292,20 +293,21 @@ def test_reference_zoo_dir_is_served_without_distilling(tmp_path, distiller):
                                         val_psnr=0.0)))
     ref.get(jspecs[0])                              # evicts the anytime one: a spill
     k = bst_solver.knot_positions(4, "euler").shape[0]
-    JaxArtifact(spec=JaxSpec("euler", 4, mode="bst"), val_psnr=0.0,
-                params=bst_solver.BSTParams(*(jnp.zeros((n,)) for n in (k - 1, k, k, k)))
-                ).save(str(tmp_path / "bst.msgpack"))
+    bst_spec = JaxSpec("euler", 4, mode="bst")
+    ref_arts.append(JaxArtifact(spec=bst_spec, val_psnr=0.0, params=bst_solver.BSTParams(
+        *(jnp.linspace(-1.0, 1.0, n) for n in (k - 1, k, k, k)))))
+    ref_arts[-1].save(str(tmp_path / "bst.msgpack"))
     assert ref.stats.spills == 1 and len(list(tmp_path.glob("*.msgpack"))) == 4
 
     zoo = SolverZoo(capacity=4, distill_fn=distiller, scan_dirs=(str(tmp_path),))
-    for jspec, jart in zip(jspecs + [any_spec], ref_arts):
+    for jspec, jart in zip(jspecs + [any_spec, bst_spec], ref_arts):
         spec = SolverSpec.from_dict(jspec.to_dict())
         assert SolverZoo._filename(spec) == JaxZoo._filename(jspec)
         art = zoo.get(spec)
         assert art.spec == spec and art.kind == jart.kind
         for a, b in zip(art.params, jax.tree.leaves(jart.params)):
             np.testing.assert_array_equal(a.numpy(), np.asarray(b))
-    assert (zoo.stats.loads, zoo.stats.distills, distiller.calls) == (3, 0, 0)
+    assert (zoo.stats.loads, zoo.stats.distills, distiller.calls) == (4, 0, 0)
 
 
 def test_load_serves_a_named_file_as_a_load(field, val_pairs, tmp_path, distiller):
