@@ -173,10 +173,41 @@ Phases (any failure ends the run with a non-zero exit and no last line):
     (``run_direct`` under autograd into ``materialize_bst``) and its gradient
     in every field of ``BSTParams``, card against CPU, relative L2 <= 1e-4,
     with exactly 16 flash forward, 8 flash backward and no ns_update launch.
-14. The script's wall time, one JSON line listing the kernels (the
+14. The flow gateways at full width, serving 12c's anytime artifact
+    (budgets 4 and 8; its parameters do not depend on the sequence length)
+    through ``serve.main --gateway`` at seq 1024 (GATEWAY_ARGS): every
+    request a single-sample submit, token row ``req % 4``, noise from seed
+    ``1000 + req``. Launch counts are derived from the gateway's own
+    ``dispatches`` counters (``program_launches``): a flush batch at budget
+    m runs m forwards and m ns_update launches, a mixed one (``bmix``) the
+    shared trajectory's 8 forwards and 9 launches (8 rules and the budget-4
+    exit), a trajectory leg s -> t (and a join prefix 0 -> t) t - s forwards
+    and t - s launches plus one where it crosses the budget-4 exit; flash
+    attention launches 32 a forward, and the summed forwards must equal the
+    gateway's. Every request must be served (done = submitted, failed 0);
+    each flush batch's rows (recorded around ``Gateway._execute``) equal a
+    direct ``sample_from`` / ``sample_all_from`` on the same assembled batch
+    to the bit; each row is held against its request sampled alone at batch
+    1 and its native shape, and the first per-budget batch's first three rows
+    against a direct call at batch 3: equal to the bit, or within relative
+    L2 GATEWAY_REL_L2 = 2e-2 (max |diff| and relative L2 printed either way).
+    14a: the flush gateway, 12 requests alternating budgets 4 and 8,
+    --max-batch 4, --max-wait-ms 60000: exactly three dispatches, b4/k4
+    (uids 0, 2, 4, 6), b8/k4 (1, 3, 5, 7) and, at drain, one mixed bmix/k4
+    (8-11; 1 x 8 < 4 + 8): forwards 20, flash 640, ns_update 4 + 8 + 9 = 21.
+    14b: the same with --continuous --max-slots 4 and 8 requests; the layout
+    depends on timing, so the counts are held to the dispatches; at least one
+    trajectory must open; joins, join rate and slot occupancy are printed,
+    and each row is held (as above) against 14a's row of the same request.
+    14c: --tiers 512,1024 at seq 1000, 4 requests at budget 8: one b8/k4
+    dispatch at tier (1024, 64), rows cropped to (1000, 64) (yi-6b's flow
+    field is causal, so tail positions do not reach earlier ones) and held
+    also against a direct call on the same four rows at their native shape
+    (4, 1000, 64).
+15. The script's wall time, one JSON line listing the kernels (the
     ns_update and flash entries, forward and backward, with phases 4b, 5b,
-    12b, 12c, 12d, 13b and 13c's launches and ms beside the main path's), then
-    the last line.
+    12b, 12c, 12d, 13b, 13c, 14a, 14b and 14c's launches and ms beside the
+    main path's), then the last line.
 """
 from __future__ import annotations
 
@@ -241,6 +272,11 @@ BASELINE_REQUESTS = 2                                                        # p
 BST_SEQ, BST_PAIRS, BST_ITERS = 256, 8, 4                                    # phase 12d
 BST_ARTIFACT = ROOT / "build" / "chip_smoke" / "bst_euler_nfe8.msgpack"
 VOCAB = {"yi-6b": 64000, "rwkv6-7b": 65536}
+# phase 14: flow gateways serving 12c's anytime artifact at full width
+GATEWAY_ARGS = ["--arch", "yi-6b", "--mode", "flow", "--full", "--gateway",
+                "--max-batch", "4", "--max-wait-ms", "60000", "--batch", str(BATCH),
+                "--bns-iters", "0"]
+GATEWAY_REL_L2 = 2e-2   # a served row against its request alone where bits differ
 KERNELS = ("ns_update", "flash_attention", "paged_attention", "gla_scan", "ns_update_bwd",
            "flash_attention_bwd")
 # the flash backward's passes by kernel name (in bf16 and f32 alike)
@@ -1707,6 +1743,231 @@ def bst_gradient_against_cpu(dev, counters, cfg, params) -> dict:
     return {"launches": launched["card"], "relative_l2": dict(zip(names, rels))}
 
 
+class FlushBatches:
+    """Each flush batch a gateway runs, read around ``Gateway._execute``:
+    its entries' uids and served budgets, bucket, mixed flag and the host
+    arrays ``assemble_rows`` builds for it (recorded, not re-run)."""
+
+    def __enter__(self):
+        from repro_torch.serving import gateway
+
+        self.cls, self.inner, self.batches = gateway.Gateway, gateway.Gateway._execute, []
+
+        def recorded(gw, batch):
+            x0, tokens = gateway.assemble_rows(batch.entries, batch.bucket)
+            self.batches.append({"uids": [e.uid for e in batch.entries],
+                                 "served": [e.served for e in batch.entries],
+                                 "budget": batch.budget, "bucket": batch.bucket,
+                                 "mixed": batch.mixed, "x0": x0, "tokens": tokens})
+            return self.inner(gw, batch)
+
+        self.cls._execute = recorded
+        return self
+
+    def __exit__(self, *exc):
+        self.cls._execute = self.inner
+
+
+def program_launches(program: str, budgets: tuple) -> tuple[int, int]:
+    """(backbone forwards, ns_update launches) of one gateway dispatch, from
+    its ``dispatches`` label: an anytime leg from s to t runs t - s
+    intermediate rules plus the exit rule of each budget below the top
+    that it crosses (the top budget's output is the last rule's)."""
+    top, exits = max(budgets), [m for m in budgets if m < max(budgets)]
+
+    def leg(s, t):
+        return t - s, (t - s) + sum(1 for m in exits if s < m <= t)
+
+    kind, _, rest = program.partition("/")
+    if kind == "bmix":
+        return leg(0, top)
+    if kind.startswith("b"):
+        m = int(kind[1:])
+        return m, m
+    if kind == "start":
+        return 0, 0
+    if kind == "leg":
+        s, t = map(int, rest.split("-"))
+        return leg(s, t)
+    if kind == "join":
+        return leg(0, int(rest.split("-")[0]))
+    if kind == "resume":
+        s, t = map(int, rest.split("-")[:2])
+        return leg(s, t)
+    raise ValueError(f"unknown dispatch {program!r}")
+
+
+def row_errors(got: np.ndarray, want: torch.Tensor) -> dict:
+    """Bit equality, max |diff| and relative L2 of a served row against the
+    same request computed another way."""
+    want = want.float().cpu().numpy()
+    diff = np.abs(got.astype(np.float64) - want)
+    return {"equal": bool(np.array_equal(got, want)), "max_abs": float(diff.max()),
+            "rel_l2": float(np.linalg.norm(got.astype(np.float64) - want)
+                            / np.linalg.norm(want.astype(np.float64)))}
+
+
+def gateway_path(dev, counters, card: str, name: str, extra: list, seq: int,
+                 cycle: tuple, requests: int, want_programs=None) -> dict:
+    """Phase 14a/b/c: serve.main through a flow gateway with 12c's anytime
+    artifact; launch counts from the gateway's own dispatches; each flush
+    batch's rows against a direct call on the same assembled batch (to the
+    bit), each row against its request alone (bits, or GATEWAY_REL_L2)."""
+    from repro_torch.data.synthetic import DataConfig, SyntheticTokens
+    from repro_torch.launch import serve
+    from repro_torch.serving.gateway import request_noise
+
+    budgets = [cycle[i % len(cycle)] for i in range(requests)]
+    free_device_memory(dev)
+    reset(counters)
+    t0 = time.perf_counter()
+    with FlushBatches() as flushed:
+        served = serve.main(GATEWAY_ARGS + [
+            "--solver-artifact", str(ANYTIME_ARTIFACT), "--seq", str(seq),
+            "--request-budgets", ",".join(map(str, cycle)), "--requests", str(requests)]
+            + extra)
+    wall = time.perf_counter() - t0
+    launches = {k: c.launches for k, c in counters.items()}
+    stats, snap, sampler = served.stats, served.metrics, served.sampler
+    programs = {k[len('dispatches{program="'):-2]: int(v) for k, v in snap.items()
+                if k.startswith('dispatches{program="')}
+    forwards = ns_updates = 0
+    for program, n in programs.items():
+        f, u = program_launches(program, sampler.budgets)
+        forwards, ns_updates = forwards + n * f, ns_updates + n * u
+    want = {**dict.fromkeys(KERNELS, 0), "ns_update": ns_updates,
+            "flash_attention": LAYERS * stats["forwards"]}
+    failures = []
+    if launches != want or forwards != stats["forwards"]:
+        failures.append(f"launches {launches}, expected {want} from dispatches {programs} "
+                        f"({forwards} forwards; the gateway counts {stats['forwards']})")
+    if want_programs is not None and programs != want_programs:
+        failures.append(f"dispatches {programs}, expected {want_programs}")
+    if (stats["completed"], stats["submitted"], stats["failed"]) != (len(budgets),) * 2 + (0,):
+        failures.append(f"done {stats['completed']}/{stats['submitted']}, "
+                        f"failed {stats['failed']}")
+    if [r.meta["served_budget"] for r in served.responses] != budgets:
+        failures.append("served budgets "
+                        f"{[r.meta['served_budget'] for r in served.responses]}")
+    # the same assembled batch, to the bit (the reference's padded-batch contract)
+    same_batch = []
+    for b in flushed.batches:
+        cond = {"tokens": torch.from_numpy(b["tokens"]).to(dev)}
+        x0 = torch.from_numpy(b["x0"]).to(dev)
+        outs = (sampler.sample_all_from(cond, x0) if b["mixed"]
+                else {b["budget"]: sampler.sample_from(cond, x0, b["budget"])})
+        for i, (uid, m) in enumerate(zip(b["uids"], b["served"])):
+            resp = served.responses[uid]
+            n = resp.latents.shape[0]
+            same_batch.append(torch.equal(torch.from_numpy(resp.latents),
+                                          outs[m][i, :n].cpu()))
+    if not all(same_batch):
+        failures.append(f"rows differ from the same assembled batch: {same_batch}")
+    # the first per-budget batch's first three rows again at batch 3
+    bucket3 = []
+    first = next((b for b in flushed.batches if not b["mixed"] and len(b["uids"]) >= 3), None)
+    if first is not None:
+        out = sampler.sample_from({"tokens": torch.from_numpy(first["tokens"][:3]).to(dev)},
+                                  torch.from_numpy(first["x0"][:3]).to(dev), first["budget"])
+        bucket3 = [row_errors(served.responses[uid].latents,
+                              out[i, :served.responses[uid].latents.shape[0]])
+                   for i, uid in enumerate(first["uids"][:3])]
+        if any(not (e["equal"] or e["rel_l2"] <= GATEWAY_REL_L2) for e in bucket3):
+            failures.append(f"rows at batch 3 over {GATEWAY_REL_L2}: {bucket3}")
+    # a tiered batch's rows against the same rows at their native shape
+    native = []
+    for b in flushed.batches if "--tiers" in extra else ():
+        n = served.responses[b["uids"][0]].latents.shape[0]
+        k = len(b["uids"])
+        out = sampler.sample_from({"tokens": torch.from_numpy(b["tokens"][:k, :n]).to(dev)},
+                                  torch.from_numpy(b["x0"][:k, :n]).to(dev), b["budget"])
+        native += [row_errors(served.responses[uid].latents, out[i])
+                   for i, uid in enumerate(b["uids"])]
+    if any(not (e["equal"] or e["rel_l2"] <= GATEWAY_REL_L2) for e in native):
+        failures.append(f"rows at the native shape over {GATEWAY_REL_L2}: {native}")
+    # each request alone at batch 1 and its native shape
+    cfg = sampler.cfg
+    tokens = SyntheticTokens(cfg, DataConfig(batch_size=BATCH, seq_len=seq, seed=0),
+                             device=dev).batch(0)["tokens"]
+    alone = []
+    for req, resp in enumerate(served.responses):
+        x0 = torch.from_numpy(request_noise(seq, cfg.latent_dim, 1000 + req)).to(dev)
+        out = sampler.sample_from({"tokens": tokens[req % BATCH][None]}, x0[None],
+                                  resp.meta["served_budget"])[0]
+        alone.append(row_errors(resp.latents, out))
+    if any(not (e["equal"] or e["rel_l2"] <= GATEWAY_REL_L2) for e in alone):
+        failures.append(f"rows against their requests alone over {GATEWAY_REL_L2}: {alone}")
+    tiers = {r.meta.get("tier_shape") for r in served.responses}
+    if tiers != ({(1024, cfg.latent_dim)} if "--tiers" in extra else {None}):
+        failures.append(f"tier shapes {tiers}")
+    shapes = {tuple(r.latents.shape) for r in served.responses}
+    if shapes != {(seq, cfg.latent_dim)} or not all(
+            np.isfinite(r.latents).all() for r in served.responses):
+        failures.append(f"row shapes {shapes} or non-finite values")
+    hist = {k: snap[k] for k in ("device_dispatch_ms", "host_assembly_ms", "wait_ms")}
+    print(f"gateway {name} ({card}): yi-6b full width, seq {seq}, requests at "
+          f"{budgets}: dispatches {programs}; forwards {stats['forwards']}, done "
+          f"{stats['completed']}/{stats['submitted']}, failed {stats['failed']}, batches "
+          f"{stats['batches']}, mixed {stats['mixed_batches']}, traj {stats['trajectories']}, "
+          f"legs {stats['legs']}, joins {stats['joins']}, join_rate "
+          f"{stats['join_rate']:.3f}, slot_occ {stats['slot_occupancy']:.3f}, occupancy "
+          f"{stats['occupancy']:.3f}; launches {launches}; device dispatch ms sum "
+          f"{hist['device_dispatch_ms']['sum']:.3f} over {hist['device_dispatch_ms']['count']} "
+          f"(p50 {hist['device_dispatch_ms']['p50']:.3f}), host assembly ms sum "
+          f"{hist['host_assembly_ms']['sum']:.3f}, wait ms p50/p95/max "
+          f"{stats['wait_p50_ms']:.3f}/{stats['wait_p95_ms']:.3f}/{stats['max_wait_ms']:.3f}; "
+          f"submit-to-drain {served.wall_s:.3f} s, {stats['completed'] / served.wall_s:.3f} "
+          f"requests/s; main() wall {wall:.3f} s; rows equal to the same assembled batch: "
+          f"{sum(same_batch)}/{len(same_batch)}; against each request alone: equal "
+          f"{sum(e['equal'] for e in alone)}/{len(alone)}, max |diff| "
+          f"{max(e['max_abs'] for e in alone):.3e}, relative L2 "
+          f"{[round(e['rel_l2'], 7) for e in alone]} (limit {GATEWAY_REL_L2} where bits differ)"
+          + (f"; the first batch's rows at batch 3: equal {[e['equal'] for e in bucket3]}, "
+             f"max |diff| {max(e['max_abs'] for e in bucket3):.3e}, relative L2 "
+             f"{[round(e['rel_l2'], 7) for e in bucket3]}" if bucket3 else "")
+          + (f"; the tiered rows against the same rows at their native shape: equal "
+             f"{[e['equal'] for e in native]}, max |diff| "
+             f"{max(e['max_abs'] for e in native):.3e}, relative L2 "
+             f"{[round(e['rel_l2'], 7) for e in native]}" if native else ""))
+    if failures:
+        raise SystemExit(f"gateway {name}: " + "; ".join(failures))
+    return {"launches": launches, "dispatches": programs, "forwards": stats["forwards"],
+            "wall_s": served.wall_s, "device_dispatch_ms": hist["device_dispatch_ms"]["sum"],
+            "dispatch_count": hist["device_dispatch_ms"]["count"],
+            "wait_p50_ms": stats["wait_p50_ms"], "max_wait_ms": stats["max_wait_ms"],
+            "joins": stats["joins"], "join_rate": stats["join_rate"],
+            "slot_occupancy": stats["slot_occupancy"],
+            "alone_equal": sum(e["equal"] for e in alone), "requests": len(alone),
+            "alone_max_abs": max(e["max_abs"] for e in alone),
+            "alone_max_rel_l2": max(e["rel_l2"] for e in alone),
+            "bucket3_equal": [e["equal"] for e in bucket3],
+            "rows": {uid: r.latents for uid, r in enumerate(served.responses)},
+            "native_max_rel_l2": max((e["rel_l2"] for e in native), default=None)}
+
+
+def gateways(dev, counters, card: str) -> dict:
+    """Phase 14: 14a flush, 14b continuous, 14c shape tiers."""
+    runs = {"14a": gateway_path(dev, counters, card, "14a flush", [], SEQ, (4, 8), 12,
+                                {"b4/k4": 1, "b8/k4": 1, "bmix/k4": 1})}
+    runs["14b"] = gateway_path(dev, counters, card, "14b continuous",
+                               ["--continuous", "--max-slots", "4"], SEQ, (4, 8), 8)
+    if runs["14b"]["dispatches"].get("start/k4", 0) < 1:
+        raise SystemExit("gateway 14b: no trajectory opened")
+    # 14b's requests are 14a's first eight: trajectory rows (joined ones
+    # included) against the same requests served in 14a's bucket-4 batches
+    flushed, legs = runs["14a"]["rows"], runs["14b"]["rows"]
+    across = [row_errors(legs[uid], torch.from_numpy(flushed[uid])) for uid in sorted(legs)]
+    print(f"gateway 14b rows against 14a's for the same requests: equal "
+          f"{[e['equal'] for e in across]}, max |diff| "
+          f"{max(e['max_abs'] for e in across):.3e}")
+    if any(not (e["equal"] or e["rel_l2"] <= GATEWAY_REL_L2) for e in across):
+        raise SystemExit(f"gateway 14b: rows against 14a's over {GATEWAY_REL_L2}: {across}")
+    runs["14b"]["equal_to_14a"] = [e["equal"] for e in across]
+    runs["14c"] = gateway_path(dev, counters, card, "14c tiers", ["--tiers", "512,1024"],
+                               1000, (8,), 4, {"b8/k4": 1})
+    return runs
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is False)",
@@ -1827,6 +2088,10 @@ def main() -> int:
     t0 = time.perf_counter()
     bst_grad = bst_gradient_against_cpu(dev, counters, cfg, params)
     phase_s["13c"] = time.perf_counter() - t0
+    del cfg, params
+    t0 = time.perf_counter()
+    gw_runs = gateways(dev, counters, card)
+    phase_s["14"] = time.perf_counter() - t0
     print("phase wall s: " + ", ".join(f"{k} {v:.1f}" for k, v in phase_s.items()))
     new_phases = {
         "12b": {"what": "artifact reload, 2 requests", "request_ms": reload["request_ms"]},
@@ -1845,6 +2110,14 @@ def main() -> int:
         "12d": {"what": "BST-Euler distillation, seq 256",
                 "each_iteration_ms": bst_run["each_iteration_ms"],
                 "training_launches": bst_run["training_launches"]}}
+    for k, what in (("14a", "flush gateway, 12 requests at budgets 4/8, seq 1024"),
+                    ("14b", "continuous gateway, 8 requests at budgets 4/8, 4 slots"),
+                    ("14c", "shape tiers 512/1024, 4 requests of 1000 positions at 8")):
+        new_phases[k] = {"what": what, **{f: gw_runs[k][f] for f in (
+            "dispatches", "forwards", "wall_s", "device_dispatch_ms", "dispatch_count",
+            "wait_p50_ms", "max_wait_ms", "joins", "slot_occupancy", "alone_equal",
+            "alone_max_abs", "alone_max_rel_l2", "bucket3_equal", "native_max_rel_l2")}}
+    new_phases["14b"]["equal_to_14a"] = gw_runs["14b"]["equal_to_14a"]
 
     meta = {
         "ns_update": ("src/repro_torch/kernels/csrc/ns_update.cu",
@@ -1885,7 +2158,7 @@ def main() -> int:
         if name in ("ns_update", "flash_attention", "ns_update_bwd", "flash_attention_bwd"):
             runs = {"12b": reload, "12c": any_run, "13b": any_grad, "13c": bst_grad,
                     "4b": baselines,
-                    "5b": baselines_cpu, "12d": bst_run}
+                    "5b": baselines_cpu, "12d": bst_run, **gw_runs}
             kernels[-1]["phases"] = {k: {**v, "launches": runs[k]["launches"][name]}
                                      for k, v in new_phases.items()}
     print(f"chip_smoke wall {time.perf_counter() - T_START:.1f} s")

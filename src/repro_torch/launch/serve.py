@@ -10,6 +10,10 @@ Port of ``repro.launch.serve``:
   PYTHONPATH=src python -m repro_torch.launch.serve --arch yi-6b --mode flow \
       --full --budgets 4,8 --request-budgets 4,8,16 --batch 4 --seq 256 \
       --requests 3 --bns-iters 4 --solver-artifact anytime.msgpack
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch yi-6b --mode flow \
+      --full --solver-artifact anytime.msgpack --gateway --max-batch 4 \
+      --max-wait-ms 60000 --request-budgets 4,8 --requests 12 --batch 4 \
+      --seq 1024 --bns-iters 0 [--continuous --max-slots 4] [--tiers 512,1024]
   PYTHONPATH=src python -m repro_torch.launch.serve --arch yi-6b --mode decode \
       --full --gateway --page-size 16 --paged-kernel --max-slots 8 --slots 256 \
       --requests 16 --decode-lengths 128,32,64,16 --prefill-chunk 64
@@ -39,12 +43,7 @@ serves the initial solver without an artifact. An anytime artifact routes
 each request (``--request-budgets``, cycled) to its early exit; a budget the
 solver does not serve goes to the nearest one with a WARNING, or exits under
 ``--strict-nfe``. rwkv6-7b does not distil on the card yet (its
-``gla_scan`` kernel has no backward; the CPU runs). The flow gateway tiers
-exit with the ROADMAP item that brings them, as do the reference's
-``--continuous``, ``--tiers``, ``--max-batch``, ``--max-wait-ms`` and
-``--mixed-budget-policy`` (item 7), ``--mesh`` and ``--fleet`` (item 8),
-``--ckpt`` and ``--profile`` (item 11) when set off their defaults — the
-launcher never serves something else in their place. ``--kernel-update`` is
+``gla_scan`` kernel has no backward; the CPU runs). ``--kernel-update`` is
 accepted and changes nothing: the card always runs the ``ns_update``
 kernel. A loaded ``--solver-artifact`` of any single-budget kind serves
 through ``FlowSampler.from_artifact`` (a baseline ``ns`` artifact of ddim,
@@ -52,6 +51,30 @@ dpm2m or edm_heun included), an anytime one through
 ``AnytimeFlowSampler.from_artifact``. Each request prints its shape, its NFE and
 its wall time, read after the device has finished; the run ends with the
 zoo's counts.
+
+``--gateway`` serves the flow traffic through ``serving.Gateway``: each
+request is a single-sample submit (token row ``req % --batch`` of the
+conditioning batch, noise from ``Request.seed = 1000 + req``), coalesced by
+resolved budget into padded buckets (``--max-batch``, ``--max-wait-ms``);
+mixed-budget flushes may ride the anytime shared trajectory
+(``--mixed-budget-policy``). ``--continuous`` admits requests into in-flight
+anytime trajectories at exit boundaries instead (``ContinuousGateway``,
+``--max-slots`` slots), ``--tiers`` pads each request's positions to a
+shape-tier rung and crops the result back. Each response prints its
+(requested, served) budget pair, wait and batch occupancy.
+
+``--slo`` attaches an ``SLOConfig`` to either gateway mode (fast-reject
+admission, deadline shedding, urgency order, and on the continuous tier
+preemption at exit boundaries); ``--deadline-ms``/``--priority`` stamp each
+request; ``--stream`` submits through ``submit_stream`` (per-exit-boundary
+partials in flow, per-token chunks in decode). Every gateway mode shares the
+telemetry flags: ``--metrics-port`` serves ``/metrics`` and
+``/metrics.json`` on localhost while traffic runs, ``--stats-interval N``
+prints a stats line every N seconds, ``--metrics-json`` writes the final
+registry snapshot and ``--trace-jsonl`` the recorded request lifecycles.
+``--mesh`` and ``--fleet`` (ROADMAP Queue A item 8), ``--ckpt`` and
+``--profile`` (item 11) exit naming their item when set off their defaults
+— the launcher never serves something else in their place.
 
 Decode mode serves batched greedy decode (``greedy_demo``) or, with
 ``--gateway``, a continuous-batching ``DecodeGateway``: each request is one
@@ -61,16 +84,15 @@ prompt ``[(3r+1) % vocab, (5r+2) % vocab]`` submitted to a pool of
 state is O(1) a slot), ``--paged-kernel`` attends through the
 paged-attention kernel, ``--prefill-chunk`` sets the chunked prefill width
 (0 = token by token), ``--temperature``/``--top-k``/``--top-p`` sample
-instead of greedy, ``--stream`` submits through ``submit_stream``, and
-``--slo``/``--deadline-ms``/``--priority`` attach an ``SLOConfig``. The
-telemetry flags exit naming their ROADMAP item. ``main`` returns what the
-run served: the flow mode's ``FlowServed`` list, ``GreedyDecoded``, or
+instead of greedy. ``main`` returns what the run served: the flow mode's
+``FlowServed`` list or ``GatewayServed``, ``GreedyDecoded``, or
 ``DecodeServed`` (the responses and the gateway's ``stats()``).
 """
 from __future__ import annotations
 
 import argparse
 import dataclasses
+import json
 import math
 import os
 import tempfile
@@ -88,7 +110,13 @@ from repro_torch.core.schedulers import get_scheduler
 from repro_torch.data.synthetic import DataConfig, SyntheticTokens
 from repro_torch.kernels.gla_scan.ops import BACKWARD_ROADMAP as GLA_BACKWARD_ROADMAP
 from repro_torch.models import model as M
-from repro_torch.observability import format_stats_line
+from repro_torch.observability import (
+    MetricsServer,
+    StatsPrinter,
+    TraceRecorder,
+    format_stats_line,
+)
+from repro_torch.serving.continuous import ContinuousGateway
 from repro_torch.serving.decode import DecodeGateway, DecodeRequest
 from repro_torch.serving.engine import (
     AnytimeFlowSampler,
@@ -97,29 +125,18 @@ from repro_torch.serving.engine import (
     SamplingParams,
     greedy_demo,
 )
+from repro_torch.serving.gateway import Gateway, Request
 from repro_torch.serving.slo import AdmissionRejected, DeadlineExceeded, SLOConfig
+from repro_torch.serving.tiers import ShapeLadder, TierOversize
 from repro_torch.serving.zoo import SolverZoo
 from repro_torch.solvers import SolverArtifact, SolverSpec
 
 DEFAULT_NFE = 8
 
-# The reference launcher's flow --gateway, not served by the port yet.
-_FLOW_GATEWAY = ("the flow gateway tiers (ROADMAP Queue A item 7); decode mode "
-                 "serves --gateway")
 # The reference's flags for what the port does not serve yet: dest -> (flag,
 # what it selects, the ROADMAP Queue A item that brings it, the reference's
 # add_argument keywords). A value off that default exits naming the item.
 _UNPORTED = {
-    "continuous": ("--continuous", "the continuous flow gateway", 7,
-                   dict(action="store_true", default=False)),
-    "tiers": ("--tiers", "the flow gateway's shape tiers", 7, dict(default=None)),
-    "max_batch": ("--max-batch", "the flow gateway's coalescing", 7,
-                  dict(type=int, default=8)),
-    "max_wait_ms": ("--max-wait-ms", "the flow gateway's coalescing", 7,
-                    dict(type=float, default=10.0)),
-    "mixed_budget_policy": ("--mixed-budget-policy", "the flow gateway's "
-                            "multi-budget routing", 7,
-                            dict(default="auto", choices=["never", "auto", "always"])),
     "mesh": ("--mesh", "backbone sharding over a serving mesh", 8,
              dict(default="none", choices=["none", "host", "production", "multipod"])),
     "fleet": ("--fleet", "the fleet gateway", 8, dict(type=int, default=1)),
@@ -127,9 +144,6 @@ _UNPORTED = {
              dict(default=None)),
     "profile": ("--profile", "the launch profiles", 11,
                 dict(default="default", choices=["default", "tuned"])),
-    **{dest: (flag, "the telemetry surfaces", 11, dict(default=None)) for dest, flag in (
-        ("metrics_port", "--metrics-port"), ("metrics_json", "--metrics-json"),
-        ("stats_interval", "--stats-interval"), ("trace_jsonl", "--trace-jsonl"))},
 }
 
 
@@ -193,6 +207,23 @@ class DecodeServed:
     wall_s: float             # submit of the first request to the end of drain
 
 
+@dataclasses.dataclass
+class GatewayServed:
+    """What a flow gateway served: one response per request (None where
+    admission rejected it or its deadline shed it), each request's streamed
+    partials (0 without ``--stream``), the gateway's final snapshots, and
+    how the solver was acquired (as ``FlowServed``)."""
+
+    responses: list
+    partials: list
+    stats: dict               # Gateway.stats() after the drain
+    metrics: dict             # Gateway.metrics_snapshot() after the drain
+    wall_s: float             # submit of the first request to the end of drain
+    zoo: object = None
+    artifact: object = None
+    sampler: object = None
+
+
 def _int_list(text: str) -> tuple[int, ...]:
     try:
         vals = tuple(int(tok) for tok in text.split(",") if tok.strip())
@@ -237,8 +268,25 @@ def build_parser() -> argparse.ArgumentParser:
                     help="scan this directory for saved solver artifacts")
     ap.add_argument("--zoo-capacity", type=int, default=4)
     ap.add_argument("--gateway", action="store_true",
-                    help="decode: serve through the continuous-batching "
-                         "DecodeGateway; flow: not served yet, " + _FLOW_GATEWAY)
+                    help="flow: serve the requests through the coalescing Gateway "
+                         "(one single-sample submit each); decode: through the "
+                         "continuous-batching DecodeGateway")
+    ap.add_argument("--max-batch", type=int, default=8,
+                    help="flow gateway: coalesce at most this many requests")
+    ap.add_argument("--max-wait-ms", type=float, default=10.0,
+                    help="flow gateway: flush partial batches after this wait")
+    ap.add_argument("--continuous", action="store_true",
+                    help="flow gateway: admit requests into in-flight anytime "
+                         "trajectories at exit boundaries (ContinuousGateway; needs "
+                         "an anytime artifact)")
+    ap.add_argument("--tiers", default=None,
+                    help="flow gateway: shape-tier rungs, e.g. 512,1024: each request "
+                         "pads its positions to the smallest rung that holds it and "
+                         "its result is cropped back; longer requests are rejected")
+    ap.add_argument("--mixed-budget-policy", default="auto",
+                    choices=["never", "auto", "always"],
+                    help="flow gateway: route multi-budget flushes through the "
+                         "anytime shared trajectory (never/auto/always)")
     # decode mode, as the reference's flags
     ap.add_argument("--steps", type=int, default=32)
     ap.add_argument("--slots", type=int, default=128,
@@ -246,7 +294,8 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--window", type=int, default=0,
                     help="decode: sliding-window ring buffer (0 = full cache)")
     ap.add_argument("--max-slots", type=int, default=8,
-                    help="decode gateway: sequence slot count")
+                    help="continuous flow gateway: trajectory slots; decode gateway: "
+                         "sequence slots")
     ap.add_argument("--decode-lengths", type=_int_list, default=None,
                     help="decode gateway: per-request max_tokens, cycled over "
                          "--requests (default: --steps and --steps/2)")
@@ -266,23 +315,35 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--top-p", type=float, default=1.0,
                     help="decode gateway: nucleus threshold (1.0 = no cap)")
     ap.add_argument("--stream", action="store_true",
-                    help="decode gateway: submit via submit_stream and report "
-                         "the streamed tokens")
+                    help="gateway modes: submit via submit_stream and report the "
+                         "streamed partials (flow) or tokens (decode)")
     ap.add_argument("--slo", action="store_true",
-                    help="decode gateway: attach an SLOConfig (fast-reject "
-                         "admission, deadline shedding, urgency order)")
+                    help="gateway modes: attach an SLOConfig (fast-reject admission, "
+                         "deadline shedding, urgency order; the continuous flow "
+                         "gateway also preempts at exit boundaries)")
     ap.add_argument("--slo-slack", type=float, default=0.0,
                     help="with --slo: margin in ms taken off every deadline")
     ap.add_argument("--slo-default-cost-ms", type=float, default=0.0,
                     help="with --slo: per-dispatch cost before the first "
                          "dispatch is observed")
     ap.add_argument("--deadline-ms", type=float, default=None,
-                    help="decode gateway: per-request deadline in ms from submit")
+                    help="gateway modes: per-request deadline in ms from submit")
     ap.add_argument("--priority", type=int, default=0,
-                    help="decode gateway: request priority (higher first under --slo)")
+                    help="gateway modes: request priority (higher first under --slo)")
     ap.add_argument("--kernel-update", action="store_true",
                     help="accepted for the reference's CLI; the port always runs "
                          "the ns_update kernel on the card")
+    ap.add_argument("--metrics-port", type=int, default=None,
+                    help="gateway modes: serve /metrics (Prometheus text) and "
+                         "/metrics.json on localhost at this port while traffic runs "
+                         "(0 = any free port, printed)")
+    ap.add_argument("--metrics-json", default=None,
+                    help="gateway modes: write the final registry snapshot here")
+    ap.add_argument("--stats-interval", type=float, default=0.0,
+                    help="gateway modes: print a stats line every N seconds (0 = off)")
+    ap.add_argument("--trace-jsonl", default=None,
+                    help="gateway modes: record each request's lifecycle and write "
+                         "it here as JSON lines")
     for dest, (flag, what, item, kw) in _UNPORTED.items():
         ap.add_argument(flag, dest=dest, **kw,
                         help=f"not served yet: {what} (ROADMAP Queue A item {item})")
@@ -299,8 +360,6 @@ def _refuse_unported(args) -> None:
                 f"card: its gla_scan kernel has no backward ({GLA_BACKWARD_ROADMAP}); "
                 "--device cpu distills through the plain chunked form, --bns-iters 0 "
                 "serves the initial euler solver")
-        if args.gateway:
-            raise SystemExit(f"not served by the port yet: {_FLOW_GATEWAY}")
     for dest, (flag, what, item, kw) in _UNPORTED.items():
         if getattr(args, dest) != kw["default"]:
             raise SystemExit(f"not served by the port yet: {flag}, {what} "
@@ -480,6 +539,12 @@ def serve_flow(args, device: torch.device) -> FlowServed:
         request_budgets = (args.nfe,)
     else:
         request_budgets = artifact.budgets
+    if args.gateway:
+        result = _serve_gateway(args, sampler, cond, request_budgets)
+        result.zoo, result.artifact, result.sampler = zoo.stats, artifact, sampler
+        print(f"zoo stats: hits={zoo.stats.hits} misses={zoo.stats.misses} "
+              f"loads={zoo.stats.loads} distills={zoo.stats.distills}")
+        return result
     warned: set = set()
     for req in range(args.requests):
         nfe = _resolve_budget(artifact, request_budgets[req % len(request_budgets)],
@@ -499,6 +564,119 @@ def serve_flow(args, device: torch.device) -> FlowServed:
     print(f"zoo stats: hits={served.zoo.hits} misses={served.zoo.misses} "
           f"loads={served.zoo.loads} distills={served.zoo.distills}")
     return served
+
+
+def _start_telemetry(args, gw, prefix: str) -> list:
+    """--metrics-port / --stats-interval around a live gateway; returns the
+    stop callables to run after the traffic loop."""
+    stop = []
+    if args.metrics_port is not None:
+        srv = MetricsServer(gw.metrics_snapshot, port=args.metrics_port).start()
+        print(f"metrics: http://127.0.0.1:{srv.port}/metrics (+ /metrics.json)")
+        stop.append(srv.stop)
+    if args.stats_interval > 0:
+        printer = StatsPrinter(lambda: format_stats_line(gw.stats(), prefix=prefix),
+                               args.stats_interval).start()
+        stop.append(printer.stop)
+    return stop
+
+
+def _finish_telemetry(args, gw) -> None:
+    """Write --metrics-json / --trace-jsonl after the traffic loop."""
+    if args.metrics_json:
+        with open(args.metrics_json, "w") as fh:
+            json.dump(gw.metrics_snapshot(), fh, indent=2, sort_keys=True)
+        print(f"metrics snapshot written to {args.metrics_json}")
+    rec = gw.recorder
+    if args.trace_jsonl and rec:
+        n = rec.export_jsonl(args.trace_jsonl)
+        print(f"trace: {n} events written to {args.trace_jsonl}")
+
+
+def _slo(args):
+    return (SLOConfig(slack_ms=args.slo_slack, default_cost_ms=args.slo_default_cost_ms)
+            if args.slo else None)
+
+
+def _serve_gateway(args, sampler, cond, request_budgets) -> GatewayServed:
+    """Multi-user flow serving: every request is one single-sample submit
+    (token row ``req % --batch``, noise seed ``1000 + req``), coalesced by
+    the flush gateway or admitted into trajectories by the continuous one."""
+    try:
+        tiers = ShapeLadder.parse(args.tiers) if args.tiers else None
+    except ValueError as e:
+        raise SystemExit(f"--tiers: {e}") from None
+    kw = dict(max_batch=args.max_batch, max_wait_ms=args.max_wait_ms,
+              mixed_budget_policy=args.mixed_budget_policy, strict_nfe=args.strict_nfe,
+              seed=args.seed, recorder=TraceRecorder() if args.trace_jsonl else None,
+              slo=_slo(args), tiers=tiers)
+    if args.continuous:
+        try:
+            gw = ContinuousGateway(sampler, max_slots=args.max_slots, **kw)
+        except TypeError as e:
+            raise SystemExit(f"--continuous: {e}") from None
+    else:
+        gw = Gateway(sampler, **kw)
+    tokens = cond["tokens"].cpu()        # the conditioning rows, on the host once
+    gw.start()
+    stop_telemetry = _start_telemetry(args, gw, "gateway stats")
+    t0 = time.perf_counter()
+    futures = []
+    try:
+        for req in range(args.requests):
+            req_kw = dict(tokens=tokens[req % tokens.shape[0]],
+                          budget=request_budgets[req % len(request_budgets)],
+                          seed=1000 + req, deadline_ms=args.deadline_ms,
+                          priority=args.priority)
+            try:
+                futures.append(gw.submit_stream(**req_kw) if args.stream
+                               else gw.submit(Request(**req_kw)))
+            except AdmissionRejected as e:
+                print(f"request {req}: REJECTED at admission ({e})")
+                futures.append(None)
+    except TierOversize as e:
+        raise SystemExit(f"--tiers: {e}") from None
+    except ValueError as e:
+        raise SystemExit(f"--strict-nfe: {e}") from None
+    finally:
+        gw.shutdown()
+        wall = time.perf_counter() - t0
+        for fn in stop_telemetry:
+            fn()
+    responses, partials = [], []
+    for i, fut in enumerate(futures):
+        response, n = None, 0
+        if fut is not None:
+            try:
+                if args.stream:
+                    chunks = fut.chunks(timeout=60.0)
+                    n = sum(1 for c in chunks if not c.final)
+                    response = chunks[-1].payload
+                else:
+                    response = fut.result()     # a failed dispatch re-raises here
+            except DeadlineExceeded:
+                print(f"request {i}: SHED (deadline exceeded in queue)")
+        if response is not None:
+            meta = response.meta
+            drift = ("" if meta["requested_budget"] == meta["served_budget"]
+                     else f" (requested {meta['requested_budget']})")
+            print(f"request {i}: served {meta['served_budget']} NFE{drift}, "
+                  f"wait {meta['wait_ms']:.1f} ms, "
+                  f"batch {meta['batch_real']}/{meta['batch_padded']}"
+                  + (" [mixed]" if meta["mixed"] else "")
+                  + (f", {n} streamed partials" if args.stream else ""))
+        responses.append(response)
+        partials.append(n)
+    stats = gw.stats()
+    print(format_stats_line(stats, prefix="gateway stats") + f" failed={stats['failed']}")
+    if stats.get("cost_est_samples"):
+        print(f"admission cost model: |estimate-actual| mean "
+              f"{stats['cost_est_error_mean_ms']:.2f} ms / p95 "
+              f"{stats['cost_est_error_p95_ms']:.2f} ms over "
+              f"{stats['cost_est_samples']} deadline requests")
+    _finish_telemetry(args, gw)
+    return GatewayServed(responses=responses, partials=partials, stats=stats,
+                         metrics=gw.metrics_snapshot(), wall_s=wall)
 
 
 def serve_decode(args, device: torch.device):
@@ -522,12 +700,13 @@ def _serve_decode_gateway(args, engine: DecodeEngine, cfg) -> DecodeServed:
     if args.temperature > 0.0 or args.top_k > 0 or args.top_p < 1.0:
         sampling = SamplingParams(temperature=args.temperature, top_k=args.top_k,
                                   top_p=args.top_p)
-    slo = (SLOConfig(slack_ms=args.slo_slack, default_cost_ms=args.slo_default_cost_ms)
-           if args.slo else None)
     gw = DecodeGateway(engine, max_slots=args.max_slots, cache_slots=args.slots,
-                       prefill_chunk=args.prefill_chunk, seed=args.seed, slo=slo)
+                       prefill_chunk=args.prefill_chunk, seed=args.seed,
+                       recorder=TraceRecorder() if args.trace_jsonl else None,
+                       slo=_slo(args))
     t0 = time.perf_counter()
     gw.start()
+    stop_telemetry = _start_telemetry(args, gw, "decode gateway stats")
     futures = []
     for req in range(args.requests):
         prompt = [(3 * req + 1) % cfg.vocab, (5 * req + 2) % cfg.vocab]
@@ -541,6 +720,8 @@ def _serve_decode_gateway(args, engine: DecodeEngine, cfg) -> DecodeServed:
             futures.append(None)
     gw.shutdown()
     wall = time.perf_counter() - t0
+    for fn in stop_telemetry:
+        fn()
     responses = []
     for i, fut in enumerate(futures):
         if fut is None:
@@ -566,6 +747,7 @@ def _serve_decode_gateway(args, engine: DecodeEngine, cfg) -> DecodeServed:
         responses.append(response)
     stats = gw.stats()
     print(format_stats_line(stats, prefix="decode gateway stats"))
+    _finish_telemetry(args, gw)
     return DecodeServed(responses=responses, stats=stats,
                         metrics=gw.metrics_snapshot(), wall_s=wall)
 

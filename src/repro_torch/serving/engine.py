@@ -15,7 +15,7 @@ once a budget and kept): exactly m backbone forwards. An m not served goes
 to the nearest served budget (ties to the cheaper), or raises under
 ``strict``. ``sample_all`` runs the one shared trajectory to the top budget
 and returns every exit; ``carry_start``/``carry_extend`` advance it leg by
-leg (the continuous gateway's surface, ROADMAP Queue A item 7). Where the
+leg (``serving.continuous.ContinuousGateway``'s surface). Where the
 reference compiles one jit program a budget or leg, the port runs eagerly
 under ``torch.no_grad()`` on the params' device (CUDA graphs: item 6).
 
@@ -224,7 +224,7 @@ class AnytimeFlowSampler:
     def sample_all(self, batch: dict, generator: torch.Generator) -> dict[int, Tensor]:
         return self.sample_all_from(batch, self._noise(batch, generator))
 
-    # -- carry protocol (continuous batching, ROADMAP Queue A item 7) --------
+    # -- carry protocol (continuous batching: serving.continuous) ------------
 
     def carry_start(self, batch: Optional[dict], x0) -> anytime_mod.AnytimeCarry:
         """A fresh shared-trajectory carry over ``x0`` (no forwards spent)."""

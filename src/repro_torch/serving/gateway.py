@@ -1,15 +1,61 @@
-"""The gateway base the decode gateway serves through.
+"""Serving gateway: async request queue and budget-coalescing batcher for
+the flow samplers, and the gateway base every serving tier shares.
 
-Port of the sampler-agnostic part of ``repro.serving.gateway``:
-``GatewayBase`` (thread-safe intake, the serve-thread lifecycle, drain with
-in-flight accounting, SLO admission and shedding, streaming, fleet hooks and
-the locked ``stats()`` snapshot), its request queue, the one shared metric
-schema (``METRIC_SCHEMA``) with its ``stats_projection`` view, ``HostLoad``
-and ``DrainTimeout``. ``GatewayBase`` uses no JAX in the reference either.
+Port of ``repro.serving.gateway``. The distilled solver makes each request
+cost exactly m backbone forwards; this module makes that speed survive
+concurrency. Callers ``submit`` single-sample ``Request``s and get
+``concurrent.futures.Future``s; the gateway coalesces pending requests into
+padded fixed-size batches and runs them on a ``FlowSampler`` /
+``AnytimeFlowSampler`` (or anything speaking the budget protocol:
+``budgets``, ``resolve_budget``, ``sample_from``, and optionally
+``sample_all_from``).
 
-The flow gateway (``Gateway``, ``BatchScheduler``, ``Batch``,
-``assemble_rows``, the flow ``Request``/``Response``) and its continuous,
-tiered and fleet tiers come with ROADMAP Queue A items 7 and 8.
+Batching contract
+-----------------
+* Requests are grouped by (resolved NFE budget, sample shape). A group
+  reaching ``max_batch`` flushes immediately; partial groups flush once the
+  oldest pending request has waited ``max_wait_ms`` (a flush tick drains all
+  partial groups, so one aged request never strands its neighbours).
+* Batches are padded to a fixed BUCKET size (powers of two up to
+  ``max_batch``, plus ``max_batch`` itself), so each (budget, bucket) pair
+  is one dispatch shape (``b{budget}/k{bucket}`` in the ``dispatches``
+  counter; the reference compiles one jit program each, the port's samplers
+  run eagerly). Pad rows are zeros; rows are independent through the
+  backbone, so a served sample equals ``sampler.sample_from`` on the same
+  assembled batch, to the bit.
+* A per-budget batch at budget m costs exactly m backbone forwards,
+  regardless of how many requests were coalesced into it.
+
+Mixed-budget policy (``mixed_budget_policy``): when a flush tick leaves
+partial groups at several budgets, per-budget dispatch costs
+``sum(distinct budgets)`` forwards, while the anytime shared trajectory
+(``sample_all_from``) serves every budget from ONE dispatch at
+``max(sampler.budgets)``. "never" keeps per-budget batches, "auto" merges
+iff that is strictly cheaper, "always" merges any multi-budget flush. Each
+response's metadata records ``mixed`` and the requested/served budget pair.
+
+Noise and transfers: a request without ``x0`` draws its noise at the native
+shape on a CPU ``torch.Generator`` seeded with ``Request.seed``, or else
+``engine.fold_in(base seed, uid)`` (the reference folds a PRNG key), so the
+card and the CPU draw the same x0 and a result depends neither on the batch
+nor on routing. Entries hold host numpy; each dispatch copies its assembled
+x0 and tokens to the sampler's device once and its results back once,
+inside the timed dispatch window (``device_dispatch_ms`` then covers the
+card's work, not only the launches). ``Response.latents`` is a host numpy
+row, as in the reference. One dispatch runs at a time (``_exec_lock``):
+where the reference lets a draining thread dispatch beside the serve
+thread, two torch threads would interleave their launches on one stream,
+each window timing the other's work too.
+
+Continuous batching, preemption and shape tiers: ``serving.continuous``
+and ``serving.tiers``. Backbone sharding (``mesh=``) and fleet federation
+come with ROADMAP Queue A item 8; ``GatewayBase`` already carries the fleet
+hooks (``load``/``steal``/``inject``/``federate``).
+
+``GatewayBase`` holds everything sampler-agnostic (intake, serve thread,
+drain with in-flight accounting, SLO admission and shedding, streaming, the
+locked stats snapshot over ONE shared metric schema, ``METRIC_SCHEMA``) —
+it also fronts the decode engine via ``serving.decode.DecodeGateway``.
 """
 from __future__ import annotations
 
@@ -20,7 +66,11 @@ import time
 from concurrent.futures import Future
 from typing import Any, Callable, Optional, Sequence
 
-from repro_torch.observability import NULL_RECORDER, MetricsRegistry
+import numpy as np
+import torch
+
+from repro_torch.observability import NULL_RECORDER, MetricsRegistry, profile_span
+from repro_torch.serving.engine import fold_in
 from repro_torch.serving.slo import (
     AdmissionRejected,
     DeadlineExceeded,
@@ -29,7 +79,10 @@ from repro_torch.serving.slo import (
     is_urgent,
     urgency_key,
 )
-from repro_torch.serving.stream import ResponseStream
+from repro_torch.serving.stream import ResponseStream, StreamSink
+from repro_torch.serving.tiers import ShapeLadder, crop_row, pad_rows
+
+POLICIES = ("never", "auto", "always")
 
 
 class DrainTimeout(RuntimeError):
@@ -91,6 +144,270 @@ class RequestQueue:
     def snapshot(self) -> list:
         with self._lock:
             return list(self._entries)
+
+
+@dataclasses.dataclass
+class Request:
+    """One user's sample request: conditioning tokens (S,), an NFE budget
+    (None = the sampler's top budget), and either explicit noise ``x0``
+    (bit-reproducibility) or a ``seed`` for the noise draw (the gateway
+    folds the request's uid into its base seed when both are None). Tensors
+    or numpy arrays; the gateway keeps host numpy copies."""
+
+    tokens: Optional[Any] = None
+    budget: Optional[int] = None
+    x0: Optional[Any] = None
+    seed: Optional[int] = None
+    # opt-in: resolve the Response with its recorded lifecycle trace
+    # attached (requires the gateway to have a TraceRecorder)
+    trace: bool = False
+    # SLO (serving.slo): latency budget relative to submit (None =
+    # best-effort) and scheduling priority (higher = more urgent; plain
+    # requests at 0 keep exact FIFO order)
+    deadline_ms: Optional[float] = None
+    priority: int = 0
+    # streaming (serving.stream): emit per-exit-boundary partials; set by
+    # submit_stream, which returns the ResponseStream
+    stream: bool = False
+
+
+@dataclasses.dataclass
+class Response:
+    """One sample plus its serving metadata.
+
+    ``latents`` is the sample's row as host numpy (the gateway does one
+    device-to-host copy per BATCH and scatters rows in numpy — per-row
+    device slicing costs an op per request and erases the batching win at
+    small budgets).
+
+    ``meta`` records: requested_budget, served_budget (budget drift is data,
+    not just a warning), nfe_batch (backbone forwards the carrying batch
+    spent), batch_real / batch_padded (occupancy), mixed (shared-trajectory
+    dispatch), wait_ms (queue time).
+
+    ``trace`` is the request's recorded lifecycle (list of event dicts)
+    when ``Request.trace`` was set and the gateway has a recorder.
+    """
+
+    latents: np.ndarray
+    meta: dict
+    trace: Optional[list] = None
+
+
+@dataclasses.dataclass
+class _Entry:
+    uid: int
+    tokens: Optional[np.ndarray]
+    x0: np.ndarray
+    requested: int
+    served: int
+    shape_key: tuple
+    t_submit: float
+    future: Future
+    # continuous batching (serving.continuous): when this entry was
+    # admitted into a trajectory (wait ends here, not at exit) and at which
+    # exit boundary it joined (0 = opened the trajectory)
+    t_admit: Optional[float] = None
+    join_step: int = 0
+    trace: bool = False   # attach the recorded lifecycle to the Response
+    # SLO scheduling: ABSOLUTE deadline on the gateway clock (None =
+    # best-effort) and priority (higher = more urgent)
+    deadline: Optional[float] = None
+    priority: int = 0
+    # streaming sink (serving.stream.StreamSink), or None
+    sink: Optional[Any] = None
+    # preemption (continuous tier): host snapshot of this entry's carry
+    # column, taken when its slot was evicted at an exit boundary
+    # (serving.slo.PausedCarry); resume restores it bit-identically
+    paused: Optional[Any] = None
+    # shape tiering (serving.tiers): the x0 shape BEFORE tier padding (None
+    # = untiered); ``shape_key``/``x0``/``tokens`` hold the padded tier
+    # forms, and every settle path crops back to this
+    native_shape: Optional[tuple] = None
+    # SLO calibration: the admission cost model's wait estimate stamped
+    # at submit; |estimate - actual| lands in ``cost_est_error_ms``
+    est_wait_ms: Optional[float] = None
+
+
+def to_host(x) -> np.ndarray:
+    """A host numpy array of ``x`` (a tensor on any device, or array-like).
+    A CPU tensor is copied, so the array never aliases a tensor that later
+    work may write in place; a card tensor's copy waits for the card."""
+    if isinstance(x, torch.Tensor):
+        return x.detach().to("cpu", copy=True).numpy()
+    return np.asarray(x)
+
+
+def request_noise(length: int, latent_dim: int, seed: int) -> np.ndarray:
+    """The noise of a request without ``x0``: (length, latent_dim) f32 from
+    a CPU generator seeded with ``seed`` — the same draw on every device,
+    batch and route."""
+    gen = torch.Generator().manual_seed(seed)
+    return torch.randn((length, latent_dim), generator=gen, dtype=torch.float32).numpy()
+
+
+def assemble_rows(entries: Sequence["_Entry"], bucket: int):
+    """Host-side padded-batch assembly, shared by flush execution,
+    trajectory starts, and join-prefix dispatches: stack each entry's x0
+    (and tokens) and zero-pad to ``bucket`` rows — ONE device transfer per
+    dispatch, and the single definition of the pad contract (zero rows,
+    independent through the backbone, so padding never perturbs a real
+    sample). Returns host numpy arrays ``(x0, tokens-or-None)``."""
+    pad = bucket - len(entries)
+    x0 = np.stack([np.asarray(e.x0) for e in entries])
+    if pad:
+        x0 = np.concatenate(
+            [x0, np.zeros((pad,) + x0.shape[1:], x0.dtype)])
+    tokens = None
+    if entries[0].tokens is not None:
+        tokens = np.stack([np.asarray(e.tokens) for e in entries]
+                          + [np.zeros_like(np.asarray(entries[0].tokens))]
+                          * pad)
+    return x0, tokens
+
+
+def to_device(x0_np: np.ndarray, tokens_np: Optional[np.ndarray], device):
+    """One host-to-device copy of an assembled batch: ``(cond, x0)``, with
+    ``cond`` None when the batch has no tokens. ``device`` None keeps them
+    on the CPU (the toy samplers)."""
+    x0 = torch.from_numpy(x0_np)
+    tokens = None if tokens_np is None else torch.from_numpy(tokens_np)
+    if device is not None:
+        x0 = x0.to(device)
+        tokens = None if tokens is None else tokens.to(device)
+    return (None if tokens is None else {"tokens": tokens}), x0
+
+
+@dataclasses.dataclass
+class Batch:
+    """A planned dispatch: FIFO entries, the served budget (None when the
+    batch rides the shared anytime trajectory), and the padded bucket."""
+
+    entries: list
+    budget: Optional[int]
+    bucket: int
+    mixed: bool = False
+
+
+class BatchScheduler:
+    """Deterministic batch planning (pure function of pending + now).
+
+    ``plan`` never touches wall-clock or device state, so tests drive it
+    with a fake clock and assert the exact batch layout.
+    """
+
+    def __init__(self, max_batch: int = 8, max_wait_ms: float = 10.0,
+                 policy: str = "auto", can_mix: bool = False,
+                 top_budget: Optional[int] = None, slo_aware: bool = False):
+        if max_batch < 1:
+            raise ValueError("max_batch must be >= 1")
+        if policy not in POLICIES:
+            raise ValueError(f"mixed_budget_policy {policy!r} not in {POLICIES}")
+        self.max_batch = max_batch
+        self.max_wait_s = max_wait_ms / 1e3
+        self.policy = policy
+        self.can_mix = can_mix
+        self.top_budget = top_budget
+        # SLO mode: order entries by urgency_key instead of FIFO, and add
+        # deadline pressure to the flush trigger. ``lead_ms`` is the
+        # gateway's current one-dispatch cost estimate (refreshed each
+        # pump from the registry histograms): a partial group flushes
+        # early when waiting one more tick would miss a member's deadline
+        self.slo_aware = slo_aware
+        self.lead_ms = 0.0
+        self._buckets = self._bucket_sizes(max_batch)
+
+    @staticmethod
+    def _bucket_sizes(max_batch: int) -> tuple[int, ...]:
+        sizes = {max_batch}
+        b = 1
+        while b < max_batch:
+            sizes.add(b)
+            b *= 2
+        return tuple(sorted(sizes))
+
+    def bucket(self, count: int) -> int:
+        """Smallest padded size holding ``count`` — one dispatch shape per
+        (budget, bucket), not one per observed batch size."""
+        for b in self._buckets:
+            if b >= count:
+                return b
+        raise ValueError(f"count {count} exceeds max_batch {self.max_batch}")
+
+    def _use_mixed(self, budgets: Sequence[int], total: int) -> bool:
+        """Cost model in backbone forwards per flush: per-budget dispatch
+        costs sum(distinct budgets) — leftover groups are below max_batch,
+        one dispatch each — while merging dispatches ceil(total / max_batch)
+        chunks of the shared trajectory, each running to the sampler's TOP
+        budget (``sample_all``). Merge only when that is strictly cheaper."""
+        if not self.can_mix or len(budgets) < 2 or self.policy == "never":
+            return False
+        if self.policy == "always":
+            return True
+        if self.top_budget is None:
+            return False
+        chunks = -(-total // self.max_batch)
+        return chunks * self.top_budget < sum(budgets)
+
+    def plan(self, pending: Sequence[_Entry], now: float,
+             force: bool = False) -> list[Batch]:
+        """The batches ready to dispatch; unbatched entries stay pending
+        (the caller removes exactly the batched entries from its queue)."""
+        batches: list[Batch] = []
+        groups: dict[tuple, list[_Entry]] = {}
+        if self.slo_aware:
+            pending = sorted(pending, key=urgency_key)
+        for e in pending:
+            groups.setdefault((e.shape_key, e.served), []).append(e)
+
+        leftovers: dict[tuple, list[_Entry]] = {}
+        for (shape, served), es in groups.items():
+            while len(es) >= self.max_batch:
+                head, es = es[:self.max_batch], es[self.max_batch:]
+                batches.append(Batch(head, served, self.bucket(len(head))))
+            if es:
+                leftovers[(shape, served)] = es
+
+        aged = any(now - e.t_submit >= self.max_wait_s
+                   for es in leftovers.values() for e in es)
+        if self.slo_aware and not aged:
+            # deadline pressure: flush partials when waiting one more
+            # dispatch would push a member past its deadline
+            lead_s = self.lead_ms / 1e3
+            aged = any(e.deadline is not None and now + lead_s >= e.deadline
+                       for es in leftovers.values() for e in es)
+        if not (force or aged):
+            return batches
+
+        by_shape: dict[tuple, dict[int, list[_Entry]]] = {}
+        for (shape, served), es in leftovers.items():
+            by_shape.setdefault(shape, {})[served] = es
+        for shape in sorted(by_shape, key=repr):
+            per_budget = by_shape[shape]
+            total = sum(len(es) for es in per_budget.values())
+            if self._use_mixed(sorted(per_budget), total):
+                merged = sorted((e for es in per_budget.values() for e in es),
+                                key=lambda e: e.uid)
+                for i in range(0, len(merged), self.max_batch):
+                    chunk = merged[i:i + self.max_batch]
+                    served_set = {e.served for e in chunk}
+                    if len(served_set) > 1:
+                        batches.append(Batch(chunk, None,
+                                             self.bucket(len(chunk)),
+                                             mixed=True))
+                    else:
+                        batches.append(Batch(chunk, chunk[0].served,
+                                             self.bucket(len(chunk))))
+            else:
+                for served in sorted(per_budget):
+                    es = per_budget[served]
+                    batches.append(Batch(es, served, self.bucket(len(es))))
+        if self.slo_aware and len(batches) > 1:
+            # most urgent batch dispatches first (batches run serially
+            # within one pump; an urgent batch behind a long one misses)
+            batches.sort(key=lambda b: min(urgency_key(e)
+                                           for e in b.entries))
+        return batches
 
 
 @dataclasses.dataclass
@@ -359,13 +676,37 @@ class GatewayBase:
         """Per-dispatch program accounting (caller holds ``_stats_lock``):
         one labelled ``dispatches`` tick, and the ``jit_programs`` gauge
         (named as in the reference's schema) tracks the distinct dispatch
-        shapes seen."""
+        shapes seen: the flush gateway's ``b{budget}/k{bucket}`` batches,
+        the continuous gateway's ``leg/{start}-{stop}`` legs and join
+        prefixes. These are the shapes a program cache would be keyed by."""
         if program not in self._programs:
             self._programs.add(program)
             self._m.jit_programs.set(len(self._programs))
         self.metrics.counter("dispatches",
                              "dispatches per compiled jit program",
                              labels={"program": program}).inc()
+
+    def _note_tier(self, tier_shape: tuple, real: int, padded: int) -> None:
+        """Per-tier occupancy accounting (caller holds ``_stats_lock``):
+        labelled native/padded position-row counters per shape tier, and
+        the labelled ``tier_occupancy`` gauge as their running ratio —
+        1.0 means every padded position carried a native row; the gap is
+        what tier padding (plus batch padding) costs this tier."""
+        label = ShapeLadder.label(tier_shape)
+        reg = self.metrics
+        r = reg.counter("tier_real_rows",
+                        "native position-rows dispatched, per shape tier",
+                        labels={"tier": label})
+        p = reg.counter("tier_padded_rows",
+                        "padded position-rows dispatched, per shape tier",
+                        labels={"tier": label})
+        r.inc(real)
+        p.inc(padded)
+        reg.gauge(
+            "tier_occupancy",
+            "native/padded position-row share of dispatched work, per "
+            "shape tier",
+            labels={"tier": label}).set(r.value / max(p.value, 1))
 
     # -- intake ---------------------------------------------------------------
 
@@ -703,3 +1044,261 @@ class GatewayBase:
         ``FleetGateway`` overrides this with the merge of its hosts'
         snapshots; everything below it reports its own registry."""
         return self.metrics.snapshot()
+
+
+class Gateway(GatewayBase):
+    """Multi-user front-end over one budget-routing sampler.
+
+    ``submit(request) -> Future[Response]``; ``pump()`` plans and executes
+    ready batches (the unit tests drive it with a fake clock); ``start()`` /
+    ``serve_forever()`` run the pump loop on a thread, inside the sampler's
+    CUDA device; ``drain()`` stops accepting and flushes everything;
+    ``shutdown()`` = drain + stop.
+
+    ``from_zoo`` acquires the solver artifact through a ``SolverZoo`` so a
+    gateway boot is a cache hit/load, never an accidental re-distillation.
+    ``seed`` is the base seed that noise of requests without ``x0`` or
+    ``seed`` folds its uid into. ``mesh`` other than None raises: backbone
+    sharding comes with ROADMAP Queue A item 8.
+    """
+
+    _request_type = Request     # submit_stream builds these
+
+    def __init__(self, sampler, *, max_batch: int = 8,
+                 max_wait_ms: float = 10.0,
+                 mixed_budget_policy: str = "auto", strict_nfe: bool = False,
+                 mesh=None, clock: Callable[[], float] = time.monotonic,
+                 seed: int = 0,
+                 metrics: Optional[MetricsRegistry] = None, recorder=None,
+                 slo: Optional[SLOConfig] = None,
+                 tiers: Optional[ShapeLadder] = None):
+        if mesh is not None:
+            raise NotImplementedError(
+                "the port's gateway does not shard the backbone yet "
+                "(mesh=; ROADMAP Queue A item 8)")
+        super().__init__(clock=clock, metrics=metrics, recorder=recorder,
+                         slo=slo)
+        self.sampler = sampler
+        # where the sampler's work runs (None: the toys' CPU tensors)
+        dev = getattr(sampler, "device", None)
+        self._device = None if dev is None else torch.device(dev)
+        # shape-tier ladder (serving.tiers): when set, submit pads each
+        # request's position axis to its tier rung, so shape_key — the
+        # grouping key of every scheduler layer — IS the tier key and
+        # near-shapes share flush buckets / trajectory slots. None keeps
+        # the exact-shape behaviour
+        self.tiers = tiers
+        can_mix = (hasattr(sampler, "sample_all_from")
+                   and len(sampler.budgets) > 1)
+        self.scheduler = BatchScheduler(
+            max_batch=max_batch, max_wait_ms=max_wait_ms,
+            policy=mixed_budget_policy, can_mix=can_mix,
+            top_budget=max(sampler.budgets), slo_aware=slo is not None)
+        self.strict_nfe = strict_nfe
+        self._base_seed = seed
+        # one dispatch runs on the sampler at a time. The reference lets the
+        # serve thread and a draining thread dispatch at once (jax is
+        # thread-safe); in torch two threads would interleave on one stream,
+        # so each dispatch window would also time the other's work, and
+        # forward-mode AD (the schedulers' time derivatives) keeps levels
+        # that two threads must not share
+        self._exec_lock = threading.Lock()
+
+    @classmethod
+    def from_zoo(cls, zoo, spec, *, params: dict, cfg, sched, log=None,
+                 **gateway_kw) -> "Gateway":
+        """Boot a gateway from a zoo-resolved artifact (hit/load/distill).
+        Takes no ``update_fn`` (the reference's takes one): the port's
+        samplers always update through the ``ns_update`` kernel on the card
+        and its plain version on the CPU."""
+        from repro_torch.serving.engine import AnytimeFlowSampler, FlowSampler
+
+        artifact = zoo.get(spec, log=log)
+        kind = AnytimeFlowSampler if artifact.kind == "anytime" else FlowSampler
+        sampler = kind.from_artifact(artifact, params=params, cfg=cfg,
+                                     sched=sched)
+        return cls(sampler, **gateway_kw)
+
+    # -- intake -------------------------------------------------------------
+
+    def submit(self, request: Optional[Request] = None, **kw) -> Future:
+        """Enqueue one request; returns a Future resolving to ``Response``.
+
+        The budget is resolved to a served one NOW (strict mode raises here,
+        before the request ever queues); the (requested, served) pair rides
+        in the response metadata either way.
+        """
+        if request is None:
+            request = Request(**kw)
+        requested = (request.budget if request.budget is not None
+                     else self.sampler.budgets[-1])
+        served = self.sampler.resolve_budget(requested,
+                                             strict=self.strict_nfe)
+        uid = next(self._uid)
+        tokens = None if request.tokens is None else to_host(request.tokens)
+        if request.x0 is not None:
+            x0 = to_host(request.x0)
+        else:
+            if tokens is None:
+                raise ValueError("request needs tokens and/or explicit x0")
+            seed = (request.seed if request.seed is not None
+                    else fold_in(self._base_seed, uid))
+            x0 = request_noise(tokens.shape[0], self.sampler.cfg.latent_dim, seed)
+        # tiering: noise is drawn at the NATIVE shape above, THEN the
+        # position axis pads to the tier rung. shape_key is computed from
+        # the padded forms, so every scheduler groups on the tier for free;
+        # settle paths crop back to native_shape. Oversize raises here —
+        # before the request is queued or counted (TierOversize).
+        native_shape = None
+        if self.tiers is not None:
+            rung = self.tiers.rung_for(x0.shape)
+            if rung is not None:
+                native_shape = tuple(x0.shape)
+                if rung != native_shape[0]:
+                    x0 = pad_rows(x0, rung)
+                if tokens is not None and tokens.shape[0] < rung:
+                    tokens = pad_rows(tokens, rung)
+        shape_key = (None if tokens is None
+                     else tuple(tokens.shape), tuple(x0.shape))
+        t_submit = self.clock()
+        entry = _Entry(uid=uid, tokens=tokens, x0=x0,
+                       requested=requested, served=served,
+                       shape_key=shape_key, t_submit=t_submit,
+                       native_shape=native_shape,
+                       future=Future(), trace=request.trace,
+                       deadline=(None if request.deadline_ms is None
+                                 else t_submit + request.deadline_ms / 1e3),
+                       priority=request.priority,
+                       sink=StreamSink() if request.stream else None)
+        self._check_admission(entry)
+        return self._enqueue(entry)
+
+    # -- scheduling / execution --------------------------------------------
+
+    def serve_forever(self, poll_s: float = 0.001) -> None:
+        """The pump loop, inside the sampler's CUDA device: the serve
+        thread's current device would otherwise be the process default."""
+        dev = self._device
+        if dev is None or dev.type != "cuda":
+            return super().serve_forever(poll_s)
+        with torch.cuda.device(dev):
+            return super().serve_forever(poll_s)
+
+    def pump(self, force: bool = False) -> int:
+        """Plan ready batches and execute them; returns how many ran."""
+        with self._plan_lock:
+            if self.slo is not None:
+                self._shed_expired()
+                self.scheduler.lead_ms = self._dispatch_cost_ms()
+            batches = self.scheduler.plan(
+                self.queue.snapshot(), self.clock(), force=force)
+            # take exactly the batched entries — a submit landing after
+            # the snapshot stays queued for the next pump, never dropped
+            self._take([e for b in batches for e in b.entries])
+        return self._run_batches(batches)
+
+    def _estimate_wait_ms(self, entry) -> float:
+        """Flush-gateway cost model: queued entries dispatch in batches of
+        up to ``max_batch``, so the wait is (whole batches ahead of us,
+        plus our own) times the observed per-dispatch cost."""
+        batches_ahead = self.queue.depth() // self.scheduler.max_batch + 1
+        return self._dispatch_cost_ms() * batches_ahead
+
+    def _run_batches(self, batches: Sequence[Batch]) -> int:
+        """Execute planned batches; an exception escaping one batch (e.g. a
+        cancelled future rejecting its result mid-scatter) is surfaced into
+        that batch's unresolved futures and the NEXT batch still runs —
+        entries were already removed from the queue, so anything less
+        strands their futures forever. Batches run under ``_exec_lock``."""
+        for batch in batches:
+            try:
+                with self._exec_lock:
+                    self._execute(batch)
+            except BaseException as exc:  # noqa: BLE001 — must not strand
+                self._fail_entries(batch.entries, exc)
+            finally:
+                self._settle(len(batch.entries))
+        return len(batches)
+
+    def _execute(self, batch: Batch) -> None:
+        es = batch.entries
+        dispatched = self.clock()   # wait_ms is QUEUE time, ending here —
+        #                             not device time
+        program = (f"b{'mix' if batch.mixed else batch.budget}"
+                   f"/k{batch.bucket}")
+        try:
+            # assemble on host: ONE device transfer per batch, not one op
+            # per request. Timing runs on the GATEWAY clock (production:
+            # time.monotonic) so fake-clock benches feed the SLO cost
+            # model simulated, deterministic dispatch times. The results'
+            # copy to the host waits for the card inside t1..t2, so the
+            # dispatch time covers the card's work, not only its launches
+            t0 = self.clock()
+            x0_np, t_np = assemble_rows(es, batch.bucket)
+            cond, x0 = to_device(x0_np, t_np, self._device)
+            t1 = self.clock()
+            with profile_span(f"gateway.dispatch.{program}"):
+                if batch.mixed:
+                    outs = self.sampler.sample_all_from(cond, x0)
+                    nfe = max(self.sampler.budgets)
+                    host = {m: to_host(outs[m]) for m in {e.served for e in es}}
+                    rows = [host[e.served][i] for i, e in enumerate(es)]
+                else:
+                    lat = to_host(
+                        self.sampler.sample_from(cond, x0, batch.budget))
+                    nfe = batch.budget
+                    rows = [lat[i] for i in range(len(es))]
+            t2 = self.clock()
+        except Exception as exc:
+            self._fail_entries(es, exc, count_all=True)
+            return
+        settle_t = self.clock()
+        with self._stats_lock:
+            m = self._m
+            m.batches.inc()
+            if batch.mixed:
+                m.mixed_batches.inc()
+            m.forwards.inc(nfe)
+            m.real_rows.inc(len(es))
+            m.padded_rows.inc(batch.bucket)
+            m.host_assembly_ms.observe((t1 - t0) * 1e3)
+            m.device_dispatch_ms.observe((t2 - t1) * 1e3)
+            self._note_program(program)
+            if es[0].native_shape is not None:
+                tier = es[0].shape_key[1]
+                self._note_tier(
+                    tier, sum(e.native_shape[0] for e in es),
+                    batch.bucket * tier[0])
+            for e in es:
+                m.wait_ms.observe((dispatched - e.t_submit) * 1e3)
+                m.completed.inc()
+                self._note_deadline(e, settle_t)
+        rec = self.recorder
+        for e, row in zip(es, rows):
+            row = crop_row(row, e.native_shape)
+            wait_ms = (dispatched - e.t_submit) * 1e3
+            if rec:
+                rec.event(e.uid, "dispatch", dispatched, host=self._host,
+                          program=program)
+                rec.event(e.uid, "settle", dispatched, host=self._host,
+                          status="completed")
+            response = Response(latents=row, meta={
+                "requested_budget": e.requested,
+                "served_budget": e.served,
+                "nfe_batch": nfe,
+                "batch_real": len(es),
+                "batch_padded": batch.bucket,
+                "mixed": batch.mixed,
+                "wait_ms": wait_ms,
+            })
+            if e.native_shape is not None:
+                response.meta["tier_shape"] = e.shape_key[1]
+                response.meta["native_shape"] = e.native_shape
+            if e.trace and rec:
+                response.trace = rec.trace(e.uid)
+            try:
+                e.future.set_result(response)
+            except Exception:   # cancelled mid-batch: batch-mates still land
+                pass
+            if e.sink is not None:
+                e.sink.final(response)

@@ -1,6 +1,6 @@
-"""The port's copy of ``repro.serving.slo`` (stdlib only; the port serves
-it through ``DecodeGateway``; the flow tiers, and with them the preemption
-of continuous slots, come with ROADMAP Queue A item 7).
+"""The port's copy of ``repro.serving.slo`` (stdlib only), served through
+every gateway tier: ``Gateway``, ``ContinuousGateway`` (which also preempts
+slots at exit boundaries into a host ``PausedCarry``) and ``DecodeGateway``.
 
 SLO policy: deadlines, priorities, admission control, shedding.
 
@@ -28,6 +28,11 @@ gateways consult when a ``SLOConfig`` is attached:
   deadline, then FIFO — entries with no deadline and priority 0 keep the
   exact legacy ``(t_submit, uid)`` order, so attaching an ``SLOConfig``
   never reorders plain traffic.
+* **Preemption** (continuous tier). At an anytime exit boundary a queued
+  urgent entry may evict a strictly-lower-priority slot. The victim's
+  carry column is copied to the host (``PausedCarry``) and it goes back to
+  the queue; resuming rebuilds the column and continues bit-identically
+  (the exit-boundary join invariant), paying only the boundary gap.
 Everything here is a pure function of (entries, clock, config) — the unit
 tests drive it with a fake clock.
 """
@@ -72,6 +77,7 @@ class SLOConfig:
 
     admission: bool = True      # fast-reject at submit
     shedding: bool = True       # fail queued entries past their deadline
+    preemption: bool = True     # evict low-priority continuous slots
     slack_ms: float = 0.0
     default_cost_ms: float = 0.0
 
@@ -100,3 +106,18 @@ def hist_mean(hist_handle) -> Optional[float]:
         return None
     return hist_handle.sum / hist_handle.count
 
+
+@dataclasses.dataclass(frozen=True)
+class PausedCarry:
+    """Host-side snapshot of one preempted slot, taken at an exit
+    boundary: the victim's carry COLUMN (its x0 row, its recorded-velocity
+    column ``U[:, slot]``, its current state row) plus the boundary it was
+    paused at. Each array is a numpy COPY on the host, never a view of the
+    device carry, which later joins overwrite. Resuming rebuilds a mini
+    ``AnytimeCarry`` at ``step=step`` from exactly these arrays, so the
+    resumed trajectory is bit-identical to one that was never preempted."""
+
+    step: int
+    x0: object       # np.ndarray, the entry's own noise row
+    U: object        # np.ndarray (n, *dim): recorded velocities, rows >= step zero
+    x: object        # np.ndarray: state at ``step``

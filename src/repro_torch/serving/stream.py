@@ -1,5 +1,6 @@
-"""The port's copy of ``repro.serving.stream`` (stdlib only; the port
-streams decode tokens, the flow tiers come with ROADMAP Queue A item 7).
+"""The port's copy of ``repro.serving.stream`` (stdlib only): the
+continuous flow gateway streams exit-boundary partials through it, the
+decode gateway tokens.
 
 Streaming handles: incremental results riding the existing settle path.
 
@@ -19,7 +20,8 @@ The TERMINAL chunk carries the very ``Response``/``DecodeResponse`` the
 request's ``Future`` resolves with — streaming adds emission points but
 never forks the settle path, so a streamed request's final result is
 bit-identical to the plain ``submit`` of the same request (asserted in
-``tests/test_slo.py``). Failures surface as the original exception from
+``tests/test_torch_slo.py``, as ``tests/test_slo.py`` asserts it for the
+reference). Failures surface as the original exception from
 the iterator, mirroring ``Future.result()``.
 
 The sink is a plain ``queue.Queue``: producers (serve threads, pumps)

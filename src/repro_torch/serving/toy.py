@@ -1,15 +1,33 @@
-"""Numpy-only test engines for the decode gateway's logic.
+"""Test samplers and engines speaking the serving protocols, for the
+gateway suites.
 
-The port's copy of ``FakeClock`` and ``ToyDecodeEngine`` from
-``repro.serving.toy``; the flow toys (``ToyAnytimeSampler``,
-``CountingToySampler``) come with the flow gateway tiers (ROADMAP Queue A
-item 7).
+The port's copy of ``repro.serving.toy``: ``FakeClock``; the flow toys
+``ToyAnytimeSampler`` and ``CountingToySampler``, which speak the budget
+protocol (``budgets``, ``resolve_budget``, ``sample_from``,
+``sample_all_from``) AND the carry protocol (``carry_start``,
+``carry_extend``) over the analytic two-moons velocity field, in torch on the
+CPU; and ``ToyDecodeEngine`` (numpy) for the decode gateway. The reference's
+``jit=True`` mode has no twin: the port's toys always run eagerly, so their
+``on_forward`` hook fires on every batch-level velocity evaluation.
 """
 from __future__ import annotations
 
-from typing import Callable, Optional
+from typing import Callable, Optional, Sequence
 
 import numpy as np
+import torch
+
+from repro_torch.core import ns_solver, schedulers, toy
+from repro_torch.core.anytime import (
+    AnytimeCarry,
+    AnytimeParams,
+    anytime_carry,
+    anytime_extend,
+    anytime_sample,
+    extract_ns,
+    init_anytime,
+)
+from repro_torch.serving.engine import nearest_budget
 
 
 class FakeClock:
@@ -25,6 +43,77 @@ class FakeClock:
 
     def advance(self, seconds: float) -> None:
         self.t += seconds
+
+
+class ToyAnytimeSampler:
+    """Budget+carry-protocol sampler over the analytic toy field, on the CPU.
+
+    The anytime solver is ``init_anytime`` + per-leaf Gaussian jitter drawn
+    from a CPU generator seeded with ``seed``, so two instances with the
+    same (budgets, seed, jitter) are bit-identical — the flush-vs-continuous
+    comparisons rest on that. ``theta`` replaces the jittered solver (the
+    parity tests pass the reference's, whose jitter comes from JAX keys).
+    """
+
+    def __init__(self, budgets: Sequence[int] = (4, 8, 16), seed: int = 0,
+                 jitter: float = 0.1, theta: Optional[AnytimeParams] = None):
+        self.budgets = tuple(sorted(budgets))
+        if theta is None:
+            gen = torch.Generator().manual_seed(seed)
+            theta = AnytimeParams(*(
+                leaf + jitter * torch.randn(leaf.shape, generator=gen)
+                for leaf in init_anytime(None, self.budgets, "nested")))
+        self.theta = theta
+        self.field = toy.mixture_field(schedulers.fm_ot(), toy.two_moons_means(),
+                                       torch.full((16,), 0.15), torch.ones((16,)))
+
+    def on_forward(self) -> None:
+        """Called once per batch-level velocity evaluation. Override to
+        count forwards or advance a simulated clock."""
+
+    def _u(self, t, x: torch.Tensor) -> torch.Tensor:
+        self.on_forward()
+        return self.field.fn(t, x)
+
+    @staticmethod
+    def _x0(x0) -> torch.Tensor:
+        return torch.as_tensor(x0, dtype=torch.float32)
+
+    # -- budget protocol -----------------------------------------------------
+
+    def resolve_budget(self, m: int, strict: bool = False) -> int:
+        return nearest_budget(self.budgets, m, strict)
+
+    def sample_from(self, batch, x0, budget: int) -> torch.Tensor:
+        ns = extract_ns(self.theta, self.budgets, budget)
+        with torch.no_grad():
+            return ns_solver.ns_sample(ns, self._u, self._x0(x0))
+
+    def sample_all_from(self, batch, x0) -> dict[int, torch.Tensor]:
+        with torch.no_grad():
+            return anytime_sample(self.theta, self.budgets, self._u, self._x0(x0))
+
+    # -- carry protocol (continuous batching) --------------------------------
+
+    def carry_start(self, batch, x0) -> AnytimeCarry:
+        return anytime_carry(self.theta, self.budgets, self._x0(x0))
+
+    def carry_extend(self, batch, carry: AnytimeCarry, stop: int):
+        with torch.no_grad():
+            return anytime_extend(self.theta, self.budgets, self._u, carry, stop)
+
+
+class CountingToySampler(ToyAnytimeSampler):
+    """Variant metering batch-level backbone forwards — the NFE accounting
+    the gateway tests assert against."""
+
+    def __init__(self, budgets: Sequence[int] = (2, 4), seed: int = 0,
+                 jitter: float = 0.1, theta: Optional[AnytimeParams] = None):
+        super().__init__(budgets=budgets, seed=seed, jitter=jitter, theta=theta)
+        self.forwards = 0
+
+    def on_forward(self) -> None:
+        self.forwards += 1
 
 
 class ToyDecodeEngine:

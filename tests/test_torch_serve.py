@@ -146,11 +146,6 @@ def test_serve_cli_exit_code_without_a_card():
     (["--arch", "rwkv6-7b", "--device", "cuda", "--bns-iters", "300"],
      "ROADMAP Queue B item 6"),
     (["--arch", "rwkv6-7b", "--device", "cuda"], "ROADMAP Queue B item 6"),  # default 300
-    (["--bns-iters", "0", "--gateway"], "ROADMAP Queue A item 7"),
-    (["--mode", "decode", "--gateway", "--trace-jsonl", "t.jsonl"], "ROADMAP Queue A item 11"),
-    (["--mode", "decode", "--gateway", "--metrics-json", "m.json"], "ROADMAP Queue A item 11"),
-    (["--mode", "decode", "--gateway", "--metrics-port", "0"], "ROADMAP Queue A item 11"),
-    (["--bns-iters", "0", "--stats-interval", "5"], "ROADMAP Queue A item 11"),
 ])
 def test_serve_refuses_what_it_does_not_serve(extra, item):
     with pytest.raises(SystemExit) as exc:
@@ -378,8 +373,6 @@ def test_reference_flags_are_a_subset_of_the_ports():
 
 
 @pytest.mark.parametrize("extra,item", [
-    (["--continuous"], 7), (["--tiers", "8,16"], 7), (["--max-batch", "4"], 7),
-    (["--max-wait-ms", "5"], 7), (["--mixed-budget-policy", "never"], 7),
     (["--mesh", "host"], 8), (["--fleet", "2"], 8),
     (["--ckpt", "params.msgpack"], 11), (["--profile", "tuned"], 11),
 ])
@@ -439,3 +432,182 @@ def test_serve_a_dpm2m_baseline_artifact_the_reference_wrote(setup, tmp_path, ca
     got = served.sampler.sample_from({"tokens": torch.from_numpy(tok)}, x0)
     np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=TOL * 4, rtol=TOL * 4)
     assert served[0].nfe == 4 and bool(torch.isfinite(served[0].latents).all())
+
+
+# ---------------------------------------------------------------------------
+# The flow gateways through the launcher (tests/test_serve_cli.py's gateway
+# cases, in process on the CPU), and the telemetry flags of both gateways
+# ---------------------------------------------------------------------------
+
+_ANYTIME = _FLOW[:-4] + ["--seq", "4", "--device", "cpu", "--budgets", "2,4",
+                         "--bns-iters", "0"]
+
+
+def test_serve_flow_gateway_coalesces_requests(capsys):
+    """Same-budget requests coalesce (4 requests -> 2 full batches) and the
+    summary reports the batches (``test_serve_cli.py:77``)."""
+    served = serve.main(_ANYTIME + ["--gateway", "--max-batch", "2", "--max-wait-ms", "200",
+                                    "--request-budgets", "2,4,2,4", "--requests", "4"])
+    out = capsys.readouterr().out
+    assert "gateway stats: done=4/4" in out and "batches=2" in out
+    assert "request 0: served 2 NFE" in out and "request 1: served 4 NFE" in out
+    assert "batch 2/2" in out
+    assert isinstance(served, serve.GatewayServed) and served.stats["failed"] == 0
+    assert [r.meta["served_budget"] for r in served.responses] == [2, 4, 2, 4]
+    for r in served.responses:
+        assert isinstance(r.latents, np.ndarray) and r.latents.shape == (4, 64)
+    assert served.zoo.distills == 0 and served.artifact.kind == "anytime"
+
+
+def test_serve_flow_gateway_records_budget_drift(capsys):
+    """An unserved budget is routed AND the (requested, served) pair is
+    printed per request (``test_serve_cli.py:95``)."""
+    serve.main(_ANYTIME + ["--gateway", "--max-batch", "2", "--max-wait-ms", "50",
+                           "--request-budgets", "8", "--requests", "2"])
+    assert capsys.readouterr().out.count("served 4 NFE (requested 8)") == 2
+
+
+def test_serve_flow_gateway_strict_nfe_exits():
+    with pytest.raises(SystemExit) as exc:
+        serve.main(_ANYTIME + ["--gateway", "--strict-nfe", "--request-budgets", "8",
+                               "--requests", "1"])
+    assert "--strict-nfe" in str(exc.value.code)
+
+
+def test_serve_flow_continuous_gateway(capsys):
+    """``--continuous`` serves through trajectories; the summary reports
+    trajectories, joins and slot occupancy (``test_serve_cli.py:134``)."""
+    served = serve.main(_ANYTIME + ["--gateway", "--continuous", "--max-slots", "2",
+                                    "--max-wait-ms", "50", "--request-budgets", "2,4",
+                                    "--requests", "4"])
+    out = capsys.readouterr().out
+    assert "gateway stats: done=4/4" in out and "traj=" in out and "slot_occ=" in out
+    assert served.stats["trajectories"] >= 1
+    assert all(r.meta["continuous"] for r in served.responses if "continuous" in r.meta)
+
+
+def test_serve_flow_continuous_needs_an_anytime_solver():
+    with pytest.raises(SystemExit) as exc:
+        serve.main(_FLOW + ["--nfe", "2", "--bns-iters", "0", "--gateway", "--continuous",
+                            "--requests", "1"])
+    assert "--continuous" in str(exc.value.code) and "carry" in str(exc.value.code)
+
+
+def test_serve_flow_gateway_mixed_budget_policy_never(capsys):
+    served = serve.main(_ANYTIME + ["--gateway", "--max-batch", "4",
+                                    "--mixed-budget-policy", "never",
+                                    "--request-budgets", "2,4", "--requests", "2"])
+    assert (served.stats["batches"], served.stats["mixed_batches"]) == (2, 0)
+    assert served.stats["forwards"] == 6
+
+
+def test_serve_flow_gateway_tiers_crop_to_the_native_shape():
+    """``--tiers 8`` pads 6-position requests to 8 and crops back: each row
+    equals the direct sampler on that request alone at its native shape
+    (yi-6b's field is causal), its noise drawn from seed 1000 + req."""
+    from repro_torch.serving.gateway import request_noise
+
+    served = serve.main(_FLOW[:-4] + ["--seq", "6", "--device", "cpu", "--budgets", "2,4",
+                                      "--bns-iters", "0", "--gateway", "--tiers", "8",
+                                      "--max-batch", "2", "--request-budgets", "4",
+                                      "--requests", "2"])
+    tokens = SyntheticTokens(served.sampler.cfg, DataConfig(batch_size=2, seq_len=6, seed=0),
+                             device="cpu").batch(0)
+    for req, r in enumerate(served.responses):
+        assert r.meta["tier_shape"] == (8, 64) and r.latents.shape == (6, 64)
+        x0 = request_noise(6, 64, 1000 + req)
+        direct = served.sampler.sample_from({"tokens": tokens["tokens"][req:req + 1]},
+                                            x0[None], 4)
+        np.testing.assert_array_equal(r.latents, direct[0].numpy())
+    assert served.metrics['tier_occupancy{tier="8x64"}'] == pytest.approx(12 / 16)
+
+
+def test_serve_flow_gateway_tiers_reject_oversize():
+    with pytest.raises(SystemExit) as exc:
+        serve.main(_ANYTIME + ["--gateway", "--tiers", "2", "--requests", "1"])
+    assert "--tiers" in str(exc.value.code) and "4 positions" in str(exc.value.code)
+
+
+@pytest.mark.parametrize("deadline,cost,want", [("1e6", "0", "goodput"),
+                                                ("1", "1e9", "rejected")])
+def test_serve_flow_gateway_slo_deadlines(capsys, deadline, cost, want):
+    served = serve.main(_ANYTIME + ["--gateway", "--slo", "--deadline-ms", deadline,
+                                    "--slo-default-cost-ms", cost, "--priority", "1",
+                                    "--request-budgets", "2,4", "--requests", "2"])
+    assert served.stats[want] == 2
+    if want == "rejected":
+        assert served.responses == [None, None]
+        assert capsys.readouterr().out.count("REJECTED at admission") == 2
+
+
+def test_serve_flow_gateway_streams_exit_partials(capsys):
+    """``--continuous --stream``: a budget-4 request crosses the budget-2
+    exit on the way (one partial), a budget-2 request none."""
+    served = serve.main(_ANYTIME + ["--gateway", "--continuous", "--max-slots", "2",
+                                    "--stream", "--request-budgets", "2,4",
+                                    "--requests", "2"])
+    assert served.partials == [0, 1]
+    assert "1 streamed partials" in capsys.readouterr().out
+
+
+class _ScrapedServer(serve.MetricsServer):
+    """The launcher's metrics server, scraped over localhost before it
+    stops (while the gateway's registry is live)."""
+
+    bodies: list = []
+
+    def stop(self):
+        import urllib.request
+
+        for path in ("/metrics", "/metrics.json"):
+            with urllib.request.urlopen(f"http://127.0.0.1:{self.port}{path}",
+                                        timeout=10) as resp:
+                _ScrapedServer.bodies.append(resp.read().decode())
+        super().stop()
+
+
+class _FlushingPrinter(serve.StatsPrinter):
+    """The launcher's stats printer, made to print one line as it stops, so
+    a short CPU run shows the periodic line deterministically."""
+
+    def stop(self):
+        super().stop()
+        self.log("periodic " + self.line_fn())
+
+
+@pytest.mark.parametrize("mode", ["flow", "decode"])
+@pytest.mark.parametrize("flag", ["--metrics-json", "--trace-jsonl", "--metrics-port",
+                                  "--stats-interval"])
+def test_serve_gateway_telemetry_flags(tmp_path, capsys, monkeypatch, mode, flag):
+    import json
+
+    from repro_torch.observability import read_jsonl
+
+    argv = (_ANYTIME + ["--gateway", "--requests", "2", "--request-budgets", "2,4"]
+            if mode == "flow" else
+            _DECODE + ["--gateway", "--max-slots", "2", "--slots", "16", "--requests", "2",
+                       "--decode-lengths", "2"])
+    path = str(tmp_path / "out")
+    value = {"--metrics-json": path, "--trace-jsonl": path, "--metrics-port": "0",
+             "--stats-interval": "30"}[flag]
+    monkeypatch.setattr(serve, "MetricsServer", _ScrapedServer)
+    monkeypatch.setattr(serve, "StatsPrinter", _FlushingPrinter)
+    _ScrapedServer.bodies = []
+    served = serve.main(argv + [flag, value])
+    out = capsys.readouterr().out
+    assert served.stats["completed"] == 2
+    prefix = "gateway stats" if mode == "flow" else "decode gateway stats"
+    if flag == "--metrics-json":
+        with open(path) as fh:
+            snap = json.load(fh)
+        assert snap["completed"] == 2 and f"metrics snapshot written to {path}" in out
+    elif flag == "--trace-jsonl":
+        events = read_jsonl(path)
+        assert {e["event"] for e in events} >= {"submit", "settle"}
+        assert f"events written to {path}" in out
+    elif flag == "--metrics-port":
+        assert "metrics: http://127.0.0.1:" in out
+        prom, js = _ScrapedServer.bodies
+        assert "completed" in prom and json.loads(js)["submitted"] == 2
+    else:
+        assert f"periodic {prefix}: done=" in out
