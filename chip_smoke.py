@@ -17,8 +17,9 @@ Phases (any failure ends the run with a non-zero exit and no last line):
    where there is one (timed as a yardstick only; the port never calls it).
    ns_update is also timed at the solver's per-step calls (U[:1] and U[:8]
    of an NFE-8 request), and its device time and addmv's are read from
-   torch.profiler beside the host-inclusive times. Flash attention prints
-   its achieved TFLOP/s and kernel / bound.
+   torch.profiler beside the host-inclusive times, and its time a launch
+   replayed from one CUDA graph of 100 launches (the serving programs'
+   cost). Flash attention prints its achieved TFLOP/s and kernel / bound.
    Paged attention has no such call: a dense SDPA over a pre-gathered copy
    is timed beside it, labelled "dense SDPA, gather excluded"; its device
    time is read from torch.profiler at the decode cell and the long rows,
@@ -204,13 +205,35 @@ Phases (any failure ends the run with a non-zero exit and no last line):
     field is causal, so tail positions do not reach earlier ones) and held
     also against a direct call on the same four rows at their native shape
     (4, 1000, 64).
-15. The script's wall time, one JSON line listing the kernels (the
+15. The serving engines' programs, graphed (``serving.programs``: on the
+    card every engine call goes through a CUDA graph captured once per key,
+    so phases 4, 4b, 6, 8, 10, 12, 12b, 12c's requests and 14 already ran
+    graphed; phases 7 and 11 record each step's logits on the host and run
+    eagerly) against the same call under ``programs.disabled()``, at full
+    width, in the phases that hold each model's weights: yi-6b
+    ``FlowSampler`` at budget 8, batch 4, seq 1024 (after phase 4); yi-6b
+    ``prefill_slots`` (C = 64) and ``step_slots`` greedy and sampled on a
+    paged state of phase 6's shape (8 slots of 16 pages of 16; after phase
+    6), and a step captured at 2 slots of 16 pages, replayed after a step
+    at 2 slots of 64 pages grew the paged kernel's merge workspace; rwkv6-7b
+    flow (after phase 8) and ``step_slots`` (after phase 10); 12c's anytime
+    artifact at seq 1024 (after 14a): budgets 4 and 8, ``sample_all`` and
+    the legs 0 -> 4 and 4 -> 8. Each case runs a first pair and GRAPH_REPS
+    timed pairs (graphed, then eager; decode on two copies of one state):
+    each pair equal to the bit (tokens and every state leaf for decode) with
+    equal launch counts; prints ms a call each way (median), the capture ms
+    and the launches a call; one graphed yi-6b and rwkv6-7b greedy step
+    runs under torch.profiler for the card's busy share. Launch counts of
+    every phase read the same graphed as eager: a capture launches nothing
+    and a replay adds what its program recorded.
+16. The script's wall time, one JSON line listing the kernels (the
     ns_update and flash entries, forward and backward, with phases 4b, 5b,
     12b, 12c, 12d, 13b, 13c, 14a, 14b and 14c's launches and ms beside the
     main path's), then the last line.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import gc
 import json
@@ -296,6 +319,37 @@ def time_ms(fn, iters: int = 100, warmup: int = 5) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def graphed_ms(fn, calls: int = 100, reps: int = 5) -> float:
+    """Mean ms a call of ``fn`` replayed from one CUDA graph of ``calls``
+    calls (CUDA events over ``reps`` replays, after one): the cost with no
+    host work a launch. The capture's launch counts are taken back (it
+    launches nothing)."""
+    from repro_torch.kernels import build
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()                                   # warm-up on a side stream
+    torch.cuda.current_stream().wait_stream(side)
+    counts = {c: c.launches for c in build.COUNTERS}
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(calls):
+            fn()
+    for c, n in counts.items():
+        c.launches = n
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / (reps * calls)
 
 
 def device_ms(fn, kernel: str | None, iters: int = 100) -> float | None:
@@ -423,6 +477,7 @@ def ns_update_row(shape, err, x0, u, a, w, timed_on_device: bool) -> dict:
                bound_ms=b_ms, bound_by=b_by)
     if timed_on_device:
         row["device_ms"] = device_ms(lambda: ns_update(x0, u, a, w), "ns_update_kernel")
+        row["graphed_ms"] = graphed_ms(lambda: ns_update(x0, u, a, w))
         row["library_device_ms"] = device_ms(lambda: torch.addmv(xf, uf, wl, beta=beta), None)
     return row
 
@@ -828,8 +883,9 @@ def free_device_memory(dev) -> None:
     torch.cuda.reset_peak_memory_stats(dev)
 
 
-def flow_path(dev, counters, arch: str, want: dict):
-    """serve.main in flow mode at full width; launch counts must be ``want``."""
+def flow_path(dev, counters, arch: str, want: dict, graphs: dict):
+    """serve.main in flow mode at full width; launch counts must be ``want``.
+    Then phase 15's case on the served sampler, into ``graphs``."""
     from repro_torch.launch import serve
 
     free_device_memory(dev)
@@ -853,7 +909,9 @@ def flow_path(dev, counters, arch: str, want: dict):
     peak = torch.cuda.max_memory_allocated(dev)
     print(f"flow path: {arch} full width, NFE {NFE}, batch {BATCH}, seq {SEQ}: "
           f"request ms {[round(s.ms, 3) for s in served]}, launches {launches}, "
-          f"peak memory {peak / 2**30:.3f} GiB, main() wall {wall:.3f} s")
+          f"peak memory {peak / 2**30:.3f} GiB, main() wall {wall:.3f} s, programs "
+          f"{served.sampler.programs.stats()}")
+    graphs.update(flow_programs(dev, counters, served.sampler, arch, SEQ))
     return launches
 
 
@@ -1073,34 +1131,53 @@ def baselines_against_cpu(dev, counters, cfg, params) -> dict:
 class CountCalls:
     """Counts (and optionally records the logits of) ``decode_apply`` calls,
     apart from any kernel's counter, by wrapping the model function the
-    engine calls."""
+    engine calls. The count is a ``LaunchCounter`` of its own, so a replayed
+    CUDA graph adds the calls its program recorded at capture, as it adds
+    kernel launches. Recording logits reads each call's result on the host,
+    which a replay cannot do: the engines then run eagerly
+    (``programs.disabled()``)."""
 
     def __init__(self, keep_logits: bool = False):
+        from repro_torch.kernels import build
         from repro_torch.models import model as M
 
         self.module, self.inner = M, M.decode_apply
-        self.calls, self.keep, self.logits = 0, keep_logits, []
+        self.counter = build.LaunchCounter("decode_apply")
+        self.keep, self.logits, self.eager = keep_logits, [], None
+
+    @property
+    def calls(self) -> int:
+        return self.counter.launches
 
     def __enter__(self):
+        from repro_torch.serving import programs
+
         def counted(*args, **kwargs):
             logits, state = self.inner(*args, **kwargs)
-            self.calls += 1
+            self.counter.launches += 1
             if self.keep:
                 self.logits.append(logits.float().cpu())
             return logits, state
 
+        if self.keep:
+            self.eager = programs.disabled()
+            self.eager.__enter__()
         self.module.decode_apply = counted
         return self
 
     def __exit__(self, *exc):
         self.module.decode_apply = self.inner
+        if self.eager is not None:
+            self.eager.__exit__(*exc)
 
 
-def decode_path(dev, counters, args: list, per_call: dict):
+def decode_path(dev, counters, args: list, per_call: dict, graphs: dict, **cases):
     """serve.main in decode mode at full width through the gateway: every
     request finishes at its length with in-vocabulary tokens, nothing fails,
     every page returns, and each kernel launches ``per_call[name]`` times a
-    ``decode_apply`` call (0 where it is not named)."""
+    ``decode_apply`` call (0 where it is not named). Then phase 15's cases on
+    the served engine (``decode_programs``' ``prefill`` and ``sampled``; with
+    ``growth``, ``workspace_growth`` too), into ``graphs``."""
     from repro_torch.launch import serve
 
     free_device_memory(dev)
@@ -1136,7 +1213,16 @@ def decode_path(dev, counters, args: list, per_call: dict):
           f"by the gateway clock), {s['forwards']} engine calls ({s['prefill_calls']} "
           f"prefill, {s['prefill_tokens']} prompt tokens), {calls.calls} decode_apply calls, "
           f"engine call ms mean {d['sum'] / d['count']:.3f} p50 {d['p50']:.3f} "
-          f"max {d['max']:.3f}, launches {launches}, peak memory {peak / 2**30:.3f} GiB")
+          f"max {d['max']:.3f}, launches {launches}, peak memory {peak / 2**30:.3f} GiB, "
+          f"programs captured {s['program_captures']}, replays {s['program_replays']}, "
+          f"capture {s['program_capture_ms']:.1f} ms")
+    engine = served.engine
+    slots = int(args[args.index("--max-slots") + 1])
+    cache_slots = int(args[args.index("--slots") + 1]) if "--slots" in args else 128
+    graphs.update(decode_programs(dev, counters, engine, arch, slots, cache_slots,
+                                  cases.get("prefill", 0), cases.get("sampled", False)))
+    if cases.get("growth"):
+        graphs["yi-6b paged workspace growth"] = workspace_growth(dev, counters, engine)
     return launches
 
 
@@ -1159,11 +1245,13 @@ def long_row_decode_step(dev, counters) -> dict:
     for pool in (state.k_pages, state.v_pages):
         for layer in pool:
             layer.copy_(torch.randn(layer.shape, generator=g, device=dev).to(torch.bfloat16))
-    state = state._replace(
-        index=torch.tensor(LONG_LENGTHS, dtype=torch.int32, device=dev) - 1)
+    positions = torch.tensor(LONG_LENGTHS, dtype=torch.int32, device=dev) - 1
     token = torch.arange(B, dtype=torch.int32, device=dev) * 7 + 3
 
     def step(p, kernel: bool):
+        # decode_apply advances the positions in place: every call starts from
+        # the same ones (and rewrites the same pool cells)
+        state.index.copy_(positions)
         return M.decode_apply(p, cfg, token, state, paged_kernel=kernel)[0]
 
     zero = dict.fromkeys(KERNELS, 0)
@@ -1942,15 +2030,19 @@ def gateway_path(dev, counters, card: str, name: str, extra: list, seq: int,
             "alone_max_rel_l2": max(e["rel_l2"] for e in alone),
             "bucket3_equal": [e["equal"] for e in bucket3],
             "rows": {uid: r.latents for uid, r in enumerate(served.responses)},
+            "sampler": sampler, "programs": sampler.programs.stats(),
             "native_max_rel_l2": max((e["rel_l2"] for e in native), default=None)}
 
 
-def gateways(dev, counters, card: str) -> dict:
-    """Phase 14: 14a flush, 14b continuous, 14c shape tiers."""
+def gateways(dev, counters, card: str, graphs: dict) -> dict:
+    """Phase 14: 14a flush, 14b continuous, 14c shape tiers; phase 15's
+    anytime cases on 14a's sampler (seq 1024), into ``graphs``."""
     runs = {"14a": gateway_path(dev, counters, card, "14a flush", [], SEQ, (4, 8), 12,
                                 {"b4/k4": 1, "b8/k4": 1, "bmix/k4": 1})}
+    graphs.update(anytime_programs(dev, counters, runs["14a"].pop("sampler"), SEQ))
     runs["14b"] = gateway_path(dev, counters, card, "14b continuous",
                                ["--continuous", "--max-slots", "4"], SEQ, (4, 8), 8)
+    runs["14b"].pop("sampler")
     if runs["14b"]["dispatches"].get("start/k4", 0) < 1:
         raise SystemExit("gateway 14b: no trajectory opened")
     # 14b's requests are 14a's first eight: trajectory rows (joined ones
@@ -1965,7 +2057,248 @@ def gateways(dev, counters, card: str) -> dict:
     runs["14b"]["equal_to_14a"] = [e["equal"] for e in across]
     runs["14c"] = gateway_path(dev, counters, card, "14c tiers", ["--tiers", "512,1024"],
                                1000, (8,), 4, {"b8/k4": 1})
+    for run in runs.values():
+        run.pop("sampler", None)
     return runs
+
+
+GRAPH_REPS = 5           # phase 15: timed calls each way after the capture
+
+
+def _same(a, b) -> bool:
+    """Bit equality of two results (tensors, or tuples, lists or dicts of them)."""
+    if isinstance(a, torch.Tensor):
+        return a.shape == b.shape and a.dtype == b.dtype and torch.equal(a, b)
+    if isinstance(a, dict):
+        return a.keys() == b.keys() and all(_same(a[k], b[k]) for k in a)
+    return len(a) == len(b) and all(_same(x, y) for x, y in zip(a, b))
+
+
+def graph_case(dev, counters, label: str, cache, graphed, eager) -> dict:
+    """Phase 15, one program kind: ``graphed()`` goes through the engine's
+    program cache (its first call captures the key, unless an earlier phase
+    did) and ``eager()`` is the same call, run under ``programs.disabled()``.
+    A first pair, then GRAPH_REPS timed pairs: each pair equal to the bit and
+    launching the same kernels (counted apart for each side). Prints ms a
+    call (host clock around the call and a sync; median) each way and the
+    program's capture ms."""
+    from repro_torch.serving import programs
+
+    before_programs = len(cache)
+    pairs = []
+    for rep in range(GRAPH_REPS + 1):
+        pair = []
+        for side, call in (("graphed", graphed), ("eager", eager)):
+            counts = {k: c.launches for k, c in counters.items()}
+            torch.cuda.synchronize(dev)
+            t0 = time.perf_counter()
+            with (programs.disabled() if side == "eager" else contextlib.nullcontext()):
+                out = call()
+            torch.cuda.synchronize(dev)
+            pair.append((out, (time.perf_counter() - t0) * 1e3,
+                         {k: c.launches - counts[k] for k, c in counters.items()}))
+        pairs.append(pair)
+    program = cache.last
+    equal = [_same(g[0], e[0]) for g, e in pairs]
+    same_launches = [g[2] == e[2] for g, e in pairs]
+    g_ms = [g[1] for g, _ in pairs[1:]]
+    e_ms = [e[1] for _, e in pairs[1:]]
+    row = {"graphed_ms": float(np.median(g_ms)), "eager_ms": float(np.median(e_ms)),
+           "graphed_each_ms": g_ms, "eager_each_ms": e_ms,
+           "capture_ms": None if program is None else program.capture_ms,
+           "captured_here": len(cache) > before_programs,
+           "launches_a_call": {k: v for k, v in pairs[-1][0][2].items() if v},
+           "equal": all(equal), "launches_equal": all(same_launches)}
+    print(f"phase 15 [{label}]: graphed {row['graphed_ms']:.3f} ms a call (median of "
+          f"{GRAPH_REPS}: {[round(x, 3) for x in g_ms]}), eager {row['eager_ms']:.3f} ms "
+          f"({[round(x, 3) for x in e_ms]}), capture "
+          + ("-" if program is None else f"{program.capture_ms:.1f} ms")
+          + f" ({'this case' if row['captured_here'] else 'an earlier phase'}), "
+          f"launches a call {row['launches_a_call']}, equal to the bit {equal}, "
+          f"launches equal {same_launches}")
+    if program is None or not program.replays or not row["equal"] or not row["launches_equal"]:
+        raise SystemExit(f"phase 15 [{label}]: graphed against eager failed: {row}")
+    return row
+
+
+def busy_share(dev, call) -> dict:
+    """One call under torch.profiler: its wall ms (host clock, synchronised)
+    and the union of the device kernels' intervals; None where the profiler
+    saw no device kernel."""
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    torch.cuda.synchronize(dev)
+    with torch.profiler.profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        call()
+        torch.cuda.synchronize(dev)
+        wall = (time.perf_counter() - t0) * 1e3
+    spans = sorted((e.time_range.start, e.time_range.end) for e in prof.events()
+                   if e.device_type == torch.autograd.DeviceType.CUDA)
+    busy, end = 0.0, None
+    for a, b in spans:
+        if end is None or a > end:
+            busy, end = busy + (b - a), b
+        elif b > end:
+            busy, end = busy + (b - end), b
+    busy = busy / 1e3 if spans else None
+    return {"wall_ms": wall, "busy_ms": busy, "kernels": len(spans),
+            "busy_share": None if busy is None else busy / wall}
+
+
+def flow_programs(dev, counters, sampler, label: str, seq: int) -> dict:
+    """Phase 15 on a served ``FlowSampler``: one request batch (BATCH rows
+    at ``seq``, phase 4's conditioning rows, noise from a seed) at its budget."""
+    from repro_torch.data.synthetic import DataConfig, SyntheticTokens
+
+    cond = SyntheticTokens(sampler.cfg, DataConfig(batch_size=BATCH, seq_len=seq, seed=0),
+                           device=dev).batch(0)
+    x0 = torch.randn((BATCH, seq, sampler.cfg.latent_dim), device=dev,
+                     generator=torch.Generator(device=dev).manual_seed(15))
+    call = lambda: sampler.sample_from(cond, x0)       # noqa: E731
+    return {f"{label} flow, budget {sampler.solver.n}": graph_case(
+        dev, counters, f"{label} FlowSampler budget {sampler.solver.n}, batch {BATCH}, "
+        f"seq {seq}", sampler.programs, call, call)}
+
+
+def anytime_programs(dev, counters, sampler, seq: int) -> dict:
+    """Phase 15 on the served ``AnytimeFlowSampler``: each budget, the shared
+    trajectory, and the legs between the budgets' exits."""
+    from repro_torch.data.synthetic import DataConfig, SyntheticTokens
+    from repro_torch.serving import programs
+
+    cond = SyntheticTokens(sampler.cfg, DataConfig(batch_size=BATCH, seq_len=seq, seed=0),
+                           device=dev).batch(0)
+    x0 = torch.randn((BATCH, seq, sampler.cfg.latent_dim), device=dev,
+                     generator=torch.Generator(device=dev).manual_seed(16))
+
+    def leg(carry, stop):
+        def call():
+            new, exits = sampler.carry_extend(cond, carry, stop)
+            return new.U, new.x, exits
+        return call
+
+    calls = {f"anytime budget {m}": (lambda m=m: sampler.sample_from(cond, x0, m))
+             for m in sampler.budgets}
+    calls["anytime sample_all"] = lambda: sampler.sample_all_from(cond, x0)
+    carry, start = sampler.carry_start(cond, x0), 0
+    for stop in sampler.budgets:
+        calls[f"anytime leg {start}->{stop}"] = leg(carry, stop)
+        with programs.disabled():
+            carry, _ = sampler.carry_extend(cond, carry, stop)
+        start = stop
+    return {name: graph_case(dev, counters, f"yi-6b {name}, batch {BATCH}, seq {seq}",
+                             sampler.programs, call, call)
+            for name, call in calls.items()}
+
+
+def _slot_states(engine, slots: int, cache_slots: int, copies: int = 2) -> list:
+    """Fresh slot states of one shape (paged: each row on its own pages)."""
+    states = []
+    for _ in range(copies):
+        state = engine.init_slot_state(slots, cache_slots)
+        if engine.paged:
+            blocks = cache_slots // engine.page_size
+            table = (np.arange(slots * blocks) + 1).reshape(slots, blocks).astype(np.int32)
+            state = engine.with_block_table(state, table)
+        states.append(state)
+    return states
+
+
+def decode_programs(dev, counters, engine, label: str, slots: int, cache_slots: int,
+                    prefill: int, sampled: bool) -> dict:
+    """Phase 15 on a served ``DecodeEngine``: ``prefill_slots`` of ``prefill``
+    columns (positions reset to 0 before each call), then ``step_slots``
+    greedy and (``sampled``) with per-row sampling, graphed on one slot state
+    and eager on a second of the same shape: tokens and every state leaf
+    equal to the bit after each pair. Then one graphed greedy step under
+    torch.profiler: its device-busy share."""
+    from repro_torch.serving.engine import SlotSampling
+
+    states = _slot_states(engine, slots, cache_slots)
+    rng = np.random.default_rng(15)
+    prompt = rng.integers(0, engine.cfg.vocab, size=(slots, max(prefill, 1))).astype(np.int32)
+    active = np.ones(slots, bool)
+    rows = {}
+    if prefill:
+        def prefill_on(state):
+            def call():
+                state.index.zero_()
+                engine.prefill_slots(prompt, np.full(slots, prefill, np.int32), state, active)
+                return tuple(state)
+            return call
+        rows[f"{label} prefill_slots C={prefill}"] = graph_case(
+            dev, counters, f"{label} prefill_slots C={prefill}, {slots} slots",
+            engine.programs, prefill_on(states[0]), prefill_on(states[1]))
+    feeds, steps = [prompt[:, -1].copy(), prompt[:, -1].copy()], [0, 0]
+    sampling = SlotSampling(seeds=np.arange(slots, dtype=np.uint64) + 15,
+                            counts=np.zeros(slots, np.int32),
+                            temps=np.where(np.arange(slots) % 2, 0.8, 0.0).astype(np.float32),
+                            top_ks=np.where(np.arange(slots) % 3, 50, 0).astype(np.int32),
+                            top_ps=np.full(slots, 0.9, np.float32))
+
+    def step_on(i, sample: bool):
+        def call():
+            samp = (sampling._replace(counts=np.full(slots, steps[i], np.int32))
+                    if sample else None)
+            toks, _ = engine.step_slots(feeds[i], states[i], active, sampling=samp)
+            feeds[i], steps[i] = np.asarray(toks), steps[i] + 1
+            return (toks,) + tuple(states[i])
+        return call
+
+    for sample in (False, True) if sampled else (False,):
+        name = f"{label} step_slots {'sampled' if sample else 'greedy'}"
+        rows[name] = graph_case(dev, counters, f"{name}, {slots} slots", engine.programs,
+                                step_on(0, sample), step_on(1, sample))
+    busy = busy_share(dev, step_on(0, False))
+    greedy = rows[f"{label} step_slots greedy"]
+    if busy["busy_ms"] is None:
+        share = "not measured (the profiler saw no device kernel)"
+    else:
+        busy["busy_share_of_median"] = busy["busy_ms"] / greedy["graphed_ms"]
+        share = (f"{busy['busy_ms']:.3f} ms of device time in {busy['kernels']} kernels: "
+                 f"{100 * busy['busy_share']:.1f}% of the profiled call, "
+                 f"{100 * busy['busy_share_of_median']:.1f}% of the median graphed call "
+                 f"({greedy['graphed_ms']:.3f} ms, unprofiled)")
+    print(f"phase 15 [{label} one graphed greedy step under torch.profiler]: "
+          f"{busy['wall_ms']:.3f} ms, card busy {share}")
+    greedy["profiled"] = busy
+    return rows
+
+
+def workspace_growth(dev, counters, engine) -> dict:
+    """Phase 15: a paged decode step captured at a small shape (2 slots of 16
+    pages), then one at a larger shape (2 slots of 64 pages) that grows the
+    paged kernel's merge workspace, then the first program replayed: equal
+    to the bit to the same step run eagerly. Starts from a fresh plan state
+    for the device (the earlier phases' buffers kept alive beside it), so
+    the growth happens here whatever shapes ran before."""
+    from repro_torch.kernels.flash_attention import paged_attention as pa
+    from repro_torch.serving import programs
+
+    index = dev.index if dev.index is not None else torch.cuda.current_device()
+    old = pa._DEVICES.get(index)
+    fresh = pa._DEVICES[index] = pa._Device(index)
+    if old is not None:
+        fresh.retired += [(old.workspace, old.counters)] + old.retired
+    small = _slot_states(engine, 2, 16 * engine.page_size)
+    large = _slot_states(engine, 2, 64 * engine.page_size, copies=1)[0]
+    feed, active = np.array([1, 2], np.int32), np.ones(2, bool)
+    engine.step_slots(feed, small[0], active)              # captures the small program
+    with programs.disabled():
+        engine.step_slots(feed, small[1], active)
+    first = fresh.workspace.data_ptr()
+    engine.step_slots(feed, large, active)                 # captures at the larger shape
+    grew = fresh.workspace.data_ptr() != first
+    row = graph_case(dev, counters, "yi-6b step_slots at 2 x 16 pages after the workspace grew",
+                     engine.programs,
+                     lambda: (engine.step_slots(feed, small[0], active)[0],) + tuple(small[0]),
+                     lambda: (engine.step_slots(feed, small[1], active)[0],) + tuple(small[1]))
+    print(f"phase 15 [paged workspace]: grew after the first capture: {grew} "
+          f"({len(fresh.retired)} buffers kept alive)")
+    if not grew:
+        raise SystemExit("phase 15: the paged workspace did not grow after the first capture")
+    return {"grew": grew, **row}
+
 
 
 def main() -> int:
@@ -2028,6 +2361,9 @@ def main() -> int:
                 if key in r:
                     t = "not measured" if r[key] is None else f"{r[key]:.4f} ms"
                     extra += f", {what} device time {t}"
+            if "graphed_ms" in r:
+                extra += (f", graphed {r['graphed_ms']:.4f} ms a launch (100 launches "
+                          f"replayed from one CUDA graph)")
             print(f"{name} [{r['shape']}]: err {r['max_abs_err']:.3e}, "
                   f"kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, "
                   f"library {lib}, bound {r['bound_ms']:.4f} ms ({r['bound_by']}){extra}")
@@ -2037,9 +2373,11 @@ def main() -> int:
                 "ns_update_bwd": nu.BWD_COUNTER, "flash_attention_bwd": fa.BWD_COUNTER}
     zero = dict.fromkeys(KERNELS, 0)
     flows = NFE * REQUESTS
+    graphs, phase_s = {}, {}
+    t0 = time.perf_counter()
     launches = flow_path(dev, counters, "yi-6b", {**zero, "ns_update": flows,
-                                                  "flash_attention": LAYERS * flows})
-    phase_s = {}
+                                                  "flash_attention": LAYERS * flows}, graphs)
+    phase_s["4+15"] = time.perf_counter() - t0
     t0 = time.perf_counter()
     baselines = baselines_served(dev, counters, card)
     phase_s["4b"] = time.perf_counter() - t0
@@ -2049,19 +2387,26 @@ def main() -> int:
     t0 = time.perf_counter()
     baselines_cpu = baselines_against_cpu(dev, counters, cfg, params)
     phase_s["5b"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
     launches["paged_attention"] = decode_path(
-        dev, counters, DECODE_ARGS, {"paged_attention": LAYERS})["paged_attention"]
+        dev, counters, DECODE_ARGS, {"paged_attention": LAYERS}, graphs,
+        prefill=64, sampled=True, growth=True)["paged_attention"]
+    phase_s["6+15"] = time.perf_counter() - t0
     long_step = long_row_decode_step(dev, counters)
     decode_against_cpu(dev, counters, cfg, params,
                        dict(page_size=16, paged_kernel=True), {"paged_attention": 2})
     del cfg, params
+    t0 = time.perf_counter()
     launches["gla_scan"] = flow_path(
         dev, counters, "rwkv6-7b",
-        {**zero, "ns_update": flows, "gla_scan": LAYERS * flows})["gla_scan"]
+        {**zero, "ns_update": flows, "gla_scan": LAYERS * flows}, graphs)["gla_scan"]
+    phase_s["8+15"] = time.perf_counter() - t0
     cfg, params = small_model("rwkv6-7b")
     whole_path_against_cpu(dev, counters, cfg, params,
                            {**zero, "ns_update": 4, "gla_scan": 2 * 4})
-    decode_path(dev, counters, RWKV_DECODE_ARGS, {})
+    t0 = time.perf_counter()
+    decode_path(dev, counters, RWKV_DECODE_ARGS, {}, graphs)
+    phase_s["10+15"] = time.perf_counter() - t0
     decode_against_cpu(dev, counters, cfg, params, {}, {})
     del cfg, params
     t0 = time.perf_counter()
@@ -2090,8 +2435,12 @@ def main() -> int:
     phase_s["13c"] = time.perf_counter() - t0
     del cfg, params
     t0 = time.perf_counter()
-    gw_runs = gateways(dev, counters, card)
-    phase_s["14"] = time.perf_counter() - t0
+    gw_runs = gateways(dev, counters, card, graphs)
+    phase_s["14+15"] = time.perf_counter() - t0
+    graph_kinds = {k for k in graphs if "workspace" not in k}
+    print("phase 15 summary (" + card + "): " + "; ".join(
+        f"{k}: graphed {v['graphed_ms']:.3f} / eager {v['eager_ms']:.3f} ms, capture "
+        f"{v['capture_ms']:.1f} ms" for k, v in graphs.items() if k in graph_kinds))
     print("phase wall s: " + ", ".join(f"{k} {v:.1f}" for k, v in phase_s.items()))
     new_phases = {
         "12b": {"what": "artifact reload, 2 requests", "request_ms": reload["request_ms"]},
@@ -2162,6 +2511,7 @@ def main() -> int:
             kernels[-1]["phases"] = {k: {**v, "launches": runs[k]["launches"][name]}
                                      for k, v in new_phases.items()}
     print(f"chip_smoke wall {time.perf_counter() - T_START:.1f} s")
+    print("phase 15 json: " + json.dumps(graphs))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

@@ -17,6 +17,7 @@ import os
 import shutil
 import subprocess
 import time
+import weakref
 from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
@@ -103,12 +104,20 @@ def check(lib: ctypes.CDLL, err: int, what: str) -> None:
         raise RuntimeError(f"{what}: CUDA error {err} at launch ({msg})")
 
 
+# every live LaunchCounter: ``serving.programs`` records what a capture
+# launched on each and adds it back at every replay of the graph
+COUNTERS: "weakref.WeakSet[LaunchCounter]" = weakref.WeakSet()
+
+
 class LaunchCounter:
-    """How many times a kernel's wrapper launched it (a plain integer)."""
+    """How many times a kernel's wrapper launched it (a plain integer). A
+    replayed CUDA graph adds the launches it recorded at capture
+    (``serving.programs``), so the count is the same graphed or eager."""
 
     def __init__(self, name: str):
         self.name = name
         self.launches = 0
+        COUNTERS.add(self)
 
     def reset(self) -> None:
         self.launches = 0

@@ -43,13 +43,19 @@ def split_plan(B: int, KV: int, nb: int, ps: int, num_sms: int) -> tuple[int, in
 class _Device:
     """What the launches on one device keep: its SM count, the merge's f32
     workspace and int32 arrival counters (grown when a call needs more; the
-    kernel leaves the counters at 0), and the plan of each shape seen."""
+    kernel leaves the counters at 0), and the plan of each shape seen.
+
+    A grown workspace does not free the one it replaces: a CUDA graph
+    captured earlier (``serving.programs``) holds the old pointers and reads
+    them at every replay, so every buffer a plan ever handed out lives as
+    long as this object."""
 
     def __init__(self, index: int):
         device = torch.device("cuda", index)
         self.num_sms = torch.cuda.get_device_properties(device).multi_processor_count
         self.workspace = torch.empty(0, dtype=torch.float32, device=device)
         self.counters = torch.zeros(0, dtype=torch.int32, device=device)
+        self.retired: list[tuple[torch.Tensor, torch.Tensor]] = []
         self.plans: dict[tuple, tuple] = {}
 
     def plan(self, B: int, KV: int, G: int, hd: int, nb: int, ps: int) -> tuple:
@@ -64,11 +70,13 @@ class _Device:
                 floats, rows = B * KV * splits * G * (hd + 2), B * KV
                 if self.workspace.numel() < floats or self.counters.numel() < rows:
                     device = self.workspace.device
+                    self.retired.append((self.workspace, self.counters))
                     self.workspace = torch.empty(max(floats, self.workspace.numel()),
                                                  dtype=torch.float32, device=device)
                     self.counters = torch.zeros(max(rows, self.counters.numel()),
                                                 dtype=torch.int32, device=device)
-                    self.plans.clear()          # their pointers are stale now
+                    # new shapes take the new buffers; earlier plans (and the
+                    # graphs that captured them) keep their own
                 ws, cnt = self.workspace.data_ptr(), self.counters.data_ptr()
             got = self.plans[key] = (pps, ws, cnt)
         return got

@@ -199,12 +199,14 @@ class GreedyDecoded:
 @dataclasses.dataclass
 class DecodeServed:
     """What the decode gateway served: one response per request (None where
-    admission rejected or the deadline shed it) and its final snapshots."""
+    admission rejected or the deadline shed it), its final snapshots, and the
+    engine that served them."""
 
     responses: list
     stats: dict               # DecodeGateway.stats()
     metrics: dict             # DecodeGateway.metrics_snapshot()
     wall_s: float             # submit of the first request to the end of drain
+    engine: object = None
 
 
 @dataclasses.dataclass
@@ -544,6 +546,7 @@ def serve_flow(args, device: torch.device) -> FlowServed:
         result.zoo, result.artifact, result.sampler = zoo.stats, artifact, sampler
         print(f"zoo stats: hits={zoo.stats.hits} misses={zoo.stats.misses} "
               f"loads={zoo.stats.loads} distills={zoo.stats.distills}")
+        _print_programs(sampler)
         return result
     warned: set = set()
     for req in range(args.requests):
@@ -563,7 +566,18 @@ def serve_flow(args, device: torch.device) -> FlowServed:
     served.zoo = zoo.stats
     print(f"zoo stats: hits={served.zoo.hits} misses={served.zoo.misses} "
           f"loads={served.zoo.loads} distills={served.zoo.distills}")
+    _print_programs(sampler)
     return served
+
+
+def _print_programs(engine) -> None:
+    """The closing line: the programs the engine captured (CUDA graphs, one
+    a key; none on the CPU, which runs eagerly) and how often they replayed."""
+    cache = engine.programs
+    s = cache.stats()
+    print(f"programs captured: {s['programs']}, replays {s['replays']}, capture "
+          f"{s['capture_ms']:.1f} ms" + ("" if cache.active else
+                                         f" (eager on {cache.device.type})"))
 
 
 def _start_telemetry(args, gw, prefix: str) -> list:
@@ -686,11 +700,14 @@ def serve_decode(args, device: torch.device):
     engine = DecodeEngine(params=params, cfg=cfg, window=args.window,
                           page_size=args.page_size, paged_kernel=args.paged_kernel)
     if args.gateway:
-        return _serve_decode_gateway(args, engine, cfg)
-    tokens, dt = greedy_demo(engine, args.batch, args.steps, args.slots)
-    print(f"decoded {args.steps} tokens x {args.batch} seqs ({dt:.1f} ms/token); "
-          f"first row: {tokens[0, :8].tolist()}")
-    return GreedyDecoded(tokens=tokens, ms_per_token=dt)
+        served = _serve_decode_gateway(args, engine, cfg)
+    else:
+        tokens, dt = greedy_demo(engine, args.batch, args.steps, args.slots)
+        print(f"decoded {args.steps} tokens x {args.batch} seqs ({dt:.1f} ms/token); "
+              f"first row: {tokens[0, :8].tolist()}")
+        served = GreedyDecoded(tokens=tokens, ms_per_token=dt)
+    _print_programs(engine)
+    return served
 
 
 def _serve_decode_gateway(args, engine: DecodeEngine, cfg) -> DecodeServed:
@@ -749,7 +766,7 @@ def _serve_decode_gateway(args, engine: DecodeEngine, cfg) -> DecodeServed:
     print(format_stats_line(stats, prefix="decode gateway stats"))
     _finish_telemetry(args, gw)
     return DecodeServed(responses=responses, stats=stats,
-                        metrics=gw.metrics_snapshot(), wall_s=wall)
+                        metrics=gw.metrics_snapshot(), wall_s=wall, engine=engine)
 
 
 def _sync(device: torch.device) -> None:

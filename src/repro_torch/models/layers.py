@@ -57,7 +57,8 @@ def timestep_embedding(t, dim: int, max_period: float = 10_000.0, *,
     """Sinusoidal flow-time embedding; t scalar or (batch,). Returns (1 or batch, dim)."""
     t = torch.atleast_1d(torch.as_tensor(t, dtype=torch.float32, device=device))
     half = dim // 2
-    log_period = torch.log(torch.tensor(max_period, dtype=torch.float32, device=t.device))
+    # a fill on the device, not a host-to-device copy (which a CUDA graph cannot capture)
+    log_period = torch.log(torch.full((), max_period, dtype=torch.float32, device=t.device))
     freqs = torch.exp(-log_period * torch.arange(half, dtype=torch.float32,
                                                  device=t.device) / half)
     ang = t[..., None] * freqs * 1000.0

@@ -211,8 +211,8 @@ def decode_step(params: dict, cfg: ModelConfig, token: Tensor, state: RWKVState,
 
     ``state`` is updated IN PLACE: ``shift_tm``, ``shift_cm`` and ``wkv`` in
     the rows where ``active`` (B,) bool is True (all rows when None); the
-    other rows keep every bit. The returned state carries the advanced index
-    (only the active rows' when ``active`` is given)."""
+    other rows keep every bit. The index advances in place too (only the
+    active rows' when ``active`` is given), and ``state`` is returned."""
     h = params["embed"][token.long()]                                # (B, d)
     keep = None if active is None else active.to(torch.bool)
 
@@ -238,4 +238,5 @@ def decode_step(params: dict, cfg: ModelConfig, token: Tensor, state: RWKVState,
     index = state.index + 1
     if keep is not None:
         index = torch.where(keep, index, state.index)
-    return logits, state._replace(index=index)
+    state.index.copy_(index)
+    return logits, state

@@ -234,7 +234,8 @@ def decode_step(params: dict, cfg: ModelConfig, token: Tensor, caches, *,
     """One-token decode: token (B,) -> (logits (B, V), caches).
 
     ``caches`` is a dense ``KVCache`` or a ``PagedKVCache``, updated IN PLACE
-    (see ``models.attention``) and returned with the advanced index.
+    (see ``models.attention``), its index tensor too, and returned (a CUDA
+    graph of the step holds every leaf by address).
     ``active`` (B,) bool picks the rows the step advances (None: all): the
     other rows keep their position and, in a dense cache, every bit of their
     cache rows. A paged pool is written unconditionally, as the reference's
@@ -269,7 +270,8 @@ def decode_step(params: dict, cfg: ModelConfig, token: Tensor, caches, *,
         index = torch.where(active, index, pos)
     elif caches.index.dim() == 0:
         index = caches.index + 1
-    return logits, caches._replace(index=index)
+    caches.index.copy_(index)
+    return logits, caches
 
 
 # ---------------------------------------------------------------------------

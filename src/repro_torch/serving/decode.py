@@ -41,7 +41,10 @@ past their prompt. A 100-token prompt therefore costs ~``100/chunk`` engine
 invocations instead of 100 decode-step ticks, and sequences mid-generation
 keep emitting every tick while long prompts stream in beside them. Chunk
 widths are bucketed to powers of two, so a serving session runs at most
-``log2(prefill_chunk)`` distinct prefill shapes. ``prefill_chunk=0`` restores the
+``log2(prefill_chunk)`` distinct prefill shapes: on the card, one captured
+CUDA graph each beside the step's (``serving.programs``), captured inside
+``pump``'s ``_plan_lock`` like every engine call, so no other thread of the
+gateway launches work during a capture. ``prefill_chunk=0`` restores the
 legacy token-by-token teacher-forced feed (the decode benchmark's
 comparison baseline). The prefill scan body is the same ``decode_apply``
 as ``step_slots``, so generated tokens are bit-identical either way.

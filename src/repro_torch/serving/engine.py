@@ -15,9 +15,15 @@ once a budget and kept): exactly m backbone forwards. An m not served goes
 to the nearest served budget (ties to the cheaper), or raises under
 ``strict``. ``sample_all`` runs the one shared trajectory to the top budget
 and returns every exit; ``carry_start``/``carry_extend`` advance it leg by
-leg (``serving.continuous.ContinuousGateway``'s surface). Where the
-reference compiles one jit program a budget or leg, the port runs eagerly
-under ``torch.no_grad()`` on the params' device (CUDA graphs: item 6).
+leg (``serving.continuous.ContinuousGateway``'s surface).
+
+Program caches: where the reference compiles one jit program a budget, a
+leg, a decode step or a prefill width, each engine here keeps a
+``serving.programs.ProgramCache``: on the card every program is captured
+once per key as a CUDA graph and replayed (``programs.disabled()`` runs
+eagerly, as ``jax.disable_jit`` does); on the CPU the engines run eagerly.
+Noise, Gumbel draws and host-to-device copies happen before a replay, the
+tokens' copy to the host after it.
 
 ``DecodeEngine`` — batched autoregressive decode over a KV cache (the ssm
 family: its recurrent state, where ``page_size`` is a no-op): ``greedy``
@@ -43,6 +49,7 @@ from repro_torch.core import ns_solver
 from repro_torch.core.ns_solver import NSParams
 from repro_torch.core.schedulers import Scheduler
 from repro_torch.models import model as M
+from repro_torch.serving.programs import ProgramCache
 
 Tensor = torch.Tensor
 
@@ -81,6 +88,7 @@ class FlowSampler:
     def __post_init__(self):
         self.device = self.params["final_norm"].device
         self.solver = self.solver.to(self.device)
+        self.programs = ProgramCache(self.device)
 
     @classmethod
     def from_artifact(cls, artifact, *, params: dict, cfg: ModelConfig,
@@ -101,12 +109,17 @@ class FlowSampler:
                    cfg_scale=artifact.spec.cfg_scale)
 
     def _sample(self, batch: Optional[dict], x0: Tensor) -> Tensor:
-        if batch is not None:
-            batch = {k: v.to(self.device) for k, v in batch.items()}
-        field = M.velocity_field(self.params, self.cfg, self.sched, batch,
-                                 cfg_scale=self.cfg_scale)
+        """One program per (budget, x0's shape, conditioning or not): the
+        reference's jitted ``_sample``. The graph reads the solver's
+        tensors where they lie, so their addresses are part of the key."""
+        solver = self.solver
+
+        def run(x0, tokens):
+            return ns_solver.ns_sample(solver, _field(self, tokens).fn, x0)
+
+        key = ("sample", solver.n, self.cfg_scale, tuple(p.data_ptr() for p in solver))
         with torch.no_grad():
-            return ns_solver.ns_sample(self.solver, field.fn, x0)
+            return self.programs(key, run, (x0, _tokens(batch, self.device)))
 
     # -- budget protocol: a fixed-NFE session serves exactly one budget. ----
 
@@ -162,6 +175,7 @@ class AnytimeFlowSampler:
         self.device = self.params["final_norm"].device
         self.anytime = anytime_mod.AnytimeParams(*(p.to(self.device) for p in self.anytime))
         self._per_budget: dict[int, NSParams] = {}
+        self.programs = ProgramCache(self.device)
 
     @classmethod
     def from_artifact(cls, artifact, *, params: dict, cfg: ModelConfig,
@@ -173,11 +187,10 @@ class AnytimeFlowSampler:
         return cls(params=params, cfg=cfg, sched=sched, anytime=artifact.params,
                    budgets=artifact.budgets, cfg_scale=artifact.spec.cfg_scale)
 
-    def _field(self, batch: Optional[dict]):
-        if batch is not None:
-            batch = {k: v.to(self.device) for k, v in batch.items()}
-        return M.velocity_field(self.params, self.cfg, self.sched, batch,
-                                cfg_scale=self.cfg_scale)
+    def _key(self, *static) -> tuple:
+        """A program key: ``static`` plus what every program here depends
+        on (the CFG scale, the anytime solver's tensors by address)."""
+        return static + (self.cfg_scale, tuple(p.data_ptr() for p in self.anytime))
 
     def _noise(self, batch: dict, generator: torch.Generator) -> Tensor:
         B, S = batch["tokens"].shape
@@ -202,9 +215,13 @@ class AnytimeFlowSampler:
     def sample_from(self, batch: Optional[dict], x0, budget: int) -> Tensor:
         """Integrate given noise ``x0`` at exactly ``budget`` NFE."""
         ns = self.ns_at_budget(budget)
-        x0 = self._x0(x0)
+
+        def run(x0, tokens):
+            return ns_solver.ns_sample(ns, _field(self, tokens).fn, x0)
+
         with torch.no_grad():
-            return ns_solver.ns_sample(ns, self._field(batch).fn, x0)
+            return self.programs(self._key("budget", budget), run,
+                                 (self._x0(x0), _tokens(batch, self.device)))
 
     def sample(self, batch: dict, generator: torch.Generator, budget: int,
                strict: bool = False) -> Tensor:
@@ -216,10 +233,13 @@ class AnytimeFlowSampler:
     def sample_all_from(self, batch: Optional[dict], x0) -> dict[int, Tensor]:
         """One shared trajectory from ``x0``; every budget's output, at
         max(budgets) forwards in all."""
-        x0 = self._x0(x0)
-        with torch.no_grad():
+        def run(x0, tokens):
             return anytime_mod.anytime_sample(self.anytime, self.budgets,
-                                              self._field(batch).fn, x0)
+                                              _field(self, tokens).fn, x0)
+
+        with torch.no_grad():
+            return self.programs(self._key("all"), run,
+                                 (self._x0(x0), _tokens(batch, self.device)))
 
     def sample_all(self, batch: dict, generator: torch.Generator) -> dict[int, Tensor]:
         return self.sample_all_from(batch, self._noise(batch, generator))
@@ -236,14 +256,42 @@ class AnytimeFlowSampler:
         the early-exit outputs crossed on the way, at exactly
         ``stop - carry.step`` backbone forwards. Row i of ``exits[k]`` is the
         sample a budget-k request with row i's noise gets from
-        ``sample_from`` (the join invariant of ``anytime_extend``)."""
+        ``sample_from`` (the join invariant of ``anytime_extend``).
+
+        One program per (start, stop, shapes): the carry's x0, U and x go in
+        as inputs; the new U and x and every exit come out as copies, so a
+        caller may keep (or clone) them across later legs."""
+        start = carry.step
+
+        def run(x0, U, x, tokens):
+            new, outs = anytime_mod.anytime_extend(
+                self.anytime, self.budgets, _field(self, tokens).fn,
+                anytime_mod.AnytimeCarry(x0=x0, U=U, x=x, step=start), stop)
+            return new.U, new.x, outs
+
         with torch.no_grad():
-            return anytime_mod.anytime_extend(self.anytime, self.budgets,
-                                              self._field(batch).fn, carry, stop)
+            U, x, outs = self.programs(self._key("leg", start, stop), run,
+                                       (carry.x0, carry.U, carry.x,
+                                        _tokens(batch, self.device)))
+        return anytime_mod.AnytimeCarry(x0=carry.x0, U=U, x=x, step=stop), outs
 
     def nearest_tokens(self, latents: Tensor) -> Tensor:
         """Decode sampled latents to tokens by nearest latent embedding."""
         return nearest_latent_tokens(self.params, latents)
+
+
+def _tokens(batch: Optional[dict], device) -> Optional[Tensor]:
+    """The conditioning tokens on ``device`` (None: unconditional); the
+    backbone reads nothing else of a batch."""
+    tokens = None if batch is None else batch.get("tokens")
+    return None if tokens is None else torch.as_tensor(tokens).to(device)
+
+
+def _field(sampler, tokens: Optional[Tensor]):
+    """The sampler's velocity field conditioned on ``tokens``."""
+    batch = None if tokens is None else {"tokens": tokens}
+    return M.velocity_field(sampler.params, sampler.cfg, sampler.sched, batch,
+                            cfg_scale=sampler.cfg_scale)
 
 
 # ---------------------------------------------------------------------------
@@ -346,8 +394,9 @@ class DecodeEngine:
     """Batched autoregressive decode over a KV cache, on ``params``' device.
 
     * ``greedy(prompt, state, num_steps)`` — run-to-completion batched greedy
-      decode, one ``decode_apply`` per token (the reference's ``lax.scan``
-      becomes a Python loop).
+      decode, one ``decode_apply`` per token: the reference's ``lax.scan``
+      becomes ``num_steps`` replays of the one-step program that ``step``
+      also runs.
     * slot serving — ``init_slot_state`` builds a fixed-slot state whose rows
       are INDEPENDENT sequences at their own positions (per-row ``index``);
       ``step_slots`` advances only the rows of the active mask;
@@ -357,7 +406,13 @@ class DecodeEngine:
       cache only in the advanced rows (the others keep every bit), a paged
       pool unconditionally, as the reference's is (page ownership and the
       trash page 0 isolate rows; ``reset_slots`` leaves the pool alone and
-      zeroes the row's block table).
+      zeroes the row's block table). Every leaf keeps its tensor, the
+      positions and ``with_block_table``'s table included, so the programs
+      captured over a state (keyed by its leaves' addresses) stay valid.
+
+    Programs (``serving.programs``): one a (slots, state) for ``step_slots``
+    greedy and one sampled, one a (width, slots, state) for
+    ``prefill_slots``, one a (batch, state) for ``step`` and ``greedy``.
 
     ``page_size > 0`` pages the cache; ``paged_kernel`` routes paged
     attention through the CUDA kernel (its plain version on the CPU).
@@ -385,6 +440,7 @@ class DecodeEngine:
                     "ssm accepted as a no-op)")
         self.device = self.params["final_norm"].device
         self._axes = M.decode_state_batch_axes(self.cfg, paged=self.paged)
+        self.programs = ProgramCache(self.device)
 
     @property
     def paged(self) -> bool:
@@ -407,21 +463,28 @@ class DecodeEngine:
     def init_state(self, batch: int, slots: int, dtype=torch.float32):
         return M.init_decode_state(self.cfg, batch, slots, dtype, self.device)
 
+    def _one_step(self, token: Tensor, state) -> tuple[Tensor, Tensor]:
+        """(logits, greedy next token) of one step, through the program of
+        ``step`` and ``greedy``."""
+        def run(token):
+            logits, _ = self._apply(token, state)
+            return logits, torch.argmax(logits, dim=-1).to(torch.int32)
+
+        with torch.no_grad():
+            return self.programs(("step",), run, (token,), tuple(state))
+
     def step(self, token, state):
         """One batched decode step: token (B,) -> (logits (B, V), state)."""
-        with torch.no_grad():
-            return self._apply(self._on_device(token), state)
+        return self._one_step(self._on_device(token), state)[0], state
 
     def greedy(self, prompt, state, num_steps: int):
         """prompt: (B,) last prompt token. Returns ((B, num_steps) int32
         tokens on the device, state)."""
         token = self._on_device(prompt)
         out = []
-        with torch.no_grad():
-            for _ in range(num_steps):
-                logits, state = self._apply(token, state)
-                token = torch.argmax(logits, dim=-1).to(torch.int32)
-                out.append(token)
+        for _ in range(num_steps):
+            token = self._one_step(token, state)[1]
+            out.append(token)
         return torch.stack(out, dim=1), state
 
     # -- slot serving (decode-side continuous batching) ----------------------
@@ -459,19 +522,26 @@ class DecodeEngine:
         state): greedy argmax, or per-row draws when ``sampling`` is given
         (temperature-0 rows stay exact greedy). Bringing the tokens to the
         host waits for the step, so a caller's clock around the call
-        covers the device work."""
+        covers the device work. The Gumbel noise is drawn before the
+        program runs; only the filter and the draw run inside it."""
+        inputs = (self._on_device(token), self._on_device(active, torch.bool))
+        if sampling is None:
+            def run(token, active):
+                logits, _ = self._apply(token, state, active)
+                return torch.argmax(logits, dim=-1).to(torch.int32)
+        else:
+            inputs += (gumbel_noise(sampling.seeds, sampling.counts, sampling.temps,
+                                    self.cfg.vocab, self.device),
+                       self._on_device(sampling.temps, torch.float32),
+                       self._on_device(sampling.top_ks, torch.int64),
+                       self._on_device(sampling.top_ps, torch.float32))
+
+            def run(token, active, noise, temps, top_ks, top_ps):
+                logits, _ = self._apply(token, state, active)
+                return sample_tokens(logits, noise, temps, top_ks, top_ps)
         with torch.no_grad():
-            logits, state = self._apply(self._on_device(token),
-                                        state, self._on_device(active, torch.bool))
-            if sampling is None:
-                toks = torch.argmax(logits, dim=-1).to(torch.int32)
-            else:
-                noise = gumbel_noise(sampling.seeds, sampling.counts, sampling.temps,
-                                     logits.shape[-1], self.device)
-                toks = sample_tokens(logits, noise,
-                                     self._on_device(sampling.temps, torch.float32),
-                                     self._on_device(sampling.top_ks, torch.int64),
-                                     self._on_device(sampling.top_ps, torch.float32))
+            toks = self.programs(("step_slots", sampling is not None), run, inputs,
+                                 tuple(state))
         return toks.cpu(), state
 
     def prefill_slots(self, tokens, lengths, state, mask):
@@ -479,17 +549,22 @@ class DecodeEngine:
         into the rows where ``mask`` is True, row i consuming its first
         ``lengths[i]`` columns (the rest are padding): one ``decode_apply``
         per column, the rows with ``mask & (column < length)`` advancing, as
-        the reference's scan body does. Logits are discarded. On the card the
+        the reference's scan body does. Logits are discarded. The (C, slots)
+        column masks are made on the host and copied once. On the card the
         call waits for its work before returning, so the caller's clock
         around it covers the device time."""
         tokens = np.asarray(tokens)
         lengths = np.asarray(lengths)
-        mask = np.asarray(mask, bool)
-        tok = self._on_device(tokens)
+        cols = np.asarray(mask, bool)[None, :] & (np.arange(tokens.shape[1])[:, None]
+                                                  < lengths[None, :])
+
+        def run(tok, cols):
+            for t in range(tok.shape[1]):
+                self._apply(tok[:, t], state, cols[t])
+
         with torch.no_grad():
-            for t in range(tokens.shape[1]):
-                _, state = self._apply(tok[:, t], state,
-                                       self._on_device(mask & (t < lengths)))
+            self.programs(("prefill",), run,
+                          (self._on_device(tokens), self._on_device(cols)), tuple(state))
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
         return state
@@ -508,9 +583,14 @@ class DecodeEngine:
         return state
 
     def with_block_table(self, state, table):
-        """Swap in the gateway allocator's host-side block table (paged
-        engines only): (slots, blocks_per_slot) page ids."""
-        return state._replace(block_table=self._on_device(table, torch.int32))
+        """Copy the gateway allocator's host-side block table (paged engines
+        only), (slots, blocks_per_slot) page ids, into the state's own."""
+        table = torch.as_tensor(np.asarray(table), dtype=torch.int32)
+        if table.shape != state.block_table.shape:
+            raise ValueError(f"block table of shape {tuple(table.shape)}, the state's "
+                             f"is {tuple(state.block_table.shape)}")
+        state.block_table.copy_(table)
+        return state
 
 
 def greedy_demo(engine: DecodeEngine, batch: int, steps: int, cache_slots: int,

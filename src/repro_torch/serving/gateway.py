@@ -45,7 +45,10 @@ card's work, not only the launches). ``Response.latents`` is a host numpy
 row, as in the reference. One dispatch runs at a time (``_exec_lock``):
 where the reference lets a draining thread dispatch beside the serve
 thread, two torch threads would interleave their launches on one stream,
-each window timing the other's work too.
+each window timing the other's work too. On the card the sampler replays
+one CUDA graph a dispatch key (``serving.programs``); a key's first
+dispatch captures it inside that lock, so no other thread launches work
+during a capture, and ``stats()`` reports the captures and replays.
 
 Continuous batching, preemption and shape tiers: ``serving.continuous``
 and ``serving.tiers``. Backbone sharding (``mesh=``) and fleet federation
@@ -71,6 +74,7 @@ import torch
 
 from repro_torch.observability import NULL_RECORDER, MetricsRegistry, profile_span
 from repro_torch.serving.engine import fold_in
+from repro_torch.serving.programs import ProgramCache
 from repro_torch.serving.slo import (
     AdmissionRejected,
     DeadlineExceeded,
@@ -485,8 +489,8 @@ METRIC_SCHEMA: tuple = (
      "deadline-carrying requests completed before their deadline"),
     ("queue_depth", "gauge", "entries waiting in the intake queue"),
     ("inflight", "gauge", "entries taken off the queue, unresolved"),
-    ("jit_programs", "gauge", "distinct jit programs dispatched "
-                              "(a climb in steady state = retracing)"),
+    ("jit_programs", "gauge", "programs the engine has captured as CUDA "
+                              "graphs (a climb in steady state = recapturing)"),
     ("tier_occupancy", "gauge",
      "native/padded position-row share of dispatched work, per shape "
      "tier (labelled tier=<shape>; the unlabelled base stays 0 — "
@@ -626,7 +630,6 @@ class GatewayBase:
         # handles is not atomic without it)
         self._stats_lock = self.metrics.lock
         self._inflight = 0   # entries off the queue, futures still unresolved
-        self._programs: set = set()   # distinct jit programs dispatched
         # lazy gauges: queue depth / in-flight already live on the
         # gateway; the registry reads them at snapshot time instead of
         # double-booking every transition
@@ -672,16 +675,23 @@ class GatewayBase:
                 goodput=m.goodput.value,
             )
 
+    def _program_cache(self):
+        """The ``serving.programs.ProgramCache`` of the engine behind this
+        gateway (a flow sampler's or the decode engine's), or None (toys)."""
+        engine = getattr(self, "sampler", None) or getattr(self, "engine", None)
+        cache = getattr(engine, "programs", None)
+        return cache if isinstance(cache, ProgramCache) else None
+
     def _note_program(self, program: str) -> None:
         """Per-dispatch program accounting (caller holds ``_stats_lock``):
-        one labelled ``dispatches`` tick, and the ``jit_programs`` gauge
-        (named as in the reference's schema) tracks the distinct dispatch
-        shapes seen: the flush gateway's ``b{budget}/k{bucket}`` batches,
-        the continuous gateway's ``leg/{start}-{stop}`` legs and join
-        prefixes. These are the shapes a program cache would be keyed by."""
-        if program not in self._programs:
-            self._programs.add(program)
-            self._m.jit_programs.set(len(self._programs))
+        one labelled ``dispatches`` tick per dispatch shape (the flush
+        gateway's ``b{budget}/k{bucket}`` batches, the continuous gateway's
+        ``leg/{start}-{stop}`` legs and join prefixes, the decode gateway's
+        steps and prefill widths), and the ``jit_programs`` gauge (named as in
+        the reference's schema) reads the programs the engine's cache has
+        captured: one a key, 0 where the engine runs eagerly (the CPU)."""
+        cache = self._program_cache()
+        self._m.jit_programs.set(0 if cache is None else len(cache))
         self.metrics.counter("dispatches",
                              "dispatches per compiled jit program",
                              labels={"program": program}).inc()
@@ -1036,8 +1046,13 @@ class GatewayBase:
         cut under the registry lock, so derived ratios are internally
         consistent — completed never exceeds submitted, the wait
         histogram count equals completed)."""
-        return stats_projection(self.metrics.snapshot(),
-                                self.clock() - self._started)
+        out = stats_projection(self.metrics.snapshot(), self.clock() - self._started)
+        cache = self._program_cache()
+        if cache is not None:
+            cs = cache.stats()
+            out.update(program_captures=cs["programs"], program_replays=cs["replays"],
+                       program_capture_ms=cs["capture_ms"])
+        return out
 
     def metrics_snapshot(self) -> dict:
         """Raw registry snapshot — the export surface (Prometheus/JSON).

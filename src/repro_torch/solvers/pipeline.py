@@ -1,9 +1,13 @@
 """Sampling pipeline — thin sessions around Algorithm 1.
 
 Port of ``repro.solvers.pipeline``. ``Sampler`` binds NS parameters to a
-velocity field; the reference wraps the call in ``jax.jit``, the port runs it
-eagerly under ``torch.no_grad()`` on x0's device (a per-budget program cache
-of CUDA graphs is ROADMAP Queue A item 6).
+velocity field; the reference wraps the call in ``jax.jit``. The port's
+compiled-program caches are the serving engines' CUDA graphs
+(``serving.programs``: ``FlowSampler`` and ``AnytimeFlowSampler`` capture
+one a budget, shape or leg); ``Sampler`` runs eagerly under
+``torch.no_grad()`` on x0's device, since its field may be any callable,
+such as the paper-claims twin's mixture field, whose host work a graph
+cannot capture.
 """
 from __future__ import annotations
 

@@ -547,12 +547,20 @@ def test_backbone_padded_batch_bit_identical(backbone):
         _bits(f.result(timeout=5).latents, alone[0])
 
 
-def test_backbone_bucket_reuses_one_dispatch_shape(backbone):
-    """Two same-bucket flushes are one (budget, bucket) dispatch shape: the
-    ``jit_programs`` gauge counts 1 and ``dispatches{program="b2/k4"}`` 2
-    (the reference counts one jit cache entry)."""
+def test_backbone_bucket_reuses_one_dispatch_shape(backbone, monkeypatch):
+    """Two same-bucket flushes are one (budget, bucket) program, captured
+    once and replayed once (the card's CUDA graph stood in for by
+    ``test_torch_programs.CPUGraph``): the ``jit_programs`` gauge counts 1
+    and ``dispatches{program="b2/k4"}`` 2, as the reference counts one jit
+    cache entry (``test_backbone_bucket_reuses_jit_program``)."""
+    from test_torch_programs import CPUGraph
+
+    from repro_torch.serving import programs
+
+    monkeypatch.setattr(programs, "_graph_double", CPUGraph)
     cfg, tok, make_sampler, _ = backbone
-    gw = Gateway(make_sampler(), max_batch=4, max_wait_ms=10.0, clock=FakeClock())
+    sampler = make_sampler()
+    gw = Gateway(sampler, max_batch=4, max_wait_ms=10.0, clock=FakeClock())
     for rnd in range(2):
         for i in range(3):
             gw.submit(Request(tokens=tok[i], budget=2, seed=rnd * 10 + i))
@@ -561,6 +569,7 @@ def test_backbone_bucket_reuses_one_dispatch_shape(backbone):
     snap = gw.metrics.snapshot()
     assert gw.stats()["jit_programs"] == 1
     assert snap['dispatches{program="b2/k4"}'] == 2
+    assert (len(sampler.programs), sampler.programs.replays) == (1, 1)
 
 
 def test_backbone_mixed_budget_end_to_end(backbone):
