@@ -43,7 +43,9 @@ Phases (any failure ends the run with a non-zero exit and no last line):
    kept pair and at the executed count (20 hd in bf16: S and dP in both
    passes, P and dS in two parts; 14 in f32), kernel / bound, and the device
    time of each pass (dq, dk/dv) from torch.profiler by kernel name; the
-   ns_update backward its device time at the flow cell.
+   ns_update backward its device time at the flow cell. Both backward
+   kernels at the flow cell are also timed a launch replayed from one CUDA
+   graph of 100 launches (the training programs' cost).
 4. Flow path: ``repro_torch.launch.serve.main`` with yi-6b at full width
    (32 layers, bf16, random weights from a seeded generator on the card),
    NFE 8, batch 4, sequence 1024, 3 requests. Launch counts must be exact.
@@ -105,7 +107,9 @@ Phases (any failure ends the run with a non-zero exit and no last line):
     solver's val PSNR, DISTILL_ITERS training iterations (each layer
     recomputed in the backward), the final validation, the artifact saved
     and reloaded (no launches), the requests with the reloaded solver. The
-    zoo must report distills=1. Launch counts must be exact. With R the RK45 evaluations of both
+    training runs as the card's default: one captured step and one captured
+    validation (``bns.TrainLoop``), replayed. The zoo must report
+    distills=1. Launch counts must be exact. With R the RK45 evaluations of both
     solves and K = DISTILL_ITERS: flash forward 32 (R + 8 + 8 + 2 * 8) for
     the no-grad calls plus 32 * 8 * 2 * K in training (every layer's forward
     and its recompute; the first velocity call of a step also differentiates,
@@ -151,13 +155,14 @@ Phases (any failure ends the run with a non-zero exit and no last line):
     ``identity_bst(8, "euler")`` (which samples as Euler does, so a lost
     gradient would pass the claim alone), the ``bst`` artifact saved and reloaded
     bit-equal and its ``ns_params`` refused with TypeError. Prints each
-    iteration's ms (``bns.fit``'s stamps) and the peak memory.
+    iteration's ms (``bns.fit``'s stamps: CUDA events between iterations,
+    the first holding the captures) and the peak memory.
 13. The gradient on the card against the CPU: yi-6b's width cut to 2 layers,
     f32, euler NFE 4, on shared pairs (numpy, seeded), each layer recomputed:
     _loss_fn and d loss / d(time_logits, a, b) at theta0, relative L2 <= 1e-4
     (phase 5's rule), with exactly 16 flash forward, 8 flash backward, 4 + 4
     ns_update launches; then theta after DISTILL_CHECK_STEPS train_solver
-    steps. Adam's first steps are ~lr sign(g) per component, so a component
+    steps (graphed on the card). Adam's first steps are ~lr sign(g) per component, so a component
     whose gradient is near 0 can step either way: components whose CPU
     gradient at theta0 is at least 1e-3 of its largest must agree to 1e-3 of
     the largest step (lr per step), the others to the most a flipped sign can
@@ -208,7 +213,8 @@ Phases (any failure ends the run with a non-zero exit and no last line):
 15. The serving engines' programs, graphed (``serving.programs``: on the
     card every engine call goes through a CUDA graph captured once per key,
     so phases 4, 4b, 6, 8, 10, 12, 12b, 12c's requests and 14 already ran
-    graphed; phases 7 and 11 record each step's logits on the host and run
+    graphed, as did the training of 12, 12c, 12d, 13, 13b and 13c (phase
+    16); phases 7 and 11 record each step's logits on the host and run
     eagerly) against the same call under ``programs.disabled()``, at full
     width, in the phases that hold each model's weights: yi-6b
     ``FlowSampler`` at budget 8, batch 4, seq 1024 (after phase 4); yi-6b
@@ -226,10 +232,26 @@ Phases (any failure ends the run with a non-zero exit and no last line):
     runs under torch.profiler for the card's busy share. Launch counts of
     every phase read the same graphed as eager: a capture launches nothing
     and a replay adds what its program recorded.
-16. The script's wall time, one JSON line listing the kernels (the
+16. The training programs, graphed against eager (``bns.TrainLoop``: on
+    the card one Algorithm-2 iteration is one CUDA graph, captured at the
+    first and replayed, and the validation another), at full width, in the
+    phases that hold the weights and the solved pairs (no new RK45 solve):
+    the BNS trainer at seq 1024, euler NFE 8 (after phase 12, on its
+    pairs), the anytime trainer at seq 256, budgets 4 and 8 (after 12c),
+    the BST-Euler trainer at seq 256, NFE 8 (in 12d). Each runs
+    TRAIN_GRAPH_ITERS iterations and one validation through a fresh loop
+    graphed, then from the same theta and full batches under
+    ``programs.disabled()``: theta, Adam's moments and step, every loss and
+    the val PSNR equal to the bit, launch counts equal. Prints ms an
+    iteration each way (host clock around an iteration and a sync; median
+    after the first, which graphed is the capture's warm-up), the capture
+    ms, the validation ms, the launches an iteration and, for the anytime
+    trainer, one more iteration each way, the graphed one under
+    torch.profiler (the card's busy share).
+17. The script's wall time, one JSON line listing the kernels (the
     ns_update and flash entries, forward and backward, with phases 4b, 5b,
-    12b, 12c, 12d, 13b, 13c, 14a, 14b and 14c's launches and ms beside the
-    main path's), then the last line.
+    12b, 12c, 12d, 13b, 13c, 14a, 14b, 14c and 16's launches and ms beside
+    the main path's), then the last line.
 """
 from __future__ import annotations
 
@@ -293,6 +315,7 @@ ANYTIME_REQUEST_BUDGETS = (4, 8, 16)
 BASELINES = ("ddim", "dpm2m", "edm_heun")                                    # phases 4b, 5b
 BASELINE_REQUESTS = 2                                                        # phase 4b
 BST_SEQ, BST_PAIRS, BST_ITERS = 256, 8, 4                                    # phase 12d
+TRAIN_GRAPH_ITERS = 4                                                        # phase 16
 BST_ARTIFACT = ROOT / "build" / "chip_smoke" / "bst_euler_nfe8.msgpack"
 VOCAB = {"yi-6b": 64000, "rwkv6-7b": 65536}
 # phase 14: flow gateways serving 12c's anytime artifact at full width
@@ -572,6 +595,8 @@ def ns_update_bwd_cases(dev):
         if not len(rows) > 2:
             rows[-1]["device_ms"] = device_ms(
                 lambda: ns_update_bwd(grad, x0, u, a, w, need_x0=need_x0), "ns_update_bwd")
+            rows[-1]["graphed_ms"] = graphed_ms(
+                lambda: ns_update_bwd(grad, x0, u, a, w, need_x0=need_x0))
     return rows
 
 
@@ -667,6 +692,9 @@ def flash_bwd_cases(dev):
             library_ms=time_ms(lambda: torch.autograd.grad(out, (qs, ks, vs), do,
                                                            retain_graph=True), iters=20),
             bound_ms=b_ms, bound_by=b_by))
+        if len(rows) == 1:
+            rows[-1]["graphed_ms"] = graphed_ms(
+                lambda: flash_attention_bwd(q, k, v, o, lse, do, causal=causal))
         del out, qs, ks, vs, got, ref
     return rows
 
@@ -1377,10 +1405,11 @@ def distill_args() -> list:
             "--requests", str(DISTILL_REQUESTS), "--solver-artifact", str(BNS_ARTIFACT)]
 
 
-def distill_path(dev, counters) -> dict:
+def distill_path(dev, counters, trains: dict) -> dict:
     """Phase 12: serve.main distils a BNS solver for yi-6b at full width,
     saves it as an artifact and serves the reloaded copy; launch counts as
-    the module docstring states them."""
+    the module docstring states them. Then phase 16's BNS case on its
+    weights and pairs, into ``trains``."""
     from repro_torch.launch import serve
 
     BNS_ARTIFACT.unlink(missing_ok=True)
@@ -1420,20 +1449,26 @@ def distill_path(dev, counters) -> dict:
         if s.latents.shape != (BATCH, SEQ, 64) or not bool(torch.isfinite(s.latents).all()):
             raise SystemExit(f"distilled solver: bad latents {tuple(s.latents.shape)}")
     peak = torch.cuda.max_memory_allocated(dev)
-    # train_bns' wall holds K iterations and one validation, which costs what
-    # the initial solver's validation did
+    # train_bns' wall holds K iterations (the first with the step's and the
+    # validation's captures) and one validation, which costs what the initial
+    # solver's validation did
     iter_ms = (d.train_seconds - d.init_val_seconds) / K * 1e3
     print(f"distillation: yi-6b full width, NFE {NFE}, batch {BATCH}, seq {SEQ}: RK45 "
           f"train nfe/accepted/rejected {d.rk45['train']}, val {d.rk45['val']} "
           f"({d.rk45_seconds:.3f} s); val PSNR initial {d.init_val_psnr:.4f} dB -> distilled "
           f"{d.val_psnr:.4f} dB after {K} iterations (losses {[round(x, 5) for x in losses]}); "
           f"train_bns {d.train_seconds:.3f} s, ~{iter_ms:.1f} ms an iteration (one "
-          f"validation {d.init_val_seconds * 1e3:.1f} ms taken off; each, the last with "
-          f"its validation, {[round(x * 1e3, 1) for x in d.iteration_seconds]}); artifact "
+          f"validation {d.init_val_seconds * 1e3:.1f} ms taken off; each, by CUDA events, "
+          f"the first with the captures, the last with its validation, "
+          f"{[round(x * 1e3, 1) for x in d.iteration_seconds]}); artifact "
           f"saved and reloaded (its BNSParams equal to the distilled ones to the bit), zoo "
           f"{z}; request ms with the "
           f"distilled solver {[round(x.ms, 3) for x in served]}; launches {launches}; peak "
-          f"memory {peak / 2**30:.3f} GiB; main() wall {wall:.3f} s")
+          f"memory {peak / 2**30:.3f} GiB; main() wall {wall:.3f} s; training programs "
+          f"{d.programs}")
+    trains[f"bns, seq {SEQ}, euler NFE {NFE}"] = train_programs(
+        dev, counters, f"bns, seq {SEQ}, euler NFE {NFE}",
+        train_loop("bns", served_field(dev, served.sampler, SEQ), d.pairs))
     return {"rk45": d.rk45, "rk45_s": d.rk45_seconds, "init_val_psnr": d.init_val_psnr,
             "val_psnr": d.val_psnr, "iterations": K, "iteration_ms": iter_ms,
             "request_ms": [x.ms for x in served], "peak_gib": peak / 2**30,
@@ -1480,11 +1515,12 @@ def artifact_reload(dev, counters, distilled: dict) -> dict:
     return {"launches": launches, "request_ms": [x.ms for x in served], "wall_s": wall}
 
 
-def anytime_path(dev, counters) -> dict:
+def anytime_path(dev, counters, trains: dict) -> dict:
     """Phase 12c: serve.main distils an anytime solver over budgets (4, 8)
     for yi-6b at full width, saves and reloads it and routes 3 requests;
     launch counts as the module docstring states them; then the served
-    sampler's exits against per-budget sampling and carry legs, to the bit."""
+    sampler's exits against per-budget sampling and carry legs, to the bit;
+    then phase 16's anytime case (profiled) on its weights and pairs."""
     from repro_torch.data.synthetic import DataConfig, SyntheticTokens
     from repro_torch.launch import serve
     from repro_torch.serving import nearest_budget
@@ -1554,14 +1590,19 @@ def anytime_path(dev, counters) -> dict:
           f"distilled {d.val_psnr:.4f} dB after {K} iterations (losses "
           f"{[round(x, 5) for x in losses]}); train_anytime {d.train_seconds:.3f} s, "
           f"~{iter_ms:.1f} ms an iteration (one validation {d.init_val_seconds * 1e3:.1f} ms "
-          f"taken off; each, the last with its validation, "
+          f"taken off; each, by CUDA events, the first with the captures, the last with "
+          f"its validation, "
           f"{[round(x * 1e3, 1) for x in d.iteration_seconds]}); requests "
           f"{list(ANYTIME_REQUEST_BUDGETS)} served at {served_nfe} NFE "
           f"in {[round(x.ms, 3) for x in served]} ms; nearest-budget warnings {warnings}; "
           f"zoo {served.zoo}; launches {launches}; peak memory {peak / 2**30:.3f} GiB; "
-          f"main() wall {wall:.3f} s; to the bit: {checks}")
+          f"main() wall {wall:.3f} s; to the bit: {checks}; training programs "
+          f"{d.programs}")
     if not all(checks.values()):
         raise SystemExit(f"anytime: exits differ: {checks}")
+    label = f"anytime, seq {ANYTIME_SEQ}, budgets {ANYTIME_BUDGETS}"
+    trains[label] = train_programs(dev, counters, label, train_loop(
+        "anytime", served_field(dev, sampler, ANYTIME_SEQ), d.pairs), profile=True)
     return {"rk45": d.rk45, "rk45_s": d.rk45_seconds, "init_val_psnr": d.init_val_psnr,
             "val_psnr": d.val_psnr, "iterations": K, "iteration_ms": iter_ms,
             "each_iteration_ms": [x * 1e3 for x in d.iteration_seconds],
@@ -1569,7 +1610,7 @@ def anytime_path(dev, counters) -> dict:
             "peak_gib": peak / 2**30, "launches": launches, "wall_s": wall}
 
 
-def bst_distill_path(dev, counters) -> dict:
+def bst_distill_path(dev, counters, trains: dict) -> dict:
     """Phase 12d: a BST-Euler solver distilled at yi-6b's full width: the
     launcher's field (each layer recomputed in the backward), one
     generate_pairs call of BST_PAIRS samples at seq BST_SEQ (one RK45 solve
@@ -1577,7 +1618,8 @@ def bst_distill_path(dev, counters) -> dict:
     and val rows 4..7 share it), then SolverSpec("euler", 8, mode="bst")
     .distill for BST_ITERS full-batch iterations; launch counts exact per
     stage, the BST claim (val PSNR >= Euler's - 0.2 dB), the artifact saved
-    and reloaded bit-equal, and its ns_params refused with TypeError."""
+    and reloaded bit-equal, and its ns_params refused with TypeError. Then
+    phase 16's BST case on the same field and pairs, into ``trains``."""
     from repro_torch.configs import get_config
     from repro_torch.core import bns, bst_solver
     from repro_torch.core.parametrization import VelocityField
@@ -1655,7 +1697,8 @@ def bst_distill_path(dev, counters) -> dict:
           f"validation) {[round(x, 1) for x in iteration_ms]}; launches by stage "
           f"{ {k: v['launches'] for k, v in stages.items()} }; artifact {back.kind} reloaded "
           f"bit-equal: {same}, ns_params refused: {refused}; peak memory "
-          f"{peak / 2**30:.3f} GiB; phase wall {time.perf_counter() - t_phase:.3f} s")
+          f"{peak / 2**30:.3f} GiB; training programs {res.programs}; phase wall "
+          f"{time.perf_counter() - t_phase:.3f} s")
     if not (np.isfinite(res.val_psnr) and all(np.isfinite(losses)) and losses):
         raise SystemExit(f"BST distillation: non-finite loss or PSNR {res.history}")
     if not (res.val_psnr >= euler - 0.2 and res.val_psnr > euler and moved):
@@ -1664,6 +1707,9 @@ def bst_distill_path(dev, counters) -> dict:
     if not (same and refused and back.kind == "bst"):
         raise SystemExit(f"BST artifact: reloaded equal {same}, kind {back.kind}, "
                          f"ns_params refused {refused}")
+    label = f"bst, seq {BST_SEQ}, euler NFE {NFE}"
+    trains[label] = train_programs(dev, counters, label, train_loop(
+        "bst", field, {"train": train, "val": val}))
     launches = {k: sum(v["launches"][k] for v in stages.values()) for k in KERNELS}
     return {"launches": launches, "training_launches": stages["training"]["launches"],
             "rk45_evaluations": calls[0], "rk45_s": stages["rk45"]["ms"] / 1e3,
@@ -2062,7 +2108,7 @@ def gateways(dev, counters, card: str, graphs: dict) -> dict:
     return runs
 
 
-GRAPH_REPS = 5           # phase 15: timed calls each way after the capture
+GRAPH_REPS = 3           # phase 15: timed calls each way after the capture
 
 
 def _same(a, b) -> bool:
@@ -2143,6 +2189,118 @@ def busy_share(dev, call) -> dict:
     busy = busy / 1e3 if spans else None
     return {"wall_ms": wall, "busy_ms": busy, "kernels": len(spans),
             "busy_share": None if busy is None else busy / wall}
+
+
+def train_loop(kind: str, field, pairs: dict):
+    """Phase 16: a maker of fresh ``bns.TrainLoop``s for ``kind`` ("bns":
+    euler NFE 8; "anytime": the nested solver over ANYTIME_BUDGETS; "bst":
+    BST-Euler at NFE 8) on ``field`` and ``pairs`` ({"train"|"val": (x0,
+    x1)}, full batches), with phase 12's optimiser (lr 1e-3, cosine)."""
+    from repro_torch.core import anytime, bns, bst_solver, ns_solver
+    from repro_torch.solvers import build_ns
+
+    cfg = bns.BNSTrainConfig(nfe=NFE, lr=1e-3, lr_schedule="cosine",
+                             iterations=TRAIN_GRAPH_ITERS + 1, val_every=100,
+                             batch_size=BATCH)
+    val = pairs["val"]
+    if kind == "anytime":
+        objective = anytime.anytime_objective(field, ANYTIME_BUDGETS, val, cfg)
+        theta0 = anytime.init_anytime(None, ANYTIME_BUDGETS)
+    elif kind == "bst":
+        objective = bns.solver_objective(bns.bst_sampler(field), val, cfg)
+        theta0 = bst_solver.identity_bst(NFE, "euler")
+    else:
+        objective = bns.solver_objective(bns.ns_sampler(field), val, cfg)
+        theta0 = ns_solver.from_ns(build_ns("euler", NFE, None))
+    return lambda: bns.TrainLoop(*objective, theta0, pairs["train"], cfg)
+
+
+def served_field(dev, sampler, seq: int):
+    """The launcher's distillation field over a served sampler's weights:
+    conditioning rows of ``--seed`` 0, each layer recomputed."""
+    from repro_torch.data.synthetic import DataConfig, SyntheticTokens
+    from repro_torch.models import model as M
+
+    cond = SyntheticTokens(sampler.cfg, DataConfig(batch_size=BATCH, seq_len=seq, seed=0),
+                           device=dev).batch(0)
+    return M.velocity_field(sampler.params, sampler.cfg, sampler.sched, cond, remat=True)
+
+
+def train_programs(dev, counters, label: str, make_loop, profile: bool = False) -> dict:
+    """Phase 16, one trainer: ``make_loop()`` builds a fresh ``bns.TrainLoop``
+    (the same theta0, pairs and config each call). TRAIN_GRAPH_ITERS
+    iterations and one validation graphed (the card's default), then the
+    same eager under ``programs.disabled()``; with ``profile``, one more
+    iteration each way before the validation, the graphed one under
+    torch.profiler (its busy share). theta,
+    Adam's moments and step, each loss and the val PSNR must be equal to the
+    bit, and each side's launches equal."""
+    from repro_torch.optim.adam import tree_leaves
+    from repro_torch.serving import programs
+
+    sides = {}
+    for side in ("graphed", "eager"):
+        loop = make_loop()
+        steps = {k: c.launches for k, c in counters.items()}
+        ms, losses, busy = [], [], None
+        with (programs.disabled() if side == "eager" else contextlib.nullcontext()):
+            for _ in range(TRAIN_GRAPH_ITERS):
+                torch.cuda.synchronize(dev)
+                t0 = time.perf_counter()
+                losses.append(loop.step())
+                torch.cuda.synchronize(dev)
+                ms.append((time.perf_counter() - t0) * 1e3)
+            if profile:                  # one more iteration, the graphed one profiled
+                if side == "graphed":
+                    busy = busy_share(dev, loop.step)
+                else:
+                    loop.step()
+            n = TRAIN_GRAPH_ITERS + bool(profile)
+            steps = {k: c.launches - steps[k] for k, c in counters.items()}
+            val = {k: c.launches for k, c in counters.items()}
+            torch.cuda.synchronize(dev)
+            t0 = time.perf_counter()
+            vp = loop.validate()
+            torch.cuda.synchronize(dev)
+            val_ms = (time.perf_counter() - t0) * 1e3
+            val = {k: c.launches - val[k] for k, c in counters.items()}
+        sides[side] = {"ms": ms, "val_ms": val_ms, "busy": busy, "losses": losses, "vp": vp,
+                       "state": [t.clone() for t in tree_leaves((loop.theta, loop.opt))],
+                       "launches": {k: v for k, v in steps.items() if v},
+                       "val_launches": {k: v for k, v in val.items() if v},
+                       "programs": loop.programs.stats()}
+        del loop
+    g, e = sides["graphed"], sides["eager"]
+    checks = {"theta, mu, nu, step": [torch.equal(a, b) for a, b in zip(g["state"], e["state"])],
+              "losses": [torch.equal(a, b) for a, b in zip(g["losses"], e["losses"])],
+              "val PSNR": [torch.equal(g["vp"], e["vp"])],
+              "launches": [g["launches"] == e["launches"]
+                           and g["val_launches"] == e["val_launches"]]}
+    row = {"graphed_ms": float(np.median(g["ms"][1:])), "eager_ms": float(np.median(e["ms"][1:])),
+           "graphed_each_ms": g["ms"], "eager_each_ms": e["ms"],
+           "capture_ms": g["programs"]["capture_ms"], "programs": g["programs"],
+           "val_ms": {"graphed": g["val_ms"], "eager": e["val_ms"]},
+           "launches_an_iteration": {k: v // n for k, v in g["launches"].items()},
+           "launches": {k: g["launches"].get(k, 0) + g["val_launches"].get(k, 0)
+                        for k in KERNELS},
+           "busy": g["busy"],
+           "equal": all(all(v) for v in checks.values())}
+    b = g["busy"]
+    busy = "" if not profile else (
+        f"; one more iteration each way, the graphed one under torch.profiler: "
+        f"{b['wall_ms']:.1f} ms, card busy " + (
+            "not measured (no device time in the trace)" if b["busy_ms"] is None else
+            f"{b['busy_ms']:.1f} ms ({100 * b['busy_share']:.1f}%, {b['kernels']} kernels)"))
+    print(f"phase 16 [{label}]: graphed {row['graphed_ms']:.1f} ms an iteration (median after "
+          f"the first; each {[round(x, 1) for x in g['ms']]}), eager {row['eager_ms']:.1f} ms "
+          f"({[round(x, 1) for x in e['ms']]}); captures (step and validation) "
+          f"{row['capture_ms']:.1f} ms, programs {g['programs']}; validation graphed "
+          f"{g['val_ms']:.1f} ms, eager {e['val_ms']:.1f} ms; launches an iteration "
+          f"{row['launches_an_iteration']}{busy}; equal to the bit: {checks}")
+    if not row["equal"] or g["programs"]["programs"] != 2 or e["programs"]["programs"]:
+        raise SystemExit(f"phase 16 [{label}]: graphed against eager failed: {checks}, "
+                         f"programs {g['programs']} / {e['programs']}")
+    return row
 
 
 def flow_programs(dev, counters, sampler, label: str, seq: int) -> dict:
@@ -2409,8 +2567,9 @@ def main() -> int:
     phase_s["10+15"] = time.perf_counter() - t0
     decode_against_cpu(dev, counters, cfg, params, {}, {})
     del cfg, params
+    trains = {}
     t0 = time.perf_counter()
-    distill = distill_path(dev, counters)
+    distill = distill_path(dev, counters, trains)
     for name in ("ns_update_bwd", "flash_attention_bwd"):
         launches[name] = distill["launches"][name]
     phase_s["12"] = time.perf_counter() - t0
@@ -2418,10 +2577,10 @@ def main() -> int:
     reload = artifact_reload(dev, counters, distill)
     phase_s["12b"] = time.perf_counter() - t0
     t0 = time.perf_counter()
-    any_run = anytime_path(dev, counters)
+    any_run = anytime_path(dev, counters, trains)
     phase_s["12c"] = time.perf_counter() - t0
     t0 = time.perf_counter()
-    bst_run = bst_distill_path(dev, counters)
+    bst_run = bst_distill_path(dev, counters, trains)
     phase_s["12d"] = time.perf_counter() - t0
     cfg, params = small_model("yi-6b")
     t0 = time.perf_counter()
@@ -2441,6 +2600,10 @@ def main() -> int:
     print("phase 15 summary (" + card + "): " + "; ".join(
         f"{k}: graphed {v['graphed_ms']:.3f} / eager {v['eager_ms']:.3f} ms, capture "
         f"{v['capture_ms']:.1f} ms" for k, v in graphs.items() if k in graph_kinds))
+    print("phase 16 summary (" + card + "): " + "; ".join(
+        f"{k}: graphed {v['graphed_ms']:.1f} / eager {v['eager_ms']:.1f} ms an iteration, "
+        f"captures {v['capture_ms']:.1f} ms, equal to the bit {v['equal']}"
+        for k, v in trains.items()))
     print("phase wall s: " + ", ".join(f"{k} {v:.1f}" for k, v in phase_s.items()))
     new_phases = {
         "12b": {"what": "artifact reload, 2 requests", "request_ms": reload["request_ms"]},
@@ -2467,6 +2630,10 @@ def main() -> int:
             "wait_p50_ms", "max_wait_ms", "joins", "slot_occupancy", "alone_equal",
             "alone_max_abs", "alone_max_rel_l2", "bucket3_equal", "native_max_rel_l2")}}
     new_phases["14b"]["equal_to_14a"] = gw_runs["14b"]["equal_to_14a"]
+    new_phases["16"] = {"what": "training programs graphed against eager",
+                        **{k: {f: v[f] for f in ("graphed_ms", "eager_ms", "capture_ms",
+                                                 "launches_an_iteration", "busy")}
+                           for k, v in trains.items()}}
 
     meta = {
         "ns_update": ("src/repro_torch/kernels/csrc/ns_update.cu",
@@ -2499,6 +2666,8 @@ def main() -> int:
             kernels[-1]["long_row_decode_step"] = long_step
         if name == "ns_update_bwd":
             kernels[-1]["device_ms"] = main_case["device_ms"]
+        if "graphed_ms" in main_case:
+            kernels[-1]["graphed_ms"] = main_case["graphed_ms"]
         if name == "flash_attention_bwd":
             kernels[-1]["library_is"] = "torch autograd of SDPA's backward"
             kernels[-1]["pass_device_ms"] = main_case["pass_device_ms"]
@@ -2507,11 +2676,14 @@ def main() -> int:
         if name in ("ns_update", "flash_attention", "ns_update_bwd", "flash_attention_bwd"):
             runs = {"12b": reload, "12c": any_run, "13b": any_grad, "13c": bst_grad,
                     "4b": baselines,
-                    "5b": baselines_cpu, "12d": bst_run, **gw_runs}
+                    "5b": baselines_cpu, "12d": bst_run, **gw_runs,
+                    "16": {"launches": {k: sum(v["launches"][k] for v in trains.values())
+                                        for k in KERNELS}}}
             kernels[-1]["phases"] = {k: {**v, "launches": runs[k]["launches"][name]}
                                      for k, v in new_phases.items()}
     print(f"chip_smoke wall {time.perf_counter() - T_START:.1f} s")
     print("phase 15 json: " + json.dumps(graphs))
+    print("phase 16 json: " + json.dumps(trains))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

@@ -13,8 +13,11 @@ the pairs' values do not change the work). Then ``train_bns`` with
 ``chip_smoke.py`` phase 12's config (euler NFE 8, lr 1e-3 cosine, 8
 iterations, full batches, one validation at the end) in the order other,
 this, this-synced, this-synced, this, other, after one warm-up iteration.
-``this-synced`` adds a ``torch.cuda.synchronize()`` after ``adam_init``
-and after each iteration's ``adam_update``. Each run's ms an iteration is
+``this-synced`` runs this checkout's loop eagerly (``programs.disabled()``:
+a graph cannot hold a synchronisation) and adds a
+``torch.cuda.synchronize()`` after ``adam_init`` and after each
+iteration's ``adam_update_``; ``this`` runs it as on the card by default
+(one captured step, replayed). Each run's ms an iteration is
 phase 12's: (``train_bns`` wall after a synchronise − one validation) / 8,
 the validation (``ns_sample`` under no_grad and the PSNR) timed alone
 first; this checkout's runs also print ``bns.fit``'s per-iteration times.
@@ -22,6 +25,7 @@ Prints the card's name and power limit first. Needs one card.
 """
 from __future__ import annotations
 
+import contextlib
 import importlib.util
 import subprocess
 import sys
@@ -48,6 +52,7 @@ def main() -> int:
     from repro_torch.data.synthetic import DataConfig, SyntheticTokens
     from repro_torch.kernels import build
     from repro_torch.models import model as M
+    from repro_torch.serving import programs
     from repro_torch.solvers import build_ns
 
     path = Path(sys.argv[1]) / "src" / "repro_torch" / "core" / "bns.py"
@@ -95,12 +100,13 @@ def main() -> int:
         float(torch.mean(bns.psnr(ns_solver.ns_sample(theta, field.fn, x0v), x1v)))
         val_s = time.perf_counter() - t0
     print(f"one validation {val_s * 1e3:.1f} ms")
-    inner = (bns.adam_init, bns.adam_update)
+    inner = (bns.adam_init, bns.adam_update_)
     for name in ("other", "this", "this-synced", "this-synced", "this", "other"):
         if name == "this-synced":
-            bns.adam_init, bns.adam_update = (synced(fn) for fn in inner)
-        wall, res = train(other if name == "other" else bns)
-        bns.adam_init, bns.adam_update = inner
+            bns.adam_init, bns.adam_update_ = (synced(fn) for fn in inner)
+        with (programs.disabled() if name == "this-synced" else contextlib.nullcontext()):
+            wall, res = train(other if name == "other" else bns)
+        bns.adam_init, bns.adam_update_ = inner
         each = ("" if name == "other" else
                 f"; each {[round(s * 1e3, 1) for s in res.iteration_seconds]}")
         print(f"{name}: train_bns {wall:.3f} s, {(wall - val_s) / ITERS * 1e3:.1f} ms an "

@@ -13,7 +13,12 @@ Gaussian-mixture velocity field (exact marginal flow) — solver behaviour, not
 network capacity, is what this figure measures. Pairs are 256 train and 256
 val draws a scheduler, RK45-solved (``bns.generate_pairs`` from generators
 seeded 0 and 1), unless the caller hands ``run`` its own (the tests hand it
-the reference's threefry pairs). Everything runs eagerly on ``device``.
+the reference's threefry pairs). Everything runs on ``device``: the RK45
+solves and the baselines' scores eagerly, the BNS and BST training through
+``bns.fit``'s programs (on the card one captured step and one captured
+validation, replayed; eager on the CPU). Each row's ``bns_train_s`` and
+``bst_train_s`` are host-clock seconds around a distillation, whose last
+validation reads the card's result.
 """
 from __future__ import annotations
 

@@ -253,22 +253,32 @@ def train_anytime(field: VelocityField, budgets: Sequence[int], train_pairs,
                   val_pairs, cfg: BNSTrainConfig, *, mode: str = "nested",
                   weights: dict | None = None, log=None) -> TrainResult:
     """Joint Algorithm-2 optimization of the shared solver and its early
-    exits (``bns.fit``: eager steps, the reference's mini-batches); the
-    validation score is the mean over budgets of each exit's val PSNR."""
+    exits (``bns.fit``: the reference's mini-batches; on the card one
+    captured step and one captured validation); the validation score is
+    the mean over budgets of each exit's val PSNR."""
     budgets = sorted(budgets)
     theta0 = init_anytime(field, budgets, mode, cfg.init_solver, cfg.sigma0)
-
-    def val_psnr(theta) -> float:
-        outs = anytime_sample(theta, budgets, field.fn, val_pairs[0])
-        return float(torch.mean(torch.stack(
-            [torch.mean(psnr(outs[m], val_pairs[1], cfg.max_val)) for m in budgets])))
-
-    res = fit(lambda th, x0, x1: anytime_loss(th, budgets, field.fn, x0, x1, weights),
-              val_psnr, theta0, train_pairs, cfg, log=log,
+    res = fit(*anytime_objective(field, budgets, val_pairs, cfg, weights), theta0,
+              train_pairs, cfg, log=log,
               line=lambda it, loss, vp: f"anytime iter {it}: loss={loss:.3f} "
                                         f"mean_psnr={vp:.2f}dB")
     res.nfe = budgets[-1]
     return res
+
+
+def anytime_objective(field: VelocityField, budgets: Sequence[int], val_pairs,
+                      cfg: BNSTrainConfig, weights: dict | None = None):
+    """``train_anytime``'s ``loss_fn(theta, x0b, x1b)`` (``anytime_loss``)
+    and ``val_psnr_fn(theta)``, the mean over budgets of each exit's val
+    PSNR (0-d)."""
+    budgets = sorted(budgets)
+
+    def val_psnr(theta) -> Tensor:
+        outs = anytime_sample(theta, budgets, field.fn, val_pairs[0])
+        return torch.mean(torch.stack(
+            [torch.mean(psnr(outs[m], val_pairs[1], cfg.max_val)) for m in budgets]))
+
+    return (lambda th, x0, x1: anytime_loss(th, budgets, field.fn, x0, x1, weights)), val_psnr
 
 
 def evaluate_anytime(params: AnytimeParams, budgets: Sequence[int],

@@ -7,11 +7,17 @@ Port of ``repro.core.bns``. Pipeline:
   3. minimize the PSNR loss  L(theta) = E log ||x_n^theta - x(1)||^2  with
      Adam, tracking PSNR on a validation set and returning the best iterate.
 
-Each step runs eagerly (the reference jits it): ``ns_sample`` under grad,
-``torch.autograd.grad`` for theta's gradient, and ``adam_update`` under
-``torch.no_grad()``. On the card the gradient flows through the backward
-kernels of the NS update and of flash attention. Validation samples under
-``torch.no_grad()``, which takes ``ns_sample``'s in-place buffer path.
+Each iteration is one program, as the reference jits it (``TrainLoop``):
+the mini-batch gathered on the device, ``ns_sample`` under grad,
+``torch.autograd.grad`` for theta's gradient and ``adam_update_`` in place,
+the learning rate gathered from the run's table at Adam's counted step. On
+the card it is one
+CUDA graph, captured at the first iteration and replayed for every later
+one (``serving/programs.py::ProgramCache``), and the validation is another;
+the gradient flows through the backward kernels of the NS update and of
+flash attention. On the CPU, and on the card under ``programs.disabled()``
+(``jax.disable_jit()``), the same code runs eagerly. Validation samples
+under ``torch.no_grad()``, which takes ``ns_sample``'s in-place buffer path.
 
 The same harness trains BST solvers (the prior-work baseline) by swapping
 the sampler closure: ``bst_sampler`` runs the BST program directly
@@ -32,7 +38,13 @@ from repro_torch.core.ns_solver import BNSParams, NSParams
 from repro_torch.core.parametrization import VelocityField
 from repro_torch.core.rk45 import rk45_solve
 from repro_torch.core.taxonomy import run_direct
-from repro_torch.optim.adam import adam_init, adam_update, tree_leaves, tree_map, tree_unflatten
+from repro_torch.optim.adam import (
+    adam_init,
+    adam_update_,
+    tree_leaves,
+    tree_map,
+    tree_unflatten,
+)
 from repro_torch.optim.schedule import cosine_annealing, poly_decay
 
 Tensor = torch.Tensor
@@ -135,15 +147,17 @@ class TrainResult:
     wall_seconds: float
     nfe: int
     num_parameters: int
-    # each iteration's host-clock seconds (see ``fit``); an attribute, not a
-    # field, so that the fields stay the reference's
+    # each iteration's seconds and the run's program counts (see ``fit``);
+    # attributes, not fields, so that the fields stay the reference's
     iteration_seconds = ()
+    programs = {"programs": 0, "replays": 0, "capture_ms": 0.0}
 
 
 def psnr(x: Tensor, ref: Tensor, max_val: float = 1.0) -> Tensor:
     """Per-pair PSNR with the paper's norm ||x||^2 = mean_i x_i^2."""
     mse = torch.mean((x - ref) ** 2, dim=tuple(range(1, x.dim())))
-    log_max = torch.log10(torch.tensor(max_val, dtype=mse.dtype, device=mse.device))
+    # a fill on mse's device, not a host copy (a CUDA graph captures psnr)
+    log_max = torch.log10(torch.full((), max_val, dtype=mse.dtype, device=mse.device))
     return 10.0 * (2.0 * log_max - torch.log10(torch.clamp(mse, min=1e-20)))
 
 
@@ -167,13 +181,151 @@ def train_solver(
     theta lives on the pairs' device. Mini-batch indices come from
     ``np.random.default_rng(cfg.seed)`` exactly as in the reference, so both
     frameworks train on the same batches."""
-    def val_psnr_fn(theta) -> float:
-        return float(torch.mean(psnr(sampler(theta, val_pairs[0]), val_pairs[1],
-                                     cfg.max_val)))
-
-    return fit(lambda th, x0, x1: _loss_fn(sampler, th, x0, x1), val_psnr_fn, theta0,
-               train_pairs, cfg, log=log,
+    return fit(*solver_objective(sampler, val_pairs, cfg), theta0, train_pairs, cfg, log=log,
                line=lambda it, loss, vp: f"iter {it}: loss={loss:.4f} val_psnr={vp:.2f}dB")
+
+
+def solver_objective(sampler: Callable, val_pairs, cfg: BNSTrainConfig):
+    """``train_solver``'s ``loss_fn(theta, x0b, x1b)``, the PSNR loss of
+    ``sampler``, and ``val_psnr_fn(theta)``, its mean val PSNR (0-d)."""
+    def val_psnr_fn(theta) -> Tensor:
+        return torch.mean(psnr(sampler(theta, val_pairs[0]), val_pairs[1], cfg.max_val))
+
+    return (lambda th, x0, x1: _loss_fn(sampler, th, x0, x1)), val_psnr_fn
+
+
+def batch_table(seed: int, num: int, batch_size: int, iterations: int,
+                device) -> Tensor | None:
+    """Every iteration's mini-batch rows, drawn up front in the reference's
+    order (``np.random.default_rng(seed).choice(num, batch_size,
+    replace=False)`` once an iteration), as one int64 ``(iterations,
+    batch_size)`` tensor on ``device``; None for a full-batch run, which
+    draws nothing and keeps the pairs' order (conditional fields close over
+    a fixed conditioning batch: row i of the pairs is tied to its row i)."""
+    if batch_size >= num:
+        return None
+    rng = np.random.default_rng(seed)
+    rows = [rng.choice(num, size=batch_size, replace=False) for _ in range(iterations)]
+    return torch.from_numpy(np.asarray(rows, np.int64).reshape(iterations, batch_size)
+                            ).to(device)
+
+
+class _Stamps:
+    """Marks between iterations: CUDA events recorded on the current stream
+    of a card (read once, at the end), the host clock on the CPU."""
+
+    def __init__(self, device: torch.device):
+        self.device = device
+        self.marks: list = []
+        self.mark()
+
+    def mark(self) -> None:
+        if self.device.type == "cuda":
+            event = torch.cuda.Event(enable_timing=True)
+            event.record(torch.cuda.current_stream(self.device))
+            self.marks.append(event)
+        else:
+            self.marks.append(time.perf_counter())
+
+    def seconds(self) -> list[float]:
+        if self.device.type != "cuda":
+            return [b - a for a, b in zip(self.marks, self.marks[1:])]
+        self.marks[-1].synchronize()
+        return [a.elapsed_time(b) / 1e3 for a, b in zip(self.marks, self.marks[1:])]
+
+
+class TrainLoop:
+    """One Algorithm-2 run's state and its two programs, the port's form of
+    the reference's jitted ``step`` and ``val_psnr_fn``.
+
+    theta (a detached copy of ``theta0`` on the pairs' device) and Adam's
+    ``mu``, ``nu`` and ``step`` keep their addresses for the whole run;
+    ``step()`` updates them in place and returns the loss, ``validate()``
+    returns the val PSNR of theta as it stands, a 0-d tensor. Both go
+    through one ``ProgramCache``: on the card the first ``step()`` is
+    iteration 0, run eagerly as the capture's warm-up, and every later one
+    replays the captured graph; likewise ``validate()``. A step takes no
+    host input: its mini-batch is row ``step`` (Adam's count so far, the
+    reference's ``it``) of the run's ``batch_table`` and its learning rate
+    entry ``step`` of ``rates``, both gathered on the device. ``rates``
+    holds ``cfg``'s schedule at every iteration, computed up front on the
+    host as the reference's ``lr_fn(it)`` (f32 arithmetic on the card would
+    round the division differently) and copied once. A field of theta the
+    loss does not reach gets a zero gradient, as ``jax.grad`` gives it."""
+
+    def __init__(self, loss_fn: Callable, val_psnr_fn: Callable, theta0, train_pairs,
+                 cfg: BNSTrainConfig):
+        # function-level import: the serving package imports this module back
+        from repro_torch.serving.programs import ProgramCache
+
+        self.loss_fn, self.val_psnr_fn, self.cfg = loss_fn, val_psnr_fn, cfg
+        self.pairs = train_pairs
+        device = train_pairs[0].device
+        self.theta = tree_map(lambda p: p.detach().to(device, copy=True), theta0)
+        self.opt = adam_init(self.theta)
+        lr_fn = (poly_decay(cfg.lr, cfg.iterations) if cfg.lr_schedule == "poly"
+                 else cosine_annealing(cfg.lr, cfg.iterations))
+        self.rates = torch.tensor([float(lr_fn(it)) for it in range(cfg.iterations)],
+                                  dtype=torch.float32, device=device)
+        self.batches = batch_table(cfg.seed, train_pairs[0].shape[0], cfg.batch_size,
+                                   cfg.iterations, device)
+        self.programs = ProgramCache(device)
+        self._state = tuple(tree_leaves((self.theta, self.opt)))
+
+    def _step(self) -> Tensor:
+        theta, opt = self.theta, self.opt
+        x0, x1 = self.pairs
+        if self.batches is not None:
+            rows = self.batches.index_select(0, opt.step.reshape(1)).reshape(-1)
+            x0, x1 = x0.index_select(0, rows), x1.index_select(0, rows)
+        th = tree_map(lambda p: p.detach().requires_grad_(True), theta)
+        loss = self.loss_fn(th, x0, x1)
+        leaves = tree_leaves(th)
+        grads = torch.autograd.grad(loss, leaves, allow_unused=True)
+        grads = tree_unflatten(th, [torch.zeros_like(p) if g is None else g
+                                    for p, g in zip(leaves, grads)])
+        lr = self.rates.index_select(0, opt.step.reshape(1)).reshape(())
+        with torch.no_grad():
+            adam_update_(grads, opt, theta, lr)
+        return loss.detach()
+
+    def step(self) -> Tensor:
+        """One iteration; returns its loss (0-d, on the device)."""
+        return self.programs(("step",), self._step, state=self._state)
+
+    def validate(self) -> Tensor:
+        """theta's val PSNR (0-d, on the device), under ``torch.no_grad()``."""
+        with torch.no_grad():
+            return self.programs(("val",), lambda: self.val_psnr_fn(self.theta))
+
+    def run(self, *, log: Callable[[str], None] | None = None,
+            line: Callable[[int, float, float], str]) -> TrainResult:
+        """``cfg.iterations`` steps, ``validate()`` every ``cfg.val_every``
+        and at the last (the host reads the loss and the val PSNR only
+        then), logged through ``line(iteration, loss, val_psnr)``; returns
+        the best-validation theta (``bns.fit``)."""
+        cfg = self.cfg
+        best = (-np.inf, self.theta)
+        history = []
+        t_start = time.time()
+        stamps = _Stamps(self.pairs[0].device)
+        for it in range(cfg.iterations):
+            loss = self.step()
+            if (it + 1) % cfg.val_every == 0 or it == cfg.iterations - 1:
+                vp = float(self.validate())
+                history.append((it + 1, float(loss), vp))
+                if vp > best[0]:
+                    best = (vp, tree_map(lambda x: x.detach().clone(), self.theta))
+                if log:
+                    log(line(it + 1, float(loss), vp))
+            stamps.mark()
+        seconds = stamps.seconds()
+        n_params = sum(int(np.prod(p.shape)) for p in tree_leaves(best[1]))
+        res = TrainResult(params=best[1], val_psnr=best[0], history=history,
+                          wall_seconds=time.time() - t_start, nfe=cfg.nfe,
+                          num_parameters=n_params)
+        res.iteration_seconds, res.programs = seconds, self.programs.stats()
+        return res
 
 
 def fit(
@@ -188,65 +340,23 @@ def fit(
 ) -> TrainResult:
     """Algorithm 2's loop, shared by ``train_solver`` and
     ``anytime.train_anytime`` (the reference writes it out in each): Adam on
-    ``loss_fn(theta, x0b, x1b)`` over mini-batches of the train pairs, each
-    step eager (``torch.autograd.grad``, then ``adam_update`` under
-    ``torch.no_grad()``); ``val_psnr_fn(theta)`` under ``torch.no_grad()``
-    every ``cfg.val_every`` iterations and at the last, logged through
-    ``line(iteration, loss, val_psnr)``; returns the best-validation theta.
-    A field of theta the loss does not reach gets a zero gradient, as
-    ``jax.grad`` gives it. ``iteration_seconds`` holds each iteration's
-    host-clock time, from its mini-batch's arrival on the pairs' device to
-    the next one's (the last: to the end of its validation). On the card
-    that copy from pageable memory waits for the work queued before it, so
-    each span holds the iteration's device work, and a validation where the
-    iteration ran one, with no synchronisation added."""
-    x0_tr, x1_tr = train_pairs
-    num = x0_tr.shape[0]
-    lr_fn = (poly_decay(cfg.lr, cfg.iterations) if cfg.lr_schedule == "poly"
-             else cosine_annealing(cfg.lr, cfg.iterations))
+    ``loss_fn(theta, x0b, x1b)`` over mini-batches of the train pairs and
+    ``val_psnr_fn(theta)`` (a 0-d tensor) under ``torch.no_grad()`` every
+    ``cfg.val_every`` iterations and at the last, through one ``TrainLoop``
+    (its docstring: one captured program for the step and one for the
+    validation on the card, replayed; eager on the CPU). Returns the
+    best-validation theta; the loop's programs are dropped on return, so a
+    process that distils many solvers keeps none of their graphs.
 
-    def step(theta, opt, it, x0b, x1b):
-        th = tree_map(lambda p: p.detach().requires_grad_(True), theta)
-        loss = loss_fn(th, x0b, x1b)
-        leaves = tree_leaves(th)
-        grads = torch.autograd.grad(loss, leaves, allow_unused=True)
-        grads = tree_unflatten(th, [torch.zeros_like(p) if g is None else g
-                                    for p, g in zip(leaves, grads)])
-        with torch.no_grad():
-            theta, opt = adam_update(grads, opt, theta, lr_fn(it))
-        return theta, opt, loss.detach()
-
-    theta = tree_map(lambda p: p.detach().to(x0_tr.device), theta0)
-    opt = adam_init(theta)
-    rng = np.random.default_rng(cfg.seed)
-    best = (-np.inf, theta)
-    history, starts = [], []
-    t_start = time.time()
-    full_batch = cfg.batch_size >= num
-    for it in range(cfg.iterations):
-        # conditional fields close over a fixed conditioning batch: row i of
-        # the pairs is tied to conditioning row i, so full-batch runs must
-        # keep the order (no shuffling).
-        idx = np.arange(num) if full_batch else \
-            rng.choice(num, size=cfg.batch_size, replace=False)
-        idx = torch.as_tensor(idx, device=x0_tr.device)
-        starts.append(time.perf_counter())
-        theta, opt, loss = step(theta, opt, it, x0_tr[idx], x1_tr[idx])
-        if (it + 1) % cfg.val_every == 0 or it == cfg.iterations - 1:
-            with torch.no_grad():
-                vp = val_psnr_fn(theta)
-            history.append((it + 1, float(loss), vp))
-            if vp > best[0]:
-                best = (vp, tree_map(lambda x: x.detach().clone(), theta))
-            if log:
-                log(line(it + 1, float(loss), vp))
-    starts.append(time.perf_counter())
-    n_params = sum(int(np.prod(p.shape)) for p in tree_leaves(best[1]))
-    res = TrainResult(params=best[1], val_psnr=best[0], history=history,
-                      wall_seconds=time.time() - t_start, nfe=cfg.nfe,
-                      num_parameters=n_params)
-    res.iteration_seconds = [b - a for a, b in zip(starts, starts[1:])]
-    return res
+    ``iteration_seconds`` holds each iteration's span, its validation
+    included where it ran one: on the card, between CUDA events recorded
+    on the stream after each iteration and read at the end, so no
+    synchronisation is added and each span is the iteration's device work
+    once the host runs ahead (iteration 0 also holds the host's capture,
+    during which the card waits); on the CPU, the host clock.
+    ``programs`` holds the run's captured programs, replays and capture ms
+    (0 on the CPU)."""
+    return TrainLoop(loss_fn, val_psnr_fn, theta0, train_pairs, cfg).run(log=log, line=line)
 
 
 def train_bns(

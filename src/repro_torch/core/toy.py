@@ -5,7 +5,10 @@ of a Gaussian-mixture data distribution under any Gaussian-path scheduler — a
 closed-form 'pre-trained model' that validates BNS end to end (RK45 ground
 truth, solver ordering, PSNR-vs-NFE) without training a network.
 ``linear_field`` has an exact ODE solution for hard numerical-correctness
-tests. Everything is f32, on the state's device.
+tests. Everything is f32, on the state's device. ``mixture_field`` copies
+nothing from the host when its time and its tensors lie there, as every
+training and validation path on the card has them (a CUDA graph captures
+those paths; ``benchmarks/psnr_vs_nfe.py::make_field`` builds it there).
 """
 from __future__ import annotations
 

@@ -97,7 +97,9 @@ def ns_update(x0: torch.Tensor, u: torch.Tensor, a: torch.Tensor,
 
 class _Workspace:
     """The backward's per-block partial sums and its arrival counter on one
-    device (the kernel leaves the counter at 0)."""
+    device (the kernel leaves the counter at 0). Made by the device's first
+    eager call, outside any CUDA graph's pool: a captured program's warm-up
+    is such a call, and a capture that would make it raises."""
 
     def __init__(self, lib, index: int):
         device = torch.device("cuda", index)
@@ -139,6 +141,11 @@ def ns_update_bwd(g: torch.Tensor, x0: torch.Tensor, u: torch.Tensor, a: torch.T
     index = dev.index
     ws = _WORKSPACES.get(index)
     if ws is None:
+        with torch.cuda.device(index):
+            if torch.cuda.is_current_stream_capturing():
+                raise RuntimeError("ns_update_bwd: no workspace on this device before a "
+                                   "CUDA graph captures the backward; run the captured "
+                                   "function eagerly once first (its warm-up)")
         ws = _WORKSPACES[index] = _Workspace(lib, index)
     du = torch.empty_like(u)
     dx0 = torch.empty_like(x0) if need_x0 else None

@@ -174,6 +174,9 @@ class Distillation:
     history: list             # (iter, train_loss, val_psnr)
     params: object            # the distilled BNSParams or AnytimeParams, as saved
     solver: object            # the distilled NSParams (AnytimeParams for anytime)
+    programs: dict            # the training's programs (bns.fit's step and
+    #                           validation): captured, replays, capture ms
+    pairs: dict               # {"train"|"val": (x0, x1)}, on the device
 
 
 class FlowServed(list):
@@ -396,7 +399,9 @@ def _distill_artifact(args, params, cfg, sched, cond, spec: SolverSpec,
     1e-5) under no_grad; the initial solver's val PSNR; then
     ``spec.distill`` (lr 1e-3, cosine, ``--bns-iters`` iterations, validation
     every 100 and at the end, full batches), differentiating a field that
-    recomputes each layer in the backward."""
+    recomputes each layer in the backward: on the card one captured step
+    and one captured validation (``bns.fit``). Each timing closes with a
+    synchronisation, so it holds the device work."""
     anytime = spec.mode == "anytime"
     what = (f"anytime solver (budgets={spec.budgets})" if anytime
             else f"BNS solver (NFE={spec.nfe})")
@@ -451,7 +456,8 @@ def _distill_artifact(args, params, cfg, sched, cond, spec: SolverSpec,
         init_val_seconds=init_s, val_psnr=res.val_psnr, iterations=args.bns_iters,
         train_seconds=train_s, iteration_seconds=res.iteration_seconds,
         num_parameters=res.num_parameters, history=res.history, params=res.params,
-        solver=res.params if anytime else ns_solver.materialize(res.params))
+        solver=res.params if anytime else ns_solver.materialize(res.params),
+        programs=res.programs, pairs=pairs)
     return record, SolverArtifact.load(path)
 
 
@@ -546,7 +552,7 @@ def serve_flow(args, device: torch.device) -> FlowServed:
         result.zoo, result.artifact, result.sampler = zoo.stats, artifact, sampler
         print(f"zoo stats: hits={zoo.stats.hits} misses={zoo.stats.misses} "
               f"loads={zoo.stats.loads} distills={zoo.stats.distills}")
-        _print_programs(sampler)
+        _print_programs(sampler, served.distillation)
         return result
     warned: set = set()
     for req in range(args.requests):
@@ -566,15 +572,18 @@ def serve_flow(args, device: torch.device) -> FlowServed:
     served.zoo = zoo.stats
     print(f"zoo stats: hits={served.zoo.hits} misses={served.zoo.misses} "
           f"loads={served.zoo.loads} distills={served.zoo.distills}")
-    _print_programs(sampler)
+    _print_programs(sampler, served.distillation)
     return served
 
 
-def _print_programs(engine) -> None:
+def _print_programs(engine, distillation: Distillation | None = None) -> None:
     """The closing line: the programs the engine captured (CUDA graphs, one
-    a key; none on the CPU, which runs eagerly) and how often they replayed."""
+    a key; none on the CPU, which runs eagerly) and how often they replayed,
+    a distillation's training programs (its step and validation) included."""
     cache = engine.programs
     s = cache.stats()
+    if distillation is not None:
+        s = {k: v + distillation.programs[k] for k, v in s.items()}
     print(f"programs captured: {s['programs']}, replays {s['replays']}, capture "
           f"{s['capture_ms']:.1f} ms" + ("" if cache.active else
                                          f" (eager on {cache.device.type})"))

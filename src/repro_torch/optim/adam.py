@@ -5,8 +5,10 @@ arithmetic is the reference's, not ``torch.optim.Adam``'s: ``eps`` is added
 outside the square root of the bias-corrected second moment, the bias
 corrections come from a counted step, and the moments are f32. A tree is a
 tensor or a NamedTuple, tuple, list or dict of trees; ``tree_map`` applies a
-function field by field, the port's counterpart of ``jax.tree.map``. The
-AdamW closure (``adamw``) comes with the model trainer (ROADMAP Queue A item 11).
+function field by field, the port's counterpart of ``jax.tree.map``.
+``adam_update_`` writes the same step into the tensors it is given, which a
+CUDA graph holds by address (``core/bns.py::TrainLoop``). The AdamW closure
+(``adamw``) comes with the model trainer (ROADMAP Queue A item 11).
 """
 from __future__ import annotations
 
@@ -94,3 +96,13 @@ def adam_update(
 
     new_params = tree_map(upd, params, mu, nu)
     return new_params, AdamState(step=step, mu=mu, nu=nu)
+
+
+def adam_update_(grads: Tree, state: AdamState, params: Tree, lr, **options) -> None:
+    """``adam_update`` in place: the new params, moments and step are written
+    into ``params``' leaves and ``state``'s tensors, bit-equal to the new
+    tensors ``adam_update`` returns (same options). Call it under
+    ``torch.no_grad()``."""
+    new_params, new_state = adam_update(grads, state, params, lr, **options)
+    for dst, src in zip(tree_leaves((params, state)), tree_leaves((new_params, new_state))):
+        dst.copy_(src)

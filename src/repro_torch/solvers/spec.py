@@ -148,7 +148,8 @@ class SolverSpec:
                              val_psnr=res.val_psnr, history=res.history,
                              wall_seconds=res.wall_seconds,
                              num_parameters=res.num_parameters,
-                             iteration_seconds=res.iteration_seconds)
+                             iteration_seconds=res.iteration_seconds,
+                             programs=res.programs)
 
     def to_dict(self) -> dict:
         return {"name": self.name, "nfe": self.nfe,
@@ -178,6 +179,9 @@ class TrainedSolver:
     wall_seconds: float
     num_parameters: int
     iteration_seconds: list = dataclasses.field(default_factory=list)  # bns.fit's
+    # bns.fit's programs (its step and validation): captured, replays, capture ms
+    programs: dict = dataclasses.field(
+        default_factory=lambda: {"programs": 0, "replays": 0, "capture_ms": 0.0})
 
     @property
     def ns_params(self) -> NSParams:

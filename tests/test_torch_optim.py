@@ -95,6 +95,32 @@ def test_adam_update_matches_reference_over_20_steps(kind, schedule, options):
         assert isinstance(tp, Theta)
 
 
+@pytest.mark.parametrize("kind", ["bns", "dict"])
+@pytest.mark.parametrize("schedule", ["poly", "cosine", "warmup_cosine"])
+@pytest.mark.parametrize("options", [{}, {"weight_decay": 0.01},
+                                     {"grad_clip_norm": 0.5},
+                                     {"b1": 0.8, "b2": 0.99, "eps": 1e-6}])
+def test_adam_update_in_place_equals_adam_update_over_20_steps(kind, schedule, options):
+    """``adam_update_`` writes into the tensors it is given (a CUDA graph
+    holds them by address) exactly what ``adam_update`` returns: 20 steps
+    side by side, equal to the bit, every leaf at its first address."""
+    rng = np.random.default_rng(len(kind) * 100 + len(schedule) + len(options))
+    p0 = _tree(kind, rng)
+    new_p = _to_torch(p0)
+    new_st = tadam.adam_init(new_p)
+    p, st = tadam.tree_map(torch.clone, new_p), tadam.adam_init(new_p)
+    addresses = [x.data_ptr() for x in tadam.tree_leaves((p, st))]
+    lr_fn = SCHEDULES[schedule](tsched)
+    for it in range(20):
+        g = _to_torch(_tree(kind, rng))
+        new_p, new_st = tadam.adam_update(g, new_st, new_p, lr_fn(it), **options)
+        assert tadam.adam_update_(g, st, p, lr_fn(st.step), **options) is None
+        for x, y in zip(tadam.tree_leaves((p, st)), tadam.tree_leaves((new_p, new_st))):
+            assert x.dtype == y.dtype and torch.equal(x, y)
+    assert [x.data_ptr() for x in tadam.tree_leaves((p, st))] == addresses
+    assert int(st.step) == 20 and st.step.dtype == torch.int32
+
+
 def test_adam_is_not_torch_optim_adam():
     """torch.optim.Adam puts eps elsewhere in effect on tiny second moments;
     the port follows the reference: with v = 0 and m != 0 the first step is

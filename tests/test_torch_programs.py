@@ -1,9 +1,10 @@
 """The serving engines' program cache (``repro_torch.serving.programs``) on the CPU.
 
-The card captures CUDA graphs; here ``CPUGraph`` stands in for one through
-the module's test hook: a "capture" runs the function once over the static
-buffers and puts back every state tensor it wrote (a capture launches
-nothing), a "replay" runs it again into the same output tensors. The
+The card captures CUDA graphs; here ``CPUGraph`` (``torch_graph_double.py``)
+stands in for one through the module's test hook: a "capture" runs the
+function once over the static buffers and puts back every state tensor it
+wrote (a capture launches nothing), a "replay" runs it again into the same
+output tensors. The
 caches' keys, copies, counts and state handling are then the card's, and
 their results are held against the eager engines (to the bit) and against
 the reference's jitted programs on a shared x0 (``tests/test_kernels.py``'s
@@ -44,39 +45,10 @@ from repro_torch.serving.engine import SlotSampling
 from repro_torch.serving.toy import FakeClock
 from repro_torch.solvers import SolverArtifact, SolverSpec
 from repro_torch.solvers import registry as treg
+from torch_graph_double import CPUGraph
 
 BUDGETS = (2, 4)
 TOL = 2e-5
-
-
-def _copy_into(dst, src):
-    if isinstance(dst, torch.Tensor):
-        dst.copy_(src)
-    elif isinstance(dst, dict):
-        for k in dst:
-            _copy_into(dst[k], src[k])
-    elif dst is not None:
-        for d, s in zip(dst, src):
-            _copy_into(d, s)
-
-
-class CPUGraph:
-    """A CPU stand-in for ``torch.cuda.CUDAGraph`` (see the module docstring)."""
-
-    def capture(self, run, state):
-        saved = [s.clone() for s in state]
-        self.run, self.out = run, run()
-        for s, v in zip(state, saved):
-            s.copy_(v)
-        return self.out
-
-    def replay(self):
-        # a card's replay runs no Python: the wrappers' own counts are undone,
-        # so only what the program recorded at capture is added
-        counts = {c: c.launches for c in build.COUNTERS}
-        _copy_into(self.out, self.run())
-        for c, n in counts.items():
-            c.launches = n
 
 
 @pytest.fixture
