@@ -30,7 +30,13 @@ Phases (any failure ends the run with a non-zero exit and no last line):
    chunk of 16, 32 or 64; CUDA-core otherwise) and fails if the library's
    choice differs from that rule. Its bound takes the peak of the type the
    products run in (bf16 for bf16 inputs), with the f32 CUDA-core count
-   beside it. TF32 is off.
+   beside it. TF32 is off. zamba2-2.7b's main-path cases: flash at B=4
+   H=32 KV=32 L=1024 hd=80, causal, bf16 (G 1), and gla_scan at its SSD
+   shape (4, 1024, 80, dk 64, dv 64, chunk 64, inclusive, one f32 decay a
+   head) with q and k broadcast over the heads as the model makes them
+   (stride-0 views into one (B, L, conv_dim) product); its bound counts
+   each stored byte once (q and k once, not once a head) and the line also
+   prints the bytes with q and k read by every (b, h) block.
 3c. Backward kernels against their plain versions on the same card inputs:
    the ns_update backward at the flow cell's k = 1 and k = 8 live rows (and
    bf16, a ragged D), its dot products held to TOL times the sum of their
@@ -127,15 +133,18 @@ Phases (any failure ends the run with a non-zero exit and no last line):
     12's to the bit (same seeds, weights and deterministic kernels).
 12c. Anytime at full width: yi-6b, ``--budgets 4,8 --request-budgets
     4,8,16``, batch 4, seq ANYTIME_SEQ, ``--bns-iters`` ANYTIME_ITERS, 3
-    requests, ``--solver-artifact`` ANYTIME_ARTIFACT (deleted first). With R
-    the RK45 evaluations of both solves and K = ANYTIME_ITERS: flash forward
-    32 (R + 8 + 8 + 20) for the no-grad calls (the initial solver's and the
-    final validation's shared trajectory, 8 evaluations each; the requests
-    at 4, 8 and 16 -> 8 NFE) plus 32 x 8 x 2 K in training, flash backward
-    32 x 8 K, ns_update 9 + 9 + 20 + 9 K (a trajectory runs 8 intermediate
-    rules and the budget-4 exit; a request at m NFE m rules), ns_update
-    backward 9 K: an iteration is 512 flash forward, 256 flash backward, 9
-    and 9 ns_update launches. The nearest-budget WARNING for 16 is printed
+    requests, ``--solver-artifact`` ANYTIME_ARTIFACT (deleted first), its
+    depth cut to ANYTIME_LAYERS = 16 of 32 layers (``launcher_depth``: the
+    eager RK45 solves at seq 256 are host-bound, and their wall scales with
+    the depth). With R the RK45 evaluations of both solves, K =
+    ANYTIME_ITERS and N = ANYTIME_LAYERS: flash forward N (R + 8 + 8 + 20)
+    for the no-grad calls (the initial solver's and the final validation's
+    shared trajectory, 8 evaluations each; the requests at 4, 8 and 16 -> 8
+    NFE) plus N x 8 x 2 K in training, flash backward N x 8 K, ns_update
+    9 + 9 + 20 + 9 K (a trajectory runs 8 intermediate rules and the
+    budget-4 exit; a request at m NFE m rules), ns_update backward 9 K: an
+    iteration is 256 flash forward, 128 flash backward, 9 and 9 ns_update
+    launches. The nearest-budget WARNING for 16 is printed
     exactly once; loss and PSNR finite. Then, on the served
     ``AnytimeFlowSampler`` and one seeded x0, each equal to the bit:
     ``sample_all_from(x0)[m]`` and ``sample_from(x0, m)`` for m in (4, 8);
@@ -224,12 +233,14 @@ Phases (any failure ends the run with a non-zero exit and no last line):
     at 2 slots of 64 pages grew the paged kernel's merge workspace; rwkv6-7b
     flow (after phase 8) and ``step_slots`` (after phase 10); 12c's anytime
     artifact at seq 1024 (after 14a): budgets 4 and 8, ``sample_all`` and
-    the legs 0 -> 4 and 4 -> 8. Each case runs a first pair and GRAPH_REPS
-    timed pairs (graphed, then eager; decode on two copies of one state):
-    each pair equal to the bit (tokens and every state leaf for decode) with
-    equal launch counts; prints ms a call each way (median), the capture ms
-    and the launches a call; one graphed yi-6b and rwkv6-7b greedy step
-    runs under torch.profiler for the card's busy share. Launch counts of
+    the legs 0 -> 4 and 4 -> 8; zamba2-2.7b flow (after phase 17),
+    ``prefill_slots`` and ``step_slots`` greedy and sampled (after 17c).
+    Each case runs a first pair and GRAPH_REPS timed pairs (graphed, then
+    eager; decode on two copies of one state): each pair equal to the bit
+    (tokens and every state leaf for decode) with equal launch counts;
+    prints ms a call each way (median), the capture ms and the launches a
+    call; one graphed greedy step of each decode model runs under
+    torch.profiler for the card's busy share. Launch counts of
     every phase read the same graphed as eager: a capture launches nothing
     and a replay adds what its program recorded.
 16. The training programs, graphed against eager (``bns.TrainLoop``: on
@@ -248,10 +259,30 @@ Phases (any failure ends the run with a non-zero exit and no last line):
     ms, the validation ms, the launches an iteration and, for the anytime
     trainer, one more iteration each way, the graphed one under
     torch.profiler (the card's busy share).
-17. The script's wall time, one JSON line listing the kernels (the
+17. Flow path of zamba2-2.7b at full width (54 Mamba2 layers and 9 sites
+    of the one shared attention block, bf16), as phase 4, after the earlier
+    weights are freed: flash attention 9 x 8 x 3 = 216 launches (hd 80),
+    gla_scan 54 x 8 x 3 = 1296 (inclusive, one decay a head), ns_update 24,
+    the others 0; phase 15's case on the served sampler (graphed equal to
+    eager to the bit). Prints each request's ms and the peak memory beside
+    the card's name and power limit.
+17b. Phase 5 for zamba2-2.7b: its width cut to 2 layers and one
+    shared-attention site (hybrid_attn_every 2, so hd stays 80), f32, euler
+    NFE 4, relative L2 <= 1e-4; flash 4, gla_scan 8 and ns_update 4
+    launches on the card.
+17c. Decode path of zamba2-2.7b at full width, phase 10's flags (8
+    requests on 4 slots, lengths 32/16): every request finishes at its
+    length with in-vocabulary tokens and no kernel launches (decode steps
+    the recurrence and a dense KV cache a site in plain torch, as the
+    reference does); then phase 15's decode cases on its engine
+    (prefill_slots of ZAMBA_PREFILL columns, step_slots greedy and
+    sampled), graphed equal to eager to the bit.
+17d. Phase 7 for zamba2-2.7b's 2-layer f32 model.
+18. The script's wall time, one JSON line listing the kernels (the
     ns_update and flash entries, forward and backward, with phases 4b, 5b,
-    12b, 12c, 12d, 13b, 13c, 14a, 14b, 14c and 16's launches and ms beside
-    the main path's), then the last line.
+    12b, 12c, 12d, 13b, 13c, 14a, 14b, 14c, 16 and 17-17d's launches and
+    ms beside the main path's; the flash and gla_scan entries also carry
+    zamba2-2.7b's case and phase-17 launches), then the last line.
 """
 from __future__ import annotations
 
@@ -311,13 +342,19 @@ DISTILL_CHECK_STEPS, DISTILL_CHECK_LR = 3, 1e-3    # phase 13
 BNS_ARTIFACT = ROOT / "build" / "chip_smoke" / "bns_nfe8.msgpack"          # phases 12, 12b
 ANYTIME_ARTIFACT = ROOT / "build" / "chip_smoke" / "anytime_4_8.msgpack"   # phase 12c
 ANYTIME_SEQ, ANYTIME_ITERS, ANYTIME_BUDGETS = 256, 4, (4, 8)              # phase 12c
+ANYTIME_LAYERS = 16       # phase 12c's depth: its eager RK45 at seq 256 is host-bound
 ANYTIME_REQUEST_BUDGETS = (4, 8, 16)
 BASELINES = ("ddim", "dpm2m", "edm_heun")                                    # phases 4b, 5b
 BASELINE_REQUESTS = 2                                                        # phase 4b
 BST_SEQ, BST_PAIRS, BST_ITERS = 256, 8, 4                                    # phase 12d
 TRAIN_GRAPH_ITERS = 4                                                        # phase 16
 BST_ARTIFACT = ROOT / "build" / "chip_smoke" / "bst_euler_nfe8.msgpack"
-VOCAB = {"yi-6b": 64000, "rwkv6-7b": 65536}
+VOCAB = {"yi-6b": 64000, "rwkv6-7b": 65536, "zamba2-2.7b": 32000}
+# phases 17-17d: zamba2-2.7b, 54 Mamba2 layers and 9 shared-attention sites
+ZAMBA_LAYERS, ZAMBA_SITES = 54, 9
+ZAMBA_DECODE_ARGS = ["--arch", "zamba2-2.7b", "--mode", "decode", "--full", "--gateway",
+                     "--max-slots", "4", "--requests", "8", "--decode-lengths", "32,16"]
+ZAMBA_PREFILL = 16            # phase 15's prefill_slots case on zamba2-2.7b's engine
 # phase 14: flow gateways serving 12c's anytime artifact at full width
 GATEWAY_ARGS = ["--arch", "yi-6b", "--mode", "flow", "--full", "--gateway",
                 "--max-batch", "4", "--max-wait-ms", "60000", "--batch", str(BATCH),
@@ -521,7 +558,8 @@ def flash_cases(dev):
             (2, 8, 2, 512, 80, torch.float32, True),
             (2, 8, 2, 512, 64, torch.bfloat16, True),          # hd 64
             (2, 8, 2, 512, 80, torch.bfloat16, True),          # hd 80: 32-byte swizzle
-            (BATCH, 32, 4, 1, 128, torch.bfloat16, True)]:     # one position
+            (BATCH, 32, 4, 1, 128, torch.bfloat16, True),      # one position
+            (BATCH, 32, 32, SEQ, 80, torch.bfloat16, True)]:   # zamba2-2.7b's main path
         # transposed views of the model's (B, L, heads, hd) layout, as on the main path
         q = torch.randn((B, L, H, hd), generator=g, device=dev).to(dtype).transpose(1, 2)
         k = torch.randn((B, L, KV, hd), generator=g, device=dev).to(dtype).transpose(1, 2)
@@ -823,11 +861,16 @@ def gla_cases(dev):
     rows = []
     # (B, L, H, dk, dv, chunk, inclusive, qkv dtype, ld dtype, decay, scalar decay, s0)
     # decay: "model" draws ld as rwkv6 does (-exp(-6 + small noise)), a number
-    # scales -|N(0, 1)| as tests/test_kernels.py does (0.5 moderate, 30 strong)
+    # scales -|N(0, 1)| as tests/test_kernels.py does (0.5 moderate, 30 strong);
+    # "mamba2" is models/mamba2.py::_ssd's form: ld = softplus(dt - 2) * -exp(A_log)
+    # one a head, and q, k one B/C group broadcast over the heads (views with a
+    # stride of 0 on h into a (B, L, conv_dim) product, as the model makes them)
     cases = [(BATCH, SEQ, 64, 64, 64, 64, False, bf16, f32, "model", False, False),  # main path
              (BATCH, SEQ, 64, 64, 64, 64, False, bf16, f32, 0.5, False, False),
              (BATCH, SEQ, 64, 64, 64, 64, False, f32, f32, "model", False, False),
              (2, SEQ, 80, 64, 64, 64, True, bf16, f32, 0.5, True, False),   # mamba2-style
+             # zamba2-2.7b's main path: the model's own form (decay "mamba2")
+             (BATCH, SEQ, 80, 64, 64, 64, True, bf16, f32, "mamba2", True, False),
              (BATCH, 1000, 64, 64, 64, 64, False, bf16, f32, "model", False, False),
              (2, 256, 8, 64, 64, 64, False, f32, f32, 0.5, False, True),    # given s0
              (2, 256, 8, 64, 64, 64, True, bf16, bf16, 0.5, False, True),
@@ -840,16 +883,28 @@ def gla_cases(dev):
                                             (96, 16, False, 32, 48), (64, 64, True, 16, 128)]:
             cases.append((2, L, 3, dk, dv, chunk, inclusive, dtype, f32, 0.5, False, False))
     for B, L, H, dk, dv, chunk, inclusive, dtype, ld_dtype, decay, scalar, with_s0 in cases:
-        q, k = (torch.randn((B, L, H, dk), generator=g, device=dev).to(dtype) for _ in "qk")
+        broadcast = decay == "mamba2"
+        if broadcast:
+            xbc = torch.randn((B, L, H * dv + 2 * dk), generator=g, device=dev).to(dtype)
+            k = xbc[..., H * dv:H * dv + dk][:, :, None, :].expand(B, L, H, dk)
+            q = xbc[..., H * dv + dk:][:, :, None, :].expand(B, L, H, dk)
+        else:
+            q, k = (torch.randn((B, L, H, dk), generator=g, device=dev).to(dtype)
+                    for _ in "qk")
         v = torch.randn((B, L, H, dv), generator=g, device=dev).to(dtype)
         noise = torch.randn((B, L, H, 1 if scalar else dk), generator=g, device=dev)
-        ld = (-torch.exp(-6.0 + 0.1 * noise) if decay == "model"
-              else -noise.abs() * decay).to(ld_dtype)
+        if decay == "mamba2":
+            a_log = 0.5 * torch.randn((H, 1), generator=g, device=dev)
+            ld = (torch.nn.functional.softplus(noise - 2.0) * -torch.exp(a_log)).to(ld_dtype)
+        else:
+            ld = (-torch.exp(-6.0 + 0.1 * noise) if decay == "model"
+                  else -noise.abs() * decay).to(ld_dtype)
         s0 = (torch.randn((B, H, dk, dv), generator=g, device=dev) if with_s0 else None)
         shape = (f"B={B} L={L} H={H} dk={dk} dv={dv} chunk={chunk} "
                  f"{'inclusive' if inclusive else 'exclusive'} qkv {str(dtype)[6:]} "
                  f"ld {str(ld_dtype)[6:]}{' per head' if scalar else ''} decay {decay}"
-                 f"{' s0' if with_s0 else ''}")
+                 f"{' s0' if with_s0 else ''}"
+                 f"{' q, k broadcast over heads (stride 0)' if broadcast else ''}")
         kernel = kernel_for(dtype, L, dk, dv, chunk)
         if kernel != gla_kernel_rule(dtype, L, dk, dv, chunk):
             raise SystemExit(f"gla_scan [{shape}]: the library selects the {kernel} kernel, "
@@ -870,17 +925,25 @@ def gla_cases(dev):
             o32, _ = gla_ref(q, k, v, ld, s0, inclusive=inclusive)
             shape += f" (f32 oracle's own error {float((o32.double() - o_ref).abs().max()):.3e})"
         ld_elems = B * L * H * (1 if scalar else dk)
-        nbytes = (2 * q.numel() + v.numel()) * q.element_size() + \
-            ld_elems * ld.element_size() + o.numel() * o.element_size() + \
-            s.numel() * 4 * (2 if with_s0 else 1)
+        # each input read once: a broadcast q or k is stored once, not a head
+        qk_elems = 2 * (B * L * dk if broadcast else q.numel())
+        rest = v.numel() * v.element_size() + ld_elems * ld.element_size() + \
+            o.numel() * o.element_size() + s.numel() * 4 * (2 if with_s0 else 1)
+        nbytes = qk_elems * q.element_size() + rest
         # the bound at the peak of the type the products run in (bf16 tensor
         # cores for bf16 q, k, v), and beside it the same count at the f32
         # CUDA-core peak (the table's bound before the tensor-core kernel)
         flops = B * H * gla_flops(L, chunk, dk, dv, inclusive)
         b_ms, b_by = bound(nbytes, flops, dtype)
         b32_ms, b32_by = bound(nbytes, flops, f32)
+        extra = {}
+        if broadcast:
+            # what the kernel moves: every (b, h) block reads its rows of q and k
+            per_block = 2 * q.numel() * q.element_size() + rest
+            extra = dict(stored_mb=nbytes / 1e6, per_block_read_mb=per_block / 1e6,
+                         per_block_read_ms=per_block / HBM_BYTES_PER_S * 1e3)
         rows.append(dict(
-            shape=shape, max_abs_err=err, kernel=kernel, bound_f32=(b32_ms, b32_by),
+            shape=shape, max_abs_err=err, kernel=kernel, bound_f32=(b32_ms, b32_by), **extra,
             ms=time_ms(lambda: gla_scan(q, k, v, ld, s0, inclusive=inclusive, chunk=chunk)),
             plain_ms=time_ms(lambda: gla_chunked(q, k, v, ld, s0, inclusive=inclusive,
                                                  chunk=chunk), iters=10, warmup=2),
@@ -911,9 +974,10 @@ def free_device_memory(dev) -> None:
     torch.cuda.reset_peak_memory_stats(dev)
 
 
-def flow_path(dev, counters, arch: str, want: dict, graphs: dict):
+def flow_path(dev, counters, arch: str, want: dict, graphs: dict) -> tuple[dict, dict]:
     """serve.main in flow mode at full width; launch counts must be ``want``.
-    Then phase 15's case on the served sampler, into ``graphs``."""
+    Then phase 15's case on the served sampler, into ``graphs``. Returns the
+    launches and the run's request ms, peak memory and wall."""
     from repro_torch.launch import serve
 
     free_device_memory(dev)
@@ -940,7 +1004,8 @@ def flow_path(dev, counters, arch: str, want: dict, graphs: dict):
           f"peak memory {peak / 2**30:.3f} GiB, main() wall {wall:.3f} s, programs "
           f"{served.sampler.programs.stats()}")
     graphs.update(flow_programs(dev, counters, served.sampler, arch, SEQ))
-    return launches
+    return launches, {"request_ms": [s.ms for s in served], "peak_gib": peak / 2**30,
+                      "wall_s": wall}
 
 
 def small_model(arch: str):
@@ -948,7 +1013,10 @@ def small_model(arch: str):
     from repro_torch.configs import get_config
     from repro_torch.models import model as M
 
-    cfg = dataclasses.replace(get_config(arch), n_layers=2, dtype="float32")
+    cfg = get_config(arch)
+    # a hybrid model keeps one shared-attention site over its two Mamba2 layers
+    site = {"hybrid_attn_every": 2} if cfg.family == "hybrid" else {}
+    cfg = dataclasses.replace(cfg, n_layers=2, dtype="float32", **site)
     return cfg, M.init_params(torch.Generator().manual_seed(0), cfg, "cpu")
 
 
@@ -978,6 +1046,7 @@ def whole_path_against_cpu(dev, counters, cfg, params, want: dict):
           f"NFE 4): relative L2 {rel:.3e} (limit 1e-4)")
     if not rel <= 1e-4:
         raise SystemExit(f"whole path {cfg.name}: relative L2 {rel} over 1e-4")
+    return rel
 
 
 class PerRequest:
@@ -1199,13 +1268,15 @@ class CountCalls:
             self.eager.__exit__(*exc)
 
 
-def decode_path(dev, counters, args: list, per_call: dict, graphs: dict, **cases):
+def decode_path(dev, counters, args: list, per_call: dict, graphs: dict,
+                runs: dict | None = None, **cases):
     """serve.main in decode mode at full width through the gateway: every
     request finishes at its length with in-vocabulary tokens, nothing fails,
     every page returns, and each kernel launches ``per_call[name]`` times a
     ``decode_apply`` call (0 where it is not named). Then phase 15's cases on
     the served engine (``decode_programs``' ``prefill`` and ``sampled``; with
-    ``growth``, ``workspace_growth`` too), into ``graphs``."""
+    ``growth``, ``workspace_growth`` too), into ``graphs``; the run's
+    tokens/s, engine call ms and peak memory into ``runs`` where given."""
     from repro_torch.launch import serve
 
     free_device_memory(dev)
@@ -1251,6 +1322,10 @@ def decode_path(dev, counters, args: list, per_call: dict, graphs: dict, **cases
                                   cases.get("prefill", 0), cases.get("sampled", False)))
     if cases.get("growth"):
         graphs["yi-6b paged workspace growth"] = workspace_growth(dev, counters, engine)
+    if runs is not None:
+        runs.update(tokens_per_s=s["tokens_per_s"], tokens=s["tokens_out"],
+                             wall_s=served.wall_s, calls=calls.calls, peak_gib=peak / 2**30,
+                             call_ms_mean=d["sum"] / d["count"], call_ms_p50=d["p50"])
     return launches
 
 
@@ -1373,6 +1448,7 @@ def decode_against_cpu(dev, counters, cfg, params, engine_kw: dict, per_call: di
         raise SystemExit(f"{cfg.name} decode path: tokens differ ({card_tokens} vs "
                          f"{cpu_tokens}); smallest top-2 logit margin on the CPU "
                          f"{margin:.3e}")
+    return max(rels)
 
 
 class Tee:
@@ -1515,9 +1591,25 @@ def artifact_reload(dev, counters, distilled: dict) -> dict:
     return {"launches": launches, "request_ms": [x.ms for x in served], "wall_s": wall}
 
 
+@contextlib.contextmanager
+def launcher_depth(layers: int):
+    """Inside the block the launcher builds its model with ``layers`` layers
+    (its width unchanged)."""
+    from repro_torch.launch import serve
+
+    inner = serve.get_config
+    serve.get_config = lambda arch, smoke=False: dataclasses.replace(
+        inner(arch, smoke=smoke), n_layers=layers)
+    try:
+        yield
+    finally:
+        serve.get_config = inner
+
+
 def anytime_path(dev, counters, trains: dict) -> dict:
     """Phase 12c: serve.main distils an anytime solver over budgets (4, 8)
-    for yi-6b at full width, saves and reloads it and routes 3 requests;
+    for yi-6b at full width and ANYTIME_LAYERS of its depth, saves and
+    reloads it and routes 3 requests;
     launch counts as the module docstring states them; then the served
     sampler's exits against per-budget sampling and carry legs, to the bit;
     then phase 16's anytime case (profiled) on its weights and pairs."""
@@ -1529,7 +1621,7 @@ def anytime_path(dev, counters, trains: dict) -> dict:
     free_device_memory(dev)
     reset(counters)
     t0 = time.perf_counter()
-    with Tee() as out:
+    with Tee() as out, launcher_depth(ANYTIME_LAYERS):
         served = serve.main(["--arch", "yi-6b", "--mode", "flow", "--full",
                              "--budgets", ",".join(map(str, ANYTIME_BUDGETS)),
                              "--request-budgets", ",".join(map(str, ANYTIME_REQUEST_BUDGETS)),
@@ -1545,8 +1637,9 @@ def anytime_path(dev, counters, trains: dict) -> dict:
     rules = top + len(ANYTIME_BUDGETS) - 1            # intermediate rules + exits
     served_nfe = [nearest_budget(ANYTIME_BUDGETS, m) for m in ANYTIME_REQUEST_BUDGETS]
     want = {**dict.fromkeys(KERNELS, 0),
-            "flash_attention": LAYERS * (R + 2 * top + sum(served_nfe) + 2 * top * K),
-            "flash_attention_bwd": LAYERS * top * K,
+            "flash_attention": ANYTIME_LAYERS * (R + 2 * top + sum(served_nfe)
+                                                 + 2 * top * K),
+            "flash_attention_bwd": ANYTIME_LAYERS * top * K,
             "ns_update": 2 * rules + sum(served_nfe) + rules * K, "ns_update_bwd": rules * K}
     if launches != want:
         raise SystemExit(f"anytime launch counts {launches}, expected {want} "
@@ -1584,7 +1677,8 @@ def anytime_path(dev, counters, trains: dict) -> dict:
         checks[f"sample_all_from[{m}] == sample_from({m})"] = torch.equal(
             every[m], sampler.sample_from(cond, x0, m))
         checks[f"carry legs [{m}] == sample_all_from[{m}]"] = torch.equal(exits[m], every[m])
-    print(f"anytime: yi-6b full width, budgets {ANYTIME_BUDGETS}, batch {BATCH}, seq "
+    print(f"anytime: yi-6b full width, {ANYTIME_LAYERS} of its {LAYERS} layers, budgets "
+          f"{ANYTIME_BUDGETS}, batch {BATCH}, seq "
           f"{ANYTIME_SEQ}: RK45 train {d.rk45['train']}, val {d.rk45['val']} "
           f"({d.rk45_seconds:.3f} s); mean val PSNR initial {d.init_val_psnr:.4f} dB -> "
           f"distilled {d.val_psnr:.4f} dB after {K} iterations (losses "
@@ -2459,6 +2553,43 @@ def workspace_growth(dev, counters, engine) -> dict:
 
 
 
+def zamba2_paths(dev, counters, card: str, graphs: dict) -> dict:
+    """Phases 17-17d: zamba2-2.7b served at full width in flow (17) and
+    decode (17c), with phase 15's cases on each engine; each path on the card
+    against the CPU on the 2-layer f32 model (17b, 17d)."""
+    zero = dict.fromkeys(KERNELS, 0)
+    flows = NFE * REQUESTS
+    out, wall = {}, {}
+    t0 = time.perf_counter()
+    out["launches"], out["flow"] = flow_path(
+        dev, counters, "zamba2-2.7b",
+        {**zero, "ns_update": flows, "flash_attention": ZAMBA_SITES * flows,
+         "gla_scan": ZAMBA_LAYERS * flows}, graphs)
+    wall["17+15"] = time.perf_counter() - t0
+    print(f"phase 17 ({card}): zamba2-2.7b flow request ms "
+          f"{[round(x, 3) for x in out['flow']['request_ms']]}, peak memory "
+          f"{out['flow']['peak_gib']:.3f} GiB")
+    t0 = time.perf_counter()
+    cfg, params = small_model("zamba2-2.7b")
+    out["flow_rel_l2"] = whole_path_against_cpu(
+        dev, counters, cfg, params,
+        {**zero, "ns_update": 4, "flash_attention": 4, "gla_scan": 2 * 4})
+    wall["17b"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    out["decode"] = {}
+    decode_path(dev, counters, ZAMBA_DECODE_ARGS, {}, graphs, prefill=ZAMBA_PREFILL,
+                sampled=True, runs=out["decode"])
+    wall["17c+15"] = time.perf_counter() - t0
+    print(f"phase 17c ({card}): zamba2-2.7b decode {out['decode']['tokens_per_s']:.1f} "
+          f"tokens/s, engine call ms mean {out['decode']['call_ms_mean']:.3f}, peak memory "
+          f"{out['decode']['peak_gib']:.3f} GiB")
+    t0 = time.perf_counter()
+    out["decode_rel_l2"] = decode_against_cpu(dev, counters, cfg, params, {}, {})
+    wall["17d"] = time.perf_counter() - t0
+    out["wall_s"] = wall
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is False)",
@@ -2502,6 +2633,11 @@ def main() -> int:
             if "bound_f32" in r and r["bound_f32"][0] != r["bound_ms"]:
                 extra += (f", bound at the f32 CUDA-core peak {r['bound_f32'][0]:.4f} ms "
                           f"({r['bound_f32'][1]})")
+            if "per_block_read_mb" in r:
+                extra += (f", bytes: {r['stored_mb']:.1f} MB stored, each input read "
+                          f"once (the bound's count); {r['per_block_read_mb']:.1f} MB with "
+                          f"q and k read by every (b, h) block -> "
+                          f"{r['per_block_read_ms']:.4f} ms")
             if "tflops" in r:
                 extra += (f", {r['tflops']:.1f} TFLOP/s, kernel/bound "
                           f"{r['ms'] / r['bound_ms']:.2f}")
@@ -2533,8 +2669,8 @@ def main() -> int:
     flows = NFE * REQUESTS
     graphs, phase_s = {}, {}
     t0 = time.perf_counter()
-    launches = flow_path(dev, counters, "yi-6b", {**zero, "ns_update": flows,
-                                                  "flash_attention": LAYERS * flows}, graphs)
+    launches, _ = flow_path(dev, counters, "yi-6b", {**zero, "ns_update": flows,
+                                                     "flash_attention": LAYERS * flows}, graphs)
     phase_s["4+15"] = time.perf_counter() - t0
     t0 = time.perf_counter()
     baselines = baselines_served(dev, counters, card)
@@ -2557,7 +2693,7 @@ def main() -> int:
     t0 = time.perf_counter()
     launches["gla_scan"] = flow_path(
         dev, counters, "rwkv6-7b",
-        {**zero, "ns_update": flows, "gla_scan": LAYERS * flows}, graphs)["gla_scan"]
+        {**zero, "ns_update": flows, "gla_scan": LAYERS * flows}, graphs)[0]["gla_scan"]
     phase_s["8+15"] = time.perf_counter() - t0
     cfg, params = small_model("rwkv6-7b")
     whole_path_against_cpu(dev, counters, cfg, params,
@@ -2596,6 +2732,8 @@ def main() -> int:
     t0 = time.perf_counter()
     gw_runs = gateways(dev, counters, card, graphs)
     phase_s["14+15"] = time.perf_counter() - t0
+    zamba = zamba2_paths(dev, counters, card, graphs)
+    phase_s.update(zamba["wall_s"])
     graph_kinds = {k for k in graphs if "workspace" not in k}
     print("phase 15 summary (" + card + "): " + "; ".join(
         f"{k}: graphed {v['graphed_ms']:.3f} / eager {v['eager_ms']:.3f} ms, capture "
@@ -2630,6 +2768,14 @@ def main() -> int:
             "wait_p50_ms", "max_wait_ms", "joins", "slot_occupancy", "alone_equal",
             "alone_max_abs", "alone_max_rel_l2", "bucket3_equal", "native_max_rel_l2")}}
     new_phases["14b"]["equal_to_14a"] = gw_runs["14b"]["equal_to_14a"]
+    new_phases["17"] = {"what": "zamba2-2.7b flow, full width, NFE 8, batch 4, seq 1024, "
+                                f"{REQUESTS} requests", **zamba["flow"]}
+    new_phases["17b"] = {"what": "zamba2-2.7b flow card vs CPU, 2 layers f32",
+                         "relative_l2": zamba["flow_rel_l2"]}
+    new_phases["17c"] = {"what": "zamba2-2.7b decode, full width, 8 requests on 4 slots",
+                         **zamba["decode"]}
+    new_phases["17d"] = {"what": "zamba2-2.7b decode card vs CPU, 2 layers f32",
+                         "worst_logits_relative_l2": zamba["decode_rel_l2"]}
     new_phases["16"] = {"what": "training programs graphed against eager",
                         **{k: {f: v[f] for f in ("graphed_ms", "eager_ms", "capture_ms",
                                                  "launches_an_iteration", "busy")}
@@ -2673,12 +2819,27 @@ def main() -> int:
             kernels[-1]["pass_device_ms"] = main_case["pass_device_ms"]
             kernels[-1]["distillation"] = {k: v for k, v in distill.items()
                                            if k not in ("launches", "solver", "latents")}
+        if name in ("flash_attention", "gla_scan"):
+            # zamba2-2.7b's main path (phase 17): its shape's case and launches
+            case = next(r for r in rows[name] if "H=32 KV=32" in r["shape"]
+                        or "per_block_read_mb" in r)
+            kernels[-1]["zamba2"] = {
+                "launches": zamba["launches"][name],
+                **{k: case[k] for k in ("shape", "max_abs_err", "ms", "plain_ms",
+                                        "bound_ms", "bound_by", "library_ms")},
+                **{k: case[k] for k in ("stored_mb", "per_block_read_mb",
+                                        "per_block_read_ms") if k in case}}
         if name in ("ns_update", "flash_attention", "ns_update_bwd", "flash_attention_bwd"):
             runs = {"12b": reload, "12c": any_run, "13b": any_grad, "13c": bst_grad,
                     "4b": baselines,
                     "5b": baselines_cpu, "12d": bst_run, **gw_runs,
                     "16": {"launches": {k: sum(v["launches"][k] for v in trains.values())
-                                        for k in KERNELS}}}
+                                        for k in KERNELS}},
+                    "17": zamba, "17b": {"launches": {
+                        **dict.fromkeys(KERNELS, 0), "ns_update": 4, "flash_attention": 4,
+                        "gla_scan": 8}},
+                    "17c": {"launches": dict.fromkeys(KERNELS, 0)},
+                    "17d": {"launches": dict.fromkeys(KERNELS, 0)}}
             kernels[-1]["phases"] = {k: {**v, "launches": runs[k]["launches"][name]}
                                      for k, v in new_phases.items()}
     print(f"chip_smoke wall {time.perf_counter() - T_START:.1f} s")

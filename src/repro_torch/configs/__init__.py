@@ -8,7 +8,7 @@ import importlib
 
 from repro_torch.configs.base import FrontendStub, ModelConfig, MoEConfig, SSMConfig
 
-ARCHS = ("yi-6b", "rwkv6-7b")
+ARCHS = ("yi-6b", "rwkv6-7b", "zamba2-2.7b")
 
 
 def _module(arch: str):

@@ -21,9 +21,17 @@ Port of ``repro.launch.serve``:
       --full --nfe 8 --batch 4 --seq 1024 --requests 3 --bns-iters 0
   PYTHONPATH=src python -m repro_torch.launch.serve --arch rwkv6-7b --mode decode \
       --full --gateway --max-slots 4 --requests 8 --decode-lengths 32,16
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch zamba2-2.7b --mode flow \
+      --full --nfe 8 --batch 4 --seq 1024 --requests 3 --bns-iters 0
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch zamba2-2.7b --mode decode \
+      --full --gateway --max-slots 4 --requests 8 --decode-lengths 32,16
 
-``--arch`` takes yi-6b (dense) or rwkv6-7b (ssm: its flow forward runs the
-gla_scan kernel, its decode steps the recurrence in plain torch).
+``--arch`` takes yi-6b (dense), rwkv6-7b (ssm: its flow forward runs the
+gla_scan kernel, its decode steps the recurrence in plain torch) or
+zamba2-2.7b (hybrid: Mamba2 blocks and one weight-shared attention block; its
+flow forward runs the gla_scan kernel in the inclusive mode and the flash
+kernel at head dim 80, its decode steps the recurrence and a dense KV cache a
+shared-attention site in plain torch).
 
 Runs on the card by default (``--device cuda``, an error without one);
 ``--device cpu`` runs the plain CPU path. Weights are random, drawn from a
@@ -42,8 +50,9 @@ in a temporary directory) and serves the reloaded copy. ``--bns-iters 0``
 serves the initial solver without an artifact. An anytime artifact routes
 each request (``--request-budgets``, cycled) to its early exit; a budget the
 solver does not serve goes to the nearest one with a WARNING, or exits under
-``--strict-nfe``. rwkv6-7b does not distil on the card yet (its
-``gla_scan`` kernel has no backward; the CPU runs). ``--kernel-update`` is
+``--strict-nfe``. rwkv6-7b and zamba2-2.7b do not distil on the card yet
+(the ``gla_scan`` kernel has no backward, nor has the flash kernel at
+zamba2-2.7b's head dim 80; the CPU runs). ``--kernel-update`` is
 accepted and changes nothing: the card always runs the ``ns_update``
 kernel. A loaded ``--solver-artifact`` of any single-budget kind serves
 through ``FlowSampler.from_artifact`` (a baseline ``ns`` artifact of ddim,
@@ -81,7 +90,7 @@ Decode mode serves batched greedy decode (``greedy_demo``) or, with
 prompt ``[(3r+1) % vocab, (5r+2) % vocab]`` submitted to a pool of
 ``--max-slots`` state slots, ``--decode-lengths`` cycling its max_tokens.
 ``--page-size`` pages the KV cache (a no-op for rwkv6-7b, whose recurrent
-state is O(1) a slot), ``--paged-kernel`` attends through the
+state is O(1) a slot; refused for zamba2-2.7b, as in the reference), ``--paged-kernel`` attends through the
 paged-attention kernel, ``--prefill-chunk`` sets the chunked prefill width
 (0 = token by token), ``--temperature``/``--top-k``/``--top-p`` sample
 instead of greedy. ``main`` returns what the run served: the flow mode's
@@ -101,13 +110,16 @@ import time
 import torch
 
 from repro_torch import resolve_device
-from repro_torch.configs import get_config
+from repro_torch.configs import ARCHS, get_config
 from repro_torch.core import ns_solver
 from repro_torch.core.anytime import evaluate_anytime, init_anytime
 from repro_torch.core.bns import BNSTrainConfig, psnr
 from repro_torch.core.rk45 import rk45_solve
 from repro_torch.core.schedulers import get_scheduler
 from repro_torch.data.synthetic import DataConfig, SyntheticTokens
+from repro_torch.kernels.flash_attention.flash_attention import (
+    BWD_ROADMAP as FLASH_BACKWARD_ROADMAP,
+)
 from repro_torch.kernels.gla_scan.ops import BACKWARD_ROADMAP as GLA_BACKWARD_ROADMAP
 from repro_torch.models import model as M
 from repro_torch.observability import (
@@ -241,7 +253,8 @@ def _int_list(text: str) -> tuple[int, ...]:
 
 def build_parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(prog="python -m repro_torch.launch.serve")
-    ap.add_argument("--arch", required=True)
+    ap.add_argument("--arch", required=True,
+                    help=f"the model: one of {', '.join(ARCHS)} (random weights)")
     ap.add_argument("--mode", choices=["flow", "decode"], default="flow")
     ap.add_argument("--smoke", action="store_true", default=True)
     ap.add_argument("--full", dest="smoke", action="store_false")
@@ -355,16 +368,23 @@ def build_parser() -> argparse.ArgumentParser:
     return ap
 
 
+# the families whose flow forward runs a kernel with no backward on the card
+_NO_BACKWARD_ON_CARD = {
+    "ssm": f"its gla_scan kernel has no backward ({GLA_BACKWARD_ROADMAP})",
+    "hybrid": (f"the gla_scan kernel has no backward ({GLA_BACKWARD_ROADMAP}), nor has "
+               f"the flash kernel at its head dim 80 ({FLASH_BACKWARD_ROADMAP})"),
+}
+
+
 def _refuse_unported(args) -> None:
     if args.mode == "flow":
         loads = bool(args.solver_artifact) and os.path.exists(args.solver_artifact)
-        if (args.bns_iters > 0 and args.device == "cuda" and not loads
-                and get_config(args.arch, smoke=args.smoke).family == "ssm"):
+        missing = _NO_BACKWARD_ON_CARD.get(get_config(args.arch, smoke=args.smoke).family)
+        if args.bns_iters > 0 and args.device == "cuda" and not loads and missing:
             raise SystemExit(
                 f"not served by the port yet: BNS distillation of {args.arch} on the "
-                f"card: its gla_scan kernel has no backward ({GLA_BACKWARD_ROADMAP}); "
-                "--device cpu distills through the plain chunked form, --bns-iters 0 "
-                "serves the initial euler solver")
+                f"card: {missing}; --device cpu distills through the plain forms, "
+                "--bns-iters 0 serves the initial euler solver")
     for dest, (flag, what, item, kw) in _UNPORTED.items():
         if getattr(args, dest) != kw["default"]:
             raise SystemExit(f"not served by the port yet: {flag}, {what} "

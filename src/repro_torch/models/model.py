@@ -1,11 +1,12 @@
 """Unified model API — the ported families and the paper's flow substrate.
 
-Port of the dense (yi-6b) and ssm (rwkv6-7b) branches of ``repro.models.model``:
+Port of the dense (yi-6b), ssm (rwkv6-7b) and hybrid (zamba2-2.7b) branches of
+``repro.models.model``:
 
   init_params(generator, cfg, device)             -> params tree
   velocity(params, cfg, t, x, batch)              -> u_t(x) over latent sequences
   velocity_field(params, cfg, sched, batch)       -> VelocityField (with CFG)
-  init_decode_state(cfg, batch, slots, ...)       -> KV cache or RWKVState
+  init_decode_state(cfg, batch, slots, ...)       -> KV cache, RWKVState or HybridState
   init_paged_decode_state(cfg, batch, pages, ...) -> paged KV cache
   decode_apply(params, cfg, token, state)         -> (logits, state)
 
@@ -23,15 +24,16 @@ from repro_torch import resolve_device
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.parametrization import VelocityField
 from repro_torch.core.schedulers import Scheduler
-from repro_torch.models import rwkv6, transformer
+from repro_torch.models import mamba2, rwkv6, transformer
 from repro_torch.models.attention import KVCache, PagedKVCache
+from repro_torch.models.mamba2 import HybridState
 from repro_torch.models.rwkv6 import RWKVState
 from repro_torch.models.transformer import latent_targets
 
 Tensor = torch.Tensor
 
 FAMILIES = ("dense", "moe", "ssm", "hybrid", "encdec", "vlm")
-PORTED_FAMILIES = ("dense", "ssm")
+PORTED_FAMILIES = ("dense", "ssm", "hybrid")
 PAGED_FAMILIES = ("dense", "moe", "vlm")   # KV-cache families that can page
 
 __all__ = ["FAMILIES", "PORTED_FAMILIES", "PAGED_FAMILIES", "init_params", "velocity",
@@ -47,7 +49,8 @@ def _require_ported(cfg: ModelConfig) -> None:
 
 def init_params(generator: torch.Generator, cfg: ModelConfig, device="cuda") -> dict:
     _require_ported(cfg)
-    init = {"dense": transformer.init_dense_params, "ssm": rwkv6.init_rwkv_params}
+    init = {"dense": transformer.init_dense_params, "ssm": rwkv6.init_rwkv_params,
+            "hybrid": mamba2.init_hybrid_params}
     return init[cfg.family](generator, cfg, device)
 
 
@@ -56,6 +59,8 @@ def _hidden_fn(cfg: ModelConfig, remat: bool = False):
     gets ``remat``, as in the reference."""
     if cfg.family == "ssm":
         return lambda p, c, h, pos: rwkv6.rwkv_hidden(p, c, h, remat=remat)
+    if cfg.family == "hybrid":
+        return lambda p, c, h, pos: mamba2.hybrid_hidden(p, c, h, pos, remat=remat)
     return lambda p, c, h, pos: transformer.dense_hidden(p, c, h, pos, remat=remat)
 
 
@@ -94,11 +99,15 @@ def velocity_field(params: dict, cfg: ModelConfig, sched: Scheduler,
 
 def init_decode_state(cfg: ModelConfig, batch: int, slots: int, dtype=torch.bfloat16,
                       device="cuda"):
-    """A KV cache of ``slots`` positions (dense), or the recurrent state (ssm:
-    f32 whatever ``dtype``, and ``slots`` unused, as in the reference)."""
+    """A KV cache of ``slots`` positions (dense), the recurrent state (ssm:
+    f32 whatever ``dtype``, and ``slots`` unused, as in the reference), or
+    both (hybrid: conv tails and one KV cache a shared-attention site in
+    ``dtype``, the SSD state in f32)."""
     _require_ported(cfg)
     if cfg.family == "ssm":
         return rwkv6.init_state(cfg, batch, device)
+    if cfg.family == "hybrid":
+        return mamba2.init_state(cfg, batch, slots, dtype, device)
     return transformer.init_caches(cfg, batch, slots, dtype, resolve_device(device))
 
 
@@ -124,6 +133,8 @@ def decode_state_batch_axes(cfg: ModelConfig, paged: bool = False):
         return PagedKVCache(k_pages=-1, v_pages=-1, block_table=0, index=0)
     if cfg.family == "ssm":
         return RWKVState(shift_tm=1, shift_cm=1, wkv=1, index=0)
+    if cfg.family == "hybrid":
+        return HybridState(conv=1, ssm=1, kv=1, vv=1, index=0)
     return KVCache(k=1, v=1, index=0)
 
 
@@ -131,9 +142,12 @@ def decode_apply(params: dict, cfg: ModelConfig, token: Tensor, state, *,
                  window: int = 0, paged_kernel: bool = False,
                  active: Optional[Tensor] = None):
     """One decode step; ``state`` is updated in place (``transformer.decode_step``,
-    ``rwkv6.decode_step``, which ignores ``window`` and ``paged_kernel``)."""
+    ``rwkv6.decode_step``, which ignores ``window`` and ``paged_kernel``, or
+    ``mamba2.decode_step``, which ignores ``paged_kernel``)."""
     _require_ported(cfg)
     if cfg.family == "ssm":
         return rwkv6.decode_step(params, cfg, token, state, active=active)
+    if cfg.family == "hybrid":
+        return mamba2.decode_step(params, cfg, token, state, window=window, active=active)
     return transformer.decode_step(params, cfg, token, state, window=window,
                                    paged_kernel=paged_kernel, active=active)

@@ -26,7 +26,8 @@ Noise, Gumbel draws and host-to-device copies happen before a replay, the
 tokens' copy to the host after it.
 
 ``DecodeEngine`` — batched autoregressive decode over a KV cache (the ssm
-family: its recurrent state, where ``page_size`` is a no-op): ``greedy``
+family: its recurrent state, where ``page_size`` is a no-op; the hybrid
+family: both, and ``page_size`` is refused): ``greedy``
 (a Python loop where the reference scans) and the slot API
 (``init_slot_state`` / ``step_slots`` / ``prefill_slots`` / ``reset_slots``)
 that ``serving.decode.DecodeGateway`` serves from. ``page_size > 0`` pages

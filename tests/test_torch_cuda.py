@@ -244,6 +244,27 @@ def test_flash_attention_matches_plain(dev, B, H, KV, L, hd, causal, dtype):
     _check_flash_bf16(out, ref)
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,L", [(4, 1024), (2, 300)])
+def test_flash_attention_at_zamba2_heads(dev, B, L, dtype):
+    """zamba2-2.7b's shared attention: 32 query and 32 KV heads of 80 (G 1),
+    causal, on transposed views of the model's layout (row stride 32 x 80),
+    at the flow cell's (4, 1024) and a ragged L."""
+    rng = np.random.default_rng(B + L)
+    q, k, v = (_randn(rng, (B, L, 32, 80), dtype, dev).transpose(1, 2) for _ in "qkv")
+    before = fa_mod.COUNTER.launches
+    out = attend(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2), causal=True)
+    torch.cuda.synchronize()
+    assert fa_mod.COUNTER.launches == before + 1
+    out = out.transpose(1, 2)
+    ref = attention_ref(q, k, v, causal=True)
+    assert out.dtype == dtype and out.shape == q.shape
+    if dtype == torch.float32:
+        torch.testing.assert_close(out, ref, atol=TOL[dtype] * 4, rtol=TOL[dtype] * 4)
+        return
+    _check_flash_bf16(out, ref)
+
+
 def test_attend_reads_model_layout_in_place(dev):
     """Transposed (B, L, H, hd) views go in without copies; the result comes
     back in the model layout, contiguous."""
@@ -641,6 +662,39 @@ def test_gla_scan_reads_model_layout_in_place(dev):
     _check_gla(got, _oracle(q, k, v, ld, inclusive=False), torch.bfloat16)
     same = gla_scan(q.contiguous(), k.contiguous(), v.contiguous(), ld.contiguous(),
                     inclusive=False, chunk=64)
+    torch.testing.assert_close(got, same, atol=0, rtol=0)
+
+
+@pytest.mark.parametrize("B,L,H,ds,hd,chunk", [
+    (4, 1024, 80, 64, 64, 64),   # zamba2-2.7b's SSD at the flow cell
+    (2, 200, 8, 16, 32, 16),     # its smoke config, a ragged last chunk
+])
+def test_gla_scan_mamba2_form(dev, B, L, H, ds, hd, chunk):
+    """The Mamba2 form, as models/mamba2.py::_ssd hands it over: q and k one
+    B/C group broadcast over the heads (views with a stride of 0 on h into a
+    (B, L, conv_dim) product), one f32 decay a head (ld's last dim 1),
+    inclusive; against the f64 oracle, and to the bit against the same
+    values materialised contiguous."""
+    from repro_torch.kernels.gla_scan import gla_scan as gs_mod
+    from repro_torch.kernels.gla_scan.ops import gla
+
+    rng = np.random.default_rng(L + H)
+    bf16 = torch.bfloat16
+    xbc = _randn(rng, (B, L, H * hd + 2 * ds), bf16, dev)
+    k = xbc[..., H * hd:H * hd + ds][:, :, None, :].expand(B, L, H, ds)
+    q = xbc[..., H * hd + ds:][:, :, None, :].expand(B, L, H, ds)
+    assert q.stride(2) == 0 and k.stride(2) == 0
+    v = _randn(rng, (B, L, H, hd), bf16, dev)
+    dt = torch.nn.functional.softplus(_randn(rng, (B, L, H), torch.float32, dev) - 2.0)
+    ld = (dt * -torch.exp(_randn(rng, (H,), torch.float32, dev) * 0.5))[..., None]
+    assert gs_mod.kernel_for(bf16, L, ds, hd, chunk) == "tensor-core"
+    before = gs_mod.COUNTER.launches
+    got = gla(q, k, v, ld, inclusive=True, chunk=chunk)
+    torch.cuda.synchronize()
+    assert gs_mod.COUNTER.launches == before + 1
+    _check_gla(got, _oracle(q, k, v, ld, inclusive=True), bf16)
+    same = gs_mod.gla_scan(q.contiguous(), k.contiguous(), v,
+                           ld.expand(B, L, H, ds).contiguous(), inclusive=True, chunk=chunk)
     torch.testing.assert_close(got, same, atol=0, rtol=0)
 
 
