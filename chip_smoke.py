@@ -278,11 +278,42 @@ Phases (any failure ends the run with a non-zero exit and no last line):
     (prefill_slots of ZAMBA_PREFILL columns, step_slots greedy and
     sampled), graphed equal to eager to the bit.
 17d. Phase 7 for zamba2-2.7b's 2-layer f32 model.
-18. The script's wall time, one JSON line listing the kernels (the
+18. Flow path of qwen3-moe-30b-a3b at full width and depth (48 layers of
+    attention, 32 / 4 heads of 128 with qk-norm, and 128 experts, top 8,
+    dispatched by the per-sequence scatter; bf16), as phase 4: flash 48 x 8
+    x 3 = 1152 launches, ns_update 24, the others 0; phase 15's case on the
+    served sampler. Prints each request's ms, the capture and peak memory.
+18b. Phase 5 for it on its width cut to 2 layers (f32, drawn on the card
+    and copied to the CPU), eagerly on both sides: every router call's
+    expert choices equal first (a flip prints both sides' probabilities and
+    the CPU's gap between its 8th and 9th), then the latents within 1e-4
+    and their nearest tokens equal.
+18c. Its decode through the gateway and the paged kernel: phase 10's flags
+    plus --page-size 16 --paged-kernel --slots 256; paged launches exactly
+    48 a decode_apply call; tokens/s, engine call ms, phase 15's step case.
+18d. Phase 7 for 18c on the 2-layer f32 model (paged kernel, 2 a call).
+19. qwen3-moe-235b-a22b at 8 of its 94 layers (MOE_235B_DEPTH; all 94 are
+    ~470 GB), full width: one flow request (flash 64, ns_update 8) and a
+    short decode through the paged kernel at 64 / 4 heads, G = 16 (8
+    launches a call, phase 15's step case); then its smoke config (2
+    layers, f32, with the full config's 64 / 4 heads of 128: the smoke
+    config's hd 32 is not among the flash kernel's) on the card against the
+    CPU, flow and decode.
+20. phi3-medium-14b, command-r-35b and yi-34b at full width and depth, one
+    flow request each with phase 4's other flags (flash 320, 320 and 480);
+    each then against the CPU at 2 layers, f32, drawn on the card.
+21. The script's wall time, one JSON line listing the kernels (the
     ns_update and flash entries, forward and backward, with phases 4b, 5b,
     12b, 12c, 12d, 13b, 13c, 14a, 14b, 14c, 16 and 17-17d's launches and
-    ms beside the main path's; the flash and gla_scan entries also carry
-    zamba2-2.7b's case and phase-17 launches), then the last line.
+    ms beside the main path's; every entry with phases 18-20's; the flash
+    and gla_scan entries also carry zamba2-2.7b's case and phase-17
+    launches, the flash and paged entries phases 18-20's shapes), then the
+    last line.
+
+Phase 3 also holds flash at B=4 L=1024 hd 128, causal, bf16 at (H, KV) =
+(56, 8), (40, 10), (64, 8) and (64, 4) (yi-34b, phi3-medium-14b,
+command-r-35b, qwen3-moe-235b-a22b), and the paged kernel at G = 16 (B=8,
+KV=4, the decode cell's pages, bf16 and f32 pools).
 """
 from __future__ import annotations
 
@@ -349,7 +380,22 @@ BASELINE_REQUESTS = 2                                                        # p
 BST_SEQ, BST_PAIRS, BST_ITERS = 256, 8, 4                                    # phase 12d
 TRAIN_GRAPH_ITERS = 4                                                        # phase 16
 BST_ARTIFACT = ROOT / "build" / "chip_smoke" / "bst_euler_nfe8.msgpack"
-VOCAB = {"yi-6b": 64000, "rwkv6-7b": 65536, "zamba2-2.7b": 32000}
+VOCAB = {"yi-6b": 64000, "rwkv6-7b": 65536, "zamba2-2.7b": 32000, "qwen3-moe-30b-a3b": 151936,
+         "qwen3-moe-235b-a22b": 151936, "phi3-medium-14b": 100352, "command-r-35b": 256000,
+         "yi-34b": 64000}
+# phases 18-18d: qwen3-moe-30b-a3b, 48 layers of attention and 128 experts (top 8)
+MOE_ARCH, MOE_LAYERS = "qwen3-moe-30b-a3b", 48
+MOE_DECODE_ARGS = ["--arch", MOE_ARCH, "--mode", "decode", "--full", "--gateway",
+                   "--max-slots", "4", "--requests", "8", "--decode-lengths", "32,16",
+                   "--page-size", "16", "--paged-kernel", "--slots", "256"]
+# phase 19: qwen3-moe-235b-a22b at 8 of its 94 layers (~42 GB of bf16 weights;
+# all 94 are ~470 GB), full width: 64 query heads over 4 KV heads, G = 16
+MOE_235B, MOE_235B_DEPTH = "qwen3-moe-235b-a22b", 8
+MOE_235B_DECODE_ARGS = ["--arch", MOE_235B, "--mode", "decode", "--full", "--gateway",
+                        "--max-slots", "4", "--requests", "4", "--decode-lengths", "8,4",
+                        "--page-size", "16", "--paged-kernel", "--slots", "256"]
+# phase 20: the dense configs at full width and depth, one flow request each
+DENSE_LAYERS = {"phi3-medium-14b": 40, "command-r-35b": 40, "yi-34b": 60}
 # phases 17-17d: zamba2-2.7b, 54 Mamba2 layers and 9 shared-attention sites
 ZAMBA_LAYERS, ZAMBA_SITES = 54, 9
 ZAMBA_DECODE_ARGS = ["--arch", "zamba2-2.7b", "--mode", "decode", "--full", "--gateway",
@@ -559,7 +605,13 @@ def flash_cases(dev):
             (2, 8, 2, 512, 64, torch.bfloat16, True),          # hd 64
             (2, 8, 2, 512, 80, torch.bfloat16, True),          # hd 80: 32-byte swizzle
             (BATCH, 32, 4, 1, 128, torch.bfloat16, True),      # one position
-            (BATCH, 32, 32, SEQ, 80, torch.bfloat16, True)]:   # zamba2-2.7b's main path
+            (BATCH, 32, 32, SEQ, 80, torch.bfloat16, True),    # zamba2-2.7b's main path
+            # phases 18-20: yi-34b (G 7), phi3-medium-14b (G 4), command-r-35b (G 8),
+            # qwen3-moe-235b-a22b (G 16); qwen3-moe-30b-a3b is the main path's 32 / 4
+            (BATCH, 56, 8, SEQ, 128, torch.bfloat16, True),
+            (BATCH, 40, 10, SEQ, 128, torch.bfloat16, True),
+            (BATCH, 64, 8, SEQ, 128, torch.bfloat16, True),
+            (BATCH, 64, 4, SEQ, 128, torch.bfloat16, True)]:
         # transposed views of the model's (B, L, heads, hd) layout, as on the main path
         q = torch.randn((B, L, H, hd), generator=g, device=dev).to(dtype).transpose(1, 2)
         k = torch.randn((B, L, KV, hd), generator=g, device=dev).to(dtype).transpose(1, 2)
@@ -787,7 +839,10 @@ def paged_cases(dev):
             (2, 2, 2, 64, 8, 4, f32, f32, [2, 12], False),              # tests/test_kernels.py
             (3, 1, 4, 32, 16, 2, f32, f32, [1, 19, 32], False),
             (1, 4, 1, 64, 8, 3, f32, f32, [9], False),
-            (4, 4, 8, 128, 16, 16, bf16, f32, [5, 37, 1, 200], True)]:  # poisoned tails
+            (4, 4, 8, 128, 16, 16, bf16, f32, [5, 37, 1, 200], True),  # poisoned tails
+            # qwen3-moe-235b-a22b's 16 query heads a KV head, at the decode cell's pages
+            (8, 4, 16, 128, 16, 16, bf16, f32, decode_lengths, False),
+            (8, 4, 16, 128, 16, 16, bf16, bf16, decode_lengths, False)]:
         q, k, v, table, lens = paged_inputs(g, dev, B, KV, G, hd, ps, nb, q_dtype,
                                             page_dtype, lengths)
         shape = (f"B={B} KV={KV} G={G} hd={hd} ps={ps} nb={nb} q {str(q_dtype)[6:]} "
@@ -822,7 +877,7 @@ def paged_cases(dev):
             yardstick_ms=time_ms(lambda: F.scaled_dot_product_attention(
                 qd, kd, vd, attn_mask=mask, enable_gqa=True)),
             bound_ms=b_ms, bound_by=b_by))
-        if len(rows) <= 3:    # the decode cell and the long rows
+        if len(rows) <= 3 or G > 8:    # the decode cell, the long rows, G = 16
             rows[-1]["device_ms"] = device_ms(
                 lambda: paged_attention(q, k, v, table, lens), "paged_attention")
         del kd, vd
@@ -974,10 +1029,12 @@ def free_device_memory(dev) -> None:
     torch.cuda.reset_peak_memory_stats(dev)
 
 
-def flow_path(dev, counters, arch: str, want: dict, graphs: dict) -> tuple[dict, dict]:
-    """serve.main in flow mode at full width; launch counts must be ``want``.
-    Then phase 15's case on the served sampler, into ``graphs``. Returns the
-    launches and the run's request ms, peak memory and wall."""
+def flow_path(dev, counters, arch: str, want: dict, graphs: dict, requests: int = REQUESTS,
+              programs: bool = True) -> tuple[dict, dict]:
+    """serve.main in flow mode at full width, ``requests`` requests; launch
+    counts must be ``want``. Then (``programs``) phase 15's case on the
+    served sampler, into ``graphs``. Returns the launches and the run's
+    request ms, peak memory, wall and capture ms."""
     from repro_torch.launch import serve
 
     free_device_memory(dev)
@@ -985,13 +1042,13 @@ def flow_path(dev, counters, arch: str, want: dict, graphs: dict) -> tuple[dict,
     t0 = time.perf_counter()
     served = serve.main(["--arch", arch, "--mode", "flow", "--full",
                          "--nfe", str(NFE), "--batch", str(BATCH), "--seq", str(SEQ),
-                         "--requests", str(REQUESTS), "--bns-iters", "0"])
+                         "--requests", str(requests), "--bns-iters", "0"])
     wall = time.perf_counter() - t0
     launches = {name: c.launches for name, c in counters.items()}
     if launches != want:
         raise SystemExit(f"{arch} flow path launch counts {launches}, expected {want}")
-    if len(served) != REQUESTS:
-        raise SystemExit(f"{len(served)} requests answered, expected {REQUESTS}")
+    if len(served) != requests:
+        raise SystemExit(f"{len(served)} requests answered, expected {requests}")
     for s in served:
         if s.latents.shape != (BATCH, SEQ, 64) or not bool(torch.isfinite(s.latents).all()):
             raise SystemExit(f"bad latents: shape {tuple(s.latents.shape)}")
@@ -1003,9 +1060,11 @@ def flow_path(dev, counters, arch: str, want: dict, graphs: dict) -> tuple[dict,
           f"request ms {[round(s.ms, 3) for s in served]}, launches {launches}, "
           f"peak memory {peak / 2**30:.3f} GiB, main() wall {wall:.3f} s, programs "
           f"{served.sampler.programs.stats()}")
-    graphs.update(flow_programs(dev, counters, served.sampler, arch, SEQ))
+    capture_ms = served.sampler.programs.stats().get("capture_ms")
+    if programs:
+        graphs.update(flow_programs(dev, counters, served.sampler, arch, SEQ))
     return launches, {"request_ms": [s.ms for s in served], "peak_gib": peak / 2**30,
-                      "wall_s": wall}
+                      "wall_s": wall, "capture_ms": capture_ms}
 
 
 def small_model(arch: str):
@@ -1020,21 +1079,33 @@ def small_model(arch: str):
     return cfg, M.init_params(torch.Generator().manual_seed(0), cfg, "cpu")
 
 
-def whole_path_against_cpu(dev, counters, cfg, params, want: dict):
+def euler_inputs(cfg, params):
+    """The CPU checks' inputs: batch 2 x 128 of synthetic tokens, seeded
+    numpy noise, and a FlowSampler's keywords for euler NFE 4 on fm_ot."""
     from repro_torch.core.schedulers import get_scheduler
     from repro_torch.data.synthetic import DataConfig, SyntheticTokens
     from repro_torch.models import model as M
-    from repro_torch.models.transformer import params_to
-    from repro_torch.serving.engine import FlowSampler
     from repro_torch.solvers.registry import build_ns
 
     batch = SyntheticTokens(cfg, DataConfig(batch_size=2, seq_len=128, seed=0),
                             device="cpu").batch(0)
     x0 = np.random.default_rng(0).standard_normal((2, 128, cfg.latent_dim)).astype(np.float32)
     field = M.velocity_field(params, cfg, get_scheduler("fm_ot"), batch)
-    kw = dict(cfg=cfg, sched=field.scheduler, solver=build_ns("euler", 4, field))
+    return batch, x0, dict(cfg=cfg, sched=field.scheduler, solver=build_ns("euler", 4, field))
+
+
+def whole_path_against_cpu(dev, counters, cfg, params, want: dict, card_params=None):
+    """Phase 5 and its twins: euler NFE 4 on the card (``card_params``, or
+    ``params`` copied there) and on the CPU (``params``), batch 2 x 128, the
+    same tokens and noise: relative L2 of the latents <= 1e-4; the card run
+    launches exactly ``want``."""
+    from repro_torch.models.transformer import params_to
+    from repro_torch.serving.engine import FlowSampler
+
+    batch, x0, kw = euler_inputs(cfg, params)
     before = {name: c.launches for name, c in counters.items()}
-    on_card = FlowSampler(params=params_to(params, dev), **kw).sample_from(batch, x0)
+    on_card = FlowSampler(params=params_to(params, dev) if card_params is None
+                          else card_params, **kw).sample_from(batch, x0)
     torch.cuda.synchronize(dev)
     ran = {name: c.launches - before[name] for name, c in counters.items()}
     if ran != want:
@@ -2590,6 +2661,209 @@ def zamba2_paths(dev, counters, card: str, graphs: dict) -> dict:
     return out
 
 
+def card_drawn_model(dev, arch: str, layers: int = 2):
+    """The arch's width cut to ``layers`` layers, f32, random weights drawn on
+    the card (a full-width draw on the host takes tens of seconds a model):
+    (cfg, the params on the card, their copy on the CPU)."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import model as M
+    from repro_torch.models.transformer import params_to
+
+    free_device_memory(dev)
+    cfg = dataclasses.replace(get_config(arch), n_layers=layers, dtype="float32")
+    on_card = M.init_params(torch.Generator(device=dev).manual_seed(0), cfg, dev)
+    return cfg, on_card, params_to(on_card, "cpu")
+
+
+def launched(counters, before: dict) -> dict:
+    return {name: c.launches - before[name] for name, c in counters.items()}
+
+
+def routed_path_against_cpu(dev, counters, cfg, params, on_card, want: dict) -> dict:
+    """Phase 18b: phase 5 for an MoE model (``on_card``: ``params``' copy on
+    the card), eagerly on both sides. Every
+    router call's expert choices are recorded (with the probabilities they
+    came from) and compared first, call by call (a call is one layer of one
+    NFE step); a flip prints the two sides' probabilities of the experts
+    involved and the CPU's gap between its k-th and (k+1)-th probability, and
+    fails. Then the latents (relative L2 <= 1e-4) and their nearest tokens
+    (equal)."""
+    from repro_torch.models import moe
+    from repro_torch.serving import programs
+    from repro_torch.serving.engine import FlowSampler
+
+    batch, x0, kw = euler_inputs(cfg, params)
+    records, side, inner = {"card": [], "cpu": []}, ["card"], moe._routing
+
+    def recording(p, x2d, c):
+        gates, idx, aux = inner(p, x2d, c)
+        probs = torch.softmax(x2d.float() @ p["router"].float(), dim=-1)
+        records[side[0]].append((probs.cpu(), idx.cpu()))
+        return gates, idx, aux
+
+    moe._routing = recording
+    try:
+        with programs.disabled():
+            before = {name: c.launches for name, c in counters.items()}
+            card_sampler = FlowSampler(params=on_card, **kw)
+            on_card = card_sampler.sample_from(batch, x0)
+            torch.cuda.synchronize(dev)
+            ran = launched(counters, before)
+            side[0] = "cpu"
+            cpu_sampler = FlowSampler(params=params, **kw)
+            on_cpu = cpu_sampler.sample_from(batch, x0)
+    finally:
+        moe._routing = inner
+    if ran != want:
+        raise SystemExit(f"{cfg.name} card run launched {ran}, expected {want}")
+    k = cfg.moe.top_k
+    calls, flips = len(records["cpu"]), []
+    for call, ((pc, ic), (pp, ip)) in enumerate(zip(records["card"], records["cpu"])):
+        if torch.equal(ic, ip):
+            continue
+        t = int((ic != ip).any(-1).nonzero()[0, 0])
+        ranked = pp[t].sort(descending=True).values
+        experts = sorted(set(ic[t].tolist()) ^ set(ip[t].tolist())) or ic[t].tolist()
+        flips.append(f"call {call} (NFE step {call // cfg.n_layers}, layer "
+                     f"{call % cfg.n_layers}), token {t}: card {ic[t].tolist()}, CPU "
+                     f"{ip[t].tolist()}; experts {experts}: card p "
+                     f"{[float(pc[t, e]) for e in experts]}, CPU p "
+                     f"{[float(pp[t, e]) for e in experts]}; CPU gap between its "
+                     f"{k}th and {k + 1}th {float(ranked[k - 1] - ranked[k]):.3e}")
+    print(f"whole path, {cfg.name}, expert choices card vs CPU: {calls} router calls "
+          f"({cfg.n_layers} layers x 4 steps) of {x0.shape[0] * x0.shape[1]} tokens x top "
+          f"{k}, {len(flips)} differ" + ("; " + " | ".join(flips) if flips else ""))
+    if flips or len(records["card"]) != calls or calls != 4 * cfg.n_layers:
+        raise SystemExit(f"{cfg.name}: expert choices differ between the card and the CPU "
+                         f"({len(records['card'])} and {calls} router calls): {flips}")
+    rel = relative_l2(on_card.cpu(), on_cpu)
+    same = bool(torch.equal(card_sampler.nearest_tokens(on_card).cpu(),
+                            cpu_sampler.nearest_tokens(on_cpu)))
+    print(f"whole path, {cfg.name}, card kernels vs CPU plain (2 layers, f32, euler "
+          f"NFE 4): relative L2 {rel:.3e} (limit 1e-4), nearest tokens equal: {same}")
+    if not (rel <= 1e-4 and same):
+        raise SystemExit(f"whole path {cfg.name}: relative L2 {rel}, tokens equal {same}")
+    return {"relative_l2": rel, "router_calls": calls, "tokens_equal": same, "launches": ran}
+
+
+def moe_paths(dev, counters, card: str, graphs: dict) -> dict:
+    """Phases 18-18d: qwen3-moe-30b-a3b served at full width and depth in
+    flow (18) and decode through the paged kernel (18c), with phase 15's
+    cases on each engine; each path on the card against the CPU on the
+    2-layer f32 model (18b, with the expert choices; 18d)."""
+    zero = dict.fromkeys(KERNELS, 0)
+    flows = NFE * REQUESTS
+    out, wall, phases = {}, {}, {}
+    t0 = time.perf_counter()
+    phases["18"], out["flow"] = flow_path(
+        dev, counters, MOE_ARCH,
+        {**zero, "ns_update": flows, "flash_attention": MOE_LAYERS * flows}, graphs)
+    wall["18+15"] = time.perf_counter() - t0
+    print(f"phase 18 ({card}): {MOE_ARCH} flow request ms "
+          f"{[round(x, 3) for x in out['flow']['request_ms']]}, capture "
+          f"{out['flow']['capture_ms']:.1f} ms, peak memory {out['flow']['peak_gib']:.3f} GiB")
+    t0 = time.perf_counter()
+    cfg, on_card, params = card_drawn_model(dev, MOE_ARCH)
+    out["flow_against_cpu"] = routed_path_against_cpu(
+        dev, counters, cfg, params, on_card, {**zero, "ns_update": 4, "flash_attention": 2 * 4})
+    del on_card
+    phases["18b"] = out["flow_against_cpu"]["launches"]
+    wall["18b"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    out["decode"] = {}
+    phases["18c"] = decode_path(dev, counters, MOE_DECODE_ARGS,
+                                {"paged_attention": MOE_LAYERS}, graphs, runs=out["decode"])
+    wall["18c+15"] = time.perf_counter() - t0
+    print(f"phase 18c ({card}): {MOE_ARCH} decode {out['decode']['tokens_per_s']:.1f} "
+          f"tokens/s, engine call ms mean {out['decode']['call_ms_mean']:.3f}, peak memory "
+          f"{out['decode']['peak_gib']:.3f} GiB")
+    t0 = time.perf_counter()
+    before = {name: c.launches for name, c in counters.items()}
+    out["decode_rel_l2"] = decode_against_cpu(dev, counters, cfg, params,
+                                              dict(page_size=16, paged_kernel=True),
+                                              {"paged_attention": 2})
+    phases["18d"] = launched(counters, before)
+    wall["18d"] = time.perf_counter() - t0
+    del params
+    out["wall_s"], out["phase_launches"] = wall, phases
+    return out
+
+
+def moe_235b_paths(dev, counters, card: str, graphs: dict) -> dict:
+    """Phase 19: qwen3-moe-235b-a22b at MOE_235B_DEPTH of its 94 layers, full
+    width: one flow request and a short decode through the paged kernel at
+    G = 16 (phase 15's step case on its engine); then card vs CPU, flow and
+    decode, on the smoke config (2 layers, f32: a full-width layer is 10 GB in
+    f32) with the full config's attention heads, 64 over 4 of 128 (the smoke
+    config's hd 32 is not among the flash kernel's head dims), so flash and
+    the paged kernel run at G = 16 there too."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import model as M
+
+    zero = dict.fromkeys(KERNELS, 0)
+    out, wall, phases = {}, {}, {}
+    t0 = time.perf_counter()
+    with launcher_depth(MOE_235B_DEPTH):
+        phases["19"], out["flow"] = flow_path(
+            dev, counters, MOE_235B,
+            {**zero, "ns_update": NFE, "flash_attention": MOE_235B_DEPTH * NFE}, graphs,
+            requests=1, programs=False)
+        out["decode"] = {}
+        phases["19 decode"] = decode_path(dev, counters, MOE_235B_DECODE_ARGS,
+                                          {"paged_attention": MOE_235B_DEPTH}, graphs,
+                                          runs=out["decode"])
+    wall["19+15"] = time.perf_counter() - t0
+    print(f"phase 19 ({card}): {MOE_235B} at {MOE_235B_DEPTH} of 94 layers, flow request "
+          f"ms {[round(x, 3) for x in out['flow']['request_ms']]} (capture "
+          f"{out['flow']['capture_ms']:.1f} ms), peak memory {out['flow']['peak_gib']:.3f} "
+          f"GiB; decode {out['decode']['tokens_per_s']:.1f} tokens/s, engine call ms mean "
+          f"{out['decode']['call_ms_mean']:.3f}, peak {out['decode']['peak_gib']:.3f} GiB")
+    t0 = time.perf_counter()
+    free_device_memory(dev)
+    full = get_config(MOE_235B)
+    cfg = dataclasses.replace(get_config(MOE_235B, smoke=True), n_heads=full.n_heads,
+                              n_kv_heads=full.n_kv_heads, head_dim=full.head_dim)
+    params = M.init_params(torch.Generator().manual_seed(0), cfg, "cpu")
+    before = {name: c.launches for name, c in counters.items()}
+    out["flow_rel_l2"] = whole_path_against_cpu(
+        dev, counters, cfg, params, {**zero, "ns_update": 4, "flash_attention": 2 * 4})
+    out["decode_rel_l2"] = decode_against_cpu(dev, counters, cfg, params,
+                                              dict(page_size=16, paged_kernel=True),
+                                              {"paged_attention": 2})
+    phases["19b"] = launched(counters, before)
+    wall["19b"] = time.perf_counter() - t0
+    out["wall_s"], out["phase_launches"] = wall, phases
+    return out
+
+
+def dense_paths(dev, counters, card: str) -> dict:
+    """Phase 20: phi3-medium-14b, command-r-35b and yi-34b at full width and
+    depth, one flow request each (flash launches = layers x NFE), each then
+    on the card against the CPU at 2 layers (f32, drawn on the card)."""
+    zero = dict.fromkeys(KERNELS, 0)
+    out, wall, phases = {}, {}, {}
+    for arch, layers in DENSE_LAYERS.items():
+        t0 = time.perf_counter()
+        phases[f"20 {arch}"], flow = flow_path(
+            dev, counters, arch, {**zero, "ns_update": NFE, "flash_attention": layers * NFE},
+            {}, requests=1, programs=False)
+        cfg, on_card, params = card_drawn_model(dev, arch)
+        before = {name: c.launches for name, c in counters.items()}
+        rel = whole_path_against_cpu(dev, counters, cfg, params,
+                                     {**zero, "ns_update": 4, "flash_attention": 2 * 4},
+                                     card_params=on_card)
+        phases[f"20 {arch} vs CPU"] = launched(counters, before)
+        del on_card, params
+        out[arch] = {**flow, "flow_rel_l2": rel}
+        wall[f"20 {arch}"] = time.perf_counter() - t0
+        print(f"phase 20 ({card}): {arch} full width and depth ({layers} layers), flow "
+              f"request ms {[round(x, 3) for x in flow['request_ms']]} (capture "
+              f"{flow['capture_ms']:.1f} ms), peak memory {flow['peak_gib']:.3f} GiB, card "
+              f"vs CPU {rel:.3e}")
+    out["wall_s"], out["phase_launches"] = wall, phases
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is False)",
@@ -2734,6 +3008,12 @@ def main() -> int:
     phase_s["14+15"] = time.perf_counter() - t0
     zamba = zamba2_paths(dev, counters, card, graphs)
     phase_s.update(zamba["wall_s"])
+    moe_run = moe_paths(dev, counters, card, graphs)
+    phase_s.update(moe_run["wall_s"])
+    big_moe = moe_235b_paths(dev, counters, card, graphs)
+    phase_s.update(big_moe["wall_s"])
+    dense = dense_paths(dev, counters, card)
+    phase_s.update(dense["wall_s"])
     graph_kinds = {k for k in graphs if "workspace" not in k}
     print("phase 15 summary (" + card + "): " + "; ".join(
         f"{k}: graphed {v['graphed_ms']:.3f} / eager {v['eager_ms']:.3f} ms, capture "
@@ -2776,6 +3056,30 @@ def main() -> int:
                          **zamba["decode"]}
     new_phases["17d"] = {"what": "zamba2-2.7b decode card vs CPU, 2 layers f32",
                          "worst_logits_relative_l2": zamba["decode_rel_l2"]}
+    slice15 = {   # phases 18-20: what each ran and its launches
+        "18": {"what": f"{MOE_ARCH} flow, full width and depth, NFE 8, batch 4, seq 1024, "
+                       f"{REQUESTS} requests", **moe_run["flow"]},
+        "18b": {"what": f"{MOE_ARCH} flow card vs CPU, 2 layers f32, expert choices first",
+                **{k: v for k, v in moe_run["flow_against_cpu"].items() if k != "launches"}},
+        "18c": {"what": f"{MOE_ARCH} decode, paged kernel, 8 requests on 4 slots",
+                **moe_run["decode"]},
+        "18d": {"what": f"{MOE_ARCH} decode card vs CPU, 2 layers f32",
+                "worst_logits_relative_l2": moe_run["decode_rel_l2"]},
+        "19": {"what": f"{MOE_235B} at {MOE_235B_DEPTH} of 94 layers, full width, one flow "
+                       "request", **big_moe["flow"]},
+        "19 decode": {"what": f"{MOE_235B} at {MOE_235B_DEPTH} layers, decode at G 16, 4 "
+                              "requests on 4 slots", **big_moe["decode"]},
+        "19b": {"what": f"{MOE_235B} smoke config with 64 / 4 heads of 128, card vs CPU, "
+                        "flow and decode",
+                "flow_rel_l2": big_moe["flow_rel_l2"],
+                "worst_logits_relative_l2": big_moe["decode_rel_l2"]}}
+    for arch in DENSE_LAYERS:
+        slice15[f"20 {arch}"] = {"what": f"{arch} flow, full width and depth, one request",
+                                 **{k: v for k, v in dense[arch].items() if k != "flow_rel_l2"}}
+        slice15[f"20 {arch} vs CPU"] = {"what": f"{arch} flow card vs CPU, 2 layers f32",
+                                        "relative_l2": dense[arch]["flow_rel_l2"]}
+    slice15_launches = {**moe_run["phase_launches"], **big_moe["phase_launches"],
+                        **dense["phase_launches"]}
     new_phases["16"] = {"what": "training programs graphed against eager",
                         **{k: {f: v[f] for f in ("graphed_ms", "eager_ms", "capture_ms",
                                                  "launches_an_iteration", "busy")}
@@ -2819,6 +3123,15 @@ def main() -> int:
             kernels[-1]["pass_device_ms"] = main_case["pass_device_ms"]
             kernels[-1]["distillation"] = {k: v for k, v in distill.items()
                                            if k not in ("launches", "solver", "latents")}
+        if name in ("flash_attention", "paged_attention"):
+            # phases 18-20's new shapes: flash at G 7, 4, 8 and 16; paged at G 16
+            kernels[-1]["slice15_cases"] = [
+                {k: r[k] for k in ("shape", "max_abs_err", "ms", "plain_ms", "bound_ms",
+                                   "bound_by", "library_ms") + (
+                                       ("device_ms", "yardstick_ms")
+                                       if name == "paged_attention" else ())}
+                for r in rows[name] if any(f"{tag} " in r["shape"] for tag in (
+                    "H=56", "H=40", "H=64", "G=16"))]
         if name in ("flash_attention", "gla_scan"):
             # zamba2-2.7b's main path (phase 17): its shape's case and launches
             case = next(r for r in rows[name] if "H=32 KV=32" in r["shape"]
@@ -2842,6 +3155,8 @@ def main() -> int:
                     "17d": {"launches": dict.fromkeys(KERNELS, 0)}}
             kernels[-1]["phases"] = {k: {**v, "launches": runs[k]["launches"][name]}
                                      for k, v in new_phases.items()}
+        kernels[-1].setdefault("phases", {}).update(
+            {k: {**v, "launches": slice15_launches[k][name]} for k, v in slice15.items()})
     print(f"chip_smoke wall {time.perf_counter() - T_START:.1f} s")
     print("phase 15 json: " + json.dumps(graphs))
     print("phase 16 json: " + json.dumps(trains))

@@ -42,7 +42,7 @@ from repro_torch.kernels import build  # noqa: E402
 from repro_torch.kernels.flash_attention import paged_attention as pa_mod  # noqa: E402
 
 TILE_MMA = "      const int p0 = start + tile * kTile;\n\n      // S^T = Q K^T"
-TILE_CORES = "      const int p0 = start + tile * kTile;\n\n      float part[8];"
+TILE_CORES = "      const int p0 = start + tile * kTile;\n\n      float part[NP];"
 SKIP = "      const int p0 = start + tile * kTile;\n      if (p0 >= 0) continue;\n"
 COPIES = ("    cp_async16(ks + jj * ROW + c * CE, k_pages + e, valid);\n"
           "    cp_async16(vs + jj * ROW + c * CE, v_pages + e, valid);\n")

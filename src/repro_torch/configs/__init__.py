@@ -1,14 +1,16 @@
 """Architecture registry: --arch <id> resolves here.
 
-``ARCHS`` lists only the architectures the port can run; the other entries of
-``repro.configs.ARCHS`` arrive with their model families (ROADMAP Queue A
-item 10).
+``ARCHS`` lists only the architectures the port can run; ``UNPORTED_ARCHS``
+names the other entries of the reference's registry, which arrive with their
+model families (ROADMAP Queue A item 10).
 """
 import importlib
 
 from repro_torch.configs.base import FrontendStub, ModelConfig, MoEConfig, SSMConfig
 
-ARCHS = ("yi-6b", "rwkv6-7b", "zamba2-2.7b")
+ARCHS = ("yi-6b", "phi3-medium-14b", "command-r-35b", "zamba2-2.7b", "yi-34b",
+         "qwen3-moe-235b-a22b", "qwen3-moe-30b-a3b", "rwkv6-7b")
+UNPORTED_ARCHS = ("whisper-medium", "internvl2-26b")
 
 
 def _module(arch: str):
@@ -23,5 +25,5 @@ def get_config(arch: str, smoke: bool = False) -> ModelConfig:
     return mod.smoke_config() if smoke else mod.config()
 
 
-__all__ = ["ARCHS", "get_config", "ModelConfig", "MoEConfig", "SSMConfig",
+__all__ = ["ARCHS", "UNPORTED_ARCHS", "get_config", "ModelConfig", "MoEConfig", "SSMConfig",
            "FrontendStub"]

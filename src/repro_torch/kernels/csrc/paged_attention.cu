@@ -44,7 +44,8 @@
 //   or to cache), while a cp.async needs none.
 // * Math. bf16 q over bf16 pages (G = 8 flops a byte): both products on
 //   the tensor cores, mma.sync m16n8k16 bf16 with f32 sums: S^T = Q K^T with
-//   the query rows as M (padded to 16), 16 positions as N and hd as K, exact
+//   the query rows as M (padded to 16; rows 8-15 fill the A fragment's
+//   second and fourth registers when G > 8), 16 positions as N and hd as K, exact
 //   (bf16 products, f32 sums; the scale is applied to the f32 scores), and
 //   P.V with the softmax weights split into three bf16 parts, so they keep
 //   f32 accuracy; each product starts from zero and is added in f32 outside
@@ -57,6 +58,13 @@
 //   eight by a reduce-scatter of shuffles; a per-tile online softmax (16
 //   lanes a query row); P.V with each thread 4 query rows x 4 head-dim values
 //   over half the tile's positions; three barriers a tile.
+// * Up to 16 query rows a KV head (qwen3-moe-235b-a22b: 64 over 4), as the
+//   TPU kernel takes any G: G <= 8 runs the kernels built for 8 rows (MG =
+//   8), unchanged; G <= 16 those built for 16. There a tensor-core lane
+//   holds rows g and g + 8; a CUDA-core score lane an 8 x 2 tile (8
+//   positions, the same 2 rows' q in registers), a softmax lane two rows, a
+//   P.V lane 4 rows over all 16 positions (4 warps x 4 rows). They allow 2
+//   (tensor cores) and 3 blocks an SM, for the registers the extra rows take.
 // * The merge, in the same launch: a (row, head) with one live split writes
 //   its output directly. Otherwise each live split writes (m, l, acc) for its
 //   G query rows to an f32 workspace, and one thread adds one to the (row,
@@ -69,8 +77,8 @@
 // * Occupancy: 128 threads, registers capped at 128 by __launch_bounds__
 //   (4 blocks an SM; 168 and 3 blocks for the tensor-core path, which spilled
 //   under 128); at hd 128 the ring takes 50,688 bytes (f32 pages) or
-//   34,816 (bf16) of dynamic shared memory, plus ~1.2 KB of static, so four
-//   blocks fit an SM's 227 KB either way.
+//   34,816 (bf16) of dynamic shared memory, plus ~1.2 KB of static (~2.2 KB
+//   at MG = 16), so four blocks fit an SM's 227 KB either way.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -80,7 +88,7 @@ namespace {
 constexpr int kThreads = 128;
 constexpr int kMinBlocks = 4;           // blocks an SM the registers must allow
 constexpr int kMinBlocksMma = 3;        // the same for the tensor-core path
-constexpr int kMaxG = 8;                // query rows per KV head
+constexpr int kMaxG = 16;               // query rows per KV head
 constexpr int kTile = 16;               // positions a stage holds
 constexpr int kMaxDevices = 64;
 constexpr float kNegInf = -1e30f;
@@ -218,9 +226,16 @@ __device__ __forceinline__ void load_tile(TP* ks, int p0, int end, const int* ta
   }
 }
 
-template <typename TQ, typename TP, int HD>
-__global__ void __launch_bounds__(kThreads, sizeof(TQ) == 2 && sizeof(TP) == 2 ? kMinBlocksMma
-                                                                              : kMinBlocks)
+// Blocks an SM the registers must allow: 16 query rows hold twice the
+// tensor-core path's q fragments and sums, and the CUDA-core path's scores
+// come 8 positions a thread instead of 4.
+template <typename TQ, typename TP, int MG> __host__ __device__ constexpr int min_blocks() {
+  return sizeof(TQ) == 2 && sizeof(TP) == 2 ? (MG > 8 ? 2 : kMinBlocksMma)
+                                            : (MG > 8 ? 3 : kMinBlocks);
+}
+
+template <typename TQ, typename TP, int HD, int MG>
+__global__ void __launch_bounds__(kThreads, min_blocks<TQ, TP, MG>())
 paged_attention_split_kernel(const TQ* __restrict__ q, const TP* __restrict__ k_pages,
                              const TP* __restrict__ v_pages,
                              const int* __restrict__ block_table,
@@ -236,14 +251,22 @@ paged_attention_split_kernel(const TQ* __restrict__ q, const TP* __restrict__ k_
   constexpr int QPL = (NQ + 7) / 8;            // such groups a score lane holds
   constexpr int KS = HD / 16;                  // 16-wide steps of hd (tensor cores)
   constexpr int PW = (KS + 3) / 4;             // pairs of 8-wide hd tiles a warp owns
+  constexpr int RH = MG / 8;                   // query rows a lane holds: g, g + 8
+  constexpr int PG = 4 * RH;                   // positions a score lane holds (CUDA cores)
+  constexpr int NJ = kTile / PG;               // position groups of a tile
+  constexpr int NP = 2 * PG;                   // a score lane's partial sums
+  constexpr int NVG = MG / 4;                  // P.V lanes' groups of 4 query rows
+  constexpr int NVH = 4 / NVG;                 // and their shares of a tile's positions
+  static_assert(MG == 8 || MG == 16, "8 or 16 query rows per KV head");
   static_assert(HD % 16 == 0 && HD <= 128, "hd must be a multiple of 16, <= 128");
+  static_assert(MG * HD * 4 <= smem_bytes<TP, HD>(), "the split's sums fit the ring");
 
   extern __shared__ __align__(16) unsigned char smem_raw[];
   TP* stages = reinterpret_cast<TP*>(smem_raw);
-  __shared__ float s_sm[kMaxG][kTile];         // scores of the tile (CUDA cores)
-  __shared__ __align__(16) float p_sm[kTile][kMaxG];   // softmax weights of the tile
-  __shared__ __align__(16) float alpha_sm[kMaxG];      // rescale of the running sums
-  __shared__ float ml_sm[2 * kMaxG];           // the split's m and l per query row
+  __shared__ float s_sm[MG][kTile];            // scores of the tile (CUDA cores)
+  __shared__ __align__(16) float p_sm[kTile][MG];      // softmax weights of the tile
+  __shared__ __align__(16) float alpha_sm[MG];         // rescale of the running sums
+  __shared__ float ml_sm[2 * MG];              // the split's m and l per query row
   __shared__ int last_sm;
 
   const int t = threadIdx.x, lane = t & 31, warp = t >> 5;
@@ -254,19 +277,23 @@ paged_attention_split_kernel(const TQ* __restrict__ q, const TP* __restrict__ k_
   // ---- q, in the registers of the path's layout ---------------------------
   // (read before the exit below, so its loads overlap the one of lengths[b])
   // CUDA cores: r = t % 8 takes head-dim groups r, r + 8, ... of query rows
-  // 2 gp, 2 gp + 1, scaled; its score tile is positions 4 jq .. 4 jq + 3.
-  // Tensor cores: q is the A operand of S^T = Q K^T, rows gq < G of 16.
-  const int r = t & 7, jq = (t >> 3) & 3, gp = t >> 5;
+  // 2 gp, 2 gp + 1, scaled; its score tile is positions PG jq .. PG jq + PG - 1.
+  // Tensor cores: q is the A operand of S^T = Q K^T, rows gq and gq + 8 (< G)
+  // of 16: qa[k][2 i] and qa[k][2 i + 1] hold row gq + 8 i.
+  const int r = t & 7, jq = (t >> 3) % NJ, gp = (t >> 3) / NJ;
   const int gq = lane >> 2, cq = lane & 3;
   float qreg[MMA ? 1 : 2][MMA ? 1 : QPL][4];
-  uint32_t qa[MMA ? KS : 1][2];
+  uint32_t qa[MMA ? KS : 1][2 * RH];
   if constexpr (MMA) {
 #pragma unroll
-    for (int k = 0; k < KS; ++k) {
-      const TQ* qr = q + (qrow + gq) * HD + 16 * k + 2 * cq;
-      qa[k][0] = gq < G ? pack_bf16(qr[0], qr[1]) : 0u;
-      qa[k][1] = gq < G ? pack_bf16(qr[8], qr[9]) : 0u;
-    }
+    for (int k = 0; k < KS; ++k)
+#pragma unroll
+      for (int i = 0; i < RH; ++i) {
+        const int g = gq + 8 * i;
+        const TQ* qr = q + (qrow + g) * HD + 16 * k + 2 * cq;
+        qa[k][2 * i] = g < G ? pack_bf16(qr[0], qr[1]) : 0u;
+        qa[k][2 * i + 1] = g < G ? pack_bf16(qr[8], qr[9]) : 0u;
+      }
   } else {
 #pragma unroll
     for (int gi = 0; gi < 2; ++gi) {
@@ -304,21 +331,28 @@ paged_attention_split_kernel(const TQ* __restrict__ q, const TP* __restrict__ k_
 #pragma unroll
   for (int s = 0; s < S - 1; ++s) stage_tile(s);
 
-  float* red = reinterpret_cast<float*>(smem_raw);   // [kMaxG][HD] over the ring, after
-  float m_run = kNegInf, l_run = 0.f;          // of this lane's query row
+  float* red = reinterpret_cast<float*>(smem_raw);   // [MG][HD] over the ring, after
+  float m_run[RH], l_run[RH];                  // of this lane's query rows
+#pragma unroll
+  for (int i = 0; i < RH; ++i) {
+    m_run[i] = kNegInf;
+    l_run[i] = 0.f;
+  }
 
   if constexpr (MMA) {
     // ---- tensor cores: every warp computes the tile's scores and softmax
-    // (16 positions x 8 query rows, 2 x KS products), then P.V for its hd
+    // (16 positions x MG query rows, 2 x KS products), then P.V for its hd
     // pairs, P split into three bf16 parts so it keeps f32 accuracy. Each
     // product starts from a zero accumulator and is added in f32 outside
     // the tensor cores, so the long sums round as f32 sums do.
     const int mi = lane >> 3, ri = lane & 7;   // the 8x8 matrix and row a lane addresses
-    float o[PW][2][2];                         // O[gq][16 pair + 8 nt + 2 cq + e]
+    float o[PW][2][2 * RH];                    // O[gq + 8 i][16 pair + 8 nt + 2 cq + e]
 #pragma unroll
     for (int pw = 0; pw < PW; ++pw)
 #pragma unroll
-      for (int nt = 0; nt < 2; ++nt) o[pw][nt][0] = o[pw][nt][1] = 0.f;
+      for (int nt = 0; nt < 2; ++nt)
+#pragma unroll
+        for (int e = 0; e < 2 * RH; ++e) o[pw][nt][e] = 0.f;
 
     for (int tile = 0; tile < ntiles; ++tile) {
       asm volatile("cp.async.wait_group %0;\n" ::"n"(S - 2) : "memory");
@@ -328,46 +362,51 @@ paged_attention_split_kernel(const TQ* __restrict__ q, const TP* __restrict__ k_
       const TP* vs = ks + kTile * ROW;
       const int p0 = start + tile * kTile;
 
-      // S^T = Q K^T: lane holds query row gq at positions 2cq, 2cq+1 (sc[0])
-      // and 8 + 2cq, 9 + 2cq (sc[1])
+      // S^T = Q K^T: lane holds query row gq + 8 i at positions 2cq, 2cq+1
+      // (sc[0][2 i ..]) and 8 + 2cq, 9 + 2cq (sc[1][2 i ..])
       float sc[2][4] = {{0.f, 0.f, 0.f, 0.f}, {0.f, 0.f, 0.f, 0.f}};
 #pragma unroll
       for (int k = 0; k < KS; ++k) {
         uint32_t kb[4];
         ldsm_x4(kb, ks + ((mi >> 1) * 8 + ri) * ROW + 16 * k + (mi & 1) * 8);
-        const uint32_t a[4] = {qa[k][0], 0u, qa[k][1], 0u};
+        const uint32_t a[4] = {qa[k][0], RH > 1 ? qa[k][RH] : 0u, qa[k][1],
+                               RH > 1 ? qa[k][2 * RH - 1] : 0u};
 #pragma unroll
         for (int nt = 0; nt < 2; ++nt) {
           float d[4] = {0.f, 0.f, 0.f, 0.f};
           mma_bf16(d, a, kb[2 * nt], kb[2 * nt + 1]);
-          sc[nt][0] += d[0];
-          sc[nt][1] += d[1];
+#pragma unroll
+          for (int e = 0; e < 2 * RH; ++e) sc[nt][e] += d[e];
         }
       }
-      float s4[4];
+      float alpha[RH];
+      uint32_t lo_pos[RH][3], hi_pos[RH][3];   // positions 2cq.. and 8 + 2cq..
 #pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int j = (e >> 1) * 8 + 2 * cq + (e & 1);
-        s4[e] = p0 + j < end ? sc[e >> 1][e & 1] * scale : kNegInf;
-      }
-      float mx = fmaxf(fmaxf(s4[0], s4[1]), fmaxf(s4[2], s4[3]));
-      mx = fmaxf(mx, __shfl_xor_sync(kFull, mx, 1));
-      mx = fmaxf(mx, __shfl_xor_sync(kFull, mx, 2));
-      const float m_new = fmaxf(m_run, mx);
-      float p[4], psum = 0.f;
+      for (int i = 0; i < RH; ++i) {
+        float s4[4];
 #pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        p[e] = __expf(s4[e] - m_new);
-        psum += p[e];
+        for (int e = 0; e < 4; ++e) {
+          const int j = (e >> 1) * 8 + 2 * cq + (e & 1);
+          s4[e] = p0 + j < end ? sc[e >> 1][2 * i + (e & 1)] * scale : kNegInf;
+        }
+        float mx = fmaxf(fmaxf(s4[0], s4[1]), fmaxf(s4[2], s4[3]));
+        mx = fmaxf(mx, __shfl_xor_sync(kFull, mx, 1));
+        mx = fmaxf(mx, __shfl_xor_sync(kFull, mx, 2));
+        const float m_new = fmaxf(m_run[i], mx);
+        float p[4], psum = 0.f;
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          p[e] = __expf(s4[e] - m_new);
+          psum += p[e];
+        }
+        psum += __shfl_xor_sync(kFull, psum, 1);
+        psum += __shfl_xor_sync(kFull, psum, 2);
+        alpha[i] = __expf(m_run[i] - m_new);
+        l_run[i] = fmaf(l_run[i], alpha[i], psum);
+        m_run[i] = m_new;
+        split3_bf16(p[0], p[1], lo_pos[i]);
+        split3_bf16(p[2], p[3], hi_pos[i]);
       }
-      psum += __shfl_xor_sync(kFull, psum, 1);
-      psum += __shfl_xor_sync(kFull, psum, 2);
-      const float alpha = __expf(m_run - m_new);
-      l_run = fmaf(l_run, alpha, psum);
-      m_run = m_new;
-      uint32_t lo_pos[3], hi_pos[3];           // positions 2cq.. and 8 + 2cq..
-      split3_bf16(p[0], p[1], lo_pos);
-      split3_bf16(p[2], p[3], hi_pos);
 
       // O += P V over this warp's hd pairs
 #pragma unroll
@@ -380,12 +419,14 @@ paged_attention_split_kernel(const TQ* __restrict__ q, const TP* __restrict__ k_
           for (int nt = 0; nt < 2; ++nt) {
             float d[4] = {0.f, 0.f, 0.f, 0.f};
 #pragma unroll
-            for (int i = 2; i >= 0; --i) {     // smallest part first
-              const uint32_t a[4] = {lo_pos[i], 0u, hi_pos[i], 0u};
+            for (int pi = 2; pi >= 0; --pi) {   // smallest part first
+              const uint32_t a[4] = {lo_pos[0][pi], RH > 1 ? lo_pos[RH - 1][pi] : 0u,
+                                     hi_pos[0][pi], RH > 1 ? hi_pos[RH - 1][pi] : 0u};
               mma_bf16(d, a, vb[2 * nt], vb[2 * nt + 1]);
             }
-            o[pw][nt][0] = fmaf(o[pw][nt][0], alpha, d[0]);
-            o[pw][nt][1] = fmaf(o[pw][nt][1], alpha, d[1]);
+#pragma unroll
+            for (int e = 0; e < 2 * RH; ++e)
+              o[pw][nt][e] = fmaf(o[pw][nt][e], alpha[e >> 1], d[e]);
           }
         }
       }
@@ -397,23 +438,28 @@ paged_attention_split_kernel(const TQ* __restrict__ q, const TP* __restrict__ k_
       const int pair = warp + 4 * pw;
       if (pair < KS) {
 #pragma unroll
-        for (int nt = 0; nt < 2; ++nt) {
-          const int d = 16 * pair + 8 * nt + 2 * cq;
-          red[gq * HD + d] = o[pw][nt][0];
-          red[gq * HD + d + 1] = o[pw][nt][1];
-        }
+        for (int nt = 0; nt < 2; ++nt)
+#pragma unroll
+          for (int i = 0; i < RH; ++i) {
+            const int d = 16 * pair + 8 * nt + 2 * cq;
+            red[(gq + 8 * i) * HD + d] = o[pw][nt][2 * i];
+            red[(gq + 8 * i) * HD + d + 1] = o[pw][nt][2 * i + 1];
+          }
       }
     }
     if (warp == 0 && cq == 0) {
-      ml_sm[gq] = m_run;
-      ml_sm[kMaxG + gq] = l_run;
+#pragma unroll
+      for (int i = 0; i < RH; ++i) {
+        ml_sm[gq + 8 * i] = m_run[i];
+        ml_sm[MG + gq + 8 * i] = l_run[i];
+      }
     }
   } else {
-    // ---- CUDA cores: scores by the 4 x 2 tiles above, the online softmax
-    // with 16 lanes a query row, P.V with 4 query rows x 4 head-dim values
-    // over 8 positions a thread
+    // ---- CUDA cores: scores by the 2 x PG tiles above, the online softmax
+    // with 16 lanes a query row (RH rows a lane), P.V with 4 query rows x 4
+    // head-dim values over kTile / NVH positions a thread
     const int sg = t >> 4, sj = t & 15;        // softmax lane: query row, position
-    const int vq = t & 31, vg = (t >> 5) & 1, vh = t >> 6;   // P.V lane
+    const int vq = t & 31, vg = (t >> 5) % NVG, vh = (t >> 5) / NVG;   // P.V lane
     float acc[4][4];
 #pragma unroll
     for (int g = 0; g < 4; ++g)
@@ -428,17 +474,17 @@ paged_attention_split_kernel(const TQ* __restrict__ q, const TP* __restrict__ k_
       const TP* vs = ks + kTile * ROW;
       const int p0 = start + tile * kTile;
 
-      float part[8];
+      float part[NP];
 #pragma unroll
-      for (int o = 0; o < 8; ++o) part[o] = 0.f;
+      for (int o = 0; o < NP; ++o) part[o] = 0.f;
 #pragma unroll
-      for (int jj = 0; jj < 4; ++jj) {
+      for (int jj = 0; jj < PG; ++jj) {
 #pragma unroll
         for (int i = 0; i < QPL; ++i) {
           const int qd = r + 8 * i;
           if (qd < NQ) {
             float kf[4];
-            load4(ks + (4 * jq + jj) * ROW + 4 * qd, kf);
+            load4(ks + (PG * jq + jj) * ROW + 4 * qd, kf);
 #pragma unroll
             for (int gi = 0; gi < 2; ++gi)
 #pragma unroll
@@ -448,45 +494,50 @@ paged_attention_split_kernel(const TQ* __restrict__ q, const TP* __restrict__ k_
         }
       }
       // reduce-scatter over the 8 lanes of the hd shares: lane r ends with
-      // the full score of entry r = 2 jj + gi
+      // the full scores of entries (NP / 8) r + c, c < NP / 8, entry 2 jj + gi
 #pragma unroll
-      for (int i = 0; i < 4; ++i) {
+      for (int i = 0; i < NP / 2; ++i) {
         const bool up = r & 4;
-        const float send = up ? part[i] : part[i + 4];
-        part[i] = (up ? part[i + 4] : part[i]) + __shfl_xor_sync(kFull, send, 4);
+        const float send = up ? part[i] : part[i + NP / 2];
+        part[i] = (up ? part[i + NP / 2] : part[i]) + __shfl_xor_sync(kFull, send, 4);
       }
 #pragma unroll
-      for (int i = 0; i < 2; ++i) {
+      for (int i = 0; i < NP / 4; ++i) {
         const bool up = r & 2;
-        const float send = up ? part[i] : part[i + 2];
-        part[i] = (up ? part[i + 2] : part[i]) + __shfl_xor_sync(kFull, send, 2);
+        const float send = up ? part[i] : part[i + NP / 4];
+        part[i] = (up ? part[i + NP / 4] : part[i]) + __shfl_xor_sync(kFull, send, 2);
       }
-      {
+#pragma unroll
+      for (int i = 0; i < NP / 8; ++i) {
         const bool up = r & 1;
-        const float send = up ? part[0] : part[1];
-        part[0] = (up ? part[1] : part[0]) + __shfl_xor_sync(kFull, send, 1);
+        const float send = up ? part[i] : part[i + NP / 8];
+        part[i] = (up ? part[i + NP / 8] : part[i]) + __shfl_xor_sync(kFull, send, 1);
       }
-      {
-        const int j = 4 * jq + (r >> 1);
-        s_sm[2 * gp + (r & 1)][j] = p0 + j < end ? part[0] : kNegInf;
+#pragma unroll
+      for (int c = 0; c < NP / 8; ++c) {
+        const int e = (NP / 8) * r + c;
+        const int j = PG * jq + (e >> 1);
+        s_sm[2 * gp + (e & 1)][j] = p0 + j < end ? part[c] : kNegInf;
       }
       __syncthreads();
 
-      {
-        const float s = s_sm[sg][sj];
+#pragma unroll
+      for (int i = 0; i < RH; ++i) {
+        const int g = sg + 8 * i;
+        const float s = s_sm[g][sj];
         float mx = s;
 #pragma unroll
         for (int o = 8; o > 0; o >>= 1) mx = fmaxf(mx, __shfl_xor_sync(kFull, mx, o));
-        const float m_new = fmaxf(m_run, mx);
+        const float m_new = fmaxf(m_run[i], mx);
         const float p = __expf(s - m_new);
         float psum = p;
 #pragma unroll
         for (int o = 8; o > 0; o >>= 1) psum += __shfl_xor_sync(kFull, psum, o);
-        const float alpha = __expf(m_run - m_new);
-        l_run = fmaf(l_run, alpha, psum);
-        m_run = m_new;
-        p_sm[sj][sg] = p;
-        if (sj == 0) alpha_sm[sg] = alpha;
+        const float alpha = __expf(m_run[i] - m_new);
+        l_run[i] = fmaf(l_run[i], alpha, psum);
+        m_run[i] = m_new;
+        p_sm[sj][g] = p;
+        if (sj == 0) alpha_sm[g] = alpha;
       }
       __syncthreads();
 
@@ -498,8 +549,8 @@ paged_attention_split_kernel(const TQ* __restrict__ q, const TP* __restrict__ k_
 #pragma unroll
           for (int e = 0; e < 4; ++e) acc[g][e] *= a[g];
 #pragma unroll
-        for (int jj = 0; jj < 8; ++jj) {
-          const int j = 8 * vh + jj;
+        for (int jj = 0; jj < kTile / NVH; ++jj) {
+          const int j = (kTile / NVH) * vh + jj;
           float vf[4];
           load4(vs + j * ROW + 4 * vq, vf);
           const float4 p4 = *reinterpret_cast<const float4*>(&p_sm[j][4 * vg]);
@@ -511,28 +562,33 @@ paged_attention_split_kernel(const TQ* __restrict__ q, const TP* __restrict__ k_
         }
       }
     }
-    // the split's acc: the two position halves summed into red
+    // the split's acc into red (with two position halves, summed there)
     asm volatile("cp.async.wait_group 0;\n" ::: "memory");
     __syncthreads();                           // the ring is free from here on
     float* own = &red[(4 * vg) * HD + 4 * vq];
-    if (vh == 1 && vq < NQ) {
+    if (vh == NVH - 1 && vq < NQ) {
 #pragma unroll
       for (int g = 0; g < 4; ++g)
         *reinterpret_cast<float4*>(own + g * HD) =
             make_float4(acc[g][0], acc[g][1], acc[g][2], acc[g][3]);
     }
-    __syncthreads();
-    if (vh == 0 && vq < NQ) {
+    if constexpr (NVH == 2) {
+      __syncthreads();
+      if (vh == 0 && vq < NQ) {
 #pragma unroll
-      for (int g = 0; g < 4; ++g) {
-        float4 o4 = *reinterpret_cast<const float4*>(own + g * HD);
-        o4.x += acc[g][0]; o4.y += acc[g][1]; o4.z += acc[g][2]; o4.w += acc[g][3];
-        *reinterpret_cast<float4*>(own + g * HD) = o4;
+        for (int g = 0; g < 4; ++g) {
+          float4 o4 = *reinterpret_cast<const float4*>(own + g * HD);
+          o4.x += acc[g][0]; o4.y += acc[g][1]; o4.z += acc[g][2]; o4.w += acc[g][3];
+          *reinterpret_cast<float4*>(own + g * HD) = o4;
+        }
       }
     }
     if (sj == 0) {
-      ml_sm[sg] = m_run;
-      ml_sm[kMaxG + sg] = l_run;
+#pragma unroll
+      for (int i = 0; i < RH; ++i) {
+        ml_sm[sg + 8 * i] = m_run[i];
+        ml_sm[MG + sg + 8 * i] = l_run[i];
+      }
     }
   }
   __syncthreads();                             // red and ml_sm hold the split's result
@@ -540,7 +596,7 @@ paged_attention_split_kernel(const TQ* __restrict__ q, const TP* __restrict__ k_
   if (live == 1) {                             // the only split: write the output
     for (int idx = t; idx < G * HD; idx += kThreads) {
       const int g = idx / HD;
-      out[qrow * HD + idx] = from_f32<TQ>(red[idx] / fmaxf(ml_sm[kMaxG + g], 1e-30f));
+      out[qrow * HD + idx] = from_f32<TQ>(red[idx] / fmaxf(ml_sm[MG + g], 1e-30f));
     }
     return;
   }
@@ -552,7 +608,7 @@ paged_attention_split_kernel(const TQ* __restrict__ q, const TP* __restrict__ k_
         reinterpret_cast<const float4*>(red)[idx];
   if (t < G) {
     ws_ml[part_id * 2 * G + t] = ml_sm[t];
-    ws_ml[part_id * 2 * G + G + t] = ml_sm[kMaxG + t];
+    ws_ml[part_id * 2 * G + G + t] = ml_sm[MG + t];
   }
   // the block's writes, then one acquire-release count by thread 0: the
   // split that counts last sees every other split's partial
@@ -612,9 +668,9 @@ struct Args {
   float scale;
 };
 
-template <typename TQ, typename TP, int HD>
+template <typename TQ, typename TP, int HD, int MG>
 int launch(const Args& a, int device, cudaStream_t stream) {
-  const auto kernel = paged_attention_split_kernel<TQ, TP, HD>;
+  const auto kernel = paged_attention_split_kernel<TQ, TP, HD, MG>;
   constexpr int bytes = smem_bytes<TP, HD>();
   static bool configured[kMaxDevices] = {};    // the shared-memory opt-in, per device
   if (!configured[device]) {
@@ -631,13 +687,19 @@ int launch(const Args& a, int device, cudaStream_t stream) {
   return (int)cudaGetLastError();
 }
 
+// G <= 8 query rows a KV head take the 8-row kernels, up to 16 the 16-row ones
+template <typename TQ, typename TP, int HD>
+int by_group(const Args& a, int device, cudaStream_t s) {
+  return a.G <= 8 ? launch<TQ, TP, HD, 8>(a, device, s) : launch<TQ, TP, HD, 16>(a, device, s);
+}
+
 template <typename TQ, typename TP>
 int by_head_dim(int hd, const Args& a, int device, cudaStream_t s) {
   switch (hd) {
-    case 32: return launch<TQ, TP, 32>(a, device, s);
-    case 64: return launch<TQ, TP, 64>(a, device, s);
-    case 80: return launch<TQ, TP, 80>(a, device, s);
-    case 128: return launch<TQ, TP, 128>(a, device, s);
+    case 32: return by_group<TQ, TP, 32>(a, device, s);
+    case 64: return by_group<TQ, TP, 64>(a, device, s);
+    case 80: return by_group<TQ, TP, 80>(a, device, s);
+    case 128: return by_group<TQ, TP, 128>(a, device, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }

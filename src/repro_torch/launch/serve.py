@@ -26,12 +26,16 @@ Port of ``repro.launch.serve``:
   PYTHONPATH=src python -m repro_torch.launch.serve --arch zamba2-2.7b --mode decode \
       --full --gateway --max-slots 4 --requests 8 --decode-lengths 32,16
 
-``--arch`` takes yi-6b (dense), rwkv6-7b (ssm: its flow forward runs the
-gla_scan kernel, its decode steps the recurrence in plain torch) or
-zamba2-2.7b (hybrid: Mamba2 blocks and one weight-shared attention block; its
-flow forward runs the gla_scan kernel in the inclusive mode and the flash
-kernel at head dim 80, its decode steps the recurrence and a dense KV cache a
-shared-attention site in plain torch).
+``--arch`` takes yi-6b, yi-34b, phi3-medium-14b and command-r-35b (dense;
+command-r-35b's parallel block and tied embeddings), qwen3-moe-30b-a3b and
+qwen3-moe-235b-a22b (moe: 128 experts, top 8, the router and expert products
+in plain torch beside the flash and paged kernels), rwkv6-7b (ssm: its flow
+forward runs the gla_scan kernel, its decode steps the recurrence in plain
+torch) or zamba2-2.7b (hybrid: Mamba2 blocks and one weight-shared attention
+block; its flow forward runs the gla_scan kernel in the inclusive mode and the
+flash kernel at head dim 80, its decode steps the recurrence and a dense KV
+cache a shared-attention site in plain torch). The reference's other archs
+(whisper-medium, internvl2-26b) exit naming ROADMAP Queue A item 10.
 
 Runs on the card by default (``--device cuda``, an error without one);
 ``--device cpu`` runs the plain CPU path. Weights are random, drawn from a
@@ -110,7 +114,7 @@ import time
 import torch
 
 from repro_torch import resolve_device
-from repro_torch.configs import ARCHS, get_config
+from repro_torch.configs import ARCHS, UNPORTED_ARCHS, get_config
 from repro_torch.core import ns_solver
 from repro_torch.core.anytime import evaluate_anytime, init_anytime
 from repro_torch.core.bns import BNSTrainConfig, psnr
@@ -377,6 +381,11 @@ _NO_BACKWARD_ON_CARD = {
 
 
 def _refuse_unported(args) -> None:
+    if args.arch in UNPORTED_ARCHS:
+        raise SystemExit(f"not served by the port yet: --arch {args.arch}, its model "
+                         "family (ROADMAP Queue A item 10)")
+    if args.arch not in ARCHS:
+        raise SystemExit(f"unknown --arch {args.arch!r}; the port serves {', '.join(ARCHS)}")
     if args.mode == "flow":
         loads = bool(args.solver_artifact) and os.path.exists(args.solver_artifact)
         missing = _NO_BACKWARD_ON_CARD.get(get_config(args.arch, smoke=args.smoke).family)

@@ -1,7 +1,8 @@
 """Unified model API — the ported families and the paper's flow substrate.
 
-Port of the dense (yi-6b), ssm (rwkv6-7b) and hybrid (zamba2-2.7b) branches of
-``repro.models.model``:
+Port of the dense (yi-6b, yi-34b, phi3-medium-14b, command-r-35b), moe
+(qwen3-moe-30b-a3b, qwen3-moe-235b-a22b), ssm (rwkv6-7b) and hybrid
+(zamba2-2.7b) branches of ``repro.models.model``:
 
   init_params(generator, cfg, device)             -> params tree
   velocity(params, cfg, t, x, batch)              -> u_t(x) over latent sequences
@@ -24,7 +25,7 @@ from repro_torch import resolve_device
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.parametrization import VelocityField
 from repro_torch.core.schedulers import Scheduler
-from repro_torch.models import mamba2, rwkv6, transformer
+from repro_torch.models import mamba2, moe, rwkv6, transformer
 from repro_torch.models.attention import KVCache, PagedKVCache
 from repro_torch.models.mamba2 import HybridState
 from repro_torch.models.rwkv6 import RWKVState
@@ -33,7 +34,7 @@ from repro_torch.models.transformer import latent_targets
 Tensor = torch.Tensor
 
 FAMILIES = ("dense", "moe", "ssm", "hybrid", "encdec", "vlm")
-PORTED_FAMILIES = ("dense", "ssm", "hybrid")
+PORTED_FAMILIES = ("dense", "moe", "ssm", "hybrid")
 PAGED_FAMILIES = ("dense", "moe", "vlm")   # KV-cache families that can page
 
 __all__ = ["FAMILIES", "PORTED_FAMILIES", "PAGED_FAMILIES", "init_params", "velocity",
@@ -49,8 +50,8 @@ def _require_ported(cfg: ModelConfig) -> None:
 
 def init_params(generator: torch.Generator, cfg: ModelConfig, device="cuda") -> dict:
     _require_ported(cfg)
-    init = {"dense": transformer.init_dense_params, "ssm": rwkv6.init_rwkv_params,
-            "hybrid": mamba2.init_hybrid_params}
+    init = {"dense": transformer.init_dense_params, "moe": moe.init_moe_params,
+            "ssm": rwkv6.init_rwkv_params, "hybrid": mamba2.init_hybrid_params}
     return init[cfg.family](generator, cfg, device)
 
 
@@ -61,6 +62,8 @@ def _hidden_fn(cfg: ModelConfig, remat: bool = False):
         return lambda p, c, h, pos: rwkv6.rwkv_hidden(p, c, h, remat=remat)
     if cfg.family == "hybrid":
         return lambda p, c, h, pos: mamba2.hybrid_hidden(p, c, h, pos, remat=remat)
+    if cfg.family == "moe":
+        return lambda p, c, h, pos: moe.moe_hidden(p, c, h, pos, remat=remat)[0]
     return lambda p, c, h, pos: transformer.dense_hidden(p, c, h, pos, remat=remat)
 
 
@@ -99,7 +102,7 @@ def velocity_field(params: dict, cfg: ModelConfig, sched: Scheduler,
 
 def init_decode_state(cfg: ModelConfig, batch: int, slots: int, dtype=torch.bfloat16,
                       device="cuda"):
-    """A KV cache of ``slots`` positions (dense), the recurrent state (ssm:
+    """A KV cache of ``slots`` positions (dense, moe), the recurrent state (ssm:
     f32 whatever ``dtype``, and ``slots`` unused, as in the reference), or
     both (hybrid: conv tails and one KV cache a shared-attention site in
     ``dtype``, the SSD state in f32)."""
@@ -142,12 +145,15 @@ def decode_apply(params: dict, cfg: ModelConfig, token: Tensor, state, *,
                  window: int = 0, paged_kernel: bool = False,
                  active: Optional[Tensor] = None):
     """One decode step; ``state`` is updated in place (``transformer.decode_step``,
-    ``rwkv6.decode_step``, which ignores ``window`` and ``paged_kernel``, or
-    ``mamba2.decode_step``, which ignores ``paged_kernel``)."""
+    ``moe.decode_step``, ``rwkv6.decode_step``, which ignores ``window`` and
+    ``paged_kernel``, or ``mamba2.decode_step``, which ignores ``paged_kernel``)."""
     _require_ported(cfg)
     if cfg.family == "ssm":
         return rwkv6.decode_step(params, cfg, token, state, active=active)
     if cfg.family == "hybrid":
         return mamba2.decode_step(params, cfg, token, state, window=window, active=active)
+    if cfg.family == "moe":
+        return moe.decode_step(params, cfg, token, state, window=window,
+                               paged_kernel=paged_kernel, active=active)
     return transformer.decode_step(params, cfg, token, state, window=window,
                                    paged_kernel=paged_kernel, active=active)

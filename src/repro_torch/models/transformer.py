@@ -230,7 +230,7 @@ def init_paged_caches(cfg: ModelConfig, batch: int, num_pages: int, page_size: i
 
 def decode_step(params: dict, cfg: ModelConfig, token: Tensor, caches, *,
                 window: int = 0, paged_kernel: bool = False,
-                active: Optional[Tensor] = None):
+                active: Optional[Tensor] = None, mlp=None):
     """One-token decode: token (B,) -> (logits (B, V), caches).
 
     ``caches`` is a dense ``KVCache`` or a ``PagedKVCache``, updated IN PLACE
@@ -240,7 +240,11 @@ def decode_step(params: dict, cfg: ModelConfig, token: Tensor, caches, *,
     other rows keep their position and, in a dense cache, every bit of their
     cache rows. A paged pool is written unconditionally, as the reference's
     is. ``paged_kernel`` routes paged attention through the CUDA kernel.
+    ``mlp(layer_params, x)`` is the layer's feed-forward (None: the dense
+    SwiGLU of ``layer_params["mlp"]``; the MoE family passes its router).
     """
+    if mlp is None:
+        mlp = lambda p, x: swiglu(x, **p["mlp"])                # noqa: E731
     h = params["embed"][token.long()][:, None, :]              # (B, 1, d)
     B = h.shape[0]
     paged = isinstance(caches, PagedKVCache)
@@ -259,10 +263,10 @@ def decode_step(params: dict, cfg: ModelConfig, token: Tensor, caches, *,
             attn_out, _ = decode_attention(p["attn"], hn, layer_cache, window=window,
                                            active=active, **attn_kw)
         if cfg.parallel_block:
-            h = h + attn_out + swiglu(hn, **p["mlp"])
+            h = h + attn_out + mlp(p, hn)
         else:
             h = h + attn_out
-            h = h + swiglu(rms_norm(h, p["norm2"], cfg.norm_eps), **p["mlp"])
+            h = h + mlp(p, rms_norm(h, p["norm2"], cfg.norm_eps))
     h = rms_norm(h, params["final_norm"], cfg.norm_eps)[:, 0, :]
     logits = h @ (params["embed"].T if cfg.tie_embeddings else params["lm_head"])
     index = pos + 1

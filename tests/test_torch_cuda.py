@@ -324,6 +324,9 @@ _PAGED_DTYPES = [(torch.float32, torch.float32), (torch.bfloat16, torch.float32)
     (3, 2, 7, 128, 4, 5),       # G=7, small pages
     (8, 4, 8, 128, 16, 16),     # the decode cell: yi-6b heads, 256-position rows
     (2, 4, 8, 128, 16, 64),     # 1024-position rows
+    (8, 4, 16, 128, 16, 16),    # G=16: qwen3-moe-235b-a22b's 64 over 4 heads
+    (3, 2, 12, 32, 4, 5),       # G=12, the 16-row kernels' partial rows
+    (2, 1, 16, 80, 16, 64),     # G=16, hd=80, split rows
 ])
 def test_paged_attention_matches_plain(dev, B, KV, G, hd, ps, nb, q_dtype, page_dtype):
     from repro_torch.kernels.flash_attention import paged_attention as pa_mod

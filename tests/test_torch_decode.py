@@ -173,11 +173,11 @@ def test_unported_families_name_their_roadmap_item(setup):
     import dataclasses
 
     _, _, cfg, _ = setup
-    moe = dataclasses.replace(cfg, family="moe")
+    vlm = dataclasses.replace(cfg, family="vlm")
     with pytest.raises(NotImplementedError, match="ROADMAP Queue A item 10"):
-        tmodel.init_decode_state(moe, 2, 8, torch.float32, "cpu")
+        tmodel.init_decode_state(vlm, 2, 8, torch.float32, "cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP Queue A item 10"):
-        tmodel.init_paged_decode_state(moe, 2, 5, 4, 2, torch.float32, "cpu")
+        tmodel.init_paged_decode_state(vlm, 2, 5, 4, 2, torch.float32, "cpu")
     with pytest.raises(TypeError, match="pageable"):
         tmodel.init_paged_decode_state(dataclasses.replace(cfg, family="ssm"), 2, 5, 4, 2,
                                        torch.float32, "cpu")

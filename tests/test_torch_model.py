@@ -210,6 +210,6 @@ def test_velocity_bf16(cfg):
 
 
 def test_unported_family_names_its_roadmap_item(cfg):
-    moe = dataclasses.replace(cfg, family="moe")
+    encdec = dataclasses.replace(cfg, family="encdec")
     with pytest.raises(NotImplementedError, match="ROADMAP Queue A item 10"):
-        tmodel.init_params(torch.Generator().manual_seed(0), moe, device="cpu")
+        tmodel.init_params(torch.Generator().manual_seed(0), encdec, device="cpu")

@@ -59,6 +59,7 @@ def _close(got: torch.Tensor, want, dtype):
     (3, 1, 4, 32, 16, 2),      # extreme GQA, two blocks
     (1, 4, 1, 64, 8, 3),       # one query head per KV head
     (2, 2, 4, 80, 16, 2),      # hd=80
+    (2, 2, 16, 128, 8, 3),     # 16 query heads a KV head (qwen3-moe-235b-a22b)
 ])
 def test_paged_attention_matches_pallas(B, KV, G, hd, ps, nb, q_dtype, page_dtype):
     """The plain version == the Pallas kernel (interpret mode) == the jnp
@@ -215,7 +216,7 @@ _EDGE_LENGTHS = [0, 1, 4, 7, 8, 9, 15, 16, 17, 31, 33, 63, 64, 65, 79, 80, 95]
 
 
 @pytest.mark.parametrize("pps", [1, 2, 16, 23])          # 23 > nb = 20: one split
-@pytest.mark.parametrize("G", [1, 4, 8])
+@pytest.mark.parametrize("G", [1, 4, 8, 16])
 @pytest.mark.parametrize("hd", [32, 80])
 def test_split_merge_algebra_matches_the_references(pps, G, hd):
     """The kernel's split-and-merge, in f64, == the plain version == the jnp

@@ -153,6 +153,41 @@ def test_serve_refuses_what_it_does_not_serve(extra, item):
     assert item in str(exc.value.code)
 
 
+@pytest.mark.parametrize("mode", ["flow", "decode"])
+@pytest.mark.parametrize("arch", ["whisper-medium", "internvl2-26b"])
+def test_serve_refuses_an_unported_reference_arch_naming_item_10(arch, mode):
+    """The reference's archs the port lacks exit naming ROADMAP Queue A item
+    10, in either mode, with no KeyError from the config registry."""
+    with pytest.raises(SystemExit) as exc:
+        serve.main(["--arch", arch, "--mode", mode, "--device", "cpu"])
+    assert "ROADMAP Queue A item 10" in str(exc.value.code)
+    assert arch in str(exc.value.code)
+
+
+def test_serve_cli_unported_arch_exits_with_no_traceback():
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
+    proc = subprocess.run([sys.executable, "-m", "repro_torch.launch.serve",
+                           "--arch", "whisper-medium", "--device", "cpu"], env=env,
+                          cwd=ROOT, capture_output=True, text=True, timeout=120)
+    assert proc.returncode != 0 and "ROADMAP Queue A item 10" in proc.stderr
+    assert "Traceback" not in proc.stderr and "KeyError" not in proc.stderr
+
+
+def test_every_reference_arch_is_served_or_refused():
+    """The port's registry and its refusal list together are the
+    reference's; an unknown name exits listing the served archs."""
+    from repro.configs import ARCHS as JAX_ARCHS
+    from repro_torch.configs import ARCHS, UNPORTED_ARCHS
+
+    assert sorted(ARCHS + UNPORTED_ARCHS) == sorted(JAX_ARCHS)
+    assert not set(ARCHS) & set(UNPORTED_ARCHS)
+    with pytest.raises(SystemExit) as exc:
+        serve.main(["--arch", "no-such-arch", "--device", "cpu"])
+    assert "qwen3-moe-30b-a3b" in str(exc.value.code)
+    help_text = next(a.help for a in serve.build_parser()._actions if a.dest == "arch")
+    assert all(arch in help_text for arch in ARCHS) and len(ARCHS) == 8
+
+
 _DECODE = ["--arch", "yi-6b", "--mode", "decode", "--device", "cpu"]
 
 
