@@ -113,8 +113,12 @@ Phases (any failure ends the run with a non-zero exit and no last line):
     solver's val PSNR, DISTILL_ITERS training iterations (each layer
     recomputed in the backward), the final validation, the artifact saved
     and reloaded (no launches), the requests with the reloaded solver. The
-    training runs as the card's default: one captured step and one captured
-    validation (``bns.TrainLoop``), replayed. The zoo must report
+    RK45 solves run as the card's default: one captured step program
+    (``core/rk45.py::RK45Program``, the seven evaluations and the error
+    norm) shared by the train and val solves, replayed every step; the
+    training likewise: one captured step and one captured validation
+    (``bns.TrainLoop``), replayed. The RK45 seconds and the step program's
+    captures and replays are printed. The zoo must report
     distills=1. Launch counts must be exact. With R the RK45 evaluations of both
     solves and K = DISTILL_ITERS: flash forward 32 (R + 8 + 8 + 2 * 8) for
     the no-grad calls plus 32 * 8 * 2 * K in training (every layer's forward
@@ -133,10 +137,10 @@ Phases (any failure ends the run with a non-zero exit and no last line):
     12's to the bit (same seeds, weights and deterministic kernels).
 12c. Anytime at full width: yi-6b, ``--budgets 4,8 --request-budgets
     4,8,16``, batch 4, seq ANYTIME_SEQ, ``--bns-iters`` ANYTIME_ITERS, 3
-    requests, ``--solver-artifact`` ANYTIME_ARTIFACT (deleted first), its
-    depth cut to ANYTIME_LAYERS = 16 of 32 layers (``launcher_depth``: the
-    eager RK45 solves at seq 256 are host-bound, and their wall scales with
-    the depth). With R the RK45 evaluations of both solves, K =
+    requests, ``--solver-artifact`` ANYTIME_ARTIFACT (deleted first), at
+    ANYTIME_LAYERS = 32 layers, yi-6b's full depth (``launcher_depth``; PRs
+    25-26 cut it to 16 while the RK45 solves ran eagerly, host-bound; they
+    run graphed since PR 27). With R the RK45 evaluations of both solves, K =
     ANYTIME_ITERS and N = ANYTIME_LAYERS: flash forward N (R + 8 + 8 + 20)
     for the no-grad calls (the initial solver's and the final validation's
     shared trajectory, 8 evaluations each; the requests at 4, 8 and 16 -> 8
@@ -152,9 +156,10 @@ Phases (any failure ends the run with a non-zero exit and no last line):
     ``sample_all_from``.
 12d. BST distilled at full width: yi-6b's field with each layer recomputed
     (as ``serve._distill_artifact`` builds it), one ``bns.generate_pairs``
-    call of BST_PAIRS = 8 samples at seq BST_SEQ = 256 (one RK45 solve; the
-    conditioning batch of 4 rows taken twice, so the 4 train and 4 val rows
-    share it; flash forward 32 per evaluation), Euler's val PSNR through
+    call of BST_PAIRS = 8 samples at seq BST_SEQ = 256 (one RK45 solve,
+    graphed, its evaluations read from the solve's result; the conditioning
+    batch of 4 rows taken twice, so the 4 train and 4 val rows share it;
+    flash forward 32 per evaluation), Euler's val PSNR through
     ``ns_sample`` (8 ns_update, 256 flash), then ``SolverSpec("euler", 8,
     mode="bst").distill`` for BST_ITERS = 4 full-batch iterations: flash
     forward 512 and backward 256 an iteration plus 256 forward for the
@@ -258,7 +263,14 @@ Phases (any failure ends the run with a non-zero exit and no last line):
     after the first, which graphed is the capture's warm-up), the capture
     ms, the validation ms, the launches an iteration and, for the anytime
     trainer, one more iteration each way, the graphed one under
-    torch.profiler (the card's busy share).
+    torch.profiler (the card's busy share). Then RK45's step program
+    (``core/rk45.py::RK45Program``), graphed against eager: two solves of
+    one shape through one fresh program, then the same two under
+    ``programs.disabled()``, on yi-6b at full width and RK45_GATE_LAYERS = 2
+    layers (bf16, batch 4, seq 256) and on the claims twin's toy field
+    (``benchmarks.psnr_vs_nfe.make_field("fm_ot")``, 256 x 2): x1 equal to
+    the bit, nfe, accepted and rejected equal, launches equal, one capture
+    in all (the second solve captures nothing); seconds each way.
 17. Flow path of zamba2-2.7b at full width (54 Mamba2 layers and 9 sites
     of the one shared attention block, bf16), as phase 4, after the earlier
     weights are freed: flash attention 9 x 8 x 3 = 216 launches (hd 80),
@@ -302,7 +314,32 @@ Phases (any failure ends the run with a non-zero exit and no last line):
 20. phi3-medium-14b, command-r-35b and yi-34b at full width and depth, one
     flow request each with phase 4's other flags (flash 320, 320 and 480);
     each then against the CPU at 2 layers, f32, drawn on the card.
-21. The script's wall time, one JSON line listing the kernels (the
+21. Flow path of whisper-medium at full width and depth (24 encoder and 24
+    decoder layers, 16 heads of 64, bf16; the stub frontend's 1500 frames
+    of 1024 drawn by ``SyntheticTokens``), as phase 4: every request exactly
+    576 flash launches (72 a forward: 24 encoder non-causal over the frames,
+    24 causal decoder self-attention, 24 cross-attention at Lq 1024, Lk
+    1500) and 8 ns_update, the others 0; phase 15's flow case.
+21b. Phase 5 for it at 2 + 2 layers, f32, drawn on the card, with the full
+    config's 16 heads of 64 (the smoke config's hd 32 is not among the flash
+    kernel's): relative L2 <= 1e-4, flash 24 and ns_update 4 on the card.
+21c. Greedy decode over an encoded memory (``DecodeEngine.greedy``, graphed,
+    after ``whisper.encode`` writes the state's memory): at full width,
+    WHISPER_DECODE_STEPS steps of 4 rows, each step exactly 24 flash
+    launches (cross-attention at Lq 1, Lk 1500), step ms and tokens/s; at
+    the 2 + 2-layer f32 model, the memory within relative L2 1e-4 of the
+    CPU's and the tokens equal to the CPU's.
+22. internvl2-26b at full width and depth (48 layers, 48 / 8 heads of 128,
+    G 6; ~40 GB of bf16 weights; 256 stub patches of 3200 prepended through
+    the projector): INTERNVL_REQUESTS flow requests with phase 4's other
+    flags (flash 384 and ns_update 8 each, over 1280 positions), then its
+    decode through the gateway and the paged kernel with phase 18c's flags
+    (paged attention exactly 48 a decode_apply call) and phase 15's step
+    case.
+22b. Phase 5 and phase 7 for it at 2 layers, f32, drawn on the card (the
+    full config's heads of 128): flow relative L2 <= 1e-4, decode logits
+    within 1e-4 with the paged kernel (2 a call) and the tokens equal.
+23. The script's wall time, one JSON line listing the kernels (the
     ns_update and flash entries, forward and backward, with phases 4b, 5b,
     12b, 12c, 12d, 13b, 13c, 14a, 14b, 14c, 16 and 17-17d's launches and
     ms beside the main path's; every entry with phases 18-20's; the flash
@@ -313,7 +350,13 @@ Phases (any failure ends the run with a non-zero exit and no last line):
 Phase 3 also holds flash at B=4 L=1024 hd 128, causal, bf16 at (H, KV) =
 (56, 8), (40, 10), (64, 8) and (64, 4) (yi-34b, phi3-medium-14b,
 command-r-35b, qwen3-moe-235b-a22b), and the paged kernel at G = 16 (B=8,
-KV=4, the decode cell's pages, bf16 and f32 pools).
+KV=4, the decode cell's pages, bf16 and f32 pools); and the shapes of
+phases 21-22: flash bf16 at B=4, 16 heads of 64, G 1: non-causal at L 1500
+(whisper's encoder), causal at L 1024 (its decoder), non-causal at Lq 1024
+/ Lk 1500 (cross-attention) and at Lq 1 / Lk 1500 (cross-attention in
+decode); causal at B=4, L 1280, (48, 8) heads of 128 (internvl2-26b, G 6);
+and the paged kernel at KV 8, G 6 on the decode cell's pages (bf16 and f32
+pools). SDPA is timed beside each as a yardstick.
 """
 from __future__ import annotations
 
@@ -373,16 +416,17 @@ DISTILL_CHECK_STEPS, DISTILL_CHECK_LR = 3, 1e-3    # phase 13
 BNS_ARTIFACT = ROOT / "build" / "chip_smoke" / "bns_nfe8.msgpack"          # phases 12, 12b
 ANYTIME_ARTIFACT = ROOT / "build" / "chip_smoke" / "anytime_4_8.msgpack"   # phase 12c
 ANYTIME_SEQ, ANYTIME_ITERS, ANYTIME_BUDGETS = 256, 4, (4, 8)              # phase 12c
-ANYTIME_LAYERS = 16       # phase 12c's depth: its eager RK45 at seq 256 is host-bound
+ANYTIME_LAYERS = 32       # phase 12c's depth (16 in PRs 25-26, while its RK45 ran eagerly)
 ANYTIME_REQUEST_BUDGETS = (4, 8, 16)
 BASELINES = ("ddim", "dpm2m", "edm_heun")                                    # phases 4b, 5b
 BASELINE_REQUESTS = 2                                                        # phase 4b
 BST_SEQ, BST_PAIRS, BST_ITERS = 256, 8, 4                                    # phase 12d
 TRAIN_GRAPH_ITERS = 4                                                        # phase 16
+RK45_GATE_LAYERS, RK45_GATE_SEQ = 2, 256        # phase 16's RK45 case on yi-6b's width
 BST_ARTIFACT = ROOT / "build" / "chip_smoke" / "bst_euler_nfe8.msgpack"
 VOCAB = {"yi-6b": 64000, "rwkv6-7b": 65536, "zamba2-2.7b": 32000, "qwen3-moe-30b-a3b": 151936,
          "qwen3-moe-235b-a22b": 151936, "phi3-medium-14b": 100352, "command-r-35b": 256000,
-         "yi-34b": 64000}
+         "yi-34b": 64000, "whisper-medium": 51865, "internvl2-26b": 92553}
 # phases 18-18d: qwen3-moe-30b-a3b, 48 layers of attention and 128 experts (top 8)
 MOE_ARCH, MOE_LAYERS = "qwen3-moe-30b-a3b", 48
 MOE_DECODE_ARGS = ["--arch", MOE_ARCH, "--mode", "decode", "--full", "--gateway",
@@ -396,6 +440,15 @@ MOE_235B_DECODE_ARGS = ["--arch", MOE_235B, "--mode", "decode", "--full", "--gat
                         "--page-size", "16", "--paged-kernel", "--slots", "256"]
 # phase 20: the dense configs at full width and depth, one flow request each
 DENSE_LAYERS = {"phi3-medium-14b": 40, "command-r-35b": 40, "yi-34b": 60}
+# phases 21-21c: whisper-medium, 24 encoder and 24 decoder layers; a forward runs
+# flash 3 x 24 times (encoder, decoder self-attention, cross-attention)
+WHISPER, WHISPER_LAYERS = "whisper-medium", 24
+WHISPER_DECODE_STEPS, WHISPER_DECODE_SLOTS = 32, 64          # phase 21c
+# phases 22-22b: internvl2-26b at full width and depth, 48 layers (~40 GB bf16)
+INTERNVL, INTERNVL_LAYERS, INTERNVL_REQUESTS = "internvl2-26b", 48, 2
+INTERNVL_DECODE_ARGS = ["--arch", INTERNVL, "--mode", "decode", "--full", "--gateway",
+                        "--max-slots", "4", "--requests", "8", "--decode-lengths", "32,16",
+                        "--page-size", "16", "--paged-kernel", "--slots", "256"]
 # phases 17-17d: zamba2-2.7b, 54 Mamba2 layers and 9 shared-attention sites
 ZAMBA_LAYERS, ZAMBA_SITES = 54, 9
 ZAMBA_DECODE_ARGS = ["--arch", "zamba2-2.7b", "--mode", "decode", "--full", "--gateway",
@@ -596,7 +649,7 @@ def flash_cases(dev):
 
     g = torch.Generator(device=dev).manual_seed(1)
     rows = []
-    for B, H, KV, L, hd, dtype, causal in [
+    for case in [
             (BATCH, 32, 4, SEQ, 128, torch.bfloat16, True),    # main path
             (BATCH, 32, 4, SEQ, 128, torch.bfloat16, False),
             (BATCH, 32, 4, 1000, 128, torch.bfloat16, True),   # ragged L
@@ -611,24 +664,35 @@ def flash_cases(dev):
             (BATCH, 56, 8, SEQ, 128, torch.bfloat16, True),
             (BATCH, 40, 10, SEQ, 128, torch.bfloat16, True),
             (BATCH, 64, 8, SEQ, 128, torch.bfloat16, True),
-            (BATCH, 64, 4, SEQ, 128, torch.bfloat16, True)]:
+            (BATCH, 64, 4, SEQ, 128, torch.bfloat16, True),
+            # phases 21-22: whisper-medium's encoder (L 1500, non-causal), decoder
+            # self-attention, cross-attention (Lq 1024 / Lk 1500) and its decode
+            # step's (Lq 1 / Lk 1500), 16 heads of 64; internvl2-26b (G 6, L 1280)
+            (BATCH, 16, 16, 1500, 64, torch.bfloat16, False),
+            (BATCH, 16, 16, SEQ, 64, torch.bfloat16, True),
+            (BATCH, 16, 16, SEQ, 64, torch.bfloat16, False, 1500),
+            (BATCH, 16, 16, 1, 64, torch.bfloat16, False, 1500),
+            (BATCH, 48, 8, 1280, 128, torch.bfloat16, True)]:
+        B, H, KV, L, hd, dtype, causal, *rest = case
+        Lk = rest[0] if rest else L           # keys: L, or the memory's length
         # transposed views of the model's (B, L, heads, hd) layout, as on the main path
         q = torch.randn((B, L, H, hd), generator=g, device=dev).to(dtype).transpose(1, 2)
-        k = torch.randn((B, L, KV, hd), generator=g, device=dev).to(dtype).transpose(1, 2)
-        v = torch.randn((B, L, KV, hd), generator=g, device=dev).to(dtype).transpose(1, 2)
-        name = f"flash_attention B={B} H={H} KV={KV} L={L} hd={hd} {dtype} causal={causal}"
+        k = torch.randn((B, Lk, KV, hd), generator=g, device=dev).to(dtype).transpose(1, 2)
+        v = torch.randn((B, Lk, KV, hd), generator=g, device=dev).to(dtype).transpose(1, 2)
+        length = f"L={L}" if Lk == L else f"Lq={L} Lk={Lk}"
+        name = f"flash_attention B={B} H={H} KV={KV} {length} hd={hd} {dtype} causal={causal}"
         out, ref = flash_attention(q, k, v, causal=causal), attention_ref(q, k, v, causal=causal)
         if dtype == torch.bfloat16:
             err = check_flash_bf16(name, out, ref)
         else:
             err = check_close(name, out, ref, atol=TOL[dtype] * 4, rtol=TOL[dtype] * 4)
-        pairs = L * (L + 1) // 2 if causal else L * L
+        pairs = L * (L + 1) // 2 if causal else L * Lk
         size = q.element_size()
         flops = 4 * hd * pairs * B * H
-        b_ms, b_by = bound((2 * B * H * L * hd + 2 * B * KV * L * hd) * size, flops, dtype)
+        b_ms, b_by = bound((2 * B * H * L * hd + 2 * B * KV * Lk * hd) * size, flops, dtype)
         ms = time_ms(lambda: flash_attention(q, k, v, causal=causal))
         rows.append(dict(
-            shape=f"B={B} H={H} KV={KV} L={L} hd={hd} {str(dtype)[6:]} "
+            shape=f"B={B} H={H} KV={KV} {length} hd={hd} {str(dtype)[6:]} "
                   f"{'causal' if causal else 'full'}", max_abs_err=err,
             ms=ms, tflops=flops / ms / 1e9,
             plain_ms=time_ms(lambda: attention_ref(q, k, v, causal=causal)),
@@ -842,7 +906,10 @@ def paged_cases(dev):
             (4, 4, 8, 128, 16, 16, bf16, f32, [5, 37, 1, 200], True),  # poisoned tails
             # qwen3-moe-235b-a22b's 16 query heads a KV head, at the decode cell's pages
             (8, 4, 16, 128, 16, 16, bf16, f32, decode_lengths, False),
-            (8, 4, 16, 128, 16, 16, bf16, bf16, decode_lengths, False)]:
+            (8, 4, 16, 128, 16, 16, bf16, bf16, decode_lengths, False),
+            # internvl2-26b's 6 query heads a KV head over 8 KV heads (phase 22)
+            (8, 8, 6, 128, 16, 16, bf16, f32, decode_lengths, False),
+            (8, 8, 6, 128, 16, 16, bf16, bf16, decode_lengths, False)]:
         q, k, v, table, lens = paged_inputs(g, dev, B, KV, G, hd, ps, nb, q_dtype,
                                             page_dtype, lengths)
         shape = (f"B={B} KV={KV} G={G} hd={hd} ps={ps} nb={nb} q {str(q_dtype)[6:]} "
@@ -877,7 +944,7 @@ def paged_cases(dev):
             yardstick_ms=time_ms(lambda: F.scaled_dot_product_attention(
                 qd, kd, vd, attn_mask=mask, enable_gqa=True)),
             bound_ms=b_ms, bound_by=b_by))
-        if len(rows) <= 3 or G > 8:    # the decode cell, the long rows, G = 16
+        if len(rows) <= 3 or G in (6, 16):    # the decode cell, the long rows, G 16, G 6
             rows[-1]["device_ms"] = device_ms(
                 lambda: paged_attention(q, k, v, table, lens), "paged_attention")
         del kd, vd
@@ -1602,7 +1669,7 @@ def distill_path(dev, counters, trains: dict) -> dict:
     iter_ms = (d.train_seconds - d.init_val_seconds) / K * 1e3
     print(f"distillation: yi-6b full width, NFE {NFE}, batch {BATCH}, seq {SEQ}: RK45 "
           f"train nfe/accepted/rejected {d.rk45['train']}, val {d.rk45['val']} "
-          f"({d.rk45_seconds:.3f} s); val PSNR initial {d.init_val_psnr:.4f} dB -> distilled "
+          f"({d.rk45_seconds:.3f} s, graphed: step program {d.rk45_programs}); val PSNR initial {d.init_val_psnr:.4f} dB -> distilled "
           f"{d.val_psnr:.4f} dB after {K} iterations (losses {[round(x, 5) for x in losses]}); "
           f"train_bns {d.train_seconds:.3f} s, ~{iter_ms:.1f} ms an iteration (one "
           f"validation {d.init_val_seconds * 1e3:.1f} ms taken off; each, by CUDA events, "
@@ -1616,7 +1683,8 @@ def distill_path(dev, counters, trains: dict) -> dict:
     trains[f"bns, seq {SEQ}, euler NFE {NFE}"] = train_programs(
         dev, counters, f"bns, seq {SEQ}, euler NFE {NFE}",
         train_loop("bns", served_field(dev, served.sampler, SEQ), d.pairs))
-    return {"rk45": d.rk45, "rk45_s": d.rk45_seconds, "init_val_psnr": d.init_val_psnr,
+    return {"rk45": d.rk45, "rk45_s": d.rk45_seconds, "rk45_programs": d.rk45_programs,
+            "init_val_psnr": d.init_val_psnr,
             "val_psnr": d.val_psnr, "iterations": K, "iteration_ms": iter_ms,
             "request_ms": [x.ms for x in served], "peak_gib": peak / 2**30,
             "launches": launches, "wall_s": wall,
@@ -1751,7 +1819,7 @@ def anytime_path(dev, counters, trains: dict) -> dict:
     print(f"anytime: yi-6b full width, {ANYTIME_LAYERS} of its {LAYERS} layers, budgets "
           f"{ANYTIME_BUDGETS}, batch {BATCH}, seq "
           f"{ANYTIME_SEQ}: RK45 train {d.rk45['train']}, val {d.rk45['val']} "
-          f"({d.rk45_seconds:.3f} s); mean val PSNR initial {d.init_val_psnr:.4f} dB -> "
+          f"({d.rk45_seconds:.3f} s, graphed: step program {d.rk45_programs}); mean val PSNR initial {d.init_val_psnr:.4f} dB -> "
           f"distilled {d.val_psnr:.4f} dB after {K} iterations (losses "
           f"{[round(x, 5) for x in losses]}); train_anytime {d.train_seconds:.3f} s, "
           f"~{iter_ms:.1f} ms an iteration (one validation {d.init_val_seconds * 1e3:.1f} ms "
@@ -1768,7 +1836,8 @@ def anytime_path(dev, counters, trains: dict) -> dict:
     label = f"anytime, seq {ANYTIME_SEQ}, budgets {ANYTIME_BUDGETS}"
     trains[label] = train_programs(dev, counters, label, train_loop(
         "anytime", served_field(dev, sampler, ANYTIME_SEQ), d.pairs), profile=True)
-    return {"rk45": d.rk45, "rk45_s": d.rk45_seconds, "init_val_psnr": d.init_val_psnr,
+    return {"rk45": d.rk45, "rk45_s": d.rk45_seconds, "rk45_programs": d.rk45_programs,
+            "init_val_psnr": d.init_val_psnr,
             "val_psnr": d.val_psnr, "iterations": K, "iteration_ms": iter_ms,
             "each_iteration_ms": [x * 1e3 for x in d.iteration_seconds],
             "request_ms": [x.ms for x in served], "request_nfe": served_nfe,
@@ -1787,7 +1856,6 @@ def bst_distill_path(dev, counters, trains: dict) -> dict:
     phase 16's BST case on the same field and pairs, into ``trains``."""
     from repro_torch.configs import get_config
     from repro_torch.core import bns, bst_solver
-    from repro_torch.core.parametrization import VelocityField
     from repro_torch.core.schedulers import get_scheduler
     from repro_torch.data.synthetic import DataConfig, SyntheticTokens
     from repro_torch.models import model as M
@@ -1804,11 +1872,12 @@ def bst_distill_path(dev, counters, trains: dict) -> dict:
     field = M.velocity_field(params, cfg, sched, cond, remat=True)
     twice = M.velocity_field(params, cfg, sched,
                              {k: torch.cat([v, v]) for k, v in cond.items()})
-    calls = [0]
+    # the solve's evaluations, from its result: a graphed step runs no Python
+    solves, inner = [], bns.rk45_solve
 
-    def counted(t, x):
-        calls[0] += 1
-        return twice.fn(t, x)
+    def recorded(*args, **kwargs):
+        solves.append(inner(*args, **kwargs))
+        return solves[-1]
 
     stages, zero = {}, dict.fromkeys(KERNELS, 0)
 
@@ -1825,10 +1894,15 @@ def bst_distill_path(dev, counters, trains: dict) -> dict:
             raise SystemExit(f"BST {name}: launched {launches}, expected {want}")
         return out
 
-    x0, x1 = stage("rk45", lambda: bns.generate_pairs(
-        VelocityField(fn=counted, scheduler=sched),
-        torch.Generator(device=dev).manual_seed(1), BST_PAIRS, (BST_SEQ, cfg.latent_dim)),
-        lambda: {"flash_attention": LAYERS * calls[0]})
+    bns.rk45_solve = recorded
+    try:
+        x0, x1 = stage("rk45", lambda: bns.generate_pairs(
+            twice, torch.Generator(device=dev).manual_seed(1), BST_PAIRS,
+            (BST_SEQ, cfg.latent_dim)),
+            lambda: {"flash_attention": LAYERS * sum(r.nfe for r in solves)})
+    finally:
+        bns.rk45_solve = inner
+    evaluations = sum(r.nfe for r in solves)
     train, val = (x0[:BATCH], x1[:BATCH]), (x0[BATCH:], x1[BATCH:])
     euler = stage("euler init", lambda: SolverSpec("euler", NFE).sampler(field).psnr(val),
                   lambda: {"ns_update": NFE, "flash_attention": LAYERS * NFE})
@@ -1854,7 +1928,8 @@ def bst_distill_path(dev, counters, trains: dict) -> dict:
     losses = [h[1] for h in res.history]
     iteration_ms = [x * 1e3 for x in res.iteration_seconds]
     print(f"BST distillation: yi-6b full width, euler NFE {NFE}, {BST_PAIRS} pairs at seq "
-          f"{BST_SEQ} ({calls[0]} RK45 evaluations, {stages['rk45']['ms'] / 1e3:.3f} s), "
+          f"{BST_SEQ} ({evaluations} RK45 evaluations in {len(solves)} solve, graphed, "
+          f"{stages['rk45']['ms'] / 1e3:.3f} s), "
           f"{BATCH} train / {BATCH} val: val PSNR Euler {euler:.4f} dB -> BST "
           f"{res.val_psnr:.4f} dB after {K} iterations, knots moved off the identity: "
           f"{moved} (losses "
@@ -1877,7 +1952,7 @@ def bst_distill_path(dev, counters, trains: dict) -> dict:
         "bst", field, {"train": train, "val": val}))
     launches = {k: sum(v["launches"][k] for v in stages.values()) for k in KERNELS}
     return {"launches": launches, "training_launches": stages["training"]["launches"],
-            "rk45_evaluations": calls[0], "rk45_s": stages["rk45"]["ms"] / 1e3,
+            "rk45_evaluations": evaluations, "rk45_s": stages["rk45"]["ms"] / 1e3,
             "euler_val_psnr": euler, "val_psnr": res.val_psnr, "iterations": K,
             "each_iteration_ms": iteration_ms, "peak_gib": peak / 2**30}
 
@@ -2670,7 +2745,10 @@ def card_drawn_model(dev, arch: str, layers: int = 2):
     from repro_torch.models.transformer import params_to
 
     free_device_memory(dev)
-    cfg = dataclasses.replace(get_config(arch), n_layers=layers, dtype="float32")
+    cfg = get_config(arch)
+    # an encoder-decoder model takes ``layers`` in each stack
+    enc = {"n_encoder_layers": layers} if cfg.n_encoder_layers else {}
+    cfg = dataclasses.replace(cfg, n_layers=layers, dtype="float32", **enc)
     on_card = M.init_params(torch.Generator(device=dev).manual_seed(0), cfg, dev)
     return cfg, on_card, params_to(on_card, "cpu")
 
@@ -2864,6 +2942,248 @@ def dense_paths(dev, counters, card: str) -> dict:
     return out
 
 
+def rk45_case(dev, counters, label: str, fn, x0s: list, tol: float) -> dict:
+    """Phase 16's RK45 gate, one field: the solves of ``x0s`` through one
+    fresh ``RK45Program`` (graphed: the first step captures, every later
+    step of both solves replays), then the same solves through another under
+    ``programs.disabled()``: x1 equal to the bit, the counts equal, the
+    launches equal, one capture in all; seconds each way."""
+    from repro_torch.core.rk45 import RK45Program, rk45_solve
+    from repro_torch.serving import programs
+
+    runs = {}
+    for side in ("graphed", "eager"):
+        program = RK45Program(fn, dev)
+        counts = {k: c.launches for k, c in counters.items()}
+        torch.cuda.synchronize(dev)
+        t0 = time.perf_counter()
+        with (programs.disabled() if side == "eager" else contextlib.nullcontext()):
+            res = [rk45_solve(fn, x0, rtol=tol, atol=tol, program=program) for x0 in x0s]
+        torch.cuda.synchronize(dev)
+        runs[side] = {"res": res, "s": time.perf_counter() - t0,
+                      "launches": {k: c.launches - counts[k] for k, c in counters.items()},
+                      "programs": program.stats()}
+    g, e = runs["graphed"], runs["eager"]
+    equal = [torch.equal(a.x1, b.x1) and (a.nfe, a.accepted, a.rejected)
+             == (b.nfe, b.accepted, b.rejected) for a, b in zip(g["res"], e["res"])]
+    row = {"graphed_s": g["s"], "eager_s": e["s"],
+           "solves": [(r.nfe, r.accepted, r.rejected) for r in g["res"]],
+           "programs": g["programs"], "equal": equal,
+           "launches_equal": g["launches"] == e["launches"],
+           "launches": {k: v for k, v in g["launches"].items() if v}}
+    print(f"phase 16 [rk45, {label}]: graphed {g['s']:.3f} s, eager {e['s']:.3f} s for "
+          f"{len(x0s)} solves (nfe, accepted, rejected) {row['solves']}; step program "
+          f"{g['programs']}; x1 and counts equal to the bit {equal}, launches equal "
+          f"{row['launches_equal']} {row['launches']}")
+    if not (all(equal) and row["launches_equal"] and g["programs"]["programs"] == 1
+            and e["programs"]["programs"] == 0
+            and g["programs"]["replays"] == sum(r.nfe // 7 for r in g["res"]) - 1):
+        raise SystemExit(f"phase 16 [rk45, {label}]: graphed against eager failed: {row}")
+    return row
+
+
+def rk45_programs_gate(dev, counters) -> dict:
+    """Phase 16's RK45 cases: yi-6b at full width and RK45_GATE_LAYERS layers
+    (bf16, its conditioning batch of BATCH rows at RK45_GATE_SEQ) and the
+    claims twin's toy field, each two solves of one shape (``rk45_case``)."""
+    from repro_torch.benchmarks.psnr_vs_nfe import make_field
+    from repro_torch.configs import get_config
+    from repro_torch.core.schedulers import get_scheduler
+    from repro_torch.data.synthetic import DataConfig, SyntheticTokens
+    from repro_torch.models import model as M
+
+    free_device_memory(dev)
+    cfg = dataclasses.replace(get_config("yi-6b"), n_layers=RK45_GATE_LAYERS)
+    params = M.init_params(torch.Generator(device=dev).manual_seed(0), cfg, dev)
+    cond = SyntheticTokens(cfg, DataConfig(batch_size=BATCH, seq_len=RK45_GATE_SEQ, seed=0),
+                           device=dev).batch(0)
+    field = M.velocity_field(params, cfg, get_scheduler("fm_ot"), cond)
+    g = torch.Generator(device=dev).manual_seed(27)
+    x0s = [torch.randn((BATCH, RK45_GATE_SEQ, cfg.latent_dim), generator=g, device=dev)
+           for _ in range(2)]
+    out = {f"yi-6b full width, {RK45_GATE_LAYERS} layers, batch {BATCH}, seq "
+           f"{RK45_GATE_SEQ}": rk45_case(dev, counters, f"yi-6b, {RK45_GATE_LAYERS} layers, "
+                                         f"seq {RK45_GATE_SEQ}", field.fn, x0s, 1e-5)}
+    del params, field
+    toy = make_field("fm_ot", dev)
+    x0s = [torch.randn((256, 2), generator=g, device=dev) for _ in range(2)]
+    out["claims twin toy field, fm_ot, 256 x 2"] = rk45_case(
+        dev, counters, "toy mixture field, fm_ot, 256 x 2", toy.fn, x0s, 1e-5)
+    return out
+
+
+def encoded_greedy(engine, frames: torch.Tensor, steps: int, slots: int):
+    """Greedy decode over ``frames``' encoded memory: a fresh state, its
+    memory written by ``whisper.encode``, ``steps`` tokens from token 0
+    (through the engine's step program). Returns (tokens, state)."""
+    from repro_torch.models import whisper
+
+    state = engine.init_state(frames.shape[0], slots)
+    with torch.no_grad():
+        state.memory.copy_(whisper.encode(engine.params, engine.cfg,
+                                          frames.to(engine.device)))
+    prompt = torch.zeros((frames.shape[0],), dtype=torch.int32, device=engine.device)
+    tokens, state = engine.greedy(prompt, state, steps)
+    return tokens.cpu(), state
+
+
+def whisper_greedy(dev, counters, card: str) -> dict:
+    """Phase 21c at full width: WHISPER_DECODE_STEPS greedy steps of BATCH
+    rows over an encoded memory (the first call captures the step), then
+    the same steps again on the same state, its caches and position reset:
+    replays only, timed; 24 flash launches a step, tokens in the vocabulary
+    and equal in both runs."""
+    from repro_torch.configs import get_config
+    from repro_torch.data.synthetic import DataConfig, SyntheticTokens
+    from repro_torch.models import model as M
+    from repro_torch.serving.engine import DecodeEngine
+
+    free_device_memory(dev)
+    cfg = get_config(WHISPER)
+    engine = DecodeEngine(params=M.init_params(torch.Generator(device=dev).manual_seed(0),
+                                               cfg, dev), cfg=cfg)
+    frames = SyntheticTokens(cfg, DataConfig(batch_size=BATCH, seq_len=8, seed=0),
+                             device=dev).batch(0)["frames"]
+    steps = WHISPER_DECODE_STEPS
+    first, state = encoded_greedy(engine, frames, steps, WHISPER_DECODE_SLOTS)
+    for leaf in (state.k, state.v, state.index):
+        leaf.zero_()
+    reset(counters)
+    torch.cuda.synchronize(dev)
+    t0 = time.perf_counter()
+    tokens, _ = engine.greedy(torch.zeros((BATCH,), dtype=torch.int32, device=dev), state,
+                              steps)
+    tokens = tokens.cpu()
+    wall = time.perf_counter() - t0
+    launches = {k: c.launches for k, c in counters.items()}
+    want = {**dict.fromkeys(KERNELS, 0), "flash_attention": WHISPER_LAYERS * steps}
+    peak = torch.cuda.max_memory_allocated(dev)
+    row = {"steps": steps, "rows": BATCH, "step_ms": wall / steps * 1e3,
+           "tokens_per_s": BATCH * steps / wall, "launches": launches,
+           "programs": engine.programs.stats(), "peak_gib": peak / 2**30}
+    print(f"phase 21c ({card}): {WHISPER} greedy over an encoded memory, {BATCH} rows x "
+          f"{steps} steps, graphed: {row['step_ms']:.3f} ms a step, "
+          f"{row['tokens_per_s']:.1f} tokens/s, launches {launches}, programs "
+          f"{row['programs']}, peak memory {row['peak_gib']:.3f} GiB, first row "
+          f"{tokens[0, :8].tolist()}")
+    if launches != want:
+        raise SystemExit(f"{WHISPER} greedy: launches {launches}, expected {want}")
+    if not (torch.equal(tokens, first) and int(tokens.min()) >= 0
+            and int(tokens.max()) < VOCAB[WHISPER]):
+        raise SystemExit(f"{WHISPER} greedy: tokens out of the vocabulary or differ between "
+                         f"two runs of the same steps: {first[0]} / {tokens[0]}")
+    return row
+
+
+def greedy_against_cpu(dev, counters, cfg, on_card, params) -> dict:
+    """Phase 21c at 2 + 2 layers: the encoded memory card vs CPU (relative
+    L2 <= 1e-4), then 8 greedy steps over it on each side, tokens equal;
+    the card launches flash 2 (the encoder) + 2 a step (cross-attention)."""
+    from repro_torch.data.synthetic import DataConfig, SyntheticTokens
+    from repro_torch.serving.engine import DecodeEngine
+
+    steps = 8
+    frames = SyntheticTokens(cfg, DataConfig(batch_size=2, seq_len=8, seed=0),
+                             device="cpu").batch(0)["frames"]
+    before = {k: c.launches for k, c in counters.items()}
+    card_tokens, card_state = encoded_greedy(DecodeEngine(params=on_card, cfg=cfg), frames,
+                                             steps, 16)
+    ran = launched(counters, before)
+    cpu_tokens, cpu_state = encoded_greedy(DecodeEngine(params=params, cfg=cfg), frames,
+                                           steps, 16)
+    rel = relative_l2(card_state.memory.cpu(), cpu_state.memory)
+    want = {**dict.fromkeys(KERNELS, 0), "flash_attention": cfg.n_encoder_layers
+            + cfg.n_layers * steps}
+    print(f"decode path, {cfg.name} (2 + 2 layers, f32), card vs CPU: encoded memory "
+          f"relative L2 {rel:.3e} (limit 1e-4), {steps} greedy steps, tokens equal: "
+          f"{torch.equal(card_tokens, cpu_tokens)}, launches {ran}")
+    if ran != want or not rel <= 1e-4:
+        raise SystemExit(f"{cfg.name} greedy card vs CPU: launches {ran} (expected {want}), "
+                         f"memory relative L2 {rel}")
+    if not torch.equal(card_tokens, cpu_tokens):
+        raise SystemExit(f"{cfg.name} greedy card vs CPU: tokens differ ({card_tokens} vs "
+                         f"{cpu_tokens})")
+    return {"memory_rel_l2": rel, "tokens_equal": True, "launches": ran}
+
+
+def whisper_paths(dev, counters, card: str, graphs: dict) -> dict:
+    """Phases 21-21c: whisper-medium's flow at full width and depth with
+    phase 15's case (21; each request's launches exact), card vs CPU at
+    2 + 2 layers (21b) and greedy decode over an encoded memory (21c)."""
+    zero = dict.fromkeys(KERNELS, 0)
+    per_request = {**zero, "ns_update": NFE, "flash_attention": 3 * WHISPER_LAYERS * NFE}
+    out, wall, phases = {}, {}, {}
+    t0 = time.perf_counter()
+    with PerRequest(counters) as each:
+        phases["21"], out["flow"] = flow_path(
+            dev, counters, WHISPER, {k: v * REQUESTS for k, v in per_request.items()}, graphs)
+    if each.runs[:REQUESTS] != [per_request] * REQUESTS:
+        raise SystemExit(f"{WHISPER} flow: launches a request {each.runs[:REQUESTS]}, "
+                         f"expected {per_request}")
+    wall["21+15"] = time.perf_counter() - t0
+    print(f"phase 21 ({card}): {WHISPER} flow request ms "
+          f"{[round(x, 3) for x in out['flow']['request_ms']]}, capture "
+          f"{out['flow']['capture_ms']:.1f} ms, peak memory {out['flow']['peak_gib']:.3f} GiB, "
+          f"launches a request {per_request}")
+    t0 = time.perf_counter()
+    cfg, on_card, params = card_drawn_model(dev, WHISPER)
+    before = {name: c.launches for name, c in counters.items()}
+    out["flow_rel_l2"] = whole_path_against_cpu(
+        dev, counters, cfg, params, {**zero, "ns_update": 4, "flash_attention": 3 * 2 * 4},
+        card_params=on_card)
+    phases["21b"] = launched(counters, before)
+    out["decode_against_cpu"] = greedy_against_cpu(dev, counters, cfg, on_card, params)
+    del on_card, params
+    wall["21b"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    out["decode"] = whisper_greedy(dev, counters, card)
+    phases["21c"] = out["decode"]["launches"]
+    wall["21c"] = time.perf_counter() - t0
+    out["wall_s"], out["phase_launches"] = wall, phases
+    return out
+
+
+def internvl_paths(dev, counters, card: str, graphs: dict) -> dict:
+    """Phases 22-22b: internvl2-26b at full width and depth, flow
+    (INTERNVL_REQUESTS requests) and decode through the paged kernel at G 6
+    with phase 15's step case; then flow and decode card vs CPU at 2 layers."""
+    zero = dict.fromkeys(KERNELS, 0)
+    out, wall, phases = {}, {}, {}
+    t0 = time.perf_counter()
+    phases["22"], out["flow"] = flow_path(
+        dev, counters, INTERNVL,
+        {**zero, "ns_update": NFE * INTERNVL_REQUESTS,
+         "flash_attention": INTERNVL_LAYERS * NFE * INTERNVL_REQUESTS},
+        graphs, requests=INTERNVL_REQUESTS, programs=False)
+    wall["22"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    out["decode"] = {}
+    phases["22 decode"] = decode_path(dev, counters, INTERNVL_DECODE_ARGS,
+                                      {"paged_attention": INTERNVL_LAYERS}, graphs,
+                                      runs=out["decode"])
+    wall["22 decode+15"] = time.perf_counter() - t0
+    print(f"phase 22 ({card}): {INTERNVL} full width and depth, flow request ms "
+          f"{[round(x, 3) for x in out['flow']['request_ms']]} (capture "
+          f"{out['flow']['capture_ms']:.1f} ms), peak memory {out['flow']['peak_gib']:.3f} "
+          f"GiB; decode {out['decode']['tokens_per_s']:.1f} tokens/s, engine call ms mean "
+          f"{out['decode']['call_ms_mean']:.3f}, peak {out['decode']['peak_gib']:.3f} GiB")
+    t0 = time.perf_counter()
+    cfg, on_card, params = card_drawn_model(dev, INTERNVL)
+    before = {name: c.launches for name, c in counters.items()}
+    out["flow_rel_l2"] = whole_path_against_cpu(
+        dev, counters, cfg, params, {**zero, "ns_update": 4, "flash_attention": 2 * 4},
+        card_params=on_card)
+    del on_card
+    out["decode_rel_l2"] = decode_against_cpu(dev, counters, cfg, params,
+                                              dict(page_size=16, paged_kernel=True),
+                                              {"paged_attention": 2})
+    phases["22b"] = launched(counters, before)
+    del params
+    wall["22b"] = time.perf_counter() - t0
+    out["wall_s"], out["phase_launches"] = wall, phases
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is False)",
@@ -2992,6 +3312,9 @@ def main() -> int:
     t0 = time.perf_counter()
     bst_run = bst_distill_path(dev, counters, trains)
     phase_s["12d"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    rk45_gate = rk45_programs_gate(dev, counters)
+    phase_s["16 rk45"] = time.perf_counter() - t0
     cfg, params = small_model("yi-6b")
     t0 = time.perf_counter()
     gradient_against_cpu(dev, counters, cfg, params)
@@ -3014,6 +3337,10 @@ def main() -> int:
     phase_s.update(big_moe["wall_s"])
     dense = dense_paths(dev, counters, card)
     phase_s.update(dense["wall_s"])
+    whisper_run = whisper_paths(dev, counters, card, graphs)
+    phase_s.update(whisper_run["wall_s"])
+    internvl = internvl_paths(dev, counters, card, graphs)
+    phase_s.update(internvl["wall_s"])
     graph_kinds = {k for k in graphs if "workspace" not in k}
     print("phase 15 summary (" + card + "): " + "; ".join(
         f"{k}: graphed {v['graphed_ms']:.3f} / eager {v['eager_ms']:.3f} ms, capture "
@@ -3021,7 +3348,12 @@ def main() -> int:
     print("phase 16 summary (" + card + "): " + "; ".join(
         f"{k}: graphed {v['graphed_ms']:.1f} / eager {v['eager_ms']:.1f} ms an iteration, "
         f"captures {v['capture_ms']:.1f} ms, equal to the bit {v['equal']}"
-        for k, v in trains.items()))
+        for k, v in trains.items()) + "; " + "; ".join(
+        f"rk45 {k}: graphed {v['graphed_s']:.3f} / eager {v['eager_s']:.3f} s, equal to the "
+        f"bit {v['equal']}" for k, v in rk45_gate.items()))
+    print("RK45 seconds, graphed (" + card + "): " + ", ".join(
+        f"{k} {v:.3f} s" for k, v in (("12", distill["rk45_s"]), ("12c", any_run["rk45_s"]),
+                                       ("12d", bst_run["rk45_s"]))))
     print("phase wall s: " + ", ".join(f"{k} {v:.1f}" for k, v in phase_s.items()))
     new_phases = {
         "12b": {"what": "artifact reload, 2 requests", "request_ms": reload["request_ms"]},
@@ -3029,7 +3361,9 @@ def main() -> int:
                 "iteration_ms": any_run["iteration_ms"],
                 "each_iteration_ms": any_run["each_iteration_ms"],
                 "request_ms": any_run["request_ms"],
-                "request_nfe": any_run["request_nfe"]},
+                "request_nfe": any_run["request_nfe"], "layers": ANYTIME_LAYERS,
+                "rk45": any_run["rk45"], "rk45_s": any_run["rk45_s"],
+                "rk45_programs": any_run["rk45_programs"]},
         "13b": {"what": "anytime gradient, 2 layers f32"},
         "13c": {"what": "BST gradient, 2 layers f32",
                 "relative_l2": bst_grad["relative_l2"]},
@@ -3037,7 +3371,8 @@ def main() -> int:
                        "requests each", "request_ms": baselines["request_ms"]},
         "5b": {"what": "baselines, sigma0 and BST card vs CPU, 2 layers f32",
                "rel_l2": {k: v["rel_l2"] for k, v in baselines_cpu["cases"].items()}},
-        "12d": {"what": "BST-Euler distillation, seq 256",
+        "12d": {"what": "BST-Euler distillation, seq 256", "rk45_s": bst_run["rk45_s"],
+                "rk45_evaluations": bst_run["rk45_evaluations"],
                 "each_iteration_ms": bst_run["each_iteration_ms"],
                 "training_launches": bst_run["training_launches"]}}
     for k, what in (("14a", "flush gateway, 12 requests at budgets 4/8, seq 1024"),
@@ -3080,10 +3415,29 @@ def main() -> int:
                                         "relative_l2": dense[arch]["flow_rel_l2"]}
     slice15_launches = {**moe_run["phase_launches"], **big_moe["phase_launches"],
                         **dense["phase_launches"]}
+    slice16 = {   # phases 21-22: what each ran and its launches
+        "21": {"what": f"{WHISPER} flow, full width and depth, NFE 8, batch 4, seq 1024, "
+                       f"{REQUESTS} requests", **whisper_run["flow"]},
+        "21b": {"what": f"{WHISPER} flow card vs CPU, 2 + 2 layers f32, 16 heads of 64",
+                "relative_l2": whisper_run["flow_rel_l2"],
+                "decode_memory_rel_l2": whisper_run["decode_against_cpu"]["memory_rel_l2"]},
+        "21c": {"what": f"{WHISPER} greedy decode over an encoded memory, full width",
+                **{k: v for k, v in whisper_run["decode"].items() if k != "launches"}},
+        "22": {"what": f"{INTERNVL} flow, full width and depth, {INTERNVL_REQUESTS} "
+                       "requests", **internvl["flow"]},
+        "22 decode": {"what": f"{INTERNVL} decode, paged kernel at G 6, 8 requests on 4 "
+                              "slots", **internvl["decode"]},
+        "22b": {"what": f"{INTERNVL} card vs CPU, 2 layers f32, flow and decode",
+                "flow_rel_l2": internvl["flow_rel_l2"],
+                "worst_logits_relative_l2": internvl["decode_rel_l2"]}}
+    slice16_launches = {**whisper_run["phase_launches"], **internvl["phase_launches"]}
     new_phases["16"] = {"what": "training programs graphed against eager",
                         **{k: {f: v[f] for f in ("graphed_ms", "eager_ms", "capture_ms",
                                                  "launches_an_iteration", "busy")}
-                           for k, v in trains.items()}}
+                           for k, v in trains.items()},
+                        "rk45": {k: {f: v[f] for f in ("graphed_s", "eager_s", "solves",
+                                                       "programs", "equal")}
+                                 for k, v in rk45_gate.items()}}
 
     meta = {
         "ns_update": ("src/repro_torch/kernels/csrc/ns_update.cu",
@@ -3147,6 +3501,8 @@ def main() -> int:
                     "4b": baselines,
                     "5b": baselines_cpu, "12d": bst_run, **gw_runs,
                     "16": {"launches": {k: sum(v["launches"][k] for v in trains.values())
+                                        + sum(2 * v["launches"].get(k, 0)
+                                              for v in rk45_gate.values())
                                         for k in KERNELS}},
                     "17": zamba, "17b": {"launches": {
                         **dict.fromkeys(KERNELS, 0), "ns_update": 4, "flash_attention": 4,
@@ -3157,6 +3513,18 @@ def main() -> int:
                                      for k, v in new_phases.items()}
         kernels[-1].setdefault("phases", {}).update(
             {k: {**v, "launches": slice15_launches[k][name]} for k, v in slice15.items()})
+        kernels[-1]["phases"].update(
+            {k: {**v, "launches": slice16_launches[k][name]} for k, v in slice16.items()})
+        if name in ("flash_attention", "paged_attention"):
+            # phases 21-22's new shapes: flash at hd 64 G 1 (Lq != Lk too) and G 6;
+            # paged at KV 8, G 6
+            kernels[-1]["slice16_cases"] = [
+                {k: r[k] for k in ("shape", "max_abs_err", "ms", "plain_ms", "bound_ms",
+                                   "bound_by", "library_ms") + (
+                                       ("device_ms", "yardstick_ms")
+                                       if name == "paged_attention" else ())}
+                for r in rows[name] if any(f"{tag} " in r["shape"] for tag in (
+                    "H=16 KV=16", "H=48 KV=8", "KV=8 G=6"))]
     print(f"chip_smoke wall {time.perf_counter() - T_START:.1f} s")
     print("phase 15 json: " + json.dumps(graphs))
     print("phase 16 json: " + json.dumps(trains))

@@ -1,16 +1,17 @@
 """Architecture registry: --arch <id> resolves here.
 
-``ARCHS`` lists only the architectures the port can run; ``UNPORTED_ARCHS``
-names the other entries of the reference's registry, which arrive with their
-model families (ROADMAP Queue A item 10).
+``ARCHS`` lists the reference registry's ten architectures, all of which the
+port runs; ``UNPORTED_ARCHS`` names none since the last two families
+(whisper-medium's encdec and internvl2-26b's vlm) were ported.
 """
 import importlib
 
 from repro_torch.configs.base import FrontendStub, ModelConfig, MoEConfig, SSMConfig
 
 ARCHS = ("yi-6b", "phi3-medium-14b", "command-r-35b", "zamba2-2.7b", "yi-34b",
-         "qwen3-moe-235b-a22b", "qwen3-moe-30b-a3b", "rwkv6-7b")
-UNPORTED_ARCHS = ("whisper-medium", "internvl2-26b")
+         "qwen3-moe-235b-a22b", "qwen3-moe-30b-a3b", "rwkv6-7b", "whisper-medium",
+         "internvl2-26b")
+UNPORTED_ARCHS: tuple = ()
 
 
 def _module(arch: str):

@@ -36,7 +36,7 @@ import torch
 from repro_torch.core import bst_solver, ns_solver, st_transform
 from repro_torch.core.ns_solver import BNSParams, NSParams
 from repro_torch.core.parametrization import VelocityField
-from repro_torch.core.rk45 import rk45_solve
+from repro_torch.core.rk45 import RK45Program, rk45_solve
 from repro_torch.core.taxonomy import run_direct
 from repro_torch.optim.adam import (
     adam_init,
@@ -67,14 +67,15 @@ def generate_pairs(
     source_std: float = 1.0,
 ) -> tuple[Tensor, Tensor]:
     """Draw x0 ~ N(0, source_std^2) with ``generator`` (on its device) and
-    integrate to x(1) with RK45, ``batch_size`` at a time, under no_grad."""
+    integrate to x(1) with RK45, ``batch_size`` at a time, under no_grad,
+    through one ``RK45Program`` (chunks of one shape share its program)."""
+    program = RK45Program(field.fn, generator.device)
     x0s, x1s = [], []
     for start in range(0, num, batch_size):
         b = min(batch_size, num - start)
         x0 = source_std * torch.randn((b,) + tuple(shape), generator=generator,
                                       device=generator.device)
-        with torch.no_grad():
-            x1s.append(rk45_solve(field.fn, x0, rtol=rtol, atol=atol).x1)
+        x1s.append(rk45_solve(field.fn, x0, rtol=rtol, atol=atol, program=program).x1)
         x0s.append(x0)
     return torch.cat(x0s), torch.cat(x1s)
 

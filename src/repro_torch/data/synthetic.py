@@ -3,9 +3,11 @@
 Port of ``repro.data.synthetic``. The token streams are drawn with numpy, as
 in the reference, so for one seed the port's tokens are bit-identical to the
 reference's (Zipfian unigram mixture + Markov bigram structure). Batches come
-back as ``torch.long`` tensors on the requested device; the stub-frontend
-embeddings of the audio/VLM families come with those families (ROADMAP
-Queue A item 10).
+back as ``torch.long`` tensors on the requested device. A config with a
+stub frontend (whisper's audio frames, InternVL2's vision patches) also gets
+its embeddings, ``standard_normal((B, num_tokens, embed_dim)) * 0.05`` from
+the same generator after the tokens, as f32 under ``"frames"`` or
+``"patches"``: bit-equal to the reference's draw.
 """
 from __future__ import annotations
 
@@ -56,4 +58,10 @@ class SyntheticTokens:
             bigram = self.succ[prev, rng.integers(0, 4, size=B)]
             unigram = rng.choice(v, size=B, p=self.unigram)
             toks[:, s] = np.where(use_bigram, bigram, unigram)
-        return {"tokens": torch.from_numpy(toks).to(self.device)}
+        out = {"tokens": torch.from_numpy(toks).to(self.device)}
+        fe = self.cfg.frontend
+        if fe is not None:
+            emb = rng.standard_normal((B, fe.num_tokens, fe.embed_dim)) * 0.05
+            key = "frames" if fe.kind == "audio_frames" else "patches"
+            out[key] = torch.from_numpy(emb.astype(np.float32)).to(self.device)
+        return out

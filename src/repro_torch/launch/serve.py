@@ -25,6 +25,15 @@ Port of ``repro.launch.serve``:
       --full --nfe 8 --batch 4 --seq 1024 --requests 3 --bns-iters 0
   PYTHONPATH=src python -m repro_torch.launch.serve --arch zamba2-2.7b --mode decode \
       --full --gateway --max-slots 4 --requests 8 --decode-lengths 32,16
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch whisper-medium --mode flow \
+      --full --nfe 8 --batch 4 --seq 1024 --requests 3 --bns-iters 0
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch whisper-medium --mode decode \
+      --full --batch 4 --steps 32
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch internvl2-26b --mode flow \
+      --full --nfe 8 --batch 4 --seq 1024 --requests 2 --bns-iters 0
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch internvl2-26b --mode decode \
+      --full --gateway --page-size 16 --paged-kernel --slots 256 --max-slots 4 \
+      --requests 8 --decode-lengths 32,16
 
 ``--arch`` takes yi-6b, yi-34b, phi3-medium-14b and command-r-35b (dense;
 command-r-35b's parallel block and tied embeddings), qwen3-moe-30b-a3b and
@@ -34,8 +43,12 @@ forward runs the gla_scan kernel, its decode steps the recurrence in plain
 torch) or zamba2-2.7b (hybrid: Mamba2 blocks and one weight-shared attention
 block; its flow forward runs the gla_scan kernel in the inclusive mode and the
 flash kernel at head dim 80, its decode steps the recurrence and a dense KV
-cache a shared-attention site in plain torch). The reference's other archs
-(whisper-medium, internvl2-26b) exit naming ROADMAP Queue A item 10.
+cache a shared-attention site in plain torch), whisper-medium (encdec: the
+encoder over the batch's stub audio frames runs inside every velocity call,
+its self- and cross-attention through the flash kernel at head dim 64) or
+internvl2-26b (vlm: the projected stub vision patches prepended to the dense
+LM's sequence in flow; decode as the dense family, paged included). These
+are the reference registry's ten archs.
 
 Runs on the card by default (``--device cuda``, an error without one);
 ``--device cpu`` runs the plain CPU path. Weights are random, drawn from a
@@ -54,9 +67,11 @@ in a temporary directory) and serves the reloaded copy. ``--bns-iters 0``
 serves the initial solver without an artifact. An anytime artifact routes
 each request (``--request-budgets``, cycled) to its early exit; a budget the
 solver does not serve goes to the nearest one with a WARNING, or exits under
-``--strict-nfe``. rwkv6-7b and zamba2-2.7b do not distil on the card yet
-(the ``gla_scan`` kernel has no backward, nor has the flash kernel at
-zamba2-2.7b's head dim 80; the CPU runs). ``--kernel-update`` is
+``--strict-nfe``. rwkv6-7b, zamba2-2.7b and whisper-medium do not distil on
+the card yet (the ``gla_scan`` kernel has no backward, nor has the flash
+kernel at zamba2-2.7b's head dim 80 or whisper-medium's 64; the CPU runs).
+Each RK45 solve's step runs as one program (``core/rk45.py::RK45Program``,
+a CUDA graph on the card) that the train and val solves share. ``--kernel-update`` is
 accepted and changes nothing: the card always runs the ``ns_update``
 kernel. A loaded ``--solver-artifact`` of any single-budget kind serves
 through ``FlowSampler.from_artifact`` (a baseline ``ns`` artifact of ddim,
@@ -89,8 +104,10 @@ registry snapshot and ``--trace-jsonl`` the recorded request lifecycles.
 ``--profile`` (item 11) exit naming their item when set off their defaults
 — the launcher never serves something else in their place.
 
-Decode mode serves batched greedy decode (``greedy_demo``) or, with
-``--gateway``, a continuous-batching ``DecodeGateway``: each request is one
+Decode mode serves batched greedy decode (``greedy_demo``; for
+whisper-medium over a zeroed encoder memory of 1500 frames, as the
+reference's) or, with ``--gateway``, a continuous-batching ``DecodeGateway``
+(which refuses whisper-medium with TypeError, as the reference's does): each request is one
 prompt ``[(3r+1) % vocab, (5r+2) % vocab]`` submitted to a pool of
 ``--max-slots`` state slots, ``--decode-lengths`` cycling its max_tokens.
 ``--page-size`` pages the KV cache (a no-op for rwkv6-7b, whose recurrent
@@ -114,11 +131,11 @@ import time
 import torch
 
 from repro_torch import resolve_device
-from repro_torch.configs import ARCHS, UNPORTED_ARCHS, get_config
+from repro_torch.configs import ARCHS, get_config
 from repro_torch.core import ns_solver
 from repro_torch.core.anytime import evaluate_anytime, init_anytime
 from repro_torch.core.bns import BNSTrainConfig, psnr
-from repro_torch.core.rk45 import rk45_solve
+from repro_torch.core.rk45 import RK45Program, rk45_solve
 from repro_torch.core.schedulers import get_scheduler
 from repro_torch.data.synthetic import DataConfig, SyntheticTokens
 from repro_torch.kernels.flash_attention.flash_attention import (
@@ -179,6 +196,7 @@ class Distillation:
 
     rk45: dict                # {"train"|"val": (nfe, accepted, rejected)}
     rk45_seconds: float       # both RK45 solves, device work included
+    rk45_programs: dict       # their one step program: captured, replays, capture ms
     init_val_psnr: float      # the initial solver on the val pairs, dB (anytime:
     #                           the mean over budgets)
     init_val_seconds: float   # that one validation sample
@@ -377,18 +395,23 @@ _NO_BACKWARD_ON_CARD = {
     "ssm": f"its gla_scan kernel has no backward ({GLA_BACKWARD_ROADMAP})",
     "hybrid": (f"the gla_scan kernel has no backward ({GLA_BACKWARD_ROADMAP}), nor has "
                f"the flash kernel at its head dim 80 ({FLASH_BACKWARD_ROADMAP})"),
+    "encdec": f"the flash kernel has no backward at its head dim 64 ({FLASH_BACKWARD_ROADMAP})",
 }
 
 
 def _refuse_unported(args) -> None:
-    if args.arch in UNPORTED_ARCHS:
-        raise SystemExit(f"not served by the port yet: --arch {args.arch}, its model "
-                         "family (ROADMAP Queue A item 10)")
     if args.arch not in ARCHS:
         raise SystemExit(f"unknown --arch {args.arch!r}; the port serves {', '.join(ARCHS)}")
     if args.mode == "flow":
+        family = get_config(args.arch, smoke=args.smoke).family
+        if family == "encdec" and args.gateway:
+            # a gateway request carries tokens only, and the encoder needs the
+            # batch's frames (the reference's gateway dies on a KeyError)
+            raise SystemExit(f"--gateway: flow requests carry conditioning tokens "
+                             f"only, and {args.arch}'s encoder needs audio frames; "
+                             "serve it without --gateway")
         loads = bool(args.solver_artifact) and os.path.exists(args.solver_artifact)
-        missing = _NO_BACKWARD_ON_CARD.get(get_config(args.arch, smoke=args.smoke).family)
+        missing = _NO_BACKWARD_ON_CARD.get(family)
         if args.bns_iters > 0 and args.device == "cuda" and not loads and missing:
             raise SystemExit(
                 f"not served by the port yet: BNS distillation of {args.arch} on the "
@@ -439,19 +462,21 @@ def _distill_artifact(args, params, cfg, sched, cond, spec: SolverSpec,
                              remat=True)
     shape = (args.batch, args.seq, cfg.latent_dim)
     pairs, rk45 = {}, {}
+    program = RK45Program(field.fn, device)     # the two solves share its step program
     t0 = time.perf_counter()
     for i, part in enumerate(("train", "val")):
         gen = torch.Generator(device=device).manual_seed(args.seed + 1 + i)
         x0 = torch.randn(shape, generator=gen, device=device)
-        with torch.no_grad():
-            res = rk45_solve(field.fn, x0, rtol=1e-5, atol=1e-5)
+        res = rk45_solve(field.fn, x0, rtol=1e-5, atol=1e-5, program=program)
         pairs[part] = (x0, res.x1)
         rk45[part] = (res.nfe, res.accepted, res.rejected)
     _sync(device)
     rk45_s = time.perf_counter() - t0
+    rk45_programs = program.stats()
     print(f"RK45 pairs: train nfe {rk45['train'][0]} (accepted {rk45['train'][1]}, "
           f"rejected {rk45['train'][2]}), val nfe {rk45['val'][0]} (accepted "
-          f"{rk45['val'][1]}, rejected {rk45['val'][2]}), {rk45_s:.1f}s")
+          f"{rk45['val'][1]}, rejected {rk45['val'][2]}), {rk45_s:.1f}s, step programs "
+          f"captured {rk45_programs['programs']}, replays {rk45_programs['replays']}")
     t0 = time.perf_counter()
     x0v, x1v = pairs["val"]
     if anytime:
@@ -481,8 +506,9 @@ def _distill_artifact(args, params, cfg, sched, cond, spec: SolverSpec,
                              "seed": args.seed, "bns_iters": args.bns_iters}).save(path)
     print(f"solver artifact saved to {path}")
     record = Distillation(
-        rk45=rk45, rk45_seconds=rk45_s, init_val_psnr=init_psnr,
-        init_val_seconds=init_s, val_psnr=res.val_psnr, iterations=args.bns_iters,
+        rk45=rk45, rk45_seconds=rk45_s, rk45_programs=rk45_programs,
+        init_val_psnr=init_psnr, init_val_seconds=init_s, val_psnr=res.val_psnr,
+        iterations=args.bns_iters,
         train_seconds=train_s, iteration_seconds=res.iteration_seconds,
         num_parameters=res.num_parameters, history=res.history, params=res.params,
         solver=res.params if anytime else ns_solver.materialize(res.params),

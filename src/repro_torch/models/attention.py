@@ -16,8 +16,9 @@ dense-gather path (``kernel=False``). Where JAX rebuilt the cache every
 step, the port writes it IN PLACE: the dense cache only in the rows a step
 advances (the others keep their bits), the page pool unconditionally, as
 the reference's pool is (page ownership isolates rows; inactive rows write
-into the trash page 0). Cross-attention (ROADMAP Queue A item 10) and
-sliding-window prefill on the card come with their slices.
+into the trash page 0). Cross-attention (whisper's decoder) attends over an
+encoder memory without mask or RoPE, through the flash kernel on the card.
+Sliding-window prefill on the card comes with its slice.
 """
 from __future__ import annotations
 
@@ -144,7 +145,7 @@ def attention_forward(
         if window:
             raise NotImplementedError(
                 "sliding-window attention has no CUDA kernel yet "
-                "(ROADMAP Queue A item 10)")
+                "(ROADMAP Queue B item 11)")
         out = attend(q, k, v, causal=causal)                  # (B, L, H, hd)
     else:
         mask = None
@@ -155,6 +156,32 @@ def attention_forward(
                 mask = mask & (rel < window)
             mask = mask[None]
         out = _grouped_attend(q.reshape(B, L, n_kv, G, head_dim), k, v, mask)
+    return out.reshape(B, L, n_heads * head_dim) @ p["wo"]
+
+
+def cross_attention_forward(
+    p: dict,
+    x: Tensor,                   # (B, L, d) decoder states
+    memory: Tensor,              # (B, M, d_mem) encoder states
+    *,
+    n_heads: int,
+    head_dim: int,
+) -> Tensor:
+    """Encoder-decoder cross attention (no mask, no RoPE; K and V projected
+    from ``memory``; the whisper decoder), for any L and M: on a CUDA tensor
+    the flash kernel, non-causal, on the CPU ``_grouped_attend``. ``memory``
+    is cast to x's dtype first, where JAX would promote x to memory's (an f32
+    memory under a bf16 decoder; the reference's scan then raises): at f32 a
+    no-op."""
+    B, L, _ = x.shape
+    memory = memory.to(x.dtype)
+    q = _split_heads(x @ p["wq"], n_heads, head_dim)
+    k = _split_heads(memory @ p["wk"], n_heads, head_dim)
+    v = _split_heads(memory @ p["wv"], n_heads, head_dim)
+    if x.is_cuda:
+        out = attend(q, k, v, causal=False)
+    else:
+        out = _grouped_attend(q.reshape(B, L, n_heads, 1, head_dim), k, v, None)
     return out.reshape(B, L, n_heads * head_dim) @ p["wo"]
 
 

@@ -1,19 +1,22 @@
-"""Unified model API — the ported families and the paper's flow substrate.
+"""Unified model API — every family of the reference and the paper's flow
+substrate.
 
-Port of the dense (yi-6b, yi-34b, phi3-medium-14b, command-r-35b), moe
-(qwen3-moe-30b-a3b, qwen3-moe-235b-a22b), ssm (rwkv6-7b) and hybrid
-(zamba2-2.7b) branches of ``repro.models.model``:
+Port of ``repro.models.model``: the dense (yi-6b, yi-34b, phi3-medium-14b,
+command-r-35b), moe (qwen3-moe-30b-a3b, qwen3-moe-235b-a22b), ssm
+(rwkv6-7b), hybrid (zamba2-2.7b), encdec (whisper-medium) and vlm
+(internvl2-26b) branches:
 
   init_params(generator, cfg, device)             -> params tree
   velocity(params, cfg, t, x, batch)              -> u_t(x) over latent sequences
   velocity_field(params, cfg, sched, batch)       -> VelocityField (with CFG)
-  init_decode_state(cfg, batch, slots, ...)       -> KV cache, RWKVState or HybridState
+  init_decode_state(cfg, batch, slots, ...)       -> KV cache, RWKVState, HybridState
+                                                     or EncDecState
   init_paged_decode_state(cfg, batch, pages, ...) -> paged KV cache
   decode_apply(params, cfg, token, state)         -> (logits, state)
 
-``batch`` is a dict: {"tokens": (B, S) long}. Every entry point dispatches
-on ``cfg.family``; the other families raise ``NotImplementedError`` naming
-their ROADMAP item.
+``batch`` is a dict: {"tokens": (B, S) long} plus "frames" (encdec) or
+"patches" (vlm), the stub frontends' embeddings. Every entry point
+dispatches on ``cfg.family``.
 """
 from __future__ import annotations
 
@@ -25,16 +28,17 @@ from repro_torch import resolve_device
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.parametrization import VelocityField
 from repro_torch.core.schedulers import Scheduler
-from repro_torch.models import mamba2, moe, rwkv6, transformer
+from repro_torch.models import mamba2, moe, rwkv6, transformer, vlm, whisper
 from repro_torch.models.attention import KVCache, PagedKVCache
 from repro_torch.models.mamba2 import HybridState
 from repro_torch.models.rwkv6 import RWKVState
 from repro_torch.models.transformer import latent_targets
+from repro_torch.models.whisper import EncDecState
 
 Tensor = torch.Tensor
 
 FAMILIES = ("dense", "moe", "ssm", "hybrid", "encdec", "vlm")
-PORTED_FAMILIES = ("dense", "moe", "ssm", "hybrid")
+PORTED_FAMILIES = FAMILIES
 PAGED_FAMILIES = ("dense", "moe", "vlm")   # KV-cache families that can page
 
 __all__ = ["FAMILIES", "PORTED_FAMILIES", "PAGED_FAMILIES", "init_params", "velocity",
@@ -42,22 +46,37 @@ __all__ = ["FAMILIES", "PORTED_FAMILIES", "PAGED_FAMILIES", "init_params", "velo
            "init_paged_decode_state", "decode_state_batch_axes", "decode_apply"]
 
 
-def _require_ported(cfg: ModelConfig) -> None:
-    if cfg.family not in PORTED_FAMILIES:
-        raise NotImplementedError(
-            f"the {cfg.family!r} family is not ported yet (ROADMAP Queue A item 10)")
-
-
 def init_params(generator: torch.Generator, cfg: ModelConfig, device="cuda") -> dict:
-    _require_ported(cfg)
     init = {"dense": transformer.init_dense_params, "moe": moe.init_moe_params,
-            "ssm": rwkv6.init_rwkv_params, "hybrid": mamba2.init_hybrid_params}
+            "ssm": rwkv6.init_rwkv_params, "hybrid": mamba2.init_hybrid_params,
+            "encdec": whisper.init_encdec_params, "vlm": vlm.init_vlm_params}
     return init[cfg.family](generator, cfg, device)
 
 
-def _hidden_fn(cfg: ModelConfig, remat: bool = False):
+def _hidden_fn(cfg: ModelConfig, batch: Optional[dict], remat: bool = False):
     """The family's hidden-state function for the flow head; every family
-    gets ``remat``, as in the reference."""
+    gets ``remat``, as in the reference. encdec runs the encoder over the
+    batch's frames inside every call (the reference does); vlm prepends the
+    batch's projected patches, when it has them, and runs the LM over
+    positions ``arange(m + S)``, returning the last S."""
+    if cfg.family == "encdec":
+        if batch is None or "frames" not in batch:
+            raise ValueError("the encdec family's velocity needs the batch's audio "
+                             "frames (batch['frames'])")
+
+        def encdec(p, c, h, pos):
+            memory = whisper.encode(p, c, batch["frames"], remat=remat)
+            return whisper.decoder_hidden(p, c, h, memory, pos, remat=remat)
+        return encdec
+    if cfg.family == "vlm" and batch is not None and "patches" in batch:
+        def with_patches(p, c, h, pos):
+            pre = vlm.project_patches(p, batch["patches"]).to(h.dtype)
+            m = pre.shape[1]
+            h = torch.cat([pre, h], dim=1)
+            out = transformer.dense_hidden(
+                p, c, h, torch.arange(h.shape[1], device=h.device), remat=remat)
+            return out[:, m:]
+        return with_patches
     if cfg.family == "ssm":
         return lambda p, c, h, pos: rwkv6.rwkv_hidden(p, c, h, remat=remat)
     if cfg.family == "hybrid":
@@ -70,12 +89,12 @@ def _hidden_fn(cfg: ModelConfig, remat: bool = False):
 def velocity(params: dict, cfg: ModelConfig, t, x: Tensor,
              batch: Optional[dict] = None, *, remat: bool = False) -> Tensor:
     """u_t(x): x (B, S, latent_dim) -> velocity. ``batch`` provides the
-    conditioning tokens; None = unconditional (CFG). ``remat`` recomputes
-    each layer in the backward (BNS training at full size needs it)."""
-    _require_ported(cfg)
+    conditioning (tokens, frames, patches); None = unconditional (CFG).
+    ``remat`` recomputes each layer in the backward (BNS training at full
+    size needs it)."""
     cond = batch.get("tokens") if batch else None
     return transformer.flow_velocity(params, cfg, t, x, cond,
-                                     hidden_fn=_hidden_fn(cfg, remat))
+                                     hidden_fn=_hidden_fn(cfg, batch, remat))
 
 
 def velocity_field(params: dict, cfg: ModelConfig, sched: Scheduler,
@@ -101,16 +120,22 @@ def velocity_field(params: dict, cfg: ModelConfig, sched: Scheduler,
 
 
 def init_decode_state(cfg: ModelConfig, batch: int, slots: int, dtype=torch.bfloat16,
-                      device="cuda"):
-    """A KV cache of ``slots`` positions (dense, moe), the recurrent state (ssm:
-    f32 whatever ``dtype``, and ``slots`` unused, as in the reference), or
+                      device="cuda", num_frames: int = 1500):
+    """A KV cache of ``slots`` positions (dense, moe, vlm), the recurrent state
+    (ssm: f32 whatever ``dtype``, and ``slots`` unused, as in the reference),
     both (hybrid: conv tails and one KV cache a shared-attention site in
-    ``dtype``, the SSD state in f32)."""
-    _require_ported(cfg)
+    ``dtype``, the SSD state in f32), or the decoder's KV cache and a zeroed
+    encoder memory of ``num_frames`` (encdec; the reference's default 1500
+    whatever the config)."""
     if cfg.family == "ssm":
         return rwkv6.init_state(cfg, batch, device)
     if cfg.family == "hybrid":
         return mamba2.init_state(cfg, batch, slots, dtype, device)
+    if cfg.family == "encdec":
+        return whisper.init_state(cfg, batch, slots, num_frames, dtype,
+                                  resolve_device(device))
+    if cfg.family == "vlm":
+        return vlm.init_state(cfg, batch, slots, dtype, resolve_device(device))
     return transformer.init_caches(cfg, batch, slots, dtype, resolve_device(device))
 
 
@@ -121,7 +146,6 @@ def init_paged_decode_state(cfg: ModelConfig, batch: int, num_pages: int,
     if cfg.family not in PAGED_FAMILIES:
         raise TypeError(f"paged KV cache not supported for {cfg.family!r} "
                         f"(pageable families: {PAGED_FAMILIES})")
-    _require_ported(cfg)
     return transformer.init_paged_caches(cfg, batch, num_pages, page_size,
                                          blocks_per_slot, dtype, resolve_device(device))
 
@@ -131,29 +155,36 @@ def decode_state_batch_axes(cfg: ModelConfig, paged: bool = False):
     in the state's own structure; slot serving resets rows through it.
     ``paged=True``: the page pool has no per-row axis and reads ``-1``; rows
     are isolated there by page ownership and the trash page, not by masks."""
-    _require_ported(cfg)
     if paged and cfg.family in PAGED_FAMILIES:
         return PagedKVCache(k_pages=-1, v_pages=-1, block_table=0, index=0)
     if cfg.family == "ssm":
         return RWKVState(shift_tm=1, shift_cm=1, wkv=1, index=0)
     if cfg.family == "hybrid":
         return HybridState(conv=1, ssm=1, kv=1, vv=1, index=0)
+    if cfg.family == "encdec":
+        return EncDecState(k=1, v=1, memory=0, index=0)
     return KVCache(k=1, v=1, index=0)
 
 
 def decode_apply(params: dict, cfg: ModelConfig, token: Tensor, state, *,
                  window: int = 0, paged_kernel: bool = False,
                  active: Optional[Tensor] = None):
-    """One decode step; ``state`` is updated in place (``transformer.decode_step``,
-    ``moe.decode_step``, ``rwkv6.decode_step``, which ignores ``window`` and
-    ``paged_kernel``, or ``mamba2.decode_step``, which ignores ``paged_kernel``)."""
-    _require_ported(cfg)
+    """One decode step; ``state`` is updated in place (``transformer.decode_step``
+    for dense and vlm, ``moe.decode_step``, ``rwkv6.decode_step``, which ignores
+    ``window`` and ``paged_kernel``, ``mamba2.decode_step``, which ignores
+    ``paged_kernel``, or ``whisper.decode_step``, which ignores both, as the
+    reference's does)."""
     if cfg.family == "ssm":
         return rwkv6.decode_step(params, cfg, token, state, active=active)
     if cfg.family == "hybrid":
         return mamba2.decode_step(params, cfg, token, state, window=window, active=active)
     if cfg.family == "moe":
         return moe.decode_step(params, cfg, token, state, window=window,
+                               paged_kernel=paged_kernel, active=active)
+    if cfg.family == "encdec":
+        return whisper.decode_step(params, cfg, token, state, active=active)
+    if cfg.family == "vlm":
+        return vlm.decode_step(params, cfg, token, state, window=window,
                                paged_kernel=paged_kernel, active=active)
     return transformer.decode_step(params, cfg, token, state, window=window,
                                    paged_kernel=paged_kernel, active=active)

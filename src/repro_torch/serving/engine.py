@@ -115,12 +115,12 @@ class FlowSampler:
         tensors where they lie, so their addresses are part of the key."""
         solver = self.solver
 
-        def run(x0, tokens):
-            return ns_solver.ns_sample(solver, _field(self, tokens).fn, x0)
+        def run(x0, *cond):
+            return ns_solver.ns_sample(solver, _field(self, cond).fn, x0)
 
         key = ("sample", solver.n, self.cfg_scale, tuple(p.data_ptr() for p in solver))
         with torch.no_grad():
-            return self.programs(key, run, (x0, _tokens(batch, self.device)))
+            return self.programs(key, run, (x0,) + _cond(batch, self.device))
 
     # -- budget protocol: a fixed-NFE session serves exactly one budget. ----
 
@@ -217,12 +217,12 @@ class AnytimeFlowSampler:
         """Integrate given noise ``x0`` at exactly ``budget`` NFE."""
         ns = self.ns_at_budget(budget)
 
-        def run(x0, tokens):
-            return ns_solver.ns_sample(ns, _field(self, tokens).fn, x0)
+        def run(x0, *cond):
+            return ns_solver.ns_sample(ns, _field(self, cond).fn, x0)
 
         with torch.no_grad():
             return self.programs(self._key("budget", budget), run,
-                                 (self._x0(x0), _tokens(batch, self.device)))
+                                 (self._x0(x0),) + _cond(batch, self.device))
 
     def sample(self, batch: dict, generator: torch.Generator, budget: int,
                strict: bool = False) -> Tensor:
@@ -234,13 +234,13 @@ class AnytimeFlowSampler:
     def sample_all_from(self, batch: Optional[dict], x0) -> dict[int, Tensor]:
         """One shared trajectory from ``x0``; every budget's output, at
         max(budgets) forwards in all."""
-        def run(x0, tokens):
+        def run(x0, *cond):
             return anytime_mod.anytime_sample(self.anytime, self.budgets,
-                                              _field(self, tokens).fn, x0)
+                                              _field(self, cond).fn, x0)
 
         with torch.no_grad():
             return self.programs(self._key("all"), run,
-                                 (self._x0(x0), _tokens(batch, self.device)))
+                                 (self._x0(x0),) + _cond(batch, self.device))
 
     def sample_all(self, batch: dict, generator: torch.Generator) -> dict[int, Tensor]:
         return self.sample_all_from(batch, self._noise(batch, generator))
@@ -264,16 +264,16 @@ class AnytimeFlowSampler:
         caller may keep (or clone) them across later legs."""
         start = carry.step
 
-        def run(x0, U, x, tokens):
+        def run(x0, U, x, *cond):
             new, outs = anytime_mod.anytime_extend(
-                self.anytime, self.budgets, _field(self, tokens).fn,
+                self.anytime, self.budgets, _field(self, cond).fn,
                 anytime_mod.AnytimeCarry(x0=x0, U=U, x=x, step=start), stop)
             return new.U, new.x, outs
 
         with torch.no_grad():
             U, x, outs = self.programs(self._key("leg", start, stop), run,
-                                       (carry.x0, carry.U, carry.x,
-                                        _tokens(batch, self.device)))
+                                       (carry.x0, carry.U, carry.x)
+                                       + _cond(batch, self.device))
         return anytime_mod.AnytimeCarry(x0=carry.x0, U=U, x=x, step=stop), outs
 
     def nearest_tokens(self, latents: Tensor) -> Tensor:
@@ -281,16 +281,20 @@ class AnytimeFlowSampler:
         return nearest_latent_tokens(self.params, latents)
 
 
-def _tokens(batch: Optional[dict], device) -> Optional[Tensor]:
-    """The conditioning tokens on ``device`` (None: unconditional); the
-    backbone reads nothing else of a batch."""
-    tokens = None if batch is None else batch.get("tokens")
-    return None if tokens is None else torch.as_tensor(tokens).to(device)
+_COND_KEYS = ("tokens", "frames", "patches")   # what the backbones read of a batch
 
 
-def _field(sampler, tokens: Optional[Tensor]):
-    """The sampler's velocity field conditioned on ``tokens``."""
-    batch = None if tokens is None else {"tokens": tokens}
+def _cond(batch: Optional[dict], device) -> tuple:
+    """The batch's conditioning on ``device``: its tokens and a stub
+    frontend's frames or patches, in ``_COND_KEYS`` order, None where the
+    batch has none (all None: unconditional)."""
+    return tuple(None if batch is None or batch.get(k) is None
+                 else torch.as_tensor(batch[k]).to(device) for k in _COND_KEYS)
+
+
+def _field(sampler, cond: tuple):
+    """The sampler's velocity field conditioned on ``cond`` (``_cond``'s)."""
+    batch = {k: v for k, v in zip(_COND_KEYS, cond) if v is not None} or None
     return M.velocity_field(sampler.params, sampler.cfg, sampler.sched, batch,
                             cfg_scale=sampler.cfg_scale)
 

@@ -245,6 +245,28 @@ def test_flash_attention_matches_plain(dev, B, H, KV, L, hd, causal, dtype):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("Lq,Lk", [(1024, 1500), (1, 1500), (37, 300), (300, 37)])
+def test_flash_attention_cross_attention_lq_ne_lk(dev, Lq, Lk, dtype):
+    """whisper-medium's cross-attention: 16 query and 16 KV heads of 64,
+    non-causal, queries over a memory of another length (Lq 1 in decode),
+    K and V projected from the memory, through ``attend`` as the model calls it."""
+    rng = np.random.default_rng(Lq + Lk)
+    q = _randn(rng, (2, Lq, 16, 64), dtype, dev)
+    k, v = (_randn(rng, (2, Lk, 16, 64), dtype, dev) for _ in "kv")
+    before = fa_mod.COUNTER.launches
+    out = attend(q, k, v, causal=False)
+    torch.cuda.synchronize()
+    assert fa_mod.COUNTER.launches == before + 1
+    assert out.shape == q.shape and out.dtype == dtype
+    out = out.transpose(1, 2)
+    ref = attention_ref(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2), causal=False)
+    if dtype == torch.float32:
+        torch.testing.assert_close(out, ref, atol=TOL[dtype] * 4, rtol=TOL[dtype] * 4)
+        return
+    _check_flash_bf16(out, ref)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("B,L", [(4, 1024), (2, 300)])
 def test_flash_attention_at_zamba2_heads(dev, B, L, dtype):
     """zamba2-2.7b's shared attention: 32 query and 32 KV heads of 80 (G 1),

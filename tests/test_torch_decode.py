@@ -169,15 +169,17 @@ def test_decode_step_logits_over_a_teacher_forced_sequence(setup, paged, kernel)
                                   np.broadcast_to(np.asarray(jstate.index), (B,)))
 
 
-def test_unported_families_name_their_roadmap_item(setup):
+def test_vlm_decode_states_are_the_dense_familys(setup):
+    """The vlm family, once refused here, decodes over the dense family's
+    caches, dense and paged; the ssm family still has no pageable state."""
     import dataclasses
 
     _, _, cfg, _ = setup
     vlm = dataclasses.replace(cfg, family="vlm")
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue A item 10"):
-        tmodel.init_decode_state(vlm, 2, 8, torch.float32, "cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue A item 10"):
-        tmodel.init_paged_decode_state(vlm, 2, 5, 4, 2, torch.float32, "cpu")
+    dense = tmodel.init_decode_state(vlm, 2, 8, torch.float32, "cpu")
+    assert isinstance(dense, tattn.KVCache) and dense.k.shape[:3] == (cfg.n_layers, 2, 8)
+    paged = tmodel.init_paged_decode_state(vlm, 2, 5, 4, 2, torch.float32, "cpu")
+    assert isinstance(paged, tattn.PagedKVCache) and paged.block_table.shape == (2, 2)
     with pytest.raises(TypeError, match="pageable"):
         tmodel.init_paged_decode_state(dataclasses.replace(cfg, family="ssm"), 2, 5, 4, 2,
                                        torch.float32, "cpu")

@@ -209,7 +209,14 @@ def test_velocity_bf16(cfg):
                                rtol=TOL["bfloat16"])
 
 
-def test_unported_family_names_its_roadmap_item(cfg):
-    encdec = dataclasses.replace(cfg, family="encdec")
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue A item 10"):
-        tmodel.init_params(torch.Generator().manual_seed(0), encdec, device="cpu")
+def test_encdec_init_params_builds_the_reference_layout(cfg):
+    """The encdec family, once refused here, draws whisper's tree: encoder
+    and decoder stacks of the config's depths, the tied embedding, f32
+    1-D norms."""
+    wcfg = get_config("whisper-medium", smoke=True)
+    tp = tmodel.init_params(torch.Generator().manual_seed(0), wcfg, device="cpu")
+    assert set(tp) == {"embed", "enc_layers", "dec_layers", "enc_norm", "final_norm", "flow"}
+    assert tp["enc_layers"]["attn"]["wq"].shape[0] == wcfg.n_encoder_layers
+    assert tp["dec_layers"]["cross_attn"]["wk"].shape == (
+        wcfg.n_layers, wcfg.d_model, wcfg.n_heads * wcfg.resolved_head_dim)
+    assert tp["enc_norm"].dtype == tp["final_norm"].dtype == torch.float32

@@ -9,6 +9,12 @@ noise: see that case); x1 agrees to ``tests/test_kernels.py``'s f32 2e-5 where t
 integration is well conditioned (the linear field) and 1e-4 on the mixture
 field, whose flow amplifies roundoff near basin boundaries (the reference's
 own test says so).
+
+The step body as a program (``RK45Program``): through the CPU stand-in for
+CUDA graphs (``torch_graph_double.CPUGraph``) the solve's x1 and counts
+equal the eager solve's (``programs.disabled()``) to the bit, on the mixture
+field and the 2-layer smoke backbone, and two same-shaped solves through one
+program capture once.
 """
 import jax.numpy as jnp
 import numpy as np
@@ -18,9 +24,15 @@ import torch
 from repro.core import rk45 as jrk
 from repro.core import schedulers as jsched
 from repro.core import toy as jtoy
+from repro_torch.configs import get_config
+from repro_torch.core import bns as tbns
 from repro_torch.core import rk45 as trk
 from repro_torch.core import schedulers as tsched
 from repro_torch.core import toy as ttoy
+from repro_torch.launch import serve
+from repro_torch.models import model as M
+from repro_torch.serving import programs
+from torch_graph_double import CPUGraph
 
 
 @pytest.fixture(autouse=True)
@@ -128,3 +140,99 @@ def test_max_steps_stops_the_loop():
     res = trk.rk45_solve(tf.fn, torch.from_numpy(_x0(1, (4, 2))), rtol=1e-9, atol=1e-9,
                          max_steps=3)
     assert res.nfe == 21 and res.accepted + res.rejected == 3
+
+
+@pytest.fixture
+def graphs(monkeypatch):
+    """Solves inside the test capture and replay through ``CPUGraph``."""
+    monkeypatch.setattr(programs, "_graph_double", CPUGraph)
+
+
+def _solves(fn, x0s, tol):
+    """Each x0 solved in turn through one program; (results, its stats)."""
+    program = trk.RK45Program(fn, "cpu")
+    res = [trk.rk45_solve(fn, x0, rtol=tol, atol=tol, program=program) for x0 in x0s]
+    return res, program.stats()
+
+
+def _graphed_equals_eager(fn, x0s, tol):
+    graphed, stats = _solves(fn, x0s, tol)
+    with programs.disabled():
+        eager, eager_stats = _solves(fn, x0s, tol)
+    for g, e in zip(graphed, eager):
+        assert (g.nfe, g.accepted, g.rejected) == (e.nfe, e.accepted, e.rejected)
+        assert torch.equal(g.x1, e.x1)
+    steps = sum(r.nfe // 7 for r in graphed)
+    assert stats["programs"] == 1 and stats["replays"] == steps - 1
+    assert eager_stats["programs"] == 0
+    return graphed
+
+
+@pytest.mark.parametrize("tol,h0", [(1e-3, 0.01), (1e-5, 0.3)])
+def test_graphed_solve_equals_eager_on_the_mixture_field(graphs, tol, h0):
+    """Two solves of one shape through one program: one capture, every
+    later step a replay, x1 and the counts equal to the eager solve's."""
+    _, tf = _mixtures()
+    x0s = [torch.from_numpy(_x0(s, (16, 2))) for s in (3, 4)]
+    _graphed_equals_eager(tf.fn, x0s, tol)
+
+
+def test_graphed_solve_equals_eager_on_the_smoke_backbone(graphs):
+    cfg = get_config("yi-6b", smoke=True)
+    params = M.init_params(torch.Generator().manual_seed(0), cfg, "cpu")
+    tok = torch.from_numpy(np.random.default_rng(2).integers(0, cfg.vocab, (2, 6)))
+    field = M.velocity_field(params, cfg, tsched.fm_ot(), {"tokens": tok})
+    x0s = [torch.from_numpy(_x0(s, (2, 6, cfg.latent_dim))) for s in (5, 6)]
+    _graphed_equals_eager(field.fn, x0s, 1e-4)
+
+
+def test_graphed_solve_matches_the_reference(graphs):
+    """The graphed path keeps the reference's counts and x1 (the linear field)."""
+    jf = jtoy.linear_field(jsched.fm_ot())
+    tf = ttoy.linear_field(tsched.fm_ot())
+    x0 = _x0(11, (5, 3))
+    want = jrk.rk45_solve(jf.fn, jnp.asarray(x0), rtol=1e-5, atol=1e-5)
+    got = trk.rk45_solve(tf.fn, torch.from_numpy(x0), rtol=1e-5, atol=1e-5)
+    assert (got.nfe, got.accepted, got.rejected) == (
+        int(want.nfe), int(want.accepted), int(want.rejected))
+    np.testing.assert_allclose(got.x1.numpy(), np.asarray(want.x1), rtol=2e-5, atol=2e-5)
+
+
+def test_a_program_refuses_another_field():
+    _, tf = _mixtures()
+    program = trk.RK45Program(tf.fn, "cpu")
+    with pytest.raises(ValueError, match="another field"):
+        trk.rk45_solve(ttoy.linear_field(tsched.fm_ot()).fn, torch.ones((2, 2)),
+                       program=program)
+
+
+def test_generate_pairs_chunks_share_one_program(graphs, monkeypatch):
+    """Same-shaped chunks of ``generate_pairs`` go through one program: one
+    capture in all; the pairs equal the eager ones to the bit."""
+    _, tf = _mixtures()
+    made = []
+    inner = trk.RK45Program
+
+    def spy(*a, **k):
+        made.append(inner(*a, **k))
+        return made[-1]
+
+    monkeypatch.setattr(tbns, "RK45Program", spy)
+    x0, x1 = tbns.generate_pairs(tf, torch.Generator().manual_seed(0), 8, (2,),
+                                 batch_size=4, rtol=1e-4, atol=1e-4)
+    with programs.disabled():
+        ex0, ex1 = tbns.generate_pairs(tf, torch.Generator().manual_seed(0), 8, (2,),
+                                       batch_size=4, rtol=1e-4, atol=1e-4)
+    assert torch.equal(x0, ex0) and torch.equal(x1, ex1)
+    assert made[0].stats()["programs"] == 1 and made[0].stats()["replays"] > 0
+    assert made[1].stats()["programs"] == 0
+
+
+def test_the_launchers_train_and_val_solves_share_one_program(graphs, capsys):
+    served = serve.main(["--arch", "yi-6b", "--mode", "flow", "--nfe", "2", "--batch", "2",
+                         "--seq", "4", "--bns-iters", "2", "--requests", "1",
+                         "--device", "cpu"])
+    d = served.distillation
+    steps = sum(d.rk45[part][0] // 7 for part in ("train", "val"))
+    assert d.rk45_programs["programs"] == 1 and d.rk45_programs["replays"] == steps - 1
+    assert "step programs captured 1, replays" in capsys.readouterr().out

@@ -155,27 +155,35 @@ def test_serve_refuses_what_it_does_not_serve(extra, item):
 
 @pytest.mark.parametrize("mode", ["flow", "decode"])
 @pytest.mark.parametrize("arch", ["whisper-medium", "internvl2-26b"])
-def test_serve_refuses_an_unported_reference_arch_naming_item_10(arch, mode):
-    """The reference's archs the port lacks exit naming ROADMAP Queue A item
-    10, in either mode, with no KeyError from the config registry."""
-    with pytest.raises(SystemExit) as exc:
-        serve.main(["--arch", arch, "--mode", mode, "--device", "cpu"])
-    assert "ROADMAP Queue A item 10" in str(exc.value.code)
-    assert arch in str(exc.value.code)
+def test_serve_serves_whisper_and_internvl2_on_the_cpu(arch, mode):
+    """The last two reference archs serve through the launcher in either
+    mode (smoke configs): flow requests condition on the batch's frames or
+    patches, decode runs the greedy demo."""
+    served = serve.main(["--arch", arch, "--mode", mode, "--device", "cpu",
+                         "--bns-iters", "0", "--nfe", "2", "--batch", "2", "--seq", "6",
+                         "--requests", "2", "--steps", "3"])
+    if mode == "flow":
+        assert len(served) == 2 and all(s.latents.shape == (2, 6, 64) for s in served)
+        assert all(bool(torch.isfinite(s.latents).all()) for s in served)
+    else:
+        assert served.tokens.shape == (2, 3)
 
 
-def test_serve_cli_unported_arch_exits_with_no_traceback():
+def test_serve_cli_whisper_exits_0_with_no_traceback():
     env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
     proc = subprocess.run([sys.executable, "-m", "repro_torch.launch.serve",
-                           "--arch", "whisper-medium", "--device", "cpu"], env=env,
+                           "--arch", "whisper-medium", "--smoke", "--device", "cpu",
+                           "--bns-iters", "0", "--nfe", "2", "--batch", "2", "--seq", "4",
+                           "--requests", "1"], env=env,
                           cwd=ROOT, capture_output=True, text=True, timeout=120)
-    assert proc.returncode != 0 and "ROADMAP Queue A item 10" in proc.stderr
-    assert "Traceback" not in proc.stderr and "KeyError" not in proc.stderr
+    assert proc.returncode == 0, proc.stderr
+    assert "request 0: sampled (2, 4)" in proc.stdout
+    assert "Traceback" not in proc.stderr
 
 
 def test_every_reference_arch_is_served_or_refused():
-    """The port's registry and its refusal list together are the
-    reference's; an unknown name exits listing the served archs."""
+    """The port's registry is the reference's (its refusal list is empty);
+    an unknown name exits listing the served archs."""
     from repro.configs import ARCHS as JAX_ARCHS
     from repro_torch.configs import ARCHS, UNPORTED_ARCHS
 
@@ -185,7 +193,8 @@ def test_every_reference_arch_is_served_or_refused():
         serve.main(["--arch", "no-such-arch", "--device", "cpu"])
     assert "qwen3-moe-30b-a3b" in str(exc.value.code)
     help_text = next(a.help for a in serve.build_parser()._actions if a.dest == "arch")
-    assert all(arch in help_text for arch in ARCHS) and len(ARCHS) == 8
+    assert all(arch in help_text for arch in ARCHS) and len(ARCHS) == 10
+    assert UNPORTED_ARCHS == ()
 
 
 _DECODE = ["--arch", "yi-6b", "--mode", "decode", "--device", "cpu"]
