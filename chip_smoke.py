@@ -224,6 +224,19 @@ Phases (any failure ends the run with a non-zero exit and no last line):
     field is causal, so tail positions do not reach earlier ones) and held
     also against a direct call on the same four rows at their native shape
     (4, 1000, 64).
+    14d: 14a's 12 requests through --fleet 4 (a ``FleetGateway`` of four
+    flush gateways serving one sampler, the balancer stealing queued
+    entries to idle hosts): gateway_path's checks with the counts held to
+    the dispatches, each row against 14a's for the same request (bits, or
+    GATEWAY_REL_L2 where the batch composition differs), the homes HRW gives
+    the two affinity keys and the routed counts (6 each on the keys' homes).
+    14e: a ``FleetGateway`` of FLEET_HOSTS = 4 ``Gateway``s over 14a's
+    sampler, pumped by hand: 12 requests on one hot key (one shard), a
+    ``steal_round`` (``WorkStealer(min_queue=2, max_steal=8)``) moving 6 + 3
+    + 2, a fifth host joining, 4 budget-8 requests, the deepest other host
+    leaving (its shard re-homed: ``rerouted``), the drain; all 16 futures
+    resolve, every row equals a direct call on the batch it was served in to
+    the bit, launches equal the dispatches'.
 15. The serving engines' programs, graphed (``serving.programs``: on the
     card every engine call goes through a CUDA graph captured once per key,
     so phases 4, 4b, 6, 8, 10, 12, 12b, 12c's requests and 14 already ran
@@ -339,13 +352,29 @@ Phases (any failure ends the run with a non-zero exit and no last line):
 22b. Phase 5 and phase 7 for it at 2 layers, f32, drawn on the card (the
     full config's heads of 128): flow relative L2 <= 1e-4, decode logits
     within 1e-4 with the paged kernel (2 a call) and the tokens equal.
-23. The script's wall time, one JSON line listing the kernels (the
+23. Placement on the 1 x 1 host mesh (``launch.mesh.make_host_mesh``: a
+    one-rank NCCL process group, destroyed at the end). 23a: 14a's trace
+    through --mesh host (weights and batches DTensors, every kernel run on
+    its local shard through ``local_map``): dispatches and launches equal
+    14a's, each row equal to 14a's for the same request, or the largest
+    difference printed and over MESH_REL_L2 = 1e-3 relative L2 failing.
+    23b: a short form of phase 6's trace (MESH_DECODE_ARGS: 8 requests of
+    32, 16, 24 and 8 tokens on 8 slots, pages of 16, prefill chunk 64)
+    through ``DecodeGateway`` on one yi-6b engine, unsharded and then with
+    ``mesh=``: tokens equal, paged attention 32 a ``decode_apply`` call in
+    both. 23c: ``make_distributed_bns_step`` at world size 1 on yi-6b's
+    field at full width and DIST_LAYERS = 2 layers (f32, each layer
+    recomputed in the backward), DIST_ITERS = 3 iterations on 8 x 256
+    pairs (noise, an Euler solve at NFE 16): theta and the losses within the
+    f32 TOL of the plain step's (the PSNR loss, autograd, Adam at the host
+    rate), launches equal to the plain step's.
+24. The script's wall time, one JSON line listing the kernels (the
     ns_update and flash entries, forward and backward, with phases 4b, 5b,
     12b, 12c, 12d, 13b, 13c, 14a, 14b, 14c, 16 and 17-17d's launches and
     ms beside the main path's; every entry with phases 18-20's; the flash
     and gla_scan entries also carry zamba2-2.7b's case and phase-17
-    launches, the flash and paged entries phases 18-20's shapes), then the
-    last line.
+    launches, the flash and paged entries phases 18-20's shapes; every
+    entry with phases 14d, 14e and 23's), then the last line.
 
 Phase 3 also holds flash at B=4 L=1024 hd 128, causal, bf16 at (H, KV) =
 (56, 8), (40, 10), (64, 8) and (64, 4) (yi-34b, phi3-medium-14b,
@@ -459,6 +488,12 @@ GATEWAY_ARGS = ["--arch", "yi-6b", "--mode", "flow", "--full", "--gateway",
                 "--max-batch", "4", "--max-wait-ms", "60000", "--batch", str(BATCH),
                 "--bns-iters", "0"]
 GATEWAY_REL_L2 = 2e-2   # a served row against its request alone where bits differ
+FLEET_HOSTS = 4         # phases 14d and 14e: the fleet's hosts (14e adds a fifth, then one leaves)
+# phase 23a: rows on the 1 x 1 mesh against 14a's for the same requests, where bits differ
+MESH_REL_L2 = 1e-3
+MESH_DECODE_ARGS = dict(requests=8, lengths=(32, 16, 24, 8), max_slots=8, slots=256,
+                        page_size=16, prefill=64)                  # phase 23b
+DIST_LAYERS, DIST_SEQ, DIST_PAIRS, DIST_ITERS = 2, 256, 8, 3       # phase 23c
 KERNELS = ("ns_update", "flash_attention", "paged_attention", "gla_scan", "ns_update_bwd",
            "flash_attention_bwd")
 # the flash backward's passes by kernel name (in bf16 and f32 alike)
@@ -1474,7 +1509,7 @@ def long_row_decode_step(dev, counters) -> dict:
     from repro_torch.models import model as M
 
     free_device_memory(dev)
-    cfg = get_config("yi-6b")
+    cfg = dataclasses.replace(get_config("yi-6b"), n_layers=LAYERS)
     params = M.init_params(torch.Generator(device=dev).manual_seed(0), cfg, dev)
     B, ps, nb = len(LONG_LENGTHS), 16, 256
     state = M.init_paged_decode_state(cfg, B, 1 + B * nb, ps, nb, torch.float32, dev)
@@ -2317,15 +2352,147 @@ def gateway_path(dev, counters, card: str, name: str, extra: list, seq: int,
             "bucket3_equal": [e["equal"] for e in bucket3],
             "rows": {uid: r.latents for uid, r in enumerate(served.responses)},
             "sampler": sampler, "programs": sampler.programs.stats(),
-            "native_max_rel_l2": max((e["rel_l2"] for e in native), default=None)}
+            "native_max_rel_l2": max((e["rel_l2"] for e in native), default=None),
+            "routed": stats.get("routed"), "steals": stats.get("steals")}
+
+
+def across(name: str, got: dict, want: dict, limit: float) -> list:
+    """Rows of one run against another run's rows for the same requests:
+    bits, or relative L2 within ``limit``."""
+    errs = [row_errors(got[uid], torch.from_numpy(want[uid])) for uid in sorted(got)]
+    print(f"{name}: equal {[e['equal'] for e in errs]}, max |diff| "
+          f"{max(e['max_abs'] for e in errs):.3e}, relative L2 max "
+          f"{max(e['rel_l2'] for e in errs):.3e}")
+    if any(not (e["equal"] or e["rel_l2"] <= limit) for e in errs):
+        raise SystemExit(f"{name}: over {limit}: {errs}")
+    return errs
+
+
+def dispatch_launches(programs: dict, budgets: tuple, forwards: int) -> dict:
+    """The launches a gateway's dispatches make: flash LAYERS a forward,
+    ``ns_update`` by ``program_launches``."""
+    ns = sum(n * program_launches(p, budgets)[1] for p, n in programs.items())
+    fw = sum(n * program_launches(p, budgets)[0] for p, n in programs.items())
+    if fw != forwards:
+        raise SystemExit(f"dispatches {programs} make {fw} forwards; the gateway counts "
+                         f"{forwards}")
+    return {**dict.fromkeys(KERNELS, 0), "ns_update": ns, "flash_attention": LAYERS * fw}
+
+
+def fleet_direct(dev, counters, card: str, sampler) -> dict:
+    """Phase 14e: a ``FleetGateway`` of FLEET_HOSTS ``Gateway``s over 14a's
+    sampler, pumped by hand. A hot key homes 12 requests on one shard, a
+    ``steal_round`` spreads them, a host joins, 4 more requests arrive, the
+    deepest other host leaves (its shard re-homed), and the fleet drains.
+    Every future resolves; every row equals, to the bit, a direct call on the
+    batch it was served in (the batch a lone ``Gateway`` would assemble for
+    that composition); launches equal the dispatches'."""
+    from repro_torch.data.synthetic import DataConfig, SyntheticTokens
+    from repro_torch.serving import FleetGateway, Gateway, Request, WorkStealer
+
+    cfg = sampler.cfg
+    tokens = SyntheticTokens(cfg, DataConfig(batch_size=BATCH, seq_len=SEQ, seed=0),
+                             device=dev).batch(0)["tokens"].cpu()
+
+    def host():
+        return Gateway(sampler, max_batch=4, max_wait_ms=60000.0)
+
+    fleet = FleetGateway({f"h{i}": host() for i in range(FLEET_HOSTS)},
+                         stealer=WorkStealer(min_queue=2, max_steal=8))
+    hot = [Request(tokens=tokens[i % BATCH], budget=4, seed=2000 + i) for i in range(12)]
+    late = [Request(tokens=tokens[i % BATCH], budget=8, seed=3000 + i) for i in range(4)]
+    hot_home = fleet.home(hot[0])
+    reset(counters)
+    t0 = time.perf_counter()
+    with FlushBatches() as flushed:
+        futs = [fleet.submit(r) for r in hot]
+        before = dict(fleet.stats()["queue_depths"])
+        moved = fleet.steal_round()
+        after = dict(fleet.stats()["queue_depths"])
+        fleet.add_host(f"h{FLEET_HOSTS}", host())
+        late_home = fleet.home(late[0])
+        futs += [fleet.submit(r) for r in late]
+        depths = fleet.stats()["queue_depths"]
+        leaver = max((h for h in depths if h != hot_home), key=lambda h: (depths[h], h))
+        rerouted = depths[leaver]
+        fleet.remove_host(leaver, timeout=600)
+        fleet.drain(timeout=600)
+    wall = time.perf_counter() - t0
+    launches = {k: c.launches for k, c in counters.items()}
+    stats = fleet.stats()
+    programs = {k[len('dispatches{program="'):-2]: int(v)
+                for k, v in fleet.metrics_snapshot().items()
+                if k.startswith('dispatches{program="')}
+    failures = []
+    if not all(f.done() and f.exception() is None for f in futs):
+        failures.append("a future was dropped or failed")
+    if before != {**dict.fromkeys(before, 0), hot_home: 12} or moved != 11:
+        failures.append(f"queue depths {before} before the steal, {moved} moved")
+    if (stats["steals"], stats["rerouted"], stats["completed"], stats["failed"]) != (
+            11, rerouted, 16, 0):
+        failures.append(f"steals {stats['steals']}, rerouted {stats['rerouted']} "
+                        f"(expected {rerouted}), done {stats['completed']}, failed "
+                        f"{stats['failed']}")
+    want = dispatch_launches(programs, sampler.budgets, stats["forwards"])
+    if launches != want:
+        failures.append(f"launches {launches}, expected {want} from {programs}")
+    rows = {f.uid: f.result().latents for f in futs}
+    same = []
+    for b in flushed.batches:
+        cond = {"tokens": torch.from_numpy(b["tokens"]).to(dev)}
+        x0 = torch.from_numpy(b["x0"]).to(dev)
+        outs = (sampler.sample_all_from(cond, x0) if b["mixed"]
+                else {b["budget"]: sampler.sample_from(cond, x0, b["budget"])})
+        same += [np.array_equal(rows[uid], outs[m][i].cpu().numpy())
+                 for i, (uid, m) in enumerate(zip(b["uids"], b["served"]))]
+    if len(same) != 16 or not all(same):
+        failures.append(f"rows against the same batch composition: {same}")
+    print(f"phase 14e ({card}): FleetGateway of {FLEET_HOSTS} Gateways over 14a's sampler, "
+          f"hot key homed on {hot_home} (depths {before}), steal_round moved {moved} "
+          f"(depths {after}), h{FLEET_HOSTS} joined, budget-8 key homed on {late_home}, "
+          f"{leaver} left with {rerouted} queued (rerouted {stats['rerouted']}); routed "
+          f"{stats['routed']}, dispatches {programs}, forwards {stats['forwards']}, done "
+          f"{stats['completed']}/16, failed {stats['failed']}; launches {launches}; rows "
+          f"equal to the same batch composition {sum(same)}/{len(same)}; wall {wall:.3f} s")
+    if failures:
+        raise SystemExit("phase 14e: " + "; ".join(failures))
+    return {"launches": launches, "dispatches": programs, "forwards": stats["forwards"],
+            "steals": stats["steals"], "rerouted": stats["rerouted"],
+            "routed": stats["routed"], "rows_equal": sum(same), "wall_s": wall}
+
+
+def fleet_launched(dev, counters, card: str, runs: dict) -> dict:
+    """Phase 14d: 14a's 12 requests through ``serve.main(... --fleet 4)``
+    (gateway_path's checks), each row against 14a's for the same request
+    (bits, or GATEWAY_REL_L2 where the batch composition differs), the
+    homes HRW gives the two affinity keys and the routed counts."""
+    from repro_torch.serving import FleetRouter
+
+    run = gateway_path(dev, counters, card, "14d fleet", ["--fleet", str(FLEET_HOSTS)],
+                       SEQ, (4, 8), 12)
+    run.pop("sampler")
+    run["errors_to_14a"] = across("gateway 14d rows against 14a's for the same requests",
+                                  run["rows"], runs["14a"]["rows"], GATEWAY_REL_L2)
+    router = FleetRouter([f"h{i}" for i in range(FLEET_HOSTS)])
+    homes = {m: router.route(("flow", m, (SEQ,), None)) for m in (4, 8)}
+    print(f"gateway 14d: homes {homes} (budget -> host), routed {run['routed']}, steals "
+          f"{run['steals']}; flash and ns_update launches {run['launches']['flash_attention']} "
+          f"and {run['launches']['ns_update']}, the dispatches' sum")
+    if sum(run["routed"].values()) != 12 or any(
+            run["routed"][h] != sum(6 for m in (4, 8) if homes[m] == h) for h in run["routed"]):
+        raise SystemExit(f"gateway 14d: routed {run['routed']}, homes {homes}")
+    run["homes"] = homes
+    return run
 
 
 def gateways(dev, counters, card: str, graphs: dict) -> dict:
-    """Phase 14: 14a flush, 14b continuous, 14c shape tiers; phase 15's
+    """Phase 14: 14a flush, 14b continuous, 14c shape tiers, 14d the fleet
+    through the launcher, 14e the fleet direct on 14a's sampler; phase 15's
     anytime cases on 14a's sampler (seq 1024), into ``graphs``."""
     runs = {"14a": gateway_path(dev, counters, card, "14a flush", [], SEQ, (4, 8), 12,
                                 {"b4/k4": 1, "b8/k4": 1, "bmix/k4": 1})}
-    graphs.update(anytime_programs(dev, counters, runs["14a"].pop("sampler"), SEQ))
+    sampler14a = runs["14a"].pop("sampler")
+    graphs.update(anytime_programs(dev, counters, sampler14a, SEQ))
     runs["14b"] = gateway_path(dev, counters, card, "14b continuous",
                                ["--continuous", "--max-slots", "4"], SEQ, (4, 8), 8)
     runs["14b"].pop("sampler")
@@ -2343,8 +2510,216 @@ def gateways(dev, counters, card: str, graphs: dict) -> dict:
     runs["14b"]["equal_to_14a"] = [e["equal"] for e in across]
     runs["14c"] = gateway_path(dev, counters, card, "14c tiers", ["--tiers", "512,1024"],
                                1000, (8,), 4, {"b8/k4": 1})
-    for run in runs.values():
-        run.pop("sampler", None)
+    runs["14c"].pop("sampler")
+    t0 = time.perf_counter()
+    runs["14d"] = fleet_launched(dev, counters, card, runs)
+    runs["14e"] = fleet_direct(dev, counters, card, sampler14a)
+    runs["14d"]["phase_s"] = time.perf_counter() - t0
+    del sampler14a
+    return runs
+
+
+def mesh_gateway(dev, counters, card: str, flushed: dict) -> dict:
+    """Phase 23a: 14a's trace through ``serve.main(... --mesh host)``: the
+    weights and each batch placed on the 1 x 1 mesh as DTensors, every
+    kernel run on its local shard. The dispatches and the launches equal
+    14a's; each row equals 14a's for the same request, or the largest
+    difference is printed and over MESH_REL_L2 relative L2 fails."""
+    from torch.distributed.tensor import DTensor
+
+    from repro_torch.launch import serve
+
+    free_device_memory(dev)
+    reset(counters)
+    t0 = time.perf_counter()
+    served = serve.main(GATEWAY_ARGS + [
+        "--solver-artifact", str(ANYTIME_ARTIFACT), "--seq", str(SEQ),
+        "--request-budgets", "4,8", "--requests", "12", "--mesh", "host"])
+    wall = time.perf_counter() - t0
+    launches = {k: c.launches for k, c in counters.items()}
+    snap, stats, sampler = served.metrics, served.stats, served.sampler
+    programs = {k[len('dispatches{program="'):-2]: int(v) for k, v in snap.items()
+                if k.startswith('dispatches{program="')}
+    wq = sampler.params["layers"]["attn"]["wq"]
+    rows = {uid: r.latents for uid, r in enumerate(served.responses)}
+    errs = [row_errors(rows[uid], torch.from_numpy(flushed["rows"][uid])) for uid in rows]
+    equal = [e["equal"] for e in errs]
+    print(f"phase 23a ({card}): --mesh host, weights {type(wq).__name__} on "
+          f"{wq.device_mesh if isinstance(wq, DTensor) else None} placed "
+          f"{getattr(wq, 'placements', None)}; dispatches {programs} (14a {flushed['dispatches']}); "
+          f"launches {launches} (14a {flushed['launches']}); programs captured "
+          f"{stats.get('program_captures')}, replays {stats.get('program_replays')}; done "
+          f"{stats['completed']}/{stats['submitted']}, failed {stats['failed']}; rows equal to "
+          f"14a's {sum(equal)}/{len(equal)}, max |diff| {max(e['max_abs'] for e in errs):.3e}, "
+          f"relative L2 max {max(e['rel_l2'] for e in errs):.3e}; submit-to-drain "
+          f"{served.wall_s:.3f} s (14a {flushed['wall_s']:.3f} s); main() wall {wall:.3f} s")
+    failures = []
+    if not isinstance(wq, DTensor):
+        failures.append(f"the weights are {type(wq).__name__}, not placed")
+    if programs != flushed["dispatches"] or launches != flushed["launches"]:
+        failures.append("dispatches or launches differ from 14a's")
+    if (stats["completed"], stats["failed"]) != (12, 0):
+        failures.append(f"done {stats['completed']}, failed {stats['failed']}")
+    if any(not (e["equal"] or e["rel_l2"] <= MESH_REL_L2) for e in errs):
+        failures.append(f"rows over {MESH_REL_L2} relative L2: {errs}")
+    if failures:
+        raise SystemExit("phase 23a: " + "; ".join(failures))
+    return {"launches": launches, "dispatches": programs, "rows_equal": sum(equal),
+            "max_abs": max(e["max_abs"] for e in errs),
+            "max_rel_l2": max(e["rel_l2"] for e in errs), "wall_s": served.wall_s,
+            "programs": {"captures": stats.get("program_captures"),
+                         "replays": stats.get("program_replays")}}
+
+
+def mesh_decode(dev, counters, card: str) -> dict:
+    """Phase 23b: a short form of phase 6's trace (MESH_DECODE_ARGS) through
+    ``DecodeGateway`` on one yi-6b engine at full width with the paged
+    kernel, first unsharded, then with ``mesh=`` the host mesh (the engine's
+    weights and the paged pool placed as DTensors, the kernel on the local
+    shard). Tokens equal; the paged kernel launches LAYERS a
+    ``decode_apply`` call in both runs."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import model as M
+    from repro_torch.serving import DecodeEngine, DecodeGateway, DecodeRequest
+
+    a = MESH_DECODE_ARGS
+    free_device_memory(dev)
+    cfg = dataclasses.replace(get_config("yi-6b"), n_layers=LAYERS)
+    params = M.init_params(torch.Generator(device=dev).manual_seed(0), cfg, dev)
+    engine = DecodeEngine(params=params, cfg=cfg, page_size=a["page_size"], paged_kernel=True)
+    out = {}
+    for label, mesh in (("unsharded", None), ("mesh", make_host_mesh(dev))):
+        reset(counters)
+        with CountCalls() as calls:
+            gw = DecodeGateway(engine, max_slots=a["max_slots"], cache_slots=a["slots"],
+                               prefill_chunk=a["prefill"], mesh=mesh)
+            t0 = time.perf_counter()
+            futs = [gw.submit(DecodeRequest(
+                prompt=[(3 * r + 1) % cfg.vocab, (5 * r + 2) % cfg.vocab],
+                max_tokens=a["lengths"][r % len(a["lengths"])])) for r in range(a["requests"])]
+            gw.drain()
+            torch.cuda.synchronize(dev)
+            wall = time.perf_counter() - t0
+        out[label] = {"tokens": [f.result().tokens.tolist() for f in futs],
+                      "launches": {k: c.launches for k, c in counters.items()},
+                      "calls": calls.calls, "wall_s": wall, "stats": gw.stats()}
+    u, m = out["unsharded"], out["mesh"]
+    want = {**dict.fromkeys(KERNELS, 0), "paged_attention": LAYERS * m["calls"]}
+    state_type = type(gw._state.k_pages).__name__
+    print(f"phase 23b ({card}): DecodeGateway yi-6b full width, paged kernel, "
+          f"{a['requests']} requests on {a['max_slots']} slots: tokens equal "
+          f"{u['tokens'] == m['tokens']}; decode_apply calls {u['calls']} / {m['calls']}; "
+          f"launches {u['launches']} / {m['launches']}; pool {state_type}; wall "
+          f"{u['wall_s']:.3f} / {m['wall_s']:.3f} s; programs captured "
+          f"{u['stats']['program_captures']} / {m['stats']['program_captures']}")
+    if (u["tokens"] != m["tokens"] or m["launches"] != want or u["launches"] != {
+            **want, "paged_attention": LAYERS * u["calls"]} or state_type != "DTensor"
+            or m["stats"]["completed"] != a["requests"]):
+        raise SystemExit(f"phase 23b: tokens {u['tokens']} / {m['tokens']}, launches "
+                         f"{u['launches']} / {m['launches']} (want {want}), pool {state_type}")
+    return {"launches": m["launches"], "calls": m["calls"], "tokens_equal": True,
+            "wall_s": {"unsharded": u["wall_s"], "mesh": m["wall_s"]}}
+
+
+def mesh_distill_step(dev, counters, card: str) -> dict:
+    """Phase 23c: ``make_distributed_bns_step`` at world size 1 on the host
+    mesh, DIST_ITERS iterations on yi-6b's velocity field at full width and
+    DIST_LAYERS layers (f32, unconditional, each layer recomputed in the
+    backward as phase 12's field), pairs of DIST_PAIRS x DIST_SEQ
+    noise and an Euler solve at NFE 16 of it; theta and the losses against
+    the plain single-process step (the PSNR loss, autograd, Adam at the
+    host-computed rate) within the f32 TOL."""
+    from repro_torch.core import ns_solver
+    from repro_torch.core.bns import (
+        BNSTrainConfig,
+        _loss_fn,
+        make_distributed_bns_step,
+        ns_sampler,
+    )
+    from repro_torch.core.schedulers import fm_ot
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import model as M
+    from repro_torch.optim.adam import adam_update, tree_leaves, tree_map, tree_unflatten
+    from repro_torch.optim.schedule import poly_decay
+    from repro_torch.solvers.registry import build_ns
+
+    free_device_memory(dev)
+    cfg, params = small_model("yi-6b")
+    cfg = dataclasses.replace(cfg, n_layers=DIST_LAYERS)
+    params = tree_map(lambda p: p.to(dev), params)
+    field = M.velocity_field(params, cfg, fm_ot(), None, remat=True)   # phase 12's form
+    g = torch.Generator(device=dev).manual_seed(23)
+    x0 = torch.randn((DIST_PAIRS, DIST_SEQ, cfg.latent_dim), generator=g, device=dev)
+    with torch.no_grad():
+        x1 = ns_solver.ns_sample(build_ns("euler", 16, field), field.fn, x0)
+    tcfg = BNSTrainConfig(nfe=NFE, init_solver="euler", iterations=10, lr=1e-3)
+    reset(counters)
+    step, theta, opt = make_distributed_bns_step(field, tcfg, make_host_mesh(dev))
+    th, op = theta, opt
+    lr_fn = poly_decay(tcfg.lr, tcfg.iterations)
+    losses = []
+    t0 = time.perf_counter()
+    for it in range(DIST_ITERS):
+        theta, opt, loss = step(theta, opt, it, x0, x1)
+        losses.append(float(loss))
+    torch.cuda.synchronize(dev)
+    wall = time.perf_counter() - t0
+    launches = {k: c.launches for k, c in counters.items()}
+    reset(counters)
+    plain = []
+    for it in range(DIST_ITERS):
+        g_th = tree_map(lambda p: p.detach().requires_grad_(True), th)
+        loss = _loss_fn(ns_sampler(field), g_th, x0, x1)
+        grads = torch.autograd.grad(loss, tree_leaves(g_th))
+        with torch.no_grad():
+            th, op = adam_update(tree_unflatten(th, list(grads)), op, th,
+                                 torch.tensor(float(lr_fn(it)), dtype=torch.float32,
+                                              device=dev))
+        plain.append(float(loss.detach()))
+    plain_launches = {k: c.launches for k, c in counters.items()}
+    tol = TOL[torch.float32]
+    errs = [float((a - b).abs().max()) for a, b in zip(tree_leaves(theta), tree_leaves(th))]
+    close = all(torch.allclose(a, b, atol=tol, rtol=tol)
+                for a, b in zip(tree_leaves(theta), tree_leaves(th)))
+    bits = all(torch.equal(a, b) for a, b in zip(tree_leaves(theta), tree_leaves(th)))
+    want = {**dict.fromkeys(KERNELS, 0), "ns_update": NFE * DIST_ITERS,   # the forward
+            "ns_update_bwd": NFE * DIST_ITERS,          # and its recompute: flash twice
+            "flash_attention": 2 * DIST_LAYERS * NFE * DIST_ITERS,
+            "flash_attention_bwd": DIST_LAYERS * NFE * DIST_ITERS}
+    print(f"phase 23c ({card}): make_distributed_bns_step on the 1 x 1 mesh, yi-6b full width "
+          f"at {DIST_LAYERS} layers f32, {DIST_PAIRS} x {DIST_SEQ} pairs, {DIST_ITERS} "
+          f"iterations: losses {[round(v, 6) for v in losses]} (plain step "
+          f"{[round(v, 6) for v in plain]}); theta max |diff| a leaf {errs}, equal to the bit "
+          f"{bits}; launches {launches} (the plain step's {plain_launches}); "
+          f"{wall / DIST_ITERS * 1e3:.1f} ms an iteration")
+    if not close or losses != plain and not np.allclose(losses, plain, atol=tol, rtol=tol):
+        raise SystemExit(f"phase 23c: theta or losses beyond {tol}: {errs}, {losses} / {plain}")
+    if not launches == plain_launches == want:
+        raise SystemExit(f"phase 23c: launches {launches}, the plain step's {plain_launches}, "
+                         f"expected {want}")
+    return {"launches": launches, "theta_equal": bits, "theta_max_abs": max(errs),
+            "losses": losses, "iteration_ms": wall / DIST_ITERS * 1e3}
+
+
+def placement_paths(dev, counters, card: str, flushed: dict) -> dict:
+    """Phase 23: placement on the host mesh (23a flow gateway, 23b decode
+    gateway, 23c the distributed step); the process group it starts is
+    destroyed at the end."""
+    import torch.distributed as dist
+
+    runs, wall = {}, {}
+    try:
+        for name, fn in (("23a", lambda: mesh_gateway(dev, counters, card, flushed)),
+                         ("23b", lambda: mesh_decode(dev, counters, card)),
+                         ("23c", lambda: mesh_distill_step(dev, counters, card))):
+            t0 = time.perf_counter()
+            runs[name] = fn()
+            wall[name] = time.perf_counter() - t0
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+    runs["wall_s"] = wall
     return runs
 
 
@@ -3329,6 +3704,10 @@ def main() -> int:
     t0 = time.perf_counter()
     gw_runs = gateways(dev, counters, card, graphs)
     phase_s["14+15"] = time.perf_counter() - t0
+    phase_s["14d+14e"] = gw_runs["14d"].pop("phase_s")
+    t0 = time.perf_counter()
+    placed = placement_paths(dev, counters, card, gw_runs["14a"])
+    phase_s["23"] = time.perf_counter() - t0
     zamba = zamba2_paths(dev, counters, card, graphs)
     phase_s.update(zamba["wall_s"])
     moe_run = moe_paths(dev, counters, card, graphs)
@@ -3431,6 +3810,24 @@ def main() -> int:
                 "flow_rel_l2": internvl["flow_rel_l2"],
                 "worst_logits_relative_l2": internvl["decode_rel_l2"]}}
     slice16_launches = {**whisper_run["phase_launches"], **internvl["phase_launches"]}
+    slice17 = {   # phases 14d, 14e and 23: the fleet and placement
+        "14d": {"what": f"14a's 12 requests through --fleet {FLEET_HOSTS}",
+                **{f: gw_runs["14d"][f] for f in ("dispatches", "forwards", "wall_s", "homes",
+                                                  "routed", "steals", "alone_equal",
+                                                  "alone_max_rel_l2")},
+                "equal_to_14a": [e["equal"] for e in gw_runs["14d"]["errors_to_14a"]]},
+        "14e": {"what": f"FleetGateway of {FLEET_HOSTS} Gateways over 14a's sampler: hot key, "
+                        "steal round, a join and a leave, 16 requests",
+                **{f: v for f, v in gw_runs["14e"].items() if f != "launches"}},
+        "23a": {"what": "14a's trace through --mesh host (1 x 1 mesh, DTensor weights)",
+                **{f: v for f, v in placed["23a"].items() if f != "launches"}},
+        "23b": {"what": "DecodeGateway on the host mesh, paged kernel, "
+                        f"{MESH_DECODE_ARGS['requests']} requests",
+                **{f: v for f, v in placed["23b"].items() if f != "launches"}},
+        "23c": {"what": f"make_distributed_bns_step at world size 1, {DIST_LAYERS} layers f32",
+                **{f: v for f, v in placed["23c"].items() if f != "launches"}}}
+    slice17_launches = {"14d": gw_runs["14d"]["launches"], "14e": gw_runs["14e"]["launches"],
+                        **{k: placed[k]["launches"] for k in ("23a", "23b", "23c")}}
     new_phases["16"] = {"what": "training programs graphed against eager",
                         **{k: {f: v[f] for f in ("graphed_ms", "eager_ms", "capture_ms",
                                                  "launches_an_iteration", "busy")}
@@ -3515,6 +3912,8 @@ def main() -> int:
             {k: {**v, "launches": slice15_launches[k][name]} for k, v in slice15.items()})
         kernels[-1]["phases"].update(
             {k: {**v, "launches": slice16_launches[k][name]} for k, v in slice16.items()})
+        kernels[-1]["phases"].update(
+            {k: {**v, "launches": slice17_launches[k][name]} for k, v in slice17.items()})
         if name in ("flash_attention", "paged_attention"):
             # phases 21-22's new shapes: flash at hd 64 G 1 (Lq != Lk too) and G 6;
             # paged at KV 8, G 6

@@ -139,8 +139,8 @@ def anytime_carry(params: AnytimeParams, budgets: Sequence[int],
                   x0: Tensor) -> AnytimeCarry:
     """A fresh carry at step 0 (no backbone forwards spent)."""
     n = sorted(budgets)[-1]
-    return AnytimeCarry(x0=x0, U=torch.zeros((n,) + tuple(x0.shape), dtype=x0.dtype,
-                                             device=x0.device), x=x0, step=0)
+    # x0's own factory: a DTensor (the mesh path's) gets a DTensor buffer
+    return AnytimeCarry(x0=x0, U=x0.new_zeros((n,) + tuple(x0.shape)), x=x0, step=0)
 
 
 def anytime_extend(params: AnytimeParams, budgets: Sequence[int],

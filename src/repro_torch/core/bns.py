@@ -22,7 +22,9 @@ under ``torch.no_grad()``, which takes ``ns_sample``'s in-place buffer path.
 The same harness trains BST solvers (the prior-work baseline) by swapping
 the sampler closure: ``bst_sampler`` runs the BST program directly
 (``taxonomy.run_direct``), so its training launches no ``ns_update``.
-``make_distributed_bns_step`` comes with ROADMAP Queue A item 8.
+``make_distributed_bns_step`` is the data-parallel step over a mesh: the
+pairs split over the batch axes, theta and Adam's state replicated, the
+gradients averaged over the data group.
 """
 from __future__ import annotations
 
@@ -40,6 +42,7 @@ from repro_torch.core.rk45 import RK45Program, rk45_solve
 from repro_torch.core.taxonomy import run_direct
 from repro_torch.optim.adam import (
     adam_init,
+    adam_update,
     adam_update_,
     tree_leaves,
     tree_map,
@@ -376,6 +379,82 @@ def train_bns(
     # Report the paper's parameter count (canonical dimension of the family).
     res.num_parameters = ns_solver.count_parameters(cfg.nfe)
     return res
+
+
+def make_distributed_bns_step(field: VelocityField, cfg: BNSTrainConfig, mesh):
+    """The Algorithm-2 step over ``mesh`` (a ``DeviceMesh`` with ("data",
+    "model") or ("pod", "data", "model") axes), the twin of the reference's
+    pjit'd step.
+
+    BNS training is data-parallel: each rank takes its rows of the (x0, x1)
+    pairs along the composed batch axes (a DTensor is redistributed to that
+    split; a plain tensor is the whole batch, the same on every rank, and
+    each rank slices its rows), theta (<200 floats) and the Adam state are
+    replicated, and the gradient and the loss are summed over each batch
+    axis's process group and divided by the number of shards: the mean of
+    equal shards' mean losses is the whole batch's mean. A batch axis of one
+    rank runs no collective. The learning rate is ``lr_fn(it)`` computed on
+    the host, as ``TrainLoop`` does. The backbone inside ``field`` runs on
+    each rank's own copy of its weights. theta and Adam's state lie on the
+mesh's device. Returns (step_fn, theta0, opt0);
+    ``step_fn(theta, opt, it, x0b, x1b) -> (theta, opt, loss)``."""
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import batch_axes
+    from repro_torch.solvers.registry import build_ns
+
+    names = tuple(mesh.mesh_dim_names)
+    axes = [names.index(a) for a in batch_axes(mesh)]
+    sizes = [mesh.size(i) for i in axes]
+    groups = [mesh.get_group(i) for i, n in zip(axes, sizes) if n > 1]
+    parts = 1
+    shard = 0                      # this rank's index along the composed axes
+    coord = mesh.get_coordinate()
+    for i, n in zip(axes, sizes):
+        parts *= n
+        shard = shard * n + coord[i]
+    sampler = ns_sampler(field)
+    lr_fn = (poly_decay(cfg.lr, cfg.iterations) if cfg.lr_schedule == "poly"
+             else cosine_annealing(cfg.lr, cfg.iterations))
+
+    def local_rows(x: Tensor) -> Tensor:
+        if type(x) is not torch.Tensor and hasattr(x, "device_mesh"):
+            from torch.distributed.tensor import Replicate, Shard
+
+            return x.redistribute(mesh, [Shard(0) if d in axes else Replicate()
+                                         for d in range(len(names))]).to_local()
+        if x.shape[0] % parts:
+            raise ValueError(f"a batch of {x.shape[0]} pairs does not split over "
+                             f"{parts} data shards")
+        n = x.shape[0] // parts
+        return x[shard * n:(shard + 1) * n]
+
+    def step(theta, opt, it, x0b, x1b):
+        x0, x1 = local_rows(x0b), local_rows(x1b)
+        th = tree_map(lambda p: p.detach().requires_grad_(True), theta)
+        loss = _loss_fn(sampler, th, x0, x1)
+        leaves = tree_leaves(th)
+        grads = [torch.zeros_like(p) if g is None else g
+                 for p, g in zip(leaves, torch.autograd.grad(loss, leaves, allow_unused=True))]
+        loss = loss.detach()
+        if groups:
+            flat = torch.cat([g.reshape(-1) for g in grads] + [loss.reshape(1)])
+            for group in groups:
+                dist.all_reduce(flat, group=group)
+            flat = flat / parts
+            grads = list(torch.split(flat[:-1], [g.numel() for g in grads]))
+            grads = [g.reshape(p.shape) for g, p in zip(grads, leaves)]
+            loss = flat[-1]
+        lr = torch.tensor(float(lr_fn(int(it))), dtype=torch.float32, device=loss.device)
+        with torch.no_grad():
+            theta, opt = adam_update(tree_unflatten(theta, grads), opt, theta, lr)
+        return theta, opt, loss
+
+    device = (torch.device("cuda", torch.cuda.current_device())
+              if mesh.device_type == "cuda" else torch.device(mesh.device_type))
+    ns0 = build_ns(cfg.init_solver, cfg.nfe, field, sigma0=cfg.sigma0)
+    theta0 = tree_map(lambda p: p.detach().to(device, copy=True), ns_solver.from_ns(ns0))
+    return step, theta0, adam_init(theta0)
 
 
 def train_bst(

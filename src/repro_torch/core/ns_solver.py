@@ -102,7 +102,7 @@ def ns_sample(
             us.append(u_fn(times[i], x))
             x = update_fn(x0, torch.stack(us), a[i], b[i, : i + 1])
         return x
-    U = torch.zeros((n,) + tuple(x0.shape), dtype=x0.dtype, device=dev)
+    U = x0.new_zeros((n,) + tuple(x0.shape))     # a DTensor where x0 is one
     for i in range(n):
         U[i] = u_fn(times[i], x)
         x = update_fn(x0, U[: i + 1], a[i], b[i, : i + 1])

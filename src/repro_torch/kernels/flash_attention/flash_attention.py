@@ -12,7 +12,7 @@ import ctypes
 
 import torch
 
-from repro_torch.kernels import build
+from repro_torch.kernels import build, dtensor
 
 COUNTER = build.LaunchCounter("flash_attention")
 BWD_COUNTER = build.LaunchCounter("flash_attention_bwd")
@@ -85,6 +85,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     tensor maps do; f32 runs on the CUDA cores. The output is a (B, H, Lq, hd) view of a (B, Lq, H, hd) buffer,
     the model's layout.
     """
+    if not type(q) is type(k) is type(v) is torch.Tensor:
+        dtensor.refuse("flash_attention", q, k, v)
     _check_inputs("flash_attention", q, k, v, HEAD_DIMS)
     B, H, Lq, hd = q.shape
     KV, Lk = k.shape[1], k.shape[2]
@@ -127,6 +129,7 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     kernels' two passes (dq with D = rowsum(dO * O), then dk and dv) and
     counts once.
     """
+    dtensor.refuse("flash_attention_bwd", q, k, v, o, lse, do)
     _check_inputs("flash_attention_bwd", q, k, v, BWD_HEAD_DIMS)
     B, H, Lq, hd = q.shape
     KV, Lk = k.shape[1], k.shape[2]

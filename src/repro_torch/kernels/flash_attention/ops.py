@@ -4,6 +4,7 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.kernels import dtensor
 from repro_torch.kernels.flash_attention.flash_attention import (
     flash_attention,
     flash_attention_bwd,
@@ -43,7 +44,13 @@ def attend(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     On the card: the kernel, through ``FlashAttention`` (forward with
     log-sum-exp, backward kernel) where autograd needs the gradient of an
     input, otherwise one plain forward launch. On the CPU: the plain version,
-    which autograd differentiates."""
+    which autograd differentiates. A DTensor call runs on each rank's local
+    shard: the batch over the data axes, the heads over ``model`` where both
+    head counts divide it (``kernels.dtensor.local_call``)."""
+    if type(q) is not torch.Tensor and dtensor.any_dtensor(q, k, v):
+        return dtensor.local_call(lambda q, k, v: attend(q, k, v, causal=causal), (q, k, v),
+                                  batch_dims=(0, 0, 0), head_dims=(2, 2, 2),
+                                  out_batch_dim=0, out_head_dim=2)
     qt, kt, vt = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
     if not q.is_cuda:
         out = attention_ref(qt, kt, vt, causal=causal)
@@ -59,7 +66,14 @@ def paged_attend(q: torch.Tensor, k_pages: torch.Tensor, v_pages: torch.Tensor,
                  block_table: torch.Tensor, lengths: torch.Tensor) -> torch.Tensor:
     """One-token paged decode attention; q: (B, KV, G, hd) grouped heads,
     k_pages/v_pages: (num_pages, page_size, KV, hd), block_table: (B, nb),
-    lengths: (B,), both int32."""
+    lengths: (B,), both int32. A DTensor call runs on each rank's local
+    shard: the batch (q, the table, the lengths) over the data axes, the KV
+    heads over ``model`` where they divide it."""
+    if type(q) is not torch.Tensor and dtensor.any_dtensor(q, k_pages, v_pages):
+        return dtensor.local_call(paged_attend, (q, k_pages, v_pages, block_table, lengths),
+                                  batch_dims=(0, None, None, 0, 0),
+                                  head_dims=(1, 2, 2, None, None),
+                                  out_batch_dim=0, out_head_dim=1)
     if q.is_cuda:
         return paged_attention(q, k_pages, v_pages, block_table, lengths)
     return paged_attention_ref(q, k_pages, v_pages, block_table, lengths)

@@ -13,7 +13,7 @@ import ctypes
 
 import torch
 
-from repro_torch.kernels import build
+from repro_torch.kernels import build, dtensor
 
 COUNTER = build.LaunchCounter("paged_attention")
 HEAD_DIMS = (32, 64, 80, 128)
@@ -119,6 +119,8 @@ def paged_attention(q: torch.Tensor, k_pages: torch.Tensor, v_pages: torch.Tenso
     stream, as every path of the port is. The kernel launches on q's device
     and its current stream.
     """
+    if not type(q) is type(k_pages) is type(v_pages) is torch.Tensor:
+        dtensor.refuse("paged_attention", q, k_pages, v_pages, block_table, lengths)
     if not (q.is_cuda and k_pages.is_cuda and v_pages.is_cuda and block_table.is_cuda
             and lengths.is_cuda):
         raise ValueError("paged_attention launches the CUDA kernel: every argument "

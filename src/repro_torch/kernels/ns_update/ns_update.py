@@ -12,7 +12,7 @@ import ctypes
 
 import torch
 
-from repro_torch.kernels import build
+from repro_torch.kernels import build, dtensor
 
 COUNTER = build.LaunchCounter("ns_update")
 BWD_COUNTER = build.LaunchCounter("ns_update_bwd")
@@ -77,6 +77,8 @@ def ns_update(x0: torch.Tensor, u: torch.Tensor, a: torch.Tensor,
     point makes x0's card current if it is not, to keep the per-step host
     work small. Returns a new tensor of x0's shape and dtype.
     """
+    if type(x0) is not torch.Tensor or type(u) is not torch.Tensor:
+        dtensor.refuse("ns_update", x0, u, a, w)
     dev, n = x0.device, u.shape[0]
     if not (a.dtype == torch.float32 and w.dtype == torch.float32
             and dev.type == "cuda" and u.device == dev and a.device == dev
@@ -126,6 +128,7 @@ def ns_update_bwd(g: torch.Tensor, x0: torch.Tensor, u: torch.Tensor, a: torch.T
     workspace kept per device, so calls on one device must be ordered on one
     stream, as every path of the port is.
     """
+    dtensor.refuse("ns_update_bwd", g, x0, u, a, w)
     dev, n = x0.device, u.shape[0]
     if not (a.dtype == torch.float32 and w.dtype == torch.float32
             and dev.type == "cuda" and u.device == dev and a.device == dev

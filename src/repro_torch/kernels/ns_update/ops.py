@@ -5,6 +5,7 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.kernels import dtensor
 from repro_torch.kernels.ns_update.ns_update import ns_update, ns_update_bwd
 from repro_torch.kernels.ns_update.ref import ns_update_bwd_ref, ns_update_ref
 
@@ -30,7 +31,11 @@ def fused_ns_update(x0: torch.Tensor, u: torch.Tensor, a: torch.Tensor,
     """``a * x0 + sum_j w_j u_j``. Where autograd needs the result's gradient
     it goes through ``NSUpdate``, whose backward is the backward kernel on the
     card; otherwise it is one call of the kernel (or the plain version on the
-    CPU)."""
+    CPU). A DTensor call runs on each rank's local shard, the batch split
+    over the data axes (``kernels.dtensor.local_call``)."""
+    if type(x0) is not torch.Tensor and dtensor.any_dtensor(x0, u, a, w):
+        return dtensor.local_call(fused_ns_update, (x0, u, a, w), batch_dims=(0, 1, None, None),
+                                  head_dims=(None,) * 4, out_batch_dim=0, out_head_dim=None)
     if torch.is_grad_enabled() and (x0.requires_grad or u.requires_grad
                                     or a.requires_grad or w.requires_grad):
         return NSUpdate.apply(x0, u, a, w)

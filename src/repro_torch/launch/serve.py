@@ -100,9 +100,17 @@ telemetry flags: ``--metrics-port`` serves ``/metrics`` and
 ``/metrics.json`` on localhost while traffic runs, ``--stats-interval N``
 prints a stats line every N seconds, ``--metrics-json`` writes the final
 registry snapshot and ``--trace-jsonl`` the recorded request lifecycles.
-``--mesh`` and ``--fleet`` (ROADMAP Queue A item 8), ``--ckpt`` and
-``--profile`` (item 11) exit naming their item when set off their defaults
-— the launcher never serves something else in their place.
+``--fleet N`` federates N gateway hosts (each a ``Gateway``, or a
+``ContinuousGateway`` under ``--continuous``, all serving the one sampler)
+behind a ``FleetGateway``; the closing stats line adds the fleet's hosts,
+steals and ``routed:`` counts. ``--mesh host`` places the sampler's weights
+and each batch on the 1 x 1 mesh of this process (a process group of one
+rank: NCCL on the card, gloo on the CPU), every gateway host on the same
+mesh; ``production`` and ``multipod`` fall back to one device with a
+WARNING where their 256 or 512 ranks are missing, as in the reference.
+Both take the flow gateway only (``--gateway``). ``--ckpt`` and
+``--profile`` (ROADMAP Queue A item 11) exit naming their item when set off
+their defaults — the launcher never serves something else in their place.
 
 Decode mode serves batched greedy decode (``greedy_demo``; for
 whisper-medium over a zeroed encoder memory of 1500 frames, as the
@@ -158,7 +166,9 @@ from repro_torch.serving.engine import (
     SamplingParams,
     greedy_demo,
 )
+from repro_torch.serving.fleet import FleetGateway
 from repro_torch.serving.gateway import Gateway, Request
+from repro_torch.serving.sharded import serving_mesh
 from repro_torch.serving.slo import AdmissionRejected, DeadlineExceeded, SLOConfig
 from repro_torch.serving.tiers import ShapeLadder, TierOversize
 from repro_torch.serving.zoo import SolverZoo
@@ -170,9 +180,6 @@ DEFAULT_NFE = 8
 # what it selects, the ROADMAP Queue A item that brings it, the reference's
 # add_argument keywords). A value off that default exits naming the item.
 _UNPORTED = {
-    "mesh": ("--mesh", "backbone sharding over a serving mesh", 8,
-             dict(default="none", choices=["none", "host", "production", "multipod"])),
-    "fleet": ("--fleet", "the fleet gateway", 8, dict(type=int, default=1)),
     "ckpt": ("--ckpt", "restoring backbone weights from a checkpoint", 11,
              dict(default=None)),
     "profile": ("--profile", "the launch profiles", 11,
@@ -384,6 +391,15 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--trace-jsonl", default=None,
                     help="gateway modes: record each request's lifecycle and write "
                          "it here as JSON lines")
+    ap.add_argument("--mesh", default="none",
+                    choices=["none", "host", "production", "multipod"],
+                    help="flow gateway: shard the backbone over this serving mesh "
+                         "(host = the 1 x 1 mesh of this process; production and "
+                         "multipod need 256 and 512 ranks); 'none' = one device")
+    ap.add_argument("--fleet", type=int, default=1,
+                    help="flow gateway: federate N host gateways behind one submit "
+                         "(FleetGateway: affinity routing, work stealing); every host "
+                         "serves the same sampler")
     for dest, (flag, what, item, kw) in _UNPORTED.items():
         ap.add_argument(flag, dest=dest, **kw,
                         help=f"not served yet: {what} (ROADMAP Queue A item {item})")
@@ -417,6 +433,12 @@ def _refuse_unported(args) -> None:
                 f"not served by the port yet: BNS distillation of {args.arch} on the "
                 f"card: {missing}; --device cpu distills through the plain forms, "
                 "--bns-iters 0 serves the initial euler solver")
+    for flag, value, default in (("--mesh", args.mesh, "none"), ("--fleet", args.fleet, 1)):
+        if value != default and not (args.mode == "flow" and args.gateway):
+            raise SystemExit(f"{flag} serves through the flow gateway: add --gateway "
+                             "(--mode flow)")
+    if args.fleet < 1:
+        raise SystemExit("--fleet takes at least one host")
     for dest, (flag, what, item, kw) in _UNPORTED.items():
         if getattr(args, dest) != kw["default"]:
             raise SystemExit(f"not served by the port yet: {flag}, {what} "
@@ -684,17 +706,30 @@ def _serve_gateway(args, sampler, cond, request_budgets) -> GatewayServed:
         tiers = ShapeLadder.parse(args.tiers) if args.tiers else None
     except ValueError as e:
         raise SystemExit(f"--tiers: {e}") from None
+    recorder = TraceRecorder() if args.trace_jsonl else None
     kw = dict(max_batch=args.max_batch, max_wait_ms=args.max_wait_ms,
               mixed_budget_policy=args.mixed_budget_policy, strict_nfe=args.strict_nfe,
-              seed=args.seed, recorder=TraceRecorder() if args.trace_jsonl else None,
-              slo=_slo(args), tiers=tiers)
-    if args.continuous:
-        try:
-            gw = ContinuousGateway(sampler, max_slots=args.max_slots, **kw)
-        except TypeError as e:
-            raise SystemExit(f"--continuous: {e}") from None
+              seed=args.seed, slo=_slo(args), tiers=tiers,
+              mesh=serving_mesh(args.mesh, sampler.device))
+
+    def make_host(rec=None):
+        # the solver artifact is tiny, so every fleet host serves the SAME
+        # sampler object: replication is free, distribution is the work
+        if args.continuous:
+            try:
+                return ContinuousGateway(sampler, max_slots=args.max_slots, recorder=rec,
+                                         **kw)
+            except TypeError as e:
+                raise SystemExit(f"--continuous: {e}") from None
+        return Gateway(sampler, recorder=rec, **kw)
+
+    if args.fleet > 1:
+        # the hosts take the recorder through federate(), so every hop
+        # carries its host's name
+        gw = FleetGateway({f"h{i}": make_host() for i in range(args.fleet)},
+                          base_seed=args.seed, recorder=recorder)
     else:
-        gw = Gateway(sampler, **kw)
+        gw = make_host(recorder)
     tokens = cond["tokens"].cpu()        # the conditioning rows, on the host once
     gw.start()
     stop_telemetry = _start_telemetry(args, gw, "gateway stats")

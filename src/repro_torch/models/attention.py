@@ -237,8 +237,8 @@ def decode_attention(
         keep = active[:, None, None]
         k_new = torch.where(keep, k_new, cache.k[rows, slot])
         v_new = torch.where(keep, v_new, cache.v[rows, slot])
-    cache.k[rows, slot] = k_new
-    cache.v[rows, slot] = v_new
+    _write_slots(cache.k, slot, k_new)
+    _write_slots(cache.v, slot, v_new)
 
     slot_ids = torch.arange(slots, device=x.device)
     if window:
@@ -249,6 +249,58 @@ def decode_attention(
     out = _grouped_attend(q, cache.k.to(q.dtype), cache.v.to(q.dtype), valid[:, None, :])
     out = out.reshape(B, 1, n_heads * head_dim) @ p["wo"]
     return out, cache._replace(index=pos + 1)
+
+
+def _local(x, buf, dims: dict) -> Tensor:
+    """The local shard of ``x`` laid out as the DTensor ``buf`` is along the
+    dims ``dims`` maps (buf's dim -> x's), replicated along the rest; a
+    plain ``x`` counts as replicated."""
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+
+    mesh = buf.device_mesh
+    if not isinstance(x, DTensor):
+        x = DTensor.from_local(x, mesh, [Replicate()] * mesh.ndim, run_check=False)
+    want = [Shard(dims[p.dim]) if isinstance(p, Shard) and p.dim in dims else Replicate()
+            for p in buf.placements]
+    return x.redistribute(mesh, want).to_local()
+
+
+def _split_along(buf, dims) -> bool:
+    from torch.distributed.tensor import Shard
+
+    return any(isinstance(p, Shard) and p.dim in dims for p in buf.placements)
+
+
+def _write_slots(buf: Tensor, slot: Tensor, new: Tensor) -> None:
+    """``buf[b, slot[b]] = new[b]`` for every row b, in place: buf (B, slots,
+    KV, hd), new (B, KV, hd). A DTensor cache of the mesh path (``serving.
+    sharded.place_decode_state``) takes the write on each rank's local shard,
+    with ``slot`` and ``new`` laid out as its batch and heads are (DTensor
+    has no in-place ``index_put_`` over a split cache); its slot axis must
+    not be split."""
+    if type(buf) is torch.Tensor:
+        buf[torch.arange(buf.shape[0], device=buf.device), slot] = new
+        return
+    if _split_along(buf, (1,)):
+        raise NotImplementedError("a decode write into a cache split along its slot axis")
+    shard = buf.to_local()
+    shard[torch.arange(shard.shape[0], device=shard.device),
+          _local(slot, buf, {0: 0})] = _local(new, buf, {0: 0, 2: 1, 3: 2})
+
+
+def _write_pages(pool: Tensor, page: Tensor, off: Tensor, new: Tensor) -> None:
+    """``pool[page[b], off[b]] = new[b]`` in place: pool (pages, page_size, KV,
+    hd), new (B, KV, hd). A DTensor pool takes the write on each rank's local
+    shard: every row's page and offset, and every row's new K or V along the
+    pool's heads split (a pool is shared by all rows, so each rank writes all
+    of them)."""
+    if type(pool) is torch.Tensor:
+        pool[page, off] = new
+        return
+    if _split_along(pool, (0, 1)):
+        raise NotImplementedError("a decode write into a pool split along its pages")
+    pool.to_local()[_local(page, pool, {}), _local(off, pool, {})] = \
+        _local(new, pool, {2: 1, 3: 2})
 
 
 def decode_attention_paged(
@@ -292,8 +344,8 @@ def decode_attention_paged(
     rows = torch.arange(B, device=x.device)
     page = block_table[rows, posw // ps].long()                 # (B,)
     off = posw % ps
-    k_pages[page, off] = k_new[:, 0].to(k_pages.dtype)
-    v_pages[page, off] = v_new[:, 0].to(v_pages.dtype)
+    _write_pages(k_pages, page, off, k_new[:, 0].to(k_pages.dtype))
+    _write_pages(v_pages, page, off, v_new[:, 0].to(v_pages.dtype))
 
     qg = q.reshape(B, n_kv, G, head_dim)
     if kernel:

@@ -43,6 +43,9 @@ carry's tensors (the reference's functional ``.at[].set``), and a preempted
 slot's column is copied to the host (``PausedCarry``), never kept as a
 view. Each leg's time (``device_dispatch_ms``) ends after its exits reach
 the host, or after the card finishes when no slot exits.
+
+With ``mesh=`` the carry tensors are re-placed on the serving mesh after a
+trajectory opens and after every join scatter (``sharded.carry_placer``).
 """
 from __future__ import annotations
 
@@ -54,11 +57,13 @@ import torch
 
 from repro_torch.observability import profile_span
 from repro_torch.serving.gateway import (
+    EXEC_LOCK,
     BatchScheduler,
     Gateway,
     Response,
     _Entry,
     assemble_rows,
+    mesh_scope,
     to_device,
     to_host,
 )
@@ -272,18 +277,25 @@ class ContinuousGateway(Gateway):
             max_leg=max_leg, join_cost_cap=join_cost_cap,
             slo_aware=slo is not None)
         self._traj: Optional[_Trajectory] = None
+        # with a mesh, the slot-batched carry is re-placed on it after the
+        # trajectory opens and after every join scatter
+        self._place_carry = None
+        if mesh is not None:
+            from repro_torch.serving import sharded
+
+            self._place_carry = sharded.carry_placer(mesh)
 
     # -- engine tick ---------------------------------------------------------
 
     def pump(self, force: bool = False) -> int:
         """One engine tick; returns how many dispatches ran (trajectory
         opens and legs count as one each, like flush batches). The
-        trajectory's work runs under ``_exec_lock`` as flush batches do."""
+        trajectory's work runs under ``EXEC_LOCK`` as flush batches do."""
         with self._plan_lock:
             if self.slo is not None:
                 self._shed_expired()
                 self.scheduler.lead_ms = self._dispatch_cost_ms()
-            with self._exec_lock:
+            with EXEC_LOCK, mesh_scope(self.mesh):
                 ran = self._tick_trajectory(force)
             # interleave flushes: whatever neither joined nor started still
             # obeys the flush-only rules (full buckets now, partials aged)
@@ -294,7 +306,7 @@ class ContinuousGateway(Gateway):
 
     def _tick_trajectory(self, force: bool) -> int:
         """Advance the in-flight trajectory one leg, or open one; returns
-        the dispatches run (caller holds ``_plan_lock`` and ``_exec_lock``)."""
+        the dispatches run (caller holds ``_plan_lock`` and ``EXEC_LOCK``)."""
         ran = 0
         if self._traj is not None:
             try:
@@ -351,7 +363,10 @@ class ContinuousGateway(Gateway):
                            shape_key=starters[0].shape_key, tokens=tokens)
         _, x0 = to_device(x0_np, None, self._device)
         with profile_span(f"continuous.start.k{slots}"):
-            traj.carry = self.sampler.carry_start(traj.cond(self._device), x0)
+            carry = self.sampler.carry_start(traj.cond(self._device), x0)
+        if self._place_carry is not None:
+            carry = self._place_carry(carry)
+        traj.carry = carry
         self._traj = traj
         with self._stats_lock:
             self._m.trajectories.inc()
@@ -499,6 +514,8 @@ class ContinuousGateway(Gateway):
             k = len(fresh)
             bucket = self.scheduler.join_bucket(k)
             cond, x0 = to_device(*assemble_rows(fresh, bucket), dev)
+            if self._place is not None:
+                cond, x0 = self._place(cond, x0)
             with profile_span(f"continuous.join.{boundary}/k{bucket}"):
                 prefix = self.sampler.carry_start(cond, x0)
                 prefix, _ = self.sampler.carry_extend(cond, prefix, boundary)
@@ -518,6 +535,9 @@ class ContinuousGateway(Gateway):
             _, U = to_device(u_np, None, dev)
             _, x = to_device(x_np, None, dev)
             rcarry = type(traj.carry)(x0=x0, U=U, x=x, step=s)
+            if self._place is not None:
+                cond, _ = self._place(cond, x0)
+                rcarry = self._place_carry(rcarry)
             if s < boundary:
                 with profile_span(
                         f"continuous.resume.{s}-{boundary}/k{bucket}"):
@@ -538,7 +558,10 @@ class ContinuousGateway(Gateway):
         U[:, idx] = torch.stack([cols[e.uid][1] for e in joiners], dim=1)
         x = carry.x.clone()
         x[idx] = torch.stack([cols[e.uid][2] for e in joiners])
-        traj.carry = carry._replace(x0=x0, U=U, x=x)
+        carry = carry._replace(x0=x0, U=U, x=x)
+        if self._place_carry is not None:
+            carry = self._place_carry(carry)
+        traj.carry = carry
         now = self.clock()
         rec = self.recorder
         for si, e in zip(free, joiners):

@@ -4,8 +4,11 @@ Port of ``repro.serving.decode``. Where it differs from the reference:
 sampled requests draw their noise from per-sequence torch generators seeded
 ``fold_in(base seed, uid)`` and per step ``fold_in(seed, count)``
 (``serving.engine.fold_in``) where the reference folds threefry keys, with
-the same property (tokens depend only on base seed, uid and step); and
-``mesh=`` (backbone sharding, ROADMAP Queue A item 8) is refused.
+the same property (tokens depend only on base seed, uid and step). With
+``mesh=`` the engine's weights and the slot state are placed on the serving
+mesh (``serving.sharded.shard_params`` and ``place_decode_state``: a paged
+pool's KV heads on ``model``, the block table and positions replicated), and
+the paged kernel runs on each rank's local shard.
 
 The flow gateways batch the paper's BNS sampler; this module batches the
 serving stack's SECOND engine — autoregressive decode with KV-cache /
@@ -43,8 +46,10 @@ keep emitting every tick while long prompts stream in beside them. Chunk
 widths are bucketed to powers of two, so a serving session runs at most
 ``log2(prefill_chunk)`` distinct prefill shapes: on the card, one captured
 CUDA graph each beside the step's (``serving.programs``), captured inside
-``pump``'s ``_plan_lock`` like every engine call, so no other thread of the
-gateway launches work during a capture. ``prefill_chunk=0`` restores the
+``pump``'s ``_plan_lock`` and the process's dispatch lock
+(``gateway.EXEC_LOCK``) like every engine call, so no other thread, of this
+gateway or of a fleet's other hosts, launches work during a capture.
+``prefill_chunk=0`` restores the
 legacy token-by-token teacher-forced feed (the decode benchmark's
 comparison baseline). The prefill scan body is the same ``decode_apply``
 as ``step_slots``, so generated tokens are bit-identical either way.
@@ -105,7 +110,7 @@ import numpy as np
 
 from repro_torch.observability import profile_span
 from repro_torch.serving.engine import SlotSampling, fold_in
-from repro_torch.serving.gateway import GatewayBase
+from repro_torch.serving.gateway import EXEC_LOCK, GatewayBase, mesh_scope
 from repro_torch.serving.slo import urgency_key
 from repro_torch.serving.stream import StreamSink
 
@@ -262,10 +267,6 @@ class DecodeGateway(GatewayBase):
                  mesh=None,
                  clock: Callable[[], float] = time.monotonic,
                  metrics=None, recorder=None, slo=None):
-        if mesh is not None:
-            raise NotImplementedError(
-                "sharding the decode backbone over a mesh is not ported yet "
-                "(ROADMAP Queue A item 8)")
         if max_slots < 1:
             raise ValueError("max_slots must be >= 1")
         if prefill_chunk < 0:
@@ -310,6 +311,15 @@ class DecodeGateway(GatewayBase):
             state_kw["total_pages"] = pages
         self._state = engine.init_slot_state(max_slots, cache_slots,
                                              **state_kw)
+        self.mesh = mesh
+        if mesh is not None:
+            from repro_torch.serving import sharded
+            from repro_torch.serving.programs import ProgramCache
+
+            sharded.check_mesh(mesh)
+            engine.params = sharded.shard_params(engine.params, engine.cfg, mesh)
+            engine.programs = ProgramCache(engine.device)  # keyed on the placed weights
+            self._state = sharded.place_decode_state(self._state, engine.cfg, mesh)
         self._slots: list[Optional[_Slot]] = [None] * max_slots
         self._feed = np.zeros((max_slots,), np.int32)   # next token per slot
         self._steps = 0                                  # engine steps run
@@ -373,7 +383,7 @@ class DecodeGateway(GatewayBase):
         """One engine tick: release cancelled sequences, admit into free
         slots, one chunked-prefill call (if any row is consuming its
         prompt), one masked decode step (if any row is past it)."""
-        with self._plan_lock:
+        with self._plan_lock, EXEC_LOCK, mesh_scope(self.mesh):
             self._sweep_cancelled()
             if self.slo is not None:
                 self._shed_expired()

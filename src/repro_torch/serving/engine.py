@@ -547,6 +547,8 @@ class DecodeEngine:
         with torch.no_grad():
             toks = self.programs(("step_slots", sampling is not None), run, inputs,
                                  tuple(state))
+        if type(toks) is not torch.Tensor and hasattr(toks, "full_tensor"):
+            toks = toks.full_tensor()      # the mesh path's DTensor, gathered
         return toks.cpu(), state
 
     def prefill_slots(self, tokens, lengths, state, mask):

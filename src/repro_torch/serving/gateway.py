@@ -42,7 +42,8 @@ nor on routing. Entries hold host numpy; each dispatch copies its assembled
 x0 and tokens to the sampler's device once and its results back once,
 inside the timed dispatch window (``device_dispatch_ms`` then covers the
 card's work, not only the launches). ``Response.latents`` is a host numpy
-row, as in the reference. One dispatch runs at a time (``_exec_lock``):
+row, as in the reference. One dispatch runs at a time (``EXEC_LOCK``, one
+for the process, so a fleet's hosts take turns too):
 where the reference lets a draining thread dispatch beside the serve
 thread, two torch threads would interleave their launches on one stream,
 each window timing the other's work too. On the card the sampler replays
@@ -51,9 +52,9 @@ dispatch captures it inside that lock, so no other thread launches work
 during a capture, and ``stats()`` reports the captures and replays.
 
 Continuous batching, preemption and shape tiers: ``serving.continuous``
-and ``serving.tiers``. Backbone sharding (``mesh=``) and fleet federation
-come with ROADMAP Queue A item 8; ``GatewayBase`` already carries the fleet
-hooks (``load``/``steal``/``inject``/``federate``).
+and ``serving.tiers``. Backbone placement on a serving mesh (``mesh=``):
+``serving.sharded``. Fleet federation: ``serving.fleet``, through the hooks
+``GatewayBase`` carries (``load``/``steal``/``inject``/``federate``).
 
 ``GatewayBase`` holds everything sampler-agnostic (intake, serve thread,
 drain with in-flight accounting, SLO admission and shedding, streaming, the
@@ -75,6 +76,7 @@ import torch
 from repro_torch.observability import NULL_RECORDER, MetricsRegistry, profile_span
 from repro_torch.serving.engine import fold_in
 from repro_torch.serving.programs import ProgramCache
+from repro_torch.serving.sharded import scope as mesh_scope
 from repro_torch.serving.slo import (
     AdmissionRejected,
     DeadlineExceeded,
@@ -87,6 +89,16 @@ from repro_torch.serving.stream import ResponseStream, StreamSink
 from repro_torch.serving.tiers import ShapeLadder, crop_row, pad_rows
 
 POLICIES = ("never", "auto", "always")
+
+# One dispatch runs in the process at a time. The reference lets the serve
+# thread and a draining thread dispatch at once (jax is thread-safe); in
+# torch two threads would interleave on one stream, so each dispatch window
+# would also time the other's work, forward-mode AD (the schedulers' time
+# derivatives) keeps levels that two threads must not share, and a CUDA
+# graph capture must see no other thread's launches. The lock is the
+# process's, not a gateway's: a fleet's hosts dispatch from threads of their
+# own, and every gateway (flush, continuous, decode) takes it.
+EXEC_LOCK = threading.RLock()
 
 
 class DrainTimeout(RuntimeError):
@@ -238,6 +250,8 @@ def to_host(x) -> np.ndarray:
     A CPU tensor is copied, so the array never aliases a tensor that later
     work may write in place; a card tensor's copy waits for the card."""
     if isinstance(x, torch.Tensor):
+        if type(x) is not torch.Tensor and hasattr(x, "full_tensor"):
+            x = x.full_tensor()          # a DTensor of the mesh path, gathered
         return x.detach().to("cpu", copy=True).numpy()
     return np.asarray(x)
 
@@ -620,6 +634,7 @@ class GatewayBase:
         self._m = GatewayMetrics(self.metrics)
         self.recorder = recorder if recorder is not None else NULL_RECORDER
         self._host = ""    # fleet host label stamped into trace events
+        self.mesh = None    # the serving mesh (the gateways that take mesh=)
         self._started = clock()
         self._uid = itertools.count()
         self._plan_lock = threading.Lock()
@@ -1073,8 +1088,12 @@ class Gateway(GatewayBase):
     ``from_zoo`` acquires the solver artifact through a ``SolverZoo`` so a
     gateway boot is a cache hit/load, never an accidental re-distillation.
     ``seed`` is the base seed that noise of requests without ``x0`` or
-    ``seed`` folds its uid into. ``mesh`` other than None raises: backbone
-    sharding comes with ROADMAP Queue A item 8.
+    ``seed`` folds its uid into. ``mesh`` (a ``DeviceMesh`` with ("data",
+    "model") axes, ``launch.mesh``) places the sampler's weights by the
+    sharding rules (``serving.sharded.shard_sampler``) and splits each
+    assembled batch over the data axes before dispatch (``tier_placer``
+    under ``tiers``, else ``batch_placer``); the kernels run on each rank's
+    local shard.
     """
 
     _request_type = Request     # submit_stream builds these
@@ -1087,13 +1106,17 @@ class Gateway(GatewayBase):
                  metrics: Optional[MetricsRegistry] = None, recorder=None,
                  slo: Optional[SLOConfig] = None,
                  tiers: Optional[ShapeLadder] = None):
-        if mesh is not None:
-            raise NotImplementedError(
-                "the port's gateway does not shard the backbone yet "
-                "(mesh=; ROADMAP Queue A item 8)")
         super().__init__(clock=clock, metrics=metrics, recorder=recorder,
                          slo=slo)
         self.sampler = sampler
+        self.mesh = mesh
+        self._place = None
+        if mesh is not None:
+            from repro_torch.serving import sharded
+
+            sharded.shard_sampler(sampler, mesh)
+            self._place = (sharded.tier_placer(mesh, tiers) if tiers is not None
+                           else sharded.batch_placer(mesh))
         # where the sampler's work runs (None: the toys' CPU tensors)
         dev = getattr(sampler, "device", None)
         self._device = None if dev is None else torch.device(dev)
@@ -1111,13 +1134,6 @@ class Gateway(GatewayBase):
             top_budget=max(sampler.budgets), slo_aware=slo is not None)
         self.strict_nfe = strict_nfe
         self._base_seed = seed
-        # one dispatch runs on the sampler at a time. The reference lets the
-        # serve thread and a draining thread dispatch at once (jax is
-        # thread-safe); in torch two threads would interleave on one stream,
-        # so each dispatch window would also time the other's work, and
-        # forward-mode AD (the schedulers' time derivatives) keeps levels
-        # that two threads must not share
-        self._exec_lock = threading.Lock()
 
     @classmethod
     def from_zoo(cls, zoo, spec, *, params: dict, cfg, sched, log=None,
@@ -1224,10 +1240,10 @@ class Gateway(GatewayBase):
         cancelled future rejecting its result mid-scatter) is surfaced into
         that batch's unresolved futures and the NEXT batch still runs —
         entries were already removed from the queue, so anything less
-        strands their futures forever. Batches run under ``_exec_lock``."""
+        strands their futures forever. Batches run under ``EXEC_LOCK``."""
         for batch in batches:
             try:
-                with self._exec_lock:
+                with EXEC_LOCK, mesh_scope(self.mesh):
                     self._execute(batch)
             except BaseException as exc:  # noqa: BLE001 — must not strand
                 self._fail_entries(batch.entries, exc)
@@ -1251,6 +1267,8 @@ class Gateway(GatewayBase):
             t0 = self.clock()
             x0_np, t_np = assemble_rows(es, batch.bucket)
             cond, x0 = to_device(x0_np, t_np, self._device)
+            if self._place is not None:
+                cond, x0 = self._place(cond, x0)
             t1 = self.clock()
             with profile_span(f"gateway.dispatch.{program}"):
                 if batch.mixed:

@@ -31,8 +31,8 @@ Sound use, which every engine of the port keeps:
 - one replay at a time on a device: the paged-attention kernel's arrival
   counters (and the ``ns_update`` backward's) are left at 0 by the kernel
   and shared by every launch on the device. Engines replay on the caller's
-  current stream, and the gateways dispatch under one lock
-  (``Gateway._exec_lock``; the decode gateway's ``_plan_lock``);
+  current stream, and every gateway dispatches under one lock of the
+  process (``gateway.EXEC_LOCK``), a fleet's hosts included;
 - the programs of a device share one memory pool, which is safe because
   replays never overlap and each replay's outputs are copied out before the
   next replay can write the pool;
@@ -81,7 +81,15 @@ def disabled():
 def _tensor_key(x) -> tuple:
     if x is None:
         return (None,)
-    return (tuple(x.shape), x.dtype, x.device)
+    # a DTensor's layout is part of its key, as a sharding is of jit's
+    return (tuple(x.shape), x.dtype, x.device, getattr(x, "placements", None))
+
+
+def _address(x) -> int:
+    """Where a state tensor lies: a DTensor's is its local shard's."""
+    if type(x) is not torch.Tensor and hasattr(x, "to_local"):
+        x = x.to_local()
+    return x.data_ptr()
 
 
 def _tree_map(fn, tree):
@@ -173,7 +181,7 @@ class ProgramCache:
         if not self.active:
             return fn(*inputs)
         full = (key, tuple(_tensor_key(x) for x in inputs),
-                tuple((s.data_ptr(),) + _tensor_key(s) for s in state))
+                tuple((_address(s),) + _tensor_key(s) for s in state))
         program = self.programs.get(full)
         if program is not None:
             self.last = program

@@ -3,7 +3,7 @@
 Every case of ``tests/test_continuous.py`` is mirrored on the port's
 counting toy sampler and on a 2-layer backbone (yi-6b's smoke config, f32,
 the reference's params through ``params_from_jax``), except the sharded case
-(``mesh=``: ROADMAP Queue A item 8). In-port samples equal the direct
+(``mesh=``: ``tests/test_torch_placement.py``). In-port samples equal the direct
 sampler's to the bit, as in the reference (whose backbone case compares at
 1e-5; the port's holds exactly). Parity cases send the same
 ``Request(x0=...)`` traffic through the reference's ``ContinuousGateway``

@@ -897,3 +897,93 @@ def test_gla_refuses_inputs_that_require_grad_on_the_card(dev, needs_grad):
     with torch.no_grad():
         gla(**args, chunk=64)
     assert gs_mod.COUNTER.launches == before + 1
+
+
+# ---------------------------------------------------------------------------
+# The mesh path: DTensors through each kernel entry (``kernels.dtensor``)
+# ---------------------------------------------------------------------------
+
+
+@pytest.fixture
+def card_mesh(dev):
+    from repro_torch.launch.mesh import make_host_mesh
+
+    return make_host_mesh(dev)
+
+
+def _placed(x, mesh):
+    from torch.distributed.tensor import Replicate, distribute_tensor
+
+    return distribute_tensor(x, mesh, [Replicate(), Replicate()], src_data_rank=None)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_dtensor_ns_update_entry_launches_the_kernel(dev, card_mesh, dtype):
+    from torch.distributed.tensor import DTensor
+
+    from repro_torch.kernels.ns_update.ops import fused_ns_update
+
+    rng = np.random.default_rng(31)
+    x0, u = _randn(rng, (4, 1024, 64), dtype, dev), _randn(rng, (5, 4, 1024, 64), dtype, dev)
+    a, w = _randn(rng, (), torch.float32, dev), _randn(rng, (5,), torch.float32, dev)
+    before = nu_mod.COUNTER.launches
+    out = fused_ns_update(_placed(x0, card_mesh), _placed(u, card_mesh), a, w)
+    torch.cuda.synchronize()
+    assert isinstance(out, DTensor) and nu_mod.COUNTER.launches == before + 1
+    tol = TOL[dtype] * 5
+    torch.testing.assert_close(out.to_local().float(), ns_update_ref(x0, u, a, w).float(),
+                               atol=tol, rtol=tol)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_dtensor_attend_entry_launches_the_kernel(dev, card_mesh, dtype):
+    from torch.distributed.tensor import DTensor
+
+    rng = np.random.default_rng(32)
+    q = _randn(rng, (2, 256, 32, 128), dtype, dev)        # model layout (B, L, H, hd)
+    k, v = (_randn(rng, (2, 256, 4, 128), dtype, dev) for _ in range(2))
+    before = fa_mod.COUNTER.launches
+    with torch.no_grad():
+        out = attend(*(_placed(t, card_mesh) for t in (q, k, v)))
+    torch.cuda.synchronize()
+    assert isinstance(out, DTensor) and fa_mod.COUNTER.launches == before + 1
+    ref = attention_ref(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+                        causal=True)
+    local = out.to_local().transpose(1, 2)
+    if dtype == torch.float32:
+        torch.testing.assert_close(local, ref, atol=TOL[dtype] * 4, rtol=TOL[dtype] * 4)
+    else:
+        _check_flash_bf16(local, ref)
+
+
+def test_dtensor_paged_attend_entry_launches_the_kernel(dev, card_mesh):
+    from torch.distributed.tensor import DTensor
+
+    from repro_torch.kernels.flash_attention import paged_attention as pa_mod
+    from repro_torch.kernels.flash_attention.ops import paged_attend
+    from repro_torch.kernels.flash_attention.ref import paged_attention_ref
+
+    q, k, v, table, lengths = _paged_inputs(33, 8, 4, 8, 128, 16, 16, torch.bfloat16,
+                                            torch.bfloat16, dev)
+    before = pa_mod.COUNTER.launches
+    out = paged_attend(_placed(q, card_mesh), _placed(k[0], card_mesh),
+                       _placed(v[0], card_mesh), table, lengths)
+    torch.cuda.synchronize()
+    assert isinstance(out, DTensor) and pa_mod.COUNTER.launches == before + 1
+    _check_paged(out.to_local(), paged_attention_ref(q, k[0], v[0], table, lengths))
+
+
+def test_dtensor_reaching_a_launcher_without_local_map_raises(dev, card_mesh):
+    from repro_torch.kernels.flash_attention import paged_attention as pa_mod
+
+    x = _placed(torch.randn(2, 4, 64, 128, device=dev), card_mesh)
+    one = torch.zeros(2, 1, dtype=torch.int32, device=dev)
+    counts = (nu_mod.COUNTER.launches, fa_mod.COUNTER.launches, pa_mod.COUNTER.launches)
+    for call in (lambda: ns_update(x, x.unsqueeze(0), torch.ones((), device=dev),
+                                   torch.ones(1, device=dev)),
+                 lambda: flash_attention(x, x, x),
+                 lambda: pa_mod.paged_attention(x, x, x, one, one[:, 0])):
+        with pytest.raises(TypeError, match="DTensor with no local_map"):
+            call()
+    assert counts == (nu_mod.COUNTER.launches, fa_mod.COUNTER.launches,
+                      pa_mod.COUNTER.launches)

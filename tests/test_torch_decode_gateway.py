@@ -325,7 +325,7 @@ def test_validation_capacity_and_mesh(engines):
         gw.submit(DecodeRequest(prompt=[3], max_tokens=0))
     with pytest.raises(ValueError):
         DecodeGateway(ToyDecodeEngine(), max_slots=0, cache_slots=4)
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue A item 8"):
+    with pytest.raises(TypeError, match="takes a torch DeviceMesh"):
         DecodeGateway(ToyDecodeEngine(), max_slots=1, cache_slots=4, mesh=object())
     _, eng = engines["dense"]
     real = DecodeGateway(eng, max_slots=2, cache_slots=8)

@@ -3,7 +3,7 @@
 Every case of ``tests/test_gateway.py`` is mirrored on the port's
 ``CountingToySampler`` and on a 2-layer backbone (yi-6b's smoke config,
 f32, the reference's params through ``params_from_jax``), except the
-sharded case (``mesh=``: ROADMAP Queue A item 8) and the Pallas update
+sharded case (``mesh=``: ``tests/test_torch_placement.py``) and the Pallas update
 function (the port always updates through its own ``ns_update`` path).
 In-port bit-identity is exact, as in the reference. Parity cases send the
 same ``Request(x0=...)`` traffic through the reference's ``Gateway`` and the
@@ -265,7 +265,10 @@ def test_submit_requires_tokens_or_x0():
 
 
 def test_mesh_is_refused_naming_its_item():
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue A item 8"):
+    """mesh= serves since placement was ported (tests/test_torch_placement.py);
+    what is not a DeviceMesh with the serving axes is refused, naming what
+    it takes."""
+    with pytest.raises(TypeError, match="DeviceMesh with \\('data', 'model'\\)"):
         Gateway(CountingToySampler(), mesh=object())
 
 

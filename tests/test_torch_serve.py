@@ -417,7 +417,6 @@ def test_reference_flags_are_a_subset_of_the_ports():
 
 
 @pytest.mark.parametrize("extra,item", [
-    (["--mesh", "host"], 8), (["--fleet", "2"], 8),
     (["--ckpt", "params.msgpack"], 11), (["--profile", "tuned"], 11),
 ])
 def test_serve_refuses_each_unported_reference_flag_naming_its_item(extra, item):
@@ -425,6 +424,26 @@ def test_serve_refuses_each_unported_reference_flag_naming_its_item(extra, item)
         serve.main(["--arch", "yi-6b", "--device", "cpu", "--bns-iters", "0"] + extra)
     assert f"ROADMAP Queue A item {item}" in str(exc.value.code)
     assert extra[0] in str(exc.value.code)
+
+
+@pytest.mark.parametrize("extra,done,fleet", [
+    (["--mesh", "host", "--request-budgets", "2", "--requests", "2"], 2, False),
+    (["--fleet", "2", "--request-budgets", "2,4", "--requests", "4"], 4, True),
+])
+def test_serve_fleet_and_mesh_host_serve_on_the_cpu(extra, done, fleet, capsys):
+    """``tests/test_serve_cli.py``'s mesh-host and fleet cases: the flow
+    gateway on the 1 x 1 host mesh (a gloo group of one on the CPU), and a
+    two-host ``FleetGateway``; every request completes and the fleet's
+    summary carries its routing."""
+    served = serve.main(_FLOW + ["--seq", "4", "--budgets", "2,4", "--bns-iters", "0",
+                                 "--gateway", "--max-batch", "2", "--max-wait-ms", "50"]
+                        + extra)
+    out = capsys.readouterr().out
+    assert f"gateway stats: done={done}/{done}" in out
+    assert all(r is not None for r in served.responses)
+    assert ("fleet hosts=2" in out and "routed:" in out) == fleet
+    if fleet:
+        assert sum(served.stats["routed"].values()) == done
 
 
 def test_serve_reference_flags_at_their_defaults_change_nothing(capsys):

@@ -1,8 +1,7 @@
 """The port's SLO scheduling and streaming against the JAX reference, on the
 CPU, on the fake clock.
 
-Mirrors every case of ``tests/test_slo.py`` except the fleet case (ROADMAP
-Queue A item 8): urgency ordering, deadline-pressure flushes, admission
+Mirrors every case of ``tests/test_slo.py``: urgency ordering, deadline-pressure flushes, admission
 control against the observed cost model, queue shedding, goodput
 accounting, exit-boundary preemption with bit-identical resume, flow and
 decode streaming with bit-identical terminal results, and the urgent-aware
@@ -26,10 +25,12 @@ from repro_torch.serving import (
     DeadlineExceeded,
     DecodeGateway,
     DecodeRequest,
+    FleetGateway,
     Gateway,
     HostLoad,
     Request,
     SLOConfig,
+    WorkStealer,
 )
 from repro_torch.serving.continuous import ContinuousScheduler
 from repro_torch.serving.gateway import BatchScheduler, _Entry
@@ -418,3 +419,28 @@ def test_preemption_and_streaming_match_the_reference():
     for key in ("preemptions", "joins", "legs", "forwards", "completed", "failed"):
         assert tstats[key] == jstats[key], key
     assert tstats["preemptions"] == 1 and port.forwards == ref.forwards
+
+
+def test_fleet_stream_and_urgent_stealing():
+    """``tests/test_slo.py``'s fleet case: a streamed submit through the
+    fleet terminates with the future's response, and the stealer robs a
+    shallower shard holding urgent work before a deeper plain one."""
+    clocks = [FakeClock(), FakeClock()]
+    gws = {f"h{i}": Gateway(CarrySampler(), max_batch=4, max_wait_ms=10.0, clock=clocks[i])
+           for i in range(2)}
+    fleet = FleetGateway(gws, steal=False)
+    stream = fleet.submit_stream(budget=4, x0=_x0(0))
+    fleet.pump(force=True)
+    chunks = stream.chunks(timeout=1)
+    assert chunks[-1].final
+    np.testing.assert_array_equal(np.asarray(chunks[-1].payload.latents),
+                                  np.asarray(stream.result(1).latents))
+    stealer = WorkStealer(min_queue=2)
+    loads = {"a": HostLoad(queue_depth=6, inflight=0),
+             "b": HostLoad(queue_depth=3, inflight=0, urgent=2),
+             "c": HostLoad(queue_depth=0, inflight=0)}
+    assert stealer.plan(loads) == [("b", "c", 2)]
+    flat = {"a": HostLoad(queue_depth=6, inflight=0),
+            "b": HostLoad(queue_depth=3, inflight=0),
+            "c": HostLoad(queue_depth=0, inflight=0)}
+    assert stealer.plan(flat) == [("a", "c", 3)]    # legacy: deepest wins

@@ -1,9 +1,8 @@
 """The port's shape-tier ladder against the JAX reference, on the CPU.
 
 Every case of ``tests/test_tiers.py`` is mirrored on the port's toy sampler,
-except fleet affinity (the fleet tier is ROADMAP Queue A item 8; the ladder's
-``request_key``, which that router hashes, is held against the reference's
-here). Beyond the reference's suite: tier padding on a 2-layer causal
+fleet affinity included (the ladder's ``request_key``, which the fleet
+router hashes, is also held against the reference's here). Beyond the reference's suite: tier padding on a 2-layer causal
 backbone (yi-6b's smoke config, f32), where cropped rows equal the direct
 sampler at the native shape to the bit, and the same tiered traffic through
 the reference's gateway and the port's (f32 2e-5, equal metadata).
@@ -259,3 +258,23 @@ def test_tiered_traffic_matches_the_reference(continuous):
         assert tstats[key] == jstats[key], key
     tier_keys = {k for k in jsnap if k.startswith("tier_")}
     assert tier_keys and {k: tsnap[k] for k in tier_keys} == {k: jsnap[k] for k in tier_keys}
+
+
+def test_fleet_affinity_groups_near_shapes_on_one_tier_key():
+    """``tests/test_tiers.py``'s fleet case: near shapes share one tier key
+    (one home), without a ladder raw shapes fragment, and an oversize shape
+    routes (submit rejects it later); each key equals the reference's."""
+    from repro.serving.fleet import default_affinity as jax_affinity
+    from repro_torch.serving.fleet import default_affinity
+
+    def key(i, rows, tiers=None):
+        ours = default_affinity(Request(budget=4, x0=_x0(i, rows)), tiers=tiers)
+        ref = jax_affinity(JaxRequest(budget=4, x0=jnp.asarray(_x0(i, rows))),
+                           tiers=None if tiers is None else JaxShapeLadder(tiers.rungs))
+        assert ours == ref
+        return ours
+
+    a, b, c = key(60, 5, LADDER), key(61, 7, LADDER), key(62, 13, LADDER)
+    assert a == b and a != c
+    assert key(60, 5) != key(61, 7)          # no ladder: raw shapes fragment
+    assert key(63, 17, LADDER)[3] == (17, 2)
