@@ -52,6 +52,12 @@ Phases (any failure ends the run with a non-zero exit and no last line):
    ns_update backward its device time at the flow cell. Both backward
    kernels at the flow cell are also timed a launch replayed from one CUDA
    graph of 100 launches (the training programs' cost).
+3d. The flash forward with its log-sum-exp and the flash backward at the
+   backbone trainer's shape (phase 24a: batch TRAIN_BATCH = 8, L TRAIN_SEQ =
+   64, 32 / 4 heads of 128, bf16, causal), each against its plain version on
+   the same card inputs (FLASH_BF16, the lse under 4 TOL (1 + |lse|),
+   FLASH_BWD_BF16), timed beside the plain version and SDPA's forward /
+   torch autograd of SDPA's backward, with each one's bound.
 4. Flow path: ``repro_torch.launch.serve.main`` with yi-6b at full width
    (32 layers, bf16, random weights from a seeded generator on the card),
    NFE 8, batch 4, sequence 1024, 3 requests. Launch counts must be exact.
@@ -107,7 +113,10 @@ Phases (any failure ends the run with a non-zero exit and no last line):
     the recurrence in plain torch, as the reference does).
 11. Phase 7 for rwkv6-7b's 2-layer f32 model.
 12. Distillation at full width: ``repro_torch.launch.serve.main`` with
-    yi-6b, NFE 8, batch 4, seq 1024, ``--bns-iters`` DISTILL_ITERS, 2
+    yi-6b at DISTILL_LAYERS = 4 of its 32 layers (``launcher_depth``; 32
+    in PRs 27-29, when phases 12-12d took ~530 s of the script's limit;
+    phases 12-12d all run at this depth), NFE 8, batch 4, seq 1024,
+    ``--bns-iters`` DISTILL_ITERS, 2
     requests and ``--solver-artifact`` BNS_ARTIFACT (deleted first, so the
     solver zoo misses and distils): RK45 pairs (train and val), the initial
     solver's val PSNR, DISTILL_ITERS training iterations (each layer
@@ -120,49 +129,50 @@ Phases (any failure ends the run with a non-zero exit and no last line):
     (``bns.TrainLoop``), replayed. The RK45 seconds and the step program's
     captures and replays are printed. The zoo must report
     distills=1. Launch counts must be exact. With R the RK45 evaluations of both
-    solves and K = DISTILL_ITERS: flash forward 32 (R + 8 + 8 + 2 * 8) for
-    the no-grad calls plus 32 * 8 * 2 * K in training (every layer's forward
-    and its recompute; the first velocity call of a step also differentiates,
-    since t_0 is an entry of the time grid built from theta), flash backward
-    32 * 8 * K, ns_update forward 8 (1 + 1 + 2 + K), ns_update backward 8 K:
-    an iteration is 512 flash forward, 256 flash backward, 8 and 8
-    ns_update launches, a request 256 flash forward and 8 ns_update. Loss and
+    solves, K = DISTILL_ITERS and N = DISTILL_LAYERS: flash forward N (R +
+    8 + 8 + 2 * 8) for the no-grad calls plus N * 8 * 2 * K in training
+    (every layer's forward and its recompute; the first velocity call of a
+    step also differentiates, since t_0 is an entry of the time grid built
+    from theta), flash backward N * 8 * K, ns_update forward 8 (1 + 1 + 2 +
+    K), ns_update backward 8 K: an iteration is 16 N flash forward, 8 N flash
+    backward, 8 and 8 ns_update launches, a request 8 N flash forward and 8
+    ns_update. Loss and
     PSNR finite, the distilled val PSNR at least the initial solver's (with K
     under val_every, the final validation is the only one).
 12b. The artifact reload: phase 12's flags again, in a fresh ``main``
     call. It must print "no retraining", report zoo loads=1 and distills=0,
-    launch exactly what 2 requests launch (flash forward 32 x 8 x 2, ns_update
+    launch exactly what 2 requests launch (flash forward N x 8 x 2, ns_update
     16, no backward kernel, no RK45 evaluation), serve NSParams equal to
     phase 12's to the bit and give both requests' latents equal to phase
     12's to the bit (same seeds, weights and deterministic kernels).
 12c. Anytime at full width: yi-6b, ``--budgets 4,8 --request-budgets
     4,8,16``, batch 4, seq ANYTIME_SEQ, ``--bns-iters`` ANYTIME_ITERS, 3
     requests, ``--solver-artifact`` ANYTIME_ARTIFACT (deleted first), at
-    ANYTIME_LAYERS = 32 layers, yi-6b's full depth (``launcher_depth``; PRs
-    25-26 cut it to 16 while the RK45 solves ran eagerly, host-bound; they
-    run graphed since PR 27). With R the RK45 evaluations of both solves, K =
-    ANYTIME_ITERS and N = ANYTIME_LAYERS: flash forward N (R + 8 + 8 + 20)
+    DISTILL_LAYERS layers (``launcher_depth``; 16 in PRs 25-26, 32 in PRs
+    27-29). With R the RK45 evaluations of both solves, K =
+    ANYTIME_ITERS and N = DISTILL_LAYERS: flash forward N (R + 8 + 8 + 20)
     for the no-grad calls (the initial solver's and the final validation's
     shared trajectory, 8 evaluations each; the requests at 4, 8 and 16 -> 8
     NFE) plus N x 8 x 2 K in training, flash backward N x 8 K, ns_update
     9 + 9 + 20 + 9 K (a trajectory runs 8 intermediate rules and the
     budget-4 exit; a request at m NFE m rules), ns_update backward 9 K: an
-    iteration is 256 flash forward, 128 flash backward, 9 and 9 ns_update
+    iteration is 16 N flash forward, 8 N flash backward, 9 and 9 ns_update
     launches. The nearest-budget WARNING for 16 is printed
     exactly once; loss and PSNR finite. Then, on the served
     ``AnytimeFlowSampler`` and one seeded x0, each equal to the bit:
     ``sample_all_from(x0)[m]`` and ``sample_from(x0, m)`` for m in (4, 8);
     ``carry_start`` -> ``carry_extend(4)`` -> ``carry_extend(8)`` and
     ``sample_all_from``.
-12d. BST distilled at full width: yi-6b's field with each layer recomputed
-    (as ``serve._distill_artifact`` builds it), one ``bns.generate_pairs``
+12d. BST distilled at full width and N = DISTILL_LAYERS layers: yi-6b's
+    field with each layer recomputed (as ``serve._distill_artifact`` builds
+    it), one ``bns.generate_pairs``
     call of BST_PAIRS = 8 samples at seq BST_SEQ = 256 (one RK45 solve,
     graphed, its evaluations read from the solve's result; the conditioning
     batch of 4 rows taken twice, so the 4 train and 4 val rows share it;
-    flash forward 32 per evaluation), Euler's val PSNR through
-    ``ns_sample`` (8 ns_update, 256 flash), then ``SolverSpec("euler", 8,
+    flash forward N per evaluation), Euler's val PSNR through
+    ``ns_sample`` (8 ns_update, 8 N flash), then ``SolverSpec("euler", 8,
     mode="bst").distill`` for BST_ITERS = 4 full-batch iterations: flash
-    forward 512 and backward 256 an iteration plus 256 forward for the
+    forward 16 N and backward 8 N an iteration plus 8 N forward for the
     final validation, and no ns_update launch (``run_direct`` bypasses it).
     Loss and PSNR finite, the BST val PSNR at least Euler's - 0.2 dB (the
     reference's BST claim) and above Euler's, the trained knots off
@@ -368,13 +378,44 @@ Phases (any failure ends the run with a non-zero exit and no last line):
     pairs (noise, an Euler solve at NFE 16): theta and the losses within the
     f32 TOL of the plain step's (the PSNR loss, autograd, Adam at the host
     rate), launches equal to the plain step's.
-24. The script's wall time, one JSON line listing the kernels (the
+24a. The backbone trainer: ``repro_torch.launch.train.main`` trains yi-6b at
+    full width and TRAIN_LAYERS = 32 layers (its full depth; ~73.2 GB of
+    bf16 params and gradients and f32 Adam moments), TRAIN_STEPS = 6 steps
+    of batch 8 x 64 (the reference trainer's batch and seq), bf16 weights
+    drawn on the card, the step one CUDA graph (captured at step 0,
+    replayed): flash forward (with lse) and backward exactly 32 launches a
+    step each and no other kernel, one program and 5 replays, finite losses.
+    Prints ms a step (step 0 with its capture, then steps 1-5; the last under
+    torch.profiler for the card's busy share), tokens/s, the peak memory and
+    the losses.
+24b. The trainer at full width and TRAIN_CHECK_LAYERS = 2 layers, 3 steps
+    graphed and then under ``programs.disabled()``: params, Adam's moments
+    and step and the losses equal to the bit, launch counts equal.
+24c. ``launch.train.Trainer`` on the card against the CPU: yi-6b's width at
+    2 layers, f32 (drawn on the card, copied), TF32 off, 3 steps of 8 x 64
+    on the same tokens and noise: each loss within 1e-4 relative, the
+    params after the third step within 1e-4 relative L2.
+24d. The checkpoint round trip at full width and 2 layers: the trainer
+    writes its step-2 checkpoint under build/chip_smoke/train_ckpt, a second
+    ``train`` call resumes from it (params only, Adam from zero, so its one
+    step runs at rate 0 and keeps the params to the bit), and ``serve.main
+    --ckpt`` at the same depth (``launcher_depth``) serves one phase-4
+    request whose latents equal a ``FlowSampler`` on the trained params
+    with the served solver and the same x0, to the bit.
+24e. Phase 4's request in a subprocess under ``--profile tuned`` (one
+    re-exec: ``expandable_segments``, tcmalloc where installed) beside
+    phase 4's first request under the default profile: request ms, peak
+    memory, whether tcmalloc was found and the one re-exec line; no claim
+    either way.
+25. The script's wall time, one JSON line listing the kernels (the
     ns_update and flash entries, forward and backward, with phases 4b, 5b,
     12b, 12c, 12d, 13b, 13c, 14a, 14b, 14c, 16 and 17-17d's launches and
     ms beside the main path's; every entry with phases 18-20's; the flash
     and gla_scan entries also carry zamba2-2.7b's case and phase-17
     launches, the flash and paged entries phases 18-20's shapes; every
-    entry with phases 14d, 14e and 23's), then the last line.
+    entry with phases 14d, 14e and 23's, and 24a-24d's; the two flash
+    entries with phase 3d's case and 24a's launches as "trainer"), then the
+    last line.
 
 Phase 3 also holds flash at B=4 L=1024 hd 128, causal, bf16 at (H, KV) =
 (56, 8), (40, 10), (64, 8) and (64, 4) (yi-34b, phi3-medium-14b,
@@ -393,6 +434,7 @@ import contextlib
 import dataclasses
 import gc
 import json
+import os
 import re
 import subprocess
 import sys
@@ -445,7 +487,9 @@ DISTILL_CHECK_STEPS, DISTILL_CHECK_LR = 3, 1e-3    # phase 13
 BNS_ARTIFACT = ROOT / "build" / "chip_smoke" / "bns_nfe8.msgpack"          # phases 12, 12b
 ANYTIME_ARTIFACT = ROOT / "build" / "chip_smoke" / "anytime_4_8.msgpack"   # phase 12c
 ANYTIME_SEQ, ANYTIME_ITERS, ANYTIME_BUDGETS = 256, 4, (4, 8)              # phase 12c
-ANYTIME_LAYERS = 32       # phase 12c's depth (16 in PRs 25-26, while its RK45 ran eagerly)
+# phases 12-12d's depth at yi-6b's full width: their RK45 pairs and training
+# scale with it, and at 32 layers they took ~530 s of the script's limit
+DISTILL_LAYERS = 4
 ANYTIME_REQUEST_BUDGETS = (4, 8, 16)
 BASELINES = ("ddim", "dpm2m", "edm_heun")                                    # phases 4b, 5b
 BASELINE_REQUESTS = 2                                                        # phase 4b
@@ -494,6 +538,12 @@ MESH_REL_L2 = 1e-3
 MESH_DECODE_ARGS = dict(requests=8, lengths=(32, 16, 24, 8), max_slots=8, slots=256,
                         page_size=16, prefill=64)                  # phase 23b
 DIST_LAYERS, DIST_SEQ, DIST_PAIRS, DIST_ITERS = 2, 256, 8, 3       # phase 23c
+# phases 3d and 24a-e: the backbone trainer (launch/train.py) on yi-6b at the
+# reference trainer's shape, batch 8 of 64 positions, full width
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 8, 64, 6       # 24a
+TRAIN_LAYERS = 32                                    # 24a: yi-6b's full depth
+TRAIN_CHECK_LAYERS, TRAIN_CHECK_STEPS = 2, 3         # 24b, 24c
+TRAIN_CKPT_DIR = ROOT / "build" / "chip_smoke" / "train_ckpt"                # 24d
 KERNELS = ("ns_update", "flash_attention", "paged_attention", "gla_scan", "ns_update_bwd",
            "flash_attention_bwd")
 # the flash backward's passes by kernel name (in bf16 and f32 alike)
@@ -1665,14 +1715,15 @@ def distill_path(dev, counters, trains: dict) -> dict:
     free_device_memory(dev)
     reset(counters)
     t0 = time.perf_counter()
-    served = serve.main(distill_args())
+    with launcher_depth(DISTILL_LAYERS):
+        served = serve.main(distill_args())
     wall = time.perf_counter() - t0
     d = served.distillation
     K, R = DISTILL_ITERS, sum(d.rk45[part][0] for part in ("train", "val"))
     no_grad_calls = R + NFE + NFE + DISTILL_REQUESTS * NFE
     want = {**dict.fromkeys(KERNELS, 0),
-            "flash_attention": LAYERS * (no_grad_calls + 2 * NFE * K),
-            "flash_attention_bwd": LAYERS * NFE * K,
+            "flash_attention": DISTILL_LAYERS * (no_grad_calls + 2 * NFE * K),
+            "flash_attention_bwd": DISTILL_LAYERS * NFE * K,
             "ns_update": NFE * (2 + DISTILL_REQUESTS + K), "ns_update_bwd": NFE * K}
     launches = {name: c.launches for name, c in counters.items()}
     if launches != want:
@@ -1702,7 +1753,8 @@ def distill_path(dev, counters, trains: dict) -> dict:
     # validation's captures) and one validation, which costs what the initial
     # solver's validation did
     iter_ms = (d.train_seconds - d.init_val_seconds) / K * 1e3
-    print(f"distillation: yi-6b full width, NFE {NFE}, batch {BATCH}, seq {SEQ}: RK45 "
+    print(f"distillation: yi-6b full width, {DISTILL_LAYERS} of its {LAYERS} layers, NFE "
+          f"{NFE}, batch {BATCH}, seq {SEQ}: RK45 "
           f"train nfe/accepted/rejected {d.rk45['train']}, val {d.rk45['val']} "
           f"({d.rk45_seconds:.3f} s, graphed: step program {d.rk45_programs}); val PSNR initial {d.init_val_psnr:.4f} dB -> distilled "
           f"{d.val_psnr:.4f} dB after {K} iterations (losses {[round(x, 5) for x in losses]}); "
@@ -1737,11 +1789,12 @@ def artifact_reload(dev, counters, distilled: dict) -> dict:
     free_device_memory(dev)
     reset(counters)
     t0 = time.perf_counter()
-    with Tee() as out:
+    with Tee() as out, launcher_depth(DISTILL_LAYERS):
         served = serve.main(distill_args())
     wall = time.perf_counter() - t0
     launches = {name: c.launches for name, c in counters.items()}
-    want = {**dict.fromkeys(KERNELS, 0), "flash_attention": LAYERS * NFE * DISTILL_REQUESTS,
+    want = {**dict.fromkeys(KERNELS, 0),
+            "flash_attention": DISTILL_LAYERS * NFE * DISTILL_REQUESTS,
             "ns_update": NFE * DISTILL_REQUESTS}
     if launches != want:
         raise SystemExit(f"artifact reload launch counts {launches}, expected {want}")
@@ -1782,7 +1835,7 @@ def launcher_depth(layers: int):
 
 def anytime_path(dev, counters, trains: dict) -> dict:
     """Phase 12c: serve.main distils an anytime solver over budgets (4, 8)
-    for yi-6b at full width and ANYTIME_LAYERS of its depth, saves and
+    for yi-6b at full width and DISTILL_LAYERS of its depth, saves and
     reloads it and routes 3 requests;
     launch counts as the module docstring states them; then the served
     sampler's exits against per-budget sampling and carry legs, to the bit;
@@ -1795,7 +1848,7 @@ def anytime_path(dev, counters, trains: dict) -> dict:
     free_device_memory(dev)
     reset(counters)
     t0 = time.perf_counter()
-    with Tee() as out, launcher_depth(ANYTIME_LAYERS):
+    with Tee() as out, launcher_depth(DISTILL_LAYERS):
         served = serve.main(["--arch", "yi-6b", "--mode", "flow", "--full",
                              "--budgets", ",".join(map(str, ANYTIME_BUDGETS)),
                              "--request-budgets", ",".join(map(str, ANYTIME_REQUEST_BUDGETS)),
@@ -1811,9 +1864,9 @@ def anytime_path(dev, counters, trains: dict) -> dict:
     rules = top + len(ANYTIME_BUDGETS) - 1            # intermediate rules + exits
     served_nfe = [nearest_budget(ANYTIME_BUDGETS, m) for m in ANYTIME_REQUEST_BUDGETS]
     want = {**dict.fromkeys(KERNELS, 0),
-            "flash_attention": ANYTIME_LAYERS * (R + 2 * top + sum(served_nfe)
+            "flash_attention": DISTILL_LAYERS * (R + 2 * top + sum(served_nfe)
                                                  + 2 * top * K),
-            "flash_attention_bwd": ANYTIME_LAYERS * top * K,
+            "flash_attention_bwd": DISTILL_LAYERS * top * K,
             "ns_update": 2 * rules + sum(served_nfe) + rules * K, "ns_update_bwd": rules * K}
     if launches != want:
         raise SystemExit(f"anytime launch counts {launches}, expected {want} "
@@ -1851,7 +1904,7 @@ def anytime_path(dev, counters, trains: dict) -> dict:
         checks[f"sample_all_from[{m}] == sample_from({m})"] = torch.equal(
             every[m], sampler.sample_from(cond, x0, m))
         checks[f"carry legs [{m}] == sample_all_from[{m}]"] = torch.equal(exits[m], every[m])
-    print(f"anytime: yi-6b full width, {ANYTIME_LAYERS} of its {LAYERS} layers, budgets "
+    print(f"anytime: yi-6b full width, {DISTILL_LAYERS} of its {LAYERS} layers, budgets "
           f"{ANYTIME_BUDGETS}, batch {BATCH}, seq "
           f"{ANYTIME_SEQ}: RK45 train {d.rk45['train']}, val {d.rk45['val']} "
           f"({d.rk45_seconds:.3f} s, graphed: step program {d.rk45_programs}); mean val PSNR initial {d.init_val_psnr:.4f} dB -> "
@@ -1899,7 +1952,7 @@ def bst_distill_path(dev, counters, trains: dict) -> dict:
     BST_ARTIFACT.unlink(missing_ok=True)
     free_device_memory(dev)
     t_phase = time.perf_counter()
-    cfg = get_config("yi-6b", smoke=False)
+    cfg = dataclasses.replace(get_config("yi-6b", smoke=False), n_layers=DISTILL_LAYERS)
     params = M.init_params(torch.Generator(device=dev).manual_seed(0), cfg, dev)
     cond = SyntheticTokens(cfg, DataConfig(batch_size=BATCH, seq_len=BST_SEQ, seed=0),
                            device=dev).batch(0)
@@ -1934,20 +1987,20 @@ def bst_distill_path(dev, counters, trains: dict) -> dict:
         x0, x1 = stage("rk45", lambda: bns.generate_pairs(
             twice, torch.Generator(device=dev).manual_seed(1), BST_PAIRS,
             (BST_SEQ, cfg.latent_dim)),
-            lambda: {"flash_attention": LAYERS * sum(r.nfe for r in solves)})
+            lambda: {"flash_attention": DISTILL_LAYERS * sum(r.nfe for r in solves)})
     finally:
         bns.rk45_solve = inner
     evaluations = sum(r.nfe for r in solves)
     train, val = (x0[:BATCH], x1[:BATCH]), (x0[BATCH:], x1[BATCH:])
     euler = stage("euler init", lambda: SolverSpec("euler", NFE).sampler(field).psnr(val),
-                  lambda: {"ns_update": NFE, "flash_attention": LAYERS * NFE})
+                  lambda: {"ns_update": NFE, "flash_attention": DISTILL_LAYERS * NFE})
     K = BST_ITERS
     spec = SolverSpec("euler", NFE, mode="bst")
     res = stage("training", lambda: spec.distill(
         field, train, val, bns.BNSTrainConfig(lr=1e-3, lr_schedule="cosine", iterations=K,
                                               val_every=100, batch_size=BATCH)),
-        lambda: {"flash_attention": LAYERS * (2 * NFE * K + NFE),
-                 "flash_attention_bwd": LAYERS * NFE * K})
+        lambda: {"flash_attention": DISTILL_LAYERS * (2 * NFE * K + NFE),
+                 "flash_attention_bwd": DISTILL_LAYERS * NFE * K})
     peak = torch.cuda.max_memory_allocated(dev)
     reset(counters)
     res.artifact(provenance={"arch": "yi-6b", "scheduler": "fm_ot"}).save(str(BST_ARTIFACT))
@@ -1962,7 +2015,8 @@ def bst_distill_path(dev, counters, trains: dict) -> dict:
                     for p, q in zip(res.params, bst_solver.identity_bst(NFE, "euler")))
     losses = [h[1] for h in res.history]
     iteration_ms = [x * 1e3 for x in res.iteration_seconds]
-    print(f"BST distillation: yi-6b full width, euler NFE {NFE}, {BST_PAIRS} pairs at seq "
+    print(f"BST distillation: yi-6b full width, {DISTILL_LAYERS} of its {LAYERS} layers, "
+          f"euler NFE {NFE}, {BST_PAIRS} pairs at seq "
           f"{BST_SEQ} ({evaluations} RK45 evaluations in {len(solves)} solve, graphed, "
           f"{stages['rk45']['ms'] / 1e3:.3f} s), "
           f"{BATCH} train / {BATCH} val: val PSNR Euler {euler:.4f} dB -> BST "
@@ -3559,6 +3613,396 @@ def internvl_paths(dev, counters, card: str, graphs: dict) -> dict:
     return out
 
 
+def trainer_flash_cases(dev) -> dict:
+    """Phase 3d: the flash forward with its log-sum-exp and the flash
+    backward at the trainer's shape (batch TRAIN_BATCH, L TRAIN_SEQ, 32 / 4
+    heads of 128, bf16, causal), each against its plain version on the same
+    card inputs (the output under FLASH_BF16, the lse under 4 TOL (1 +
+    |lse|), dq, dk, dv under FLASH_BWD_BF16), timed beside the plain version
+    and the PyTorch call (SDPA's forward; torch autograd of SDPA's backward),
+    with each one's bound. Returns {"flash_attention": row,
+    "flash_attention_bwd": row}."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.flash_attention.flash_attention import (
+        flash_attention,
+        flash_attention_bwd,
+    )
+    from repro_torch.kernels.flash_attention.ref import (
+        attention_bwd_ref,
+        attention_lse_ref,
+        attention_ref,
+    )
+
+    g = torch.Generator(device=dev).manual_seed(24)
+    B, H, KV, L, hd, dtype = TRAIN_BATCH, 32, 4, TRAIN_SEQ, 128, torch.bfloat16
+    q, do = (torch.randn((B, L, H, hd), generator=g, device=dev).to(dtype).transpose(1, 2)
+             for _ in "qo")
+    k, v = (torch.randn((B, L, KV, hd), generator=g, device=dev).to(dtype).transpose(1, 2)
+            for _ in "kv")
+    shape = f"B={B} H={H} KV={KV} L={L} hd={hd} bfloat16 causal"
+    o, lse = flash_attention(q, k, v, causal=True, return_lse=True)
+    fwd_err = check_flash_bf16(f"flash_attention [{shape}] with lse", o,
+                               attention_ref(q, k, v, causal=True))
+    lse_ref = attention_lse_ref(q, k, causal=True)
+    lse_ratio = float(((lse - lse_ref).abs()
+                       / (4 * TOL[torch.float32] * (1 + lse_ref.abs()))).max())
+    if not lse_ratio <= 1:
+        raise SystemExit(f"flash_attention [{shape}]: lse vs plain at {lse_ratio:.3f} of the "
+                         "limit (4 TOL (1 + |lse|))")
+    got = flash_attention_bwd(q, k, v, o, lse, do, causal=True)
+    ref = attention_bwd_ref(q, k, v, o, lse, do, causal=True)
+    bwd_err, bwd_ratio = 0.0, 0.0
+    for what, x, r in zip(("dq", "dk", "dv"), got, ref):
+        e = flash_bwd_errors(x, r)
+        if not (bool(torch.isfinite(x.float()).all()) and flash_bwd_passes(e)):
+            raise SystemExit(f"flash_attention_bwd [{shape}] {what}: kernel vs plain outside "
+                             f"the bf16 limit {FLASH_BWD_BF16}: {e}")
+        bwd_err, bwd_ratio = max(bwd_err, e["max_abs"]), max(bwd_ratio, e["ratio"])
+    pairs, size = L * (L + 1) // 2, q.element_size()
+    io = (2 * B * H * L * hd + 2 * B * KV * L * hd) * size
+    f_ms, f_by = bound(io + B * H * L * 4, 4 * hd * pairs * B * H, dtype)
+    b_ms, b_by = bound(2 * io + B * H * L * 4, 10 * hd * pairs * B * H, dtype)
+    qs, ks, vs = (t.detach().requires_grad_(True) for t in (q, k, v))
+    out = F.scaled_dot_product_attention(qs, ks, vs, is_causal=True, enable_gqa=True)
+    rows = {
+        "flash_attention": dict(
+            shape=shape + " (with lse)", max_abs_err=fwd_err, lse_limit_ratio=lse_ratio,
+            ms=time_ms(lambda: flash_attention(q, k, v, causal=True, return_lse=True)),
+            plain_ms=time_ms(lambda: (attention_ref(q, k, v, causal=True),
+                                      attention_lse_ref(q, k, causal=True))),
+            library_ms=time_ms(lambda: F.scaled_dot_product_attention(
+                q, k, v, is_causal=True, enable_gqa=True)),
+            bound_ms=f_ms, bound_by=f_by),
+        "flash_attention_bwd": dict(
+            shape=shape, max_abs_err=bwd_err, limit_ratio=bwd_ratio,
+            ms=time_ms(lambda: flash_attention_bwd(q, k, v, o, lse, do, causal=True)),
+            plain_ms=time_ms(lambda: attention_bwd_ref(q, k, v, o, lse, do, causal=True)),
+            library_ms=time_ms(lambda: torch.autograd.grad(out, (qs, ks, vs), do,
+                                                           retain_graph=True)),
+            bound_ms=b_ms, bound_by=b_by)}
+    for name, r in rows.items():
+        print(f"phase 3d {name} [{r['shape']}]: err {r['max_abs_err']:.3e}, kernel "
+              f"{r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, library "
+              f"{r['library_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms ({r['bound_by']})"
+              + (f", lse at {lse_ratio:.4f} of the limit" if name == "flash_attention"
+                 else f", bf16 limit ratio {bwd_ratio:.4f} (library: torch autograd of "
+                      "SDPA's backward)"))
+    return rows
+
+
+def train_args(steps: int, layers: int, *extra) -> list:
+    """``launch.train.main``'s flags for yi-6b at full width on the card."""
+    return ["--arch", "yi-6b", "--steps", str(steps), "--batch", str(TRAIN_BATCH),
+            "--seq", str(TRAIN_SEQ), "--layers", str(layers), *extra]
+
+
+class ProfiledStep:
+    """Runs the ``n``-th ``Trainer.step`` call (0-based) inside the block
+    under ``busy_share`` (torch.profiler), keeping its result in ``busy``."""
+
+    def __init__(self, dev, n: int):
+        from repro_torch.launch import train
+
+        self.cls, self.dev, self.n, self.calls, self.busy = train.Trainer, dev, n, 0, None
+
+    def __enter__(self):
+        self.inner = self.cls.step
+
+        def step(trainer, *args):
+            self.calls += 1
+            if self.calls - 1 != self.n:
+                return self.inner(trainer, *args)
+            box = []
+            self.busy = busy_share(self.dev, lambda: box.append(self.inner(trainer, *args)))
+            return box[0]
+
+        self.cls.step = step
+        return self
+
+    def __exit__(self, *exc):
+        self.cls.step = self.inner
+
+
+def trainer_path(dev, counters, card: str) -> dict:
+    """Phase 24a: ``launch.train.main`` trains yi-6b at full width and
+    TRAIN_LAYERS layers, TRAIN_STEPS steps of batch TRAIN_BATCH x TRAIN_SEQ,
+    bf16 weights drawn on the card, graphed (one program, captured at step 0
+    and replayed): flash forward (with lse) and backward exactly TRAIN_LAYERS
+    a step each and nothing else, finite losses; the last step under
+    torch.profiler for the card's busy share."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch import train
+
+    free_device_memory(dev)
+    cfg = dataclasses.replace(get_config("yi-6b"), n_layers=TRAIN_LAYERS)
+    state_bytes = train.train_state_bytes(cfg)
+    print(f"phase 24a: yi-6b at {TRAIN_LAYERS} layers, {state_bytes / 1e9:.3f} GB of bf16 "
+          f"params and gradients and f32 Adam moments; allocated before the run "
+          f"{torch.cuda.memory_allocated(dev) / 2**30:.3f} GiB, free "
+          f"{torch.cuda.mem_get_info(dev)[0] / 2**30:.3f} GiB")
+    reset(counters)
+    t0 = time.perf_counter()
+    with ProfiledStep(dev, TRAIN_STEPS - 1) as profiled:
+        run = train.main(train_args(TRAIN_STEPS, TRAIN_LAYERS))
+    wall = time.perf_counter() - t0
+    launches = {name: c.launches for name, c in counters.items()}
+    want = {**dict.fromkeys(KERNELS, 0), "flash_attention": TRAIN_LAYERS * TRAIN_STEPS,
+            "flash_attention_bwd": TRAIN_LAYERS * TRAIN_STEPS}
+    if launches != want:
+        raise SystemExit(f"trainer launch counts {launches}, expected {want}")
+    stats = run.trainer.programs.stats()
+    if (stats["programs"], stats["replays"]) != (1, TRAIN_STEPS - 1):
+        raise SystemExit(f"trainer programs {stats}, expected one captured and "
+                         f"{TRAIN_STEPS - 1} replays")
+    if len(run.losses) != TRAIN_STEPS or not all(np.isfinite(run.losses)):
+        raise SystemExit(f"trainer losses {run.losses}")
+    peak = torch.cuda.max_memory_allocated(dev)
+    steady = run.step_ms[1:-1]          # the last step ran under the profiler
+    tokens_s = TRAIN_BATCH * TRAIN_SEQ / (float(np.median(steady)) / 1e3)
+    busy = profiled.busy
+    print(f"phase 24a ({card}): yi-6b full width, {TRAIN_LAYERS} layers, batch "
+          f"{TRAIN_BATCH} x {TRAIN_SEQ}, {TRAIN_STEPS} steps: step 0 (warm-up and capture) "
+          f"{run.step_ms[0]:.1f} ms, steps 1-{TRAIN_STEPS - 1} "
+          f"{[round(x, 1) for x in run.step_ms[1:]]} ms (the last under torch.profiler), "
+          f"median of 1-{TRAIN_STEPS - 2} {np.median(steady):.1f} ms, {tokens_s:.1f} tokens/s; "
+          f"capture {stats['capture_ms']:.1f} ms; busy {busy['busy_share']:.3f} of the "
+          f"profiled step ({busy['busy_ms']:.1f} of {busy['wall_ms']:.1f} ms, "
+          f"{busy['kernels']} kernels); peak {peak / 2**30:.3f} GiB; launches a step "
+          f"flash {launches['flash_attention'] // TRAIN_STEPS}, backward "
+          f"{launches['flash_attention_bwd'] // TRAIN_STEPS}; losses "
+          f"{[round(x, 5) for x in run.losses]}; main() wall {wall:.1f} s")
+    out = {"layers": TRAIN_LAYERS, "state_gb": state_bytes / 1e9, "step_ms": run.step_ms,
+           "median_step_ms": float(np.median(steady)), "tokens_per_s": tokens_s,
+           "capture_ms": stats["capture_ms"], "busy": busy, "peak_gib": peak / 2**30,
+           "losses": run.losses, "launches": launches, "wall_s": wall}
+    del run
+    return out
+
+
+def _tree_equal(a, b) -> list:
+    from repro_torch.optim.adam import tree_leaves
+
+    return [bool(torch.equal(x, y)) for x, y in zip(tree_leaves(a), tree_leaves(b))]
+
+
+def trainer_graphed_against_eager(dev, counters) -> dict:
+    """Phase 24b: the trainer at full width and TRAIN_CHECK_LAYERS layers,
+    TRAIN_CHECK_STEPS steps graphed and then the same run under
+    ``programs.disabled()``: params, mu, nu, step and the losses equal to
+    the bit, the launch counts equal."""
+    from repro_torch.launch import train
+    from repro_torch.serving import programs
+
+    free_device_memory(dev)
+    runs, counts = {}, {}
+    for side in ("graphed", "eager"):
+        before = {name: c.launches for name, c in counters.items()}
+        with (programs.disabled() if side == "eager" else contextlib.nullcontext()):
+            runs[side] = train.main(train_args(TRAIN_CHECK_STEPS, TRAIN_CHECK_LAYERS))
+        counts[side] = launched(counters, before)
+    g, e = runs["graphed"], runs["eager"]
+    equal = {"params": _tree_equal(g.params, e.params), "mu": _tree_equal(g.opt.mu, e.opt.mu),
+             "nu": _tree_equal(g.opt.nu, e.opt.nu),
+             "step": [int(g.opt.step) == int(e.opt.step) == TRAIN_CHECK_STEPS],
+             "losses": [a == b for a, b in zip(g.losses, e.losses)]}
+    programs_each = {side: len(r.trainer.programs) for side, r in runs.items()}
+    print(f"phase 24b: trainer graphed against eager at {TRAIN_CHECK_LAYERS} layers, "
+          f"{TRAIN_CHECK_STEPS} steps: equal to the bit {equal}, launches {counts}, "
+          f"programs {programs_each}, step ms graphed {[round(x, 1) for x in g.step_ms]} / "
+          f"eager {[round(x, 1) for x in e.step_ms]}")
+    if not (all(all(v) for v in equal.values()) and counts["graphed"] == counts["eager"]
+            and programs_each == {"graphed": 1, "eager": 0}):
+        raise SystemExit("phase 24b: the graphed trainer differs from the eager one")
+    out = {"equal": {k: all(v) for k, v in equal.items()}, "launches": counts["graphed"],
+           "step_ms": {"graphed": g.step_ms, "eager": e.step_ms}, "losses": g.losses}
+    del runs, g, e
+    return out
+
+
+def trainer_against_cpu(dev, counters) -> dict:
+    """Phase 24c: ``launch.train.Trainer`` on the card (kernels) against the
+    CPU (plain versions): yi-6b's width at TRAIN_CHECK_LAYERS layers, f32
+    weights drawn on the card and copied, TF32 off, TRAIN_CHECK_STEPS steps
+    of TRAIN_BATCH x TRAIN_SEQ on the same tokens and noise
+    (numpy-seeded generator on the host): each loss within 1e-4 relative,
+    the params after the last step within 1e-4 relative L2 (over all
+    leaves). The card's model is freed before the CPU's steps run."""
+    from repro_torch.core.schedulers import get_scheduler
+    from repro_torch.data.synthetic import DataConfig, SyntheticTokens
+    from repro_torch.launch.train import Trainer
+    from repro_torch.models.model import CFMNoise, draw_cfm_noise
+    from repro_torch.optim.adam import tree_leaves
+
+    cfg, on_card, on_cpu = card_drawn_model(dev, "yi-6b", TRAIN_CHECK_LAYERS)
+    sched = get_scheduler("fm_ot")
+    data = SyntheticTokens(cfg, DataConfig(batch_size=TRAIN_BATCH, seq_len=TRAIN_SEQ,
+                                           seed=0), device="cpu")
+    gen = torch.Generator().manual_seed(0)
+    inputs = [(data.batch(step), draw_cfm_noise(gen, TRAIN_BATCH, TRAIN_SEQ,
+                                                cfg.latent_dim))
+              for step in range(TRAIN_CHECK_STEPS)]
+    card = Trainer(cfg, sched, on_card, steps=TRAIN_CHECK_STEPS, lr=3e-4, device=dev)
+    before = {name: c.launches for name, c in counters.items()}
+    losses = {"card": [float(card.step({k: v.to(dev) for k, v in batch.items()},
+                                       CFMNoise(*(x.to(dev) for x in noise))))
+                       for batch, noise in inputs]}
+    launches = launched(counters, before)
+    card_params = [t.cpu() for t in tree_leaves(on_card)]
+    del card, on_card
+    free_device_memory(dev)
+    t0 = time.perf_counter()
+    cpu = Trainer(cfg, sched, on_cpu, steps=TRAIN_CHECK_STEPS, lr=3e-4, device="cpu")
+    losses["cpu"] = [float(cpu.step(batch, noise)) for batch, noise in inputs]
+    cpu_s = time.perf_counter() - t0
+    num = den = 0.0
+    for a, b in zip(card_params, tree_leaves(on_cpu)):   # in f64, 2^20 elements at a time
+        for x, y in zip(a.reshape(-1).split(1 << 20), b.reshape(-1).split(1 << 20)):
+            y = y.double()
+            num += float(torch.sum((x.double() - y) ** 2))
+            den += float(torch.sum(y ** 2))
+    params_rel = (num / den) ** 0.5
+    del cpu, on_cpu, card_params
+    want = {**dict.fromkeys(KERNELS, 0),
+            "flash_attention": TRAIN_CHECK_LAYERS * TRAIN_CHECK_STEPS,
+            "flash_attention_bwd": TRAIN_CHECK_LAYERS * TRAIN_CHECK_STEPS}
+    loss_rel = [abs(a - b) / abs(b) for a, b in zip(losses["card"], losses["cpu"])]
+    print(f"phase 24c: trainer card vs CPU ({TRAIN_CHECK_LAYERS} layers, f32, "
+          f"{TRAIN_CHECK_STEPS} steps of {TRAIN_BATCH} x {TRAIN_SEQ}): losses card "
+          f"{losses['card']} cpu {losses['cpu']}, relative {[f'{x:.3e}' for x in loss_rel]} "
+          f"(limit 1e-4); params after step {TRAIN_CHECK_STEPS} relative L2 {params_rel:.3e} "
+          f"(limit 1e-4); card launches {launches}; the CPU's steps {cpu_s:.1f} s")
+    if launches != want:
+        raise SystemExit(f"phase 24c: card launches {launches}, expected {want}")
+    if not (max(loss_rel) <= 1e-4 and params_rel <= 1e-4):
+        raise SystemExit("phase 24c: the trainer on the card differs from the CPU's")
+    return {"loss_rel": loss_rel, "params_rel_l2": params_rel, "launches": launches,
+            "losses": losses, "cpu_s": cpu_s}
+
+
+def trainer_checkpoint(dev, counters) -> dict:
+    """Phase 24d: the trainer at full width and TRAIN_CHECK_LAYERS layers
+    checkpoints its last step (2) under TRAIN_CKPT_DIR; a second ``train``
+    call resumes from it (params only, Adam from zero: its one step runs at
+    rate 0, so the params stay the checkpoint's to the bit); then
+    ``serve.main --ckpt`` at the same depth (``launcher_depth``) serves one
+    phase-4 request whose latents equal, to the bit, a ``FlowSampler`` on
+    the trained params with the served solver and the same x0 (seed 1000)."""
+    import shutil
+
+    from repro_torch.checkpoint import checkpointer
+    from repro_torch.configs import get_config
+    from repro_torch.core.schedulers import get_scheduler
+    from repro_torch.data.synthetic import DataConfig, SyntheticTokens
+    from repro_torch.launch import serve, train
+    from repro_torch.serving.engine import FlowSampler
+
+    shutil.rmtree(TRAIN_CKPT_DIR, ignore_errors=True)
+    free_device_memory(dev)
+    reset(counters)
+    t0 = time.perf_counter()
+    ckpt = ["--ckpt-dir", str(TRAIN_CKPT_DIR), "--ckpt-every", "2"]
+    first = train.main(train_args(2, TRAIN_CHECK_LAYERS, *ckpt))
+    saved_s = time.perf_counter() - t0
+    path = checkpointer.step_path(str(TRAIN_CKPT_DIR), 2)
+    if checkpointer.latest_step(str(TRAIN_CKPT_DIR)) != 2:
+        raise SystemExit(f"phase 24d: no checkpoint at step 2 in {TRAIN_CKPT_DIR}")
+    t1 = time.perf_counter()
+    resumed = train.main(train_args(3, TRAIN_CHECK_LAYERS, *ckpt))
+    resumed_s = time.perf_counter() - t1
+    kept = _tree_equal(first.params, resumed.params)
+    if not (resumed.start == 2 and len(resumed.losses) == 1 and int(resumed.opt.step) == 1
+            and all(kept)):
+        raise SystemExit(f"phase 24d: resume start {resumed.start}, losses {resumed.losses}, "
+                         f"Adam step {int(resumed.opt.step)}, params kept {kept}")
+    del resumed
+    cfg = dataclasses.replace(get_config("yi-6b"), n_layers=TRAIN_CHECK_LAYERS)
+    t2 = time.perf_counter()
+    with launcher_depth(TRAIN_CHECK_LAYERS):
+        served = serve.main(["--arch", "yi-6b", "--mode", "flow", "--full", "--nfe", str(NFE),
+                             "--batch", str(BATCH), "--seq", str(SEQ), "--requests", "1",
+                             "--bns-iters", "0", "--ckpt", path])
+    served_s = time.perf_counter() - t2
+    cond = SyntheticTokens(cfg, DataConfig(batch_size=BATCH, seq_len=SEQ, seed=0),
+                           device=dev).batch(0)
+    want = FlowSampler(params=first.params, cfg=cfg, sched=get_scheduler("fm_ot"),
+                       solver=served.sampler.solver).sample(
+        cond, torch.Generator(device=dev).manual_seed(1000))
+    equal = bool(torch.equal(served[0].latents, want))
+    launches = {name: c.launches for name, c in counters.items()}
+    print(f"phase 24d: trainer checkpoint at step 2 ({path}, "
+          f"{Path(path).stat().st_size / 1e9:.3f} GB) written in a {saved_s:.1f} s run, "
+          f"resumed (start 2, Adam restarted, params kept to the bit) in {resumed_s:.1f} s, "
+          f"served through --ckpt in {served_s:.1f} s: request ms "
+          f"{round(served[0].ms, 3)}, latents equal to a FlowSampler on the trained params "
+          f"{equal}; launches {launches}")
+    if not equal:
+        raise SystemExit("phase 24d: the served latents differ from the trained params' sampler")
+    out = {"checkpoint_gb": Path(path).stat().st_size / 1e9, "saved_run_s": saved_s,
+           "resumed_run_s": resumed_s, "served_s": served_s, "request_ms": served[0].ms,
+           "latents_equal": equal, "launches": launches}
+    del first, served
+    return out
+def launch_profiles(dev, card: str, default: dict) -> dict:
+    """Phase 24e: phase 4's request (yi-6b at full width, NFE 8, batch 4,
+    seq 1024) by ``python -m repro_torch.launch.serve --profile tuned`` in a
+    subprocess (one re-exec with the allocator settings, tcmalloc preloaded
+    where installed): it exits 0, serves the request and prints its re-exec
+    line once. Prints its request ms and peak memory (read from the
+    launcher's output) beside phase 4's first request under the default
+    profile (``default``: flow_path's record, in this process), and whether
+    tcmalloc was found; no claim either way."""
+    free_device_memory(dev)
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    env.pop("REPRO_TUNED_REEXEC", None)
+    cmd = [sys.executable, "-m", "repro_torch.launch.serve", "--arch", "yi-6b", "--mode",
+           "flow", "--full", "--nfe", str(NFE), "--batch", str(BATCH), "--seq", str(SEQ),
+           "--requests", "1", "--bns-iters", "0", "--profile", "tuned"]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, env=env, cwd=ROOT, capture_output=True, text=True, timeout=600)
+    wall = time.perf_counter() - t0
+    text = proc.stdout
+    request = re.search(r"request 0: sampled \(4, 1024\) in ([0-9.]+) ms", text)
+    peak = re.search(r"peak device memory ([0-9.]+) GiB", text)
+    reexecs = [line for line in text.splitlines() if line.startswith("re-exec under")]
+    if proc.returncode != 0 or request is None or peak is None:
+        raise SystemExit(f"phase 24e: exit {proc.returncode}\n{text[-3000:]}"
+                         f"\n{proc.stderr[-3000:]}")
+    if len(reexecs) != 1:
+        raise SystemExit(f"phase 24e: re-exec lines {reexecs}")
+    out = {"default": {"request_ms": default["request_ms"][0],
+                       "peak_gib": default["peak_gib"]},
+           "tuned": {"request_ms": float(request.group(1)), "peak_gib": float(peak.group(1)),
+                     "wall_s": wall, "reexec": reexecs[0],
+                     "tcmalloc": "LD_PRELOAD=" in reexecs[0]}}
+    print(f"phase 24e ({card}): phase 4's first request, default profile (phase 4, this "
+          f"process) {out['default']['request_ms']:.1f} ms, peak "
+          f"{out['default']['peak_gib']:.3f} GiB; tuned (a subprocess) "
+          f"{out['tuned']['request_ms']:.1f} ms, peak {out['tuned']['peak_gib']:.3f} GiB, "
+          f"{wall:.1f} s, tcmalloc {'found' if out['tuned']['tcmalloc'] else 'not found'}, "
+          f"re-exec once: {out['tuned']['reexec']!r}")
+    return out
+
+
+def trainer_paths(dev, counters, card: str, phase4: dict) -> dict:
+    """Phases 24a-24e, each model freed before the next (``phase4``: phase
+    4's flow_path record, 24e's default profile)."""
+    out, wall, phases = {}, {}, {}
+    for key, fn in (("24a", lambda: trainer_path(dev, counters, card)),
+                    ("24b", lambda: trainer_graphed_against_eager(dev, counters)),
+                    ("24c", lambda: trainer_against_cpu(dev, counters)),
+                    ("24d", lambda: trainer_checkpoint(dev, counters)),
+                    ("24e", lambda: launch_profiles(dev, card, phase4))):
+        t0 = time.perf_counter()
+        out[key] = fn()
+        wall[key] = time.perf_counter() - t0
+        if "launches" in out[key]:
+            phases[key] = out[key].pop("launches")
+    free_device_memory(dev)
+    out["wall_s"], out["phase_launches"] = wall, phases
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is False)",
@@ -3631,6 +4075,7 @@ def main() -> int:
                   f"kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, "
                   f"library {lib}, bound {r['bound_ms']:.4f} ms ({r['bound_by']}){extra}")
 
+    trainer_rows = trainer_flash_cases(dev)
     counters = {"ns_update": nu.COUNTER, "flash_attention": fa.COUNTER,
                 "paged_attention": pa.COUNTER, "gla_scan": gs.COUNTER,
                 "ns_update_bwd": nu.BWD_COUNTER, "flash_attention_bwd": fa.BWD_COUNTER}
@@ -3638,8 +4083,9 @@ def main() -> int:
     flows = NFE * REQUESTS
     graphs, phase_s = {}, {}
     t0 = time.perf_counter()
-    launches, _ = flow_path(dev, counters, "yi-6b", {**zero, "ns_update": flows,
-                                                     "flash_attention": LAYERS * flows}, graphs)
+    launches, phase4 = flow_path(dev, counters, "yi-6b", {**zero, "ns_update": flows,
+                                                          "flash_attention": LAYERS * flows},
+                                 graphs)
     phase_s["4+15"] = time.perf_counter() - t0
     t0 = time.perf_counter()
     baselines = baselines_served(dev, counters, card)
@@ -3720,6 +4166,8 @@ def main() -> int:
     phase_s.update(whisper_run["wall_s"])
     internvl = internvl_paths(dev, counters, card, graphs)
     phase_s.update(internvl["wall_s"])
+    trainer = trainer_paths(dev, counters, card, phase4)
+    phase_s.update(trainer["wall_s"])
     graph_kinds = {k for k in graphs if "workspace" not in k}
     print("phase 15 summary (" + card + "): " + "; ".join(
         f"{k}: graphed {v['graphed_ms']:.3f} / eager {v['eager_ms']:.3f} ms, capture "
@@ -3733,6 +4181,15 @@ def main() -> int:
     print("RK45 seconds, graphed (" + card + "): " + ", ".join(
         f"{k} {v:.3f} s" for k, v in (("12", distill["rk45_s"]), ("12c", any_run["rk45_s"]),
                                        ("12d", bst_run["rk45_s"]))))
+    print(f"phase 24 summary ({card}): yi-6b trainer at {trainer['24a']['layers']} layers, "
+          f"batch {TRAIN_BATCH} x {TRAIN_SEQ}: {trainer['24a']['median_step_ms']:.1f} ms a "
+          f"step, {trainer['24a']['tokens_per_s']:.1f} tokens/s, peak "
+          f"{trainer['24a']['peak_gib']:.3f} GiB, busy {trainer['24a']['busy']['busy_share']:.3f}; "
+          f"graphed equal to eager {trainer['24b']['equal']}; card vs CPU losses "
+          f"{max(trainer['24c']['loss_rel']):.3e}, params {trainer['24c']['params_rel_l2']:.3e}; "
+          f"checkpoint round trip equal {trainer['24d']['latents_equal']}; profiles default "
+          f"{trainer['24e']['default']['request_ms']:.1f} / tuned "
+          f"{trainer['24e']['tuned']['request_ms']:.1f} ms a request")
     print("phase wall s: " + ", ".join(f"{k} {v:.1f}" for k, v in phase_s.items()))
     new_phases = {
         "12b": {"what": "artifact reload, 2 requests", "request_ms": reload["request_ms"]},
@@ -3740,7 +4197,7 @@ def main() -> int:
                 "iteration_ms": any_run["iteration_ms"],
                 "each_iteration_ms": any_run["each_iteration_ms"],
                 "request_ms": any_run["request_ms"],
-                "request_nfe": any_run["request_nfe"], "layers": ANYTIME_LAYERS,
+                "request_nfe": any_run["request_nfe"], "layers": DISTILL_LAYERS,
                 "rk45": any_run["rk45"], "rk45_s": any_run["rk45_s"],
                 "rk45_programs": any_run["rk45_programs"]},
         "13b": {"what": "anytime gradient, 2 layers f32"},
@@ -3828,6 +4285,20 @@ def main() -> int:
                 **{f: v for f, v in placed["23c"].items() if f != "launches"}}}
     slice17_launches = {"14d": gw_runs["14d"]["launches"], "14e": gw_runs["14e"]["launches"],
                         **{k: placed[k]["launches"] for k in ("23a", "23b", "23c")}}
+    slice18 = {   # phases 24a-24d: the backbone trainer
+        "24a": {"what": f"yi-6b trainer, full width, {TRAIN_LAYERS} layers, {TRAIN_STEPS} steps "
+                        f"of {TRAIN_BATCH} x {TRAIN_SEQ}",
+                **{f: trainer["24a"][f] for f in ("median_step_ms", "tokens_per_s", "peak_gib",
+                                                  "step_ms", "capture_ms", "busy")}},
+        "24b": {"what": f"trainer graphed against eager, {TRAIN_CHECK_LAYERS} layers, "
+                        f"{TRAIN_CHECK_STEPS} steps", "equal": trainer["24b"]["equal"]},
+        "24c": {"what": f"trainer card vs CPU, {TRAIN_CHECK_LAYERS} layers f32, "
+                        f"{TRAIN_CHECK_STEPS} steps of {TRAIN_BATCH} x {TRAIN_SEQ}",
+                "loss_rel": trainer["24c"]["loss_rel"],
+                "params_rel_l2": trainer["24c"]["params_rel_l2"]},
+        "24d": {"what": "trainer checkpoint, resume and serve --ckpt, "
+                        f"{TRAIN_CHECK_LAYERS} layers",
+                "latents_equal": trainer["24d"]["latents_equal"]}}
     new_phases["16"] = {"what": "training programs graphed against eager",
                         **{k: {f: v[f] for f in ("graphed_ms", "eager_ms", "capture_ms",
                                                  "launches_an_iteration", "busy")}
@@ -3914,6 +4385,19 @@ def main() -> int:
             {k: {**v, "launches": slice16_launches[k][name]} for k, v in slice16.items()})
         kernels[-1]["phases"].update(
             {k: {**v, "launches": slice17_launches[k][name]} for k, v in slice17.items()})
+        kernels[-1]["phases"].update(
+            {k: {**v, "launches": trainer["phase_launches"][k][name]}
+             for k, v in slice18.items()})
+        if name in trainer_rows:
+            # phase 3d's shape, the trainer's (24a: one launch a layer a step)
+            kernels[-1]["trainer"] = {
+                **{k: trainer_rows[name][k] for k in ("shape", "max_abs_err", "ms",
+                                                      "plain_ms", "bound_ms", "bound_by",
+                                                      "library_ms")},
+                "launches": trainer["phase_launches"]["24a"][name],
+                "launches_a_step": trainer["phase_launches"]["24a"][name] // TRAIN_STEPS}
+            if name == "flash_attention_bwd":
+                kernels[-1]["trainer"]["library_is"] = "torch autograd of SDPA's backward"
         if name in ("flash_attention", "paged_attention"):
             # phases 21-22's new shapes: flash at hd 64 G 1 (Lq != Lk too) and G 6;
             # paged at KV 8, G 6
@@ -3927,6 +4411,8 @@ def main() -> int:
     print(f"chip_smoke wall {time.perf_counter() - T_START:.1f} s")
     print("phase 15 json: " + json.dumps(graphs))
     print("phase 16 json: " + json.dumps(trains))
+    print("phase 24 json: " + json.dumps({k: v for k, v in trainer.items()
+                                          if k != "phase_launches"}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

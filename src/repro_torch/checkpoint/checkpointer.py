@@ -5,11 +5,16 @@ beside them. The format is the reference's, byte for byte: leaves go in the
 order ``jax.tree.leaves`` gives (NamedTuple, tuple and list fields in order,
 dict keys sorted), each ``{b"dtype", b"shape", b"data"}``, packed by the same
 ``msgpack.packb`` call. A file either package writes restores in the other,
-and the same tree and meta give the same bytes.
+and the same tree and meta give the same bytes. A bfloat16 leaf is stored as
+the reference's numpy stores it (ml_dtypes' ``bfloat16``, whose ``dtype.str``
+is ``<V2``: the raw 2-byte values); the port restores it to bfloat16, while
+the reference's own ``restore`` refuses that dtype (JAX takes no void
+arrays), so a bf16 tree restores only in the port.
 """
 from __future__ import annotations
 
 import json
+import mmap
 import os
 from typing import Any
 
@@ -40,15 +45,24 @@ def _unflatten(template, it):
     return next(it)
 
 
+_BF16 = b"<V2"        # a bfloat16 leaf's dtype string in the reference's files
+
+
 def _pack_leaf(x) -> dict:
+    if isinstance(x, torch.Tensor) and x.dtype == torch.bfloat16:
+        bits = x.detach().cpu().view(torch.int16).numpy()
+        return {b"dtype": _BF16, b"shape": list(bits.shape), b"data": bits.tobytes()}
     arr = x.detach().cpu().numpy() if isinstance(x, torch.Tensor) else np.asarray(x)
     return {b"dtype": arr.dtype.str.encode(), b"shape": list(arr.shape),
             b"data": arr.tobytes()}
 
 
-def _unpack_leaf(d: dict) -> np.ndarray:
-    return np.frombuffer(d[b"data"], dtype=np.dtype(d[b"dtype"].decode())) \
-        .reshape(d[b"shape"])
+def _unpack_leaf(d: dict) -> torch.Tensor:
+    bf16 = d[b"dtype"] == _BF16
+    arr = np.frombuffer(d[b"data"], dtype=np.int16 if bf16 else
+                        np.dtype(d[b"dtype"].decode())).reshape(d[b"shape"])
+    t = torch.from_numpy(arr.copy())
+    return t.view(torch.bfloat16) if bf16 else t
 
 
 def save(path: str, tree: Any, meta: dict | None = None) -> None:
@@ -66,15 +80,19 @@ def save(path: str, tree: Any, meta: dict | None = None) -> None:
 def restore(path: str, template: Any, device: str | torch.device = "cpu") -> Any:
     """The tree saved at ``path`` in ``template``'s structure: each leaf a new
     tensor on ``device`` in its template leaf's dtype, converted from the
-    stored dtype in one step."""
-    with open(path, "rb") as f:
-        payload = msgpack.unpackb(f.read())
-    arrays = [_unpack_leaf(d) for d in payload[b"leaves"]]
+    stored dtype in one step. Only the template's structure and dtypes are
+    read (its leaves may hold no storage). The file is mapped, not read into
+    a buffer first, and each stored leaf is dropped once its tensor is
+    made: the host holds about the file's size at the peak, not twice it."""
     t_leaves = _leaves(template)
-    assert len(arrays) == len(t_leaves), (
-        f"checkpoint has {len(arrays)} leaves, template {len(t_leaves)}")
-    leaves = [torch.from_numpy(a.copy()).to(device=device, dtype=t.dtype)
-              for a, t in zip(arrays, t_leaves)]
+    with open(path, "rb") as f, mmap.mmap(f.fileno(), 0, access=mmap.ACCESS_READ) as m:
+        stored = msgpack.unpackb(m)[b"leaves"]
+    assert len(stored) == len(t_leaves), (
+        f"checkpoint has {len(stored)} leaves, template {len(t_leaves)}")
+    leaves = []
+    for i, t in enumerate(t_leaves):
+        leaves.append(_unpack_leaf(stored[i]).to(device=device, dtype=t.dtype))
+        stored[i] = None
     return _unflatten(template, iter(leaves))
 
 

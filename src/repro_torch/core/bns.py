@@ -48,7 +48,7 @@ from repro_torch.optim.adam import (
     tree_map,
     tree_unflatten,
 )
-from repro_torch.optim.schedule import cosine_annealing, poly_decay
+from repro_torch.optim.schedule import cosine_annealing, poly_decay, schedule_table
 
 Tensor = torch.Tensor
 
@@ -269,8 +269,7 @@ class TrainLoop:
         self.opt = adam_init(self.theta)
         lr_fn = (poly_decay(cfg.lr, cfg.iterations) if cfg.lr_schedule == "poly"
                  else cosine_annealing(cfg.lr, cfg.iterations))
-        self.rates = torch.tensor([float(lr_fn(it)) for it in range(cfg.iterations)],
-                                  dtype=torch.float32, device=device)
+        self.rates = schedule_table(lr_fn, cfg.iterations, device)
         self.batches = batch_table(cfg.seed, train_pairs[0].shape[0], cfg.batch_size,
                                    cfg.iterations, device)
         self.programs = ProgramCache(device)

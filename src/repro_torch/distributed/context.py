@@ -3,8 +3,10 @@
 Port of ``repro.distributed.context``. Models are mesh-agnostic; a launcher
 installs a context and hot layers may place ``constrain(x, *spec)`` hints.
 With no context installed every helper is a no-op, as in the reference. No
-launcher of the port installs one yet (the reference's dry run and trainer
-do; the trainer comes with ROADMAP Queue A item 11).
+launcher of the port installs one: in the reference only the dry run does
+(``launch/dryrun.py``, XLA-only and not ported); its trainer and the port's
+(``launch/train.py``) run without one, and ``models.model.cfm_loss`` places
+its ``constrain`` hints where the reference's does.
 
 Policies:
   seq_parallel_attn — shard attention over query positions on the ``model``

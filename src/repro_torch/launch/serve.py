@@ -108,9 +108,14 @@ and each batch on the 1 x 1 mesh of this process (a process group of one
 rank: NCCL on the card, gloo on the CPU), every gateway host on the same
 mesh; ``production`` and ``multipod`` fall back to one device with a
 WARNING where their 256 or 512 ranks are missing, as in the reference.
-Both take the flow gateway only (``--gateway``). ``--ckpt`` and
-``--profile`` (ROADMAP Queue A item 11) exit naming their item when set off
-their defaults — the launcher never serves something else in their place.
+Both take the flow gateway only (``--gateway``). ``--ckpt PATH`` restores
+the backbone's params from a checkpoint (``launch/train.py`` writes them, and
+so does the reference's trainer) onto the launcher's device, in flow and
+decode mode. ``--profile tuned`` re-executes the launcher once, before
+anything touches the card, under the tuned launch profile
+(``launch/profile.py``: allocator settings, tcmalloc where one is
+installed); ``default`` changes nothing. A flow run on the card ends with
+its peak device memory.
 
 Decode mode serves batched greedy decode (``greedy_demo``; for
 whisper-medium over a zeroed encoder memory of 1500 frames, as the
@@ -133,12 +138,14 @@ import dataclasses
 import json
 import math
 import os
+import sys
 import tempfile
 import time
 
 import torch
 
 from repro_torch import resolve_device
+from repro_torch.checkpoint import checkpointer
 from repro_torch.configs import ARCHS, get_config
 from repro_torch.core import ns_solver
 from repro_torch.core.anytime import evaluate_anytime, init_anytime
@@ -146,10 +153,7 @@ from repro_torch.core.bns import BNSTrainConfig, psnr
 from repro_torch.core.rk45 import RK45Program, rk45_solve
 from repro_torch.core.schedulers import get_scheduler
 from repro_torch.data.synthetic import DataConfig, SyntheticTokens
-from repro_torch.kernels.flash_attention.flash_attention import (
-    BWD_ROADMAP as FLASH_BACKWARD_ROADMAP,
-)
-from repro_torch.kernels.gla_scan.ops import BACKWARD_ROADMAP as GLA_BACKWARD_ROADMAP
+from repro_torch.launch.profile import maybe_reexec
 from repro_torch.models import model as M
 from repro_torch.observability import (
     MetricsServer,
@@ -175,17 +179,6 @@ from repro_torch.serving.zoo import SolverZoo
 from repro_torch.solvers import SolverArtifact, SolverSpec
 
 DEFAULT_NFE = 8
-
-# The reference's flags for what the port does not serve yet: dest -> (flag,
-# what it selects, the ROADMAP Queue A item that brings it, the reference's
-# add_argument keywords). A value off that default exits naming the item.
-_UNPORTED = {
-    "ckpt": ("--ckpt", "restoring backbone weights from a checkpoint", 11,
-             dict(default=None)),
-    "profile": ("--profile", "the launch profiles", 11,
-                dict(default="default", choices=["default", "tuned"])),
-}
-
 
 @dataclasses.dataclass
 class Served:
@@ -400,19 +393,13 @@ def build_parser() -> argparse.ArgumentParser:
                     help="flow gateway: federate N host gateways behind one submit "
                          "(FleetGateway: affinity routing, work stealing); every host "
                          "serves the same sampler")
-    for dest, (flag, what, item, kw) in _UNPORTED.items():
-        ap.add_argument(flag, dest=dest, **kw,
-                        help=f"not served yet: {what} (ROADMAP Queue A item {item})")
+    ap.add_argument("--ckpt", default=None,
+                    help="restore the backbone's params from this checkpoint")
+    ap.add_argument("--profile", default="default", choices=["default", "tuned"],
+                    help="launch profile: 'tuned' re-executes once with the allocator "
+                         "settings and tcmalloc preloaded where installed "
+                         "(repro_torch.launch.profile)")
     return ap
-
-
-# the families whose flow forward runs a kernel with no backward on the card
-_NO_BACKWARD_ON_CARD = {
-    "ssm": f"its gla_scan kernel has no backward ({GLA_BACKWARD_ROADMAP})",
-    "hybrid": (f"the gla_scan kernel has no backward ({GLA_BACKWARD_ROADMAP}), nor has "
-               f"the flash kernel at its head dim 80 ({FLASH_BACKWARD_ROADMAP})"),
-    "encdec": f"the flash kernel has no backward at its head dim 64 ({FLASH_BACKWARD_ROADMAP})",
-}
 
 
 def _refuse_unported(args) -> None:
@@ -427,7 +414,7 @@ def _refuse_unported(args) -> None:
                              f"only, and {args.arch}'s encoder needs audio frames; "
                              "serve it without --gateway")
         loads = bool(args.solver_artifact) and os.path.exists(args.solver_artifact)
-        missing = _NO_BACKWARD_ON_CARD.get(family)
+        missing = M.NO_BACKWARD_ON_CARD.get(family)
         if args.bns_iters > 0 and args.device == "cuda" and not loads and missing:
             raise SystemExit(
                 f"not served by the port yet: BNS distillation of {args.arch} on the "
@@ -439,10 +426,6 @@ def _refuse_unported(args) -> None:
                              "(--mode flow)")
     if args.fleet < 1:
         raise SystemExit("--fleet takes at least one host")
-    for dest, (flag, what, item, kw) in _UNPORTED.items():
-        if getattr(args, dest) != kw["default"]:
-            raise SystemExit(f"not served by the port yet: {flag}, {what} "
-                             f"(ROADMAP Queue A item {item})")
 
 
 def _requested_spec(args) -> SolverSpec:
@@ -572,11 +555,21 @@ def _load_artifact(args, zoo: SolverZoo) -> SolverArtifact:
     return artifact
 
 
+def _init_params(args, cfg, device: torch.device) -> dict:
+    """Random weights from ``--seed``, or ``--ckpt``'s params instead, restored
+    into a template that holds no storage (``M.param_template``), so the
+    weights are never on the device twice."""
+    if args.ckpt:
+        params = checkpointer.restore(args.ckpt, M.param_template(cfg), device=device)
+        print(f"restored params from {args.ckpt}")
+        return params
+    return M.init_params(torch.Generator(device=device).manual_seed(args.seed), cfg, device)
+
+
 def serve_flow(args, device: torch.device) -> FlowServed:
     cfg = get_config(args.arch, smoke=args.smoke)
     sched = get_scheduler(args.scheduler)
-    params = M.init_params(torch.Generator(device=device).manual_seed(args.seed),
-                           cfg, device)
+    params = _init_params(args, cfg, device)
     data = SyntheticTokens(cfg, DataConfig(batch_size=args.batch,
                                            seq_len=args.seq, seed=args.seed),
                            device=device)
@@ -650,6 +643,8 @@ def serve_flow(args, device: torch.device) -> FlowServed:
     print(f"zoo stats: hits={served.zoo.hits} misses={served.zoo.misses} "
           f"loads={served.zoo.loads} distills={served.zoo.distills}")
     _print_programs(sampler, served.distillation)
+    if device.type == "cuda":
+        print(f"peak device memory {torch.cuda.max_memory_allocated(device) / 2**30:.3f} GiB")
     return served
 
 
@@ -794,8 +789,7 @@ def _serve_gateway(args, sampler, cond, request_budgets) -> GatewayServed:
 
 def serve_decode(args, device: torch.device):
     cfg = get_config(args.arch, smoke=args.smoke)
-    params = M.init_params(torch.Generator(device=device).manual_seed(args.seed),
-                           cfg, device)
+    params = _init_params(args, cfg, device)
     engine = DecodeEngine(params=params, cfg=cfg, window=args.window,
                           page_size=args.page_size, paged_kernel=args.paged_kernel)
     if args.gateway:
@@ -876,6 +870,8 @@ def _sync(device: torch.device) -> None:
 def main(argv=None):
     args = build_parser().parse_args(argv)
     _refuse_unported(args)
+    if args.profile != "default":
+        maybe_reexec(args.profile, None if argv is None else [sys.argv[0]] + list(argv))
     if args.kernel_update:
         print("--kernel-update: a no-op in the port, which always runs its ns_update "
               "kernel on the card (its plain version on the CPU)")

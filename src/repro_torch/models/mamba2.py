@@ -40,11 +40,11 @@ from repro_torch.models.attention import (
 from repro_torch.models.layers import dense_init, rms_norm, swiglu
 from repro_torch.models.linear_scan import gla_step
 from repro_torch.models.transformer import (
-    _layer,
     cast_params,
     generator_device,
     init_flow_head,
     init_stacked_layers,
+    layer_views,
     transfer_params,
 )
 
@@ -229,8 +229,9 @@ def hybrid_hidden(params: dict, cfg: ModelConfig, h: Tensor, positions=None, *,
     k = cfg.hybrid_attn_every
     if positions is None:
         positions = torch.arange(h.shape[1], device=h.device)
+    layers = layer_views(params["layers"])
     for site in range(cfg.n_layers // k):
-        group = [_layer(params["layers"], site * k + j) for j in range(k)]
+        group = layers[site * k:site * k + k]
         if remat:
             h = checkpoint(_superblock, params["shared_attn"], group, cfg, h, positions,
                            window, use_reentrant=False)
@@ -283,6 +284,7 @@ def decode_step(params: dict, cfg: ModelConfig, token: Tensor, state: HybridStat
             leaf.copy_(torch.where(keep.reshape((-1,) + (1,) * (leaf.dim() - 1)),
                                    new.to(leaf.dtype), leaf))
 
+    layers = layer_views(params["layers"])
     for site in range(cfg.n_layers // k):
         cache = KVCache(k=state.kv[site], v=state.vv[site], index=state.index)
         hn = rms_norm(h[:, None], sp["norm1"], cfg.norm_eps)
@@ -290,7 +292,7 @@ def decode_step(params: dict, cfg: ModelConfig, token: Tensor, state: HybridStat
         h = h + attn_out[:, 0]
         h = h + swiglu(rms_norm(h, sp["norm2"], cfg.norm_eps), **sp["mlp"])
         for i in range(site * k, (site + 1) * k):
-            h, conv, S = mamba_block_step(_layer(params["layers"], i), cfg, h,
+            h, conv, S = mamba_block_step(layers[i], cfg, h,
                                           state.conv[i], state.ssm[i])
             write(state.conv[i], conv)
             write(state.ssm[i], S)

@@ -13,6 +13,7 @@ command-r-35b), moe (qwen3-moe-30b-a3b, qwen3-moe-235b-a22b), ssm
                                                      or EncDecState
   init_paged_decode_state(cfg, batch, pages, ...) -> paged KV cache
   decode_apply(params, cfg, token, state)         -> (logits, state)
+  cfm_loss(params, cfg, batch, sched, noise=...)  -> the CFM training loss (eq. 56)
 
 ``batch`` is a dict: {"tokens": (B, S) long} plus "frames" (encdec) or
 "patches" (vlm), the stub frontends' embeddings. Every entry point
@@ -20,7 +21,7 @@ dispatches on ``cfg.family``.
 """
 from __future__ import annotations
 
-from typing import Optional
+from typing import NamedTuple, Optional
 
 import torch
 
@@ -28,6 +29,11 @@ from repro_torch import resolve_device
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.parametrization import VelocityField
 from repro_torch.core.schedulers import Scheduler
+from repro_torch.distributed import context
+from repro_torch.kernels.flash_attention.flash_attention import (
+    BWD_ROADMAP as FLASH_BACKWARD_ROADMAP,
+)
+from repro_torch.kernels.gla_scan.ops import BACKWARD_ROADMAP as GLA_BACKWARD_ROADMAP
 from repro_torch.models import mamba2, moe, rwkv6, transformer, vlm, whisper
 from repro_torch.models.attention import KVCache, PagedKVCache
 from repro_torch.models.mamba2 import HybridState
@@ -41,9 +47,23 @@ FAMILIES = ("dense", "moe", "ssm", "hybrid", "encdec", "vlm")
 PORTED_FAMILIES = FAMILIES
 PAGED_FAMILIES = ("dense", "moe", "vlm")   # KV-cache families that can page
 
-__all__ = ["FAMILIES", "PORTED_FAMILIES", "PAGED_FAMILIES", "init_params", "velocity",
-           "velocity_field", "latent_targets", "init_decode_state",
-           "init_paged_decode_state", "decode_state_batch_axes", "decode_apply"]
+# the families whose flow forward runs a kernel with no backward on the card:
+# neither distillation nor backbone training differentiates them there
+NO_BACKWARD_ON_CARD = {
+    "ssm": f"its gla_scan kernel has no backward ({GLA_BACKWARD_ROADMAP})",
+    "hybrid": (f"the gla_scan kernel has no backward ({GLA_BACKWARD_ROADMAP}), nor has "
+               f"the flash kernel at its head dim 80 ({FLASH_BACKWARD_ROADMAP})"),
+    "encdec": f"the flash kernel has no backward at its head dim 64 ({FLASH_BACKWARD_ROADMAP})",
+}
+
+# the param trees' stacked layer subtrees (one leading axis over the layers)
+LAYER_STACKS = ("layers", "enc_layers", "dec_layers")
+
+__all__ = ["FAMILIES", "PORTED_FAMILIES", "PAGED_FAMILIES", "NO_BACKWARD_ON_CARD",
+           "LAYER_STACKS", "param_template", "unbind_layers", "init_params", "velocity",
+           "velocity_field", "latent_targets", "CFMNoise", "draw_cfm_noise", "cfm_loss",
+           "init_decode_state", "init_paged_decode_state", "decode_state_batch_axes",
+           "decode_apply"]
 
 
 def init_params(generator: torch.Generator, cfg: ModelConfig, device="cuda") -> dict:
@@ -51,6 +71,28 @@ def init_params(generator: torch.Generator, cfg: ModelConfig, device="cuda") -> 
             "ssm": rwkv6.init_rwkv_params, "hybrid": mamba2.init_hybrid_params,
             "encdec": whisper.init_encdec_params, "vlm": vlm.init_vlm_params}
     return init[cfg.family](generator, cfg, device)
+
+
+def param_template(cfg: ModelConfig) -> dict:
+    """``cfg``'s param tree drawn under ``FakeTensorMode``: each leaf's shape
+    and dtype, and no storage. A checkpoint restores into it (so the weights
+    are never on the device twice), and it sizes the trainer's state."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+
+    with FakeTensorMode():
+        return init_params(torch.Generator().manual_seed(0), cfg, "cpu")
+
+
+def unbind_layers(params: dict) -> dict:
+    """``params`` with every leaf of its stacked layer subtrees given as the
+    tuple of its layers' views (``unbind(0)``), which the families' layer
+    loops index as they index the stacked tensor (``transformer.layer_views``).
+    Differentiated in this form (the trainer's), each view's gradient is
+    that layer's own tensor, and nothing stacks them; through the stacked
+    tensor, each layer's ``select`` backward would write a zeroed tensor of
+    the whole stack and the L of them be summed."""
+    return {k: transformer._tree_map(lambda x: x.unbind(0), v) if k in LAYER_STACKS else v
+            for k, v in params.items()}
 
 
 def _hidden_fn(cfg: ModelConfig, batch: Optional[dict], remat: bool = False):
@@ -112,6 +154,57 @@ def velocity_field(params: dict, cfg: ModelConfig, sched: Scheduler,
         return (1.0 + cfg_scale) * uc - cfg_scale * uu
 
     return VelocityField(fn=u, scheduler=sched)
+
+
+class CFMNoise(NamedTuple):
+    """One CFM step's draws, the reference's three keys' worth."""
+
+    t: Tensor        # (B,) f32, uniform on [0, 1)
+    x0: Tensor       # (B, S, latent_dim) f32, standard normal
+    drop: Tensor     # (B,) bool: drop the row's conditioning (CFG training)
+
+
+def draw_cfm_noise(generator: torch.Generator, B: int, S: int, latent_dim: int,
+                   p_uncond: float = 0.1, device=None) -> CFMNoise:
+    """t, x0 and the drop mask from ``generator``, in that order (the
+    reference's ``uniform``, ``normal`` and ``bernoulli(p_uncond)``), on
+    ``device`` (default: the generator's)."""
+    dev = generator.device if device is None else device
+    t = torch.rand((B,), generator=generator, device=dev)
+    x0 = torch.randn((B, S, latent_dim), generator=generator, device=dev)
+    drop = torch.rand((B,), generator=generator, device=dev) < p_uncond
+    return CFMNoise(t=t, x0=x0, drop=drop)
+
+
+def cfm_loss(params: dict, cfg: ModelConfig, batch: dict, sched: Scheduler, *,
+             noise, p_uncond: float = 0.1, remat: bool = False) -> Tensor:
+    """Conditional Flow Matching loss (paper eq. 56) over latent sequences.
+
+    x1 = latent embedding of the data tokens (its gradient reaches
+    ``flow.latent_embed``); x_t = sigma_t x0 + alpha_t x1; target velocity =
+    sigma'_t x0 + alpha'_t x1; each row's conditioning tokens are zeroed
+    where ``noise.drop`` is set. The mean squared error in f32. ``noise`` is
+    a ``CFMNoise``, or a ``torch.Generator`` to draw one from
+    (``draw_cfm_noise`` with ``p_uncond``); the reference draws from its rng
+    argument. ``remat`` recomputes each layer in the backward.
+    """
+    tokens = batch["tokens"]
+    B, S = tokens.shape
+    if isinstance(noise, torch.Generator):
+        noise = draw_cfm_noise(noise, B, S, cfg.latent_dim, p_uncond, tokens.device)
+    x1 = latent_targets(params, tokens).to(torch.float32)
+    b = context.batch_axis()
+    x0 = context.constrain(noise.x0, b, None, None)
+    t = context.constrain(noise.t, b)
+    tb = t[:, None, None]
+    a, s = sched.alpha(tb), sched.sigma(tb)
+    da, ds = sched.dalpha(tb), sched.dsigma(tb)
+    x_t = s * x0 + a * x1
+    target = ds * x0 + da * x1
+    cond_tokens = torch.where(noise.drop[:, None], torch.zeros_like(tokens), tokens)
+    v = velocity(params, cfg, t, x_t.to(torch.float32), {**batch, "tokens": cond_tokens},
+                 remat=remat)
+    return torch.mean((v.to(torch.float32) - target) ** 2)
 
 
 # ---------------------------------------------------------------------------

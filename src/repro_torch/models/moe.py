@@ -47,11 +47,11 @@ from repro_torch.models import transformer
 from repro_torch.models.attention import attention_forward, init_attention
 from repro_torch.models.layers import dense_init, rms_norm
 from repro_torch.models.transformer import (
-    _layer,
     cast_params,
     generator_device,
     init_flow_head,
     init_stacked_layers,
+    layer_views,
     transfer_params,
 )
 
@@ -236,8 +236,7 @@ def moe_hidden(params: dict, cfg: ModelConfig, h: Tensor, positions: Tensor, *,
     """The layer stack and the final norm -> (h, mean aux loss over layers).
     ``remat`` recomputes each layer in the backward, as ``dense_hidden``."""
     aux = torch.zeros((), dtype=torch.float32, device=h.device)
-    for i in range(cfg.n_layers):
-        p = _layer(params["layers"], i)
+    for p in layer_views(params["layers"])[:cfg.n_layers]:
         if remat:
             h, a = checkpoint(_block, p, cfg, h, positions, causal, window,
                               use_reentrant=False)

@@ -30,11 +30,11 @@ from repro_torch.kernels.gla_scan import ops as gla_ops
 from repro_torch.models.layers import dense_init, rms_norm
 from repro_torch.models.linear_scan import gla_step
 from repro_torch.models.transformer import (
-    _layer,
     cast_params,
     generator_device,
     init_flow_head,
     init_stacked_layers,
+    layer_views,
     transfer_params,
 )
 
@@ -184,8 +184,7 @@ def rwkv_hidden(params: dict, cfg: ModelConfig, h: Tensor, positions=None, *,
     chunk = chunk or (cfg.ssm.chunk if cfg.ssm else 64)
     B, L, d = h.shape
     zero = torch.zeros((B, d), dtype=h.dtype, device=h.device)
-    for i in range(cfg.n_layers):
-        p = _layer(params["layers"], i)
+    for p in layer_views(params["layers"])[:cfg.n_layers]:
         if remat:
             h = checkpoint(_seq_layer, p, cfg, h, zero, chunk, use_reentrant=False)
         else:
@@ -223,8 +222,7 @@ def decode_step(params: dict, cfg: ModelConfig, token: Tensor, state: RWKVState,
             leaf.copy_(torch.where(keep.reshape((-1,) + (1,) * (leaf.dim() - 1)),
                                    new.to(leaf.dtype), leaf))
 
-    for i in range(cfg.n_layers):
-        p = _layer(params["layers"], i)
+    for i, p in enumerate(layer_views(params["layers"])[:cfg.n_layers]):
         hn = rms_norm(h, p["norm1"], cfg.norm_eps)
         tm_out, sh_tm, S = _time_mix_step(p["tm"], hn, state.shift_tm[i].to(hn.dtype),
                                           state.wkv[i])

@@ -168,8 +168,15 @@ def transfer_params(tree: dict, expected: set, device="cuda", dtype=None) -> dic
     return cast_params(out, dtype) if dtype is not None else out
 
 
-def _layer(layers: dict, i: int) -> dict:
-    return _tree_map(lambda x: x[i], layers)
+def layer_views(layers: dict) -> list[dict]:
+    """Each layer's tree of a stacked tree: ``x[i]`` of every leaf, whether
+    the leaf is the stacked tensor or the tuple of its layers' views
+    (``model.unbind_layers``, the trainer's form, whose gradient is then
+    each layer's own tensor)."""
+    first = layers
+    while isinstance(first, dict):
+        first = next(iter(first.values()))
+    return [_tree_map(lambda x: x[i], layers) for i in range(len(first))]
 
 
 def _block(p: dict, cfg: ModelConfig, h: Tensor, positions: Tensor,
@@ -195,8 +202,7 @@ def dense_hidden(params: dict, cfg: ModelConfig, h: Tensor, positions: Tensor,
     in the backward instead of keeping its activations (the reference's
     ``jax.checkpoint`` around the scan body): only each layer's input is
     saved, and the layer runs twice under grad."""
-    for i in range(cfg.n_layers):
-        p = _layer(params["layers"], i)
+    for p in layer_views(params["layers"])[:cfg.n_layers]:
         if remat:
             h = checkpoint(_block, p, cfg, h, positions, causal, window,
                            use_reentrant=False)
@@ -251,8 +257,7 @@ def decode_step(params: dict, cfg: ModelConfig, token: Tensor, caches, *,
     attn_kw = dict(n_heads=cfg.n_heads, n_kv=cfg.n_kv_heads, head_dim=cfg.resolved_head_dim,
                    rope_theta=cfg.rope_theta, norm_eps=cfg.norm_eps)
     pos = caches.index.to(torch.int32).expand(B)
-    for i in range(cfg.n_layers):
-        p = _layer(params["layers"], i)
+    for i, p in enumerate(layer_views(params["layers"])[:cfg.n_layers]):
         hn = rms_norm(h, p["norm1"], cfg.norm_eps)
         if paged:
             attn_out = decode_attention_paged(

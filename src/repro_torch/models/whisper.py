@@ -45,11 +45,11 @@ from repro_torch.models.attention import (
 )
 from repro_torch.models.layers import dense_init, rms_norm
 from repro_torch.models.transformer import (
-    _layer,
     cast_params,
     generator_device,
     init_flow_head,
     init_stacked_layers,
+    layer_views,
     transfer_params,
 )
 
@@ -139,11 +139,10 @@ def _enc_block(p: dict, cfg: ModelConfig, h: Tensor, positions: Tensor) -> Tenso
 def encode(params: dict, cfg: ModelConfig, frames: Tensor, remat: bool = False) -> Tensor:
     """frames (B, M, d_model) stub frontend embeddings -> encoder memory, in
     the encoder weights' dtype (the frames are cast to it: the bf16 rule)."""
-    layers = params["enc_layers"]
-    h = frames.to(layers["attn"]["wq"].dtype)
+    layers = layer_views(params["enc_layers"])
+    h = frames.to(layers[0]["attn"]["wq"].dtype)
     positions = torch.arange(frames.shape[1], device=frames.device)
-    for i in range(layers["norm1"].shape[0]):
-        p = _layer(layers, i)
+    for p in layers:
         if remat:
             h = checkpoint(_enc_block, p, cfg, h, positions, use_reentrant=False)
         else:
@@ -169,8 +168,7 @@ def decoder_hidden(params: dict, cfg: ModelConfig, h: Tensor, memory: Tensor,
     """The decoder stack over ``h`` (B, S, d) and the final norm."""
     if positions is None:
         positions = torch.arange(h.shape[1], device=h.device)
-    for i in range(cfg.n_layers):
-        p = _layer(params["dec_layers"], i)
+    for p in layer_views(params["dec_layers"])[:cfg.n_layers]:
         if remat:
             h = checkpoint(_dec_block, p, cfg, h, memory, positions, causal,
                            use_reentrant=False)
@@ -200,8 +198,7 @@ def decode_step(params: dict, cfg: ModelConfig, token: Tensor, state: EncDecStat
     h = params["embed"][token.long()][:, None, :]              # (B, 1, d)
     B = h.shape[0]
     pos = state.index.to(torch.int32).expand(B)
-    for i in range(cfg.n_layers):
-        p = _layer(params["dec_layers"], i)
+    for i, p in enumerate(layer_views(params["dec_layers"])[:cfg.n_layers]):
         cache = KVCache(k=state.k[i], v=state.v[i], index=state.index)
         attn_out, _ = decode_attention(
             p["self_attn"], rms_norm(h, p["norm1"], cfg.norm_eps), cache,

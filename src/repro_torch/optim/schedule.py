@@ -6,7 +6,10 @@ pretraining: constant or poly-decay + warmup.
 
 Each schedule is a function of the step (a Python int or a tensor) that
 returns a 0-d float32 tensor, on the step's device when the step is a tensor,
-computed in f32 as the reference computes it.
+computed in f32 as the reference computes it. ``schedule_table`` evaluates
+one at every step up front on the host, for a training program that gathers
+its rate on the device at Adam's counted step (the card's own f32 arithmetic
+rounds an ulp differently from the host's).
 """
 from __future__ import annotations
 
@@ -46,3 +49,10 @@ def warmup_cosine(lr: float, warmup_steps: int, total_steps: int, end_lr: float 
         return torch.where(step < warmup_steps, warm, cos(step - warmup_steps))
 
     return fn
+
+
+def schedule_table(lr_fn, steps: int, device) -> torch.Tensor:
+    """``lr_fn(i)`` for i in 0..steps-1, computed on the host, as one f32
+    tensor on ``device``."""
+    return torch.tensor([float(lr_fn(i)) for i in range(steps)], dtype=torch.float32,
+                        device=device)

@@ -140,6 +140,20 @@ class Program:
         return _tree_map(torch.Tensor.clone, self.static_out)
 
 
+def release_if_short(device: torch.device) -> bool:
+    """Hand the allocator's cached free blocks back to the device when they
+    exceed what the device has free. A capture allocates its working set
+    from the graphs' pool, which cannot reuse the blocks the warm-up freed:
+    where the working set is most of the card (backbone training), it
+    cannot be held twice. True when it released them."""
+    free, _ = torch.cuda.mem_get_info(device)
+    if torch.cuda.memory_reserved(device) - torch.cuda.memory_allocated(device) <= free:
+        return False
+    torch.cuda.synchronize(device)
+    torch.cuda.empty_cache()
+    return True
+
+
 class ProgramCache:
     """Key -> captured ``Program`` for one engine on one device (module
     docstring). ``cache(key, fn, inputs, state)`` returns ``fn(*inputs)``:
@@ -207,6 +221,7 @@ class ProgramCache:
             with torch.cuda.stream(stream):
                 out = fn(*inputs)                # the warm-up is this call
             current.wait_stream(stream)
+            release_if_short(self.device)
             before = {c: c.launches for c in build.COUNTERS}
             t0 = time.perf_counter()
             graph = torch.cuda.CUDAGraph()

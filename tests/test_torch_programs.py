@@ -396,3 +396,22 @@ def test_block_table_of_another_shape_is_refused(decode):
     state = eng.init_slot_state(2, 16)
     with pytest.raises(ValueError, match="block table of shape"):
         eng.with_block_table(state, _table(2, 3))
+
+
+@pytest.mark.parametrize("free_gib,released", [(4, True), (16, False)])
+def test_a_capture_releases_the_cache_only_when_the_device_is_short(free_gib, released,
+                                                                     monkeypatch):
+    """``release_if_short`` (called between a capture's warm-up and the
+    capture) empties the allocator's cache, after a sync, only where its
+    cached free blocks (reserved minus allocated, here 8 GiB) exceed the
+    device's free memory; otherwise it touches nothing."""
+    from repro_torch.serving import programs
+
+    calls = []
+    monkeypatch.setattr(torch.cuda, "mem_get_info", lambda d: (free_gib * 2**30, 80 * 2**30))
+    monkeypatch.setattr(torch.cuda, "memory_reserved", lambda d: 70 * 2**30)
+    monkeypatch.setattr(torch.cuda, "memory_allocated", lambda d: 62 * 2**30)
+    monkeypatch.setattr(torch.cuda, "synchronize", lambda d: calls.append("sync"))
+    monkeypatch.setattr(torch.cuda, "empty_cache", lambda: calls.append("empty"))
+    assert programs.release_if_short(torch.device("cuda", 0)) is released
+    assert calls == (["sync", "empty"] if released else [])

@@ -416,14 +416,106 @@ def test_reference_flags_are_a_subset_of_the_ports():
         assert port_args[dest] == ref_args[dest], dest
 
 
-@pytest.mark.parametrize("extra,item", [
-    (["--ckpt", "params.msgpack"], 11), (["--profile", "tuned"], 11),
-])
-def test_serve_refuses_each_unported_reference_flag_naming_its_item(extra, item):
-    with pytest.raises(SystemExit) as exc:
-        serve.main(["--arch", "yi-6b", "--device", "cpu", "--bns-iters", "0"] + extra)
-    assert f"ROADMAP Queue A item {item}" in str(exc.value.code)
-    assert extra[0] in str(exc.value.code)
+def _trained_checkpoint(tmp_path, seed=5):
+    """yi-6b smoke weights other than the launcher's seed-0 draw, trained two
+    steps by the port's trainer and saved at its last step."""
+    from repro_torch.launch import train
+
+    ckpt_dir = str(tmp_path / "ckpt")
+    run = train.main(["--arch", "yi-6b", "--smoke", "--steps", "2", "--batch", "2",
+                      "--seq", "8", "--seed", str(seed), "--device", "cpu",
+                      "--ckpt-dir", ckpt_dir, "--ckpt-every", "2"])
+    return os.path.join(ckpt_dir, "step_2.msgpack"), run.params
+
+
+def test_serve_ckpt_flow_serves_the_restored_params(tmp_path, capsys):
+    """``--ckpt`` in flow mode (the reference's ``serve.py:196-198``): every
+    request's latents equal, to the bit, a ``FlowSampler`` on the trainer's
+    params with the launcher's conditioning and noise seeds."""
+    path, params = _trained_checkpoint(tmp_path)
+    served = serve.main(_FLOW + ["--nfe", "2", "--requests", "2", "--bns-iters", "0",
+                                 "--ckpt", path])
+    assert f"restored params from {path}" in capsys.readouterr().out
+    cfg = get_config("yi-6b", smoke=True)
+    cond = SyntheticTokens(cfg, DataConfig(batch_size=2, seq_len=8, seed=0),
+                           device="cpu").batch(0)
+    sampler = FlowSampler(params=params, cfg=cfg, sched=tsched.fm_ot(),
+                          solver=treg.build_ns("euler", 2, None))
+    for req, s in enumerate(served):
+        want = sampler.sample(cond, torch.Generator().manual_seed(1000 + req))
+        assert torch.equal(s.latents, want)
+    unrestored = serve.main(_FLOW + ["--nfe", "2", "--requests", "1", "--bns-iters", "0"])
+    assert not torch.equal(unrestored[0].latents, served[0].latents)
+
+
+def test_serve_ckpt_decode_serves_the_restored_params(tmp_path, capsys):
+    """``--ckpt`` in decode mode (the reference's ``serve.py:363-364``): the
+    greedy demo's tokens equal ``greedy_demo`` on the trainer's params."""
+    from repro_torch.serving.engine import DecodeEngine, greedy_demo
+
+    path, params = _trained_checkpoint(tmp_path)
+    served = serve.main(_DECODE + ["--batch", "2", "--steps", "6", "--slots", "16",
+                                   "--ckpt", path])
+    assert f"restored params from {path}" in capsys.readouterr().out
+    engine = DecodeEngine(params=params, cfg=get_config("yi-6b", smoke=True))
+    want, _ = greedy_demo(engine, 2, 6, 16)
+    assert torch.equal(served.tokens, want)
+
+
+def test_serve_ckpt_restores_a_reference_checkpoint(tmp_path):
+    """A checkpoint the reference's trainer's checkpointer wrote serves in the
+    port's launcher as the reference's weights: the latents equal a sampler
+    on ``params_from_jax`` of them."""
+    from repro.checkpoint import checkpointer as jckpt
+
+    jcfg = jax_get_config("yi-6b", smoke=True)
+    jparams = jmodel.init_params(jax.random.PRNGKey(9), jcfg)
+    path = str(tmp_path / "step_1.msgpack")
+    jckpt.save(path, jparams)
+    served = serve.main(_FLOW + ["--nfe", "2", "--requests", "1", "--bns-iters", "0",
+                                 "--ckpt", path])
+    cfg = get_config("yi-6b", smoke=True)
+    params = params_from_jax(jax.tree.map(np.asarray, jparams), cfg, device="cpu")
+    cond = SyntheticTokens(cfg, DataConfig(batch_size=2, seq_len=8, seed=0),
+                           device="cpu").batch(0)
+    want = FlowSampler(params=params, cfg=cfg, sched=tsched.fm_ot(),
+                       solver=treg.build_ns("euler", 2, None)
+                       ).sample(cond, torch.Generator().manual_seed(1000))
+    assert torch.equal(served[0].latents, want)
+
+
+@pytest.mark.parametrize("mode", ["flow", "decode"])
+def test_serve_ckpt_draws_no_random_weights(mode, tmp_path, monkeypatch):
+    """With ``--ckpt`` the launcher restores into ``param_template`` and
+    never draws the random weights it would replace (the weights are on the
+    device once); flow serves the checkpoint's params, each leaf a real
+    tensor."""
+    from torch._subclasses.fake_tensor import FakeTensor
+
+    from repro_torch.models import model as M
+    from repro_torch.optim.adam import tree_leaves
+
+    path, params = _trained_checkpoint(tmp_path)
+
+    init_params = M.init_params
+
+    def drawn(*args):
+        tree = init_params(*args)
+        assert all(isinstance(x, FakeTensor) for x in tree_leaves(tree)), \
+            "random weights drawn under --ckpt"
+        return tree
+
+    monkeypatch.setattr(serve.M, "init_params", drawn)
+    if mode == "decode":
+        served = serve.main(_DECODE + ["--batch", "2", "--steps", "2", "--slots", "8",
+                                       "--ckpt", path])
+        assert served.tokens.shape[0] == 2
+        return
+    served = serve.main(_FLOW + ["--nfe", "2", "--requests", "1", "--bns-iters", "0",
+                                 "--ckpt", path])
+    assert bool(torch.isfinite(served[0].latents).all())
+    for a, b in zip(tree_leaves(served.sampler.params), tree_leaves(params)):
+        assert type(a) is torch.Tensor and torch.equal(a, b)
 
 
 @pytest.mark.parametrize("extra,done,fleet", [
@@ -447,7 +539,8 @@ def test_serve_fleet_and_mesh_host_serve_on_the_cpu(extra, done, fleet, capsys):
 
 
 def test_serve_reference_flags_at_their_defaults_change_nothing(capsys):
-    """The unported flags given at their defaults serve as without them."""
+    """The reference's flags given at their defaults serve as without them
+    (``--profile default`` re-executes nothing)."""
     served = serve.main(_FLOW + ["--nfe", "2", "--requests", "1", "--bns-iters", "0",
                                  "--max-batch", "8", "--max-wait-ms", "10", "--mesh", "none",
                                  "--fleet", "1", "--mixed-budget-policy", "auto",
