@@ -51,7 +51,24 @@ Phases (any failure ends the run with a non-zero exit and no last line):
    time of each pass (dq, dk/dv) from torch.profiler by kernel name; the
    ns_update backward its device time at the flow cell. Both backward
    kernels at the flow cell are also timed a launch replayed from one CUDA
-   graph of 100 launches (the training programs' cost).
+   graph of 100 launches (the training programs' cost). Since PR 30 the
+   flash backward also at the shapes of the families it newly trains, on
+   the CUDA cores (bf16 widened as staged): zamba2-2.7b's shared attention
+   (B=4, 32 / 32 heads of 80, L 1024, causal), whisper-medium's decoder
+   (16 / 16 heads of 64, L 1024, causal) and its cross-attention (Lq 1024,
+   Lk 1500, full) twice: the dq pass alone (distillation: the memory
+   carries no gradient; its bound and flops count S, dP and dQ, 6 hd a
+   pair, and SDPA's backward is taken in q only) and whole (training); and
+   f32 cases at hd 80 and 64. And the gla_scan backward (gla_scan_bwd)
+   against ``gla_chunked_bwd`` taken in f64 on the same inputs, relative L2
+   of each gradient <= GLA_BWD_TOL (f32 1e-5, bf16 2e-2): rwkv6-7b's flow
+   shape (exclusive, bf16, per-channel f32 decay of the model's size),
+   zamba2-2.7b's (inclusive, q and k one group broadcast over 80 heads, one
+   f32 decay a head) and a ragged f32 case (L 1000) with s0 and dS_final;
+   kernel and device ms, the plain backward's ms (in the inputs' types), no
+   library call ("none: no one PyTorch call"), the bound at the peak of the
+   inputs' type (bytes: q, k, v, dO, ld read once, dq, dk, dv, dld written
+   once; flops ``gla_bwd_flops``) with the f32 CUDA-core count beside it.
 3d. The flash forward with its log-sum-exp and the flash backward at the
    backbone trainer's shape (phase 24a: batch TRAIN_BATCH = 8, L TRAIN_SEQ =
    64, 32 / 4 heads of 128, bf16, causal), each against its plain version on
@@ -407,15 +424,56 @@ Phases (any failure ends the run with a non-zero exit and no last line):
     phase 4's first request under the default profile: request ms, peak
     memory, whether tcmalloc was found and the one re-exec line; no claim
     either way.
-25. The script's wall time, one JSON line listing the kernels (the
+26. Distillation of rwkv6-7b at full width (PR 30): ``serve.main`` with
+    phase 12's flags at FAMILY_DISTILL_DEPTH = 4 of its 32 layers
+    (``launcher_depth``), FAMILY_DISTILL_ITERS = K = 8 iterations, the
+    artifact under build/chip_smoke/rwkv6-7b/ (a directory of its own,
+    emptied first: the zoo scans it for a solver of the same spec), then its
+    2 requests. With R the RK45 evaluations of both solves, C = R + 8 + 8 +
+    16 velocity calls under no_grad and G = 8 K differentiated ones (each
+    layer recomputed): gla_scan N (C + 2 G), gla_scan_bwd N G (N = 4
+    layers; ``family_launches`` writes this out), ns_update 8 (2 + 2 + K),
+    ns_update_bwd 8 K, nothing else. The distilled val PSNR above Euler's.
+26b. Phase 13's gradient for rwkv6-7b at 1 layer, f32, drawn on the card:
+    gla_scan 8, gla_scan_bwd 4, ns_update 4 and 4. The loss and each
+    gradient card vs CPU within relative L2 1e-4; a gradient that f32
+    itself cannot hold to that (the CPU's f32 result farther than
+    GRAD_F32_FLOOR = 2.5e-5 from the CPU's f64 one: rwkv6-7b's time-logit
+    gradient reads 2.0e-4) is held to the f64 result instead, the card's
+    distance at most GRAD_F32_FACTOR = 4 times the CPU's.
+27. Phase 26 for zamba2-2.7b at 6 of its 54 layers (one shared-attention
+    site, hybrid_attn_every 6): gla_scan 6 (C + 2 G), gla_scan_bwd 6 G,
+    flash (hd 80) C + 2 G, flash backward G; then phase 16's BNS case on its
+    weights and pairs (graphed TrainLoop iterations equal to eager to the
+    bit, launches equal). 27b: its gradient at 2 layers and one site
+    (hybrid_attn_every 2), f32: gla_scan 16, gla_scan_bwd 8, flash 8 and 4.
+28. Phase 26 for whisper-medium at 4 decoder and 4 encoder layers (E = D =
+    4): flash (E + 2 D) C + (E + 4 D) G (the encoder runs a plain forward in
+    every call, its frames and weights carrying no gradient; each decoder
+    layer's self- and cross-attention run twice when differentiated), flash
+    backward 2 D G (the cross-attention's the dq pass alone). 28b: its
+    gradient at 1 + 1 layers, f32: flash 20, backward 8.
+29. The backbone trainer (``launch.train.main``) on each of the three at
+    full width and the smallest depth each takes (FAMILY_TRAIN_DEPTH:
+    rwkv6-7b 1 layer, zamba2-2.7b 6 (one site), whisper-medium 1 + 1),
+    FAMILY_TRAIN_STEPS = 3 steps of 8 x 64, graphed and then under
+    ``programs.disabled()``: params, Adam's moments and step and the losses
+    equal to the bit, launches equal to the formula (weights carry
+    gradients, no recomputation: each recurrence and attention forward and
+    backward once a step: rwkv6-7b gla_scan 1 and gla_scan_bwd 1 a step,
+    zamba2-2.7b 6 and 6 with flash 1 and 1, whisper-medium flash 3 and 3);
+    ms a step and peak memory printed (29a, 29b, 29c).
+30. The script's wall time, one JSON line listing the kernels (the
     ns_update and flash entries, forward and backward, with phases 4b, 5b,
     12b, 12c, 12d, 13b, 13c, 14a, 14b, 14c, 16 and 17-17d's launches and
     ms beside the main path's; every entry with phases 18-20's; the flash
     and gla_scan entries also carry zamba2-2.7b's case and phase-17
     launches, the flash and paged entries phases 18-20's shapes; every
     entry with phases 14d, 14e and 23's, and 24a-24d's; the two flash
-    entries with phase 3d's case and 24a's launches as "trainer"), then the
-    last line.
+    entries with phase 3d's case and 24a's launches as "trainer"; every
+    entry with phases 26-29's, the gla_scan_bwd entry's main path being
+    phase 26 and the flash backward's and gla_scan_bwd's phase 3c cases at
+    the new families' shapes as "slice19_cases"), then the last line.
 
 Phase 3 also holds flash at B=4 L=1024 hd 128, causal, bf16 at (H, KV) =
 (56, 8), (40, 10), (64, 8) and (64, 4) (yi-34b, phi3-medium-14b,
@@ -436,6 +494,7 @@ import gc
 import json
 import os
 import re
+import shutil
 import subprocess
 import sys
 import time
@@ -471,6 +530,10 @@ PAGED_BF16 = {"rel": 2.0 ** -7, "atol": 1e-6}
 # scripts/flash_bwd_fault_check.py shows the sound kernel inside and planted
 # faults outside.
 FLASH_BWD_BF16 = {"atol": 1e-3, "rtol": 2 ** -7, "row_rel_l2": 4e-3}
+# the gla_scan backward against its plain version taken in f64 on the same
+# inputs: relative L2 of each gradient, f32 inputs 1e-5 (the kernel sums in
+# f32), bf16 inputs 2e-2 (bf16 outputs round by up to 2^-9 each)
+GLA_BWD_TOL = {torch.float32: 1e-5, torch.bfloat16: 2e-2}
 HBM_BYTES_PER_S = 3.35e12                          # H100 SXM data sheet
 PEAK_FLOPS = {torch.float32: 67e12, torch.bfloat16: 989e12}  # CUDA-core f32, dense bf16
 NFE, BATCH, SEQ, REQUESTS = 8, 4, 1024, 3
@@ -516,6 +579,7 @@ DENSE_LAYERS = {"phi3-medium-14b": 40, "command-r-35b": 40, "yi-34b": 60}
 # phases 21-21c: whisper-medium, 24 encoder and 24 decoder layers; a forward runs
 # flash 3 x 24 times (encoder, decoder self-attention, cross-attention)
 WHISPER, WHISPER_LAYERS = "whisper-medium", 24
+WHISPER_FRAMES = 1500                                        # its stub frontend's frames
 WHISPER_DECODE_STEPS, WHISPER_DECODE_SLOTS = 32, 64          # phase 21c
 # phases 22-22b: internvl2-26b at full width and depth, 48 layers (~40 GB bf16)
 INTERNVL, INTERNVL_LAYERS, INTERNVL_REQUESTS = "internvl2-26b", 48, 2
@@ -545,7 +609,26 @@ TRAIN_LAYERS = 32                                    # 24a: yi-6b's full depth
 TRAIN_CHECK_LAYERS, TRAIN_CHECK_STEPS = 2, 3         # 24b, 24c
 TRAIN_CKPT_DIR = ROOT / "build" / "chip_smoke" / "train_ckpt"                # 24d
 KERNELS = ("ns_update", "flash_attention", "paged_attention", "gla_scan", "ns_update_bwd",
-           "flash_attention_bwd")
+           "flash_attention_bwd", "gla_scan_bwd")
+# phases 26-28: Algorithm 2 at full width for the families whose backward
+# kernels PR 30 added (gla_scan's; flash at hd 80 and 64), each at a cut
+# depth: (layers, encoder layers); 26b-28b their gradient card vs CPU and
+# 29a-c the trainer at the smallest depth each takes
+FAMILY_DISTILL_DEPTH = {"rwkv6-7b": (4, None), "zamba2-2.7b": (6, None),
+                        "whisper-medium": (4, 4)}
+FAMILY_DISTILL_ITERS = 8
+FAMILY_GRAD_DEPTH = {"rwkv6-7b": 1, "zamba2-2.7b": 2, "whisper-medium": 1}   # f32, each stack
+FAMILY_TRAIN_DEPTH = {"rwkv6-7b": (1, None), "zamba2-2.7b": (6, None),
+                      "whisper-medium": (1, 1)}
+FAMILY_TRAIN_STEPS = 3
+# 26b-28b: a gradient whose CPU f32 result lies farther than this from the
+# CPU's f64 one is held to f64 (the card within GRAD_F32_FACTOR x the CPU's
+# distance): rwkv6-7b's time-logit gradient reads 2.0e-4 from f64 on the CPU
+# in f32 and 4.0e-4 on the card, 4.0e-4 too with the gla backward kernel
+# replaced by its plain version in f64 (scripts/grad_f32_conditioning.py):
+# the kernels add nothing to it
+GRAD_F32_FLOOR, GRAD_F32_FACTOR = 2.5e-5, 4.0
+FAMILY_PHASE = {"rwkv6-7b": "26", "zamba2-2.7b": "27", "whisper-medium": "28"}
 # the flash backward's passes by kernel name (in bf16 and f32 alike)
 BWD_PASSES = ("flash_bwd_dq", "flash_bwd_dkdv")
 
@@ -876,28 +959,41 @@ def flash_bwd_cases(dev):
     g = torch.Generator(device=dev).manual_seed(6)
     bf16, f32 = torch.bfloat16, torch.float32
     rows = []
-    for B, H, KV, L, dtype, causal in [(BATCH, 32, 4, SEQ, bf16, True),     # main path
-                                       (BATCH, 32, 4, SEQ, f32, True),
-                                       (BATCH, 32, 4, SEQ, bf16, False),
-                                       (BATCH, 32, 4, 1000, bf16, True),    # ragged L
-                                       (BATCH, 32, 4, 1000, f32, False),
-                                       (2, 8, 2, 77, f32, True),
-                                       (1, 4, 4, 33, bf16, False)]:
-        hd = 128
-        q, do = (torch.randn((B, L, H, hd), generator=g, device=dev).to(dtype).transpose(1, 2)
+    # (B, H, KV, Lq, Lk, hd, dtype, causal, dk/dv wanted)
+    cases = [(BATCH, 32, 4, SEQ, SEQ, 128, bf16, True, True),     # main path
+             (BATCH, 32, 4, SEQ, SEQ, 128, f32, True, True),
+             (BATCH, 32, 4, SEQ, SEQ, 128, bf16, False, True),
+             (BATCH, 32, 4, 1000, 1000, 128, bf16, True, True),   # ragged L
+             (BATCH, 32, 4, 1000, 1000, 128, f32, False, True),
+             (2, 8, 2, 77, 77, 128, f32, True, True),
+             (1, 4, 4, 33, 33, 128, bf16, False, True)]
+    cases += [(BATCH, 32, 32, SEQ, SEQ, 80, bf16, True, True),    # zamba2's shared attention
+              (BATCH, 16, 16, SEQ, SEQ, 64, bf16, True, True),    # whisper's decoder
+              # whisper's cross-attention under distillation: only q needs a gradient
+              (BATCH, 16, 16, SEQ, WHISPER_FRAMES, 64, bf16, False, False),
+              (BATCH, 16, 16, SEQ, WHISPER_FRAMES, 64, bf16, False, True),  # under training
+              (2, 8, 2, 77, 77, 80, f32, True, True),
+              (1, 4, 4, 40, 97, 64, f32, False, True)]
+    for B, H, KV, Lq, Lk, hd, dtype, causal, dkdv in cases:
+        q, do = (torch.randn((B, Lq, H, hd), generator=g, device=dev).to(dtype).transpose(1, 2)
                  for _ in "qo")
-        k, v = (torch.randn((B, L, KV, hd), generator=g, device=dev).to(dtype).transpose(1, 2)
+        k, v = (torch.randn((B, Lk, KV, hd), generator=g, device=dev).to(dtype).transpose(1, 2)
                 for _ in "kv")
-        shape = (f"B={B} H={H} KV={KV} L={L} hd={hd} {str(dtype)[6:]} "
-                 f"{'causal' if causal else 'full'}")
+        lens = f"L={Lq}" if Lq == Lk else f"Lq={Lq} Lk={Lk}"
+        shape = (f"B={B} H={H} KV={KV} {lens} hd={hd} {str(dtype)[6:]} "
+                 f"{'causal' if causal else 'full'}{'' if dkdv else ', dq only'}")
         o, lse = flash_attention(q, k, v, causal=causal, return_lse=True)
         lse_ref = attention_lse_ref(q, k, causal=causal)
         lse_ratio = float(((lse - lse_ref).abs() / (4 * TOL[f32] * (1 + lse_ref.abs()))).max())
         if not lse_ratio <= 1:
             raise SystemExit(f"flash_attention [{shape}]: lse vs plain at {lse_ratio:.3f} of "
                              "the limit (4 TOL (1 + |lse|))")
-        got = flash_attention_bwd(q, k, v, o, lse, do, causal=causal)
+        got = flash_attention_bwd(q, k, v, o, lse, do, causal=causal, dkdv=dkdv)
         ref = attention_bwd_ref(q, k, v, o, lse, do, causal=causal)
+        if not dkdv:
+            if got[1] is not None or got[2] is not None:
+                raise SystemExit(f"flash_attention_bwd [{shape}]: dk, dv returned")
+            got, ref = got[:1], ref[:1]
         err, ratio = 0.0, 0.0
         for what, x, r in zip(("dq", "dk", "dv"), got, ref):
             if not bool(torch.isfinite(x.float()).all()):
@@ -911,25 +1007,36 @@ def flash_bwd_cases(dev):
             else:
                 err = max(err, check_close(f"flash_attention_bwd [{shape}] {what}", x, r,
                                            atol=TOL[f32] * 4, rtol=TOL[f32] * 4))
-        pairs = L * (L + 1) // 2 if causal else L * L
+        # kept (query, key) pairs: under `causal`, key j <= query i
+        pairs = sum(min(i + 1, Lk) for i in range(Lq)) if causal else Lq * Lk
         size = q.element_size()
-        flops = 10 * hd * pairs * B * H
-        nbytes = (4 * B * H * L * hd + 4 * B * KV * L * hd) * size + B * H * L * 4
+        # the algorithm's flops a kept pair: S, dP, dQ (6 hd), and dV, dK (4 hd more)
+        flops = (10 if dkdv else 6) * hd * pairs * B * H
+        # q, o, dO read and dq written; k, v read (and dk, dv written)
+        nbytes = ((4 * B * H * Lq + (4 if dkdv else 2) * B * KV * Lk) * hd * size
+                  + B * H * Lq * 4)
         b_ms, b_by = bound(nbytes, flops, dtype)
-        ms = time_ms(lambda: flash_attention_bwd(q, k, v, o, lse, do, causal=causal), iters=20)
-        passes = device_ms_by_kernel(
-            lambda: flash_attention_bwd(q, k, v, o, lse, do, causal=causal), BWD_PASSES)
-        executed = (20 if dtype == bf16 else 14) * hd * pairs * B * H
+
+        def call():
+            return flash_attention_bwd(q, k, v, o, lse, do, causal=causal, dkdv=dkdv)
+
+        ms = time_ms(call, iters=20)
+        passes = device_ms_by_kernel(call, BWD_PASSES)
+        tensor_cores = dtype == bf16 and hd == 128
+        executed = ((20 if tensor_cores else 14) if dkdv else 8) * hd * pairs * B * H
         qs, ks, vs = (t.detach().requires_grad_(True) for t in (q, k, v))
+        if not dkdv:
+            ks, vs = k, v
         out = F.scaled_dot_product_attention(qs, ks, vs, is_causal=causal, enable_gqa=True)
+        wrt = (qs, ks, vs) if dkdv else (qs,)
         rows.append(dict(
             shape=shape, max_abs_err=err, limit_ratio=ratio, lse_limit_ratio=lse_ratio,
             ms=ms, tflops=flops / ms / 1e9, executed_tflops=executed / ms / 1e9,
             pass_device_ms=passes,
             plain_ms=time_ms(lambda: attention_bwd_ref(q, k, v, o, lse, do, causal=causal),
                              iters=5, warmup=1),
-            library_ms=time_ms(lambda: torch.autograd.grad(out, (qs, ks, vs), do,
-                                                           retain_graph=True), iters=20),
+            library_ms=time_ms(lambda: torch.autograd.grad(out, wrt, do, retain_graph=True),
+                               iters=20),
             bound_ms=b_ms, bound_by=b_by))
         if len(rows) == 1:
             rows[-1]["graphed_ms"] = graphed_ms(
@@ -1154,6 +1261,101 @@ def gla_cases(dev):
             ms=time_ms(lambda: gla_scan(q, k, v, ld, s0, inclusive=inclusive, chunk=chunk)),
             plain_ms=time_ms(lambda: gla_chunked(q, k, v, ld, s0, inclusive=inclusive,
                                                  chunk=chunk), iters=10, warmup=2),
+            library_ms=None, bound_ms=b_ms, bound_by=b_by))
+    return rows
+
+
+def gla_bwd_flops(L: int, chunk: int, dk: int, dv: int, inclusive: bool) -> float:
+    """Operations the backward needs for one (row, head), chunk by chunk
+    (ref.gla_chunked_bwd's products): the kept triangle of the score cube P
+    and of dq's and dk's intra-chunk sums over it (a difference, two
+    products and a sum per element each), dP and dv's intra-chunk sum
+    (2 dv a pair each), and five (n, dk, dv) products: dq's and dk's and
+    dv's terms in the state and its gradient, the gradient's update and the
+    recomputed starting state. Exponentials are not counted."""
+    total = 0.0
+    for l0 in range(0, L, chunk):
+        n = min(chunk, L - l0)
+        pairs = n * (n + 1) // 2 if inclusive else n * (n - 1) // 2
+        total += 12 * pairs * dk + 4 * pairs * dv + 10 * n * dk * dv
+    return total
+
+
+def gla_bwd_cases(dev):
+    """Phase 3c: the gla_scan backward kernel against ``gla_chunked_bwd`` in
+    f64 on the same inputs (relative L2 of each gradient <= GLA_BWD_TOL of
+    its input type), at rwkv6-7b's flow shape (exclusive, per-channel
+    decay), zamba2-2.7b's (inclusive, q and k one group broadcast over 80
+    heads, one f32 decay a head, as models/mamba2.py::_ssd hands them
+    over) and a ragged f32 case with s0 and dS_final; timed beside the plain
+    version (in the inputs' types) with its bound. No one PyTorch call
+    computes the function."""
+    from repro_torch.kernels.gla_scan.gla_scan import gla_scan_bwd
+    from repro_torch.kernels.gla_scan.ref import gla_chunked_bwd
+
+    g = torch.Generator(device=dev).manual_seed(31)
+    f32, bf16 = torch.float32, torch.bfloat16
+    rows = []
+    # (B, L, H, dk, dv, chunk, form, qkv dtype, s0 and dS_final)
+    for B, L, H, dk, dv, chunk, form, dtype, state in [
+            (BATCH, SEQ, 64, 64, 64, 64, "rwkv6", bf16, False),    # rwkv6-7b's main path
+            (BATCH, SEQ, 80, 64, 64, 64, "mamba2", bf16, False),   # zamba2-2.7b's
+            (2, 1000, 8, 64, 64, 64, "rwkv6", f32, True)]:         # ragged, states
+        group = form == "mamba2"
+        if group:
+            xbc = torch.randn((B, L, H * dv + 2 * dk), generator=g, device=dev).to(dtype)
+            k = xbc[..., H * dv:H * dv + dk][:, :, None, :]
+            q = xbc[..., H * dv + dk:][:, :, None, :]
+            noise = torch.randn((B, L, H, 1), generator=g, device=dev)
+            a_log = 0.5 * torch.randn((H, 1), generator=g, device=dev)
+            ld = torch.nn.functional.softplus(noise - 2.0) * -torch.exp(a_log)
+        else:
+            q, k = (torch.randn((B, L, H, dk), generator=g, device=dev).to(dtype)
+                    for _ in "qk")
+            ld = -torch.exp(-6.0 + 0.1 * torch.randn((B, L, H, dk), generator=g, device=dev))
+        v, do = (torch.randn((B, L, H, dv), generator=g, device=dev).to(dtype) for _ in "vo")
+        s0, dS = ((torch.randn((B, H, dk, dv), generator=g, device=dev) for _ in "sd")
+                  if state else (None, None))
+        inclusive = group
+        shape = (f"B={B} L={L} H={H} dk={dk} dv={dv} chunk={chunk} "
+                 f"{'inclusive' if inclusive else 'exclusive'} qkv {str(dtype)[6:]} ld f32"
+                 f"{' per head, q, k one group over the heads' if group else ''}"
+                 f"{' s0 and dS_final' if state else ''}")
+
+        def call():
+            return gla_scan_bwd(q, k, v, ld, s0, do, dS, inclusive=inclusive, chunk=chunk)
+
+        got = call()
+        f64 = lambda t: None if t is None else t.double()  # noqa: E731
+        want = gla_chunked_bwd(*map(f64, (q, k, v, ld, s0, do, dS)), inclusive=inclusive,
+                               chunk=chunk)
+        rels, err = {}, 0.0
+        for what, x, w in zip(("dq", "dk", "dv", "dld", "ds0"), got, want):
+            if w is None:
+                continue
+            if not bool(torch.isfinite(x.float()).all()):
+                raise SystemExit(f"gla_scan_bwd [{shape}] {what}: non-finite")
+            rels[what] = relative_l2(x.double(), w.cpu())
+            err = max(err, float((x.double() - w).abs().max()))
+        del want
+        if not max(rels.values()) <= GLA_BWD_TOL[dtype]:
+            raise SystemExit(f"gla_scan_bwd [{shape}]: relative L2 against the f64 plain "
+                             f"backward {rels}, limit {GLA_BWD_TOL[dtype]}")
+        size = q.element_size()
+        qk = 2 * q.numel() * size                 # a group's q and k stored once
+        states = (3 * B * H * dk * dv * 4) if state else 0
+        # inputs q, k, v, do, ld read once; dq, dk, dv, dld written once
+        nbytes = 2 * (qk + 2 * v.numel() * size + ld.numel() * 4) - v.numel() * size + states
+        flops = B * H * gla_bwd_flops(L, chunk, dk, dv, inclusive)
+        b_ms, b_by = bound(nbytes, flops, dtype)
+        b32_ms, b32_by = bound(nbytes, flops, f32)
+        rows.append(dict(
+            shape=shape, max_abs_err=err, relative_l2=rels, bound_f32=(b32_ms, b32_by),
+            ms=time_ms(call, iters=10, warmup=2),
+            device_ms=device_ms(call, "gla_scan_bwd", iters=5),
+            plain_ms=time_ms(lambda: gla_chunked_bwd(q, k, v, ld, s0, do, dS,
+                                                     inclusive=inclusive, chunk=chunk),
+                             iters=2, warmup=1),
             library_ms=None, bound_ms=b_ms, bound_by=b_by))
     return rows
 
@@ -1819,18 +2021,22 @@ def artifact_reload(dev, counters, distilled: dict) -> dict:
 
 
 @contextlib.contextmanager
-def launcher_depth(layers: int):
-    """Inside the block the launcher builds its model with ``layers`` layers
-    (its width unchanged)."""
-    from repro_torch.launch import serve
+def launcher_depth(layers: int, encoder_layers: int | None = None):
+    """Inside the block the launcher and the trainer build their model with
+    ``layers`` layers, and an encoder-decoder's encoder with
+    ``encoder_layers`` (when given), the width unchanged."""
+    from repro_torch.launch import serve, train
 
-    inner = serve.get_config
-    serve.get_config = lambda arch, smoke=False: dataclasses.replace(
-        inner(arch, smoke=smoke), n_layers=layers)
+    inner = {serve: serve.get_config, train: train.get_config}
+    enc = {} if encoder_layers is None else {"n_encoder_layers": encoder_layers}
+    for module, fn in inner.items():
+        module.get_config = lambda arch, smoke=False, fn=fn: dataclasses.replace(
+            fn(arch, smoke=smoke), n_layers=layers, **enc)
     try:
         yield
     finally:
-        serve.get_config = inner
+        for module, fn in inner.items():
+            module.get_config = fn
 
 
 def anytime_path(dev, counters, trains: dict) -> dict:
@@ -2046,10 +2252,15 @@ def bst_distill_path(dev, counters, trains: dict) -> dict:
             "each_iteration_ms": iteration_ms, "peak_gib": peak / 2**30}
 
 
-def gradient_against_cpu(dev, counters, cfg, params) -> None:
-    """Phase 13: _loss_fn and its gradient in theta on the card (kernels)
-    against the CPU (plain versions), then theta after a few train_solver
-    steps; limits as the module docstring states them."""
+def bns_gradient_against_cpu(dev, counters, cfg, params, label: str, want: dict,
+                             card_params=None, check: bool = True):
+    """_loss_fn at euler NFE 4 and its gradient in theta on the card
+    (kernels; ``card_params``, or ``params`` copied there) against the CPU
+    (plain versions, ``params``), batch 2 x 128 of synthetic tokens (and
+    frames), seeded pairs, each layer recomputed: relative L2 of the loss
+    and of each gradient <= 1e-4 (with ``check``; else the caller judges);
+    the card launches exactly ``want``. Returns (the two sides' fields,
+    theta0, the pairs, each side's gradients on the CPU, the relative L2s)."""
     from repro_torch.core import bns, ns_solver
     from repro_torch.core.schedulers import get_scheduler
     from repro_torch.data.synthetic import DataConfig, SyntheticTokens
@@ -2063,8 +2274,9 @@ def gradient_against_cpu(dev, counters, cfg, params) -> None:
     x0, x1 = (torch.from_numpy(rng.standard_normal((2, 128, cfg.latent_dim))
                                .astype(np.float32)) for _ in "01")
     theta0 = ns_solver.from_ns(build_ns("euler", 4, None))
+    card_params = params_to(params, dev) if card_params is None else card_params
     fields = {"cpu": M.velocity_field(params, cfg, get_scheduler("fm_ot"), batch, remat=True),
-              "card": M.velocity_field(params_to(params, dev), cfg, get_scheduler("fm_ot"),
+              "card": M.velocity_field(card_params, cfg, get_scheduler("fm_ot"),
                                        {k: v.to(dev) for k, v in batch.items()}, remat=True)}
     got = {}
     for where, field in fields.items():
@@ -2074,19 +2286,31 @@ def gradient_against_cpu(dev, counters, cfg, params) -> None:
         loss = bns._loss_fn(bns.ns_sampler(field), th, x0.to(d), x1.to(d))
         grads = torch.autograd.grad(loss, list(th))
         ran = {name: c.launches - before[name] for name, c in counters.items()}
-        want = ({**dict.fromkeys(KERNELS, 0), "flash_attention": 2 * 4 * 2,
-                 "flash_attention_bwd": 2 * 4, "ns_update": 4, "ns_update_bwd": 4}
-                if where == "card" else dict.fromkeys(KERNELS, 0))
-        if ran != want:
-            raise SystemExit(f"gradient on the {where}: launched {ran}, expected {want}")
+        expected = want if where == "card" else dict.fromkeys(KERNELS, 0)
+        if ran != expected:
+            raise SystemExit(f"gradient on the {where} [{label}]: launched {ran}, expected "
+                             f"{expected}")
         got[where] = (loss.detach().cpu(), [g.cpu() for g in grads])
     rels = [float(torch.linalg.vector_norm(a - b) / torch.linalg.vector_norm(b).clamp_min(1e-30))
             for a, b in zip([got["card"][0], *got["card"][1]], [got["cpu"][0], *got["cpu"][1]])]
-    print(f"gradient, yi-6b 2 layers f32, euler NFE 4, remat: card vs CPU relative L2 of "
+    print(f"gradient, {label}, euler NFE 4, remat: card vs CPU relative L2 of "
           f"loss {rels[0]:.3e}, d/d time_logits {rels[1]:.3e}, d/da {rels[2]:.3e}, "
-          f"d/db {rels[3]:.3e} (limit 1e-4)")
-    if not max(rels) <= 1e-4:
-        raise SystemExit(f"gradient card vs CPU: relative L2 {rels} over 1e-4")
+          f"d/db {rels[3]:.3e} (limit 1e-4); card launches {want}")
+    if check and not max(rels) <= 1e-4:
+        raise SystemExit(f"gradient card vs CPU [{label}]: relative L2 {rels} over 1e-4")
+    return fields, theta0, (x0, x1), {k: v[1] for k, v in got.items()}, rels
+
+
+def gradient_against_cpu(dev, counters, cfg, params) -> None:
+    """Phase 13: _loss_fn and its gradient in theta on the card (kernels)
+    against the CPU (plain versions), then theta after a few train_solver
+    steps; limits as the module docstring states them."""
+    from repro_torch.core import bns
+
+    want = {**dict.fromkeys(KERNELS, 0), "flash_attention": 2 * 4 * 2,
+            "flash_attention_bwd": 2 * 4, "ns_update": 4, "ns_update_bwd": 4}
+    fields, theta0, (x0, x1), grads, _ = bns_gradient_against_cpu(
+        dev, counters, cfg, params, "yi-6b 2 layers f32", want)
     cfg_t = bns.BNSTrainConfig(nfe=4, init_solver="euler", lr=DISTILL_CHECK_LR,
                                lr_schedule="cosine", iterations=DISTILL_CHECK_STEPS,
                                val_every=100, batch_size=2)
@@ -2096,7 +2320,7 @@ def gradient_against_cpu(dev, counters, cfg, params) -> None:
         res = bns.train_solver(bns.ns_sampler(field), theta0, (x0.to(d), x1.to(d)),
                                (x0.to(d), x1.to(d)), cfg_t)
         thetas[where] = torch.cat([p.cpu().reshape(-1) for p in res.params])
-    g0 = torch.cat([g.reshape(-1) for g in got["cpu"][1]]).abs()
+    g0 = torch.cat([g.reshape(-1) for g in grads["cpu"]]).abs()
     signed = g0 >= 1e-3 * g0.max()
     diff = (thetas["card"] - thetas["cpu"]).abs()
     step = DISTILL_CHECK_LR * DISTILL_CHECK_STEPS
@@ -3175,8 +3399,11 @@ def card_drawn_model(dev, arch: str, layers: int = 2):
 
     free_device_memory(dev)
     cfg = get_config(arch)
-    # an encoder-decoder model takes ``layers`` in each stack
+    # an encoder-decoder model takes ``layers`` in each stack; a hybrid one
+    # keeps one shared-attention site over its ``layers`` Mamba2 layers
     enc = {"n_encoder_layers": layers} if cfg.n_encoder_layers else {}
+    if cfg.family == "hybrid":
+        enc["hybrid_attn_every"] = layers
     cfg = dataclasses.replace(cfg, n_layers=layers, dtype="float32", **enc)
     on_card = M.init_params(torch.Generator(device=dev).manual_seed(0), cfg, dev)
     return cfg, on_card, params_to(on_card, "cpu")
@@ -4003,6 +4230,229 @@ def trainer_paths(dev, counters, card: str, phase4: dict) -> dict:
     return out
 
 
+def family_launches(cfg, no_grad: int, grad: int, *, training: bool = False) -> dict:
+    """Kernel launches of ``no_grad`` velocity calls of ``cfg``'s model under
+    no_grad and ``grad`` differentiated ones: with ``training`` (the
+    backbone trainer: weights require grad, no recomputation) every
+    attention and recurrence runs forward once and backward once; otherwise
+    (distillation: only x and theta carry gradients, each layer recomputed in
+    the backward) a differentiated call runs each layer forward twice and
+    backward once, except whisper's encoder, whose frames and weights carry
+    no gradient (one plain forward a call), and its cross-attention's
+    backward is the dq pass alone (one launch all the same)."""
+    N, twice = cfg.n_layers, 1 if training else 2
+    out = dict.fromkeys(KERNELS, 0)
+    if cfg.family == "ssm":
+        out.update(gla_scan=N * (no_grad + twice * grad), gla_scan_bwd=N * grad)
+    elif cfg.family == "hybrid":
+        sites = N // cfg.hybrid_attn_every
+        out.update(gla_scan=N * (no_grad + twice * grad), gla_scan_bwd=N * grad,
+                   flash_attention=sites * (no_grad + twice * grad),
+                   flash_attention_bwd=sites * grad)
+    elif cfg.family == "encdec":
+        E, D = cfg.n_encoder_layers, 2 * cfg.n_layers      # decoder: self and cross
+        if training:
+            out.update(flash_attention=(E + D) * (no_grad + grad),
+                       flash_attention_bwd=(E + D) * grad)
+        else:
+            out.update(flash_attention=(E + D) * no_grad + (E + 2 * D) * grad,
+                       flash_attention_bwd=D * grad)
+    else:
+        raise ValueError(f"no launch formula for the {cfg.family} family")
+    return out
+
+
+def family_distill_path(dev, counters, card: str, arch: str, trains: dict) -> dict:
+    """Phases 26-28: serve.main distils a BNS solver for ``arch`` at full
+    width and FAMILY_DISTILL_DEPTH[arch] layers (phase 12's flags with
+    FAMILY_DISTILL_ITERS iterations and ``--solver-artifact`` under
+    build/chip_smoke/<arch>/, emptied first), serves its requests, and must launch
+    what the module docstring's formula says; the distilled val PSNR above
+    the initial (Euler) solver's. zamba2-2.7b's then runs phase 16's BNS
+    case (graphed against eager) on its weights and pairs, into ``trains``."""
+    from repro_torch.launch import serve
+
+    layers, enc = FAMILY_DISTILL_DEPTH[arch]
+    phase = FAMILY_PHASE[arch]
+    # a directory of its own: the launcher's zoo scans the artifact's directory
+    # and would serve another arch's solver of the same spec from it
+    path = ROOT / "build" / "chip_smoke" / arch / f"bns_nfe{NFE}.msgpack"
+    shutil.rmtree(path.parent, ignore_errors=True)
+    path.parent.mkdir(parents=True)
+    free_device_memory(dev)
+    reset(counters)
+    t0 = time.perf_counter()
+    with launcher_depth(layers, enc):
+        served = serve.main(["--arch", arch, "--mode", "flow", "--full", "--nfe", str(NFE),
+                             "--batch", str(BATCH), "--seq", str(SEQ), "--bns-iters",
+                             str(FAMILY_DISTILL_ITERS), "--requests", str(DISTILL_REQUESTS),
+                             "--solver-artifact", str(path)])
+    wall = time.perf_counter() - t0
+    d, cfg = served.distillation, served.sampler.cfg
+    K, R = FAMILY_DISTILL_ITERS, sum(d.rk45[part][0] for part in ("train", "val"))
+    no_grad = R + NFE + NFE + DISTILL_REQUESTS * NFE
+    want = {**family_launches(cfg, no_grad, NFE * K),
+            "ns_update": NFE * (2 + DISTILL_REQUESTS + K), "ns_update_bwd": NFE * K}
+    launches = {name: c.launches for name, c in counters.items()}
+    if launches != want:
+        raise SystemExit(f"phase {phase} ({arch}): distillation launch counts {launches}, "
+                         f"expected {want} (RK45 evaluations {R})")
+    losses = [h[1] for h in d.history]
+    if not (d.history and all(np.isfinite(losses)) and np.isfinite(d.val_psnr)
+            and np.isfinite(d.init_val_psnr)):
+        raise SystemExit(f"phase {phase} ({arch}): non-finite loss or PSNR: {d.history}, "
+                         f"init {d.init_val_psnr}")
+    if not d.val_psnr > d.init_val_psnr:
+        raise SystemExit(f"phase {phase} ({arch}): distilled val PSNR {d.val_psnr} not above "
+                         f"Euler's {d.init_val_psnr}")
+    if served.zoo.distills != 1 or len(served) != DISTILL_REQUESTS or not all(
+            s.latents.shape == (BATCH, SEQ, 64) and bool(torch.isfinite(s.latents).all())
+            for s in served):
+        raise SystemExit(f"phase {phase} ({arch}): zoo {served.zoo}, bad requests")
+    peak = torch.cuda.max_memory_allocated(dev)
+    iter_ms = (d.train_seconds - d.init_val_seconds) / K * 1e3
+    depth = f"{layers}" + ("" if enc is None else f" + {enc} encoder")
+    print(f"phase {phase} ({card}): {arch} full width, {depth} layers, NFE {NFE}, batch "
+          f"{BATCH}, seq {SEQ}: RK45 train nfe/accepted/rejected {d.rk45['train']}, val "
+          f"{d.rk45['val']} ({d.rk45_seconds:.3f} s, step program {d.rk45_programs}); val "
+          f"PSNR Euler {d.init_val_psnr:.4f} dB -> distilled {d.val_psnr:.4f} dB after {K} "
+          f"iterations (losses {[round(x, 5) for x in losses]}); ~{iter_ms:.1f} ms an "
+          f"iteration (each {[round(x * 1e3, 1) for x in d.iteration_seconds]}); request ms "
+          f"{[round(x.ms, 3) for x in served]}; launches {launches} (the formula's); peak "
+          f"memory {peak / 2**30:.3f} GiB; main() wall {wall:.3f} s; training programs "
+          f"{d.programs}")
+    if arch == "zamba2-2.7b":
+        label = f"bns, {arch} at {layers} layers, seq {SEQ}, euler NFE {NFE}"
+        trains[label] = train_programs(dev, counters, label, train_loop(
+            "bns", served_field(dev, served.sampler, SEQ), d.pairs))
+    out = {"layers": layers, "encoder_layers": enc, "rk45": d.rk45,
+           "rk45_s": d.rk45_seconds, "init_val_psnr": d.init_val_psnr,
+           "val_psnr": d.val_psnr, "iteration_ms": iter_ms,
+           "each_iteration_ms": [x * 1e3 for x in d.iteration_seconds],
+           "request_ms": [x.ms for x in served], "peak_gib": peak / 2**30, "wall_s": wall,
+           "launches": launches}
+    del served, d
+    return out
+
+
+def family_gradient_against_cpu(dev, counters, arch: str) -> dict:
+    """Phases 26b-28b: phase 13's gradient for ``arch`` at FAMILY_GRAD_DEPTH
+    layers (each stack of whisper's; zamba2's one shared-attention site over
+    its two Mamba2 layers), f32, drawn on the card, launches as the formula
+    says for 4 differentiated calls: the loss and each gradient card vs CPU
+    within relative L2 1e-4. A gradient that f32 cannot hold to that (the
+    CPU's own f32 result farther than GRAD_F32_FLOOR from the same
+    computation in f64 on the CPU) is held instead to the f64 result: the
+    card's distance from it at most GRAD_F32_FACTOR times the CPU's."""
+    from repro_torch.optim.adam import tree_map
+
+    cfg, on_card, on_cpu = card_drawn_model(dev, arch, FAMILY_GRAD_DEPTH[arch])
+    want = {**family_launches(cfg, 0, 4), "ns_update": 4, "ns_update_bwd": 4}
+    label = f"{arch} {FAMILY_GRAD_DEPTH[arch]} layers f32"
+    fields, theta0, pairs, grads, rels = bns_gradient_against_cpu(
+        dev, counters, cfg, on_cpu, label, want, card_params=on_card, check=False)
+    out = {"relative_l2": rels, "launches": want}
+    if max(rels) > 1e-4:
+        from repro_torch.core import bns, ns_solver
+        from repro_torch.core.schedulers import get_scheduler
+        from repro_torch.data.synthetic import DataConfig, SyntheticTokens
+        from repro_torch.models import model as M
+
+        batch = SyntheticTokens(cfg, DataConfig(batch_size=2, seq_len=128, seed=0),
+                                device="cpu").batch(0)
+        field = M.velocity_field(tree_map(lambda t: t.double(), on_cpu),
+                                 dataclasses.replace(cfg, dtype="float64"),
+                                 get_scheduler("fm_ot"), batch, remat=True)
+        th = ns_solver.BNSParams(*(p.double().requires_grad_(True) for p in theta0))
+        exact = torch.autograd.grad(
+            bns._loss_fn(bns.ns_sampler(field), th, *(x.double() for x in pairs)), list(th))
+        cpu_err, card_err = ([relative_l2(g.double(), e) for g, e in zip(grads[side], exact)]
+                             for side in ("cpu", "card"))
+        ok = [r <= 1e-4 or (c_cpu > GRAD_F32_FLOOR and c_card <= GRAD_F32_FACTOR * c_cpu)
+              for r, c_cpu, c_card in zip(rels[1:], cpu_err, card_err)]
+        print(f"gradient, {label}: against the CPU's f64 gradient, relative L2 CPU f32 "
+              f"{[f'{x:.3e}' for x in cpu_err]}, card {[f'{x:.3e}' for x in card_err]}; "
+              f"held (card vs CPU <= 1e-4, or the CPU f32 past {GRAD_F32_FLOOR:.1e} from f64 "
+              f"and the card within {GRAD_F32_FACTOR} x of it) {ok}")
+        out.update(cpu_f32_vs_f64=cpu_err, card_vs_f64=card_err)
+        if not (rels[0] <= 1e-4 and all(ok)):
+            raise SystemExit(f"gradient card vs CPU [{label}]: relative L2 {rels}, against "
+                             f"f64 CPU {cpu_err} / card {card_err}")
+    del on_card, on_cpu, fields
+    return out
+
+
+def family_trainer(dev, counters, card: str, arch: str) -> dict:
+    """Phases 29a-c: ``launch.train.main`` trains ``arch`` at full width and
+    FAMILY_TRAIN_DEPTH[arch] layers, FAMILY_TRAIN_STEPS steps of TRAIN_BATCH
+    x TRAIN_SEQ, graphed and then under ``programs.disabled()``: params,
+    Adam's moments and step and the losses equal to the bit, launches equal
+    and as the formula says; ms a step and peak memory printed."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch import train
+    from repro_torch.serving import programs
+
+    layers, enc = FAMILY_TRAIN_DEPTH[arch]
+    runs, counts, peaks = {}, {}, {}
+    for side in ("graphed", "eager"):
+        free_device_memory(dev)
+        before = {name: c.launches for name, c in counters.items()}
+        with launcher_depth(layers, enc), (programs.disabled() if side == "eager"
+                                           else contextlib.nullcontext()):
+            runs[side] = train.main(["--arch", arch, "--steps", str(FAMILY_TRAIN_STEPS),
+                                     "--batch", str(TRAIN_BATCH), "--seq", str(TRAIN_SEQ)])
+        counts[side] = launched(counters, before)
+        peaks[side] = torch.cuda.max_memory_allocated(dev) / 2**30
+    g, e = runs["graphed"], runs["eager"]
+    equal = {"params": _tree_equal(g.params, e.params), "mu": _tree_equal(g.opt.mu, e.opt.mu),
+             "nu": _tree_equal(g.opt.nu, e.opt.nu),
+             "step": [int(g.opt.step) == int(e.opt.step) == FAMILY_TRAIN_STEPS],
+             "losses": [a == b for a, b in zip(g.losses, e.losses)]}
+    cfg = dataclasses.replace(get_config(arch), n_layers=layers,
+                              **({} if enc is None else {"n_encoder_layers": enc}))
+    want = family_launches(cfg, 0, FAMILY_TRAIN_STEPS, training=True)
+    depth = f"{layers}" + ("" if enc is None else f" + {enc} encoder")
+    row = {"layers": layers, "encoder_layers": enc, "step_ms": {"graphed": g.step_ms,
+                                                                "eager": e.step_ms},
+           "median_step_ms": float(np.median(g.step_ms[1:])), "peak_gib": peaks,
+           "losses": g.losses, "equal": {k: all(v) for k, v in equal.items()},
+           "launches": counts["graphed"]}
+    print(f"phase 29 [{arch}] ({card}): trainer at full width, {depth} layers, "
+          f"{FAMILY_TRAIN_STEPS} steps of {TRAIN_BATCH} x {TRAIN_SEQ}: step ms graphed "
+          f"{[round(x, 1) for x in g.step_ms]} (step 0 with the capture) / eager "
+          f"{[round(x, 1) for x in e.step_ms]}, peak {peaks['graphed']:.3f} / "
+          f"{peaks['eager']:.3f} GiB; equal to the bit {equal}; launches {counts}; losses "
+          f"{[round(x, 5) for x in g.losses]}")
+    if not (all(all(v) for v in equal.values()) and counts["graphed"] == counts["eager"] == want
+            and len(g.trainer.programs) == 1 and all(np.isfinite(g.losses))):
+        raise SystemExit(f"phase 29 [{arch}]: the graphed trainer differs from the eager one "
+                         f"or from the launch formula {want}")
+    del runs, g, e
+    return row
+
+
+def family_paths(dev, counters, card: str, trains: dict) -> dict:
+    """Phases 26-29: each family distilled at full width (26-28), its gradient
+    card vs CPU (26b-28b), then each trained (29a-c); every model freed
+    before the next."""
+    out, wall = {}, {}
+    for arch in FAMILY_DISTILL_DEPTH:
+        phase = FAMILY_PHASE[arch]
+        t0 = time.perf_counter()
+        out[phase] = family_distill_path(dev, counters, card, arch, trains)
+        wall[phase] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        out[phase + "b"] = family_gradient_against_cpu(dev, counters, arch)
+        wall[phase + "b"] = time.perf_counter() - t0
+    for arch, key in zip(FAMILY_TRAIN_DEPTH, ("29a", "29b", "29c")):
+        t0 = time.perf_counter()
+        out[key] = family_trainer(dev, counters, card, arch)
+        wall[key] = time.perf_counter() - t0
+    free_device_memory(dev)
+    out["wall_s"] = wall
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is False)",
@@ -4037,7 +4487,7 @@ def main() -> int:
     rows = {"ns_update": ns_update_cases(dev), "flash_attention": flash_cases(dev),
             "paged_attention": paged_cases(dev), "gla_scan": gla_cases(dev),
             "ns_update_bwd": ns_update_bwd_cases(dev),
-            "flash_attention_bwd": flash_bwd_cases(dev)}
+            "flash_attention_bwd": flash_bwd_cases(dev), "gla_scan_bwd": gla_bwd_cases(dev)}
     for name, cases in rows.items():
         for r in cases:
             lib = ("none" if r["library_ms"] is None else f"{r['library_ms']:.4f} ms")
@@ -4054,6 +4504,9 @@ def main() -> int:
             if "tflops" in r:
                 extra += (f", {r['tflops']:.1f} TFLOP/s, kernel/bound "
                           f"{r['ms'] / r['bound_ms']:.2f}")
+            if "relative_l2" in r:
+                extra += ", relative L2 against the f64 plain backward " + ", ".join(
+                    f"{k} {v:.2e}" for k, v in r["relative_l2"].items())
             for key, what in (("dot_limit_ratio", "da, dw at"), ("lse_limit_ratio", "lse at")):
                 if key in r:
                     extra += f", {what} {r[key]:.4f} of the limit"
@@ -4071,6 +4524,8 @@ def main() -> int:
             if "graphed_ms" in r:
                 extra += (f", graphed {r['graphed_ms']:.4f} ms a launch (100 launches "
                           f"replayed from one CUDA graph)")
+            if name == "gla_scan_bwd":
+                lib = "none: no one PyTorch call"
             print(f"{name} [{r['shape']}]: err {r['max_abs_err']:.3e}, "
                   f"kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, "
                   f"library {lib}, bound {r['bound_ms']:.4f} ms ({r['bound_by']}){extra}")
@@ -4078,7 +4533,8 @@ def main() -> int:
     trainer_rows = trainer_flash_cases(dev)
     counters = {"ns_update": nu.COUNTER, "flash_attention": fa.COUNTER,
                 "paged_attention": pa.COUNTER, "gla_scan": gs.COUNTER,
-                "ns_update_bwd": nu.BWD_COUNTER, "flash_attention_bwd": fa.BWD_COUNTER}
+                "ns_update_bwd": nu.BWD_COUNTER, "flash_attention_bwd": fa.BWD_COUNTER,
+                "gla_scan_bwd": gs.BWD_COUNTER}
     zero = dict.fromkeys(KERNELS, 0)
     flows = NFE * REQUESTS
     graphs, phase_s = {}, {}
@@ -4168,6 +4624,9 @@ def main() -> int:
     phase_s.update(internvl["wall_s"])
     trainer = trainer_paths(dev, counters, card, phase4)
     phase_s.update(trainer["wall_s"])
+    family = family_paths(dev, counters, card, trains)
+    phase_s.update(family["wall_s"])
+    launches["gla_scan_bwd"] = family["26"]["launches"]["gla_scan_bwd"]
     graph_kinds = {k for k in graphs if "workspace" not in k}
     print("phase 15 summary (" + card + "): " + "; ".join(
         f"{k}: graphed {v['graphed_ms']:.3f} / eager {v['eager_ms']:.3f} ms, capture "
@@ -4190,6 +4649,15 @@ def main() -> int:
           f"checkpoint round trip equal {trainer['24d']['latents_equal']}; profiles default "
           f"{trainer['24e']['default']['request_ms']:.1f} / tuned "
           f"{trainer['24e']['tuned']['request_ms']:.1f} ms a request")
+    print(f"phases 26-29 summary ({card}): " + "; ".join(
+        f"{arch} at {family[p]['layers']} layers: val PSNR Euler {family[p]['init_val_psnr']:.4f}"
+        f" -> {family[p]['val_psnr']:.4f} dB, {family[p]['iteration_ms']:.1f} ms an iteration, "
+        f"RK45 {family[p]['rk45_s']:.1f} s, gradient card vs CPU "
+        f"{max(family[p + 'b']['relative_l2']):.2e}" for arch, p in FAMILY_PHASE.items())
+          + "; trainer " + "; ".join(
+              f"{arch} {family[k]['median_step_ms']:.1f} ms a step, peak "
+              f"{family[k]['peak_gib']['graphed']:.3f} GiB, equal {family[k]['equal']}"
+              for arch, k in zip(FAMILY_TRAIN_DEPTH, ("29a", "29b", "29c"))))
     print("phase wall s: " + ", ".join(f"{k} {v:.1f}" for k, v in phase_s.items()))
     new_phases = {
         "12b": {"what": "artifact reload, 2 requests", "request_ms": reload["request_ms"]},
@@ -4320,6 +4788,8 @@ def main() -> int:
                           "src/repro/kernels/ns_update/ns_update.py:36"),
         "flash_attention_bwd": ("src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
                                 "src/repro/kernels/flash_attention/flash_attention.py:68"),
+        "gla_scan_bwd": ("src/repro_torch/kernels/csrc/gla_scan_bwd.cu",
+                         "src/repro/kernels/gla_scan/gla_scan.py:67"),
     }
     kernels = []
     for name, (source, replaces) in meta.items():
@@ -4408,11 +4878,40 @@ def main() -> int:
                                        if name == "paged_attention" else ())}
                 for r in rows[name] if any(f"{tag} " in r["shape"] for tag in (
                     "H=16 KV=16", "H=48 KV=8", "KV=8 G=6"))]
+    slice19 = {   # phases 26-29: the families of the gla_scan backward and flash at hd 64/80
+        **{p: {"what": f"{arch} BNS distillation, full width, {family[p]['layers']} layers"
+                       + ("" if family[p]["encoder_layers"] is None
+                          else f" + {family[p]['encoder_layers']} encoder")
+                       + f", NFE {NFE}, batch {BATCH}, seq {SEQ}, {FAMILY_DISTILL_ITERS} iterations",
+               **{f: family[p][f] for f in ("init_val_psnr", "val_psnr", "iteration_ms",
+                                            "rk45", "rk45_s", "request_ms", "peak_gib")},
+               "launches": family[p]["launches"]} for arch, p in FAMILY_PHASE.items()},
+        **{p + "b": {"what": f"{arch} BNS gradient card vs CPU, {FAMILY_GRAD_DEPTH[arch]} "
+                             "layers f32",
+                     "relative_l2": family[p + "b"]["relative_l2"],
+                     "launches": family[p + "b"]["launches"]}
+           for arch, p in FAMILY_PHASE.items()},
+        **{k: {"what": f"{arch} trainer, full width, {family[k]['layers']} layers, "
+                       f"{FAMILY_TRAIN_STEPS} steps of {TRAIN_BATCH} x {TRAIN_SEQ}",
+               **{f: family[k][f] for f in ("median_step_ms", "peak_gib", "equal")},
+               "launches": family[k]["launches"]}
+           for arch, k in zip(FAMILY_TRAIN_DEPTH, ("29a", "29b", "29c"))}}
+    for entry in kernels:
+        entry["phases"].update({k: {**v, "launches": v["launches"][entry["name"]]}
+                                for k, v in slice19.items()})
+        if entry["name"] in ("flash_attention_bwd", "gla_scan_bwd"):
+            # phase 3c's cases at the shapes of the families this slice trains
+            entry["slice19_cases"] = [
+                {k: r[k] for k in ("shape", "max_abs_err", "ms", "plain_ms", "bound_ms",
+                                   "bound_by", "library_ms")}
+                for r in rows[entry["name"]][1:] if entry["name"] == "gla_scan_bwd"
+                or "hd=80" in r["shape"] or "hd=64" in r["shape"]]
     print(f"chip_smoke wall {time.perf_counter() - T_START:.1f} s")
     print("phase 15 json: " + json.dumps(graphs))
     print("phase 16 json: " + json.dumps(trains))
     print("phase 24 json: " + json.dumps({k: v for k, v in trainer.items()
                                           if k != "phase_launches"}))
+    print("phases 26-29 json: " + json.dumps(family))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

@@ -59,8 +59,8 @@ FAULTS = {
         ("const int n_tiles = (key_end + kDqKeys - 1) / kDqKeys;",
          "const int n_tiles = max(1, (key_end + kDqKeys - 1) / kDqKeys - 1);")],
     "scale missing on dK": [
-        ("dkb[j * sdk.l + lane + 32 * c] = acc_dk[r][c] * scale;",
-         "dkb[j * sdk.l + lane + 32 * c] = acc_dk[r][c];"),
+        ("dkb[j * sdk.l + col0 + P::kLanesRow * c] = from_f32<T>(acc_dk[r][c] * scale);",
+         "dkb[j * sdk.l + col0 + P::kLanesRow * c] = from_f32<T>(acc_dk[r][c]);"),
         ("const float m = cw == 0 ? 1.f : scale;", "const float m = 1.f;")],
 }
 BF16, F32 = torch.bfloat16, torch.float32

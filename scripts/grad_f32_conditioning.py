@@ -1,0 +1,148 @@
+#!/usr/bin/env python3
+"""How far f32 holds the BNS gradient on each backbone, and what the kernels
+add: ``chip_smoke.py``'s gradient check (phases 13 and 26b-28b) taken against
+the same computation in f64 on the CPU.
+
+    PYTHONPATH=src python3 scripts/grad_f32_conditioning.py [--archs rwkv6-7b ...]
+
+For each arch, its width cut to a few layers (rwkv6-7b 1, zamba2-2.7b 2 with
+one shared-attention site, whisper-medium 1 + 1, yi-6b 2), f32 weights drawn
+on the card and copied to the CPU, ``_loss_fn`` at euler NFE 4 on seeded
+pairs (batch 2 x 128, each layer recomputed) and its gradient in theta
+(time logits, a, b), computed five ways: on the card through the kernels;
+on the card with ``GLAScan``'s backward replaced by the plain backward in f64
+(``ref.gla_chunked_bwd``), and with the plain chunked form differentiated by
+autograd on the card in place of both gla_scan kernels (the recurrent
+families only); on the CPU in f32; on the CPU in f64 (the weights and pairs
+cast). Prints each one's relative L2 distance from the f64 result, and
+from the CPU's f32 one, for the loss and each gradient. Where the kernels
+add nothing, the two card variants read what the card does through the
+kernels. Prints the card's name and power limit first; TF32 off. Needs one
+card.
+"""
+from __future__ import annotations
+
+import argparse
+import dataclasses
+import subprocess
+import sys
+from pathlib import Path
+
+import numpy as np
+import torch
+
+ROOT = Path(__file__).resolve().parents[1]
+sys.path.insert(0, str(ROOT / "src"))
+sys.path.insert(0, str(ROOT))
+
+import chip_smoke  # noqa: E402
+
+DEPTH = {"rwkv6-7b": 1, "zamba2-2.7b": 2, "whisper-medium": 1, "yi-6b": 2}
+
+
+def loss_and_grads(cfg, params, device, dtype=torch.float32) -> list:
+    """[loss, d/d time_logits, d/da, d/db] in f64 on the CPU."""
+    from repro_torch.core import bns, ns_solver
+    from repro_torch.core.schedulers import get_scheduler
+    from repro_torch.data.synthetic import DataConfig, SyntheticTokens
+    from repro_torch.models import model as M
+    from repro_torch.solvers.registry import build_ns
+
+    batch = SyntheticTokens(cfg, DataConfig(batch_size=2, seq_len=128, seed=0),
+                            device="cpu").batch(0)
+    rng = np.random.default_rng(13)
+    x0, x1 = (torch.from_numpy(rng.standard_normal((2, 128, cfg.latent_dim))
+                               .astype(np.float32)).to(device, dtype) for _ in "01")
+    theta0 = ns_solver.from_ns(build_ns("euler", 4, None))
+    field = M.velocity_field(params, cfg, get_scheduler("fm_ot"),
+                             {k: v.to(device) for k, v in batch.items()}, remat=True)
+    th = ns_solver.BNSParams(*(p.to(device, dtype).requires_grad_(True) for p in theta0))
+    loss = bns._loss_fn(bns.ns_sampler(field), th, x0, x1)
+    grads = torch.autograd.grad(loss, list(th))
+    return [loss.detach().double().cpu()] + [g.double().cpu() for g in grads]
+
+
+def distances(got: list, want: list) -> list:
+    return [float(torch.linalg.vector_norm(a - b) / torch.linalg.vector_norm(b).clamp_min(1e-30))
+            for a, b in zip(got, want)]
+
+
+def with_plain_gla_backward():
+    """GLAScan's backward through ref.gla_chunked_bwd in f64 (a context)."""
+    from repro_torch.kernels.gla_scan import ops
+    from repro_torch.kernels.gla_scan.ref import gla_chunked_bwd
+
+    def backward(ctx, do, dS):
+        saved = ctx.saved_tensors
+        f64 = [None if t is None else t.double() for t in (*saved, do, dS)]
+        got = gla_chunked_bwd(*f64, inclusive=ctx.inclusive, chunk=ctx.chunk)
+        return tuple(None if g is None else g.to(t.dtype)
+                     for g, t in zip(got, saved)) + (None, None)
+
+    return _patched(ops.GLAScan, "backward", staticmethod(backward))
+
+
+def with_plain_gla_forward():
+    """ops.gla as the plain chunked form on the card (autograd differentiates it)."""
+    from repro_torch.kernels.gla_scan import ops
+    from repro_torch.models.linear_scan import gla_chunked
+
+    def gla(q, k, v, ld, s0=None, *, inclusive=True, chunk=64):
+        return gla_chunked(*ops._heads(q, k, v), v, ld, s0, inclusive=inclusive, chunk=chunk)
+
+    return _patched(ops, "gla", gla)
+
+
+class _patched:
+    def __init__(self, owner, name, value):
+        self.owner, self.name, self.value = owner, name, value
+
+    def __enter__(self):
+        self.saved = self.owner.__dict__[self.name]
+        setattr(self.owner, self.name, self.value)
+
+    def __exit__(self, *exc):
+        setattr(self.owner, self.name, self.saved)
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--archs", nargs="+", default=list(DEPTH), choices=list(DEPTH))
+    args = ap.parse_args(argv)
+    if not torch.cuda.is_available():
+        print("grad_f32_conditioning: no CUDA device", file=sys.stderr)
+        return 1
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device("cuda")
+    print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], check=True, capture_output=True,
+                         text=True).stdout.strip())
+    from repro_torch.optim.adam import tree_map
+
+    for arch in args.archs:
+        cfg, on_card, on_cpu = chip_smoke.card_drawn_model(dev, arch, DEPTH[arch])
+        runs = {"card": loss_and_grads(cfg, on_card, dev)}
+        if cfg.family in ("ssm", "hybrid"):
+            with with_plain_gla_backward():
+                runs["card, the backward in f64 (plain)"] = loss_and_grads(cfg, on_card, dev)
+            with with_plain_gla_forward():
+                runs["card, the plain form by autograd"] = loss_and_grads(cfg, on_card, dev)
+        runs["cpu f32"] = loss_and_grads(cfg, on_cpu, "cpu")
+        runs["cpu f64"] = loss_and_grads(dataclasses.replace(cfg, dtype="float64"),
+                                         tree_map(lambda t: t.double(), on_cpu), "cpu",
+                                         torch.float64)
+        for name, got in runs.items():
+            f64 = distances(got, runs["cpu f64"])
+            f32 = distances(got, runs["cpu f32"])
+            print(f"{arch} ({DEPTH[arch]} layers f32) {name}: relative L2 of loss, d/d "
+                  f"time_logits, d/da, d/db against the CPU's f64 "
+                  f"{[f'{x:.2e}' for x in f64]}, against its f32 {[f'{x:.2e}' for x in f32]}")
+        print(f"{arch}: d/d time_logits in f64 {runs['cpu f64'][1].tolist()}")
+        del on_card, on_cpu, runs
+        chip_smoke.free_device_memory(dev)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

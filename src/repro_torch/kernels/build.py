@@ -25,7 +25,7 @@ BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
 SOURCES = ("ns_update", "flash_attention", "flash_attention_bwd", "paged_attention",
-           "gla_scan")
+           "gla_scan", "gla_scan_bwd")
 
 _LIBS: dict[str, ctypes.CDLL] = {}
 

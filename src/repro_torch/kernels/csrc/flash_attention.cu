@@ -491,7 +491,8 @@ __device__ __forceinline__ float fast_exp2(float x) {  // 2^x; results below 2^-
 // ... The K/V ring and the consumers' turns run on across items, so one item's
 // last products and output overlap the loads of the next.
 // LSE: write each row's log-sum-exp to lse. A template argument, so the
-// serving path's kernel (no lse) is the one it was; built with lse for hd 128.
+// serving path's kernel (no lse) is the one it was; built with lse at every
+// head dim, as the backward takes them all.
 template <int HD, bool CAUSAL, bool LSE>
 __global__ void __launch_bounds__(kWsThreads, 1)
 flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
@@ -781,10 +782,7 @@ int launch_wgmma(const void* q, const void* k, const void* v, void* o, float* ls
   if (err == 0) err = encode_map<HD>(&tk, k, Lk, KV, B, st + 3);
   if (err == 0) err = encode_map<HD>(&tv, v, Lk, KV, B, st + 6);
   if (err != 0) return err;
-  // the lse variant is built for the head dim the backward takes
-  constexpr bool kLseBuilt = HD == 128;
-  if (lse != nullptr && !kLseBuilt) return (int)cudaErrorInvalidValue;
-  const auto kern = lse != nullptr ? flash_fwd_wgmma_kernel<HD, CAUSAL, kLseBuilt>
+  const auto kern = lse != nullptr ? flash_fwd_wgmma_kernel<HD, CAUSAL, true>
                                    : flash_fwd_wgmma_kernel<HD, CAUSAL, false>;
   const cudaError_t attr =
       cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)P::kBytes);
@@ -804,9 +802,7 @@ template <int HD, bool CAUSAL>
 int launch_f32(const void* q, const void* k, const void* v, void* o, float* lse, int B, int H,
                int G,
                int Lq, int Lk, const long long* st, float scale, cudaStream_t stream) {
-  constexpr bool kLseBuilt = HD == 128;  // the head dim the backward takes
-  if (lse != nullptr && !kLseBuilt) return (int)cudaErrorInvalidValue;
-  const auto kern = lse != nullptr ? flash_fwd_f32_kernel<HD, CAUSAL, kLseBuilt>
+  const auto kern = lse != nullptr ? flash_fwd_f32_kernel<HD, CAUSAL, true>
                                    : flash_fwd_f32_kernel<HD, CAUSAL, false>;
   const cudaError_t err = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)Plan<HD>::kBytes);

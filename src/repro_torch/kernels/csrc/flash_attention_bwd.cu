@@ -30,7 +30,8 @@
 // runs give the same bits. Under `causal` dq stops at its tile's last row and
 // dk/dv start at the diagonal; ragged L is masked or zero-filled, so any L
 // works. Strides are arguments (unit stride on hd), as in the forward.
-//  * bf16 (the training path): Hopper's TMA and wgmma in both passes, built as
+//  * bf16 at hd 128 (the dense families' training path): Hopper's TMA and
+//    wgmma in both passes, built as
 //    the forward's kernel is (flash_attention.cu): blocks of 384 threads, one
 //    producer warpgroup in which a single thread issues TMA tensor loads (hd in
 //    two 64-column chunks under the 128-byte swizzle) into a ring of 4 stages
@@ -66,19 +67,31 @@
 //    elementwise work falls between each other's products. (The flow cell
 //    gives 256 such blocks, their work 16:1 under the causal mask, heaviest
 //    first: within 3% of an even spread over 132 SMs.)
-//  * f32: the CUDA cores, exact f32 products. dq: one block of 4 warps a
-//    (32-query tile, head, batch); lane j takes key j of a 32-key tile, each
-//    warp 8 query rows; S and dP from one pass over the head dim (float4 reads
-//    of rows padded to hd + 4 floats, so the lanes' rows fall in different
-//    banks), dS through shared memory into dQ, where lane j owns columns j,
-//    j + 32, ... dk/dv: one block a (32-key tile, KV head, batch), with the
-//    roles turned: lane j takes query j, each warp 8 keys, P and dS go through
-//    shared memory into dV and dK.
+//  * f32 at hd 64, 80 and 128, and bf16 at hd 64 and 80 (zamba2-2.7b's shared
+//    attention, whisper-medium's attention): the CUDA cores, exact f32
+//    products, bf16 inputs widened as they are staged. dq: one block of 4
+//    warps a (32-query tile, head, batch); lane j takes key j of a 32-key
+//    tile, each warp 8 query rows; S and dP from one pass over the head dim
+//    (float4 reads of rows padded to hd + 4 floats, so the lanes' rows fall in
+//    different banks), dS through shared memory into dQ. dk/dv: one block a
+//    (32-key tile, KV head, batch), with the roles turned: lane j takes query
+//    j, each warp 8 keys, P and dS go through shared memory into dV and dK.
+//    Into dQ, dK and dV each lane accumulates columns j, j + 32, ... of the
+//    warp's 8 rows at hd 64 and 128; at hd 80 each half-warp takes 4 of the
+//    rows and lane j % 16 columns j % 16 + 16 c (c < 5), so no lane idles.
+//    This is the simple version at hd 64 and 80 (f32 FMAs at ~67 TFLOP/s
+//    peak, not the tensor cores' 989): whisper-medium's causal decoder shape
+//    (B 4, 16 heads of 64, L 1024) needs 21.5 GFLOP at the algorithm's 10 hd a
+//    kept pair, 0.022 ms at the bf16 peak, 0.32 at the f32 one. Without a dk/dv
+//    gradient (whisper's cross-attention under distillation, where only q
+//    depends on the solver) the call runs the dq pass alone.
 // Every sum is f32, and only dq, dk, dv are rounded to the input type.
 #include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 namespace {
 
@@ -102,13 +115,30 @@ __device__ __forceinline__ float lane_of(const float4& v, int t) {
   return t == 0 ? v.x : t == 1 ? v.y : t == 2 ? v.z : v.w;
 }
 
-// Shared-memory plan for one head dim: four (kTile x kPad) f32 tiles, two
-// (kTile x kTile) tiles of P / dS (kRows rows a warp), and kTile lse and D values.
+__device__ __forceinline__ float to_f32(float x) { return x; }
+__device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
+
+template <typename T> __device__ __forceinline__ T from_f32(float x);
+template <> __device__ __forceinline__ float from_f32<float>(float x) { return x; }
+template <> __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
+  return __float2bfloat16(x);
+}
+
+// Shared-memory plan and lane map for one head dim: four (kTile x kPad) f32
+// tiles, two (kTile x kTile) tiles of P / dS (kRows rows a warp), and kTile lse
+// and D values. The products into dQ, dK and dV give each lane kRowsLane of its
+// warp's kRows rows and kCols columns, col0 + kLanesRow c: at hd 64 and 128
+// every lane takes all 8 rows and columns lane, lane + 32, ...; at hd 80
+// (not a multiple of 32) the two half-warps take 4 rows each and lane % 16
+// takes columns lane % 16 + 16 c, c < 5, so no lane idles.
 template <int HD>
 struct Plan {
-  static_assert(HD % 32 == 0, "lane j owns output columns j, j + 32, ...");
+  static_assert(HD % 16 == 0, "a half-warp spans a whole number of column groups");
   static constexpr int kPad = HD + 4;       // row stride in floats
-  static constexpr int kCols = HD / 32;     // output columns per lane
+  static constexpr int kSplit = HD % 32 == 0 ? 1 : 2;  // row groups a warp
+  static constexpr int kLanesRow = 32 / kSplit;        // lanes that share a row group
+  static constexpr int kRowsLane = kRows / kSplit;     // rows a lane accumulates
+  static constexpr int kCols = HD / kLanesRow;         // columns a lane accumulates
   static constexpr int kTileFloats = kTile * kPad;
   static constexpr int kFloats = 4 * kTileFloats + 2 * kTile * kTile + 2 * kTile;
   static constexpr size_t kBytes = kFloats * sizeof(float);
@@ -116,22 +146,22 @@ struct Plan {
 
 // Rows [r0, r0 + kTile) of one (batch, head) slice into shared memory as f32;
 // rows at or past `limit` are zeros.
-template <int HD>
-__device__ __forceinline__ void stage(float* dst, const float* __restrict__ src, long long stride,
+template <typename T, int HD>
+__device__ __forceinline__ void stage(float* dst, const T* __restrict__ src, long long stride,
                                       int r0, int limit) {
   for (int idx = threadIdx.x; idx < kTile * HD; idx += kThreads) {
     const int r = idx / HD, d = idx - r * HD;
     const int i = r0 + r;
-    dst[r * Plan<HD>::kPad + d] = i < limit ? src[(long long)i * stride + d] : 0.f;
+    dst[r * Plan<HD>::kPad + d] = i < limit ? to_f32(src[(long long)i * stride + d]) : 0.f;
   }
 }
 
-template <int HD, bool CAUSAL>
+template <typename T, int HD, bool CAUSAL>
 __global__ void __launch_bounds__(kThreads)
-flash_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                    const float* __restrict__ v, const float* __restrict__ o,
-                    const float* __restrict__ dout, const float* __restrict__ lse,
-                    float* __restrict__ dq, float* __restrict__ dsum,
+flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                    const T* __restrict__ v, const T* __restrict__ o,
+                    const T* __restrict__ dout, const float* __restrict__ lse,
+                    T* __restrict__ dq, float* __restrict__ dsum,
                     Strides sq, Strides sk, Strides sv, Strides so, Strides sdo, Strides sdq,
                     int G, int Lq, int Lk, float scale) {
   using P = Plan<HD>;
@@ -147,49 +177,47 @@ flash_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
   const int H = gridDim.y, kvh = h / G;
   const int q0 = tile * kTile;
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int row0 = (lane / P::kLanesRow) * P::kRowsLane;  // the lane's rows in its warp
+  const int col0 = lane % P::kLanesRow;
   const long long bh = (long long)b * H + h;
 
-  stage<HD>(Qs, q + b * sq.b + h * sq.h, sq.l, q0, Lq);
-  stage<HD>(dOs, dout + b * sdo.b + h * sdo.h, sdo.l, q0, Lq);
+  stage<T, HD>(Qs, q + b * sq.b + h * sq.h, sq.l, q0, Lq);
+  stage<T, HD>(dOs, dout + b * sdo.b + h * sdo.h, sdo.l, q0, Lq);
   __syncthreads();
 
   // D_i = dO_i . O_i (written for the dk/dv kernel) and each row's lse
   const float* Qw = Qs + warp * kRows * P::kPad;
   const float* dOw = dOs + warp * kRows * P::kPad;
-  const float* ob = o + b * so.b + h * so.h;
+  const T* ob = o + b * so.b + h * so.h;
   float Dr[kRows], lr[kRows];
 #pragma unroll
   for (int r = 0; r < kRows; ++r) {
     const int i = q0 + warp * kRows + r;
     float part = 0.f;
-    if (i < Lq) {
-#pragma unroll
-      for (int c = 0; c < P::kCols; ++c) {
-        const int d = lane + 32 * c;
-        part = fmaf(dOw[r * P::kPad + d], ob[i * so.l + d], part);
-      }
-    }
+    if (i < Lq)
+      for (int d = lane; d < HD; d += 32)
+        part = fmaf(dOw[r * P::kPad + d], to_f32(ob[i * so.l + d]), part);
     Dr[r] = warp_sum(part);
     lr[r] = i < Lq ? lse[bh * Lq + i] : 0.f;
     if (i < Lq && lane == 0) dsum[bh * Lq + i] = Dr[r];
   }
 
-  float acc[kRows][P::kCols];
+  float acc[P::kRowsLane][P::kCols];
 #pragma unroll
-  for (int r = 0; r < kRows; ++r)
+  for (int r = 0; r < P::kRowsLane; ++r)
 #pragma unroll
     for (int c = 0; c < P::kCols; ++c) acc[r][c] = 0.f;
 
   const int q_last = min(q0 + kTile, Lq) - 1;
   const int k_end = CAUSAL ? min(Lk, q_last + 1) : Lk;
-  const float* kb = k + b * sk.b + kvh * sk.h;
-  const float* vb = v + b * sv.b + kvh * sv.h;
+  const T* kb = k + b * sk.b + kvh * sk.h;
+  const T* vb = v + b * sv.b + kvh * sv.h;
   float* Sw = Ss + warp * kRows * kTile;
 
   for (int k0 = 0; k0 < k_end; k0 += kTile) {
     __syncthreads();  // the previous K/V tile is consumed
-    stage<HD>(Ks, kb, sk.l, k0, Lk);
-    stage<HD>(Vs, vb, sv.l, k0, Lk);
+    stage<T, HD>(Ks, kb, sk.l, k0, Lk);
+    stage<T, HD>(Vs, vb, sv.l, k0, Lk);
     __syncthreads();
 
     // S = q_i . k_j and dP = dO_i . v_j for key j = k0 + lane
@@ -220,44 +248,46 @@ flash_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
     }
     __syncwarp();
 
-    // dQ_i += dS_ij k_j
+    // dQ_i += dS_ij k_j over the lane's rows and columns
 #pragma unroll 2
     for (int jj = 0; jj < kTile; jj += 4) {
-      float4 ds[kRows];
+      float4 ds[P::kRowsLane];
 #pragma unroll
-      for (int r = 0; r < kRows; ++r) ds[r] = *reinterpret_cast<const float4*>(Sw + r * kTile + jj);
+      for (int r = 0; r < P::kRowsLane; ++r)
+        ds[r] = *reinterpret_cast<const float4*>(Sw + (row0 + r) * kTile + jj);
 #pragma unroll
       for (int t = 0; t < 4; ++t) {
-        const float* krow = Ks + (jj + t) * P::kPad;
+        const float* krow = Ks + (jj + t) * P::kPad + col0;
 #pragma unroll
         for (int c = 0; c < P::kCols; ++c) {
-          const float kv = krow[lane + 32 * c];
+          const float kv = krow[P::kLanesRow * c];
 #pragma unroll
-          for (int r = 0; r < kRows; ++r) acc[r][c] = fmaf(lane_of(ds[r], t), kv, acc[r][c]);
+          for (int r = 0; r < P::kRowsLane; ++r)
+            acc[r][c] = fmaf(lane_of(ds[r], t), kv, acc[r][c]);
         }
       }
     }
     __syncwarp();  // dS of this tile is read before the next tile rewrites it
   }
 
-  float* dqb = dq + b * sdq.b + h * sdq.h;
+  T* dqb = dq + b * sdq.b + h * sdq.h;
 #pragma unroll
-  for (int r = 0; r < kRows; ++r) {
-    const int i = q0 + warp * kRows + r;
+  for (int r = 0; r < P::kRowsLane; ++r) {
+    const int i = q0 + warp * kRows + row0 + r;
     if (i < Lq) {
 #pragma unroll
       for (int c = 0; c < P::kCols; ++c)
-        dqb[i * sdq.l + lane + 32 * c] = acc[r][c] * scale;
+        dqb[i * sdq.l + col0 + P::kLanesRow * c] = from_f32<T>(acc[r][c] * scale);
     }
   }
 }
 
-template <int HD, bool CAUSAL>
+template <typename T, int HD, bool CAUSAL>
 __global__ void __launch_bounds__(kThreads)
-flash_bwd_dkdv_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                      const float* __restrict__ v, const float* __restrict__ dout,
+flash_bwd_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                      const T* __restrict__ v, const T* __restrict__ dout,
                       const float* __restrict__ lse, const float* __restrict__ dsum,
-                      float* __restrict__ dk, float* __restrict__ dv,
+                      T* __restrict__ dk, T* __restrict__ dv,
                       Strides sq, Strides sk, Strides sv, Strides sdo, Strides sdk, Strides sdv,
                       int H, int G, int Lq, int Lk, float scale) {
   using P = Plan<HD>;
@@ -274,13 +304,15 @@ flash_bwd_dkdv_kernel(const float* __restrict__ q, const float* __restrict__ k,
   const int kvh = blockIdx.y, b = blockIdx.z;
   const int k0 = blockIdx.x * kTile;  // under `causal` the first key tiles see the most queries
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int row0 = (lane / P::kLanesRow) * P::kRowsLane;
+  const int col0 = lane % P::kLanesRow;
 
-  stage<HD>(Ks, k + b * sk.b + kvh * sk.h, sk.l, k0, Lk);
-  stage<HD>(Vs, v + b * sv.b + kvh * sv.h, sv.l, k0, Lk);
+  stage<T, HD>(Ks, k + b * sk.b + kvh * sk.h, sk.l, k0, Lk);
+  stage<T, HD>(Vs, v + b * sv.b + kvh * sv.h, sv.l, k0, Lk);
 
-  float acc_dk[kRows][P::kCols], acc_dv[kRows][P::kCols];
+  float acc_dk[P::kRowsLane][P::kCols], acc_dv[P::kRowsLane][P::kCols];
 #pragma unroll
-  for (int r = 0; r < kRows; ++r)
+  for (int r = 0; r < P::kRowsLane; ++r)
 #pragma unroll
     for (int c = 0; c < P::kCols; ++c) acc_dk[r][c] = acc_dv[r][c] = 0.f;
 
@@ -296,8 +328,8 @@ flash_bwd_dkdv_kernel(const float* __restrict__ q, const float* __restrict__ k,
     const long long bh = (long long)b * H + h;
     for (int q0 = q_begin; q0 < Lq; q0 += kTile) {
       __syncthreads();  // the previous query tile is consumed (and K, V are staged)
-      stage<HD>(Qs, q + b * sq.b + h * sq.h, sq.l, q0, Lq);
-      stage<HD>(dOs, dout + b * sdo.b + h * sdo.h, sdo.l, q0, Lq);
+      stage<T, HD>(Qs, q + b * sq.b + h * sq.h, sq.l, q0, Lq);
+      stage<T, HD>(dOs, dout + b * sdo.b + h * sdo.h, sdo.l, q0, Lq);
       if (tid < kTile) {
         const int i = q0 + tid;
         lse_s[tid] = i < Lq ? lse[bh * Lq + i] : 0.f;
@@ -335,24 +367,24 @@ flash_bwd_dkdv_kernel(const float* __restrict__ q, const float* __restrict__ k,
       }
       __syncwarp();
 
-      // dV_j += P_ij dO_i and dK_j += dS_ij q_i
+      // dV_j += P_ij dO_i and dK_j += dS_ij q_i over the lane's rows and columns
 #pragma unroll 1
       for (int jj = 0; jj < kTile; jj += 4) {
-        float4 p4[kRows], s4[kRows];
+        float4 p4[P::kRowsLane], s4[P::kRowsLane];
 #pragma unroll
-        for (int r = 0; r < kRows; ++r) {
-          p4[r] = *reinterpret_cast<const float4*>(Pw + r * kTile + jj);
-          s4[r] = *reinterpret_cast<const float4*>(Sw + r * kTile + jj);
+        for (int r = 0; r < P::kRowsLane; ++r) {
+          p4[r] = *reinterpret_cast<const float4*>(Pw + (row0 + r) * kTile + jj);
+          s4[r] = *reinterpret_cast<const float4*>(Sw + (row0 + r) * kTile + jj);
         }
 #pragma unroll
         for (int t = 0; t < 4; ++t) {
-          const float* drow = dOs + (jj + t) * P::kPad;
-          const float* qrow = Qs + (jj + t) * P::kPad;
+          const float* drow = dOs + (jj + t) * P::kPad + col0;
+          const float* qrow = Qs + (jj + t) * P::kPad + col0;
 #pragma unroll
           for (int c = 0; c < P::kCols; ++c) {
-            const float dov = drow[lane + 32 * c], qv = qrow[lane + 32 * c];
+            const float dov = drow[P::kLanesRow * c], qv = qrow[P::kLanesRow * c];
 #pragma unroll
-            for (int r = 0; r < kRows; ++r) {
+            for (int r = 0; r < P::kRowsLane; ++r) {
               acc_dv[r][c] = fmaf(lane_of(p4[r], t), dov, acc_dv[r][c]);
               acc_dk[r][c] = fmaf(lane_of(s4[r], t), qv, acc_dk[r][c]);
             }
@@ -363,16 +395,16 @@ flash_bwd_dkdv_kernel(const float* __restrict__ q, const float* __restrict__ k,
     }
   }
 
-  float* dkb = dk + b * sdk.b + kvh * sdk.h;
-  float* dvb = dv + b * sdv.b + kvh * sdv.h;
+  T* dkb = dk + b * sdk.b + kvh * sdk.h;
+  T* dvb = dv + b * sdv.b + kvh * sdv.h;
 #pragma unroll
-  for (int r = 0; r < kRows; ++r) {
-    const int j = k0 + warp * kRows + r;
+  for (int r = 0; r < P::kRowsLane; ++r) {
+    const int j = k0 + warp * kRows + row0 + r;
     if (j < Lk) {
 #pragma unroll
       for (int c = 0; c < P::kCols; ++c) {
-        dkb[j * sdk.l + lane + 32 * c] = acc_dk[r][c] * scale;
-        dvb[j * sdv.l + lane + 32 * c] = acc_dv[r][c];
+        dkb[j * sdk.l + col0 + P::kLanesRow * c] = from_f32<T>(acc_dk[r][c] * scale);
+        dvb[j * sdv.l + col0 + P::kLanesRow * c] = from_f32<T>(acc_dv[r][c]);
       }
     }
   }
@@ -1201,7 +1233,7 @@ int encode_map(CUtensorMap* map, const void* ptr, int L, int heads, int B, const
 template <bool CAUSAL>
 int launch_wgmma(const void* q, const void* k, const void* v, const void* o, const void* dout,
                  const float* lse, void* dq, void* dk, void* dv, float* rows, int B, int H,
-                 int KV, int Lq, int Lk, const long long* st, float scale,
+                 int KV, int Lq, int Lk, const long long* st, float scale, bool dkdv,
                  cudaStream_t stream) {
   using T = __nv_bfloat16;
   const int G = H / KV;
@@ -1231,7 +1263,7 @@ int launch_wgmma(const void* q, const void* k, const void* v, const void* o, con
       tq, tdo, tk, tv, static_cast<const T*>(o), static_cast<const T*>(dout), lse,
       static_cast<T*>(dq), rows, s[3], s[4], s[5], H, B, G, Lq, Lk, Lpad, scale);
   err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
+  if (err != cudaSuccess || !dkdv) return (int)err;
 
   // the K and V maps (64-row boxes) serve the dk/dv pass as they are
   static_assert(kKvRows == kDqKeys, "one K/V box shape for both passes");
@@ -1244,13 +1276,14 @@ int launch_wgmma(const void* q, const void* k, const void* v, const void* o, con
   return (int)cudaGetLastError();
 }
 
-template <int HD, bool CAUSAL>
-int launch_f32(const void* q, const void* k, const void* v, const void* o, const void* dout,
-               const float* lse, void* dq, void* dk, void* dv, float* dsum, int B, int H, int KV,
-               int Lq, int Lk, const long long* st, float scale, cudaStream_t stream) {
+template <typename T, int HD, bool CAUSAL>
+int launch_cores(const void* q, const void* k, const void* v, const void* o, const void* dout,
+                 const float* lse, void* dq, void* dk, void* dv, float* dsum, int B, int H,
+                 int KV, int Lq, int Lk, const long long* st, float scale, bool dkdv,
+                 cudaStream_t stream) {
   using P = Plan<HD>;
-  const auto dq_kern = flash_bwd_dq_kernel<HD, CAUSAL>;
-  const auto dkdv_kern = flash_bwd_dkdv_kernel<HD, CAUSAL>;
+  const auto dq_kern = flash_bwd_dq_kernel<T, HD, CAUSAL>;
+  const auto dkdv_kern = flash_bwd_dkdv_kernel<T, HD, CAUSAL>;
   cudaError_t err = cudaFuncSetAttribute(dq_kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          (int)P::kBytes);
   if (err == cudaSuccess)
@@ -1260,18 +1293,47 @@ int launch_f32(const void* q, const void* k, const void* v, const void* o, const
   Strides s[8];
   for (int i = 0; i < 8; ++i) s[i] = Strides{st[3 * i], st[3 * i + 1], st[3 * i + 2]};
   const int G = H / KV;
-  using F = const float*;
+  using C = const T*;
   dq_kern<<<dim3((Lq + kTile - 1) / kTile, H, B), kThreads, P::kBytes, stream>>>(
-      static_cast<F>(q), static_cast<F>(k), static_cast<F>(v), static_cast<F>(o),
-      static_cast<F>(dout), lse, static_cast<float*>(dq), dsum, s[0], s[1], s[2], s[3], s[4],
+      static_cast<C>(q), static_cast<C>(k), static_cast<C>(v), static_cast<C>(o),
+      static_cast<C>(dout), lse, static_cast<T*>(dq), dsum, s[0], s[1], s[2], s[3], s[4],
       s[5], G, Lq, Lk, scale);
   err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
+  if (err != cudaSuccess || !dkdv) return (int)err;
   dkdv_kern<<<dim3((Lk + kTile - 1) / kTile, KV, B), kThreads, P::kBytes, stream>>>(
-      static_cast<F>(q), static_cast<F>(k), static_cast<F>(v), static_cast<F>(dout), lse, dsum,
-      static_cast<float*>(dk), static_cast<float*>(dv), s[0], s[1], s[2], s[4], s[6], s[7], H, G,
+      static_cast<C>(q), static_cast<C>(k), static_cast<C>(v), static_cast<C>(dout), lse, dsum,
+      static_cast<T*>(dk), static_cast<T*>(dv), s[0], s[1], s[2], s[4], s[6], s[7], H, G,
       Lq, Lk, scale);
   return (int)cudaGetLastError();
+}
+
+template <typename T, int HD>
+int launch_cores_hd(int causal, const void* q, const void* k, const void* v, const void* o,
+                    const void* dout, const float* lse, void* dq, void* dk, void* dv,
+                    float* dsum, int B, int H, int KV, int Lq, int Lk, const long long* st,
+                    float scale, bool dkdv, cudaStream_t s) {
+  return causal ? launch_cores<T, HD, true>(q, k, v, o, dout, lse, dq, dk, dv, dsum, B, H, KV,
+                                            Lq, Lk, st, scale, dkdv, s)
+                : launch_cores<T, HD, false>(q, k, v, o, dout, lse, dq, dk, dv, dsum, B, H, KV,
+                                             Lq, Lk, st, scale, dkdv, s);
+}
+
+template <typename T>
+int launch_cores_any(int hd, int causal, const void* q, const void* k, const void* v,
+                     const void* o, const void* dout, const float* lse, void* dq, void* dk,
+                     void* dv, float* dsum, int B, int H, int KV, int Lq, int Lk,
+                     const long long* st, float scale, bool dkdv, cudaStream_t s) {
+#define REPRO_BWD_HD(HDV)                                                                   \
+  if (hd == HDV)                                                                           \
+    return launch_cores_hd<T, HDV>(causal, q, k, v, o, dout, lse, dq, dk, dv, dsum, B, H, \
+                                   KV, Lq, Lk, st, scale, dkdv, s);
+  REPRO_BWD_HD(64)
+  REPRO_BWD_HD(80)
+  if constexpr (std::is_same<T, float>::value) {  // bf16 at hd 128 takes TMA + wgmma
+    REPRO_BWD_HD(128)
+  }
+#undef REPRO_BWD_HD
+  return (int)cudaErrorInvalidValue;
 }
 
 bool aligned16(const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 == 0; }
@@ -1279,36 +1341,41 @@ bool aligned16(const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 == 0;
 }  // namespace
 
 // dtype: 0 = float32, 1 = bfloat16, for q, k, v, o, dout, dq, dk, dv alike; hd
-// must be 128. lse: (B, H, Lq) f32 from flash_attention_fwd. rows: an f32
-// workspace of B H 2 Lpad values, Lpad = Lq rounded up to 128 (the dq pass
-// writes each row's lse log2 e and D there for the dk/dv pass; the f32 path
-// uses its first B H Lq values for D). strides holds 24 element strides: (batch, head, position) of q, k, v, o,
-// dout, dq, dk and dv in that order. Launches the passes on `stream`; returns
-// cudaGetLastError() after them, or an error_string code.
-extern "C" int flash_attention_bwd(int dtype, int hd, int causal, const void* q, const void* k,
-                                   const void* v, const void* o, const void* dout,
-                                   const float* lse, void* dq, void* dk, void* dv, float* rows,
-                                   int B, int H, int KV, int Lq, int Lk,
+// in {64, 80, 128}: bf16 at hd 128 takes the TMA + wgmma path, everything else
+// the CUDA cores. lse: (B, H, Lq) f32 from flash_attention_fwd. rows: an f32
+// workspace of B H 2 Lpad values, Lpad = Lq rounded up to 128 (the wgmma dq
+// pass writes each row's lse log2 e and D there for its dk/dv pass; the
+// CUDA-core path uses its first B H Lq values for D). strides holds 24 element
+// strides: (batch, head, position) of q, k, v, o, dout, dq, dk and dv in that
+// order. dkdv = 0 runs the dq pass only (dk, dv may then be null). Launches the
+// passes on `stream`; returns cudaGetLastError() after them, or an
+// error_string code.
+extern "C" int flash_attention_bwd(int dtype, int hd, int causal, int dkdv, const void* q,
+                                   const void* k, const void* v, const void* o,
+                                   const void* dout, const float* lse, void* dq, void* dk,
+                                   void* dv, float* rows, int B, int H, int KV, int Lq, int Lk,
                                    const long long* strides, float scale, void* stream) {
   if (B < 1 || H < 1 || KV < 1 || H % KV != 0 || Lq < 1 || Lk < 1 || B > 65535 ||
-      H > 65535 || hd != 128 || (dtype != 0 && dtype != 1))
+      H > 65535 || (hd != 64 && hd != 80 && hd != 128) || (dtype != 0 && dtype != 1))
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
-    return causal ? launch_f32<128, true>(q, k, v, o, dout, lse, dq, dk, dv, rows, B, H, KV,
-                                          Lq, Lk, strides, scale, s)
-                  : launch_f32<128, false>(q, k, v, o, dout, lse, dq, dk, dv, rows, B, H, KV,
-                                           Lq, Lk, strides, scale, s);
+    return launch_cores_any<float>(hd, causal, q, k, v, o, dout, lse, dq, dk, dv, rows, B, H,
+                                   KV, Lq, Lk, strides, scale, dkdv != 0, s);
+  if (hd != 128)
+    return launch_cores_any<__nv_bfloat16>(hd, causal, q, k, v, o, dout, lse, dq, dk, dv,
+                                           rows, B, H, KV, Lq, Lk, strides, scale, dkdv != 0,
+                                           s);
   // TMA reads 16-byte aligned rows; the row workspace takes 16-byte bulk copies
   if (!(aligned16(q) && aligned16(k) && aligned16(v) && aligned16(o) && aligned16(dout) &&
-        aligned16(dq) && aligned16(dk) && aligned16(dv) && aligned16(rows)))
+        aligned16(dq) && aligned16(rows) && (!dkdv || (aligned16(dk) && aligned16(dv)))))
     return (int)cudaErrorMisalignedAddress;
   for (int i = 0; i < 24; ++i)
-    if (strides[i] % 8 != 0) return (int)cudaErrorMisalignedAddress;
+    if ((dkdv || i < 18) && strides[i] % 8 != 0) return (int)cudaErrorMisalignedAddress;
   return causal ? launch_wgmma<true>(q, k, v, o, dout, lse, dq, dk, dv, rows, B, H, KV, Lq, Lk,
-                                     strides, scale, s)
+                                     strides, scale, dkdv != 0, s)
                 : launch_wgmma<false>(q, k, v, o, dout, lse, dq, dk, dv, rows, B, H, KV, Lq, Lk,
-                                      strides, scale, s);
+                                      strides, scale, dkdv != 0, s);
 }
 
 extern "C" const char* error_string(int err) {

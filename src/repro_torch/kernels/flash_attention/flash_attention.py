@@ -16,9 +16,7 @@ from repro_torch.kernels import build, dtensor
 
 COUNTER = build.LaunchCounter("flash_attention")
 BWD_COUNTER = build.LaunchCounter("flash_attention_bwd")
-HEAD_DIMS = (64, 80, 128)
-BWD_HEAD_DIMS = (128,)        # the head dims the ported models train at
-BWD_ROADMAP = "ROADMAP Queue B item 7"
+HEAD_DIMS = (64, 80, 128)     # the forward's, with or without the lse, and the backward's
 BWD_QUERY_TILE = 128          # bf16 dq pass: query rows a block (the row workspace's padding)
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -38,14 +36,13 @@ def _bwd_lib():
     lib = build.load("flash_attention_bwd")
     fn = lib.flash_attention_bwd
     if fn.argtypes is None:
-        fn.argtypes = ([ctypes.c_int] * 3 + [ctypes.c_void_p] * 10 + [ctypes.c_int] * 5
+        fn.argtypes = ([ctypes.c_int] * 4 + [ctypes.c_void_p] * 10 + [ctypes.c_int] * 5
                        + [ctypes.c_void_p, ctypes.c_float, ctypes.c_void_p])
         fn.restype = ctypes.c_int
     return lib
 
 
-def _check_inputs(what: str, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                  head_dims: tuple) -> None:
+def _check_inputs(what: str, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
     """The checks the forward and the backward share."""
     if not (q.is_cuda and k.is_cuda and v.is_cuda):
         raise ValueError(f"{what} launches the CUDA kernel: q, k, v must be CUDA "
@@ -60,10 +57,8 @@ def _check_inputs(what: str, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     KV, Lk = k.shape[1], k.shape[2]
     if k.shape[0] != B or k.shape[3] != hd or H % KV:
         raise ValueError(f"shapes: q {tuple(q.shape)}, k {tuple(k.shape)}")
-    if hd not in head_dims:
-        where = "" if head_dims == HEAD_DIMS else (
-            f"; no ported model trains at another yet ({BWD_ROADMAP})")
-        raise ValueError(f"{what} is built for head dims {head_dims}, got {hd}{where}")
+    if hd not in HEAD_DIMS:
+        raise ValueError(f"{what} is built for head dims {HEAD_DIMS}, got {hd}")
     if min(Lq, Lk) < 1 or max(B, H) > 65535:
         raise ValueError(f"unsupported extents B={B} H={H} Lq={Lq} Lk={Lk}")
     if q.stride(3) != 1 or k.stride(3) != 1 or v.stride(3) != 1:
@@ -87,13 +82,9 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     """
     if not type(q) is type(k) is type(v) is torch.Tensor:
         dtensor.refuse("flash_attention", q, k, v)
-    _check_inputs("flash_attention", q, k, v, HEAD_DIMS)
+    _check_inputs("flash_attention", q, k, v)
     B, H, Lq, hd = q.shape
     KV, Lk = k.shape[1], k.shape[2]
-    if return_lse and hd not in BWD_HEAD_DIMS:
-        raise ValueError(f"flash_attention writes the log-sum-exp at head dims "
-                         f"{BWD_HEAD_DIMS} (those its backward takes), got {hd}; no "
-                         f"ported model trains at another yet ({BWD_ROADMAP})")
     o = torch.empty((B, Lq, H, hd), dtype=q.dtype, device=q.device).transpose(1, 2)
     strides = [s for t in (q, k, v, o) for s in t.stride()[:3]]
     if q.dtype == torch.bfloat16 and (any(s % 8 for s in strides) or any(
@@ -117,20 +108,22 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 
 def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         o: torch.Tensor, lse: torch.Tensor, do: torch.Tensor, *,
-                        causal: bool = True):
+                        causal: bool = True, dkdv: bool = True):
     """Backward of ``flash_attention``: (dq, dk, dv) for the output gradient
     ``do``, from the forward's output ``o`` and ``lse``.
 
     q, o, do: (B, H, Lq, hd); k, v: (B, KV, Lk, hd); lse: (B, H, Lq) f32,
     contiguous. CUDA tensors of one dtype (f32 or bf16), hd in
-    ``BWD_HEAD_DIMS``, unit stride on hd, other strides free. dq, dk and dv
-    are returned in q's and k's dtype as (B, heads, L, hd) views of
-    (B, L, heads, hd) buffers, the model's layout. One call launches the
-    kernels' two passes (dq with D = rowsum(dO * O), then dk and dv) and
-    counts once.
+    ``HEAD_DIMS``, unit stride on hd, other strides free: bf16 at hd 128
+    runs on the tensor cores (TMA, wgmma), every other case on the CUDA
+    cores. dq, dk and dv are returned in q's and k's dtype as
+    (B, heads, L, hd) views of (B, L, heads, hd) buffers, the model's
+    layout. One call launches the kernels' two passes (dq with D =
+    rowsum(dO * O), then dk and dv) and counts once; with ``dkdv=False``
+    it runs the dq pass alone and returns None for dk and dv.
     """
     dtensor.refuse("flash_attention_bwd", q, k, v, o, lse, do)
-    _check_inputs("flash_attention_bwd", q, k, v, BWD_HEAD_DIMS)
+    _check_inputs("flash_attention_bwd", q, k, v)
     B, H, Lq, hd = q.shape
     KV, Lk = k.shape[1], k.shape[2]
     for name, t in (("o", o), ("do", do)):
@@ -143,7 +136,7 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             or not lse.is_contiguous()):
         raise ValueError(f"flash_attention_bwd: lse must be a contiguous (B, H, Lq) "
                          f"float32 tensor, got {tuple(lse.shape)} {lse.dtype}")
-    if q.dtype == torch.bfloat16:
+    if q.dtype == torch.bfloat16 and hd == 128:
         # the tensor-core path reads rows by TMA: the forward's alignment rule
         # for q, k, v, o; the incoming gradient is made contiguous if needed
         if any(s % 8 for t in (q, k, v, o) for s in t.stride()[:3]) or any(
@@ -153,19 +146,21 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         if any(s % 8 for s in do.stride()[:3]) or do.data_ptr() % 16:
             do = do.contiguous()
     dq = torch.empty((B, Lq, H, hd), dtype=q.dtype, device=q.device).transpose(1, 2)
-    dk = torch.empty((B, Lk, KV, hd), dtype=q.dtype, device=q.device).transpose(1, 2)
-    dv = torch.empty((B, Lk, KV, hd), dtype=q.dtype, device=q.device).transpose(1, 2)
+    dk, dv = ((torch.empty((B, Lk, KV, hd), dtype=q.dtype, device=q.device).transpose(1, 2)
+               for _ in range(2)) if dkdv else (None, None))
     # each row's lse and D, padded to whole dq tiles
     lpad = -(-Lq // BWD_QUERY_TILE) * BWD_QUERY_TILE
     rows = torch.empty(B * H * 2 * lpad, dtype=torch.float32, device=q.device)
-    strides = [s for t in (q, k, v, o, do, dq, dk, dv) for s in t.stride()[:3]]
+    strides = [s for t in (q, k, v, o, do, dq) for s in t.stride()[:3]]
+    strides += [s for t in (dk, dv) for s in (t.stride()[:3] if dkdv else (0, 0, 0))]
     lib = _bwd_lib()
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         err = lib.flash_attention_bwd(
-            _DTYPES[q.dtype], hd, int(causal), q.data_ptr(), k.data_ptr(), v.data_ptr(),
-            o.data_ptr(), do.data_ptr(), lse.data_ptr(), dq.data_ptr(), dk.data_ptr(),
-            dv.data_ptr(), rows.data_ptr(), B, H, KV, Lq, Lk,
+            _DTYPES[q.dtype], hd, int(causal), int(dkdv), q.data_ptr(), k.data_ptr(),
+            v.data_ptr(), o.data_ptr(), do.data_ptr(), lse.data_ptr(), dq.data_ptr(),
+            dk.data_ptr() if dkdv else None, dv.data_ptr() if dkdv else None,
+            rows.data_ptr(), B, H, KV, Lq, Lk,
             (ctypes.c_longlong * 24)(*strides), hd ** -0.5, stream)
     build.check(lib, err, "flash_attention_bwd")
     BWD_COUNTER.launches += 1

@@ -33,7 +33,10 @@ class FlashAttention(torch.autograd.Function):
         q, k, v, o, lse = ctx.saved_tensors
         if do.stride(3) != 1:
             do = do.contiguous()
-        dq, dk, dv = flash_attention_bwd(q, k, v, o, lse, do, causal=ctx.causal)
+        # k and v without a gradient (cross-attention over a fixed memory):
+        # the dq pass alone
+        dkdv = ctx.needs_input_grad[1] or ctx.needs_input_grad[2]
+        dq, dk, dv = flash_attention_bwd(q, k, v, o, lse, do, causal=ctx.causal, dkdv=dkdv)
         return dq, dk, dv, None
 
 

@@ -1,4 +1,5 @@
-"""CUDA gated-linear-recurrence kernel (``csrc/gla_scan.cu``), bound through ctypes.
+"""CUDA gated-linear-recurrence kernels (``csrc/gla_scan.cu`` and its backward,
+``csrc/gla_scan_bwd.cu``), bound through ctypes.
 
     S_t = diag(exp(ld_t)) S_{t-1} + k_t v_t^T ;  o_t = q_t^T S_t (inclusive) or S_{t-1}
 
@@ -13,6 +14,12 @@ takes the CUDA-core kernel. Unlike the Pallas kernel it takes any L (a
 ragged last chunk is padded with zeros in the kernel, as ``gla_chunked``
 pads it), an initial state, and one decay per head (ld's last dim 1, read
 with a stride of 0).
+
+``gla_scan_bwd`` computes the gradients (``ref.gla_chunked_bwd``'s closed
+form) on the CUDA cores: one block a (batch row, head) recomputes its chunks'
+starting states, then walks the chunks in reverse carrying the state's
+gradient. q and k may be one group broadcast over the heads ((B, L, 1, dk)):
+their gradients are then summed over the heads in the library.
 """
 from __future__ import annotations
 
@@ -24,6 +31,7 @@ import torch
 from repro_torch.kernels import build
 
 COUNTER = build.LaunchCounter("gla_scan")
+BWD_COUNTER = build.LaunchCounter("gla_scan_bwd")
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 MAX_SMEM_BYTES = 232448            # the H100's dynamic shared memory per block
 
@@ -112,3 +120,101 @@ def gla_scan(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, ld: torch.Tensor
     build.check(lib, err, "gla_scan")
     COUNTER.launches += 1
     return o, state
+
+
+def _bwd_lib():
+    lib = build.load("gla_scan_bwd")
+    fn = lib.gla_scan_bwd
+    if fn.argtypes is None:
+        fn.argtypes = ([ctypes.c_int] * 5 + [ctypes.c_void_p] * 15 + [ctypes.c_int] * 6
+                       + [ctypes.c_void_p, ctypes.c_void_p])
+        fn.restype = ctypes.c_int
+        lib.gla_scan_bwd_smem_bytes.argtypes = [ctypes.c_int] * 3
+        lib.gla_scan_bwd_smem_bytes.restype = ctypes.c_longlong
+    return lib
+
+
+def gla_scan_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, ld: torch.Tensor,
+                 s0: Optional[torch.Tensor], do: torch.Tensor,
+                 dS_final: Optional[torch.Tensor], *, inclusive: bool = True,
+                 chunk: int = 64):
+    """Gradients of ``gla_scan(q, k, v, ld, s0)`` for the output gradient
+    ``do`` (B, L, H, dv) and the final state's ``dS_final`` (B, H, dk, dv) or
+    None. Returns (dq, dk, dv, dld, ds0) in the shapes and dtypes of the
+    inputs (ds0 None without s0), as ``ref.gla_chunked_bwd``.
+
+    v: (B, L, H, dv); q, k: (B, L, H, dk), or (B, L, 1, dk) for one group
+    broadcast over the heads (dq and dk summed over them); ld: (B, L, H, dk)
+    or (B, L, H, 1). CUDA tensors on one device: q, k, v share one dtype, f32
+    or bf16 (``do`` is cast to it), ld f32 or bf16; any strides. One call
+    launches the kernel (and, for one group, the sum over the heads) and
+    counts once.
+    """
+    if not all(t.is_cuda for t in (q, k, v, ld, do)):
+        raise ValueError("gla_scan_bwd launches the CUDA kernel: q, k, v, ld, do must "
+                         "be CUDA tensors (ops.gla differentiates the plain version "
+                         "on the CPU)")
+    if q.dtype not in _DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
+        raise TypeError(f"gla_scan_bwd takes float32 or bfloat16 q, k, v of one dtype, "
+                        f"got {q.dtype}, {k.dtype}, {v.dtype}")
+    if ld.dtype not in _DTYPES:
+        raise TypeError(f"gla_scan_bwd takes a float32 or bfloat16 ld, got {ld.dtype}")
+    if q.dim() != 4 or k.shape != q.shape or v.dim() != 4 or ld.dim() != 4:
+        raise ValueError(f"shapes: q {tuple(q.shape)}, k {tuple(k.shape)}, "
+                         f"v {tuple(v.shape)}, ld {tuple(ld.shape)}")
+    B, L, H, dv = v.shape
+    dk = q.shape[-1]
+    if (tuple(q.shape[:2]) != (B, L) or q.shape[2] not in (1, H)
+            or tuple(ld.shape[:3]) != (B, L, H) or ld.shape[3] not in (1, dk)
+            or tuple(do.shape) != (B, L, H, dv)):
+        raise ValueError(f"shapes: q {tuple(q.shape)}, v {tuple(v.shape)}, "
+                         f"ld {tuple(ld.shape)}, do {tuple(do.shape)}")
+    if min(B, L, H, dk, dv) < 1 or B > 65535 or chunk < 1:
+        raise ValueError(f"unsupported extents B={B} L={L} H={H} dk={dk} dv={dv} "
+                         f"chunk={chunk}")
+    devices = {t.device for t in (q, k, v, ld, do)}
+    state_shape = (B, H, dk, dv)
+    for name, t in (("s0", s0), ("dS_final", dS_final)):
+        if t is not None:
+            if tuple(t.shape) != state_shape:
+                raise ValueError(f"{name} has shape {tuple(t.shape)}, expected {state_shape}")
+            devices.add(t.device)
+    if len(devices) != 1:
+        raise ValueError("gla_scan_bwd arguments lie on different devices")
+    chunk = min(chunk, L)
+    lib = _bwd_lib()
+    smem = lib.gla_scan_bwd_smem_bytes(dk, dv, chunk)
+    if smem > MAX_SMEM_BYTES:
+        raise ValueError(f"gla_scan_bwd at dk={dk}, dv={dv}, chunk={chunk} needs {smem} "
+                         f"bytes of shared memory a block, over the {MAX_SMEM_BYTES} "
+                         "the card gives")
+    group = q.shape[2] != H
+    s0f = None if s0 is None else s0.to(torch.float32).contiguous()
+    dSf = None if dS_final is None else dS_final.to(torch.float32).contiguous()
+    do = do.to(v.dtype)
+    qx, kx = q.expand(B, L, H, dk), k.expand(B, L, H, dk)
+    ldx = ld.expand(B, L, H, dk)         # one decay a head: a stride of 0 on d
+    dev = q.device
+    n_chunks = -(-L // chunk)
+    states = torch.empty((B, H, n_chunks, dk, dv), dtype=torch.float32, device=dev)
+    dq = torch.empty(q.shape, dtype=q.dtype, device=dev)
+    dk_ = torch.empty(k.shape, dtype=k.dtype, device=dev)
+    dv_ = torch.empty(v.shape, dtype=v.dtype, device=dev)
+    dld = torch.empty(ld.shape, dtype=ld.dtype, device=dev)
+    ds0 = None if s0 is None else torch.empty(state_shape, dtype=torch.float32, device=dev)
+    ws = (torch.empty((2, B, L, H, dk), dtype=torch.float32, device=dev) if group
+          else None)
+    strides = [st for t in (qx, kx, v, ldx, do) for st in t.stride()]
+    ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = lib.gla_scan_bwd(
+            _DTYPES[q.dtype], _DTYPES[ld.dtype], int(inclusive), int(ld.shape[3] != dk),
+            int(group), qx.data_ptr(), kx.data_ptr(), v.data_ptr(), ldx.data_ptr(),
+            do.data_ptr(), ptr(s0f), ptr(dSf), states.data_ptr(), dq.data_ptr(),
+            dk_.data_ptr(), None if ws is None else ws[0].data_ptr(),
+            None if ws is None else ws[1].data_ptr(), dv_.data_ptr(), dld.data_ptr(),
+            ptr(ds0), B, L, H, dk, dv, chunk, (ctypes.c_longlong * 20)(*strides), stream)
+    build.check(lib, err, "gla_scan_bwd")
+    BWD_COUNTER.launches += 1
+    return dq, dk_, dv_, dld, None if ds0 is None else ds0.to(s0.dtype)

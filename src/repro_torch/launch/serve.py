@@ -413,13 +413,6 @@ def _refuse_unported(args) -> None:
             raise SystemExit(f"--gateway: flow requests carry conditioning tokens "
                              f"only, and {args.arch}'s encoder needs audio frames; "
                              "serve it without --gateway")
-        loads = bool(args.solver_artifact) and os.path.exists(args.solver_artifact)
-        missing = M.NO_BACKWARD_ON_CARD.get(family)
-        if args.bns_iters > 0 and args.device == "cuda" and not loads and missing:
-            raise SystemExit(
-                f"not served by the port yet: BNS distillation of {args.arch} on the "
-                f"card: {missing}; --device cpu distills through the plain forms, "
-                "--bns-iters 0 serves the initial euler solver")
     for flag, value, default in (("--mesh", args.mesh, "none"), ("--fleet", args.fleet, 1)):
         if value != default and not (args.mode == "flow" and args.gateway):
             raise SystemExit(f"{flag} serves through the flow gateway: add --gateway "

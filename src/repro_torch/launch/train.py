@@ -39,10 +39,10 @@ seed. Checkpoints are written every
 format, so either package restores the other's. ``--layers N`` cuts the
 depth, the width unchanged.
 
-On the card the families whose forward runs a kernel with no backward there
-are refused (``models.model.NO_BACKWARD_ON_CARD``), and so is a
-configuration whose params, gradients and f32 moments alone exceed the
-card's free memory; nothing falls back to the CPU.
+Every family trains on the card, each kernel of its forward differentiated
+by a backward kernel (flash attention at head dims 64, 80 and 128,
+``gla_scan``); a configuration whose params, gradients and f32 moments alone
+exceed the card's free memory is refused. Nothing falls back to the CPU.
 """
 from __future__ import annotations
 
@@ -159,15 +159,10 @@ def train_state_bytes(cfg: ModelConfig) -> int:
 
 
 def refuse_on_card(cfg: ModelConfig, device) -> None:
-    """Exit where ``cfg`` does not train on the card: a family whose forward
-    runs a kernel with no backward there, or params, gradients and moments
-    beyond the card's free memory."""
+    """Exit where ``cfg`` does not train on the card: params, gradients and
+    moments beyond the card's free memory."""
     if torch.device(device).type != "cuda":
         return
-    missing = M.NO_BACKWARD_ON_CARD.get(cfg.family)
-    if missing:
-        raise SystemExit(f"not trained by the port on the card yet: {cfg.name}: {missing}; "
-                         "--device cpu trains through the plain forms")
     dev = resolve_device(device)
     need = train_state_bytes(cfg)
     free, total = torch.cuda.mem_get_info(dev)

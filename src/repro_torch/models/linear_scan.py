@@ -87,10 +87,11 @@ def gla_chunked(q: Tensor, k: Tensor, v: Tensor, ld: Tensor,
     idx = torch.arange(chunk, device=q.device)
     tri = idx[:, None] >= idx[None, :] if inclusive else idx[:, None] > idx[None, :]
     scalar_decay = ld.shape[-1] == 1
+    acc = _acc(q)
 
     outs = []
     for i in range(n_chunks):
-        q_, k_, v_, ld_ = (a[i].to(torch.float32) for a in (qc, kc, vc, ldc))
+        q_, k_, v_, ld_ = (a[i].to(acc) for a in (qc, kc, vc, ldc))
         cum = torch.cumsum(ld_, dim=2)                  # (B, H, c, dk|1)
         cum_q = cum if inclusive else cum - ld_         # decay endpoint: t or t-1
         o_cross = torch.einsum("bhtd,bhdv->bhtv", q_ * torch.exp(cum_q), S)

@@ -12,9 +12,10 @@ one group (ngroups = 1), broadcast over the heads.
 
 The full-sequence pass (flow) runs the recurrence through ``kernels.gla_scan``
 (the CUDA kernel on the card, ``gla_chunked`` on the CPU) in the inclusive
-mode with one decay per head, q and k as stride-0 views over the heads, and
-the shared attention through ``attention_forward`` (the flash kernel on the
-card). Decode carries ``HybridState`` and steps the recurrence with the plain
+mode with one decay per head, q and k one group read as stride-0 views over
+the heads, and the shared attention through ``attention_forward`` (the flash
+kernel on the card); under grad both kernels' backwards run on the card.
+Decode carries ``HybridState`` and steps the recurrence with the plain
 ``gla_step`` and the shared attention over a dense KV cache a site, as the
 reference does; it writes the state IN PLACE. Layer params are stacked on a
 leading axis and every pass is a Python loop over it where the reference
@@ -151,9 +152,10 @@ def _ssd(cfg: ModelConfig, x: Tensor, B_: Tensor, C_: Tensor, dt: Tensor, p: dic
     ld = dt * (-torch.exp(p["A_log"]))                          # (B, L, nh) f32
     xh = x.reshape(Bsz, L, n_heads, s.head_dim)
     v = xh * dt[..., None].to(xh.dtype)
-    # one B/C group: views with a stride of 0 over the heads, no copy
-    k = B_[:, :, None, :].expand(Bsz, L, n_heads, s.d_state)
-    q = C_[:, :, None, :].expand(Bsz, L, n_heads, s.d_state)
+    # one B/C group, (B, L, 1, d_state): ops.gla reads it over the heads with a
+    # stride of 0, no copy, and the backward kernel sums its gradient over them
+    k = B_[:, :, None, :]
+    q = C_[:, :, None, :]
     # one decay per (head, step): ld's trailing dim of 1
     o, S = gla_ops.gla(q, k, v, ld[..., None], s0, inclusive=True, chunk=chunk or s.chunk)
     y = o + p["D"][:, None].to(o.dtype) * xh

@@ -30,10 +30,6 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.core.parametrization import VelocityField
 from repro_torch.core.schedulers import Scheduler
 from repro_torch.distributed import context
-from repro_torch.kernels.flash_attention.flash_attention import (
-    BWD_ROADMAP as FLASH_BACKWARD_ROADMAP,
-)
-from repro_torch.kernels.gla_scan.ops import BACKWARD_ROADMAP as GLA_BACKWARD_ROADMAP
 from repro_torch.models import mamba2, moe, rwkv6, transformer, vlm, whisper
 from repro_torch.models.attention import KVCache, PagedKVCache
 from repro_torch.models.mamba2 import HybridState
@@ -47,23 +43,13 @@ FAMILIES = ("dense", "moe", "ssm", "hybrid", "encdec", "vlm")
 PORTED_FAMILIES = FAMILIES
 PAGED_FAMILIES = ("dense", "moe", "vlm")   # KV-cache families that can page
 
-# the families whose flow forward runs a kernel with no backward on the card:
-# neither distillation nor backbone training differentiates them there
-NO_BACKWARD_ON_CARD = {
-    "ssm": f"its gla_scan kernel has no backward ({GLA_BACKWARD_ROADMAP})",
-    "hybrid": (f"the gla_scan kernel has no backward ({GLA_BACKWARD_ROADMAP}), nor has "
-               f"the flash kernel at its head dim 80 ({FLASH_BACKWARD_ROADMAP})"),
-    "encdec": f"the flash kernel has no backward at its head dim 64 ({FLASH_BACKWARD_ROADMAP})",
-}
-
 # the param trees' stacked layer subtrees (one leading axis over the layers)
 LAYER_STACKS = ("layers", "enc_layers", "dec_layers")
 
-__all__ = ["FAMILIES", "PORTED_FAMILIES", "PAGED_FAMILIES", "NO_BACKWARD_ON_CARD",
-           "LAYER_STACKS", "param_template", "unbind_layers", "init_params", "velocity",
-           "velocity_field", "latent_targets", "CFMNoise", "draw_cfm_noise", "cfm_loss",
-           "init_decode_state", "init_paged_decode_state", "decode_state_batch_axes",
-           "decode_apply"]
+__all__ = ["FAMILIES", "PORTED_FAMILIES", "PAGED_FAMILIES", "LAYER_STACKS", "param_template",
+           "unbind_layers", "init_params", "velocity", "velocity_field", "latent_targets",
+           "CFMNoise", "draw_cfm_noise", "cfm_loss", "init_decode_state",
+           "init_paged_decode_state", "decode_state_batch_axes", "decode_apply"]
 
 
 def init_params(generator: torch.Generator, cfg: ModelConfig, device="cuda") -> dict:

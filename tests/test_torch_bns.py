@@ -125,33 +125,61 @@ def smoke():
     return jcfg, jparams, cfg, params, tok
 
 
-@pytest.mark.parametrize("remat", [False, True])
-def test_loss_and_gradient_match_reference_on_the_yi6b_backbone(smoke, remat):
-    """The same on yi-6b's smoke backbone (2 layers, f32) at euler NFE 4,
-    with and without each layer recomputed in the backward: remat changes
-    neither the loss nor the gradient. Tolerance 4 TOL as the backbone's
-    sampling parity (tests/test_torch_serve.py) holds it; 1e-4 relative on
-    the gradient, which sums 4 back-propagated backbone calls."""
-    jcfg, jparams, cfg, params, tok = smoke
+def _backbone_loss_and_gradient(jcfg, jparams, cfg, params, jbatch, batch, remat):
+    """_loss_fn and its gradient at euler NFE 4 on a backbone's velocity,
+    the reference's by jax.value_and_grad and the port's by autograd, on the
+    same numpy pairs. Tolerance 4 TOL as the backbone's sampling parity
+    (tests/test_torch_serve.py) holds it; 1e-4 relative on the gradient,
+    which sums 4 back-propagated backbone calls."""
     rng = np.random.default_rng(8)
     x0, x1 = rng.standard_normal((2, 2, 8, cfg.latent_dim)).astype(np.float32)
     jt, tt = _theta0("euler", 4)
-    batch = {"tokens": jnp.asarray(tok)}
 
     def jsample(th, x):
-        u = lambda t, xx: jmodel.velocity(jparams, jcfg, t, xx, batch, remat=remat)  # noqa: E731
+        u = lambda t, xx: jmodel.velocity(jparams, jcfg, t, xx, jbatch, remat=remat)  # noqa: E731
         return jns.ns_sample(jns.materialize(th), u, x)
 
     jloss, jgrad = jax.value_and_grad(
         lambda th: jbns._loss_fn(jsample, th, jnp.asarray(x0), jnp.asarray(x1)))(jt)
-    field = tmodel.velocity_field(params, cfg, tsched.fm_ot(),
-                                  {"tokens": torch.from_numpy(tok)}, remat=remat)
+    field = tmodel.velocity_field(params, cfg, tsched.fm_ot(), batch, remat=remat)
     th = tns.BNSParams(*(p.clone().requires_grad_(True) for p in tt))
     loss = tbns._loss_fn(tbns.ns_sampler(field), th, *_tpairs((x0, x1)))
     grads = torch.autograd.grad(loss, list(th))
     np.testing.assert_allclose(float(loss), float(jloss), rtol=4 * TOL, atol=4 * TOL)
     for g, w in zip(grads, jgrad):
         np.testing.assert_allclose(_np(g), np.asarray(w), rtol=1e-4, atol=4 * TOL)
+
+
+@pytest.mark.parametrize("remat", [False, True])
+def test_loss_and_gradient_match_reference_on_the_yi6b_backbone(smoke, remat):
+    """The same on yi-6b's smoke backbone (2 layers, f32) at euler NFE 4,
+    with and without each layer recomputed in the backward: remat changes
+    neither the loss nor the gradient."""
+    jcfg, jparams, cfg, params, tok = smoke
+    _backbone_loss_and_gradient(jcfg, jparams, cfg, params, {"tokens": jnp.asarray(tok)},
+                                {"tokens": torch.from_numpy(tok)}, remat)
+
+
+@pytest.mark.parametrize("arch", ["rwkv6-7b", "zamba2-2.7b", "whisper-medium"])
+def test_loss_and_gradient_match_reference_on_the_other_trained_backbones(arch):
+    """The same on the smoke configs of the families that distil on the card
+    through the gla_scan backward and the flash backward at hd 80 and 64
+    (their forms on the CPU: the plain chunked recurrence, the plain
+    attention): rwkv6-7b, zamba2-2.7b and whisper-medium (the batch's
+    frames drawn by the reference's SyntheticTokens, handed to both), each
+    layer recomputed in the backward, as the launcher distils."""
+    from repro.data.synthetic import DataConfig as JaxDataConfig
+    from repro.data.synthetic import SyntheticTokens as JaxSyntheticTokens
+    from repro_torch.models import mamba2, rwkv6, whisper
+
+    jcfg, cfg = jax_get_config(arch, smoke=True), get_config(arch, smoke=True)
+    jparams = jmodel.init_params(jax.random.PRNGKey(0), jcfg)
+    family = {"rwkv6-7b": rwkv6, "zamba2-2.7b": mamba2, "whisper-medium": whisper}[arch]
+    params = family.params_from_jax(jax.tree.map(np.asarray, jparams), cfg, device="cpu")
+    jbatch = JaxSyntheticTokens(jcfg, JaxDataConfig(batch_size=2, seq_len=8, seed=5)).batch(1)
+    batch = {k: torch.from_numpy(np.array(v)) for k, v in jbatch.items()}
+    batch["tokens"] = batch["tokens"].long()
+    _backbone_loss_and_gradient(jcfg, jparams, cfg, params, jbatch, batch, remat=True)
 
 
 def test_remat_recomputes_each_layer_in_the_backward(smoke):

@@ -16,9 +16,10 @@ TPU_KERNELS = {
     "paged_attention":
         "src/repro/kernels/flash_attention/paged_attention.py::paged_attention",
     "gla_scan": "src/repro/kernels/gla_scan/gla_scan.py::gla_scan",
-    # the backward of the port's flash kernel (the TPU kernel has none)
+    # the backwards of the port's flash and gla_scan kernels (the TPU kernels have none)
     "flash_attention_bwd":
         "src/repro/kernels/flash_attention/flash_attention.py::flash_attention",
+    "gla_scan_bwd": "src/repro/kernels/gla_scan/gla_scan.py::gla_scan",
 }
 
 
@@ -248,10 +249,12 @@ class _FakeFn:
 def test_backward_bindings_match_the_c_signatures(monkeypatch):
     """The ctypes argument types the wrappers set follow the C entry points'
     parameters, for the flash forward (with its lse pointer), the flash
-    backward and the ns_update backward."""
+    backward (with its dk/dv flag), the ns_update backward and the gla_scan
+    backward."""
     import ctypes
 
     from repro_torch.kernels.flash_attention import flash_attention as fa_mod
+    from repro_torch.kernels.gla_scan import gla_scan as gs_mod
     from repro_torch.kernels.ns_update import ns_update as nu_mod
 
     class Lib:
@@ -260,6 +263,8 @@ def test_backward_bindings_match_the_c_signatures(monkeypatch):
         ns_update_fwd = _FakeFn()
         ns_update_bwd = _FakeFn()
         ns_update_bwd_max_blocks = _FakeFn()
+        gla_scan_bwd = _FakeFn()
+        gla_scan_bwd_smem_bytes = _FakeFn()
 
     lib = Lib()
     monkeypatch.setattr(build, "load", lambda name: lib)
@@ -267,10 +272,12 @@ def test_backward_bindings_match_the_c_signatures(monkeypatch):
     fa_mod._lib()
     fa_mod._bwd_lib()
     nu_mod._entry()
+    gs_mod._bwd_lib()
     for entry, source in (("flash_attention_fwd", "flash_attention.cu"),
                           ("flash_attention_bwd", "flash_attention_bwd.cu"),
                           ("ns_update_fwd", "ns_update.cu"),
-                          ("ns_update_bwd", "ns_update.cu")):
+                          ("ns_update_bwd", "ns_update.cu"),
+                          ("gla_scan_bwd", "gla_scan_bwd.cu")):
         fn = getattr(lib, entry)
         assert fn.argtypes == _ctypes_of(_c_params(source, entry)), entry
         assert fn.restype is ctypes.c_int
@@ -285,7 +292,7 @@ def test_flash_backward_kernel_is_two_passes_without_atomics():
     # no atomic function and no PTX atomic or reduction opcode (as a whole
     # token, so prose such as "stored." does not count)
     assert "atomicAdd" not in src and not re.search(r"\b(atom|red)\.", src)
-    wgmma = src[src.index("int launch_wgmma("):src.index("int launch_f32(")]
-    f32 = src[src.index("int launch_f32("):]
-    for launcher, second in ((wgmma, "kv_kern<<<"), (f32, "dkdv_kern<<<")):
+    wgmma = src[src.index("int launch_wgmma("):src.index("int launch_cores(")]
+    cores = src[src.index("int launch_cores("):]
+    for launcher, second in ((wgmma, "kv_kern<<<"), (cores, "dkdv_kern<<<")):
         assert launcher.count("<<<") == 2 and launcher.index("dq_kern<<<") < launcher.index(second)

@@ -771,11 +771,11 @@ def _check_flash_bwd(out, ref, dtype):
     assert float(row.max()) <= FLASH_BWD_ROW_REL_L2
 
 
-def _bwd_inputs(seed, B, H, KV, Lq, Lk, dtype, dev):
+def _bwd_inputs(seed, B, H, KV, Lq, Lk, dtype, dev, hd=128):
     rng = np.random.default_rng(seed)
     # transposed views of the model's (B, L, heads, hd) layout
-    q, do = (_randn(rng, (B, Lq, H, 128), dtype, dev).transpose(1, 2) for _ in "qo")
-    k, v = (_randn(rng, (B, Lk, KV, 128), dtype, dev).transpose(1, 2) for _ in "kv")
+    q, do = (_randn(rng, (B, Lq, H, hd), dtype, dev).transpose(1, 2) for _ in "qo")
+    k, v = (_randn(rng, (B, Lk, KV, hd), dtype, dev).transpose(1, 2) for _ in "kv")
     return q, k, v, do
 
 
@@ -824,6 +824,38 @@ def test_flash_attention_bwd_matches_plain(dev, B, H, KV, Lq, Lk, causal, dtype)
         _check_flash_bwd(x, r, dtype)
 
 
+_BWD_HD_SHAPES = [  # B, H, KV, Lq, Lk, causal, hd
+    (4, 32, 32, 1024, 1024, True, 80),   # zamba2-2.7b's shared attention
+    (4, 16, 16, 1024, 1024, True, 64),   # whisper-medium's decoder self-attention
+    (4, 16, 16, 1024, 1500, False, 64),  # its cross-attention
+    (2, 8, 2, 77, 77, True, 80),
+    (1, 4, 2, 40, 97, False, 80),
+    (2, 8, 1, 100, 100, False, 64),
+]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,H,KV,Lq,Lk,causal,hd", _BWD_HD_SHAPES)
+def test_flash_attention_bwd_at_hd_64_and_80_matches_plain(dev, B, H, KV, Lq, Lk, causal, hd,
+                                                          dtype):
+    """The CUDA-core backward at the head dims of zamba2-2.7b and
+    whisper-medium, with the forward's lse, and its dq pass alone."""
+    from repro_torch.kernels.flash_attention.flash_attention import flash_attention_bwd
+    from repro_torch.kernels.flash_attention.ref import attention_bwd_ref, attention_lse_ref
+
+    q, k, v, do = _bwd_inputs(Lq + Lk + hd, B, H, KV, Lq, Lk, dtype, dev, hd=hd)
+    o, lse = flash_attention(q, k, v, causal=causal, return_lse=True)
+    torch.testing.assert_close(lse, attention_lse_ref(q, k, causal=causal),
+                               atol=TOL[torch.float32] * 4, rtol=TOL[torch.float32] * 4)
+    got = flash_attention_bwd(q, k, v, o, lse, do, causal=causal)
+    want = attention_bwd_ref(q, k, v, o, lse, do, causal=causal)
+    for x, r, like in zip(got, want, (q, k, v)):
+        assert x.shape == like.shape and x.dtype == dtype
+        _check_flash_bwd(x, r, dtype)
+    dq, dk, dv = flash_attention_bwd(q, k, v, o, lse, do, causal=causal, dkdv=False)
+    assert dk is None and dv is None and torch.equal(dq, got[0])
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_flash_attention_bwd_is_deterministic(dev, dtype):
     from repro_torch.kernels.flash_attention.flash_attention import flash_attention_bwd
@@ -868,10 +900,10 @@ def test_attend_gradient_through_the_kernels_matches_autograd_of_the_plain_versi
 def test_flash_attention_bwd_refuses_what_it_does_not_take(dev):
     from repro_torch.kernels.flash_attention.flash_attention import flash_attention_bwd
 
-    q = torch.zeros(1, 2, 16, 64, device=dev)
-    with pytest.raises(ValueError, match="ROADMAP Queue B item 7"):
+    q = torch.zeros(1, 2, 16, 32, device=dev)
+    with pytest.raises(ValueError, match="head dims"):
         flash_attention_bwd(q, q, q, q, torch.zeros(1, 2, 16, device=dev), q)
-    with pytest.raises(ValueError, match="ROADMAP Queue B item 7"):
+    with pytest.raises(ValueError, match="head dims"):
         flash_attention(q, q, q, return_lse=True)
     q = torch.zeros(1, 2, 16, 128, device=dev)
     with pytest.raises(ValueError, match="lse"):
@@ -880,23 +912,82 @@ def test_flash_attention_bwd_refuses_what_it_does_not_take(dev):
         flash_attention_bwd(q, q, q, q, torch.zeros(1, 2, 16, device=dev), q.bfloat16())
 
 
+def _relative_l2(got, want):
+    return float(torch.linalg.vector_norm(got.double() - want)
+                 / torch.linalg.vector_norm(want).clamp_min(1e-30))
+
+
+# f32 inputs 1e-5, bf16 2e-2 (chip_smoke.py's limits), relative L2 against
+# the plain backward taken in f64 on the same inputs
+GLA_BWD_TOL = {torch.float32: 1e-5, torch.bfloat16: 2e-2}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("form", ["exclusive", "inclusive", "group"])
+@pytest.mark.parametrize("B,L,H,dk,dv,chunk,state", [
+    (2, 200, 4, 64, 64, 64, True),    # a ragged last chunk, s0 and dS_final
+    (1, 128, 2, 32, 16, 32, False),
+    (4, 1024, 8, 64, 64, 64, False),
+])
+def test_gla_scan_bwd_matches_plain(dev, B, L, H, dk, dv, chunk, state, form, dtype):
+    """The backward kernel against ``gla_chunked_bwd`` in f64 on the same
+    inputs: rwkv6's exclusive form (per-channel decay), the inclusive form,
+    and zamba2's (inclusive, q and k one group, one decay a head)."""
+    from repro_torch.kernels.gla_scan import gla_scan as gs_mod
+    from repro_torch.kernels.gla_scan.ref import gla_chunked_bwd
+
+    rng = np.random.default_rng(L + H + dk)
+    group = form == "group"
+    Hq = 1 if group else H
+    q, k = (_randn(rng, (B, L, Hq, dk), dtype, dev) for _ in "qk")
+    v, do = (_randn(rng, (B, L, H, dv), dtype, dev) for _ in "vo")
+    ld = -(_randn(rng, (B, L, H, 1 if group else dk), torch.float32, dev).abs() * 0.3)
+    s0, dS = ((_randn(rng, (B, H, dk, dv), torch.float32, dev) for _ in "sd") if state
+              else (None, None))
+    inclusive = form != "exclusive"
+    before = gs_mod.BWD_COUNTER.launches
+    got = gs_mod.gla_scan_bwd(q, k, v, ld, s0, do, dS, inclusive=inclusive, chunk=chunk)
+    torch.cuda.synchronize()
+    assert gs_mod.BWD_COUNTER.launches == before + 1
+    f64 = lambda t: None if t is None else t.double()  # noqa: E731
+    want = gla_chunked_bwd(*map(f64, (q, k, v, ld, s0, do, dS)), inclusive=inclusive,
+                           chunk=chunk)
+    for g, w, like in zip(got, want, (q, k, v, ld, s0)):
+        if like is None:
+            assert g is None
+            continue
+        assert g.shape == like.shape and g.dtype == like.dtype
+        assert _relative_l2(g, w) <= GLA_BWD_TOL[dtype]
+    again = gs_mod.gla_scan_bwd(q, k, v, ld, s0, do, dS, inclusive=inclusive, chunk=chunk)
+    for g, a in zip(got, again):
+        assert (g is None and a is None) or torch.equal(g, a)
+
+
 @pytest.mark.parametrize("needs_grad", ["q", "v", "ld"])
-def test_gla_refuses_inputs_that_require_grad_on_the_card(dev, needs_grad):
-    """gla_scan has no backward yet: under grad, an input that requires grad
-    is refused before any launch; under no_grad the kernel launches."""
+def test_gla_under_grad_launches_the_backward_kernel_on_the_card(dev, needs_grad):
+    """Under grad an input that requires grad goes through GLAScan: one
+    forward launch, and one backward launch at the backward, whose gradient
+    is the plain backward's; under no_grad the forward alone."""
     from repro_torch.kernels.gla_scan import gla_scan as gs_mod
     from repro_torch.kernels.gla_scan.ops import gla
+    from repro_torch.kernels.gla_scan.ref import gla_chunked_bwd
 
     q, k, v, ld = _gla_inputs(3, 1, 64, 2, 64, 64, torch.float32, torch.float32, dev)
     args = {"q": q, "k": k, "v": v, "ld": ld}
     args[needs_grad].requires_grad_(True)
-    before = gs_mod.COUNTER.launches
-    with pytest.raises(RuntimeError, match="ROADMAP Queue B item 6"):
-        gla(**args, chunk=64)
-    assert gs_mod.COUNTER.launches == before
+    before = (gs_mod.COUNTER.launches, gs_mod.BWD_COUNTER.launches)
+    o, _ = gla(**args, chunk=64)
+    do = torch.ones_like(o)
+    got, = torch.autograd.grad(o, args[needs_grad], do)
+    assert (gs_mod.COUNTER.launches, gs_mod.BWD_COUNTER.launches) == (before[0] + 1,
+                                                                      before[1] + 1)
+    want = gla_chunked_bwd(q.double(), k.double(), v.double(), ld.double(), None,
+                           do.double(), None, chunk=64)["qkvl".index(needs_grad[0])]
+    assert _relative_l2(got, want) <= GLA_BWD_TOL[torch.float32]
     with torch.no_grad():
         gla(**args, chunk=64)
-    assert gs_mod.COUNTER.launches == before + 1
+    assert (gs_mod.COUNTER.launches, gs_mod.BWD_COUNTER.launches) == (before[0] + 2,
+                                                                      before[1] + 1)
 
 
 # ---------------------------------------------------------------------------

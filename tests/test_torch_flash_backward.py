@@ -249,16 +249,47 @@ def test_attend_under_grad_on_cpu_is_differentiated_like_the_reference(causal):
         np.testing.assert_allclose(g.transpose(1, 2).numpy(), w, rtol=TOL, atol=TOL)
 
 
+@pytest.mark.parametrize("B,H,KV,Lq,Lk,causal,hd", [
+    (1, 4, 4, 24, 40, False, 64),    # whisper-medium's cross-attention form, Lq != Lk
+    (1, 4, 4, 33, 33, True, 64),     # its decoder's causal self-attention
+    (1, 4, 4, 24, 40, False, 80),
+    (1, 4, 4, 29, 29, True, 80),     # zamba2-2.7b's shared attention, G 1
+    (2, 8, 2, 40, 17, True, 80),     # GQA, causal with Lq > Lk
+])
+def test_attention_bwd_ref_at_hd_64_and_80(B, H, KV, Lq, Lk, causal, hd):
+    """The formulas the backward kernels compute at the head dims the
+    CUDA-core backward adds, against autograd of the plain attention and
+    jax.vjp of the reference's, Lq != Lk included."""
+    q, k, v, do = (torch.from_numpy(a) for a in _inputs(Lq + hd, B, H, KV, Lq, Lk, hd=hd))
+    qs, ks, vs = (t.clone().requires_grad_(True) for t in (q, k, v))
+    o = attention_ref(qs, ks, vs, causal=causal)
+    want = torch.autograd.grad(o, (qs, ks, vs), do)
+    lse = attention_lse_ref(q, k, causal=causal)
+    got = attention_bwd_ref(q, k, v, o.detach(), lse, do, causal=causal)
+    jwant = _jax_vjp(*(t.numpy() for t in (q, k, v, do)), causal)
+    for g, w, jw in zip(got, want, jwant):
+        assert g.shape == w.shape and g.shape[-1] == hd
+        np.testing.assert_allclose(g.numpy(), w.numpy(), rtol=TOL, atol=TOL)
+        np.testing.assert_allclose(g.numpy(), jw, rtol=TOL, atol=TOL)
+
+
 def test_backward_wrapper_refuses_cpu_tensors_and_other_head_dims_before_any_launch():
+    """hd 64, 80 and 128 pass the checks the forward with lse and the
+    backward share (zamba2-2.7b's 80 and whisper-medium's 64 train); any
+    other head dim is refused, as a CPU tensor is, before any launch."""
     q, k, v, do = (torch.from_numpy(a) for a in _inputs(1, 1, 4, 2, 8, 8))
     lse = attention_lse_ref(q, k)
     before = (fa_mod.COUNTER.launches, fa_mod.BWD_COUNTER.launches)
     with pytest.raises(ValueError, match="CUDA"):
         flash_attention_bwd(q, k, v, q, lse, do)
-    q64, k64, v64, do64 = (torch.from_numpy(a).as_subclass(OnCard)
-                           for a in _inputs(2, 1, 4, 2, 8, 8, hd=64))
-    with pytest.raises(ValueError, match="ROADMAP Queue B item 7"):
-        flash_attention_bwd(q64, k64, v64, q64, lse, do64)
-    with pytest.raises(ValueError, match="ROADMAP Queue B item 7"):
-        flash_attention(q64, k64, v64, return_lse=True)
+    for hd in (64, 80, 128):
+        qh, kh, vh, _ = (torch.from_numpy(a).as_subclass(OnCard)
+                         for a in _inputs(2, 1, 4, 2, 8, 8, hd=hd))
+        fa_mod._check_inputs("flash_attention_bwd", qh, kh, vh)
+    q32, k32, v32, do32 = (torch.from_numpy(a).as_subclass(OnCard)
+                           for a in _inputs(2, 1, 4, 2, 8, 8, hd=32))
+    with pytest.raises(ValueError, match=r"head dims \(64, 80, 128\), got 32"):
+        flash_attention_bwd(q32, k32, v32, q32, lse, do32)
+    with pytest.raises(ValueError, match=r"head dims \(64, 80, 128\), got 32"):
+        flash_attention(q32, k32, v32, return_lse=True)
     assert (fa_mod.COUNTER.launches, fa_mod.BWD_COUNTER.launches) == before

@@ -252,7 +252,7 @@ def test_kernel_wrapper_refuses_cpu_tensors():
 
 class _OnCard(torch.Tensor):
     """A CPU tensor that reports ``is_cuda``, so ``ops.gla`` takes its card
-    route: the refusal under grad must come before any launch."""
+    route, with the kernels stood in for by their plain versions."""
 
     @property
     def is_cuda(self):
@@ -260,23 +260,40 @@ class _OnCard(torch.Tensor):
 
 
 @pytest.mark.parametrize("needs_grad", ["q", "k", "v", "ld", "s0"])
-def test_card_route_refuses_inputs_that_require_grad(needs_grad, monkeypatch):
-    """The kernel's outputs have no grad_fn: on the card, an input that
-    requires grad under grad mode is refused, naming the ROADMAP entry of the
-    kernel's backward, before the kernel is called; under no_grad the same
-    inputs reach the kernel. The CPU route stays differentiable."""
+def test_card_route_under_grad_runs_the_forward_and_backward_kernels(needs_grad,
+                                                                     monkeypatch):
+    """On the card, an input that requires grad under grad mode goes through
+    ``GLAScan``: the forward kernel, then at the backward the backward kernel
+    (``gla_scan_bwd``), nothing else; the gradient is the CPU route's. Under
+    no_grad the same inputs reach the forward kernel alone."""
     from repro_torch.kernels.gla_scan import ops as gla_ops
+    from repro_torch.kernels.gla_scan.ref import gla_chunked_bwd
 
     arrays = dict(zip(("q", "k", "v", "ld", "s0"),
                       _t(_inputs(3, 1, 8, 2, 4, 4, s0=True))))
     arrays[needs_grad].requires_grad_(True)
     calls = []
-    monkeypatch.setattr(gla_ops, "gla_scan", lambda *a, **kw: calls.append(a) or "launched")
+
+    def forward(q, k, v, ld, s0=None, *, inclusive, chunk):
+        calls.append("gla_scan")
+        return T.gla_chunked(q, k, v, ld, s0, inclusive=inclusive, chunk=chunk)
+
+    def backward(*args, inclusive, chunk):
+        calls.append("gla_scan_bwd")
+        return gla_chunked_bwd(*args, inclusive=inclusive, chunk=chunk)
+
+    monkeypatch.setattr(gla_ops, "gla_scan", forward)
+    monkeypatch.setattr(gla_ops, "gla_scan_bwd", backward)
     card = {name: t.as_subclass(_OnCard) for name, t in arrays.items()}
-    with pytest.raises(RuntimeError, match="ROADMAP Queue B item 6"):
-        gla(card["q"], card["k"], card["v"], card["ld"], card["s0"])
-    assert calls == []
+    do, dS = _t(_inputs(4, 1, 8, 2, 4, 4, s0=True))[2::2]
+    o, S = gla(card["q"], card["k"], card["v"], card["ld"], card["s0"])
+    assert type(o.grad_fn).__name__ == "GLAScanBackward" and calls == ["gla_scan"]
+    got, = torch.autograd.grad((o * do).sum() + (S * dS).sum(), arrays[needs_grad])
+    assert calls == ["gla_scan", "gla_scan_bwd"]
+    o, S = gla(arrays["q"], arrays["k"], arrays["v"], arrays["ld"], arrays["s0"])
+    want, = torch.autograd.grad((o * do).sum() + (S * dS).sum(), arrays[needs_grad])
+    np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=TOL["float32"],
+                               atol=TOL["float32"])
     with torch.no_grad():
-        assert gla(card["q"], card["k"], card["v"], card["ld"], card["s0"]) == "launched"
-    o, _ = gla(arrays["q"], arrays["k"], arrays["v"], arrays["ld"], arrays["s0"])
-    assert o.grad_fn is not None
+        gla(card["q"], card["k"], card["v"], card["ld"], card["s0"])
+    assert calls == ["gla_scan", "gla_scan_bwd", "gla_scan"]

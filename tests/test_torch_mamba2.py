@@ -206,8 +206,10 @@ def test_ssd(models, L, with_s0):
 
 
 def test_ssd_goes_through_the_kernel_route_with_stride_0_heads(models, monkeypatch):
-    """``_ssd`` hands ops.gla the model's own views: q and k with a stride of
-    0 over the heads (no copy), ld with a trailing dim of 1, inclusive."""
+    """``_ssd`` hands ops.gla the model's own views: q and k one group of
+    shape (B, L, 1, d_state) over the model's products (no copy), which the
+    kernel route reads with a stride of 0 over the heads, ld with a trailing
+    dim of 1, inclusive."""
     _, _, cfg, params = models
     seen = {}
     real = mamba2.gla_ops.gla
@@ -223,7 +225,9 @@ def test_ssd_goes_through_the_kernel_route_with_stride_0_heads(models, monkeypat
     ds = cfg.ssm.d_state
     mamba2._ssd(cfg, xbc[..., :d_inner], xbc[..., d_inner:d_inner + ds],
                 xbc[..., d_inner + ds:], torch.from_numpy(dt), _layer(params, 0))
-    assert seen["q"].stride(2) == 0 and seen["k"].stride(2) == 0
+    assert seen["q"].shape[2] == 1 and seen["k"].shape[2] == 1
+    v = torch.zeros((2, 16, n_heads, cfg.ssm.head_dim))
+    assert all(t.stride(2) == 0 for t in mamba2.gla_ops._heads(seen["q"], seen["k"], v))
     assert seen["q"].data_ptr() == xbc[..., d_inner + ds:].data_ptr()
     assert seen["k"].data_ptr() == xbc[..., d_inner:].data_ptr()
     assert tuple(seen["ld"].shape) == (2, 16, n_heads, 1)
@@ -674,12 +678,16 @@ def test_serve_decode_refuses_a_paged_cache():
 
 
 @pytest.mark.parametrize("extra", [["--bns-iters", "3"], []])     # the default is 300
-def test_serve_refuses_distillation_on_the_card_naming_both_backwards(extra):
+def test_serve_takes_distillation_on_the_card_through_both_backwards(extra):
+    """zamba2-2.7b distils on the card through gla_scan's backward and the
+    flash backward at hd 80: the launcher refuses nothing for it, and
+    without a card exits for the device alone."""
+    if torch.cuda.is_available():
+        pytest.skip("checks the behaviour without a CUDA card")
     with pytest.raises(SystemExit) as exc:
         serve.main(["--arch", ARCH, "--device", "cuda"] + extra)
     msg = str(exc.value.code)
-    assert "ROADMAP Queue B item 6" in msg and "ROADMAP Queue B item 7" in msg
-    assert "head dim 80" in msg
+    assert "CUDA" in msg and "Queue B" not in msg
 
 
 def test_serve_on_the_card_with_a_loaded_artifact_is_not_refused(tmp_path):

@@ -566,20 +566,23 @@ def test_parser_takes_every_reference_flag(monkeypatch):
     assert args["device"] == "cuda" and args["layers"] is None and args["ckpt_every"] == 50
 
 
-@pytest.mark.parametrize("arch,items", [
-    ("rwkv6-7b", ["ROADMAP Queue B item 6"]),
-    ("zamba2-2.7b", ["ROADMAP Queue B item 6", "ROADMAP Queue B item 7"]),
-    ("whisper-medium", ["ROADMAP Queue B item 7"]),
-])
-def test_card_refuses_the_families_without_a_backward(arch, items):
-    """Before any device is touched (this machine has no card), naming the
-    backward each family lacks; the CPU trains them."""
-    with pytest.raises(SystemExit) as exc:
-        ttrain.main(["--arch", arch, "--smoke", "--steps", "1", "--device", "cuda"])
-    text = str(exc.value.code)
-    assert arch in text and "--device cpu" in text
-    for item in items:
-        assert item in text
+@pytest.mark.parametrize("arch", ["rwkv6-7b", "zamba2-2.7b", "whisper-medium"])
+def test_card_takes_the_families_of_the_gla_and_hd_64_80_backwards(arch, monkeypatch):
+    """No family is refused on the card for a missing backward: only the
+    memory check decides. On a card with 80 GB free (stubbed: the check
+    reads ``torch.cuda.mem_get_info``), the smoke and the full config pass,
+    but rwkv6-7b at full depth (~91 GB of params, gradients and f32
+    moments), which is refused naming --layers."""
+    monkeypatch.setattr(ttrain, "resolve_device", torch.device)
+    monkeypatch.setattr(torch.cuda, "mem_get_info", lambda device=None: (80e9, 80e9))
+    assert ttrain.refuse_on_card(get_config(arch, smoke=True), "cuda") is None
+    full = get_config(arch)
+    if ttrain.train_state_bytes(full) > 80e9:
+        assert arch == "rwkv6-7b" and ttrain.train_state_bytes(full) > 90e9
+        with pytest.raises(SystemExit, match="--layers N"):
+            ttrain.refuse_on_card(full, "cuda")
+    else:
+        assert ttrain.refuse_on_card(full, "cuda") is None
 
 
 def test_card_without_a_card_exits_naming_the_cpu():
