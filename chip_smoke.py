@@ -974,6 +974,14 @@ def flash_bwd_cases(dev):
               (BATCH, 16, 16, SEQ, WHISPER_FRAMES, 64, bf16, False, True),  # under training
               (2, 8, 2, 77, 77, 80, f32, True, True),
               (1, 4, 4, 40, 97, 64, f32, False, True)]
+    # the tensor-core path's edges at hd 64 and 80: ragged L (TMA zero fill,
+    # masks), GQA 8 / 2 summed in the block, Lq != Lk both ways, the dq pass alone
+    for hd in (64, 80):
+        cases += [(2, 16, 16, 1000, 1000, hd, bf16, True, True),
+                  (2, 8, 2, 333, 333, hd, bf16, True, True),
+                  (1, 8, 4, 200, 77, hd, bf16, False, True),
+                  (1, 4, 2, 40, 97, hd, bf16, False, True),
+                  (2, 8, 2, 300, 450, hd, bf16, True, False)]
     for B, H, KV, Lq, Lk, hd, dtype, causal, dkdv in cases:
         q, do = (torch.randn((B, Lq, H, hd), generator=g, device=dev).to(dtype).transpose(1, 2)
                  for _ in "qo")
@@ -1022,21 +1030,31 @@ def flash_bwd_cases(dev):
 
         ms = time_ms(call, iters=20)
         passes = device_ms_by_kernel(call, BWD_PASSES)
-        tensor_cores = dtype == bf16 and hd == 128
-        executed = ((20 if tensor_cores else 14) if dkdv else 8) * hd * pairs * B * H
+        # flops done a kept pair: in bf16 (the tensor cores, at every hd) S and dP
+        # in each pass and P, dS as two bf16 parts, 8 hd in dq and 12 in dk/dv;
+        # in f32 (the CUDA cores) 6 and 8
+        if dtype == bf16:
+            executed = (20 if dkdv else 8) * hd * pairs * B * H
+        else:
+            executed = (14 if dkdv else 6) * hd * pairs * B * H
         qs, ks, vs = (t.detach().requires_grad_(True) for t in (q, k, v))
         if not dkdv:
             ks, vs = k, v
         out = F.scaled_dot_product_attention(qs, ks, vs, is_causal=causal, enable_gqa=True)
         wrt = (qs, ks, vs) if dkdv else (qs,)
+
+        def sdpa_bwd():
+            return torch.autograd.grad(out, wrt, do, retain_graph=True)
+
         rows.append(dict(
             shape=shape, max_abs_err=err, limit_ratio=ratio, lse_limit_ratio=lse_ratio,
             ms=ms, tflops=flops / ms / 1e9, executed_tflops=executed / ms / 1e9,
             pass_device_ms=passes,
             plain_ms=time_ms(lambda: attention_bwd_ref(q, k, v, o, lse, do, causal=causal),
                              iters=5, warmup=1),
-            library_ms=time_ms(lambda: torch.autograd.grad(out, wrt, do, retain_graph=True),
-                               iters=20),
+            library_ms=time_ms(sdpa_bwd, iters=20),
+            # every kernel the autograd call runs
+            sdpa_bwd_device_ms=device_ms(sdpa_bwd, None, iters=20),
             bound_ms=b_ms, bound_by=b_by))
         if len(rows) == 1:
             rows[-1]["graphed_ms"] = graphed_ms(
@@ -4516,7 +4534,10 @@ def main() -> int:
                 extra += (f", executed {r['executed_tflops']:.1f} TFLOP/s, device time a "
                           f"pass: {passes}")
                 extra += (f", bf16 limit ratio {r['limit_ratio']:.4f}" if "bfloat16" in r["shape"]
-                          else "") + " (library: torch autograd of SDPA's backward)"
+                          else "") + " (library: torch autograd of SDPA's backward"
+                sdpa = r["sdpa_bwd_device_ms"]
+                sdpa_text = "not measured" if sdpa is None else f"{sdpa:.4f} ms"
+                extra += f"; its device time {sdpa_text})"
             for key, what in (("device_ms", "kernel"), ("library_device_ms", "addmv")):
                 if key in r:
                     t = "not measured" if r[key] is None else f"{r[key]:.4f} ms"
@@ -4812,7 +4833,14 @@ def main() -> int:
             kernels[-1]["graphed_ms"] = main_case["graphed_ms"]
         if name == "flash_attention_bwd":
             kernels[-1]["library_is"] = "torch autograd of SDPA's backward"
+            kernels[-1]["library_device_ms"] = main_case["sdpa_bwd_device_ms"]
             kernels[-1]["pass_device_ms"] = main_case["pass_device_ms"]
+            # zamba2-2.7b's and whisper-medium's shapes (hd 80 and 64)
+            kernels[-1]["hd_64_80_cases"] = [
+                {k: r[k] for k in ("shape", "max_abs_err", "ms", "pass_device_ms", "plain_ms",
+                                   "bound_ms", "bound_by", "library_ms", "sdpa_bwd_device_ms")}
+                for r in rows[name] if r["shape"].startswith(f"B={BATCH} ")
+                and "hd=128" not in r["shape"] and "bfloat16" in r["shape"]]
             kernels[-1]["distillation"] = {k: v for k, v in distill.items()
                                            if k not in ("launches", "solver", "latents")}
         if name in ("flash_attention", "paged_attention"):

@@ -10,9 +10,9 @@ against the plain version (``attention_bwd_ref``) on the same inputs, with o
 and lse from the forward kernel: bf16 under ``chip_smoke.FLASH_BWD_BF16``
 (elementwise ratio |err| / (atol + rtol |ref|) and row relative L2), f32 under
 4 TOL. Prints per shape and build the largest ratio to each limit. A fault
-must fail at some bf16 shape (the tensor-core path) and at some f32 shape (the
-CUDA-core path); the sound kernel must pass at every shape. Exits non-zero
-otherwise.
+must fail at some bf16 shape of each head dim (the tensor-core path, built
+for hd 64, 80 and 128) and at some f32 shape (the CUDA-core path); the sound
+kernel must pass at every shape. Exits non-zero otherwise.
 """
 from __future__ import annotations
 
@@ -59,19 +59,24 @@ FAULTS = {
         ("const int n_tiles = (key_end + kDqKeys - 1) / kDqKeys;",
          "const int n_tiles = max(1, (key_end + kDqKeys - 1) / kDqKeys - 1);")],
     "scale missing on dK": [
-        ("dkb[j * sdk.l + col0 + P::kLanesRow * c] = from_f32<T>(acc_dk[r][c] * scale);",
-         "dkb[j * sdk.l + col0 + P::kLanesRow * c] = from_f32<T>(acc_dk[r][c]);"),
+        ("dkb[j * sdk.l + col0 + P::kLanesRow * c] = acc_dk[r][c] * scale;",
+         "dkb[j * sdk.l + col0 + P::kLanesRow * c] = acc_dk[r][c];"),
         ("const float m = cw == 0 ? 1.f : scale;", "const float m = 1.f;")],
 }
 BF16, F32 = torch.bfloat16, torch.float32
-SHAPES = [  # (B, H, KV, L, dtype, causal): chip_smoke.py phase 3c
-    (4, 32, 4, 1024, BF16, True),
-    (4, 32, 4, 1024, F32, True),
-    (4, 32, 4, 1024, BF16, False),
-    (4, 32, 4, 1000, BF16, True),
-    (4, 32, 4, 1000, F32, False),
-    (2, 8, 2, 77, F32, True),
-    (1, 4, 4, 33, BF16, False),
+SHAPES = [  # (B, H, KV, Lq, Lk, hd, dtype, causal): chip_smoke.py phase 3c
+    (4, 32, 4, 1024, 1024, 128, BF16, True),
+    (4, 32, 4, 1024, 1024, 128, F32, True),
+    (4, 32, 4, 1024, 1024, 128, BF16, False),
+    (4, 32, 4, 1000, 1000, 128, BF16, True),
+    (4, 32, 4, 1000, 1000, 128, F32, False),
+    (2, 8, 2, 77, 77, 128, F32, True),
+    (1, 4, 4, 33, 33, 128, BF16, False),
+    # the tensor-core path at whisper-medium's and zamba2-2.7b's head dims
+    (2, 16, 4, 1000, 1000, 64, BF16, True),
+    (2, 16, 16, 300, 450, 64, BF16, False),
+    (2, 32, 8, 1000, 1000, 80, BF16, True),
+    (1, 8, 2, 200, 77, 80, BF16, False),
 ]
 
 
@@ -111,6 +116,12 @@ def build_faults() -> dict[str, ctypes.CDLL]:
     return libs
 
 
+def path_of(hd: int, dtype) -> str:
+    """The kernel a shape reaches: bf16 the tensor cores at each head dim,
+    f32 the CUDA cores."""
+    return f"bf16 hd {hd}" if dtype == BF16 else "f32"
+
+
 def judge(got, ref, dtype) -> tuple[bool, str]:
     """(passes, what it printed) for dq, dk, dv against the plain version."""
     ok, parts = True, []
@@ -142,12 +153,13 @@ def main() -> int:
           f"{TOL[F32]}")
     dev = torch.device("cuda")
     g = torch.Generator(device=dev).manual_seed(6)
-    caught = {(name, str(dtype)[6:]): False for name in FAULTS for dtype in (BF16, F32)}
+    paths = sorted({path_of(hd, dtype) for *_, hd, dtype, _ in SHAPES})
+    caught = {(name, path): False for name in FAULTS for path in paths}
     sound_ok = True
-    for B, H, KV, L, dtype, causal in SHAPES:
-        q, do = (torch.randn((B, L, H, 128), generator=g, device=dev).to(dtype).transpose(1, 2)
+    for B, H, KV, Lq, Lk, hd, dtype, causal in SHAPES:
+        q, do = (torch.randn((B, Lq, H, hd), generator=g, device=dev).to(dtype).transpose(1, 2)
                  for _ in "qo")
-        k, v = (torch.randn((B, L, KV, 128), generator=g, device=dev).to(dtype).transpose(1, 2)
+        k, v = (torch.randn((B, Lk, KV, hd), generator=g, device=dev).to(dtype).transpose(1, 2)
                 for _ in "kv")
         o, lse = flash_attention(q, k, v, causal=causal, return_lse=True)
         ref = attention_bwd_ref(q, k, v, o, lse, do, causal=causal)
@@ -159,13 +171,13 @@ def main() -> int:
             finally:
                 build._LIBS[SOURCE] = sound
             passed, text = judge(got, ref, dtype)
-            print(f"B={B} H={H} KV={KV} L={L} {str(dtype)[6:]} "
+            print(f"B={B} H={H} KV={KV} Lq={Lq} Lk={Lk} hd={hd} {str(dtype)[6:]} "
                   f"{'causal' if causal else 'full'} [{name}]: {text}: "
                   f"{'pass' if passed else 'FAIL'}")
             if name == "sound":
                 sound_ok &= passed
             else:
-                caught[name, str(dtype)[6:]] |= not passed
+                caught[name, path_of(hd, dtype)] |= not passed
     print(f"sound kernel passes every shape: {sound_ok}; faults caught: {caught}")
     return 0 if sound_ok and all(caught.values()) else 1
 

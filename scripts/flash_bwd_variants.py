@@ -3,6 +3,7 @@
 beside another checkout's backward, in one process.
 
     python3 scripts/flash_bwd_variants.py                          # one card
+    python3 scripts/flash_bwd_variants.py --hd 80                  # zamba2-2.7b's shape
     git archive <commit> | tar -x -C build/other                   # e.g. the parent
     python3 scripts/flash_bwd_variants.py --against build/other
 
@@ -23,7 +24,10 @@ replacement (each target must occur as often as stated), built into
 
 Diagnostic variants (no dQ store, no D, no loads) compute wrong outputs on purpose
 and are not checked. At the flow cell's shape (B 4, H 32, KV 4, L 1024, hd
-128, bf16), causal and full, and the ragged L 1000, every variant is timed in
+128, bf16), causal and full, and the ragged L 1000 (``--hd 128``, the
+default); with ``--hd 80`` zamba2-2.7b's (B 4, 32 / 32 heads, L 1024, causal);
+with ``--hd 64`` whisper-medium's (B 4, 16 / 16 heads, L 1024 causal, and its
+cross-attention's Lq 1024 / Lk 1500 full), every variant is timed in
 two rounds (the second in reverse order): the host-inclusive ms a call (CUDA
 events, 20 calls after a warm-up) and the device ms of each pass (dq, dk/dv;
 torch.profiler, 20 calls). With ``--against``, the other checkout's
@@ -60,18 +64,19 @@ from repro_torch.kernels.flash_attention.ref import attention_bwd_ref  # noqa: E
 SOURCE = "flash_attention_bwd"
 DQ_STORE = """      if (row < Lq) *reinterpret_cast<uint4*>(dqb + row * sdq.l + unit * 8) = v;"""
 LOW_PART = """#pragma unroll
-  for (int kk = 0; kk < 4; ++kk) wgmma_rs_n128(acc, lo[kk], mnmajor_desc(b, 64, kk));"""
+  for (int kk = 0; kk < 4; ++kk) wgmma_rs_mn<HD>(acc, lo[kk], mnmajor_desc<HD>(b, 64, kk));"""
 DQ_LOADS = """        mbar_expect_tx(full(s), P::kStageBytes);
         const uint32_t sK = k_tile(s), sV = sK + P::kTileBytes;
-        for (int c = 0; c < kChunks; ++c) {
-          tma_load(sK + c * chunk_bytes(kDqKeys), &tk, full(s), c * kCW, t * kDqKeys, kvh, b);
-          tma_load(sV + c * chunk_bytes(kDqKeys), &tv, full(s), c * kCW, t * kDqKeys, kvh, b);
+        const int key0 = t * kDqKeys;
+        for (int c = 0; c < P::kChunks; ++c) {
+          tma_load(sK + c * P::chunk_bytes(kDqKeys), &tk, full(s), c * P::kCW, key0, kvh, b);
+          tma_load(sV + c * P::chunk_bytes(kDqKeys), &tv, full(s), c * P::kCW, key0, kvh, b);
         }"""
 KV_LOADS = """        mbar_expect_tx(full(s), P::kStageBytes + P::kRowsBytes);
         const uint32_t sQ = q_tile(s), sdO = sQ + P::kTileBytes;
-        for (int c = 0; c < kChunks; ++c) {
-          tma_load(sQ + c * chunk_bytes(kKvQueries), &tq, full(s), c * kCW, q0, h, b);
-          tma_load(sdO + c * chunk_bytes(kKvQueries), &tdo, full(s), c * kCW, q0, h, b);
+        for (int c = 0; c < P::kChunks; ++c) {
+          tma_load(sQ + c * P::chunk_bytes(kKvQueries), &tq, full(s), c * P::kCW, q0, h, b);
+          tma_load(sdO + c * P::chunk_bytes(kKvQueries), &tdo, full(s), c * P::kCW, q0, h, b);
         }
         const float* rb = rows + ((long long)b * H + h) * 2 * Lpad + q0;
         const uint32_t sRows = sK + P::kRowsOffset + s * P::kRowsBytes;
@@ -105,7 +110,12 @@ VARIANTS = {
     "registers 56/224": _registers(56, 224),
 }
 DIAGNOSTIC = {"no dQ store", "no loads", "no D"}
-SHAPES = [(4, 32, 4, 1024, True), (4, 32, 4, 1024, False), (4, 32, 4, 1000, True)]
+SHAPES = {  # hd -> [(B, H, KV, Lq, Lk, causal)]
+    128: [(4, 32, 4, 1024, 1024, True), (4, 32, 4, 1024, 1024, False),
+          (4, 32, 4, 1000, 1000, True)],
+    80: [(4, 32, 32, 1024, 1024, True)],
+    64: [(4, 16, 16, 1024, 1024, True), (4, 16, 16, 1024, 1500, False)],
+}
 
 
 def sources() -> dict[str, str]:
@@ -126,10 +136,11 @@ def spills(log: str) -> str:
     """ptxas' spill stores of each wgmma kernel, and any wgmma it serialises."""
     out = []
     for entry in log.split("Compiling entry function")[1:]:
-        m = re.match(r" '\S*flash_bwd_(dq|dkdv)_wgmma_kernelILb(\d)E", entry)
+        m = re.match(r" '\S*flash_bwd_(dq|dkdv)_wgmma_kernelILi(\d+)ELb(\d)E", entry)
         if m:
             n = re.search(r"(\d+) bytes spill stores", entry)
-            out.append(f"{m[1]}{'' if m[2] == '1' else ' full'} {n[1] if n else '?'} B")
+            out.append(f"{m[1]} hd {m[2]}{'' if m[3] == '1' else ' full'} "
+                       f"{n[1] if n else '?'} B")
     serial = sorted(set(re.findall(r"\((C75\d\d)\) Potential Performance Loss: wgmma", log)))
     return ", ".join(out) + (f"; ptxas serialises wgmma ({', '.join(serial)})" if serial else "")
 
@@ -177,6 +188,8 @@ def load_other(root: Path):
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--against", type=Path, help="root of another checkout of this repository")
+    ap.add_argument("--hd", type=int, default=128, choices=sorted(SHAPES),
+                    help="head dim of the shapes timed")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("flash_bwd_variants: no CUDA device", file=sys.stderr)
@@ -193,16 +206,18 @@ def main() -> int:
     dev = torch.device("cuda")
     g = torch.Generator(device=dev).manual_seed(6)
     ok = True
-    for B, H, KV, L, causal in SHAPES:
-        q, do = (torch.randn((B, L, H, 128), generator=g, device=dev).bfloat16().transpose(1, 2)
+    hd = args.hd
+    for B, H, KV, Lq, Lk, causal in SHAPES[hd]:
+        q, do = (torch.randn((B, Lq, H, hd), generator=g, device=dev).bfloat16().transpose(1, 2)
                  for _ in "qo")
-        k, v = (torch.randn((B, L, KV, 128), generator=g, device=dev).bfloat16().transpose(1, 2)
+        k, v = (torch.randn((B, Lk, KV, hd), generator=g, device=dev).bfloat16().transpose(1, 2)
                 for _ in "kv")
         o, lse = fa_mod.flash_attention(q, k, v, causal=causal, return_lse=True)
         ref = attention_bwd_ref(q, k, v, o, lse, do, causal=causal)
-        shape = f"B={B} H={H} KV={KV} L={L} hd=128 bf16 {'causal' if causal else 'full'}"
-        pairs = L * (L + 1) // 2 if causal else L * L
-        executed = 20 * 128 * pairs * B * H
+        shape = (f"B={B} H={H} KV={KV} Lq={Lq} Lk={Lk} hd={hd} bf16 "
+                 f"{'causal' if causal else 'full'}")
+        pairs = sum(min(i + 1, Lk) for i in range(Lq)) if causal else Lq * Lk
+        executed = 20 * hd * pairs * B * H
         for rnd, order in enumerate((list(runs), list(runs)[::-1])):
             for name in order:
                 lib, fn = runs[name]

@@ -30,27 +30,32 @@
 // runs give the same bits. Under `causal` dq stops at its tile's last row and
 // dk/dv start at the diagonal; ragged L is masked or zero-filled, so any L
 // works. Strides are arguments (unit stride on hd), as in the forward.
-//  * bf16 at hd 128 (the dense families' training path): Hopper's TMA and
-//    wgmma in both passes, built as
-//    the forward's kernel is (flash_attention.cu): blocks of 384 threads, one
-//    producer warpgroup in which a single thread issues TMA tensor loads (hd in
-//    two 64-column chunks under the 128-byte swizzle) into a ring of 4 stages
-//    with "full" and "empty" mbarriers, and two consumer warpgroups
-//    (setmaxnreg 24 / 240). P and dS enter every product as a bf16 high part
+//  * bf16 (hd 128: the dense families' training path; hd 80: zamba2-2.7b's
+//    shared attention; hd 64: whisper-medium's attention): Hopper's TMA and
+//    wgmma in both passes, built as the forward's kernel is
+//    (flash_attention.cu): blocks of 384 threads, one producer warpgroup in
+//    which a single thread issues TMA tensor loads into a ring of stages with
+//    "full" and "empty" mbarriers, and two consumer warpgroups (setmaxnreg
+//    24 / 240). The head dim is cut into column chunks, one TMA box and one
+//    swizzled tile each (Chunks<HD>): 64 columns under the 128-byte swizzle
+//    at hd 64 and 128, 16 under the 32-byte swizzle at hd 80, whose 160-byte
+//    rows fit no wider one. Each pass's ring holds 128 KB: 4 stages at hd
+//    128, 6 at 80, 8 at 64. P and dS enter every product as a bf16 high part
 //    and the bf16 of the rest (one bf16 part would lose their low bits; two
 //    keep ~16), each part its own wgmma over the same B tile.
 //    dq: one block a (128-query tile, head, batch), heaviest causal tiles
 //    first, 64 rows a consumer warpgroup; Q and dO load once, 64-key K/V
 //    tiles stream through the ring. A consumer computes S = Q K^T and dP = dO
-//    V^T with wgmma m64n64k16 (both operands in shared memory, K-major), P =
-//    2^(S scale log2 e - lse log2 e) and dS = P (dP - D) on the accumulator
-//    registers, and dQ += dS K with wgmma m64n128k16, dS the register A
-//    operand and K read MN-major. Software-pipelined: one turn issues dQ of
-//    tile t and S, dP of tile t + 1, and the two warpgroups take turns (named
-//    barriers), so each one's elementwise work overlaps the other's products.
-//    D_i = dO_i . O_i comes from dO in shared memory and O rows loaded at the
-//    block's start, while the first products run; dQ leaves through the
-//    warpgroup's own Q rows in shared memory, in 16-byte stores.
+//    V^T with wgmma m64n64k16 over HD / 16 depth steps (both operands in
+//    shared memory, K-major), P = 2^(S scale log2 e - lse log2 e) and dS = P
+//    (dP - D) on the accumulator registers, and dQ += dS K with wgmma
+//    m64n{HD}k16, dS the register A operand and K read MN-major.
+//    Software-pipelined: one turn issues dQ of tile t and S, dP of tile t +
+//    1, and the two warpgroups take turns (named barriers), so each one's
+//    elementwise work overlaps the other's products. D_i = dO_i . O_i comes
+//    from dO in shared memory and O rows loaded at the block's start (4
+//    columns a lane, HD / 4 lanes), while the first products run; dQ leaves
+//    through the warpgroup's own Q rows in shared memory, in 16-byte stores.
 //    dk/dv: one block a (64-key tile, KV head, batch), first key tiles
 //    first; K and V load once, and the 64-query Q/dO tiles of the group's
 //    heads stream through the ring with each tile's lse and D (1-d bulk
@@ -60,38 +65,32 @@
 //    dO; warpgroup 1 dP^T = V dO^T, dS^T = P^T (dP^T - D) from the P^T that
 //    warpgroup 0 hands over in shared memory (double-buffered, named
 //    barriers), and dK += dS^T Q. Each keeps its K or V as register A operands
-//    (ldmatrix, once), so S^T and dP^T are m64n64k16 with only Q or dO read
-//    from shared memory; dV and dK are m64n128k16 with dO or Q read MN-major,
-//    summed in f32 registers over the group's heads, software-pipelined as
-//    in dq. Waiting for P^T keeps warpgroup 1 behind warpgroup 0, so their
-//    elementwise work falls between each other's products. (The flow cell
-//    gives 256 such blocks, their work 16:1 under the causal mask, heaviest
-//    first: within 3% of an even spread over 132 SMs.)
-//  * f32 at hd 64, 80 and 128, and bf16 at hd 64 and 80 (zamba2-2.7b's shared
-//    attention, whisper-medium's attention): the CUDA cores, exact f32
-//    products, bf16 inputs widened as they are staged. dq: one block of 4
-//    warps a (32-query tile, head, batch); lane j takes key j of a 32-key
-//    tile, each warp 8 query rows; S and dP from one pass over the head dim
-//    (float4 reads of rows padded to hd + 4 floats, so the lanes' rows fall in
-//    different banks), dS through shared memory into dQ. dk/dv: one block a
-//    (32-key tile, KV head, batch), with the roles turned: lane j takes query
-//    j, each warp 8 keys, P and dS go through shared memory into dV and dK.
-//    Into dQ, dK and dV each lane accumulates columns j, j + 32, ... of the
-//    warp's 8 rows at hd 64 and 128; at hd 80 each half-warp takes 4 of the
-//    rows and lane j % 16 columns j % 16 + 16 c (c < 5), so no lane idles.
-//    This is the simple version at hd 64 and 80 (f32 FMAs at ~67 TFLOP/s
-//    peak, not the tensor cores' 989): whisper-medium's causal decoder shape
-//    (B 4, 16 heads of 64, L 1024) needs 21.5 GFLOP at the algorithm's 10 hd a
-//    kept pair, 0.022 ms at the bf16 peak, 0.32 at the f32 one. Without a dk/dv
-//    gradient (whisper's cross-attention under distillation, where only q
-//    depends on the solver) the call runs the dq pass alone.
+//    (ldmatrix through the swizzle, once), so S^T and dP^T are m64n64k16 with
+//    only Q or dO read from shared memory; dV and dK are m64n{HD}k16 with dO
+//    or Q read MN-major, summed in f32 registers over the group's heads,
+//    software-pipelined as in dq. Waiting for P^T keeps warpgroup 1 behind
+//    warpgroup 0, so their elementwise work falls between each other's
+//    products. (The flow cell gives 256 such blocks, their work 16:1 under
+//    the causal mask, heaviest first: within 3% of an even spread over 132
+//    SMs.) Without a dk/dv gradient (whisper's cross-attention under
+//    distillation, where only q depends on the solver) the call runs the dq
+//    pass alone.
+//  * f32 at hd 64, 80 and 128: the CUDA cores, exact f32 products. dq: one
+//    block of 4 warps a (32-query tile, head, batch); lane j takes key j of a
+//    32-key tile, each warp 8 query rows; S and dP from one pass over the head
+//    dim (float4 reads of rows padded to hd + 4 floats, so the lanes' rows
+//    fall in different banks), dS through shared memory into dQ. dk/dv: one
+//    block a (32-key tile, KV head, batch), with the roles turned: lane j
+//    takes query j, each warp 8 keys, P and dS go through shared memory into
+//    dV and dK. Into dQ, dK and dV each lane accumulates columns j, j + 32,
+//    ... of the warp's 8 rows at hd 64 and 128; at hd 80 each half-warp takes
+//    4 of the rows and lane j % 16 columns j % 16 + 16 c (c < 5), so no lane
+//    idles.
 // Every sum is f32, and only dq, dk, dv are rounded to the input type.
 #include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
-
-#include <type_traits>
 
 namespace {
 
@@ -113,15 +112,6 @@ __device__ __forceinline__ float warp_sum(float x) {
 
 __device__ __forceinline__ float lane_of(const float4& v, int t) {
   return t == 0 ? v.x : t == 1 ? v.y : t == 2 ? v.z : v.w;
-}
-
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
-
-template <typename T> __device__ __forceinline__ T from_f32(float x);
-template <> __device__ __forceinline__ float from_f32<float>(float x) { return x; }
-template <> __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
-  return __float2bfloat16(x);
 }
 
 // Shared-memory plan and lane map for one head dim: four (kTile x kPad) f32
@@ -146,22 +136,22 @@ struct Plan {
 
 // Rows [r0, r0 + kTile) of one (batch, head) slice into shared memory as f32;
 // rows at or past `limit` are zeros.
-template <typename T, int HD>
-__device__ __forceinline__ void stage(float* dst, const T* __restrict__ src, long long stride,
+template <int HD>
+__device__ __forceinline__ void stage(float* dst, const float* __restrict__ src, long long stride,
                                       int r0, int limit) {
   for (int idx = threadIdx.x; idx < kTile * HD; idx += kThreads) {
     const int r = idx / HD, d = idx - r * HD;
     const int i = r0 + r;
-    dst[r * Plan<HD>::kPad + d] = i < limit ? to_f32(src[(long long)i * stride + d]) : 0.f;
+    dst[r * Plan<HD>::kPad + d] = i < limit ? src[(long long)i * stride + d] : 0.f;
   }
 }
 
-template <typename T, int HD, bool CAUSAL>
+template <int HD, bool CAUSAL>
 __global__ void __launch_bounds__(kThreads)
-flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                    const T* __restrict__ v, const T* __restrict__ o,
-                    const T* __restrict__ dout, const float* __restrict__ lse,
-                    T* __restrict__ dq, float* __restrict__ dsum,
+flash_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                    const float* __restrict__ v, const float* __restrict__ o,
+                    const float* __restrict__ dout, const float* __restrict__ lse,
+                    float* __restrict__ dq, float* __restrict__ dsum,
                     Strides sq, Strides sk, Strides sv, Strides so, Strides sdo, Strides sdq,
                     int G, int Lq, int Lk, float scale) {
   using P = Plan<HD>;
@@ -181,14 +171,14 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int col0 = lane % P::kLanesRow;
   const long long bh = (long long)b * H + h;
 
-  stage<T, HD>(Qs, q + b * sq.b + h * sq.h, sq.l, q0, Lq);
-  stage<T, HD>(dOs, dout + b * sdo.b + h * sdo.h, sdo.l, q0, Lq);
+  stage<HD>(Qs, q + b * sq.b + h * sq.h, sq.l, q0, Lq);
+  stage<HD>(dOs, dout + b * sdo.b + h * sdo.h, sdo.l, q0, Lq);
   __syncthreads();
 
   // D_i = dO_i . O_i (written for the dk/dv kernel) and each row's lse
   const float* Qw = Qs + warp * kRows * P::kPad;
   const float* dOw = dOs + warp * kRows * P::kPad;
-  const T* ob = o + b * so.b + h * so.h;
+  const float* ob = o + b * so.b + h * so.h;
   float Dr[kRows], lr[kRows];
 #pragma unroll
   for (int r = 0; r < kRows; ++r) {
@@ -196,7 +186,7 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
     float part = 0.f;
     if (i < Lq)
       for (int d = lane; d < HD; d += 32)
-        part = fmaf(dOw[r * P::kPad + d], to_f32(ob[i * so.l + d]), part);
+        part = fmaf(dOw[r * P::kPad + d], ob[i * so.l + d], part);
     Dr[r] = warp_sum(part);
     lr[r] = i < Lq ? lse[bh * Lq + i] : 0.f;
     if (i < Lq && lane == 0) dsum[bh * Lq + i] = Dr[r];
@@ -210,14 +200,14 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
   const int q_last = min(q0 + kTile, Lq) - 1;
   const int k_end = CAUSAL ? min(Lk, q_last + 1) : Lk;
-  const T* kb = k + b * sk.b + kvh * sk.h;
-  const T* vb = v + b * sv.b + kvh * sv.h;
+  const float* kb = k + b * sk.b + kvh * sk.h;
+  const float* vb = v + b * sv.b + kvh * sv.h;
   float* Sw = Ss + warp * kRows * kTile;
 
   for (int k0 = 0; k0 < k_end; k0 += kTile) {
     __syncthreads();  // the previous K/V tile is consumed
-    stage<T, HD>(Ks, kb, sk.l, k0, Lk);
-    stage<T, HD>(Vs, vb, sv.l, k0, Lk);
+    stage<HD>(Ks, kb, sk.l, k0, Lk);
+    stage<HD>(Vs, vb, sv.l, k0, Lk);
     __syncthreads();
 
     // S = q_i . k_j and dP = dO_i . v_j for key j = k0 + lane
@@ -270,24 +260,24 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
     __syncwarp();  // dS of this tile is read before the next tile rewrites it
   }
 
-  T* dqb = dq + b * sdq.b + h * sdq.h;
+  float* dqb = dq + b * sdq.b + h * sdq.h;
 #pragma unroll
   for (int r = 0; r < P::kRowsLane; ++r) {
     const int i = q0 + warp * kRows + row0 + r;
     if (i < Lq) {
 #pragma unroll
       for (int c = 0; c < P::kCols; ++c)
-        dqb[i * sdq.l + col0 + P::kLanesRow * c] = from_f32<T>(acc[r][c] * scale);
+        dqb[i * sdq.l + col0 + P::kLanesRow * c] = acc[r][c] * scale;
     }
   }
 }
 
-template <typename T, int HD, bool CAUSAL>
+template <int HD, bool CAUSAL>
 __global__ void __launch_bounds__(kThreads)
-flash_bwd_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                      const T* __restrict__ v, const T* __restrict__ dout,
+flash_bwd_dkdv_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                      const float* __restrict__ v, const float* __restrict__ dout,
                       const float* __restrict__ lse, const float* __restrict__ dsum,
-                      T* __restrict__ dk, T* __restrict__ dv,
+                      float* __restrict__ dk, float* __restrict__ dv,
                       Strides sq, Strides sk, Strides sv, Strides sdo, Strides sdk, Strides sdv,
                       int H, int G, int Lq, int Lk, float scale) {
   using P = Plan<HD>;
@@ -307,8 +297,8 @@ flash_bwd_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int row0 = (lane / P::kLanesRow) * P::kRowsLane;
   const int col0 = lane % P::kLanesRow;
 
-  stage<T, HD>(Ks, k + b * sk.b + kvh * sk.h, sk.l, k0, Lk);
-  stage<T, HD>(Vs, v + b * sv.b + kvh * sv.h, sv.l, k0, Lk);
+  stage<HD>(Ks, k + b * sk.b + kvh * sk.h, sk.l, k0, Lk);
+  stage<HD>(Vs, v + b * sv.b + kvh * sv.h, sv.l, k0, Lk);
 
   float acc_dk[P::kRowsLane][P::kCols], acc_dv[P::kRowsLane][P::kCols];
 #pragma unroll
@@ -328,8 +318,8 @@ flash_bwd_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
     const long long bh = (long long)b * H + h;
     for (int q0 = q_begin; q0 < Lq; q0 += kTile) {
       __syncthreads();  // the previous query tile is consumed (and K, V are staged)
-      stage<T, HD>(Qs, q + b * sq.b + h * sq.h, sq.l, q0, Lq);
-      stage<T, HD>(dOs, dout + b * sdo.b + h * sdo.h, sdo.l, q0, Lq);
+      stage<HD>(Qs, q + b * sq.b + h * sq.h, sq.l, q0, Lq);
+      stage<HD>(dOs, dout + b * sdo.b + h * sdo.h, sdo.l, q0, Lq);
       if (tid < kTile) {
         const int i = q0 + tid;
         lse_s[tid] = i < Lq ? lse[bh * Lq + i] : 0.f;
@@ -395,16 +385,16 @@ flash_bwd_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
     }
   }
 
-  T* dkb = dk + b * sdk.b + kvh * sdk.h;
-  T* dvb = dv + b * sdv.b + kvh * sdv.h;
+  float* dkb = dk + b * sdk.b + kvh * sdk.h;
+  float* dvb = dv + b * sdv.b + kvh * sdv.h;
 #pragma unroll
   for (int r = 0; r < P::kRowsLane; ++r) {
     const int j = k0 + warp * kRows + row0 + r;
     if (j < Lk) {
 #pragma unroll
       for (int c = 0; c < P::kCols; ++c) {
-        dkb[j * sdk.l + col0 + P::kLanesRow * c] = from_f32<T>(acc_dk[r][c] * scale);
-        dvb[j * sdv.l + col0 + P::kLanesRow * c] = from_f32<T>(acc_dv[r][c]);
+        dkb[j * sdk.l + col0 + P::kLanesRow * c] = acc_dk[r][c] * scale;
+        dvb[j * sdv.l + col0 + P::kLanesRow * c] = acc_dv[r][c];
       }
     }
   }
@@ -419,12 +409,7 @@ constexpr int kWgThreads = 384;      // the producer warpgroup, then two consume
 constexpr int kConsumerWarps = 8;    // each releases a stage once it is done with it
 constexpr int kTurnBarrier = 1;      // dq: named barriers 1, 2 give the consumers their turns
 constexpr int kSmemLimit = 232448;   // a block's shared memory on the H100
-constexpr int kHd = 128;             // the head dim of the tensor-core path
-constexpr int kCW = 64;              // columns of one chunk: one TMA box, one 128-byte swizzle span
-constexpr int kChunks = kHd / kCW;
-constexpr int kRowBytes = kCW * 2;   // one chunk row
-constexpr int kGroupBytes = 8 * kRowBytes;  // 8 rows: where the swizzle pattern repeats
-constexpr uint64_t kSwizzle128 = 1;  // descriptor code of the 128-byte swizzle
+constexpr int kRingBytes = 131072;   // a pass's ring of stages: 4 at hd 128, 6 at 80, 8 at 64
 constexpr int kDqRows = 128;         // dq: query rows a block, 64 a consumer warpgroup
 constexpr int kDqKeys = 64;          // dq: keys a K/V tile
 constexpr int kKvRows = 64;          // dk/dv: keys a block, shared by the consumer warpgroups
@@ -432,17 +417,37 @@ constexpr int kKvQueries = 64;       // dk/dv: queries a Q/dO tile
 constexpr float kLog2e = 1.4426950408889634f;
 static_assert(kDqKeys == 64 && kKvQueries == 64, "the SS products are m64n64k16");
 
-// Bytes of a tile of `rows` rows of hd bf16 values: kChunks chunks of (rows x kCW),
-// each laid down by one TMA box under the 128-byte swizzle.
-__host__ __device__ constexpr int tile_bytes(int rows) { return rows * kHd * 2; }
-__host__ __device__ constexpr int chunk_bytes(int rows) { return rows * kRowBytes; }
+// The head dim in column chunks, one TMA box and one swizzled tile each: 64
+// columns under the 128-byte swizzle at hd 64 and 128, 16 under the 32-byte
+// swizzle at hd 80 (160-byte rows fit no wider swizzle), as in the forward.
+// A chunk of a tile of `rows` rows is (rows x kCW) bf16 as the box lays it
+// down; its 8-row groups of kGroupBytes repeat the swizzle pattern.
+template <int HD>
+struct Chunks {
+  static constexpr int kCW = HD % 64 == 0 ? 64 : 16;
+  static constexpr int kChunks = HD / kCW;
+  static constexpr int kRowBytes = kCW * 2;                 // 128 or 32: the swizzle span
+  static constexpr int kGroupBytes = 8 * kRowBytes;
+  static constexpr uint64_t kLayout = kCW == 64 ? 1 : 3;    // descriptor code: 128B or 32B swizzle
+  static_assert(HD == 64 || HD == 80 || HD == 128, "the head dims the products are built for");
+  static constexpr __host__ __device__ int tile_bytes(int rows) { return rows * HD * 2; }
+  static constexpr __host__ __device__ int chunk_bytes(int rows) { return rows * kRowBytes; }
+  // Byte offset of (row, col) in a tile of `rows` rows: the swizzle XORs the
+  // 16-byte unit of a chunk row with the address bits above the span's 128
+  // bytes (row % 8 at 128 bytes a row, (row / 4) % 2 at 32).
+  static __device__ __forceinline__ uint32_t offset(int rows, int row, int col) {
+    const uint32_t in = row * kRowBytes + (col % kCW) * 2;
+    return (col / kCW) * chunk_bytes(rows) + (in ^ ((in >> 3) & (kRowBytes - 16)));
+  }
+};
 
 // dq pass: Q and dO (128 rows each, loaded once), then kStages of (K tile, V tile).
-struct DqPlan {
-  static constexpr int kQBytes = tile_bytes(kDqRows);
-  static constexpr int kTileBytes = tile_bytes(kDqKeys);      // one K or one V tile
+template <int HD>
+struct DqPlan : Chunks<HD> {
+  static constexpr int kQBytes = Chunks<HD>::tile_bytes(kDqRows);
+  static constexpr int kTileBytes = Chunks<HD>::tile_bytes(kDqKeys);   // one K or one V tile
   static constexpr int kStageBytes = 2 * kTileBytes;
-  static constexpr int kStages = 4;
+  static constexpr int kStages = kRingBytes / kStageBytes;
   static constexpr int kBarOffset = 2 * kQBytes + kStages * kStageBytes;
   // + 1024: the dynamic window is aligned up to the swizzle's 1024 bytes
   static constexpr size_t kBytes = 1024 + kBarOffset + 8 * (1 + 2 * kStages);
@@ -453,11 +458,12 @@ struct DqPlan {
 // dO tile), then each stage's 64 lse and D values, then two buffers in which
 // one consumer warpgroup hands P^T (64 x 64 f32) to the other, then the
 // mbarriers.
-struct KvPlan {
-  static constexpr int kKBytes = tile_bytes(kKvRows);
-  static constexpr int kTileBytes = tile_bytes(kKvQueries);   // one Q or one dO tile
+template <int HD>
+struct KvPlan : Chunks<HD> {
+  static constexpr int kKBytes = Chunks<HD>::tile_bytes(kKvRows);
+  static constexpr int kTileBytes = Chunks<HD>::tile_bytes(kKvQueries);  // one Q or one dO tile
   static constexpr int kStageBytes = 2 * kTileBytes;
-  static constexpr int kStages = 4;
+  static constexpr int kStages = kRingBytes / kStageBytes;
   static constexpr int kRowsOffset = 2 * kKBytes + kStages * kStageBytes;
   static constexpr int kRowsBytes = 2 * kKvQueries * 4;       // lse, then D
   static constexpr int kPOffset = kRowsOffset + kStages * kRowsBytes;
@@ -524,29 +530,35 @@ __device__ __forceinline__ void bulk_load(uint32_t dst, const void* src, uint32_
       : "memory");
 }
 
-// wgmma shared-memory descriptor: start address, leading and stride byte
-// offsets (16-byte units), swizzle code in the top two bits. K-major swizzled
-// operands ignore the leading offset; MN-major ones step by it from one
-// 64-column chunk to the next. The stride offset steps from one 8-row group to
-// the next.
+// wgmma shared-memory descriptor of an HD-wide operand: start address,
+// leading and stride byte offsets (16-byte units), the plan's swizzle code in
+// the top two bits. K-major swizzled operands ignore the leading offset;
+// MN-major ones step by it from one kCW-column chunk to the next. The stride
+// offset steps from one 8-row group to the next.
+template <int HD>
 __device__ __forceinline__ uint64_t smem_desc(uint32_t addr, uint32_t lbo) {
+  using C = Chunks<HD>;
   return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
          (static_cast<uint64_t>(lbo >> 4) << 16) |
-         (static_cast<uint64_t>(kGroupBytes >> 4) << 32) | (kSwizzle128 << 62);
+         (static_cast<uint64_t>(C::kGroupBytes >> 4) << 32) | (C::kLayout << 62);
 }
 
 // The K-major operand of an SS product: 64 rows from `row0` of a tile of
-// `rows` rows, head-dim columns [16 ks, 16 ks + 16).
+// `rows` rows, head-dim columns [16 ks, 16 ks + 16) (at hd 80 one whole chunk).
+template <int HD>
 __device__ __forceinline__ uint64_t kmajor_desc(uint32_t tile, int rows, int row0, int ks) {
-  return smem_desc(tile + (ks * 16 / kCW) * chunk_bytes(rows) + row0 * kRowBytes +
-                       (ks * 16 % kCW) * 2,
-                   16);
+  using C = Chunks<HD>;
+  return smem_desc<HD>(tile + (ks * 16 / C::kCW) * C::chunk_bytes(rows) + row0 * C::kRowBytes +
+                           (ks * 16 % C::kCW) * 2,
+                       16);
 }
 
 // The MN-major B operand of an RS product: rows [16 kk, 16 kk + 16) of a tile
 // of `rows` rows (the depth), all hd columns (N).
+template <int HD>
 __device__ __forceinline__ uint64_t mnmajor_desc(uint32_t tile, int rows, int kk) {
-  return smem_desc(tile + kk * 16 * kRowBytes, chunk_bytes(rows));
+  using C = Chunks<HD>;
+  return smem_desc<HD>(tile + kk * 16 * C::kRowBytes, C::chunk_bytes(rows));
 }
 
 // Named barrier over the two consumer warpgroups (256 threads): one waits,
@@ -679,9 +691,49 @@ __device__ __forceinline__ void wgmma_rs_n64(float (&d)[32], const uint32_t (&a)
 #undef REPRO_OUT
 #undef REPRO_INOUT
 
+// D (64 x N, f32) += A (64 x 16, registers) B (16 x N, smem, MN-major): the
+// dQ, dV and dK products, N the head dim.
+template <int N>
+__device__ __forceinline__ void wgmma_rs_mn(float (&d)[N / 2], const uint32_t (&a)[4], uint64_t db);
+
+// D (64 x 64, f32) += A (64 x 16, registers) B (16 x 64, smem, MN-major).
+template <>
+__device__ __forceinline__ void wgmma_rs_mn<64>(float (&d)[32], const uint32_t (&a)[4],
+                                                uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+// D (64 x 80, f32) += A (64 x 16, registers) B (16 x 80, smem, MN-major).
+template <>
+__device__ __forceinline__ void wgmma_rs_mn<80>(float (&d)[40], const uint32_t (&a)[4],
+                                                uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %45, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n80k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39}, {%40, %41, %42, %43}, %44, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
 // D (64 x 128, f32) += A (64 x 16, registers) B (16 x 128, smem, MN-major).
-__device__ __forceinline__ void wgmma_rs_n128(float (&d)[64], const uint32_t (&a)[4],
-                                             uint64_t db) {
+template <>
+__device__ __forceinline__ void wgmma_rs_mn<128>(float (&d)[64], const uint32_t (&a)[4],
+                                                uint64_t db) {
   asm volatile(
       "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
       "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
@@ -701,30 +753,31 @@ __device__ __forceinline__ void wgmma_rs_n128(float (&d)[64], const uint32_t (&a
 }
 
 // S = A B^T over the head dim for this warpgroup's 64 rows of `a` (a tile of
-// a_rows rows, from row a_row0) and the 64 rows of `b`: 8 depth steps, raw dot products.
-// The addresses are made opaque here, so the compiler builds the descriptors
-// at each use instead of keeping all of them in registers across the loop.
+// a_rows rows, from row a_row0) and the 64 rows of `b`: HD / 16 depth steps,
+// raw dot products. The addresses are made opaque here, so the compiler builds
+// the descriptors at each use instead of keeping all of them in registers
+// across the loop.
+template <int HD>
 __device__ __forceinline__ void issue_scores(float (&s)[32], uint32_t a, int a_rows, int a_row0,
                                              uint32_t b) {
   asm volatile("" : "+r"(a), "+r"(b));
-  wgmma_ss_n64<false>(s, kmajor_desc(a, a_rows, a_row0, 0), kmajor_desc(b, 64, 0, 0));
+  wgmma_ss_n64<false>(s, kmajor_desc<HD>(a, a_rows, a_row0, 0), kmajor_desc<HD>(b, 64, 0, 0));
 #pragma unroll
-  for (int ks = 1; ks < kHd / 16; ++ks)
-    wgmma_ss_n64<true>(s, kmajor_desc(a, a_rows, a_row0, ks), kmajor_desc(b, 64, 0, ks));
+  for (int ks = 1; ks < HD / 16; ++ks)
+    wgmma_ss_n64<true>(s, kmajor_desc<HD>(a, a_rows, a_row0, ks), kmajor_desc<HD>(b, 64, 0, ks));
 }
 
 // The register A operands of this warpgroup's 64 rows (from row0) of a tile of
-// `rows` rows (K-major, swizzled as TMA laid it down), for all 8 depth steps of the
-// head dim: ldmatrix.x4 gives each thread the A layout (matrices: rows 0-7 and
-// 8-15 at depth 0-7, then the same at depth 8-15).
-__device__ __forceinline__ void load_a_frags(uint32_t (&f)[kHd / 16][4], uint32_t tile, int rows,
+// `rows` rows (K-major, swizzled as TMA laid it down), for all HD / 16 depth
+// steps of the head dim: ldmatrix.x4 gives each thread the A layout (matrices:
+// rows 0-7 and 8-15 at depth 0-7, then the same at depth 8-15).
+template <int HD>
+__device__ __forceinline__ void load_a_frags(uint32_t (&f)[HD / 16][4], uint32_t tile, int rows,
                                              int row0, int lane, int warp) {
   const int row = row0 + 16 * warp + ((lane >> 3) & 1) * 8 + (lane & 7);
 #pragma unroll
-  for (int ks = 0; ks < kHd / 16; ++ks) {
-    const int col = 16 * ks + (lane >> 4) * 8;
-    const uint32_t addr = tile + (col / kCW) * chunk_bytes(rows) + row * kRowBytes +
-                          ((((col % kCW) / 8) ^ (row & 7)) << 4);
+  for (int ks = 0; ks < HD / 16; ++ks) {
+    const uint32_t addr = tile + Chunks<HD>::offset(rows, row, 16 * ks + (lane >> 4) * 8);
     asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
                  : "=r"(f[ks][0]), "=r"(f[ks][1]), "=r"(f[ks][2]), "=r"(f[ks][3])
                  : "r"(addr));
@@ -733,12 +786,14 @@ __device__ __forceinline__ void load_a_frags(uint32_t (&f)[kHd / 16][4], uint32_
 
 // S = A B^T over the head dim, A in registers (load_a_frags), B the 64 rows
 // of the tile `b`.
-__device__ __forceinline__ void issue_scores_rs(float (&s)[32], const uint32_t (&a)[kHd / 16][4],
+template <int HD>
+__device__ __forceinline__ void issue_scores_rs(float (&s)[32], const uint32_t (&a)[HD / 16][4],
                                                 uint32_t b) {
   asm volatile("" : "+r"(b));
-  wgmma_rs_n64<false>(s, a[0], kmajor_desc(b, 64, 0, 0));
+  wgmma_rs_n64<false>(s, a[0], kmajor_desc<HD>(b, 64, 0, 0));
 #pragma unroll
-  for (int ks = 1; ks < kHd / 16; ++ks) wgmma_rs_n64<true>(s, a[ks], kmajor_desc(b, 64, 0, ks));
+  for (int ks = 1; ks < HD / 16; ++ks)
+    wgmma_rs_n64<true>(s, a[ks], kmajor_desc<HD>(b, 64, 0, ks));
 }
 
 // The 64 x 64 f32 accumulator tile c as register A operands (4 depth steps of
@@ -759,13 +814,14 @@ __device__ __forceinline__ void split_a(const float (&c)[32], uint32_t (&hi)[4][
 
 // acc (64 x hd) += (hi + lo) B, B the 64 x hd bf16 tile `b` read MN-major:
 // 8 products; the caller commits and waits.
-__device__ __forceinline__ void issue_split_product(float (&acc)[64], uint32_t (&hi)[4][4],
+template <int HD>
+__device__ __forceinline__ void issue_split_product(float (&acc)[HD / 2], uint32_t (&hi)[4][4],
                                                     uint32_t (&lo)[4][4], uint32_t b) {
   asm volatile("" : "+r"(b));
 #pragma unroll
-  for (int kk = 0; kk < 4; ++kk) wgmma_rs_n128(acc, hi[kk], mnmajor_desc(b, 64, kk));
+  for (int kk = 0; kk < 4; ++kk) wgmma_rs_mn<HD>(acc, hi[kk], mnmajor_desc<HD>(b, 64, kk));
 #pragma unroll
-  for (int kk = 0; kk < 4; ++kk) wgmma_rs_n128(acc, lo[kk], mnmajor_desc(b, 64, kk));
+  for (int kk = 0; kk < 4; ++kk) wgmma_rs_mn<HD>(acc, lo[kk], mnmajor_desc<HD>(b, 64, kk));
 }
 
 __device__ __forceinline__ void init_barriers(uint32_t first, int stages) {
@@ -781,7 +837,7 @@ __device__ __forceinline__ void init_barriers(uint32_t first, int stages) {
 // first) of head i % H, batch (i / H) % B. Writes dq, and for every row of the
 // tile (rows past Lq too) lse log2 e (+inf past Lq, so P = 0 there) and D to the
 // row workspace: rows[((b H + h) 2 + {0, 1}) Lpad + i].
-template <bool CAUSAL>
+template <int HD, bool CAUSAL>
 __global__ void __launch_bounds__(kWgThreads, 1)
 flash_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
                           const __grid_constant__ CUtensorMap tdo,
@@ -792,7 +848,7 @@ flash_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
                           __nv_bfloat16* __restrict__ dq, float* __restrict__ rows, Strides so,
                           Strides sdo, Strides sdq, int H, int B, int G, int Lq, int Lk,
                           int Lpad, float scale) {
-  using P = DqPlan;
+  using P = DqPlan<HD>;
   extern __shared__ uint8_t smem_raw[];
   const uint32_t sQ = (smem_u32(smem_raw) + 1023u) & ~1023u;
   const uint32_t sdO = sQ + P::kQBytes;
@@ -820,9 +876,9 @@ flash_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
     if (threadIdx.x == 0) {
       const int kvh = h / G;
       mbar_expect_tx(loaded, 2 * P::kQBytes);
-      for (int c = 0; c < kChunks; ++c) {
-        tma_load(sQ + c * chunk_bytes(kDqRows), &tq, loaded, c * kCW, q0, h, b);
-        tma_load(sdO + c * chunk_bytes(kDqRows), &tdo, loaded, c * kCW, q0, h, b);
+      for (int c = 0; c < P::kChunks; ++c) {
+        tma_load(sQ + c * P::chunk_bytes(kDqRows), &tq, loaded, c * P::kCW, q0, h, b);
+        tma_load(sdO + c * P::chunk_bytes(kDqRows), &tdo, loaded, c * P::kCW, q0, h, b);
       }
       for (int t = 0; t < n_tiles; ++t) {
         const int s = t % P::kStages;
@@ -830,9 +886,10 @@ flash_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
         mbar_wait(empty(s), ((t / P::kStages) & 1) ^ 1);
         mbar_expect_tx(full(s), P::kStageBytes);
         const uint32_t sK = k_tile(s), sV = sK + P::kTileBytes;
-        for (int c = 0; c < kChunks; ++c) {
-          tma_load(sK + c * chunk_bytes(kDqKeys), &tk, full(s), c * kCW, t * kDqKeys, kvh, b);
-          tma_load(sV + c * chunk_bytes(kDqKeys), &tv, full(s), c * kCW, t * kDqKeys, kvh, b);
+        const int key0 = t * kDqKeys;
+        for (int c = 0; c < P::kChunks; ++c) {
+          tma_load(sK + c * P::chunk_bytes(kDqKeys), &tk, full(s), c * P::kCW, key0, kvh, b);
+          tma_load(sV + c * P::chunk_bytes(kDqKeys), &tv, full(s), c * P::kCW, key0, kvh, b);
         }
       }
     }
@@ -848,12 +905,14 @@ flash_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
     const float scale_log2 = scale * kLog2e;
 
     // The O values of the warp's 16 rows that D_i = dO_i . O_i needs (4
-    // columns a lane; rows past Lq read row Lq - 1 and count 0), and each
-    // row's lse: all loads issued now, while the producer's first loads are in
-    // flight, so the warp waits for memory once
+    // columns a lane, HD / 4 lanes; rows past Lq read row Lq - 1 and count
+    // 0), and each row's lse: all loads issued now, while the producer's
+    // first loads are in flight, so the warp waits for memory once
+    const bool d_lane = lane < HD / 4;
+    const int d_col = 4 * (d_lane ? lane : 0);
     uint2 x[16];
     {
-      const __nv_bfloat16* ob = o + b * so.b + h * so.h + 4 * lane;
+      const __nv_bfloat16* ob = o + b * so.b + h * so.h + d_col;
 #pragma unroll
       for (int r = 0; r < 16; ++r)
         x[r] = __ldg(reinterpret_cast<const uint2*>(ob + min(warp_row + r, Lq - 1) * so.l));
@@ -864,22 +923,20 @@ flash_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
       const int row = row_base + 8 * r;
       l2_r[r] = row < Lq ? lse[bh * Lq + row] * kLog2e : __int_as_float(0x7f800000);
     }
-    // D from dO in shared memory (the 128-byte swizzle moves 16-byte unit u of
-    // row r to u ^ (r % 8); the warp's rows start on a multiple of 8), while
-    // the first tile's S and dP run; written to the row workspace with lse
+    // D from dO in shared memory (read through the swizzle), while the first
+    // tile's S and dP run; written to the row workspace with lse
     const auto row_sums = [&]() {
-      const uint8_t* rows_dO = gbase + P::kQBytes + (lane >> 4) * chunk_bytes(kDqRows) +
-                               (64 * cw + 16 * warp) * kRowBytes + (lane & 1) * 8;
+      const uint8_t* tile_dO = gbase + P::kQBytes;
 #pragma unroll
       for (int r = 0; r < 16; ++r) {
         const uint2 y = *reinterpret_cast<const uint2*>(
-            rows_dO + r * kRowBytes + ((((lane & 15) >> 1) ^ (r & 7)) << 4));
+            tile_dO + P::offset(kDqRows, 64 * cw + 16 * warp + r, d_col));
         const float2 x0 = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&x[r].x));
         const float2 x1 = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&x[r].y));
         const float2 y0 = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&y.x));
         const float2 y1 = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&y.y));
         float part = fmaf(x0.x, y0.x, fmaf(x0.y, y0.y, fmaf(x1.x, y1.x, x1.y * y1.y)));
-        part = warp_row + r < Lq ? warp_sum(part) : 0.f;
+        part = warp_row + r < Lq ? warp_sum(d_lane ? part : 0.f) : 0.f;
         if ((r & 7) == g) D_r[r >> 3] = part;
       }
 #pragma unroll
@@ -898,14 +955,14 @@ flash_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
     // on tile t + 1 overlaps the other's turn. Every turn ends in a wait, so
     // no product is in flight across the loop's back edge (ptxas would
     // serialise every wgmma of the kernel, C7515, for the moves there).
-    float acc[64], sc[32], dp[32];
+    float acc[HD / 2], sc[32], dp[32];
     uint32_t hi[4][4], lo[4][4];  // dS in two bf16 parts: the register A operands
 #pragma unroll
-    for (int j = 0; j < 64; ++j) acc[j] = 0.f;
+    for (int j = 0; j < HD / 2; ++j) acc[j] = 0.f;
     const auto issue_s_dp = [&](int t) {
       const uint32_t sK = k_tile(t % P::kStages);
-      issue_scores(sc, sQ, kDqRows, 64 * cw, sK);
-      issue_scores(dp, sdO, kDqRows, 64 * cw, sK + P::kTileBytes);
+      issue_scores<HD>(sc, sQ, kDqRows, 64 * cw, sK);
+      issue_scores<HD>(dp, sdO, kDqRows, 64 * cw, sK + P::kTileBytes);
     };
     // P = 2^(S scale log2 e - lse log2 e), dS = P (dP - D), split into hi and
     // lo; masks only where a key can lie past Lk or past a row of this warpgroup
@@ -948,7 +1005,7 @@ flash_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
       mbar_wait(full((t + 1) % P::kStages), ((t + 1) / P::kStages) & 1);
       turns.take();
       wgmma_fence();
-      issue_split_product(acc, hi, lo, k_tile(t % P::kStages));
+      issue_split_product<HD>(acc, hi, lo, k_tile(t % P::kStages));
       issue_s_dp(t + 1);
       wgmma_commit();
       turns.hand_over();
@@ -958,7 +1015,7 @@ flash_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
     }
     turns.take();
     wgmma_fence();
-    issue_split_product(acc, hi, lo, k_tile((n_tiles - 1) % P::kStages));
+    issue_split_product<HD>(acc, hi, lo, k_tile((n_tiles - 1) % P::kStages));
     wgmma_commit();
     turns.hand_over();
     done();
@@ -966,25 +1023,23 @@ flash_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
 
     // dQ through this warpgroup's own Q rows, which its products no longer
     // read (in the swizzled layout, so the writes spread over the banks),
-    // then out in 16-byte stores, 16 threads a row
+    // then out in 16-byte stores, HD / 8 threads a row
 #pragma unroll
     for (int r = 0; r < 2; ++r) {
       const int lr = 64 * cw + 16 * warp + g + 8 * r;  // block-local row
 #pragma unroll
-      for (int j = 0; j < kHd / 8; ++j)
-        *reinterpret_cast<uint32_t*>(gbase + (j / 8) * chunk_bytes(kDqRows) + lr * kRowBytes +
-                                     (((j % 8) ^ (lr & 7)) << 4) + 4 * t4) =
+      for (int j = 0; j < HD / 8; ++j)
+        *reinterpret_cast<uint32_t*>(gbase + P::offset(kDqRows, lr, 8 * j) + 4 * t4) =
             pack_bf16(acc[4 * j + 2 * r] * scale, acc[4 * j + 2 * r + 1] * scale);
     }
     asm volatile("bar.sync %0, 128;\n" ::"r"(3 + cw) : "memory");  // this warpgroup's writes
     __nv_bfloat16* dqb = dq + b * sdq.b + h * sdq.h;
+    constexpr int kUnits = HD / 8;  // 16-byte units a row
 #pragma unroll
-    for (int i = 0; i < 8; ++i) {
-      const int idx = i * 128 + tid, r = idx >> 4, unit = idx & 15;
+    for (int i = 0; i < 64 * kUnits / 128; ++i) {
+      const int idx = i * 128 + tid, r = idx / kUnits, unit = idx % kUnits;
       const int lr = 64 * cw + r, row = q0 + lr;
-      const uint4 v = *reinterpret_cast<const uint4*>(
-          gbase + (unit >> 3) * chunk_bytes(kDqRows) + lr * kRowBytes +
-          (((unit & 7) ^ (lr & 7)) << 4));
+      const uint4 v = *reinterpret_cast<const uint4*>(gbase + P::offset(kDqRows, lr, 8 * unit));
       if (row < Lq) *reinterpret_cast<uint4*>(dqb + row * sdq.l + unit * 8) = v;
     }
   }
@@ -998,7 +1053,7 @@ flash_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
 // warpgroup 1 computes dP^T = V dO^T, dS^T = P^T (dP^T - D) and sums dK +=
 // dS^T Q. Waiting for P^T keeps warpgroup 1 behind warpgroup 0, so each one's
 // elementwise work overlaps the other's products.
-template <bool CAUSAL>
+template <int HD, bool CAUSAL>
 __global__ void __launch_bounds__(kWgThreads, 1)
 flash_bwd_dkdv_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
                             const __grid_constant__ CUtensorMap tdo,
@@ -1007,7 +1062,7 @@ flash_bwd_dkdv_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
                             const float* __restrict__ rows, __nv_bfloat16* __restrict__ dk,
                             __nv_bfloat16* __restrict__ dv, Strides sdk, Strides sdv, int H,
                             int KV, int B, int G, int Lq, int Lk, int Lpad, float scale) {
-  using P = KvPlan;
+  using P = KvPlan<HD>;
   extern __shared__ uint8_t smem_raw[];
   const uint32_t sK = (smem_u32(smem_raw) + 1023u) & ~1023u;
   const uint32_t sV = sK + P::kKBytes;
@@ -1035,9 +1090,9 @@ flash_bwd_dkdv_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
     asm volatile("setmaxnreg.dec.sync.aligned.u32 24;\n");
     if (threadIdx.x == 0) {
       mbar_expect_tx(loaded, 2 * P::kKBytes);
-      for (int c = 0; c < kChunks; ++c) {
-        tma_load(sK + c * chunk_bytes(kKvRows), &tk, loaded, c * kCW, k0, kvh, b);
-        tma_load(sV + c * chunk_bytes(kKvRows), &tv, loaded, c * kCW, k0, kvh, b);
+      for (int c = 0; c < P::kChunks; ++c) {
+        tma_load(sK + c * P::chunk_bytes(kKvRows), &tk, loaded, c * P::kCW, k0, kvh, b);
+        tma_load(sV + c * P::chunk_bytes(kKvRows), &tv, loaded, c * P::kCW, k0, kvh, b);
       }
       for (int t = 0; t < n_items; ++t) {
         const int s = t % P::kStages;
@@ -1045,9 +1100,9 @@ flash_bwd_dkdv_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
         mbar_wait(empty(s), ((t / P::kStages) & 1) ^ 1);
         mbar_expect_tx(full(s), P::kStageBytes + P::kRowsBytes);
         const uint32_t sQ = q_tile(s), sdO = sQ + P::kTileBytes;
-        for (int c = 0; c < kChunks; ++c) {
-          tma_load(sQ + c * chunk_bytes(kKvQueries), &tq, full(s), c * kCW, q0, h, b);
-          tma_load(sdO + c * chunk_bytes(kKvQueries), &tdo, full(s), c * kCW, q0, h, b);
+        for (int c = 0; c < P::kChunks; ++c) {
+          tma_load(sQ + c * P::chunk_bytes(kKvQueries), &tq, full(s), c * P::kCW, q0, h, b);
+          tma_load(sdO + c * P::chunk_bytes(kKvQueries), &tdo, full(s), c * P::kCW, q0, h, b);
         }
         const float* rb = rows + ((long long)b * H + h) * 2 * Lpad + q0;
         const uint32_t sRows = sK + P::kRowsOffset + s * P::kRowsBytes;
@@ -1072,18 +1127,18 @@ flash_bwd_dkdv_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
     // Software-pipelined as the dq pass is: a turn issues the sum of item t
     // (dV += P^T dO, or dK += dS^T Q) and then the scores of item t + 1 (S^T
     // or dP^T), and the wait that ends it completes both.
-    float acc[64], sc[32];
+    float acc[HD / 2], sc[32];
     uint32_t hi[4][4], lo[4][4];  // P^T or dS^T in two bf16 parts: the register A operands
 #pragma unroll
-    for (int j = 0; j < 64; ++j) acc[j] = 0.f;
-    uint32_t fixed[kHd / 16][4];  // K (warpgroup 0) or V (1): the scores' A operand, loaded once
+    for (int j = 0; j < HD / 2; ++j) acc[j] = 0.f;
+    uint32_t fixed[HD / 16][4];  // K (warpgroup 0) or V (1): the scores' A operand, loaded once
     const auto issue_sc = [&](int t) {  // S^T = K Q^T or dP^T = V dO^T
       const uint32_t sQ = q_tile(t % P::kStages);
-      issue_scores_rs(sc, fixed, cw == 0 ? sQ : sQ + P::kTileBytes);
+      issue_scores_rs<HD>(sc, fixed, cw == 0 ? sQ : sQ + P::kTileBytes);
     };
     const auto issue_sum = [&](int t) {  // dV += P^T dO or dK += dS^T Q
       const uint32_t sQ = q_tile(t % P::kStages);
-      issue_split_product(acc, hi, lo, cw == 0 ? sQ + P::kTileBytes : sQ);
+      issue_split_product<HD>(acc, hi, lo, cw == 0 ? sQ + P::kTileBytes : sQ);
     };
     const auto elementwise = [&](int t) {
       const int s = t % P::kStages, buf = t & 1;
@@ -1141,7 +1196,7 @@ flash_bwd_dkdv_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
     };
 
     mbar_wait(loaded, 0);
-    load_a_frags(fixed, cw == 0 ? sK : sV, kKvRows, 0, lane, warp);
+    load_a_frags<HD>(fixed, cw == 0 ? sK : sV, kKvRows, 0, lane, warp);
     if (n_items > 0) {
       mbar_wait(full(0), 0);
       wgmma_fence();
@@ -1174,7 +1229,7 @@ flash_bwd_dkdv_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
       const int key = key_base + 8 * r;
       if (key < Lk) {
 #pragma unroll
-        for (int j = 0; j < kHd / 8; ++j)
+        for (int j = 0; j < HD / 8; ++j)
           *reinterpret_cast<uint32_t*>(out + key * sl + j * 8 + 2 * t4) =
               pack_bf16(acc[4 * j + 2 * r] * m, acc[4 * j + 2 * r + 1] * m);
       }
@@ -1212,54 +1267,59 @@ EncodeTiledFn encoder() {
 
 // A (hd, position, head, batch) map of one bf16 operand with the caller's
 // element strides st = (batch, head, position); boxes of (kCW columns, `rows`
-// rows) under the 128-byte swizzle, zeros past each extent.
+// rows) under the plan's swizzle, zeros past each extent.
+template <int HD>
 int encode_map(CUtensorMap* map, const void* ptr, int L, int heads, int B, const long long* st,
                int rows) {
+  using C = Chunks<HD>;
   const EncodeTiledFn fn = encoder();
   if (fn == nullptr) return kNoEncoder;
-  const cuuint64_t dims[4] = {kHd, (cuuint64_t)L, (cuuint64_t)heads, (cuuint64_t)B};
+  const cuuint64_t dims[4] = {HD, (cuuint64_t)L, (cuuint64_t)heads, (cuuint64_t)B};
   const cuuint64_t strides[3] = {(cuuint64_t)st[2] * 2, (cuuint64_t)st[1] * 2,
                                  (cuuint64_t)st[0] * 2};
-  const cuuint32_t box[4] = {kCW, (cuuint32_t)rows, 1, 1};
+  const cuuint32_t box[4] = {C::kCW, (cuuint32_t)rows, 1, 1};
   const cuuint32_t unit[4] = {1, 1, 1, 1};
   const CUresult r =
       fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr), dims, strides, box,
-         unit, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+         unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
+         C::kCW == 64 ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_32B,
          CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? 0 : kTensorMapError + (int)r;
 }
 
 // st: (batch, head, position) strides of q, k, v, o, dO, dq, dk, dv in that order.
-template <bool CAUSAL>
+template <int HD, bool CAUSAL>
 int launch_wgmma(const void* q, const void* k, const void* v, const void* o, const void* dout,
                  const float* lse, void* dq, void* dk, void* dv, float* rows, int B, int H,
                  int KV, int Lq, int Lk, const long long* st, float scale, bool dkdv,
                  cudaStream_t stream) {
   using T = __nv_bfloat16;
+  using DP = DqPlan<HD>;
+  using KP = KvPlan<HD>;
   const int G = H / KV;
   // the dq pass writes whole tiles of the row workspace
   const int Lpad = (Lq + kDqRows - 1) / kDqRows * kDqRows;
   const long long dq_blocks = (long long)((Lq + kDqRows - 1) / kDqRows) * H * B;
   const long long kv_blocks = (long long)((Lk + kKvRows - 1) / kKvRows) * KV * B;
   if (dq_blocks > 0x7fffffffLL || kv_blocks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
-  const auto dq_kern = flash_bwd_dq_wgmma_kernel<CAUSAL>;
-  const auto kv_kern = flash_bwd_dkdv_wgmma_kernel<CAUSAL>;
+  const auto dq_kern = flash_bwd_dq_wgmma_kernel<HD, CAUSAL>;
+  const auto kv_kern = flash_bwd_dkdv_wgmma_kernel<HD, CAUSAL>;
   cudaError_t err = cudaFuncSetAttribute(dq_kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         (int)DqPlan::kBytes);
+                                         (int)DP::kBytes);
   if (err == cudaSuccess)
     err = cudaFuncSetAttribute(kv_kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               (int)KvPlan::kBytes);
+                               (int)KP::kBytes);
   if (err != cudaSuccess) return (int)err;
   Strides s[8];
   for (int i = 0; i < 8; ++i) s[i] = Strides{st[3 * i], st[3 * i + 1], st[3 * i + 2]};
 
   CUtensorMap tq, tdo, tk, tv;
-  int code = encode_map(&tq, q, Lq, H, B, st, kDqRows);
-  if (code == 0) code = encode_map(&tdo, dout, Lq, H, B, st + 12, kDqRows);
-  if (code == 0) code = encode_map(&tk, k, Lk, KV, B, st + 3, kDqKeys);
-  if (code == 0) code = encode_map(&tv, v, Lk, KV, B, st + 6, kDqKeys);
+  int code = encode_map<HD>(&tq, q, Lq, H, B, st, kDqRows);
+  if (code == 0) code = encode_map<HD>(&tdo, dout, Lq, H, B, st + 12, kDqRows);
+  if (code == 0) code = encode_map<HD>(&tk, k, Lk, KV, B, st + 3, kDqKeys);
+  if (code == 0) code = encode_map<HD>(&tv, v, Lk, KV, B, st + 6, kDqKeys);
   if (code != 0) return code;
-  dq_kern<<<(unsigned)dq_blocks, kWgThreads, DqPlan::kBytes, stream>>>(
+  dq_kern<<<(unsigned)dq_blocks, kWgThreads, DP::kBytes, stream>>>(
       tq, tdo, tk, tv, static_cast<const T*>(o), static_cast<const T*>(dout), lse,
       static_cast<T*>(dq), rows, s[3], s[4], s[5], H, B, G, Lq, Lk, Lpad, scale);
   err = cudaGetLastError();
@@ -1267,23 +1327,23 @@ int launch_wgmma(const void* q, const void* k, const void* v, const void* o, con
 
   // the K and V maps (64-row boxes) serve the dk/dv pass as they are
   static_assert(kKvRows == kDqKeys, "one K/V box shape for both passes");
-  code = encode_map(&tq, q, Lq, H, B, st, kKvQueries);
-  if (code == 0) code = encode_map(&tdo, dout, Lq, H, B, st + 12, kKvQueries);
+  code = encode_map<HD>(&tq, q, Lq, H, B, st, kKvQueries);
+  if (code == 0) code = encode_map<HD>(&tdo, dout, Lq, H, B, st + 12, kKvQueries);
   if (code != 0) return code;
-  kv_kern<<<(unsigned)kv_blocks, kWgThreads, KvPlan::kBytes, stream>>>(
+  kv_kern<<<(unsigned)kv_blocks, kWgThreads, KP::kBytes, stream>>>(
       tq, tdo, tk, tv, rows, static_cast<T*>(dk), static_cast<T*>(dv), s[6], s[7], H, KV, B, G,
       Lq, Lk, Lpad, scale);
   return (int)cudaGetLastError();
 }
 
-template <typename T, int HD, bool CAUSAL>
+template <int HD, bool CAUSAL>
 int launch_cores(const void* q, const void* k, const void* v, const void* o, const void* dout,
                  const float* lse, void* dq, void* dk, void* dv, float* dsum, int B, int H,
                  int KV, int Lq, int Lk, const long long* st, float scale, bool dkdv,
                  cudaStream_t stream) {
   using P = Plan<HD>;
-  const auto dq_kern = flash_bwd_dq_kernel<T, HD, CAUSAL>;
-  const auto dkdv_kern = flash_bwd_dkdv_kernel<T, HD, CAUSAL>;
+  const auto dq_kern = flash_bwd_dq_kernel<HD, CAUSAL>;
+  const auto dkdv_kern = flash_bwd_dkdv_kernel<HD, CAUSAL>;
   cudaError_t err = cudaFuncSetAttribute(dq_kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          (int)P::kBytes);
   if (err == cudaSuccess)
@@ -1293,63 +1353,34 @@ int launch_cores(const void* q, const void* k, const void* v, const void* o, con
   Strides s[8];
   for (int i = 0; i < 8; ++i) s[i] = Strides{st[3 * i], st[3 * i + 1], st[3 * i + 2]};
   const int G = H / KV;
-  using C = const T*;
+  using C = const float*;
   dq_kern<<<dim3((Lq + kTile - 1) / kTile, H, B), kThreads, P::kBytes, stream>>>(
       static_cast<C>(q), static_cast<C>(k), static_cast<C>(v), static_cast<C>(o),
-      static_cast<C>(dout), lse, static_cast<T*>(dq), dsum, s[0], s[1], s[2], s[3], s[4],
+      static_cast<C>(dout), lse, static_cast<float*>(dq), dsum, s[0], s[1], s[2], s[3], s[4],
       s[5], G, Lq, Lk, scale);
   err = cudaGetLastError();
   if (err != cudaSuccess || !dkdv) return (int)err;
   dkdv_kern<<<dim3((Lk + kTile - 1) / kTile, KV, B), kThreads, P::kBytes, stream>>>(
       static_cast<C>(q), static_cast<C>(k), static_cast<C>(v), static_cast<C>(dout), lse, dsum,
-      static_cast<T*>(dk), static_cast<T*>(dv), s[0], s[1], s[2], s[4], s[6], s[7], H, G,
+      static_cast<float*>(dk), static_cast<float*>(dv), s[0], s[1], s[2], s[4], s[6], s[7], H, G,
       Lq, Lk, scale);
   return (int)cudaGetLastError();
-}
-
-template <typename T, int HD>
-int launch_cores_hd(int causal, const void* q, const void* k, const void* v, const void* o,
-                    const void* dout, const float* lse, void* dq, void* dk, void* dv,
-                    float* dsum, int B, int H, int KV, int Lq, int Lk, const long long* st,
-                    float scale, bool dkdv, cudaStream_t s) {
-  return causal ? launch_cores<T, HD, true>(q, k, v, o, dout, lse, dq, dk, dv, dsum, B, H, KV,
-                                            Lq, Lk, st, scale, dkdv, s)
-                : launch_cores<T, HD, false>(q, k, v, o, dout, lse, dq, dk, dv, dsum, B, H, KV,
-                                             Lq, Lk, st, scale, dkdv, s);
-}
-
-template <typename T>
-int launch_cores_any(int hd, int causal, const void* q, const void* k, const void* v,
-                     const void* o, const void* dout, const float* lse, void* dq, void* dk,
-                     void* dv, float* dsum, int B, int H, int KV, int Lq, int Lk,
-                     const long long* st, float scale, bool dkdv, cudaStream_t s) {
-#define REPRO_BWD_HD(HDV)                                                                   \
-  if (hd == HDV)                                                                           \
-    return launch_cores_hd<T, HDV>(causal, q, k, v, o, dout, lse, dq, dk, dv, dsum, B, H, \
-                                   KV, Lq, Lk, st, scale, dkdv, s);
-  REPRO_BWD_HD(64)
-  REPRO_BWD_HD(80)
-  if constexpr (std::is_same<T, float>::value) {  // bf16 at hd 128 takes TMA + wgmma
-    REPRO_BWD_HD(128)
-  }
-#undef REPRO_BWD_HD
-  return (int)cudaErrorInvalidValue;
 }
 
 bool aligned16(const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 == 0; }
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16, for q, k, v, o, dout, dq, dk, dv alike; hd
-// in {64, 80, 128}: bf16 at hd 128 takes the TMA + wgmma path, everything else
-// the CUDA cores. lse: (B, H, Lq) f32 from flash_attention_fwd. rows: an f32
-// workspace of B H 2 Lpad values, Lpad = Lq rounded up to 128 (the wgmma dq
-// pass writes each row's lse log2 e and D there for its dk/dv pass; the
-// CUDA-core path uses its first B H Lq values for D). strides holds 24 element
-// strides: (batch, head, position) of q, k, v, o, dout, dq, dk and dv in that
-// order. dkdv = 0 runs the dq pass only (dk, dv may then be null). Launches the
-// passes on `stream`; returns cudaGetLastError() after them, or an
-// error_string code.
+// dtype: 0 = float32 (the CUDA cores), 1 = bfloat16 (TMA + wgmma; needs
+// 16-byte aligned pointers and strides that are multiples of 8), for q, k, v,
+// o, dout, dq, dk, dv alike; hd in {64, 80, 128}. lse: (B, H, Lq) f32 from
+// flash_attention_fwd. rows: an f32 workspace of B H 2 Lpad values, Lpad = Lq
+// rounded up to 128 (the bf16 dq pass writes each row's lse log2 e and D there
+// for its dk/dv pass; the f32 path uses its first B H Lq values for D).
+// strides holds 24 element strides: (batch, head, position) of q, k, v, o,
+// dout, dq, dk and dv in that order. dkdv = 0 runs the dq pass only (dk, dv
+// may then be null). Launches the passes on `stream`; returns
+// cudaGetLastError() after them, or an error_string code.
 extern "C" int flash_attention_bwd(int dtype, int hd, int causal, int dkdv, const void* q,
                                    const void* k, const void* v, const void* o,
                                    const void* dout, const float* lse, void* dq, void* dk,
@@ -1359,23 +1390,31 @@ extern "C" int flash_attention_bwd(int dtype, int hd, int causal, int dkdv, cons
       H > 65535 || (hd != 64 && hd != 80 && hd != 128) || (dtype != 0 && dtype != 1))
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0)
-    return launch_cores_any<float>(hd, causal, q, k, v, o, dout, lse, dq, dk, dv, rows, B, H,
-                                   KV, Lq, Lk, strides, scale, dkdv != 0, s);
-  if (hd != 128)
-    return launch_cores_any<__nv_bfloat16>(hd, causal, q, k, v, o, dout, lse, dq, dk, dv,
-                                           rows, B, H, KV, Lq, Lk, strides, scale, dkdv != 0,
-                                           s);
-  // TMA reads 16-byte aligned rows; the row workspace takes 16-byte bulk copies
-  if (!(aligned16(q) && aligned16(k) && aligned16(v) && aligned16(o) && aligned16(dout) &&
-        aligned16(dq) && aligned16(rows) && (!dkdv || (aligned16(dk) && aligned16(dv)))))
-    return (int)cudaErrorMisalignedAddress;
-  for (int i = 0; i < 24; ++i)
-    if ((dkdv || i < 18) && strides[i] % 8 != 0) return (int)cudaErrorMisalignedAddress;
-  return causal ? launch_wgmma<true>(q, k, v, o, dout, lse, dq, dk, dv, rows, B, H, KV, Lq, Lk,
-                                     strides, scale, dkdv != 0, s)
-                : launch_wgmma<false>(q, k, v, o, dout, lse, dq, dk, dv, rows, B, H, KV, Lq, Lk,
-                                      strides, scale, dkdv != 0, s);
+  if (dtype == 1) {
+    // TMA reads 16-byte aligned rows; the row workspace takes 16-byte bulk copies
+    if (!(aligned16(q) && aligned16(k) && aligned16(v) && aligned16(o) && aligned16(dout) &&
+          aligned16(dq) && aligned16(rows) && (!dkdv || (aligned16(dk) && aligned16(dv)))))
+      return (int)cudaErrorMisalignedAddress;
+    for (int i = 0; i < 24; ++i)
+      if ((dkdv || i < 18) && strides[i] % 8 != 0) return (int)cudaErrorMisalignedAddress;
+  }
+#define REPRO_BWD_CASE(HDV, LAUNCH)                                                         \
+  if (hd == HDV)                                                                           \
+    return causal ? LAUNCH<HDV, true>(q, k, v, o, dout, lse, dq, dk, dv, rows, B, H, KV,   \
+                                      Lq, Lk, strides, scale, dkdv != 0, s)                \
+                  : LAUNCH<HDV, false>(q, k, v, o, dout, lse, dq, dk, dv, rows, B, H, KV,  \
+                                       Lq, Lk, strides, scale, dkdv != 0, s);
+  if (dtype == 0) {
+    REPRO_BWD_CASE(64, launch_cores)
+    REPRO_BWD_CASE(80, launch_cores)
+    REPRO_BWD_CASE(128, launch_cores)
+  } else {
+    REPRO_BWD_CASE(64, launch_wgmma)
+    REPRO_BWD_CASE(80, launch_wgmma)
+    REPRO_BWD_CASE(128, launch_wgmma)
+  }
+#undef REPRO_BWD_CASE
+  return (int)cudaErrorInvalidValue;
 }
 
 extern "C" const char* error_string(int err) {

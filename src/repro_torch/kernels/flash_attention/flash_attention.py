@@ -114,8 +114,9 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
     q, o, do: (B, H, Lq, hd); k, v: (B, KV, Lk, hd); lse: (B, H, Lq) f32,
     contiguous. CUDA tensors of one dtype (f32 or bf16), hd in
-    ``HEAD_DIMS``, unit stride on hd, other strides free: bf16 at hd 128
-    runs on the tensor cores (TMA, wgmma), every other case on the CUDA
+    ``HEAD_DIMS``, unit stride on hd, other strides free: bf16 runs on the
+    tensor cores (TMA, wgmma) and needs the forward's alignment for q, k, v
+    and o (``do`` is made contiguous if it lacks it); f32 runs on the CUDA
     cores. dq, dk and dv are returned in q's and k's dtype as
     (B, heads, L, hd) views of (B, L, heads, hd) buffers, the model's
     layout. One call launches the kernels' two passes (dq with D =
@@ -136,7 +137,7 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             or not lse.is_contiguous()):
         raise ValueError(f"flash_attention_bwd: lse must be a contiguous (B, H, Lq) "
                          f"float32 tensor, got {tuple(lse.shape)} {lse.dtype}")
-    if q.dtype == torch.bfloat16 and hd == 128:
+    if q.dtype == torch.bfloat16:
         # the tensor-core path reads rows by TMA: the forward's alignment rule
         # for q, k, v, o; the incoming gradient is made contiguous if needed
         if any(s % 8 for t in (q, k, v, o) for s in t.stride()[:3]) or any(

@@ -97,8 +97,12 @@ def test_bf16_flash_backward_is_tma_and_wgmma():
     """Both passes of the bf16 backward take their tiles by TMA on mbarriers
     (and the rows' lse and D by 1-d bulk copies), compute every product with
     wgmma (S and dP from shared memory or with K, V as register A operands;
-    dQ, dV, dK with P or dS as register A operands over an MN-major B), and
-    no mma.sync is left in the source."""
+    dQ, dV, dK with P or dS as register A operands over an MN-major B, N the
+    head dim: 64, 80 or 128), and no mma.sync is left in the source. hd 80's
+    160-byte rows are cut into 32-byte chunks under the 32-byte swizzle, hd
+    64's and 128's into 128-byte ones under the 128-byte swizzle; bf16 at
+    every head dim dispatches to the tensor-core launcher, f32 to the CUDA
+    cores."""
     src = Path(build.CSRC, "flash_attention_bwd.cu").read_text()
     asm = re.sub(r'"(?:\s|\\)*"', "", src)   # adjacent literals joined, in macros too
     assert "cp.async.bulk.tensor.4d" in asm and "mbarrier::complete_tx" in asm
@@ -108,10 +112,19 @@ def test_bf16_flash_backward_is_tma_and_wgmma():
     assert re.search(r"m64n64k16\.f32\.bf16\.bf16 \{[^}]*\}, %\d+, %\d+, p, 1, 1, 0, 0;", asm)
     assert re.search(rf"m64n64k16\.f32\.bf16\.bf16 \{{[^}}]*\}}, {four_regs}, %\d+, p, 1, 1, 0;",
                      asm)
-    # dQ, dV, dK: m64n128k16, A in registers, B transposed (MN-major)
-    assert re.search(rf"m64n128k16\.f32\.bf16\.bf16 \{{[^}}]*\}}, {four_regs}, %\d+, p, 1, 1, 1;",
-                     asm)
+    # dQ, dV, dK: m64n{hd}k16, A in registers, B transposed (MN-major)
+    for hd in (64, 80, 128):
+        assert re.search(rf"m64n{hd}k16\.f32\.bf16\.bf16 \{{[^}}]*\}}, {four_regs}, %\d+, "
+                         r"p, 1, 1, 1;", asm), hd
+    assert "CU_TENSOR_MAP_SWIZZLE_32B" in src and "CU_TENSOR_MAP_SWIZZLE_128B" in src
     assert "mma.sync" not in src and "setmaxnreg" in src and "ldmatrix" in src
+    # the dispatch: f32 to launch_cores, bf16 to launch_wgmma, at each head dim
+    entry = src[src.index('extern "C" int flash_attention_bwd('):]
+    cores, wgmma = entry.split("} else {", 1)
+    for hd in (64, 80, 128):
+        assert f"REPRO_BWD_CASE({hd}, launch_cores)" in cores.split("if (dtype == 0) {")[1]
+        assert f"REPRO_BWD_CASE({hd}, launch_wgmma)" in wgmma
+    assert "__nv_bfloat16" not in src[src.index("int launch_cores("):src.index("}  // namespace")]
 
 
 def test_flash_variants_apply_to_the_kernel_source():

@@ -831,6 +831,15 @@ _BWD_HD_SHAPES = [  # B, H, KV, Lq, Lk, causal, hd
     (2, 8, 2, 77, 77, True, 80),
     (1, 4, 2, 40, 97, False, 80),
     (2, 8, 1, 100, 100, False, 64),
+    # the tensor-core path's edges in bf16: ragged L, GQA 8 / 2, Lq != Lk both ways
+    (2, 16, 16, 1000, 1000, True, 64),
+    (2, 16, 16, 1000, 1000, True, 80),
+    (2, 8, 2, 333, 333, True, 64),
+    (2, 8, 2, 333, 333, True, 80),
+    (1, 8, 4, 200, 77, False, 64),
+    (1, 8, 4, 200, 77, False, 80),
+    (1, 4, 2, 40, 97, False, 64),
+    (2, 8, 2, 300, 450, True, 80),
 ]
 
 
@@ -838,8 +847,9 @@ _BWD_HD_SHAPES = [  # B, H, KV, Lq, Lk, causal, hd
 @pytest.mark.parametrize("B,H,KV,Lq,Lk,causal,hd", _BWD_HD_SHAPES)
 def test_flash_attention_bwd_at_hd_64_and_80_matches_plain(dev, B, H, KV, Lq, Lk, causal, hd,
                                                           dtype):
-    """The CUDA-core backward at the head dims of zamba2-2.7b and
-    whisper-medium, with the forward's lse, and its dq pass alone."""
+    """The backward at the head dims of zamba2-2.7b and whisper-medium
+    (bf16 on the tensor cores, f32 on the CUDA cores), with the forward's
+    lse, and its dq pass alone."""
     from repro_torch.kernels.flash_attention.flash_attention import flash_attention_bwd
     from repro_torch.kernels.flash_attention.ref import attention_bwd_ref, attention_lse_ref
 
@@ -857,10 +867,11 @@ def test_flash_attention_bwd_at_hd_64_and_80_matches_plain(dev, B, H, KV, Lq, Lk
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-def test_flash_attention_bwd_is_deterministic(dev, dtype):
+@pytest.mark.parametrize("hd", [64, 80, 128])
+def test_flash_attention_bwd_is_deterministic(dev, dtype, hd):
     from repro_torch.kernels.flash_attention.flash_attention import flash_attention_bwd
 
-    q, k, v, do = _bwd_inputs(1, 2, 16, 2, 300, 300, dtype, dev)
+    q, k, v, do = _bwd_inputs(1, 2, 16, 2, 300, 300, dtype, dev, hd=hd)
     o, lse = flash_attention(q, k, v, return_lse=True)
     first = flash_attention_bwd(q, k, v, o, lse, do)
     again = flash_attention_bwd(q, k, v, o, lse, do)

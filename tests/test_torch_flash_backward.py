@@ -34,7 +34,9 @@ from repro_torch.kernels.flash_attention.ref import (
 )
 
 TOL = 2e-5 * 4
-# The kernels' partitions: dq's query and key tiles, dk/dv's key and query tiles.
+# The kernels' partitions: dq's query and key tiles, dk/dv's key and query
+# tiles; the bf16 kernels' plans (csrc/flash_attention_bwd.cu, DqPlan<HD> and
+# KvPlan<HD>) take the same tiles at hd 64, 80 and 128.
 PARTITIONS = {
     "bf16 wgmma": dict(dq_rows=128, dq_keys=64, kv_keys=64, kv_queries=64),
     "f32 CUDA cores": dict(dq_rows=32, dq_keys=32, kv_keys=32, kv_queries=32),
@@ -215,15 +217,17 @@ def _tiled_backward(q, k, v, o, lse, do, causal, part):
     (1, 4, 2, 40, 97, False),
     (1, 8, 1, 200, 150, True)])  # more rows than the bf16 dq tile
 @pytest.mark.parametrize("partition", sorted(PARTITIONS))
-def test_tiled_algebra_matches_autograd_in_f64(B, H, KV, Lq, Lk, causal, partition):
+@pytest.mark.parametrize("hd", [64, 80, 128])
+def test_tiled_algebra_matches_autograd_in_f64(B, H, KV, Lq, Lk, causal, partition, hd):
     """Recompute from lse, D from dO and O, the sum over the group's heads,
     and the causal tile skipping (no query tile before the key tile's diagonal, no key tile past
-    the query tile's last row) lose nothing."""
-    q, k, v, do = (torch.from_numpy(a).double() for a in _inputs(Lk + 7, B, H, KV, Lq, Lk))
+    the query tile's last row) lose nothing, at each head dim the kernels take."""
+    q, k, v, do = (torch.from_numpy(a).double()
+                   for a in _inputs(Lk + 7, B, H, KV, Lq, Lk, hd=hd))
     qs, ks, vs = (t.clone().requires_grad_(True) for t in (q, k, v))
     o = _f64_attention(qs, ks, vs, causal)
     want = torch.autograd.grad(o, (qs, ks, vs), do)
-    s = torch.einsum("bkgqh,bksh->bkgqs", q.reshape(B, KV, H // KV, Lq, 128), k) * 128 ** -0.5
+    s = torch.einsum("bkgqh,bksh->bkgqs", q.reshape(B, KV, H // KV, Lq, hd), k) * hd ** -0.5
     if causal:
         s = torch.where(torch.from_numpy(_mask(Lq, Lk, True)), s, -torch.inf)
     lse = torch.logsumexp(s, -1).reshape(B, H, Lq)
@@ -292,4 +296,32 @@ def test_backward_wrapper_refuses_cpu_tensors_and_other_head_dims_before_any_lau
         flash_attention_bwd(q32, k32, v32, q32, lse, do32)
     with pytest.raises(ValueError, match=r"head dims \(64, 80, 128\), got 32"):
         flash_attention(q32, k32, v32, return_lse=True)
+    assert (fa_mod.COUNTER.launches, fa_mod.BWD_COUNTER.launches) == before
+
+
+@pytest.mark.parametrize("hd", [64, 80])
+@pytest.mark.parametrize("fault", ["pointer", "stride"])
+def test_bf16_backward_refuses_misaligned_inputs_at_hd_64_and_80_before_any_launch(hd, fault):
+    """bf16 at hd 64 and 80 takes the tensor-core path, whose TMA maps need
+    16-byte aligned q, k, v, o and strides that are multiples of 8: a tensor
+    one element off, or a view whose position stride is hd + 4, is refused
+    before any launch, as at hd 128."""
+    B, H, KV, L = 1, 4, 2, 8
+    q, k, v, do = (torch.from_numpy(a).bfloat16() for a in _inputs(3, B, H, KV, L, L, hd=hd))
+    lse = attention_lse_ref(q.float(), k.float())
+    if fault == "pointer":
+        # the same values one bf16 element (2 bytes) past an aligned start
+        buf = torch.empty(k.numel() + 1, dtype=torch.bfloat16)
+        k = buf[1:].view(k.shape).copy_(k)
+    else:
+        # (B, L, KV, hd + 4) storage: the position stride is KV (hd + 4)
+        buf = torch.zeros(B, L, KV, hd + 4, dtype=torch.bfloat16)
+        buf[..., :hd] = k.transpose(1, 2)
+        k = buf[..., :hd].transpose(1, 2)
+    q, k, v, o, do = (t.as_subclass(OnCard) for t in (q, k, v, q, do))
+    before = (fa_mod.COUNTER.launches, fa_mod.BWD_COUNTER.launches)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        flash_attention_bwd(q, k, v, o, lse, do)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        flash_attention_bwd(q, k, v, o, lse, do, dkdv=False)
     assert (fa_mod.COUNTER.launches, fa_mod.BWD_COUNTER.launches) == before
