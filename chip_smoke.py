@@ -61,11 +61,14 @@ Phases (any failure ends the run with a non-zero exit and no last line):
    pair, and SDPA's backward is taken in q only) and whole (training); and
    f32 cases at hd 80 and 64. And the gla_scan backward (gla_scan_bwd)
    against ``gla_chunked_bwd`` taken in f64 on the same inputs, relative L2
-   of each gradient <= GLA_BWD_TOL (f32 1e-5, bf16 2e-2): rwkv6-7b's flow
+   of each gradient <= GLA_BWD_TOL (f32 1e-5, bf16 2e-2; a gradient kept in
+   f32 for bf16 inputs, GLA_BWD_F32_OUT_TOL 1e-3): rwkv6-7b's flow
    shape (exclusive, bf16, per-channel f32 decay of the model's size),
    zamba2-2.7b's (inclusive, q and k one group broadcast over 80 heads, one
-   f32 decay a head) and a ragged f32 case (L 1000) with s0 and dS_final;
-   kernel and device ms, the plain backward's ms (in the inputs' types), no
+   f32 decay a head), and ragged cases (L 1000) with s0 and dS_final in f32
+   and bf16; each case prints which kernel ran (``bwd_kernel_for``:
+   tensor-core for bf16 q, k, v under the forward's rule, CUDA-core
+   otherwise) and fails if that differs from the rule; kernel and device ms, the plain backward's ms (in the inputs' types), no
    library call ("none: no one PyTorch call"), the bound at the peak of the
    inputs' type (bytes: q, k, v, dO, ld read once, dq, dk, dv, dld written
    once; flops ``gla_bwd_flops``) with the f32 CUDA-core count beside it.
@@ -532,8 +535,20 @@ PAGED_BF16 = {"rel": 2.0 ** -7, "atol": 1e-6}
 FLASH_BWD_BF16 = {"atol": 1e-3, "rtol": 2 ** -7, "row_rel_l2": 4e-3}
 # the gla_scan backward against its plain version taken in f64 on the same
 # inputs: relative L2 of each gradient, f32 inputs 1e-5 (the kernel sums in
-# f32), bf16 inputs 2e-2 (bf16 outputs round by up to 2^-9 each)
+# f32), bf16 inputs 2e-2 (bf16 outputs round by up to 2^-9 each). A gradient
+# kept in f32 for bf16 inputs (dld of an f32 ld, ds0) does not round: 1e-3
+# (the tensor-core kernel's readings <= 3.8e-5; with S0's and G's low bf16
+# parts dropped, 3.0e-3-1.3e-2: scripts/gla_bwd_fault_check.py)
 GLA_BWD_TOL = {torch.float32: 1e-5, torch.bfloat16: 2e-2}
+GLA_BWD_F32_OUT_TOL = 1e-3
+
+
+def gla_bwd_limit(qkv_dtype: torch.dtype, out_dtype: torch.dtype) -> float:
+    """The relative L2 limit of one gla_scan_bwd gradient of ``out_dtype``
+    for q, k, v of ``qkv_dtype``."""
+    if qkv_dtype == torch.bfloat16 and out_dtype == torch.float32:
+        return GLA_BWD_F32_OUT_TOL
+    return GLA_BWD_TOL[qkv_dtype]
 HBM_BYTES_PER_S = 3.35e12                          # H100 SXM data sheet
 PEAK_FLOPS = {torch.float32: 67e12, torch.bfloat16: 989e12}  # CUDA-core f32, dense bf16
 NFE, BATCH, SEQ, REQUESTS = 8, 4, 1024, 3
@@ -1175,7 +1190,8 @@ def gla_flops(L: int, chunk: int, dk: int, dv: int, inclusive: bool) -> float:
 
 
 def gla_kernel_rule(dtype: torch.dtype, L: int, dk: int, dv: int, chunk: int) -> str:
-    """The selection rule csrc/gla_scan.cu states, written out apart from it:
+    """The selection rule csrc/gla_scan.cu states (and csrc/gla_scan_bwd.cu
+    for the backward), written out apart from them:
     bf16 q, k, v with dk and dv multiples of 16 up to 128 and a chunk (cut to
     L) of 16, 32 or 64 take the tensor-core kernel."""
     mma = (dtype == torch.bfloat16 and dk % 16 == 0 and dv % 16 == 0 and dk <= 128
@@ -1301,14 +1317,16 @@ def gla_bwd_flops(L: int, chunk: int, dk: int, dv: int, inclusive: bool) -> floa
 
 def gla_bwd_cases(dev):
     """Phase 3c: the gla_scan backward kernel against ``gla_chunked_bwd`` in
-    f64 on the same inputs (relative L2 of each gradient <= GLA_BWD_TOL of
-    its input type), at rwkv6-7b's flow shape (exclusive, per-channel
+    f64 on the same inputs (relative L2 of each gradient <= ``gla_bwd_limit``:
+    GLA_BWD_TOL of its input type, GLA_BWD_F32_OUT_TOL for a gradient kept
+    in f32 for bf16 inputs), at rwkv6-7b's flow shape (exclusive, per-channel
     decay), zamba2-2.7b's (inclusive, q and k one group broadcast over 80
     heads, one f32 decay a head, as models/mamba2.py::_ssd hands them
-    over) and a ragged f32 case with s0 and dS_final; timed beside the plain
+    over) and ragged f32 and bf16 cases with s0 and dS_final, each naming
+    the kernel that ran (held to the forward's rule); timed beside the plain
     version (in the inputs' types) with its bound. No one PyTorch call
     computes the function."""
-    from repro_torch.kernels.gla_scan.gla_scan import gla_scan_bwd
+    from repro_torch.kernels.gla_scan.gla_scan import bwd_kernel_for, gla_scan_bwd
     from repro_torch.kernels.gla_scan.ref import gla_chunked_bwd
 
     g = torch.Generator(device=dev).manual_seed(31)
@@ -1318,7 +1336,8 @@ def gla_bwd_cases(dev):
     for B, L, H, dk, dv, chunk, form, dtype, state in [
             (BATCH, SEQ, 64, 64, 64, 64, "rwkv6", bf16, False),    # rwkv6-7b's main path
             (BATCH, SEQ, 80, 64, 64, 64, "mamba2", bf16, False),   # zamba2-2.7b's
-            (2, 1000, 8, 64, 64, 64, "rwkv6", f32, True)]:         # ragged, states
+            (2, 1000, 8, 64, 64, 64, "rwkv6", f32, True),          # ragged, states
+            (2, 1000, 8, 64, 64, 64, "rwkv6", bf16, True)]:
         group = form == "mamba2"
         if group:
             xbc = torch.randn((B, L, H * dv + 2 * dk), generator=g, device=dev).to(dtype)
@@ -1339,6 +1358,12 @@ def gla_bwd_cases(dev):
                  f"{'inclusive' if inclusive else 'exclusive'} qkv {str(dtype)[6:]} ld f32"
                  f"{' per head, q, k one group over the heads' if group else ''}"
                  f"{' s0 and dS_final' if state else ''}")
+        kernel = bwd_kernel_for(dtype, L, dk, dv, chunk)
+        if kernel != gla_kernel_rule(dtype, L, dk, dv, chunk):
+            raise SystemExit(f"gla_scan_bwd [{shape}]: the library selects the {kernel} "
+                             f"kernel, the stated rule the "
+                             f"{gla_kernel_rule(dtype, L, dk, dv, chunk)} one")
+        shape += f" [{kernel}]"
 
         def call():
             return gla_scan_bwd(q, k, v, ld, s0, do, dS, inclusive=inclusive, chunk=chunk)
@@ -1347,18 +1372,19 @@ def gla_bwd_cases(dev):
         f64 = lambda t: None if t is None else t.double()  # noqa: E731
         want = gla_chunked_bwd(*map(f64, (q, k, v, ld, s0, do, dS)), inclusive=inclusive,
                                chunk=chunk)
-        rels, err = {}, 0.0
+        rels, limits, err = {}, {}, 0.0
         for what, x, w in zip(("dq", "dk", "dv", "dld", "ds0"), got, want):
             if w is None:
                 continue
             if not bool(torch.isfinite(x.float()).all()):
                 raise SystemExit(f"gla_scan_bwd [{shape}] {what}: non-finite")
             rels[what] = relative_l2(x.double(), w.cpu())
+            limits[what] = gla_bwd_limit(dtype, x.dtype)
             err = max(err, float((x.double() - w).abs().max()))
         del want
-        if not max(rels.values()) <= GLA_BWD_TOL[dtype]:
+        if not all(rels[k] <= limits[k] for k in rels):
             raise SystemExit(f"gla_scan_bwd [{shape}]: relative L2 against the f64 plain "
-                             f"backward {rels}, limit {GLA_BWD_TOL[dtype]}")
+                             f"backward {rels}, limits {limits}")
         size = q.element_size()
         qk = 2 * q.numel() * size                 # a group's q and k stored once
         states = (3 * B * H * dk * dv * 4) if state else 0
@@ -1369,6 +1395,7 @@ def gla_bwd_cases(dev):
         b32_ms, b32_by = bound(nbytes, flops, f32)
         rows.append(dict(
             shape=shape, max_abs_err=err, relative_l2=rels, bound_f32=(b32_ms, b32_by),
+            kernel=kernel,
             ms=time_ms(call, iters=10, warmup=2),
             device_ms=device_ms(call, "gla_scan_bwd", iters=5),
             plain_ms=time_ms(lambda: gla_chunked_bwd(q, k, v, ld, s0, do, dS,

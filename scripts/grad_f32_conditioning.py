@@ -19,6 +19,17 @@ from the CPU's f32 one, for the loss and each gradient. Where the kernels
 add nothing, the two card variants read what the card does through the
 kernels. Prints the card's name and power limit first; TF32 off. Needs one
 card.
+
+    PYTHONPATH=src python3 scripts/grad_f32_conditioning.py --parts
+
+takes rwkv6-7b at 1 layer apart instead: the card's gradient with one part of
+the layer at a time computed in f64 (inputs cast up, the result cast back to
+f32; the recurrence stays on the f32 kernels), and with the whole layer but
+the recurrence in f64 (the layer's input and output f32). The model's rms_norm and decay cast to f32 even for f64
+inputs; here both keep f64 (``rms_norm_kept``, ``decay_kept``), so the CPU's
+f64 gradient is f64 throughout (the 26b form, with those two casts, is
+printed beside it). Each variant's distance from the CPU's f64 gradient says
+how much of the card's distance that part's f32 arithmetic accounts for.
 """
 from __future__ import annotations
 
@@ -60,6 +71,113 @@ def loss_and_grads(cfg, params, device, dtype=torch.float32) -> list:
     loss = bns._loss_fn(bns.ns_sampler(field), th, x0, x1)
     grads = torch.autograd.grad(loss, list(th))
     return [loss.detach().double().cpu()] + [g.double().cpu() for g in grads]
+
+
+def _cast(x, dtype):
+    if isinstance(x, torch.Tensor) and x.is_floating_point():
+        return x.to(dtype)
+    if isinstance(x, dict):
+        return {k: _cast(v, dtype) for k, v in x.items()}
+    if isinstance(x, (tuple, list)):
+        return type(x)(_cast(v, dtype) for v in x)
+    return x
+
+
+def in_f64(fn):
+    """fn with its floating-point tensor arguments (params dicts included)
+    cast to f64 and its results cast back to f32."""
+    def wrapped(*args, **kw):
+        return _cast(fn(*_cast(args, torch.float64), **_cast(kw, torch.float64)),
+                     torch.float32)
+    return wrapped
+
+
+def with_f32_gla():
+    """ops.gla on the f32 kernels for f64 callers: inputs cast down, the
+    output and state cast back to the caller's dtype (a context)."""
+    from repro_torch.kernels.gla_scan import ops
+
+    inner = ops.gla
+
+    def gla(q, k, v, ld, s0=None, *, inclusive=True, chunk=64):
+        out = inner(*_cast((q, k, v, ld, s0), torch.float32), inclusive=inclusive,
+                    chunk=chunk)
+        return _cast(out, v.dtype)
+
+    return _patched(ops, "gla", gla)
+
+
+def rms_norm_kept(x, weight, eps: float = 1e-5):
+    """layers.rms_norm in x's dtype where that is f64 (the model's casts to
+    f32 whatever x is); the same f32 arithmetic otherwise."""
+    from repro_torch.models.layers import rms_norm
+
+    if x.dtype != torch.float64:
+        return rms_norm(x, weight, eps)
+    return x * torch.rsqrt(torch.mean(x * x, dim=-1, keepdim=True) + eps) * weight.to(x.dtype)
+
+
+def decay_kept(decay):
+    """rwkv6._decay (``decay``) in m_w's dtype where that is f64 (the model's
+    casts the exponent to f32); the same f32 arithmetic otherwise."""
+    def kept(p, m_w):
+        if m_w.dtype != torch.float64:
+            return decay(p, m_w)
+        lora = torch.tanh(m_w @ p["w_lora_a"]) @ p["w_lora_b"]
+        return -torch.exp(p["w0"].to(m_w.dtype) + lora)
+    return kept
+
+
+# part -> the rwkv6 module's functions computed in f64 for it
+PARTS = {
+    "decay -exp(w0 + lora)": ("_decay",),
+    "token-shift mixes": ("_mixes",),
+    "rms_norm (norm1, norm2, ln_x, final)": ("rms_norm",),
+    "channel mix (its f32 matmuls, relu^2, sigmoid)": ("_channel_mix",),
+    "time mix but the recurrence (projections, decay, mixes, bonus, ln_x)":
+        ("_time_mix_seq",),
+    "the whole layer but the recurrence": ("_seq_layer",),
+}
+
+
+def parts_report(dev) -> None:
+    """rwkv6-7b at 1 layer, f32 on the card, one part at a time in f64."""
+    from repro_torch.models import rwkv6
+    from repro_torch.optim.adam import tree_map
+
+    arch = "rwkv6-7b"
+    cfg, on_card, on_cpu = chip_smoke.card_drawn_model(dev, arch, 1)
+    cfg64 = dataclasses.replace(cfg, dtype="float64")
+    as64 = lambda params: tree_map(lambda t: t.double(), params)  # noqa: E731
+    runs = {"card": loss_and_grads(cfg, on_card, dev),
+            "cpu f64 (rms_norm and the decay round to f32, as 26b's)":
+                loss_and_grads(cfg64, as64(on_cpu), "cpu", torch.float64)}
+    kept = [_patched(rwkv6, "rms_norm", rms_norm_kept),
+            _patched(rwkv6, "_decay", decay_kept(rwkv6._decay))]
+    for ctx in kept:
+        ctx.__enter__()
+    try:
+        for part, names in PARTS.items():
+            patches = [_patched(rwkv6, n, in_f64(getattr(rwkv6, n))) for n in names]
+            for ctx in patches:
+                ctx.__enter__()
+            try:
+                with with_f32_gla():
+                    runs[f"card, {part} in f64"] = loss_and_grads(cfg, on_card, dev)
+            finally:
+                for ctx in reversed(patches):
+                    ctx.__exit__()
+        runs["cpu f32"] = loss_and_grads(cfg, on_cpu, "cpu")
+        runs["cpu f64"] = loss_and_grads(cfg64, as64(on_cpu), "cpu", torch.float64)
+    finally:
+        for ctx in reversed(kept):
+            ctx.__exit__()
+    for name, got in runs.items():
+        f64 = distances(got, runs["cpu f64"])
+        card = distances(got, runs["card"])
+        print(f"{arch} (1 layer f32) {name}: relative L2 of loss, d/d time_logits, d/da, "
+              f"d/db against the CPU's f64 {[f'{x:.2e}' for x in f64]}, against the "
+              f"card's f32 {[f'{x:.2e}' for x in card]}")
 
 
 def distances(got: list, want: list) -> list:
@@ -108,6 +226,8 @@ class _patched:
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--archs", nargs="+", default=list(DEPTH), choices=list(DEPTH))
+    ap.add_argument("--parts", action="store_true",
+                    help="rwkv6-7b at 1 layer, one part of the layer at a time in f64")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("grad_f32_conditioning: no CUDA device", file=sys.stderr)
@@ -120,6 +240,9 @@ def main(argv=None) -> int:
                          text=True).stdout.strip())
     from repro_torch.optim.adam import tree_map
 
+    if args.parts:
+        parts_report(dev)
+        return 0
     for arch in args.archs:
         cfg, on_card, on_cpu = chip_smoke.card_drawn_model(dev, arch, DEPTH[arch])
         runs = {"card": loss_and_grads(cfg, on_card, dev)}

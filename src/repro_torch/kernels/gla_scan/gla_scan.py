@@ -16,10 +16,14 @@ pads it), an initial state, and one decay per head (ld's last dim 1, read
 with a stride of 0).
 
 ``gla_scan_bwd`` computes the gradients (``ref.gla_chunked_bwd``'s closed
-form) on the CUDA cores: one block a (batch row, head) recomputes its chunks'
-starting states, then walks the chunks in reverse carrying the state's
-gradient. q and k may be one group broadcast over the heads ((B, L, 1, dk)):
-their gradients are then summed over the heads in the library.
+form): one block a (batch row, head) walks its chunks forwards from s0, then
+in reverse carrying the state's gradient. Its C entry point picks one of two
+kernels by the forward's rule (``bwd_kernel_for`` names it): the tensor-core
+kernel (16-row sub-chunks, ``mma.sync`` products; the forward sweep leaves
+dq's state term in the scratch) or the CUDA-core one (the forward sweep
+leaves each chunk's starting state). q and k may be one group broadcast over
+the heads ((B, L, 1, dk)): their gradients are then summed over the heads in
+the library.
 """
 from __future__ import annotations
 
@@ -129,9 +133,21 @@ def _bwd_lib():
         fn.argtypes = ([ctypes.c_int] * 5 + [ctypes.c_void_p] * 15 + [ctypes.c_int] * 6
                        + [ctypes.c_void_p, ctypes.c_void_p])
         fn.restype = ctypes.c_int
-        lib.gla_scan_bwd_smem_bytes.argtypes = [ctypes.c_int] * 3
+        lib.gla_scan_bwd_smem_bytes.argtypes = [ctypes.c_int] * 4
         lib.gla_scan_bwd_smem_bytes.restype = ctypes.c_longlong
+        lib.gla_scan_bwd_uses_mma.argtypes = [ctypes.c_int] * 4
+        lib.gla_scan_bwd_uses_mma.restype = ctypes.c_int
     return lib
+
+
+def bwd_kernel_for(dtype: torch.dtype, L: int, dk: int, dv: int, chunk: int = 64) -> str:
+    """Which kernel ``gla_scan_bwd`` launches for q, k, v of ``dtype`` at these
+    sizes: "tensor-core" or "CUDA-core" (the C library's own rule, the
+    forward's)."""
+    if dtype not in _DTYPES:
+        raise TypeError(f"gla_scan_bwd takes float32 or bfloat16 q, k, v, got {dtype}")
+    mma = _bwd_lib().gla_scan_bwd_uses_mma(_DTYPES[dtype], dk, dv, min(chunk, L))
+    return "tensor-core" if mma else "CUDA-core"
 
 
 def gla_scan_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, ld: torch.Tensor,
@@ -183,7 +199,7 @@ def gla_scan_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, ld: torch.Te
         raise ValueError("gla_scan_bwd arguments lie on different devices")
     chunk = min(chunk, L)
     lib = _bwd_lib()
-    smem = lib.gla_scan_bwd_smem_bytes(dk, dv, chunk)
+    smem = lib.gla_scan_bwd_smem_bytes(_DTYPES[q.dtype], dk, dv, chunk)
     if smem > MAX_SMEM_BYTES:
         raise ValueError(f"gla_scan_bwd at dk={dk}, dv={dv}, chunk={chunk} needs {smem} "
                          f"bytes of shared memory a block, over the {MAX_SMEM_BYTES} "
@@ -196,7 +212,11 @@ def gla_scan_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, ld: torch.Te
     ldx = ld.expand(B, L, H, dk)         # one decay a head: a stride of 0 on d
     dev = q.device
     n_chunks = -(-L // chunk)
-    states = torch.empty((B, H, n_chunks, dk, dv), dtype=torch.float32, device=dev)
+    # the tensor-core kernel's forward sweep leaves dq's state term (c rows of
+    # dk a chunk), the CUDA-core one's each chunk's starting state (dk x dv)
+    per_chunk = (chunk if lib.gla_scan_bwd_uses_mma(_DTYPES[q.dtype], dk, dv, chunk)
+                 else dv) * dk
+    scratch = torch.empty((B, H, n_chunks, per_chunk), dtype=torch.float32, device=dev)
     dq = torch.empty(q.shape, dtype=q.dtype, device=dev)
     dk_ = torch.empty(k.shape, dtype=k.dtype, device=dev)
     dv_ = torch.empty(v.shape, dtype=v.dtype, device=dev)
@@ -211,7 +231,7 @@ def gla_scan_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, ld: torch.Te
         err = lib.gla_scan_bwd(
             _DTYPES[q.dtype], _DTYPES[ld.dtype], int(inclusive), int(ld.shape[3] != dk),
             int(group), qx.data_ptr(), kx.data_ptr(), v.data_ptr(), ldx.data_ptr(),
-            do.data_ptr(), ptr(s0f), ptr(dSf), states.data_ptr(), dq.data_ptr(),
+            do.data_ptr(), ptr(s0f), ptr(dSf), scratch.data_ptr(), dq.data_ptr(),
             dk_.data_ptr(), None if ws is None else ws[0].data_ptr(),
             None if ws is None else ws[1].data_ptr(), dv_.data_ptr(), dld.data_ptr(),
             ptr(ds0), B, L, H, dk, dv, chunk, (ctypes.c_longlong * 20)(*strides), stream)

@@ -151,6 +151,42 @@ def test_gla_scan_bf16_kernel_is_sub_chunked_on_the_tensor_cores():
     assert entry.count("launch_mma<") == 2 and "if (uses_mma(" in entry
 
 
+def test_gla_scan_bwd_bf16_kernel_is_sub_chunked_on_the_tensor_cores():
+    """The backward's bf16 kernel runs its products as mma.sync m16n8k16 bf16
+    with f32 sums on ldmatrix fragments; it is chosen by the forward's rule
+    (type and shape alone, no launch retried on the other kernel); and no
+    sum goes through an atomic, so two runs give the same bits."""
+    src = Path(build.CSRC, "gla_scan_bwd.cu").read_text()
+    assert "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32" in src
+    assert "ldmatrix.sync.aligned.m8n8.x4.shared.b16" in src
+    assert "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16" in src
+    rule = src[src.index("bool uses_mma("):].split("}")[0]
+    for term in ("qkv_dtype == 1", "dk % 16 == 0", "dv % 16 == 0", "dk <= 128", "dv <= 128",
+                 "c == 16 || c == 32 || c == 64"):
+        assert term in rule
+    entry = src[src.index('extern "C" int gla_scan_bwd('):]
+    assert entry.count("launch_mma(") == 1 and "if (uses_mma(" in entry
+    assert entry.index("if (uses_mma(") < entry.index("launch_mma(") < entry.index("launch<")
+    assert 'extern "C" int gla_scan_bwd_uses_mma(' in src
+    assert "atomicAdd" not in src and not re.search(r"\b(atom|red)\.", src)
+
+
+GLA_BWD_FAULTS = ["diagonal mask off by one", "a lo part dropped",
+                  "a reference point moved by a row", "dld's carry dropped"]
+
+
+@pytest.mark.parametrize("fault", GLA_BWD_FAULTS)
+def test_gla_bwd_fault_check_plants_each_fault_in_the_kernel_source(fault):
+    """scripts/gla_bwd_fault_check.py replaces text of csrc/gla_scan_bwd.cu;
+    each target must occur exactly once, or the script errors or checks
+    nothing."""
+    mod = _script("gla_bwd_fault_check")
+    assert sorted(mod.FAULTS) == sorted(GLA_BWD_FAULTS)
+    old, new = mod.FAULTS[fault]
+    src = Path(build.CSRC, "gla_scan_bwd.cu").read_text()
+    assert src.count(old) == 1 and new != old
+
+
 PAGED_FAULTS = ["merge drops the last split", "merge skips the rescale",
                 "reads one position past the length", "split boundary moved by one"]
 
@@ -263,7 +299,7 @@ def test_backward_bindings_match_the_c_signatures(monkeypatch):
     """The ctypes argument types the wrappers set follow the C entry points'
     parameters, for the flash forward (with its lse pointer), the flash
     backward (with its dk/dv flag), the ns_update backward and the gla_scan
-    backward."""
+    backward (and its kernel rule)."""
     import ctypes
 
     from repro_torch.kernels.flash_attention import flash_attention as fa_mod
@@ -278,6 +314,7 @@ def test_backward_bindings_match_the_c_signatures(monkeypatch):
         ns_update_bwd_max_blocks = _FakeFn()
         gla_scan_bwd = _FakeFn()
         gla_scan_bwd_smem_bytes = _FakeFn()
+        gla_scan_bwd_uses_mma = _FakeFn()
 
     lib = Lib()
     monkeypatch.setattr(build, "load", lambda name: lib)
@@ -290,7 +327,8 @@ def test_backward_bindings_match_the_c_signatures(monkeypatch):
                           ("flash_attention_bwd", "flash_attention_bwd.cu"),
                           ("ns_update_fwd", "ns_update.cu"),
                           ("ns_update_bwd", "ns_update.cu"),
-                          ("gla_scan_bwd", "gla_scan_bwd.cu")):
+                          ("gla_scan_bwd", "gla_scan_bwd.cu"),
+                          ("gla_scan_bwd_uses_mma", "gla_scan_bwd.cu")):
         fn = getattr(lib, entry)
         assert fn.argtypes == _ctypes_of(_c_params(source, entry)), entry
         assert fn.restype is ctypes.c_int

@@ -928,9 +928,16 @@ def _relative_l2(got, want):
                  / torch.linalg.vector_norm(want).clamp_min(1e-30))
 
 
-# f32 inputs 1e-5, bf16 2e-2 (chip_smoke.py's limits), relative L2 against
-# the plain backward taken in f64 on the same inputs
+# f32 inputs 1e-5, bf16 2e-2, a gradient kept in f32 for bf16 inputs (dld of
+# an f32 ld, ds0) 1e-3 (chip_smoke.py's limits), relative L2 against the
+# plain backward taken in f64 on the same inputs
 GLA_BWD_TOL = {torch.float32: 1e-5, torch.bfloat16: 2e-2}
+
+
+def _gla_bwd_limit(qkv_dtype, out_dtype):
+    if qkv_dtype == torch.bfloat16 and out_dtype == torch.float32:
+        return 1e-3
+    return GLA_BWD_TOL[qkv_dtype]
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -943,10 +950,13 @@ GLA_BWD_TOL = {torch.float32: 1e-5, torch.bfloat16: 2e-2}
 def test_gla_scan_bwd_matches_plain(dev, B, L, H, dk, dv, chunk, state, form, dtype):
     """The backward kernel against ``gla_chunked_bwd`` in f64 on the same
     inputs: rwkv6's exclusive form (per-channel decay), the inclusive form,
-    and zamba2's (inclusive, q and k one group, one decay a head)."""
+    and zamba2's (inclusive, q and k one group, one decay a head). bf16 runs
+    the tensor-core kernel at these sizes, f32 the CUDA-core one."""
     from repro_torch.kernels.gla_scan import gla_scan as gs_mod
     from repro_torch.kernels.gla_scan.ref import gla_chunked_bwd
 
+    want_kernel = "tensor-core" if dtype == torch.bfloat16 else "CUDA-core"
+    assert gs_mod.bwd_kernel_for(dtype, L, dk, dv, chunk) == want_kernel
     rng = np.random.default_rng(L + H + dk)
     group = form == "group"
     Hq = 1 if group else H
@@ -968,10 +978,50 @@ def test_gla_scan_bwd_matches_plain(dev, B, L, H, dk, dv, chunk, state, form, dt
             assert g is None
             continue
         assert g.shape == like.shape and g.dtype == like.dtype
-        assert _relative_l2(g, w) <= GLA_BWD_TOL[dtype]
+        assert _relative_l2(g, w) <= _gla_bwd_limit(dtype, g.dtype)
     again = gs_mod.gla_scan_bwd(q, k, v, ld, s0, do, dS, inclusive=inclusive, chunk=chunk)
     for g, a in zip(got, again):
         assert (g is None and a is None) or torch.equal(g, a)
+
+
+@pytest.mark.parametrize("form", ["exclusive", "inclusive", "group"])
+def test_gla_scan_bwd_strong_decay_on_the_tensor_cores(dev, form):
+    """Strong decay (x30: most factors underflow) in bf16 on the tensor-core
+    kernel, a ragged tail, s0 and dS_final: finite, within the bf16 limit of
+    ``gla_chunked_bwd`` in f64, and bit-equal on a rerun."""
+    from repro_torch.kernels.gla_scan import gla_scan as gs_mod
+    from repro_torch.kernels.gla_scan.ref import gla_chunked_bwd
+
+    B, L, H, dk, dv, chunk = 2, 200, 4, 64, 64, 64
+    assert gs_mod.bwd_kernel_for(torch.bfloat16, L, dk, dv, chunk) == "tensor-core"
+    rng = np.random.default_rng(30)
+    group = form == "group"
+    q, k = (_randn(rng, (B, L, 1 if group else H, dk), torch.bfloat16, dev) for _ in "qk")
+    v, do = (_randn(rng, (B, L, H, dv), torch.bfloat16, dev) for _ in "vo")
+    ld = -(_randn(rng, (B, L, H, 1 if group else dk), torch.float32, dev).abs() * 30.0)
+    s0, dS = (_randn(rng, (B, H, dk, dv), torch.float32, dev) for _ in "sd")
+    inclusive = form != "exclusive"
+    got = gs_mod.gla_scan_bwd(q, k, v, ld, s0, do, dS, inclusive=inclusive, chunk=chunk)
+    want = gla_chunked_bwd(*(t.double() for t in (q, k, v, ld, s0, do, dS)),
+                           inclusive=inclusive, chunk=chunk)
+    for g, w in zip(got, want):
+        assert bool(torch.isfinite(g.float()).all())
+        assert _relative_l2(g, w) <= _gla_bwd_limit(torch.bfloat16, g.dtype)
+    again = gs_mod.gla_scan_bwd(q, k, v, ld, s0, do, dS, inclusive=inclusive, chunk=chunk)
+    assert all(torch.equal(g, a) for g, a in zip(got, again))
+
+
+def test_gla_scan_bwd_refuses_a_plan_past_shared_memory(dev):
+    """dk = dv = 128 at a chunk of 64 needs more shared memory a block than
+    the card gives, in either kernel: the wrapper raises before a launch."""
+    from repro_torch.kernels.gla_scan import gla_scan as gs_mod
+
+    x = torch.zeros((1, 64, 1, 128), dtype=torch.bfloat16, device=dev)
+    ld = torch.zeros((1, 64, 1, 128), device=dev)
+    before = gs_mod.BWD_COUNTER.launches
+    with pytest.raises(ValueError, match="shared memory"):
+        gs_mod.gla_scan_bwd(x, x, x, ld, None, x, None, chunk=64)
+    assert gs_mod.BWD_COUNTER.launches == before
 
 
 @pytest.mark.parametrize("needs_grad", ["q", "v", "ld"])
