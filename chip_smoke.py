@@ -39,8 +39,9 @@ Phases (any failure ends the run with a non-zero exit and no last line):
    prints the bytes with q and k read by every (b, h) block.
 3c. Backward kernels against their plain versions on the same card inputs:
    the ns_update backward at the flow cell's k = 1 and k = 8 live rows (and
-   bf16, a ragged D), its dot products held to TOL times the sum of their
-   terms' magnitudes; the flash backward in bf16 and f32 at the flow cell's
+   bf16, a ragged D, k = 64), its dot products held to TOL times the sum of
+   their terms' magnitudes, each case's bits equal on a second call and
+   replayed from a CUDA graph; the flash backward in bf16 and f32 at the flow cell's
    shape, non-causal, at a ragged L and at small GQA shapes (bf16 under
    FLASH_BWD_BF16, f32 under 4 TOL), each after the forward kernel's lse is
    held against the plain log-sum-exp. Timed (CUDA events) beside the plain
@@ -466,7 +467,23 @@ Phases (any failure ends the run with a non-zero exit and no last line):
     backward once a step: rwkv6-7b gla_scan 1 and gla_scan_bwd 1 a step,
     zamba2-2.7b 6 and 6 with flash 1 and 1, whisper-medium flash 3 and 3);
     ms a step and peak memory printed (29a, 29b, 29c).
-30. The script's wall time, one JSON line listing the kernels (the
+30. ``model.lm_apply`` (full-sequence logits), one call a family on the
+    full-width weights a phase already holds: 4 (yi-6b), 8 (rwkv6-7b), 17
+    (zamba2-2.7b), 18 (qwen3-moe-30b-a3b), 21 (whisper-medium, its 1500 stub
+    frames) and 22 (internvl2-26b, its 256 patches), at the phase's batch and
+    seq 1024 with ``last_only``: ms, peak GiB and launches, held to the
+    formula (flash once a layer for the dense, moe and vlm families, once a
+    shared-attention site for zamba2-2.7b, 3 a layer pair for whisper-medium;
+    gla_scan once a layer for rwkv6-7b and zamba2-2.7b). On yi-6b also the
+    full call (its last row within 2e-2 of the ``last_only`` one) and
+    token-by-token ``decode_apply`` over the first LM_DECODE_STEPS positions
+    (within 2e-2 of ``lm_apply``'s logits, the same argmax). Each family's
+    2-layer f32 model (phases 5, 9, 17b, 18b, 21b, 22b) card vs CPU at seq
+    64: relative L2 <= 1e-4.
+31. The examples' twins (``examples/torch``) run in-process on the card at
+    their smallest knobs (TWIN_ARGS), each printing its board: quickstart
+    (BNS wins), solver_zoo, gateway_demo, serve_decode and train_flow_lm.
+32. The script's wall time, one JSON line listing the kernels (the
     ns_update and flash entries, forward and backward, with phases 4b, 5b,
     12b, 12c, 12d, 13b, 13c, 14a, 14b, 14c, 16 and 17-17d's launches and
     ms beside the main path's; every entry with phases 18-20's; the flash
@@ -644,6 +661,12 @@ FAMILY_TRAIN_STEPS = 3
 # the kernels add nothing to it
 GRAD_F32_FLOOR, GRAD_F32_FACTOR = 2.5e-5, 4.0
 FAMILY_PHASE = {"rwkv6-7b": "26", "zamba2-2.7b": "27", "whisper-medium": "28"}
+LM_SEQ, LM_DECODE_STEPS, LM_CPU_SEQ = 1024, 32, 64        # phase 30
+LM_RUNS: dict = {}                                         # phase 30, by arch
+TWIN_ARGS = {"quickstart": ["--pairs", "64", "--iterations", "100"],       # phase 31
+             "solver_zoo": [], "gateway_demo": [],
+             "serve_decode": ["--batch", "2", "--steps", "4"],
+             "train_flow_lm": ["--steps", "2", "--iterations", "4", "--pairs", "4"]}
 # the flash backward's passes by kernel name (in bf16 and f32 alike)
 BWD_PASSES = ("flash_bwd_dq", "flash_bwd_dkdv")
 
@@ -887,10 +910,12 @@ def flash_cases(dev):
 
 def ns_update_bwd_cases(dev):
     """Phase 3c: the ns_update backward at the flow cell's shapes (k = 1 and 8
-    live rows of B=4 x D=65536), in bf16, at a ragged D and without dx0.
-    dU and dx0 are one f32 product each, as in the plain version (limit TOL);
-    da and dw are f32 sums over N products, held to TOL times the sum of the
-    products' magnitudes (the scale of a reordered f32 sum's error)."""
+    live rows of B=4 x D=65536), in bf16, at a ragged D, at k = 64 and
+    without dx0. dU and dx0 are one f32 product each, as in the plain
+    version (limit TOL); da and dw are f32 sums over N products, held to TOL
+    times the sum of the products' magnitudes (the scale of a reordered f32
+    sum's error). Every case gives the same bits on a second call and
+    replayed from a CUDA graph."""
     from repro_torch.kernels.ns_update.ns_update import ns_update_bwd
     from repro_torch.kernels.ns_update.ref import ns_update_bwd_ref
 
@@ -899,7 +924,8 @@ def ns_update_bwd_cases(dev):
     for n, B, D, dtype, need_x0 in [(NFE, BATCH, SEQ * 64, torch.float32, False),  # main path
                                     (1, BATCH, SEQ * 64, torch.float32, False),
                                     (NFE, BATCH, SEQ * 64, torch.bfloat16, True),
-                                    (20, 3, 1000, torch.float32, True)]:          # ragged D
+                                    (20, 3, 1000, torch.float32, True),           # ragged D
+                                    (64, 2, 4096, torch.float32, True)]:
         x0, grad = (torch.randn((B, D), generator=g, device=dev).to(dtype) for _ in "xg")
         u = torch.randn((n, B, D), generator=g, device=dev).to(dtype)
         a = torch.randn((), generator=g, device=dev)
@@ -922,6 +948,16 @@ def ns_update_bwd_cases(dev):
             raise SystemExit(f"ns_update_bwd [{shape}]: da, dw vs plain at {ratio:.3f} of "
                              f"the limit (TOL x the sum of |terms|)")
         err = max(err, float((dots - dots_ref).abs().max()))
+        again = ns_update_bwd(grad, x0, u, a, w, need_x0=need_x0)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            graphed = ns_update_bwd(grad, x0, u, a, w, need_x0=need_x0)
+        graph.replay()
+        torch.cuda.synchronize(dev)
+        for what, runs in (("a second call", again), ("a graph replay", graphed)):
+            if not all(x is None or torch.equal(x, y) for x, y in zip(got, runs)):
+                raise SystemExit(f"ns_update_bwd [{shape}]: {what} differs from the first "
+                                 "call's bits")
         N, size = x0.numel(), x0.element_size()
         b_ms, b_by = bound((2 + 2 * n + need_x0) * N * size, (3 * n + 2 + need_x0) * N, dtype)
         rows.append(dict(
@@ -1429,10 +1465,11 @@ def free_device_memory(dev) -> None:
 
 
 def flow_path(dev, counters, arch: str, want: dict, graphs: dict, requests: int = REQUESTS,
-              programs: bool = True) -> tuple[dict, dict]:
+              programs: bool = True, lm: bool = False) -> tuple[dict, dict]:
     """serve.main in flow mode at full width, ``requests`` requests; launch
-    counts must be ``want``. Then (``programs``) phase 15's case on the
-    served sampler, into ``graphs``. Returns the launches and the run's
+    counts must be ``want``. Then (``lm``) phase 30's ``lm_apply`` on the
+    served weights, into ``LM_RUNS``, and (``programs``) phase 15's case on
+    the served sampler, into ``graphs``. Returns the launches and the run's
     request ms, peak memory, wall and capture ms."""
     from repro_torch.launch import serve
 
@@ -1460,10 +1497,170 @@ def flow_path(dev, counters, arch: str, want: dict, graphs: dict, requests: int 
           f"peak memory {peak / 2**30:.3f} GiB, main() wall {wall:.3f} s, programs "
           f"{served.sampler.programs.stats()}")
     capture_ms = served.sampler.programs.stats().get("capture_ms")
+    if lm:
+        LM_RUNS[arch] = lm_apply_full_width(dev, counters, served.sampler)
     if programs:
         graphs.update(flow_programs(dev, counters, served.sampler, arch, SEQ))
     return launches, {"request_ms": [s.ms for s in served], "peak_gib": peak / 2**30,
                       "wall_s": wall, "capture_ms": capture_ms}
+
+
+def lm_launches(cfg) -> dict:
+    """Phase 30's formula: the kernels one ``lm_apply`` launches."""
+    out = dict.fromkeys(KERNELS, 0)
+    if cfg.family == "ssm":
+        out["gla_scan"] = cfg.n_layers
+    elif cfg.family == "hybrid":
+        out["gla_scan"] = cfg.n_layers
+        out["flash_attention"] = cfg.n_layers // cfg.hybrid_attn_every
+    elif cfg.family == "encdec":
+        out["flash_attention"] = cfg.n_encoder_layers + 2 * cfg.n_layers
+    else:
+        out["flash_attention"] = cfg.n_layers
+    return out
+
+
+def lm_batch(cfg, B: int, S: int, device) -> dict:
+    """``lm_apply``'s batch: numpy-seeded tokens, and the stub frontend's
+    frames (encdec) or patches (vlm), 0.05 x standard normal, on ``device``."""
+    rng = np.random.default_rng(S)
+    batch = {"tokens": torch.from_numpy(rng.integers(0, cfg.vocab, size=(B, S)))}
+    if cfg.family in ("encdec", "vlm"):
+        width = cfg.d_model if cfg.family == "encdec" else cfg.frontend.embed_dim
+        stub = 0.05 * rng.standard_normal((B, cfg.frontend.num_tokens, width))
+        batch["frames" if cfg.family == "encdec" else "patches"] = torch.from_numpy(
+            stub.astype(np.float32))
+    return {k: v.to(device) for k, v in batch.items()}
+
+
+def lm_apply_full_width(dev, counters, sampler) -> dict:
+    """Phase 30 at full width: ``lm_apply(last_only=True)`` on the served
+    weights, batch BATCH x LM_SEQ (a warm-up call, then a timed one): launches
+    equal to the formula, finite (B, 1, V) logits, ms and peak memory. On
+    yi-6b also the full call and the decode check (module docstring)."""
+    from repro_torch.models import model as M
+
+    cfg, params = sampler.cfg, sampler.params
+    batch = lm_batch(cfg, BATCH, LM_SEQ, dev)
+    with torch.no_grad():
+        M.lm_apply(params, cfg, batch, last_only=True)
+        torch.cuda.synchronize(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+        before = {name: c.launches for name, c in counters.items()}
+        t0 = time.perf_counter()
+        last = M.lm_apply(params, cfg, batch, last_only=True)
+        torch.cuda.synchronize(dev)
+        ms = (time.perf_counter() - t0) * 1e3
+        ran = launched(counters, before)
+    peak = torch.cuda.max_memory_allocated(dev) / 2**30
+    want = lm_launches(cfg)
+    if ran != want:
+        raise SystemExit(f"{cfg.name} lm_apply launched {ran}, expected {want}")
+    if last.shape != (BATCH, 1, cfg.vocab) or not bool(torch.isfinite(last).all()):
+        raise SystemExit(f"{cfg.name} lm_apply: logits {tuple(last.shape)}, finite "
+                         f"{bool(torch.isfinite(last).all())}")
+    out = {"ms": ms, "peak_gib": peak, "launches": {k: v for k, v in ran.items() if v}}
+    if cfg.name == "yi-6b":
+        out.update(lm_decode_check(dev, cfg, params, batch, last))
+    print(f"phase 30 [{cfg.name}]: lm_apply last_only, batch {BATCH} x {LM_SEQ}, full width "
+          f"and depth: {ms:.1f} ms, peak {peak:.3f} GiB, launches {out['launches']} (the "
+          f"formula)" + "".join(f", {k} {v}" for k, v in out.items()
+                                if k not in ("ms", "peak_gib", "launches")))
+    return out
+
+
+def lm_decode_check(dev, cfg, params, batch: dict, last: torch.Tensor) -> dict:
+    """yi-6b at full width: the full call's last row against ``last_only``'s
+    (bf16, within 2e-2), and ``decode_apply`` token by token over the first
+    LM_DECODE_STEPS positions against the full call's logits there, on an
+    f32 copy of the weights (``tests/test_archs_smoke.py``'s check: within
+    2e-2, the same argmax). In bf16 the two paths round at different places
+    through 32 layers: their distance is printed, not held."""
+    from repro_torch.models import model as M
+    from repro_torch.models.transformer import cast_params
+
+    def decoded(weights) -> torch.Tensor:
+        state = M.init_decode_state(cfg, BATCH, LM_DECODE_STEPS, weights["embed"].dtype, dev)
+        return torch.stack([M.decode_apply(weights, cfg, batch["tokens"][:, i], state)[0]
+                            for i in range(LM_DECODE_STEPS)], dim=1).float()
+
+    bf16 = TOL[torch.bfloat16]
+    with torch.no_grad():
+        full = M.lm_apply(params, cfg, batch)
+        err_last = check_close("lm_apply full vs last_only", full[:, -1:], last,
+                               atol=bf16, rtol=bf16)
+        head = full[:, :LM_DECODE_STEPS].float()
+        del full
+        gap = (decoded(params) - head).abs()
+        out = {"full_vs_last_max_abs": err_last,
+               "bf16_decode_vs_lm_max_abs": float(gap.max()),
+               "bf16_decode_vs_lm_outside_2e-2": float((gap > bf16 + bf16 * head.abs())
+                                                       .float().mean())}
+        del gap, head
+        weights = cast_params(params, torch.float32)
+        ref = M.lm_apply(weights, cfg, batch)[:, :LM_DECODE_STEPS].float()
+        dec = decoded(weights)
+        del weights
+    out["decode_vs_lm_max_abs"] = check_close("decode_apply vs lm_apply (f32 weights)", dec,
+                                              ref, atol=bf16, rtol=bf16)
+    out["decode_argmax_equal"] = bool(torch.equal(dec.argmax(-1), ref.argmax(-1)))
+    if not out["decode_argmax_equal"]:
+        raise SystemExit(f"decode_apply vs lm_apply: argmax differs at "
+                         f"{int((dec.argmax(-1) != ref.argmax(-1)).sum())} positions")
+    return out
+
+
+def lm_against_cpu(dev, counters, cfg, params, on_card=None) -> float:
+    """Phase 30 on a 2-layer f32 model: ``lm_apply`` on the card
+    (``on_card``, or ``params`` copied there) and on the CPU (``params``),
+    batch 2 x LM_CPU_SEQ, the same inputs: relative L2 of the logits <= 1e-4,
+    the card run's launches equal to the formula."""
+    from repro_torch.models import model as M
+    from repro_torch.models.transformer import params_to
+
+    batch = lm_batch(cfg, 2, LM_CPU_SEQ, "cpu")
+    card_params = params_to(params, dev) if on_card is None else on_card
+    before = {name: c.launches for name, c in counters.items()}
+    with torch.no_grad():
+        got = M.lm_apply(card_params, cfg, {k: v.to(dev) for k, v in batch.items()})
+        torch.cuda.synchronize(dev)
+        ran = launched(counters, before)
+        want = M.lm_apply(params, cfg, batch)
+    if ran != lm_launches(cfg):
+        raise SystemExit(f"{cfg.name} lm_apply card run launched {ran}, expected "
+                         f"{lm_launches(cfg)}")
+    rel = relative_l2(got.cpu(), want)
+    print(f"phase 30 [{cfg.name}]: lm_apply card vs CPU (2 layers, f32, batch 2 x "
+          f"{LM_CPU_SEQ}): relative L2 {rel:.3e} (limit 1e-4)")
+    if not rel <= 1e-4:
+        raise SystemExit(f"lm_apply {cfg.name}: card vs CPU relative L2 {rel} over 1e-4")
+    LM_RUNS.setdefault("card_vs_cpu", {})[cfg.name] = rel
+    return rel
+
+
+def twins(dev, counters, card: str) -> dict:
+    """Phase 31: each twin's ``main`` in-process on the card at TWIN_ARGS,
+    its board printed; returns seconds and launches a twin."""
+    import importlib.util
+
+    out = {}
+    for name, args in TWIN_ARGS.items():
+        spec = importlib.util.spec_from_file_location(
+            f"twin_{name}", ROOT / "examples" / "torch" / f"{name}.py")
+        mod = importlib.util.module_from_spec(spec)
+        spec.loader.exec_module(mod)
+        free_device_memory(dev)
+        before = {k: c.launches for k, c in counters.items()}
+        t0 = time.perf_counter()
+        print(f"phase 31 [{' '.join([name, *args])}] ({card}):")
+        result = mod.main(["--device", "cuda", *args])
+        torch.cuda.synchronize(dev)
+        out[name] = {"s": time.perf_counter() - t0,
+                     "launches": {k: v for k, v in launched(counters, before).items() if v}}
+        if name == "quickstart":
+            out[name]["psnr"] = result
+        print(f"phase 31 [{name}]: {out[name]['s']:.1f} s, launches {out[name]['launches']}")
+    return out
 
 
 def small_model(arch: str):
@@ -3408,7 +3605,7 @@ def zamba2_paths(dev, counters, card: str, graphs: dict) -> dict:
     out["launches"], out["flow"] = flow_path(
         dev, counters, "zamba2-2.7b",
         {**zero, "ns_update": flows, "flash_attention": ZAMBA_SITES * flows,
-         "gla_scan": ZAMBA_LAYERS * flows}, graphs)
+         "gla_scan": ZAMBA_LAYERS * flows}, graphs, lm=True)
     wall["17+15"] = time.perf_counter() - t0
     print(f"phase 17 ({card}): zamba2-2.7b flow request ms "
           f"{[round(x, 3) for x in out['flow']['request_ms']]}, peak memory "
@@ -3418,6 +3615,7 @@ def zamba2_paths(dev, counters, card: str, graphs: dict) -> dict:
     out["flow_rel_l2"] = whole_path_against_cpu(
         dev, counters, cfg, params,
         {**zero, "ns_update": 4, "flash_attention": 4, "gla_scan": 2 * 4})
+    lm_against_cpu(dev, counters, cfg, params)
     wall["17b"] = time.perf_counter() - t0
     t0 = time.perf_counter()
     out["decode"] = {}
@@ -3536,7 +3734,7 @@ def moe_paths(dev, counters, card: str, graphs: dict) -> dict:
     t0 = time.perf_counter()
     phases["18"], out["flow"] = flow_path(
         dev, counters, MOE_ARCH,
-        {**zero, "ns_update": flows, "flash_attention": MOE_LAYERS * flows}, graphs)
+        {**zero, "ns_update": flows, "flash_attention": MOE_LAYERS * flows}, graphs, lm=True)
     wall["18+15"] = time.perf_counter() - t0
     print(f"phase 18 ({card}): {MOE_ARCH} flow request ms "
           f"{[round(x, 3) for x in out['flow']['request_ms']]}, capture "
@@ -3545,6 +3743,7 @@ def moe_paths(dev, counters, card: str, graphs: dict) -> dict:
     cfg, on_card, params = card_drawn_model(dev, MOE_ARCH)
     out["flow_against_cpu"] = routed_path_against_cpu(
         dev, counters, cfg, params, on_card, {**zero, "ns_update": 4, "flash_attention": 2 * 4})
+    lm_against_cpu(dev, counters, cfg, params, on_card)
     del on_card
     phases["18b"] = out["flow_against_cpu"]["launches"]
     wall["18b"] = time.perf_counter() - t0
@@ -3817,7 +4016,8 @@ def whisper_paths(dev, counters, card: str, graphs: dict) -> dict:
     t0 = time.perf_counter()
     with PerRequest(counters) as each:
         phases["21"], out["flow"] = flow_path(
-            dev, counters, WHISPER, {k: v * REQUESTS for k, v in per_request.items()}, graphs)
+            dev, counters, WHISPER, {k: v * REQUESTS for k, v in per_request.items()}, graphs,
+            lm=True)
     if each.runs[:REQUESTS] != [per_request] * REQUESTS:
         raise SystemExit(f"{WHISPER} flow: launches a request {each.runs[:REQUESTS]}, "
                          f"expected {per_request}")
@@ -3834,6 +4034,7 @@ def whisper_paths(dev, counters, card: str, graphs: dict) -> dict:
         card_params=on_card)
     phases["21b"] = launched(counters, before)
     out["decode_against_cpu"] = greedy_against_cpu(dev, counters, cfg, on_card, params)
+    lm_against_cpu(dev, counters, cfg, params, on_card)
     del on_card, params
     wall["21b"] = time.perf_counter() - t0
     t0 = time.perf_counter()
@@ -3855,7 +4056,7 @@ def internvl_paths(dev, counters, card: str, graphs: dict) -> dict:
         dev, counters, INTERNVL,
         {**zero, "ns_update": NFE * INTERNVL_REQUESTS,
          "flash_attention": INTERNVL_LAYERS * NFE * INTERNVL_REQUESTS},
-        graphs, requests=INTERNVL_REQUESTS, programs=False)
+        graphs, requests=INTERNVL_REQUESTS, programs=False, lm=True)
     wall["22"] = time.perf_counter() - t0
     t0 = time.perf_counter()
     out["decode"] = {}
@@ -3879,6 +4080,7 @@ def internvl_paths(dev, counters, card: str, graphs: dict) -> dict:
                                               dict(page_size=16, paged_kernel=True),
                                               {"paged_attention": 2})
     phases["22b"] = launched(counters, before)
+    lm_against_cpu(dev, counters, cfg, params)
     del params
     wall["22b"] = time.perf_counter() - t0
     out["wall_s"], out["phase_launches"] = wall, phases
@@ -4589,7 +4791,7 @@ def main() -> int:
     t0 = time.perf_counter()
     launches, phase4 = flow_path(dev, counters, "yi-6b", {**zero, "ns_update": flows,
                                                           "flash_attention": LAYERS * flows},
-                                 graphs)
+                                 graphs, lm=True)
     phase_s["4+15"] = time.perf_counter() - t0
     t0 = time.perf_counter()
     baselines = baselines_served(dev, counters, card)
@@ -4597,6 +4799,7 @@ def main() -> int:
     cfg, params = small_model("yi-6b")
     whole_path_against_cpu(dev, counters, cfg, params,
                            {**zero, "ns_update": 4, "flash_attention": 2 * 4})
+    lm_against_cpu(dev, counters, cfg, params)
     t0 = time.perf_counter()
     baselines_cpu = baselines_against_cpu(dev, counters, cfg, params)
     phase_s["5b"] = time.perf_counter() - t0
@@ -4612,11 +4815,13 @@ def main() -> int:
     t0 = time.perf_counter()
     launches["gla_scan"] = flow_path(
         dev, counters, "rwkv6-7b",
-        {**zero, "ns_update": flows, "gla_scan": LAYERS * flows}, graphs)[0]["gla_scan"]
+        {**zero, "ns_update": flows, "gla_scan": LAYERS * flows}, graphs,
+        lm=True)[0]["gla_scan"]
     phase_s["8+15"] = time.perf_counter() - t0
     cfg, params = small_model("rwkv6-7b")
     whole_path_against_cpu(dev, counters, cfg, params,
                            {**zero, "ns_update": 4, "gla_scan": 2 * 4})
+    lm_against_cpu(dev, counters, cfg, params)
     t0 = time.perf_counter()
     decode_path(dev, counters, RWKV_DECODE_ARGS, {}, graphs)
     phase_s["10+15"] = time.perf_counter() - t0
@@ -4675,6 +4880,9 @@ def main() -> int:
     family = family_paths(dev, counters, card, trains)
     phase_s.update(family["wall_s"])
     launches["gla_scan_bwd"] = family["26"]["launches"]["gla_scan_bwd"]
+    t0 = time.perf_counter()
+    twin_runs = twins(dev, counters, card)
+    phase_s["31"] = time.perf_counter() - t0
     graph_kinds = {k for k in graphs if "workspace" not in k}
     print("phase 15 summary (" + card + "): " + "; ".join(
         f"{k}: graphed {v['graphed_ms']:.3f} / eager {v['eager_ms']:.3f} ms, capture "
@@ -4967,6 +5175,15 @@ def main() -> int:
     print("phase 24 json: " + json.dumps({k: v for k, v in trainer.items()
                                           if k != "phase_launches"}))
     print("phases 26-29 json: " + json.dumps(family))
+    print(f"phase 30 summary ({card}): " + "; ".join(
+        f"{arch} {r['ms']:.1f} ms, peak {r['peak_gib']:.3f} GiB, launches {r['launches']}"
+        for arch, r in LM_RUNS.items() if arch != "card_vs_cpu")
+        + "; card vs CPU relative L2 " + ", ".join(
+            f"{arch} {v:.3e}" for arch, v in LM_RUNS.get("card_vs_cpu", {}).items()))
+    print("phase 30 json: " + json.dumps(LM_RUNS))
+    print(f"phase 31 summary ({card}): " + "; ".join(
+        f"{k} {v['s']:.1f} s" for k, v in twin_runs.items()))
+    print("phase 31 json: " + json.dumps(twin_runs))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

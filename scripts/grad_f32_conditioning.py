@@ -30,6 +30,12 @@ inputs; here both keep f64 (``rms_norm_kept``, ``decay_kept``), so the CPU's
 f64 gradient is f64 throughout (the 26b form, with those two casts, is
 printed beside it). Each variant's distance from the CPU's f64 gradient says
 how much of the card's distance that part's f32 arithmetic accounts for.
+Besides the layer's parts, the three outside it: the time embedding
+(``layers.timestep_embedding``'s sin / cos features, its angles up to 1000
+rad), the rest of the flow head (``transformer.flow_velocity`` outside the
+layer stack: proj_in, the tokens' embedding, the time MLP, proj_out; the
+stack keeps f32) and the solver's update (``a x0 + sum_j w_j U_j`` and its
+backward, in place of the ``ns_update`` kernels).
 """
 from __future__ import annotations
 
@@ -140,6 +146,61 @@ PARTS = {
 }
 
 
+def timestep_embedding_f64(t, dim: int, max_period: float = 10_000.0, *, device=None):
+    """layers.timestep_embedding with its angles, sin and cos in f64 (t read
+    as given); the caller casts the features to its dtype."""
+    t = torch.atleast_1d(torch.as_tensor(t, device=device)).double()
+    half = dim // 2
+    freqs = torch.exp(-np.log(max_period) * torch.arange(half, dtype=torch.float64,
+                                                          device=t.device) / half)
+    ang = t[..., None] * freqs * 1000.0
+    return torch.cat([torch.cos(ang), torch.sin(ang)], dim=-1)
+
+
+def flow_head_f64(flow_velocity, params64: dict):
+    """transformer.flow_velocity with the head's arithmetic in f64: the
+    ``flow`` and ``embed`` leaves from ``params64``, x and t cast up; the
+    layer stack (``hidden_fn``) runs on the caller's f32 params, its input
+    cast down and its output back up; the velocity cast to x's dtype."""
+    from repro_torch.models import transformer
+
+    def head(params, cfg, t, x, cond_tokens, *, hidden_fn=None):
+        inner = hidden_fn or (lambda p, c, h, pos: transformer.dense_hidden(p, c, h, pos))
+
+        def stack(p, c, h, pos):
+            return inner(params, c, h.to(x.dtype), pos).double()
+
+        t64 = t.double() if isinstance(t, torch.Tensor) else t
+        return flow_velocity({**params, **params64}, cfg, t64, x.double(), cond_tokens,
+                             hidden_fn=stack).to(x.dtype)
+    return head
+
+
+def ns_update_f64(x0, u, a, w):
+    """The solver's update ``a x0 + sum_j w_j u_j`` in f64, cast to x0's dtype
+    (autograd differentiates it in f64 too)."""
+    acc = a.double() * x0.double() + torch.tensordot(w.double(), u.double(), dims=([0], [0]))
+    return acc.to(x0.dtype)
+
+
+def outside_parts(on_card: dict) -> dict:
+    """part -> the patches that compute it in f64 (the parts outside the layer)."""
+    from repro_torch.core import ns_solver
+    from repro_torch.models import transformer
+
+    params64 = {"flow": _cast(on_card["flow"], torch.float64),
+                "embed": on_card["embed"].double()}
+    return {
+        "the time embedding (sin / cos features)":
+            lambda: [_patched(transformer, "timestep_embedding", timestep_embedding_f64)],
+        "the flow head (proj_in, token embedding, time MLP, proj_out)":
+            lambda: [_patched(transformer, "flow_velocity",
+                              flow_head_f64(transformer.flow_velocity, params64))],
+        "the solver's update (a x0 + sum w U, forward and backward)":
+            lambda: [_patched(ns_solver, "fused_ns_update", ns_update_f64)],
+    }
+
+
 def parts_report(dev) -> None:
     """rwkv6-7b at 1 layer, f32 on the card, one part at a time in f64."""
     from repro_torch.models import rwkv6
@@ -164,6 +225,15 @@ def parts_report(dev) -> None:
             try:
                 with with_f32_gla():
                     runs[f"card, {part} in f64"] = loss_and_grads(cfg, on_card, dev)
+            finally:
+                for ctx in reversed(patches):
+                    ctx.__exit__()
+        for part, make in outside_parts(on_card).items():
+            patches = make()
+            for ctx in patches:
+                ctx.__enter__()
+            try:
+                runs[f"card, {part} in f64"] = loss_and_grads(cfg, on_card, dev)
             finally:
                 for ctx in reversed(patches):
                     ctx.__exit__()

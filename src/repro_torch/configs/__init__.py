@@ -4,7 +4,10 @@
 port runs; ``UNPORTED_ARCHS`` names none since the last two families
 (whisper-medium's encdec and internvl2-26b's vlm) were ported.
 """
+import dataclasses
 import importlib
+
+import torch
 
 from repro_torch.configs.base import FrontendStub, ModelConfig, MoEConfig, SSMConfig
 
@@ -26,5 +29,19 @@ def get_config(arch: str, smoke: bool = False) -> ModelConfig:
     return mod.smoke_config() if smoke else mod.config()
 
 
-__all__ = ["ARCHS", "UNPORTED_ARCHS", "get_config", "ModelConfig", "MoEConfig", "SSMConfig",
-           "FrontendStub"]
+def for_device(cfg: ModelConfig, device) -> ModelConfig:
+    """``cfg`` as ``device`` runs its flow path. The smoke configs' attention
+    heads are 32 wide, narrower than every head dim the flash kernel is built
+    for (``kernels.flash_attention.flash_attention.HEAD_DIMS``): on a CUDA
+    device their heads widen to 64. Anything else, and every config on the
+    CPU, is returned as it is."""
+    from repro_torch.kernels.flash_attention.flash_attention import HEAD_DIMS
+
+    if (torch.device(device).type != "cuda" or cfg.family == "ssm"
+            or cfg.resolved_head_dim in HEAD_DIMS):
+        return cfg
+    return dataclasses.replace(cfg, head_dim=min(HEAD_DIMS))
+
+
+__all__ = ["ARCHS", "UNPORTED_ARCHS", "get_config", "for_device", "ModelConfig", "MoEConfig",
+           "SSMConfig", "FrontendStub"]

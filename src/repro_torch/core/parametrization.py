@@ -67,3 +67,15 @@ def as_velocity_field(
         return beta * x + gamma * model(t, x)
 
     return VelocityField(fn=u, scheduler=sched)
+
+
+def eps_to_velocity(sched: Scheduler, t: Tensor, x: Tensor, eps: Tensor) -> Tensor:
+    """u = beta x + gamma eps for an epsilon prediction at time ``t`` (Table 1)."""
+    beta, gamma = beta_gamma(sched, EPS_PRED, t)
+    return beta * x + gamma * eps
+
+
+def x_to_velocity(sched: Scheduler, t: Tensor, x: Tensor, x1: Tensor) -> Tensor:
+    """u = beta x + gamma x1 for an x (data) prediction at time ``t`` (Table 1)."""
+    beta, gamma = beta_gamma(sched, X_PRED, t)
+    return beta * x + gamma * x1

@@ -29,13 +29,27 @@
 //
 // One launch. Bounded by memory as the forward is: it reads g, x0 and the k rows
 // of U and writes k rows of dU (and dx0), 18.9 MB at the flow cell's last step
-// (k = 8, N = 4*65536 f32), ~5.6 us at 3.35 TB/s. Each block walks the rows one
-// after another over its grid-stride slice (g is re-read per row, from L2), writes
-// dU_j and reduces its share of each dot product over its warps; the per-block
-// sums go to a workspace, and the last block to count itself on an arrival counter
-// (one acquire-release atomic after a block barrier) adds them up in block order
-// and sets the counter back to 0, so no memset is launched and two runs give the
-// same bits: no float atomics touch the result.
+// (k = 8, N = 4*65536 f32), ~5.6 us at 3.35 TB/s.
+//
+// Design (redesigned for the H100; the first version walked the rows outside its
+// element loop with one 16-byte vector a thread, re-read g per row, and summed
+// the blocks' partials with one thread a dot product walking 256 blocks in turn):
+// - a block takes tiles of kBwdThreads * kBwdElems elements; each thread loads
+//   its 8 elements of g (two 16-byte vectors of f32, one of bf16) once a tile,
+//   keeps them in registers and walks the k + 1 rows (x0, then U) inside the
+//   tile, kBwdRows rows' loads issued together, so a thread keeps 4 (bf16) or
+//   8 (f32) independent 16-byte loads in flight;
+// - the grid is the tiles the data needs, up to ns_update_bwd_max_blocks (4 a
+//   SM), so the main shape's 4 * 65536 elements make 128 blocks, one an SM;
+// - each row's dot product is reduced over a warp by a shuffle tree and added to
+//   the warp's slot in shared memory (lane 0, tile after tile), then over the
+//   warps in warp order into a per-block partial;
+// - the last block to count itself on an arrival counter (one acquire-release
+//   atomic after a block barrier) adds the partials up: one warp a dot product,
+//   each lane summing blocks lane, lane + 32, ... in order, then a fixed shuffle
+//   tree. It sets the counter back to 0, so no memset is launched, and every sum
+//   runs in an order fixed by block, warp and lane index: two runs give the same
+//   bits, and no float atomics touch a result.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -150,71 +164,127 @@ __device__ __forceinline__ int arrive(int* counter) {
   return before;
 }
 
-// Row 0 is x0 (coefficient a, gradient dx0), rows 1..n are U (w_j, dU_j).
-// grads receives (da, dw_0, ..., dw_{n-1}); partials holds gridDim.x * (n + 1)
-// floats; counter is 0 on entry and is left at 0.
+constexpr int kBwdThreads = 256;
+constexpr int kBwdElems = 8;  // elements of g a thread holds in a tile
+constexpr int kBwdRows = 4;   // rows whose loads a thread has in flight together
+constexpr int kBwdWarps = kBwdThreads / 32;
+
+// 16-byte vectors a thread holds in a tile: two of f32, one of bf16, so a
+// block's tile is kBwdThreads * kBwdElems elements whatever the type
+template <typename T> struct BwdVecs {
+  static constexpr int kN = kBwdElems / Vec<T>::kLen > 0 ? kBwdElems / Vec<T>::kLen : 1;
+};
+
+// Row j of the backward: x0 for j = 0 (coefficient a, gradient dx0), U_{j-1}
+// for j >= 1 (w_{j-1}, dU_{j-1}).
 template <typename T>
-__global__ void __launch_bounds__(kThreads)
+__device__ __forceinline__ const T* bwd_src(const T* x0, const T* u, int j, long long N) {
+  return j == 0 ? x0 : u + (long long)(j - 1) * N;
+}
+template <typename T>
+__device__ __forceinline__ T* bwd_dst(T* dx0, T* du, int j, long long N) {
+  return j == 0 ? dx0 : du + (long long)(j - 1) * N;  // dx0 may be null: then only da
+}
+
+// grads receives (da, dw_0, ..., dw_{n-1}); partials holds (n + 1) * gridDim.x
+// floats, dot product j's block sums at j * gridDim.x; counter is 0 on entry
+// and is left at 0.
+template <typename T>
+__global__ void __launch_bounds__(kBwdThreads)
 ns_update_bwd_kernel(const T* __restrict__ g, const T* __restrict__ x0, const T* __restrict__ u,
                      const float* __restrict__ a, const float* __restrict__ w,
                      long long w_stride, T* __restrict__ du, T* __restrict__ dx0,
                      float* __restrict__ grads, float* __restrict__ partials,
                      int* __restrict__ counter, long long N, int n, long long nvec) {
-  constexpr int V = Vec<T>::kLen;
-  constexpr int kWarpsPerBlock = kThreads / 32;
+  constexpr int V = Vec<T>::kLen, P = BwdVecs<T>::kN, R = kBwdRows;
   __shared__ float c[kMaxN + 1];
-  __shared__ float red[kMaxN + 1][kWarpsPerBlock];
+  __shared__ float red[kMaxN + 1][kBwdWarps];
   __shared__ int last;
-  for (int j = threadIdx.x; j <= n; j += blockDim.x) c[j] = j == 0 ? *a : w[(j - 1) * w_stride];
+  for (int j = threadIdx.x; j <= n; j += kBwdThreads) c[j] = j == 0 ? *a : w[(j - 1) * w_stride];
+  for (int i = threadIdx.x; i < (n + 1) * kBwdWarps; i += kBwdThreads) (&red[0][0])[i] = 0.f;
   __syncthreads();
 
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const long long stride = (long long)gridDim.x * blockDim.x;
-  const long long first = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  for (int j = 0; j <= n; ++j) {
-    const T* src = j == 0 ? x0 : u + (j - 1) * N;
-    T* dst = j == 0 ? dx0 : du + (j - 1) * N;  // dx0 may be null: then only da
-    const float cj = c[j];
-    float dot = 0.f;
-    for (long long i = first; i < nvec; i += stride) {
-      const long long e = i * V;
-      float gf[V], sf[V];
-      load16(g + e, gf);
-      load16(src + e, sf);
+  const long long tile = (long long)kBwdThreads * P;
+  // the loop's bounds are the block's, so every lane reaches the shuffles
+  for (long long t0 = blockIdx.x * tile; t0 < nvec; t0 += (long long)gridDim.x * tile) {
+    const long long base = t0 + threadIdx.x;
+    float gf[P][V];
+    bool live[P];
 #pragma unroll
-      for (int t = 0; t < V; ++t) dot = fmaf(sf[t], gf[t], dot);
-      if (dst != nullptr) {
+    for (int p = 0; p < P; ++p) {
+      live[p] = base + p * kBwdThreads < nvec;
+      if (live[p]) load16(g + (base + p * kBwdThreads) * V, gf[p]);
+    }
+    for (int j0 = 0; j0 <= n; j0 += R) {
+      float sf[R][P][V];
 #pragma unroll
-        for (int t = 0; t < V; ++t) gf[t] *= cj;
-        store16(dst + e, gf);
+      for (int r = 0; r < R; ++r) {
+        const T* src = bwd_src(x0, u, j0 + r, N);
+#pragma unroll
+        for (int p = 0; p < P; ++p)
+          if (j0 + r <= n && live[p]) load16(src + (base + p * kBwdThreads) * V, sf[r][p]);
+      }
+#pragma unroll
+      for (int r = 0; r < R; ++r) {
+        const int j = j0 + r;
+        if (j > n) break;  // the same for the whole block
+        T* dst = bwd_dst(dx0, du, j, N);
+        const float cj = c[j];
+        float dot = 0.f;
+#pragma unroll
+        for (int p = 0; p < P; ++p) {
+          if (!live[p]) continue;
+          float o[V];
+#pragma unroll
+          for (int t = 0; t < V; ++t) {
+            dot = fmaf(sf[r][p][t], gf[p][t], dot);
+            o[t] = cj * gf[p][t];
+          }
+          if (dst != nullptr) store16(dst + (base + p * kBwdThreads) * V, o);
+        }
+        dot = warp_sum(dot);
+        if (lane == 0) red[j][warp] += dot;
       }
     }
-    for (long long e = nvec * V + first; e < N; e += stride) {
-      const float gf = to_f32(g[e]);
-      dot = fmaf(to_f32(src[e]), gf, dot);
-      if (dst != nullptr) dst[e] = from_f32<T>(cj * gf);
+  }
+  if (nvec * V < N) {  // the elements past the last whole vector, or all when unaligned
+    const long long stride = (long long)gridDim.x * kBwdThreads;
+    const long long first = nvec * V + (long long)blockIdx.x * kBwdThreads + threadIdx.x;
+    for (int j = 0; j <= n; ++j) {
+      const T* src = bwd_src(x0, u, j, N);
+      T* dst = bwd_dst(dx0, du, j, N);
+      const float cj = c[j];
+      float dot = 0.f;
+      for (long long e = first; e < N; e += stride) {
+        const float gv = to_f32(g[e]);
+        dot = fmaf(to_f32(src[e]), gv, dot);
+        if (dst != nullptr) dst[e] = from_f32<T>(cj * gv);
+      }
+      dot = warp_sum(dot);
+      if (lane == 0) red[j][warp] += dot;
     }
-    dot = warp_sum(dot);
-    if (lane == 0) red[j][warp] = dot;
   }
   __syncthreads();
-  for (int j = threadIdx.x; j <= n; j += blockDim.x) {
+  for (int j = threadIdx.x; j <= n; j += kBwdThreads) {
     float s = 0.f;
 #pragma unroll
-    for (int wp = 0; wp < kWarpsPerBlock; ++wp) s += red[j][wp];
-    partials[(long long)blockIdx.x * (n + 1) + j] = s;
+    for (int wp = 0; wp < kBwdWarps; ++wp) s += red[j][wp];
+    partials[(long long)j * gridDim.x + blockIdx.x] = s;
   }
   // the block's partials, then one count by thread 0: the block that counts
-  // last sees every other block's partials and adds them up in block order
+  // last sees every other block's partials and adds them up
   __syncthreads();
   if (threadIdx.x == 0) last = arrive(counter) == (int)gridDim.x - 1;
   __syncthreads();
   if (!last) return;
-  for (int j = threadIdx.x; j <= n; j += blockDim.x) {
+  const int blocks = (int)gridDim.x;
+  for (int j = warp; j <= n; j += kBwdWarps) {
+    const float* row = partials + (long long)j * blocks;
     float s = 0.f;
-    for (int blk = 0; blk < (int)gridDim.x; ++blk)
-      s += __ldcg(partials + (long long)blk * (n + 1) + j);
-    grads[j] = s;
+    for (int blk = lane; blk < blocks; blk += 32) s += __ldcg(row + blk);
+    s = warp_sum(s);
+    if (lane == 0) grads[j] = s;
   }
   if (threadIdx.x == 0) *counter = 0;  // ready for the next call
 }
@@ -228,11 +298,11 @@ int launch_bwd(const void* g, const void* x0, const void* u, const float* a, con
   const bool vec = N % V == 0 && al16(g) && al16(x0) && al16(u) && al16(du) &&
                    al16(dx0);  // a null dx0 passes
   const long long nvec = vec ? N / V : 0;
-  const long long work = vec ? nvec : N;
-  long long blocks = (work + kThreads - 1) / kThreads;
+  const long long tile = (long long)kBwdThreads * BwdVecs<T>::kN * V;  // elements a tile covers
+  long long blocks = (N + tile - 1) / tile;
   if (blocks > max_blocks) blocks = max_blocks;
   if (blocks < 1) blocks = 1;
-  ns_update_bwd_kernel<T><<<(unsigned)blocks, kThreads, 0, stream>>>(
+  ns_update_bwd_kernel<T><<<(unsigned)blocks, kBwdThreads, 0, stream>>>(
       static_cast<const T*>(g), static_cast<const T*>(x0), static_cast<const T*>(u), a, w,
       w_stride, static_cast<T*>(du), static_cast<T*>(dx0), grads, partials, counter, N, n,
       nvec);
@@ -243,7 +313,7 @@ int launch_bwd(const void* g, const void* x0, const void* u, const float* a, con
 
 // The most blocks ns_update_bwd launches on a card with `sms` SMs; its
 // workspace holds that many times (n + 1) floats.
-extern "C" int ns_update_bwd_max_blocks(int sms) { return 8 * sms; }
+extern "C" int ns_update_bwd_max_blocks(int sms) { return 4 * sms; }
 
 // Backward of ns_update_fwd. g, x0 and u as the forward's x0 and u (one dtype);
 // du receives n rows of N, dx0 N values or is null (then dx0 is not computed),

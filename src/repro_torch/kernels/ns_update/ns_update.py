@@ -21,25 +21,31 @@ _MAX_N = 64
 _BOUND = None
 
 
+def bind(lib) -> tuple:
+    """``lib`` (a build of ``csrc/ns_update.cu``) with the argument types of its
+    ``ns_update_fwd``, ``ns_update_bwd`` and ``ns_update_bwd_max_blocks`` set:
+    (lib, forward, backward)."""
+    fn = lib.ns_update_fwd
+    fn.argtypes = ([ctypes.c_int, ctypes.c_int] + [ctypes.c_void_p] * 4
+                   + [ctypes.c_longlong, ctypes.c_void_p, ctypes.c_longlong,
+                      ctypes.c_int, ctypes.c_void_p])
+    fn.restype = ctypes.c_int
+    bwd = lib.ns_update_bwd
+    bwd.argtypes = ([ctypes.c_int, ctypes.c_int] + [ctypes.c_void_p] * 5
+                    + [ctypes.c_longlong] + [ctypes.c_void_p] * 4
+                    + [ctypes.c_int, ctypes.c_void_p, ctypes.c_longlong,
+                       ctypes.c_int, ctypes.c_void_p])
+    bwd.restype = ctypes.c_int
+    lib.ns_update_bwd_max_blocks.argtypes = [ctypes.c_int]
+    lib.ns_update_bwd_max_blocks.restype = ctypes.c_int
+    return lib, fn, bwd
+
+
 def _entry():
-    """The library and its bound ``ns_update_fwd``, looked up once."""
+    """The library and its bound entry points, looked up once."""
     global _BOUND
     if _BOUND is None:
-        lib = build.load("ns_update")
-        fn = lib.ns_update_fwd
-        fn.argtypes = ([ctypes.c_int, ctypes.c_int] + [ctypes.c_void_p] * 4
-                       + [ctypes.c_longlong, ctypes.c_void_p, ctypes.c_longlong,
-                          ctypes.c_int, ctypes.c_void_p])
-        fn.restype = ctypes.c_int
-        bwd = lib.ns_update_bwd
-        bwd.argtypes = ([ctypes.c_int, ctypes.c_int] + [ctypes.c_void_p] * 5
-                        + [ctypes.c_longlong] + [ctypes.c_void_p] * 4
-                        + [ctypes.c_int, ctypes.c_void_p, ctypes.c_longlong,
-                           ctypes.c_int, ctypes.c_void_p])
-        bwd.restype = ctypes.c_int
-        lib.ns_update_bwd_max_blocks.argtypes = [ctypes.c_int]
-        lib.ns_update_bwd_max_blocks.restype = ctypes.c_int
-        _BOUND = lib, fn, bwd
+        _BOUND = bind(build.load("ns_update"))
     return _BOUND
 
 

@@ -37,7 +37,8 @@ the params are on the device once, and the noise generator starts at the
 seed. Checkpoints are written every
 ``--ckpt-every`` steps by the port's checkpointer, in the reference's
 format, so either package restores the other's. ``--layers N`` cuts the
-depth, the width unchanged.
+depth, the width unchanged. On the card a smoke config's 32-wide attention
+heads widen to 64, the flash kernel's narrowest (``configs.for_device``).
 
 Every family trains on the card, each kernel of its forward differentiated
 by a backward kernel (flash attention at head dims 64, 80 and 128,
@@ -55,7 +56,7 @@ import torch
 
 from repro_torch import resolve_device
 from repro_torch.checkpoint import checkpointer
-from repro_torch.configs import ARCHS, get_config
+from repro_torch.configs import ARCHS, for_device, get_config
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.schedulers import Scheduler, get_scheduler
 from repro_torch.data.synthetic import DataConfig, SyntheticTokens
@@ -179,7 +180,7 @@ def train(arch: str, *, smoke: bool = True, steps: int = 50, batch: int = 8, seq
           noise_source: Optional[Callable[[int], CFMNoise]] = None,
           log=print) -> TrainRun:
     """Train ``arch`` (the reference's ``train``; module docstring)."""
-    cfg = get_config(arch, smoke=smoke)
+    cfg = for_device(get_config(arch, smoke=smoke), device)
     if layers:
         cfg = dataclasses.replace(cfg, n_layers=layers)
     refuse_on_card(cfg, device)

@@ -19,7 +19,7 @@ Decode carries ``HybridState`` and steps the recurrence with the plain
 ``gla_step`` and the shared attention over a dense KV cache a site, as the
 reference does; it writes the state IN PLACE. Layer params are stacked on a
 leading axis and every pass is a Python loop over it where the reference
-scans. ``lm_forward`` is not ported, as the dense family's is not.
+scans. ``lm_forward`` gives the full-sequence logits over ``hybrid_hidden``.
 """
 from __future__ import annotations
 
@@ -240,6 +240,16 @@ def hybrid_hidden(params: dict, cfg: ModelConfig, h: Tensor, positions=None, *,
         else:
             h = _superblock(params["shared_attn"], group, cfg, h, positions, window)
     return rms_norm(h, params["final_norm"], cfg.norm_eps)
+
+
+def lm_forward(params: dict, cfg: ModelConfig, tokens: Tensor, positions=None, *,
+               window: int = 0, last_only: bool = False) -> Tensor:
+    """Full-sequence logits over ``hybrid_hidden`` (``window`` reaches the
+    shared attention: the CPU only, as ``attention_forward``)."""
+    h = hybrid_hidden(params, cfg, params["embed"][tokens.long()], positions, window=window)
+    if last_only:
+        h = h[:, -1:, :]
+    return h @ params["lm_head"]
 
 
 def init_state(cfg: ModelConfig, batch: int, slots: int, dtype=torch.bfloat16,

@@ -7,6 +7,7 @@ command-r-35b), moe (qwen3-moe-30b-a3b, qwen3-moe-235b-a22b), ssm
 (internvl2-26b) branches:
 
   init_params(generator, cfg, device)             -> params tree
+  lm_apply(params, cfg, batch)                    -> logits (train / prefill)
   velocity(params, cfg, t, x, batch)              -> u_t(x) over latent sequences
   velocity_field(params, cfg, sched, batch)       -> VelocityField (with CFG)
   init_decode_state(cfg, batch, slots, ...)       -> KV cache, RWKVState, HybridState
@@ -47,7 +48,7 @@ PAGED_FAMILIES = ("dense", "moe", "vlm")   # KV-cache families that can page
 LAYER_STACKS = ("layers", "enc_layers", "dec_layers")
 
 __all__ = ["FAMILIES", "PORTED_FAMILIES", "PAGED_FAMILIES", "LAYER_STACKS", "param_template",
-           "unbind_layers", "init_params", "velocity", "velocity_field", "latent_targets",
+           "unbind_layers", "init_params", "lm_apply", "velocity", "velocity_field", "latent_targets",
            "CFMNoise", "draw_cfm_noise", "cfm_loss", "init_decode_state",
            "init_paged_decode_state", "decode_state_batch_axes", "decode_apply"]
 
@@ -57,6 +58,32 @@ def init_params(generator: torch.Generator, cfg: ModelConfig, device="cuda") -> 
             "ssm": rwkv6.init_rwkv_params, "hybrid": mamba2.init_hybrid_params,
             "encdec": whisper.init_encdec_params, "vlm": vlm.init_vlm_params}
     return init[cfg.family](generator, cfg, device)
+
+
+def lm_apply(params: dict, cfg: ModelConfig, batch: dict, *, window: int = 0,
+             last_only: bool = False) -> Tensor:
+    """Training / prefill logits (B, S, V), or (B, 1, V) with ``last_only``,
+    which slices the final position before the vocab projection (serving
+    prefill needs only the next token's logits). The vlm family's cover the
+    batch's patches too (B, m + S, V); the moe family's aux loss is dropped,
+    as in the reference. ``window > 0`` runs on the CPU only: the card's
+    attention raises for it (``attention_forward``); the ssm and encdec
+    families ignore it, as the reference's do."""
+    tokens = batch["tokens"]
+    if cfg.family == "dense":
+        return transformer.lm_forward(params, cfg, tokens, window=window, last_only=last_only)
+    if cfg.family == "moe":
+        return moe.lm_forward(params, cfg, tokens, window=window, last_only=last_only)[0]
+    if cfg.family == "ssm":
+        return rwkv6.lm_forward(params, cfg, tokens, last_only=last_only)
+    if cfg.family == "hybrid":
+        return mamba2.lm_forward(params, cfg, tokens, window=window, last_only=last_only)
+    if cfg.family == "encdec":
+        return whisper.lm_forward(params, cfg, tokens, batch["frames"], last_only=last_only)
+    if cfg.family == "vlm":
+        return vlm.lm_forward(params, cfg, tokens, batch["patches"], window=window,
+                              last_only=last_only)
+    raise KeyError(cfg.family)
 
 
 def param_template(cfg: ModelConfig) -> dict:

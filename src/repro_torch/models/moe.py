@@ -31,8 +31,8 @@ The expert products are plain batched matmuls (``torch.bmm``), as the
 reference leaves them to XLA outside any Pallas kernel. Attention is the
 dense family's (``attention_forward``: the flash kernel on the card).
 Decode is ``transformer.decode_step`` with this family's feed-forward, over a
-dense or paged KV cache. ``lm_forward`` is not ported, as the dense family's
-is not: serving prefills through ``decode_step``.
+dense or paged KV cache; ``lm_forward`` gives the full-sequence logits and the
+router's aux loss.
 """
 from __future__ import annotations
 
@@ -244,6 +244,19 @@ def moe_hidden(params: dict, cfg: ModelConfig, h: Tensor, positions: Tensor, *,
             h, a = _block(p, cfg, h, positions, causal, window)
         aux = aux + a
     return rms_norm(h, params["final_norm"], cfg.norm_eps), aux / cfg.n_layers
+
+
+def lm_forward(params: dict, cfg: ModelConfig, tokens: Tensor, positions=None, *,
+               window: int = 0, last_only: bool = False) -> tuple[Tensor, Tensor]:
+    """Full-sequence logits (``transformer.lm_forward``'s head over
+    ``moe_hidden``) and the mean aux loss over the layers."""
+    h = params["embed"][tokens.long()]
+    if positions is None:
+        positions = torch.arange(h.shape[1], device=h.device)
+    h, aux = moe_hidden(params, cfg, h, positions, causal=True, window=window)
+    if last_only:
+        h = h[:, -1:, :]
+    return h @ params["lm_head"], aux
 
 
 def decode_step(params: dict, cfg: ModelConfig, token: Tensor, caches, *,

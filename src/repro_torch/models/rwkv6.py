@@ -192,6 +192,16 @@ def rwkv_hidden(params: dict, cfg: ModelConfig, h: Tensor, positions=None, *,
     return rms_norm(h, params["final_norm"], cfg.norm_eps)
 
 
+def lm_forward(params: dict, cfg: ModelConfig, tokens: Tensor, positions=None,
+               last_only: bool = False, **_) -> Tensor:
+    """Full-sequence logits over ``rwkv_hidden`` (``positions`` and any
+    ``window`` are ignored, as in the reference: the recurrence has none)."""
+    h = rwkv_hidden(params, cfg, params["embed"][tokens.long()])
+    if last_only:
+        h = h[:, -1:, :]
+    return h @ params["lm_head"]
+
+
 def init_state(cfg: ModelConfig, batch: int, device="cuda") -> RWKVState:
     """Zeroed f32 decode state and a scalar index (the reference's default)."""
     dev = resolve_device(device)

@@ -2,14 +2,12 @@
 one-token decode.
 
 Port of ``repro.models.transformer`` (yi-6b / yi-34b [arXiv:2403.04652],
-phi3-medium-14b, command-r-35b's parallel block): the flow path, and
+phi3-medium-14b, command-r-35b's parallel block): the flow path,
+``lm_forward`` (full-sequence logits, ``model.lm_apply``'s dense branch), and
 ``decode_step`` over a dense or paged KV cache.
 
 Layer params and caches are stacked on a leading axis, as in the reference,
 and every pass is a Python loop over that axis where the reference scans.
-``lm_forward`` (training and full-sequence prefill) is not ported: serving
-prefills token by token through ``decode_step``, as the reference's gateway
-does.
 """
 from __future__ import annotations
 
@@ -209,6 +207,26 @@ def dense_hidden(params: dict, cfg: ModelConfig, h: Tensor, positions: Tensor,
         else:
             h = _block(p, cfg, h, positions, causal, window)
     return rms_norm(h, params["final_norm"], cfg.norm_eps)
+
+
+def lm_forward(params: dict, cfg: ModelConfig, tokens: Tensor,
+               positions: Optional[Tensor] = None, *, window: int = 0,
+               extra_embeds: Optional[Tensor] = None, last_only: bool = False) -> Tensor:
+    """Training / prefill logits for every position: tokens (B, S) -> (B, S, V),
+    or (B, 1, V) with ``last_only`` (the last position is sliced before the
+    vocab projection). ``extra_embeds`` (B, m, d) are stub embeddings
+    prepended to the token embeddings (the vlm path); the logits then cover
+    the m + S positions. ``window > 0`` is sliding-window attention, which
+    runs on the CPU only (``attention_forward`` raises on the card)."""
+    h = params["embed"][tokens.long()]
+    if extra_embeds is not None:
+        h = torch.cat([extra_embeds.to(h.dtype), h], dim=1)
+    if positions is None:
+        positions = torch.arange(h.shape[1], device=h.device)
+    h = dense_hidden(params, cfg, h, positions, causal=True, window=window)
+    if last_only:
+        h = h[:, -1:, :]
+    return h @ (params["embed"].T if cfg.tie_embeddings else params["lm_head"])
 
 
 def init_caches(cfg: ModelConfig, batch: int, slots: int, dtype=torch.bfloat16,

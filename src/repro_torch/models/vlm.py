@@ -7,8 +7,8 @@ reference: the batch carries patch embeddings (B, n_patches, vit_dim) under
 is implemented, and the projected patches are prepended to the sequence as
 a multimodal prefix (``models.model``'s flow path). The LM is the dense
 family's (``transformer``): flash attention at 48 / 8 heads of 128 (G 6) in
-flow, the dense or paged KV cache in decode. ``lm_forward`` is not ported,
-as for the other families.
+flow and in ``lm_forward`` (logits over [patches; tokens]), the dense or
+paged KV cache in decode.
 """
 from __future__ import annotations
 
@@ -46,6 +46,14 @@ def project_patches(params: dict, patches: Tensor) -> Tensor:
     """patches (B, P, vit_dim), cast to the projector's dtype -> (B, P, d_model)."""
     p = params["projector"]
     return F.gelu(patches.to(p["w1"].dtype) @ p["w1"], approximate="tanh") @ p["w2"]
+
+
+def lm_forward(params: dict, cfg: ModelConfig, tokens: Tensor, patches: Tensor,
+               positions=None, *, window: int = 0, last_only: bool = False) -> Tensor:
+    """Multimodal prefill: logits over [patch tokens; text tokens]."""
+    return transformer.lm_forward(params, cfg, tokens, positions, window=window,
+                                  extra_embeds=project_patches(params, patches),
+                                  last_only=last_only)
 
 
 def init_state(cfg: ModelConfig, batch: int, slots: int, dtype=torch.bfloat16,

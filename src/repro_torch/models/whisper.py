@@ -24,8 +24,8 @@ port equals the reference there; at bf16 it runs in bf16 throughout.
 
 ``decode_step`` updates its ``EncDecState`` in place (the self-attention
 caches and the index; the memory is read), as ``transformer.decode_step``
-does, so a graphed step holds every leaf by address. ``lm_forward`` is not
-ported, as for the other families.
+does, so a graphed step holds every leaf by address. ``lm_forward`` encodes
+the frames and gives the decoder's full-sequence logits (tied embeddings).
 """
 from __future__ import annotations
 
@@ -175,6 +175,17 @@ def decoder_hidden(params: dict, cfg: ModelConfig, h: Tensor, memory: Tensor,
         else:
             h = _dec_block(p, cfg, h, memory, positions, causal)
     return rms_norm(h, params["final_norm"], cfg.norm_eps)
+
+
+def lm_forward(params: dict, cfg: ModelConfig, tokens: Tensor, frames: Tensor,
+               positions=None, last_only: bool = False, **_) -> Tensor:
+    """Full-sequence logits: ``encode`` the frames, then ``decoder_hidden``
+    over the tokens and the projection onto the tied embeddings."""
+    memory = encode(params, cfg, frames)
+    h = decoder_hidden(params, cfg, params["embed"][tokens.long()], memory, positions)
+    if last_only:
+        h = h[:, -1:, :]
+    return h @ params["embed"].T
 
 
 def init_state(cfg: ModelConfig, batch: int, slots: int, num_frames: int,

@@ -253,6 +253,27 @@ def test_paged_variants_apply_to_the_kernel_source():
     assert variants and all(text != base for text in variants.values())
 
 
+def test_ns_update_bwd_variants_apply_to_the_kernel_source():
+    """scripts/ns_update_bwd_variants.py edits csrc/ns_update.cu by text; every
+    variant's target occurs exactly once, and each variant changes the text."""
+    base = Path(build.CSRC, "ns_update.cu").read_text()
+    variants = _script("ns_update_bwd_variants").sources(None)
+    assert set(variants) == set(_script("ns_update_bwd_variants").VARIANTS)
+    assert all(text != base for text in variants.values())
+
+
+def test_ns_update_bwd_kernel_holds_g_and_sums_in_a_fixed_order():
+    """The backward walks the rows inside its element loop with g in registers,
+    several rows' loads issued together, and adds the blocks' partials one warp
+    a dot product in lane order, then a shuffle tree: no float atomics."""
+    src = Path(build.CSRC, "ns_update.cu").read_text()
+    kernel = src[src.index("ns_update_bwd_kernel("):src.index("int launch_bwd(")]
+    assert "float gf[P][V];" in kernel and "float sf[R][P][V];" in kernel
+    assert kernel.index("load16(g + ") < kernel.index("for (int j0 = 0; j0 <= n; j0 += R)")
+    assert "for (int blk = lane; blk < blocks; blk += 32)" in kernel
+    assert "atomicAdd" not in src and "red.global.add.f32" not in src
+
+
 def test_flash_bwd_variants_apply_to_the_kernel_source():
     """scripts/flash_bwd_variants.py edits csrc/flash_attention_bwd.cu by
     text; each variant's targets occur as often as it states, and each

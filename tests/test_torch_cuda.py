@@ -130,7 +130,7 @@ def test_fused_ns_update_under_grad_launches_forward_and_backward(dev, needs_gra
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("n,B,D", [(1, 4, 65536), (8, 4, 65536), (20, 3, 1000), (3, 1, 7),
-                                   (64, 2, 4096)])
+                                   (64, 2, 4096), (2, 16, 131072)])
 @pytest.mark.parametrize("need_x0", [True, False])
 def test_ns_update_bwd_matches_plain(dev, n, B, D, dtype, need_x0):
     """dU and dx0 one f32 product each (TOL); da and dw f32 sums over B*D
@@ -174,6 +174,28 @@ def test_ns_update_bwd_is_deterministic_across_shapes(dev):
     again = ns_update_bwd(*big, a, w8)
     for x, y in zip(first, again):
         assert torch.equal(x, y)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("need_x0", [True, False])
+def test_ns_update_bwd_graphed_equals_eager(dev, dtype, need_x0):
+    """A call replayed from a CUDA graph gives the eager call's bits, at the
+    main path's shape (k = 8 of B=4 x D=65536) and the ragged k = 20 one."""
+    from repro_torch.kernels.ns_update.ns_update import ns_update_bwd
+
+    rng = np.random.default_rng(11)
+    for n, B, D in ((8, 4, 65536), (20, 3, 1000)):
+        x0, g = _randn(rng, (B, D), dtype, dev), _randn(rng, (B, D), dtype, dev)
+        u = _randn(rng, (n, B, D), dtype, dev)
+        a, w = _randn(rng, (), torch.float32, dev), _randn(rng, (n,), torch.float32, dev)
+        eager = ns_update_bwd(g, x0, u, a, w, need_x0=need_x0)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            graphed = ns_update_bwd(g, x0, u, a, w, need_x0=need_x0)
+        graph.replay()
+        torch.cuda.synchronize()
+        for x, y in zip(eager, graphed):
+            assert (x is None and y is None) or torch.equal(x, y)
 
 
 def _check_flash_bf16(out, ref):
@@ -1139,3 +1161,23 @@ def test_dtensor_reaching_a_launcher_without_local_map_raises(dev, card_mesh):
             call()
     assert counts == (nu_mod.COUNTER.launches, fa_mod.COUNTER.launches,
                       pa_mod.COUNTER.launches)
+
+
+@pytest.mark.parametrize("arch", ["yi-6b", "zamba2-2.7b"])
+def test_lm_apply_with_a_window_raises_on_the_card(dev, arch):
+    """Sliding-window attention has no CUDA kernel: ``lm_apply`` with
+    ``window > 0`` on card tensors raises (no plain fallback on the card);
+    without a window the same call runs the flash kernel."""
+    from repro_torch.configs import for_device, get_config
+    from repro_torch.models import model as tmodel
+
+    cfg = for_device(get_config(arch, smoke=True), dev)   # heads the flash kernel takes
+    params = tmodel.init_params(torch.Generator(device=dev).manual_seed(0), cfg, dev)
+    batch = {"tokens": torch.randint(0, cfg.vocab, (2, 16), device=dev)}
+    with pytest.raises(NotImplementedError, match="sliding-window"):
+        tmodel.lm_apply(params, cfg, batch, window=4)
+    before = fa_mod.COUNTER.launches
+    logits = tmodel.lm_apply(params, cfg, batch, last_only=True)
+    torch.cuda.synchronize()
+    assert logits.shape == (2, 1, cfg.vocab) and bool(torch.isfinite(logits).all())
+    assert fa_mod.COUNTER.launches > before

@@ -1,5 +1,7 @@
-"""The port stands alone: ``repro_torch`` (and ``chip_smoke.py``) import
-neither JAX nor any module of the JAX package."""
+"""The port stands alone: ``repro_torch``, ``chip_smoke.py`` and the
+examples' twins (``examples/torch``) import neither JAX nor any module of the
+JAX package."""
+import ast
 import os
 import re
 import subprocess
@@ -36,8 +38,11 @@ def test_importing_every_port_module_loads_no_jax_and_no_repro():
     assert bad == "[]", f"the port pulled in {bad}"
 
 
+TWINS = sorted(p.relative_to(ROOT) for p in (ROOT / "examples" / "torch").glob("*.py"))
+
+
 @pytest.mark.parametrize("path", sorted(
-    [p.relative_to(ROOT) for p in PORT.rglob("*.py")] + [Path("chip_smoke.py")]),
+    [p.relative_to(ROOT) for p in PORT.rglob("*.py")] + [Path("chip_smoke.py")] + TWINS),
     ids=str)
 def test_source_has_no_jax_or_repro_import(path):
     text = (ROOT / path).read_text()
@@ -53,3 +58,16 @@ def test_scan_catches_what_it_should():
     for line in ("import repro_torch", "from repro_torch.core import toy",
                  "import numpy as np", "# see repro.core.toy"):
         assert not FORBIDDEN.search(line), line
+
+
+def test_the_examples_twins_import_only_the_port_torch_numpy_and_the_stdlib():
+    allowed = {"repro_torch", "torch", "numpy", "__future__"} | set(sys.stdlib_module_names)
+    assert [p.name for p in TWINS] == ["gateway_demo.py", "quickstart.py", "serve_decode.py",
+                                       "solver_zoo.py", "train_flow_lm.py"]
+    for path in TWINS:
+        tree = ast.parse((ROOT / path).read_text())
+        roots = {alias.name.split(".")[0] for node in ast.walk(tree)
+                 if isinstance(node, ast.Import) for alias in node.names}
+        roots |= {node.module.split(".")[0] for node in ast.walk(tree)
+                  if isinstance(node, ast.ImportFrom) and node.module}
+        assert roots <= allowed, f"{path}: {sorted(roots - allowed)}"
