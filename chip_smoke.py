@@ -60,7 +60,10 @@ Phases (any failure ends the run with a non-zero exit and no last line):
    Lk 1500, full) twice: the dq pass alone (distillation: the memory
    carries no gradient; its bound and flops count S, dP and dQ, 6 hd a
    pair, and SDPA's backward is taken in q only) and whole (training); and
-   f32 cases at hd 80 and 64. And the gla_scan backward (gla_scan_bwd)
+   f32 cases at hd 80 and 64; and, bf16 causal at hd 128, internvl2-26b's
+   decoder (B=4, 48 / 8 heads, L 1280: G 6), phi3-medium-14b's (40 / 10,
+   L 1024: G 4) and yi-34b's (56 / 8: G 7), the groups phases 33 and 34
+   differentiate. And the gla_scan backward (gla_scan_bwd)
    against ``gla_chunked_bwd`` taken in f64 on the same inputs, relative L2
    of each gradient <= GLA_BWD_TOL (f32 1e-5, bf16 2e-2; a gradient kept in
    f32 for bf16 inputs, GLA_BWD_F32_OUT_TOL 1e-3): rwkv6-7b's flow
@@ -429,13 +432,14 @@ Phases (any failure ends the run with a non-zero exit and no last line):
     memory, whether tcmalloc was found and the one re-exec line; no claim
     either way.
 26. Distillation of rwkv6-7b at full width (PR 30): ``serve.main`` with
-    phase 12's flags at FAMILY_DISTILL_DEPTH = 4 of its 32 layers
-    (``launcher_depth``), FAMILY_DISTILL_ITERS = K = 8 iterations, the
+    phase 12's flags at FAMILY_DISTILL_DEPTH = 2 of its 32 layers
+    (``launcher_depth``; 4 until phases 32-35 needed the script's time: its
+    RK45 took 51.4 s at 4), FAMILY_DISTILL_ITERS = K = 8 iterations, the
     artifact under build/chip_smoke/rwkv6-7b/ (a directory of its own,
     emptied first: the zoo scans it for a solver of the same spec), then its
     2 requests. With R the RK45 evaluations of both solves, C = R + 8 + 8 +
     16 velocity calls under no_grad and G = 8 K differentiated ones (each
-    layer recomputed): gla_scan N (C + 2 G), gla_scan_bwd N G (N = 4
+    layer recomputed): gla_scan N (C + 2 G), gla_scan_bwd N G (N = 2
     layers; ``family_launches`` writes this out), ns_update 8 (2 + 2 + K),
     ns_update_bwd 8 K, nothing else. The distilled val PSNR above Euler's.
 26b. Phase 13's gradient for rwkv6-7b at 1 layer, f32, drawn on the card:
@@ -483,7 +487,53 @@ Phases (any failure ends the run with a non-zero exit and no last line):
 31. The examples' twins (``examples/torch``) run in-process on the card at
     their smallest knobs (TWIN_ARGS), each printing its board: quickstart
     (BNS wins), solver_zoo, gateway_demo, serve_decode and train_flow_lm.
-32. The script's wall time, one JSON line listing the kernels (the
+32a. One MoE layer of qwen3-moe-30b-a3b at full width (128 experts of 768,
+    top 8), batch 4 x 1024, bf16 and f32: the backward twice on the same
+    inputs and output gradient, x.grad's bits compared through the port's
+    dispatch gather (``moe._Dispatch``: its backward a gather summing each
+    token's 8 slot gradients in order) and through autograd of
+    ``index_select`` (``index_add_``'s float atomics), each form's forward +
+    backward ms; the port's must be bit-equal and within TOL (relative L2)
+    of the other form's gradient, the other's bits are printed either way.
+32. Phase 26 for qwen3-moe-30b-a3b at FAMILY_DISTILL_DEPTH = 2 of its 48
+    layers (the width full; the depth cut for the script's time): flash N
+    (C + 2 G), flash backward N G (``family_launches``), then phase 16's
+    BNS case on its weights and pairs (graphed TrainLoop iterations equal to
+    eager to the bit: the dispatch backward has no atomics). 32b: its
+    gradient at 1 layer, f32, card vs CPU under phase 26b's rule, after
+    every router call's expert choices (8: each layer routes in the forward
+    and again in its recomputation, for each of the 4 steps) are compared,
+    as 18b compares them: flash 8, backward 4. 32c: the trainer at 2 layers
+    (FAMILY_TRAIN_DEPTH), 3 steps of 8 x 64, graphed against eager to the
+    bit: flash 1 and backward 1 a layer a step.
+33. The same for internvl2-26b: distilled at 2 of its 48 layers (its
+    decoder over 256 stub patches and 1024 tokens: flash at G 6 over 1280
+    positions), 33b its gradient at 1 layer f32, 33c the trainer at 1
+    layer (its 92,553 x 6144 embedding and head are most of the state).
+34. Phase 26b's gradient for phi3-medium-14b (40 / 10 heads, G 4),
+    command-r-35b (64 / 8, G 8, the parallel block, tied embeddings) and
+    yi-34b (56 / 8, G 7) at 1 layer, f32, full width, card vs CPU: flash 8
+    and backward 4 each.
+35. Sliding-window attention on the card (the masked plain path: no kernel
+    takes a window, the reference's flash kernel neither). 35a:
+    ``lm_apply(window=WINDOW_FULL)`` on yi-6b's weights at full width and
+    depth, batch 4 x 1024, timed beside the unwindowed call: no kernel
+    launch, ms and peak GiB; over the first 256 positions the two within
+    the bf16 limit on an f32 copy of the weights (in bf16 the plain path
+    rounds scores and softmax weights to bf16, as the reference does, and
+    their distance is printed), past them different. 35b, inside phases 5,
+    17b, 18b and 22b on their 2-layer f32 models (dense, hybrid, moe, vlm):
+    ``lm_apply(window=WINDOW_CPU)`` card vs CPU (relative L2 <= 1e-4), then
+    again under an installed context with ``q_chunk`` = Q_CHUNK, every
+    attention through ``_chunked_attend`` on both sides. 35c:
+    ``serve.main`` decode with ``--window 64 --slots 64`` on yi-6b at full
+    width (8 requests of up to 2 + 96 positions on 4 slots: the ring wraps),
+    phase 15's cases on its engine (``prefill_slots`` of 16 columns, then
+    greedy ``step_slots`` from position 62, across the wrap, graphed against
+    eager to the bit), then a 2-layer
+    f32 model card vs CPU over an 8-slot ring (the same tokens, logits
+    within 1e-4).
+36. The script's wall time, one JSON line listing the kernels (the
     ns_update and flash entries, forward and backward, with phases 4b, 5b,
     12b, 12c, 12d, 13b, 13c, 14a, 14b, 14c, 16 and 17-17d's launches and
     ms beside the main path's; every entry with phases 18-20's; the flash
@@ -494,6 +544,8 @@ Phases (any failure ends the run with a non-zero exit and no last line):
     entry with phases 26-29's, the gla_scan_bwd entry's main path being
     phase 26 and the flash backward's and gla_scan_bwd's phase 3c cases at
     the new families' shapes as "slice19_cases"), then the last line.
+    Every entry also carries phases 32-35's launches, the flash backward's
+    phase 3c's cases at G 6, 4 and 7 as "gqa_cases".
 
 Phase 3 also holds flash at B=4 L=1024 hd 128, causal, bf16 at (H, KV) =
 (56, 8), (40, 10), (64, 8) and (64, 4) (yi-34b, phi3-medium-14b,
@@ -646,13 +698,29 @@ KERNELS = ("ns_update", "flash_attention", "paged_attention", "gla_scan", "ns_up
 # kernels PR 30 added (gla_scan's; flash at hd 80 and 64), each at a cut
 # depth: (layers, encoder layers); 26b-28b their gradient card vs CPU and
 # 29a-c the trainer at the smallest depth each takes
-FAMILY_DISTILL_DEPTH = {"rwkv6-7b": (4, None), "zamba2-2.7b": (6, None),
-                        "whisper-medium": (4, 4)}
+FAMILY_DISTILL_DEPTH = {"rwkv6-7b": (2, None), "zamba2-2.7b": (6, None),
+                        "whisper-medium": (4, 4), MOE_ARCH: (2, None), INTERNVL: (2, None)}
 FAMILY_DISTILL_ITERS = 8
-FAMILY_GRAD_DEPTH = {"rwkv6-7b": 1, "zamba2-2.7b": 2, "whisper-medium": 1}   # f32, each stack
+FAMILY_GRAD_DEPTH = {"rwkv6-7b": 1, "zamba2-2.7b": 2, "whisper-medium": 1,   # f32, each stack
+                     MOE_ARCH: 1, INTERNVL: 1, "phi3-medium-14b": 1, "command-r-35b": 1,
+                     "yi-34b": 1}
 FAMILY_TRAIN_DEPTH = {"rwkv6-7b": (1, None), "zamba2-2.7b": (6, None),
-                      "whisper-medium": (1, 1)}
+                      "whisper-medium": (1, 1), MOE_ARCH: (2, None), INTERNVL: (1, None)}
 FAMILY_TRAIN_STEPS = 3
+# phases 32-33: the same trio (distillation, gradient, trainer) for the moe
+# and vlm families, each at 2 of its 48 layers to distil (the script's time:
+# the RK45 pairs scale with the depth) and at the least depth its check
+# needs: one layer for the gradient on both sides (the CPU's half at full
+# width), 2 for qwen3-moe-30b-a3b's trainer (a layer routes what another
+# layer's gradient reaches), 1 for internvl2-26b's (its 92,553 x 6144
+# embedding and head, f32 moments included, are most of its state);
+# 32a: one MoE layer's backward twice at the flow cell's shape; phase 34: the
+# gradient of the dense archs phase 20 serves, flash backward at G 4, 8, 7
+PHASES_26_29 = ("rwkv6-7b", "zamba2-2.7b", "whisper-medium")
+PHASES_32_33 = (MOE_ARCH, INTERNVL)
+PHASE_34_ARCHS = ("phi3-medium-14b", "command-r-35b", "yi-34b")
+TRAIN_PHASE = {"rwkv6-7b": "29a", "zamba2-2.7b": "29b", "whisper-medium": "29c",
+               MOE_ARCH: "32c", INTERNVL: "33c"}
 # 26b-28b: a gradient whose CPU f32 result lies farther than this from the
 # CPU's f64 one is held to f64 (the card within GRAD_F32_FACTOR x the CPU's
 # distance): rwkv6-7b's time-logit gradient reads 2.0e-4 from f64 on the CPU
@@ -660,7 +728,23 @@ FAMILY_TRAIN_STEPS = 3
 # replaced by its plain version in f64 (scripts/grad_f32_conditioning.py):
 # the kernels add nothing to it
 GRAD_F32_FLOOR, GRAD_F32_FACTOR = 2.5e-5, 4.0
-FAMILY_PHASE = {"rwkv6-7b": "26", "zamba2-2.7b": "27", "whisper-medium": "28"}
+FAMILY_PHASE = {"rwkv6-7b": "26", "zamba2-2.7b": "27", "whisper-medium": "28",
+                MOE_ARCH: "32", INTERNVL: "33"}
+# phase 35: sliding-window attention on the card. 35a: lm_apply at yi-6b's
+# full width, batch 4 x 1024, window 256 (the first 256 positions see no
+# cut); 35b: each windowed family's 2-layer f32 model card vs CPU at window
+# 16 over 64 positions (320 with internvl2-26b's patches), and again under an
+# installed q_chunk of 32; 35c: decode through the gateway with a 64-slot
+# ring (prompt + tokens up to 98 positions, so it wraps), phase 15's cases
+# (a prefill of 16 columns; the steps from position 62, so they wrap), and a
+# 2-layer f32 model card vs CPU over an 8-slot ring
+WINDOW_FULL, WINDOW_CPU, Q_CHUNK = 256, 16, 32
+WINDOW_DECODE, WINDOW_PREFILL, WINDOW_CPU_DECODE = 64, 16, 8
+WINDOW_DECODE_ARGS = ["--arch", "yi-6b", "--mode", "decode", "--full", "--gateway",
+                      "--window", str(WINDOW_DECODE), "--slots", str(WINDOW_DECODE),
+                      "--max-slots", "4", "--requests", "8", "--decode-lengths", "96,80",
+                      "--prefill-chunk", "64"]
+WINDOW_RUNS: dict = {}                                     # phase 35, by part
 LM_SEQ, LM_DECODE_STEPS, LM_CPU_SEQ = 1024, 32, 64        # phase 30
 LM_RUNS: dict = {}                                         # phase 30, by arch
 TWIN_ARGS = {"quickstart": ["--pairs", "64", "--iterations", "100"],       # phase 31
@@ -1027,6 +1111,11 @@ def flash_bwd_cases(dev):
               (1, 4, 4, 40, 97, 64, f32, False, True)]
     # the tensor-core path's edges at hd 64 and 80: ragged L (TMA zero fill,
     # masks), GQA 8 / 2 summed in the block, Lq != Lk both ways, the dq pass alone
+    # internvl2-26b's decoder over 256 patches and 1024 tokens (G 6), phi3-medium-14b's
+    # (G 4) and yi-34b's (G 7) heads: the GQA groups phases 33 and 34 differentiate
+    cases += [(BATCH, 48, 8, 256 + SEQ, 256 + SEQ, 128, bf16, True, True),
+              (BATCH, 40, 10, SEQ, SEQ, 128, bf16, True, True),
+              (BATCH, 56, 8, SEQ, SEQ, 128, bf16, True, True)]
     for hd in (64, 80):
         cases += [(2, 16, 16, 1000, 1000, hd, bf16, True, True),
                   (2, 8, 2, 333, 333, hd, bf16, True, True),
@@ -1505,17 +1594,18 @@ def flow_path(dev, counters, arch: str, want: dict, graphs: dict, requests: int 
                       "wall_s": wall, "capture_ms": capture_ms}
 
 
-def lm_launches(cfg) -> dict:
-    """Phase 30's formula: the kernels one ``lm_apply`` launches."""
+def lm_launches(cfg, window: int = 0) -> dict:
+    """Phase 30's formula: the kernels one ``lm_apply`` launches (with a
+    ``window``, phase 35's: no flash launch, where the family takes one)."""
     out = dict.fromkeys(KERNELS, 0)
     if cfg.family == "ssm":
         out["gla_scan"] = cfg.n_layers
     elif cfg.family == "hybrid":
         out["gla_scan"] = cfg.n_layers
-        out["flash_attention"] = cfg.n_layers // cfg.hybrid_attn_every
+        out["flash_attention"] = 0 if window else cfg.n_layers // cfg.hybrid_attn_every
     elif cfg.family == "encdec":
         out["flash_attention"] = cfg.n_encoder_layers + 2 * cfg.n_layers
-    else:
+    elif not window:
         out["flash_attention"] = cfg.n_layers
     return out
 
@@ -1610,11 +1700,12 @@ def lm_decode_check(dev, cfg, params, batch: dict, last: torch.Tensor) -> dict:
     return out
 
 
-def lm_against_cpu(dev, counters, cfg, params, on_card=None) -> float:
+def lm_against_cpu(dev, counters, cfg, params, on_card=None, window: int = 0,
+                   label: str = "phase 30") -> float:
     """Phase 30 on a 2-layer f32 model: ``lm_apply`` on the card
     (``on_card``, or ``params`` copied there) and on the CPU (``params``),
-    batch 2 x LM_CPU_SEQ, the same inputs: relative L2 of the logits <= 1e-4,
-    the card run's launches equal to the formula."""
+    batch 2 x LM_CPU_SEQ, the same inputs, at ``window`` (phase 35b): relative
+    L2 of the logits <= 1e-4, the card run's launches equal to the formula."""
     from repro_torch.models import model as M
     from repro_torch.models.transformer import params_to
 
@@ -1622,20 +1713,61 @@ def lm_against_cpu(dev, counters, cfg, params, on_card=None) -> float:
     card_params = params_to(params, dev) if on_card is None else on_card
     before = {name: c.launches for name, c in counters.items()}
     with torch.no_grad():
-        got = M.lm_apply(card_params, cfg, {k: v.to(dev) for k, v in batch.items()})
+        got = M.lm_apply(card_params, cfg, {k: v.to(dev) for k, v in batch.items()},
+                         window=window)
         torch.cuda.synchronize(dev)
         ran = launched(counters, before)
-        want = M.lm_apply(params, cfg, batch)
-    if ran != lm_launches(cfg):
+        want = M.lm_apply(params, cfg, batch, window=window)
+    if ran != lm_launches(cfg, window):
         raise SystemExit(f"{cfg.name} lm_apply card run launched {ran}, expected "
-                         f"{lm_launches(cfg)}")
+                         f"{lm_launches(cfg, window)}")
     rel = relative_l2(got.cpu(), want)
-    print(f"phase 30 [{cfg.name}]: lm_apply card vs CPU (2 layers, f32, batch 2 x "
-          f"{LM_CPU_SEQ}): relative L2 {rel:.3e} (limit 1e-4)")
+    what = f"lm_apply(window={window})" if window else "lm_apply"
+    print(f"{label} [{cfg.name}]: {what} card vs CPU (2 layers, f32, batch 2 x "
+          f"{LM_CPU_SEQ}): relative L2 {rel:.3e} (limit 1e-4), card launches "
+          f"{ {k: v for k, v in ran.items() if v} }")
     if not rel <= 1e-4:
-        raise SystemExit(f"lm_apply {cfg.name}: card vs CPU relative L2 {rel} over 1e-4")
-    LM_RUNS.setdefault("card_vs_cpu", {})[cfg.name] = rel
+        raise SystemExit(f"{what} {cfg.name}: card vs CPU relative L2 {rel} over 1e-4")
+    if not window:
+        LM_RUNS.setdefault("card_vs_cpu", {})[cfg.name] = rel
     return rel
+
+
+def window_against_cpu(dev, counters, cfg, params, on_card=None) -> dict:
+    """Phase 35b on a phase's 2-layer f32 model (dense, moe, hybrid or vlm):
+    ``lm_against_cpu`` at WINDOW_CPU, then again under an installed context
+    with ``q_chunk`` Q_CHUNK (both sides; a host-only mesh of 1 x 1 axis
+    sizes, so ``constrain`` passes plain tensors through), where every
+    attention must run the query-chunked path, ``_chunked_attend``, on both
+    sides."""
+    from repro_torch.distributed import context
+    from repro_torch.models import attention
+
+    out = {"window": lm_against_cpu(dev, counters, cfg, params, on_card, WINDOW_CPU,
+                                    "phase 35b")}
+    inner, chunked = attention._chunked_attend, []
+
+    def counted(q, *rest):
+        chunked.append(q.device.type)
+        return inner(q, *rest)
+
+    attention._chunked_attend = counted
+    context.install({"data": 1, "model": 1}, q_chunk=Q_CHUNK)
+    try:
+        out["q_chunk"] = lm_against_cpu(dev, counters, cfg, params, on_card, WINDOW_CPU,
+                                        f"phase 35b, q_chunk {Q_CHUNK}")
+    finally:
+        context.clear()
+        attention._chunked_attend = inner
+    sites = cfg.n_layers // (cfg.hybrid_attn_every if cfg.family == "hybrid" else 1)
+    out["chunked_calls"] = {d: chunked.count(d) for d in ("cuda", "cpu")}
+    print(f"phase 35b [{cfg.name}]: under q_chunk {Q_CHUNK}, _chunked_attend ran "
+          f"{out['chunked_calls']} times (card, CPU; {sites} attention layers a call)")
+    if out["chunked_calls"] != {"cuda": sites, "cpu": sites}:
+        raise SystemExit(f"phase 35b [{cfg.name}]: the q_chunk context did not route "
+                         f"attention through _chunked_attend: {out['chunked_calls']}")
+    WINDOW_RUNS.setdefault("35b", {})[cfg.name] = out
+    return out
 
 
 def twins(dev, counters, card: str) -> dict:
@@ -1801,7 +1933,8 @@ def baselines_served(dev, counters, card: str) -> dict:
 
 
 def relative_l2(a: torch.Tensor, b: torch.Tensor) -> float:
-    return float(torch.linalg.vector_norm(a.cpu() - b) / torch.linalg.vector_norm(b))
+    """|a - b| / |b|, on b's device."""
+    return float(torch.linalg.vector_norm(a.to(b.device) - b) / torch.linalg.vector_norm(b))
 
 
 def baselines_against_cpu(dev, counters, cfg, params) -> dict:
@@ -1942,8 +2075,9 @@ def decode_path(dev, counters, args: list, per_call: dict, graphs: dict,
     every page returns, and each kernel launches ``per_call[name]`` times a
     ``decode_apply`` call (0 where it is not named). Then phase 15's cases on
     the served engine (``decode_programs``' ``prefill`` and ``sampled``; with
-    ``growth``, ``workspace_growth`` too), into ``graphs``; the run's
-    tokens/s, engine call ms and peak memory into ``runs`` where given."""
+    ``growth``, ``workspace_growth`` too), into ``graphs`` under ``label``
+    (default the arch); the run's tokens/s, engine call ms and peak memory
+    into ``runs`` where given."""
     from repro_torch.launch import serve
 
     free_device_memory(dev)
@@ -1985,8 +2119,9 @@ def decode_path(dev, counters, args: list, per_call: dict, graphs: dict,
     engine = served.engine
     slots = int(args[args.index("--max-slots") + 1])
     cache_slots = int(args[args.index("--slots") + 1]) if "--slots" in args else 128
-    graphs.update(decode_programs(dev, counters, engine, arch, slots, cache_slots,
-                                  cases.get("prefill", 0), cases.get("sampled", False)))
+    graphs.update(decode_programs(dev, counters, engine, cases.get("label", arch), slots,
+                                  cache_slots, cases.get("prefill", 0),
+                                  cases.get("sampled", False), cases.get("start")))
     if cases.get("growth"):
         graphs["yi-6b paged workspace growth"] = workspace_growth(dev, counters, engine)
     if runs is not None:
@@ -2074,21 +2209,24 @@ def _to_f32(tree):
     return tree.float() if torch.is_floating_point(tree) else tree
 
 
-def decode_against_cpu(dev, counters, cfg, params, engine_kw: dict, per_call: dict):
-    """The same gateway requests on the card and on the CPU: every step's
-    logits within relative L2 1e-4 and the same greedy tokens; on the card
-    each kernel launches ``per_call[name]`` times a ``decode_apply`` call."""
+def decode_against_cpu(dev, counters, cfg, params, engine_kw: dict, per_call: dict,
+                       cache_slots: int = 32, lengths=(6, 3, 5, 2)):
+    """The same gateway requests on the card and on the CPU (two-token
+    prompts, ``lengths`` new tokens, ``cache_slots`` positions a slot): every
+    step's logits within relative L2 1e-4 and the same greedy tokens; on the
+    card each kernel launches ``per_call[name]`` times a ``decode_apply``
+    call."""
     from repro_torch.models.transformer import params_to
     from repro_torch.serving.decode import DecodeGateway, DecodeRequest
     from repro_torch.serving.engine import DecodeEngine
 
     def serve_on(p):
         engine = DecodeEngine(params=p, cfg=cfg, **engine_kw)
-        gw = DecodeGateway(engine, max_slots=2, cache_slots=32, prefill_chunk=4)
+        gw = DecodeGateway(engine, max_slots=2, cache_slots=cache_slots, prefill_chunk=4)
         futures = [gw.submit(DecodeRequest(prompt=[(3 * r + 1) % cfg.vocab,
                                                    (5 * r + 2) % cfg.vocab],
                                            max_tokens=n))
-                   for r, n in enumerate([6, 3, 5, 2])]
+                   for r, n in enumerate(lengths)]
         with CountCalls(keep_logits=True) as rec:
             while not all(f.done() for f in futures):
                 gw.pump()
@@ -2104,9 +2242,10 @@ def decode_against_cpu(dev, counters, cfg, params, engine_kw: dict, per_call: di
     cpu_tokens, cpu_logits = serve_on(params)
     rels = [float(torch.linalg.vector_norm(a - b) / torch.linalg.vector_norm(b))
             for a, b in zip(card_logits, cpu_logits)]
-    print(f"decode path, {cfg.name}, card vs CPU plain (2 layers, f32, 4 requests): "
-          f"{len(rels)} steps, worst logits relative L2 {max(rels):.3e} (limit 1e-4), "
-          f"tokens equal: {card_tokens == cpu_tokens}")
+    ring = f", window {engine_kw['window']}" if engine_kw.get("window") else ""
+    print(f"decode path, {cfg.name}, card vs CPU plain (2 layers, f32, {len(lengths)} requests"
+          f"{ring}): {len(rels)} steps, worst logits relative L2 {max(rels):.3e} (limit "
+          f"1e-4), tokens equal: {card_tokens == cpu_tokens}")
     if len(card_logits) != len(cpu_logits) or not max(rels) <= 1e-4:
         raise SystemExit(f"{cfg.name} decode path: per-step logits relative L2 {rels}")
     if card_tokens != cpu_tokens:
@@ -2495,13 +2634,14 @@ def bst_distill_path(dev, counters, trains: dict) -> dict:
 
 
 def bns_gradient_against_cpu(dev, counters, cfg, params, label: str, want: dict,
-                             card_params=None, check: bool = True):
+                             card_params=None, check: bool = True, on_side=None):
     """_loss_fn at euler NFE 4 and its gradient in theta on the card
     (kernels; ``card_params``, or ``params`` copied there) against the CPU
     (plain versions, ``params``), batch 2 x 128 of synthetic tokens (and
     frames), seeded pairs, each layer recomputed: relative L2 of the loss
     and of each gradient <= 1e-4 (with ``check``; else the caller judges);
-    the card launches exactly ``want``. Returns (the two sides' fields,
+    the card launches exactly ``want``; ``on_side(where)`` is called before
+    each side's run ("cpu", then "card"). Returns (the two sides' fields,
     theta0, the pairs, each side's gradients on the CPU, the relative L2s)."""
     from repro_torch.core import bns, ns_solver
     from repro_torch.core.schedulers import get_scheduler
@@ -2524,6 +2664,8 @@ def bns_gradient_against_cpu(dev, counters, cfg, params, label: str, want: dict,
     for where, field in fields.items():
         d = dev if where == "card" else torch.device("cpu")
         th = ns_solver.BNSParams(*(p.to(d).requires_grad_(True) for p in theta0))
+        if on_side is not None:
+            on_side(where)
         before = {name: c.launches for name, c in counters.items()}
         loss = bns._loss_fn(bns.ns_sampler(field), th, x0.to(d), x1.to(d))
         grads = torch.autograd.grad(loss, list(th))
@@ -3498,13 +3640,14 @@ def _slot_states(engine, slots: int, cache_slots: int, copies: int = 2) -> list:
 
 
 def decode_programs(dev, counters, engine, label: str, slots: int, cache_slots: int,
-                    prefill: int, sampled: bool) -> dict:
+                    prefill: int, sampled: bool, start: int | None = None) -> dict:
     """Phase 15 on a served ``DecodeEngine``: ``prefill_slots`` of ``prefill``
     columns (positions reset to 0 before each call), then ``step_slots``
-    greedy and (``sampled``) with per-row sampling, graphed on one slot state
-    and eager on a second of the same shape: tokens and every state leaf
-    equal to the bit after each pair. Then one graphed greedy step under
-    torch.profiler: its device-busy share."""
+    greedy and (``sampled``) with per-row sampling, from position ``start``
+    where given (a windowed engine's ring then wraps inside the steps),
+    graphed on one slot state and eager on a second of the same shape:
+    tokens and every state leaf equal to the bit after each pair. Then one
+    graphed greedy step under torch.profiler: its device-busy share."""
     from repro_torch.serving.engine import SlotSampling
 
     states = _slot_states(engine, slots, cache_slots)
@@ -3522,6 +3665,9 @@ def decode_programs(dev, counters, engine, label: str, slots: int, cache_slots: 
         rows[f"{label} prefill_slots C={prefill}"] = graph_case(
             dev, counters, f"{label} prefill_slots C={prefill}, {slots} slots",
             engine.programs, prefill_on(states[0]), prefill_on(states[1]))
+    if start is not None:
+        for state in states:
+            state.index.fill_(start)
     feeds, steps = [prompt[:, -1].copy(), prompt[:, -1].copy()], [0, 0]
     sampling = SlotSampling(seeds=np.arange(slots, dtype=np.uint64) + 15,
                             counts=np.zeros(slots, np.int32),
@@ -3616,6 +3762,7 @@ def zamba2_paths(dev, counters, card: str, graphs: dict) -> dict:
         dev, counters, cfg, params,
         {**zero, "ns_update": 4, "flash_attention": 4, "gla_scan": 2 * 4})
     lm_against_cpu(dev, counters, cfg, params)
+    window_against_cpu(dev, counters, cfg, params)
     wall["17b"] = time.perf_counter() - t0
     t0 = time.perf_counter()
     out["decode"] = {}
@@ -3656,6 +3803,56 @@ def launched(counters, before: dict) -> dict:
     return {name: c.launches - before[name] for name, c in counters.items()}
 
 
+class RouterCalls:
+    """Records every MoE router call's expert choices, with the
+    probabilities they came from, on the side ``side`` names ("card" or
+    "cpu"), by wrapping ``moe._routing`` while the context is open;
+    ``flips`` compares the two sides call by call."""
+
+    def __init__(self):
+        self.calls, self.side = {"card": [], "cpu": []}, "card"
+
+    def __enter__(self):
+        from repro_torch.models import moe
+
+        self.module, self.inner = moe, moe._routing
+
+        def recording(p, x2d, c):
+            gates, idx, aux = self.inner(p, x2d, c)
+            probs = torch.softmax(x2d.float() @ p["router"].float(), dim=-1)
+            self.calls[self.side].append((probs.detach().cpu(), idx.cpu()))
+            return gates, idx, aux
+
+        moe._routing = recording
+        return self
+
+    def __exit__(self, *exc):
+        self.module._routing = self.inner
+
+    def flips(self, cfg, per_step: int = 0) -> list:
+        """One line a router call whose choices differ (``per_step`` calls an
+        NFE step, where the calls run step by step): the first differing
+        token's choices on each side, both sides' probabilities of the
+        experts involved and the CPU's gap between its k-th and (k+1)-th
+        probability."""
+        k, out = cfg.moe.top_k, []
+        for call, ((pc, ic), (pp, ip)) in enumerate(zip(self.calls["card"],
+                                                        self.calls["cpu"])):
+            if torch.equal(ic, ip):
+                continue
+            t = int((ic != ip).any(-1).nonzero()[0, 0])
+            ranked = pp[t].sort(descending=True).values
+            experts = sorted(set(ic[t].tolist()) ^ set(ip[t].tolist())) or ic[t].tolist()
+            where = (f" (NFE step {call // per_step}, call {call % per_step} of the step)"
+                     if per_step else "")
+            out.append(f"call {call}{where}, token {t}: card {ic[t].tolist()}, CPU "
+                       f"{ip[t].tolist()}; "
+                       f"experts {experts}: card p {[float(pc[t, e]) for e in experts]}, CPU "
+                       f"p {[float(pp[t, e]) for e in experts]}; CPU gap between its {k}th "
+                       f"and {k + 1}th {float(ranked[k - 1] - ranked[k]):.3e}")
+        return out
+
+
 def routed_path_against_cpu(dev, counters, cfg, params, on_card, want: dict) -> dict:
     """Phase 18b: phase 5 for an MoE model (``on_card``: ``params``' copy on
     the card), eagerly on both sides. Every
@@ -3665,54 +3862,28 @@ def routed_path_against_cpu(dev, counters, cfg, params, on_card, want: dict) -> 
     involved and the CPU's gap between its k-th and (k+1)-th probability, and
     fails. Then the latents (relative L2 <= 1e-4) and their nearest tokens
     (equal)."""
-    from repro_torch.models import moe
     from repro_torch.serving import programs
     from repro_torch.serving.engine import FlowSampler
 
     batch, x0, kw = euler_inputs(cfg, params)
-    records, side, inner = {"card": [], "cpu": []}, ["card"], moe._routing
-
-    def recording(p, x2d, c):
-        gates, idx, aux = inner(p, x2d, c)
-        probs = torch.softmax(x2d.float() @ p["router"].float(), dim=-1)
-        records[side[0]].append((probs.cpu(), idx.cpu()))
-        return gates, idx, aux
-
-    moe._routing = recording
-    try:
-        with programs.disabled():
-            before = {name: c.launches for name, c in counters.items()}
-            card_sampler = FlowSampler(params=on_card, **kw)
-            on_card = card_sampler.sample_from(batch, x0)
-            torch.cuda.synchronize(dev)
-            ran = launched(counters, before)
-            side[0] = "cpu"
-            cpu_sampler = FlowSampler(params=params, **kw)
-            on_cpu = cpu_sampler.sample_from(batch, x0)
-    finally:
-        moe._routing = inner
+    with RouterCalls() as router, programs.disabled():
+        before = {name: c.launches for name, c in counters.items()}
+        card_sampler = FlowSampler(params=on_card, **kw)
+        on_card = card_sampler.sample_from(batch, x0)
+        torch.cuda.synchronize(dev)
+        ran = launched(counters, before)
+        router.side = "cpu"
+        cpu_sampler = FlowSampler(params=params, **kw)
+        on_cpu = cpu_sampler.sample_from(batch, x0)
     if ran != want:
         raise SystemExit(f"{cfg.name} card run launched {ran}, expected {want}")
-    k = cfg.moe.top_k
-    calls, flips = len(records["cpu"]), []
-    for call, ((pc, ic), (pp, ip)) in enumerate(zip(records["card"], records["cpu"])):
-        if torch.equal(ic, ip):
-            continue
-        t = int((ic != ip).any(-1).nonzero()[0, 0])
-        ranked = pp[t].sort(descending=True).values
-        experts = sorted(set(ic[t].tolist()) ^ set(ip[t].tolist())) or ic[t].tolist()
-        flips.append(f"call {call} (NFE step {call // cfg.n_layers}, layer "
-                     f"{call % cfg.n_layers}), token {t}: card {ic[t].tolist()}, CPU "
-                     f"{ip[t].tolist()}; experts {experts}: card p "
-                     f"{[float(pc[t, e]) for e in experts]}, CPU p "
-                     f"{[float(pp[t, e]) for e in experts]}; CPU gap between its "
-                     f"{k}th and {k + 1}th {float(ranked[k - 1] - ranked[k]):.3e}")
+    calls, flips = len(router.calls["cpu"]), router.flips(cfg, cfg.n_layers)
     print(f"whole path, {cfg.name}, expert choices card vs CPU: {calls} router calls "
           f"({cfg.n_layers} layers x 4 steps) of {x0.shape[0] * x0.shape[1]} tokens x top "
-          f"{k}, {len(flips)} differ" + ("; " + " | ".join(flips) if flips else ""))
-    if flips or len(records["card"]) != calls or calls != 4 * cfg.n_layers:
+          f"{cfg.moe.top_k}, {len(flips)} differ" + ("; " + " | ".join(flips) if flips else ""))
+    if flips or len(router.calls["card"]) != calls or calls != 4 * cfg.n_layers:
         raise SystemExit(f"{cfg.name}: expert choices differ between the card and the CPU "
-                         f"({len(records['card'])} and {calls} router calls): {flips}")
+                         f"({len(router.calls['card'])} and {calls} router calls): {flips}")
     rel = relative_l2(on_card.cpu(), on_cpu)
     same = bool(torch.equal(card_sampler.nearest_tokens(on_card).cpu(),
                             cpu_sampler.nearest_tokens(on_cpu)))
@@ -3744,6 +3915,7 @@ def moe_paths(dev, counters, card: str, graphs: dict) -> dict:
     out["flow_against_cpu"] = routed_path_against_cpu(
         dev, counters, cfg, params, on_card, {**zero, "ns_update": 4, "flash_attention": 2 * 4})
     lm_against_cpu(dev, counters, cfg, params, on_card)
+    window_against_cpu(dev, counters, cfg, params, on_card)
     del on_card
     phases["18b"] = out["flow_against_cpu"]["launches"]
     wall["18b"] = time.perf_counter() - t0
@@ -4081,6 +4253,7 @@ def internvl_paths(dev, counters, card: str, graphs: dict) -> dict:
                                               {"paged_attention": 2})
     phases["22b"] = launched(counters, before)
     lm_against_cpu(dev, counters, cfg, params)
+    window_against_cpu(dev, counters, cfg, params)
     del params
     wall["22b"] = time.perf_counter() - t0
     out["wall_s"], out["phase_launches"] = wall, phases
@@ -4486,7 +4659,9 @@ def family_launches(cfg, no_grad: int, grad: int, *, training: bool = False) -> 
     the backward) a differentiated call runs each layer forward twice and
     backward once, except whisper's encoder, whose frames and weights carry
     no gradient (one plain forward a call), and its cross-attention's
-    backward is the dq pass alone (one launch all the same)."""
+    backward is the dq pass alone (one launch all the same). The dense, moe
+    and vlm families run one attention a layer (vlm's decoder over the
+    patches and the tokens)."""
     N, twice = cfg.n_layers, 1 if training else 2
     out = dict.fromkeys(KERNELS, 0)
     if cfg.family == "ssm":
@@ -4504,19 +4679,22 @@ def family_launches(cfg, no_grad: int, grad: int, *, training: bool = False) -> 
         else:
             out.update(flash_attention=(E + D) * no_grad + (E + 2 * D) * grad,
                        flash_attention_bwd=D * grad)
+    elif cfg.family in ("dense", "moe", "vlm"):
+        out.update(flash_attention=N * (no_grad + twice * grad), flash_attention_bwd=N * grad)
     else:
         raise ValueError(f"no launch formula for the {cfg.family} family")
     return out
 
 
 def family_distill_path(dev, counters, card: str, arch: str, trains: dict) -> dict:
-    """Phases 26-28: serve.main distils a BNS solver for ``arch`` at full
-    width and FAMILY_DISTILL_DEPTH[arch] layers (phase 12's flags with
+    """Phases 26-28, 32 and 33: serve.main distils a BNS solver for ``arch``
+    at full width and FAMILY_DISTILL_DEPTH[arch] layers (phase 12's flags with
     FAMILY_DISTILL_ITERS iterations and ``--solver-artifact`` under
     build/chip_smoke/<arch>/, emptied first), serves its requests, and must launch
     what the module docstring's formula says; the distilled val PSNR above
-    the initial (Euler) solver's. zamba2-2.7b's then runs phase 16's BNS
-    case (graphed against eager) on its weights and pairs, into ``trains``."""
+    the initial (Euler) solver's. zamba2-2.7b's and qwen3-moe-30b-a3b's then
+    run phase 16's BNS case (graphed against eager) on their weights and
+    pairs, into ``trains``."""
     from repro_torch.launch import serve
 
     layers, enc = FAMILY_DISTILL_DEPTH[arch]
@@ -4568,7 +4746,7 @@ def family_distill_path(dev, counters, card: str, arch: str, trains: dict) -> di
           f"{[round(x.ms, 3) for x in served]}; launches {launches} (the formula's); peak "
           f"memory {peak / 2**30:.3f} GiB; main() wall {wall:.3f} s; training programs "
           f"{d.programs}")
-    if arch == "zamba2-2.7b":
+    if arch in ("zamba2-2.7b", MOE_ARCH):
         label = f"bns, {arch} at {layers} layers, seq {SEQ}, euler NFE {NFE}"
         trains[label] = train_programs(dev, counters, label, train_loop(
             "bns", served_field(dev, served.sampler, SEQ), d.pairs))
@@ -4582,23 +4760,42 @@ def family_distill_path(dev, counters, card: str, arch: str, trains: dict) -> di
     return out
 
 
-def family_gradient_against_cpu(dev, counters, arch: str) -> dict:
-    """Phases 26b-28b: phase 13's gradient for ``arch`` at FAMILY_GRAD_DEPTH
-    layers (each stack of whisper's; zamba2's one shared-attention site over
-    its two Mamba2 layers), f32, drawn on the card, launches as the formula
-    says for 4 differentiated calls: the loss and each gradient card vs CPU
-    within relative L2 1e-4. A gradient that f32 cannot hold to that (the
-    CPU's own f32 result farther than GRAD_F32_FLOOR from the same
-    computation in f64 on the CPU) is held instead to the f64 result: the
-    card's distance from it at most GRAD_F32_FACTOR times the CPU's."""
+def family_gradient_against_cpu(dev, counters, arch: str, phase: str) -> dict:
+    """Phases 26b-28b, 32b, 33b and 34: phase 13's gradient for ``arch`` at
+    FAMILY_GRAD_DEPTH layers (each stack of whisper's; zamba2's one
+    shared-attention site over its two Mamba2 layers), f32, drawn on the
+    card, launches as the formula says for 4 differentiated calls: the loss
+    and each gradient card vs CPU within relative L2 1e-4. A gradient that
+    f32 cannot hold to that (the CPU's own f32 result farther than
+    GRAD_F32_FLOOR from the same computation in f64 on the CPU) is held
+    instead to the f64 result: the card's distance from it at most
+    GRAD_F32_FACTOR times the CPU's. An MoE model's expert choices are
+    compared first, every router call of both sides (phase 18b's rule; each
+    layer routes twice a differentiated call, once more in its recomputation):
+    a flip prints both sides' probabilities and fails."""
     from repro_torch.optim.adam import tree_map
 
     cfg, on_card, on_cpu = card_drawn_model(dev, arch, FAMILY_GRAD_DEPTH[arch])
     want = {**family_launches(cfg, 0, 4), "ns_update": 4, "ns_update_bwd": 4}
-    label = f"{arch} {FAMILY_GRAD_DEPTH[arch]} layers f32"
-    fields, theta0, pairs, grads, rels = bns_gradient_against_cpu(
-        dev, counters, cfg, on_cpu, label, want, card_params=on_card, check=False)
+    label = f"phase {phase}, {arch} {FAMILY_GRAD_DEPTH[arch]} layers f32"
+    routed = cfg.family == "moe"
+    router = RouterCalls()
+    with router if routed else contextlib.nullcontext():
+        fields, theta0, pairs, grads, rels = bns_gradient_against_cpu(
+            dev, counters, cfg, on_cpu, label, want, card_params=on_card, check=False,
+            on_side=lambda where: setattr(router, "side", where))
     out = {"relative_l2": rels, "launches": want}
+    if routed:
+        calls, flips = len(router.calls["cpu"]), router.flips(cfg)
+        print(f"gradient, {label}: expert choices card vs CPU, {calls} router calls "
+              f"({cfg.n_layers} layers x 4 steps x 2, the recomputation included) of "
+              f"{router.calls['cpu'][0][1].shape[0]} tokens x top {cfg.moe.top_k}, "
+              f"{len(flips)} differ" + ("; " + " | ".join(flips) if flips else ""))
+        if flips or len(router.calls["card"]) != calls or calls != 8 * cfg.n_layers:
+            raise SystemExit(f"{label}: expert choices differ between the card and the "
+                             f"CPU ({len(router.calls['card'])} and {calls} router calls): "
+                             f"{flips}")
+        out["router_calls"] = calls
     if max(rels) > 1e-4:
         from repro_torch.core import bns, ns_solver
         from repro_torch.core.schedulers import get_scheduler
@@ -4630,7 +4827,7 @@ def family_gradient_against_cpu(dev, counters, arch: str) -> dict:
 
 
 def family_trainer(dev, counters, card: str, arch: str) -> dict:
-    """Phases 29a-c: ``launch.train.main`` trains ``arch`` at full width and
+    """Phases 29a-c, 32c and 33c: ``launch.train.main`` trains ``arch`` at full width and
     FAMILY_TRAIN_DEPTH[arch] layers, FAMILY_TRAIN_STEPS steps of TRAIN_BATCH
     x TRAIN_SEQ, graphed and then under ``programs.disabled()``: params,
     Adam's moments and step and the losses equal to the bit, launches equal
@@ -4664,7 +4861,7 @@ def family_trainer(dev, counters, card: str, arch: str) -> dict:
            "median_step_ms": float(np.median(g.step_ms[1:])), "peak_gib": peaks,
            "losses": g.losses, "equal": {k: all(v) for k, v in equal.items()},
            "launches": counts["graphed"]}
-    print(f"phase 29 [{arch}] ({card}): trainer at full width, {depth} layers, "
+    print(f"phase {TRAIN_PHASE[arch]} [{arch}] ({card}): trainer at full width, {depth} layers, "
           f"{FAMILY_TRAIN_STEPS} steps of {TRAIN_BATCH} x {TRAIN_SEQ}: step ms graphed "
           f"{[round(x, 1) for x in g.step_ms]} (step 0 with the capture) / eager "
           f"{[round(x, 1) for x in e.step_ms]}, peak {peaks['graphed']:.3f} / "
@@ -4672,31 +4869,229 @@ def family_trainer(dev, counters, card: str, arch: str) -> dict:
           f"{[round(x, 5) for x in g.losses]}")
     if not (all(all(v) for v in equal.values()) and counts["graphed"] == counts["eager"] == want
             and len(g.trainer.programs) == 1 and all(np.isfinite(g.losses))):
-        raise SystemExit(f"phase 29 [{arch}]: the graphed trainer differs from the eager one "
-                         f"or from the launch formula {want}")
+        raise SystemExit(f"phase {TRAIN_PHASE[arch]} [{arch}]: the graphed trainer differs "
+                         f"from the eager one or from the launch formula {want}")
     del runs, g, e
     return row
 
 
-def family_paths(dev, counters, card: str, trains: dict) -> dict:
-    """Phases 26-29: each family distilled at full width (26-28), its gradient
-    card vs CPU (26b-28b), then each trained (29a-c); every model freed
-    before the next."""
+def family_paths(dev, counters, card: str, trains: dict, archs: tuple) -> dict:
+    """Phases 26-29 (``archs`` PHASES_26_29) or 32-33 (PHASES_32_33): each
+    arch distilled at full width, its gradient card vs CPU, then each
+    trained; every model freed before the next."""
     out, wall = {}, {}
-    for arch in FAMILY_DISTILL_DEPTH:
+    for arch in archs:
         phase = FAMILY_PHASE[arch]
         t0 = time.perf_counter()
         out[phase] = family_distill_path(dev, counters, card, arch, trains)
         wall[phase] = time.perf_counter() - t0
         t0 = time.perf_counter()
-        out[phase + "b"] = family_gradient_against_cpu(dev, counters, arch)
+        out[phase + "b"] = family_gradient_against_cpu(dev, counters, arch, phase + "b")
         wall[phase + "b"] = time.perf_counter() - t0
-    for arch, key in zip(FAMILY_TRAIN_DEPTH, ("29a", "29b", "29c")):
+    for arch in archs:
+        key = TRAIN_PHASE[arch]
         t0 = time.perf_counter()
         out[key] = family_trainer(dev, counters, card, arch)
         wall[key] = time.perf_counter() - t0
     free_device_memory(dev)
     out["wall_s"] = wall
+    return out
+
+
+def moe_dispatch_backward_bits(dev, card: str) -> dict:
+    """Phase 32a: one MoE layer of qwen3-moe-30b-a3b at full width (128
+    experts of 768, top 8, d_model 2048), batch BATCH x SEQ, in bf16 and
+    f32: the backward twice on the same x and output gradient, x.grad's bits
+    compared, through the dispatch gather the port runs (``moe._Dispatch``,
+    a gather in the backward) and through autograd of ``index_select``
+    (``index_add_``'s float atomics in the backward, the form before it);
+    the two forms' gradients against each other, and each form's forward and
+    backward ms (CUDA events, 10 after a warm-up). The port's form must be
+    bit-equal; the other's result is printed, whichever way it goes."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import moe
+
+    cfg = get_config(MOE_ARCH)
+    inner = moe._Dispatch.apply
+
+    def index_select(x2d, fill, slot):
+        zero = torch.zeros((1, x2d.shape[1]), dtype=x2d.dtype, device=x2d.device)
+        return torch.cat([x2d, zero]).index_select(0, fill)
+
+    out = {}
+    for dtype in (torch.bfloat16, torch.float32):
+        free_device_memory(dev)
+        g = torch.Generator(device=dev).manual_seed(32)
+        p = {k: v.to(dtype) for k, v in moe.init_moe_mlp(g, cfg).items()}
+        x, dy = (torch.randn((BATCH, SEQ, cfg.d_model), generator=g, device=dev).to(dtype)
+                 for _ in "xy")
+
+        def x_grad():
+            xs = x.detach().requires_grad_(True)
+            y, _ = moe.moe_mlp_scatter(p, xs, cfg)
+            return torch.autograd.grad(y, xs, dy)[0]
+
+        grads, row = {}, {}
+        for form, dispatch in (("_Dispatch", inner), ("index_select", index_select)):
+            moe._Dispatch.apply = dispatch
+            try:
+                first, second = x_grad(), x_grad()
+                ms = time_ms(x_grad, iters=10, warmup=1)
+            finally:
+                moe._Dispatch.apply = inner
+            grads[form] = first
+            row[form] = {"equal": bool(torch.equal(first, second)),
+                         "elements_differ": int((first != second).sum()),
+                         "max_abs_diff": float((first.float() - second.float()).abs().max()),
+                         "fwd_bwd_ms": ms}
+        row["forms_relative_l2"] = relative_l2(grads["_Dispatch"].float(),
+                                               grads["index_select"].float())
+        name = str(dtype)[6:]
+        out[name] = row
+        print(f"phase 32a ({card}): {MOE_ARCH} one MoE layer, full width, batch {BATCH} x "
+              f"{SEQ}, {name}: x.grad twice on the same inputs, bit-equal through "
+              f"_Dispatch {row['_Dispatch']['equal']} ({row['_Dispatch']['elements_differ']} "
+              f"elements differ), through index_select's autograd (index_add_) "
+              f"{row['index_select']['equal']} ({row['index_select']['elements_differ']} of "
+              f"{x.numel()} differ, by up to {row['index_select']['max_abs_diff']:.3e}); the "
+              f"forms' x.grad relative L2 {row['forms_relative_l2']:.3e}; forward + backward "
+              f"{row['_Dispatch']['fwd_bwd_ms']:.3f} / {row['index_select']['fwd_bwd_ms']:.3f}"
+              f" ms")
+        limit = TOL[dtype]
+        if not (row["_Dispatch"]["equal"] and row["forms_relative_l2"] <= limit):
+            raise SystemExit(f"phase 32a [{name}]: the dispatch backward is not bit-equal "
+                             f"across calls, or differs from index_select's by more than "
+                             f"{limit}: {row}")
+        del p, x, dy, grads
+    free_device_memory(dev)
+    return out
+
+
+def phases_32_34(dev, counters, card: str, trains: dict) -> dict:
+    """Phases 32a, 32-33c (``family_paths`` over PHASES_32_33) and 34 (the
+    gradient of each of PHASE_34_ARCHS, card vs CPU)."""
+    t0 = time.perf_counter()
+    bits = moe_dispatch_backward_bits(dev, card)
+    bits_s = time.perf_counter() - t0
+    out = family_paths(dev, counters, card, trains, PHASES_32_33)
+    out["32a"], out["wall_s"]["32a"] = bits, bits_s
+    for arch in PHASE_34_ARCHS:
+        t0 = time.perf_counter()
+        out[f"34 {arch}"] = family_gradient_against_cpu(dev, counters, arch, "34")
+        out["wall_s"][f"34 {arch}"] = time.perf_counter() - t0
+    free_device_memory(dev)
+    return out
+
+
+def window_full_width(dev, counters, card: str) -> dict:
+    """Phase 35a: ``lm_apply(window=WINDOW_FULL)`` on yi-6b's weights at full
+    width and depth, drawn on the card, batch BATCH x LM_SEQ (a warm-up call
+    each way, then timed ones): no kernel launch (the masked plain path), finite
+    logits, ms and peak memory; the unwindowed call (flash) timed beside it.
+    Over the first WINDOW_FULL positions, where the window cuts nothing, the
+    two agree within the bf16 limit on an f32 copy of the weights (in bf16
+    the plain path rounds scores and softmax weights to bf16, the reference's
+    order, and flash does not: their distance is printed, as phase 30 prints
+    decode's), and past them they differ (the window binds)."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import model as M
+    from repro_torch.models.transformer import cast_params
+
+    free_device_memory(dev)
+    cfg = get_config("yi-6b")
+    params = M.init_params(torch.Generator(device=dev).manual_seed(0), cfg, dev)
+    batch = lm_batch(cfg, BATCH, LM_SEQ, dev)
+    W, bf16 = WINDOW_FULL, TOL[torch.bfloat16]
+
+    def timed(weights, window):
+        torch.cuda.synchronize(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+        before = {name: c.launches for name, c in counters.items()}
+        t0 = time.perf_counter()
+        logits = M.lm_apply(weights, cfg, batch, window=window)
+        torch.cuda.synchronize(dev)
+        return (logits, (time.perf_counter() - t0) * 1e3,
+                torch.cuda.max_memory_allocated(dev) / 2**30, launched(counters, before))
+
+    with torch.no_grad():
+        for window in (W, 0):                   # a warm-up call each way
+            M.lm_apply(params, cfg, batch, window=window)
+        windowed, ms, peak, ran = timed(params, W)
+        full, full_ms, full_peak, full_ran = timed(params, 0)
+        if ran != dict.fromkeys(KERNELS, 0) or full_ran != lm_launches(cfg):
+            raise SystemExit(f"phase 35a: launches windowed {ran}, unwindowed {full_ran}")
+        if (windowed.shape != (BATCH, LM_SEQ, cfg.vocab)
+                or not bool(torch.isfinite(windowed).all())):
+            raise SystemExit(f"phase 35a: logits {tuple(windowed.shape)}, finite "
+                             f"{bool(torch.isfinite(windowed).all())}")
+        head16 = (windowed[:, :W].float() - full[:, :W].float()).abs()
+        out = {"ms": ms, "peak_gib": peak, "unwindowed_ms": full_ms,
+               "unwindowed_peak_gib": full_peak,
+               "bf16_head_max_abs": float(head16.max()),
+               "bf16_head_relative_l2": relative_l2(windowed[:, :W].float(),
+                                                    full[:, :W].float()),
+               "bf16_tail_relative_l2": relative_l2(windowed[:, W:].float(),
+                                                    full[:, W:].float())}
+        del windowed, full, head16
+        weights = cast_params(params, torch.float32)
+        del params
+        torch.cuda.empty_cache()
+        w32 = M.lm_apply(weights, cfg, batch, window=W).float()
+        f32 = M.lm_apply(weights, cfg, batch).float()
+        del weights
+    out["f32_head_max_abs"] = check_close("phase 35a: windowed vs unwindowed over the first "
+                                          f"{W} positions (f32 weights)", w32[:, :W],
+                                          f32[:, :W], atol=bf16, rtol=bf16)
+    out["f32_tail_relative_l2"] = relative_l2(w32[:, W:], f32[:, W:])
+    del w32, f32
+    print(f"phase 35a ({card}): yi-6b lm_apply(window={W}), full width and depth, batch "
+          f"{BATCH} x {LM_SEQ}: {ms:.1f} ms, peak {peak:.3f} GiB, no kernel launch (the "
+          f"unwindowed call: {full_ms:.1f} ms, peak {full_peak:.3f} GiB, flash "
+          f"{full_ran['flash_attention']}); first {W} positions against the unwindowed "
+          f"call: f32 weights max |diff| {out['f32_head_max_abs']:.3e} (limit {bf16} + "
+          f"{bf16} |ref|), bf16 weights max |diff| {out['bf16_head_max_abs']:.3e}, relative "
+          f"L2 {out['bf16_head_relative_l2']:.3e} (printed); past them relative L2 "
+          f"{out['f32_tail_relative_l2']:.3e} f32, {out['bf16_tail_relative_l2']:.3e} bf16 "
+          f"(the window binds)")
+    if not out["f32_tail_relative_l2"] > 1e-3:
+        raise SystemExit(f"phase 35a: the window does not change the logits past position "
+                         f"{W}: {out['f32_tail_relative_l2']}")
+    free_device_memory(dev)
+    return out
+
+
+def window_paths(dev, counters, card: str, graphs: dict) -> dict:
+    """Phases 35a and 35c (35b runs inside phases 5, 17b, 18b and 22b, on
+    the 2-layer models they hold): 35c serves WINDOW_DECODE_ARGS (yi-6b at
+    full width through the gateway, its dense caches a ring of WINDOW_DECODE
+    slots) with phase 15's cases on the served engine (prefill_slots of
+    WINDOW_PREFILL columns, then greedy step_slots from position
+    WINDOW_DECODE - 2, across the ring's wrap, graphed against eager, to the
+    bit), then a 2-layer f32 model card vs CPU over a ring of
+    WINDOW_CPU_DECODE slots (requests of 2 + 7 to 2 + 12 positions)."""
+    out, wall = {}, {}
+    t0 = time.perf_counter()
+    out["35a"] = window_full_width(dev, counters, card)
+    wall["35a"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    out["35c"] = {}
+    decode_path(dev, counters, WINDOW_DECODE_ARGS, {}, graphs, runs=out["35c"],
+                prefill=WINDOW_PREFILL, start=WINDOW_DECODE - 2,
+                label=f"yi-6b window {WINDOW_DECODE}")
+    print(f"phase 35c ({card}): yi-6b decode, window {WINDOW_DECODE} (the ring wraps "
+          f"past position {WINDOW_DECODE}): {out['35c']['tokens_per_s']:.1f} tokens/s, "
+          f"engine call ms mean {out['35c']['call_ms_mean']:.3f}, peak memory "
+          f"{out['35c']['peak_gib']:.3f} GiB")
+    cfg, on_card, params = card_drawn_model(dev, "yi-6b")
+    del on_card
+    out["35c"]["cpu_rel_l2"] = decode_against_cpu(
+        dev, counters, cfg, params, dict(window=WINDOW_CPU_DECODE), {},
+        cache_slots=WINDOW_CPU_DECODE, lengths=(12, 9, 10, 7))
+    del params
+    wall["35c"] = time.perf_counter() - t0
+    free_device_memory(dev)
+    out["wall_s"] = wall
+    WINDOW_RUNS.update({k: v for k, v in out.items() if k != "wall_s"})
     return out
 
 
@@ -4800,6 +5195,7 @@ def main() -> int:
     whole_path_against_cpu(dev, counters, cfg, params,
                            {**zero, "ns_update": 4, "flash_attention": 2 * 4})
     lm_against_cpu(dev, counters, cfg, params)
+    window_against_cpu(dev, counters, cfg, params)
     t0 = time.perf_counter()
     baselines_cpu = baselines_against_cpu(dev, counters, cfg, params)
     phase_s["5b"] = time.perf_counter() - t0
@@ -4877,9 +5273,13 @@ def main() -> int:
     phase_s.update(internvl["wall_s"])
     trainer = trainer_paths(dev, counters, card, phase4)
     phase_s.update(trainer["wall_s"])
-    family = family_paths(dev, counters, card, trains)
+    family = family_paths(dev, counters, card, trains, PHASES_26_29)
     phase_s.update(family["wall_s"])
     launches["gla_scan_bwd"] = family["26"]["launches"]["gla_scan_bwd"]
+    later = phases_32_34(dev, counters, card, trains)
+    phase_s.update(later["wall_s"])
+    windows = window_paths(dev, counters, card, graphs)
+    phase_s.update(windows["wall_s"])
     t0 = time.perf_counter()
     twin_runs = twins(dev, counters, card)
     phase_s["31"] = time.perf_counter() - t0
@@ -4909,11 +5309,35 @@ def main() -> int:
         f"{arch} at {family[p]['layers']} layers: val PSNR Euler {family[p]['init_val_psnr']:.4f}"
         f" -> {family[p]['val_psnr']:.4f} dB, {family[p]['iteration_ms']:.1f} ms an iteration, "
         f"RK45 {family[p]['rk45_s']:.1f} s, gradient card vs CPU "
-        f"{max(family[p + 'b']['relative_l2']):.2e}" for arch, p in FAMILY_PHASE.items())
+        f"{max(family[p + 'b']['relative_l2']):.2e}"
+        for arch, p in FAMILY_PHASE.items() if arch in PHASES_26_29)
           + "; trainer " + "; ".join(
               f"{arch} {family[k]['median_step_ms']:.1f} ms a step, peak "
               f"{family[k]['peak_gib']['graphed']:.3f} GiB, equal {family[k]['equal']}"
-              for arch, k in zip(FAMILY_TRAIN_DEPTH, ("29a", "29b", "29c"))))
+              for arch, k in TRAIN_PHASE.items() if arch in PHASES_26_29))
+    print(f"phases 32-34 summary ({card}): dispatch backward bit-equal (_Dispatch / "
+          f"index_select) " + ", ".join(
+              f"{d} {r['_Dispatch']['equal']} / {r['index_select']['equal']}"
+              for d, r in later["32a"].items()) + "; " + "; ".join(
+        f"{arch} at {later[p]['layers']} layers: val PSNR Euler "
+        f"{later[p]['init_val_psnr']:.4f} -> {later[p]['val_psnr']:.4f} dB, "
+        f"{later[p]['iteration_ms']:.1f} ms an iteration, RK45 {later[p]['rk45_s']:.1f} s, "
+        f"peak {later[p]['peak_gib']:.3f} GiB, gradient card vs CPU "
+        f"{max(later[p + 'b']['relative_l2']):.2e}, trainer "
+        f"{later[TRAIN_PHASE[arch]]['median_step_ms']:.1f} ms a step, peak "
+        f"{later[TRAIN_PHASE[arch]]['peak_gib']['graphed']:.3f} GiB, equal "
+        f"{later[TRAIN_PHASE[arch]]['equal']}"
+        for arch, p in FAMILY_PHASE.items() if arch in PHASES_32_33) + "; gradients (34) "
+          + ", ".join(f"{arch} {max(later[f'34 {arch}']['relative_l2']):.2e}"
+                      for arch in PHASE_34_ARCHS))
+    w = windows["35a"]
+    print(f"phase 35 summary ({card}): 35a yi-6b lm_apply(window={WINDOW_FULL}) "
+          f"{w['ms']:.1f} ms, peak {w['peak_gib']:.3f} GiB (unwindowed {w['unwindowed_ms']:.1f}"
+          f" ms, {w['unwindowed_peak_gib']:.3f} GiB); 35b card vs CPU " + ", ".join(
+              f"{arch} {r['window']:.2e} / q_chunk {r['q_chunk']:.2e}"
+              for arch, r in WINDOW_RUNS.get("35b", {}).items())
+          + f"; 35c decode {windows['35c']['tokens_per_s']:.1f} tokens/s, card vs CPU "
+          f"{windows['35c']['cpu_rel_l2']:.2e}")
     print("phase wall s: " + ", ".join(f"{k} {v:.1f}" for k, v in phase_s.items()))
     new_phases = {
         "12b": {"what": "artifact reload, 2 requests", "request_ms": reload["request_ms"]},
@@ -5148,17 +5572,18 @@ def main() -> int:
                        + f", NFE {NFE}, batch {BATCH}, seq {SEQ}, {FAMILY_DISTILL_ITERS} iterations",
                **{f: family[p][f] for f in ("init_val_psnr", "val_psnr", "iteration_ms",
                                             "rk45", "rk45_s", "request_ms", "peak_gib")},
-               "launches": family[p]["launches"]} for arch, p in FAMILY_PHASE.items()},
+               "launches": family[p]["launches"]}
+           for arch, p in FAMILY_PHASE.items() if arch in PHASES_26_29},
         **{p + "b": {"what": f"{arch} BNS gradient card vs CPU, {FAMILY_GRAD_DEPTH[arch]} "
                              "layers f32",
                      "relative_l2": family[p + "b"]["relative_l2"],
                      "launches": family[p + "b"]["launches"]}
-           for arch, p in FAMILY_PHASE.items()},
+           for arch, p in FAMILY_PHASE.items() if arch in PHASES_26_29},
         **{k: {"what": f"{arch} trainer, full width, {family[k]['layers']} layers, "
                        f"{FAMILY_TRAIN_STEPS} steps of {TRAIN_BATCH} x {TRAIN_SEQ}",
                **{f: family[k][f] for f in ("median_step_ms", "peak_gib", "equal")},
                "launches": family[k]["launches"]}
-           for arch, k in zip(FAMILY_TRAIN_DEPTH, ("29a", "29b", "29c"))}}
+           for arch, k in TRAIN_PHASE.items() if arch in PHASES_26_29}}
     for entry in kernels:
         entry["phases"].update({k: {**v, "launches": v["launches"][entry["name"]]}
                                 for k, v in slice19.items()})
@@ -5169,12 +5594,48 @@ def main() -> int:
                                    "bound_by", "library_ms")}
                 for r in rows[entry["name"]][1:] if entry["name"] == "gla_scan_bwd"
                 or "hd=80" in r["shape"] or "hd=64" in r["shape"]]
+    zero = dict.fromkeys(KERNELS, 0)
+    phases_32_35 = {   # the moe and vlm families' distillation and training; the window
+        **{p: {"what": f"{arch} BNS distillation, full width, {later[p]['layers']} layers, "
+                       f"NFE {NFE}, batch {BATCH}, seq {SEQ}, {FAMILY_DISTILL_ITERS} iterations",
+               **{f: later[p][f] for f in ("init_val_psnr", "val_psnr", "iteration_ms",
+                                           "rk45", "rk45_s", "request_ms", "peak_gib")},
+               "launches": later[p]["launches"]}
+           for arch, p in FAMILY_PHASE.items() if arch in PHASES_32_33},
+        **{k: {"what": f"{arch} BNS gradient card vs CPU, {FAMILY_GRAD_DEPTH[arch]} layer f32",
+               "relative_l2": later[k]["relative_l2"], "launches": later[k]["launches"]}
+           for arch, k in [(a, FAMILY_PHASE[a] + "b") for a in PHASES_32_33]
+           + [(a, f"34 {a}") for a in PHASE_34_ARCHS]},
+        **{k: {"what": f"{arch} trainer, full width, {later[k]['layers']} layers, "
+                       f"{FAMILY_TRAIN_STEPS} steps of {TRAIN_BATCH} x {TRAIN_SEQ}",
+               **{f: later[k][f] for f in ("median_step_ms", "peak_gib", "equal")},
+               "launches": later[k]["launches"]}
+           for arch, k in TRAIN_PHASE.items() if arch in PHASES_32_33},
+        "35a": {"what": f"yi-6b lm_apply(window={WINDOW_FULL}), full width, batch {BATCH} x "
+                        f"{LM_SEQ}", "ms": windows["35a"]["ms"],
+                "peak_gib": windows["35a"]["peak_gib"], "launches": zero},
+        "35c": {"what": f"yi-6b decode, window {WINDOW_DECODE}, 8 requests on 4 slots",
+                **{f: windows["35c"][f] for f in ("tokens_per_s", "call_ms_mean",
+                                                  "peak_gib")}, "launches": zero}}
+    for entry in kernels:
+        entry["phases"].update({k: {**v, "launches": v["launches"][entry["name"]]}
+                                for k, v in phases_32_35.items()})
+        if entry["name"] == "flash_attention_bwd":
+            # phase 3c at the GQA shapes phases 33 and 34 add: G 6 at L 1280, G 4, G 7
+            entry["gqa_cases"] = [
+                {k: r[k] for k in ("shape", "max_abs_err", "ms", "plain_ms", "bound_ms",
+                                   "bound_by", "library_ms", "sdpa_bwd_device_ms",
+                                   "pass_device_ms")}
+                for r in rows[entry["name"]] if any(f"{tag} " in r["shape"] for tag in (
+                    "H=48 KV=8", "H=40 KV=10", "H=56 KV=8"))]
     print(f"chip_smoke wall {time.perf_counter() - T_START:.1f} s")
     print("phase 15 json: " + json.dumps(graphs))
     print("phase 16 json: " + json.dumps(trains))
     print("phase 24 json: " + json.dumps({k: v for k, v in trainer.items()
                                           if k != "phase_launches"}))
     print("phases 26-29 json: " + json.dumps(family))
+    print("phases 32-34 json: " + json.dumps(later))
+    print("phase 35 json: " + json.dumps(WINDOW_RUNS))
     print(f"phase 30 summary ({card}): " + "; ".join(
         f"{arch} {r['ms']:.1f} ms, peak {r['peak_gib']:.3f} GiB, launches {r['launches']}"
         for arch, r in LM_RUNS.items() if arch != "card_vs_cpu")

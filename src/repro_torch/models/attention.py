@@ -5,8 +5,12 @@ reshaped to (B, L, KV, G, hd) with G = H / KV — so GQA never materializes
 repeated K/V.
 
 On a CUDA tensor, causal or bidirectional attention without a window runs the
-flash kernel (``kernels.flash_attention``) at any length. On the CPU,
-``_grouped_attend`` is the path, in the reference's rounding order.
+flash kernel (``kernels.flash_attention``) at any length. A sliding window
+(``window > 0``) runs on the card as on the CPU, through the masked plain
+path, as the reference routes it (its flash kernel takes no window either):
+``_grouped_attend``, in the reference's rounding order, or, under an
+installed context's ``q_chunk`` (``distributed.context``), its query-chunked
+form ``_chunked_attend``. On the CPU every call takes those plain paths.
 
 Decode attends one new token over a KV cache: a dense per-row cache
 (``KVCache``, a ring buffer when ``window > 0``) in plain torch, as the
@@ -18,7 +22,6 @@ advances (the others keep their bits), the page pool unconditionally, as
 the reference's pool is (page ownership isolates rows; inactive rows write
 into the trash page 0). Cross-attention (whisper's decoder) attends over an
 encoder memory without mask or RoPE, through the flash kernel on the card.
-Sliding-window prefill on the card comes with its slice.
 """
 from __future__ import annotations
 
@@ -26,6 +29,7 @@ from typing import NamedTuple, Optional
 
 import torch
 
+from repro_torch.distributed import context
 from repro_torch.kernels.flash_attention.ops import attend, paged_attend
 from repro_torch.models.layers import apply_rope, dense_init, rms_norm
 
@@ -112,6 +116,29 @@ def _split_heads(x: Tensor, n: int, hd: int) -> Tensor:
     return x.reshape(x.shape[:-1] + (n, hd))
 
 
+def _position_mask(pos_q: Tensor, positions: Tensor, window: int) -> Tensor:
+    """(1, Lq, Lk) bool: key position <= query position, and within
+    ``window`` of it when ``window > 0``."""
+    rel = pos_q[:, None] - positions[None, :]
+    mask = rel >= 0
+    if window:
+        mask = mask & (rel < window)
+    return mask[None]
+
+
+def _chunked_attend(q: Tensor, k: Tensor, v: Tensor, positions: Tensor,
+                    causal: bool, window: int, qc: int) -> Tensor:
+    """``_grouped_attend`` over query chunks of ``qc`` (L divisible by it):
+    the scores held at once are (B, KV, G, qc, Lk), never (L, L), and each
+    chunk's mask comes from index compares. q: (B, L, KV, G, hd)."""
+    L = q.shape[1]
+    outs = []
+    for i in range(0, L, qc):
+        mask = _position_mask(positions[i:i + qc], positions, window) if causal else None
+        outs.append(_grouped_attend(q[:, i:i + qc], k, v, mask))
+    return torch.cat(outs, dim=1)
+
+
 def attention_forward(
     p: dict,
     x: Tensor,                   # (B, L, d)
@@ -128,7 +155,9 @@ def attention_forward(
     """Full-sequence attention (training / prefill / flow forward).
 
     The kernel masks by index (key j <= query i), which equals the
-    reference's position mask for increasing positions.
+    reference's position mask for increasing positions. A window, or any
+    call on the CPU, takes the masked plain path (query-chunked under an
+    installed ``q_chunk`` that divides L), whose backward is autograd's.
     """
     B, L, _ = x.shape
     G = n_heads // n_kv
@@ -141,21 +170,16 @@ def attention_forward(
     q = apply_rope(q, positions, rope_theta)
     k = apply_rope(k, positions, rope_theta)
 
-    if x.is_cuda:
-        if window:
-            raise NotImplementedError(
-                "sliding-window attention has no CUDA kernel yet "
-                "(ROADMAP Queue B item 11)")
+    if x.is_cuda and not window:
         out = attend(q, k, v, causal=causal)                  # (B, L, H, hd)
     else:
-        mask = None
-        if causal:
-            rel = positions[:, None] - positions[None, :]      # (L, L)
-            mask = rel >= 0
-            if window:
-                mask = mask & (rel < window)
-            mask = mask[None]
-        out = _grouped_attend(q.reshape(B, L, n_kv, G, head_dim), k, v, mask)
+        q = q.reshape(B, L, n_kv, G, head_dim)
+        qc = context.q_chunk()
+        if qc and L > qc and L % qc == 0:
+            out = _chunked_attend(q, k, v, positions, causal, window, qc)
+        else:
+            mask = _position_mask(positions, positions, window) if causal else None
+            out = _grouped_attend(q, k, v, mask)
     return out.reshape(B, L, n_heads * head_dim) @ p["wo"]
 
 

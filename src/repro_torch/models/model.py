@@ -66,9 +66,9 @@ def lm_apply(params: dict, cfg: ModelConfig, batch: dict, *, window: int = 0,
     which slices the final position before the vocab projection (serving
     prefill needs only the next token's logits). The vlm family's cover the
     batch's patches too (B, m + S, V); the moe family's aux loss is dropped,
-    as in the reference. ``window > 0`` runs on the CPU only: the card's
-    attention raises for it (``attention_forward``); the ssm and encdec
-    families ignore it, as the reference's do."""
+    as in the reference. ``window > 0`` is sliding-window attention, on the
+    card through the masked plain path (``attention_forward``); the ssm and
+    encdec families ignore it, as the reference's do."""
     tokens = batch["tokens"]
     if cfg.family == "dense":
         return transformer.lm_forward(params, cfg, tokens, window=window, last_only=last_only)

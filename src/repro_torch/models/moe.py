@@ -20,7 +20,11 @@ indexing, no ``.item()``), so the flow and decode programs capture as CUDA
 graphs. The forward sums nothing with atomics: an integer scatter records the
 one (token, choice) that fills each kept slot (the discarded drop slot takes
 many), and the tokens are gathered through it, so a slot holds its token's
-bits and the results do not depend on any order of writes.
+bits and the results do not depend on any order of writes. The backward
+keeps that rule: the dispatch gather's gradient (``_Dispatch``) is another
+gather, each token summing its k slots' gradients in the order of its
+choices, where autograd of ``index_select`` would add them into the token's
+row with float atomics, in no fixed order on the card.
 
 The router's top-k is a stable descending sort: among equal probabilities the
 lower expert comes first, as ``jax.lax.top_k`` orders them (``torch.topk``
@@ -97,6 +101,35 @@ def _capacity(T: int, cfg: ModelConfig) -> int:
     return max(int(T * m.top_k * m.capacity_factor / m.num_experts), m.top_k)
 
 
+class _Dispatch(torch.autograd.Function):
+    """The tokens gathered into the slots, ``x2d[fill]`` over a zero row
+    padded at T, with a backward that sums in a fixed order. ``fill`` (N,)
+    names each slot's token (T where none fills it); ``slot`` (T·k,) each
+    (token, choice)'s slot, N for a dropped one. A kept slot is filled by
+    exactly the (token, choice) that ``slot`` sends there, so token t's
+    gradient is ``Σ_{j<k} dxin[slot[t·k + j]]`` over a zero row padded at N,
+    summed over j in order 0 … k−1: a gather, no atomics, no order of
+    writes."""
+
+    @staticmethod
+    def forward(ctx, x2d: Tensor, fill: Tensor, slot: Tensor) -> Tensor:
+        ctx.save_for_backward(slot)
+        ctx.tokens = x2d.shape[0]
+        zero = torch.zeros((1, x2d.shape[1]), dtype=x2d.dtype, device=x2d.device)
+        return torch.cat([x2d, zero]).index_select(0, fill)
+
+    @staticmethod
+    def backward(ctx, dxin: Tensor):
+        (slot,) = ctx.saved_tensors
+        T, d = ctx.tokens, dxin.shape[1]
+        zero = torch.zeros((1, d), dtype=dxin.dtype, device=dxin.device)
+        per_choice = torch.cat([dxin, zero]).index_select(0, slot).reshape(T, -1, d)
+        dx = per_choice[:, 0].clone()
+        for j in range(1, per_choice.shape[1]):
+            dx += per_choice[:, j]
+        return dx, None, None
+
+
 def _experts(p: dict, xin: Tensor) -> Tensor:
     """The SwiGLU of each expert over its slots: (E, N, d) -> (E, N, d)."""
     h = F.silu(torch.bmm(xin, p["w_gate"])) * torch.bmm(xin, p["w_up"])
@@ -132,10 +165,13 @@ def moe_mlp_scatter(p: dict, x: Tensor, cfg: ModelConfig):
     # writer a kept slot, so no sums; the drop slot's many writes are discarded
     fill = torch.full((E * B * C + 1,), B * S, dtype=torch.long, device=x.device)
     fill.scatter_(0, slot, torch.arange(B * S * k, device=x.device) // k)
-    zero = torch.zeros((1, d), dtype=x.dtype, device=x.device)
-    xin = torch.cat([x.reshape(B * S, d), zero]).index_select(0, fill[:-1])
+    xin = _Dispatch.apply(x.reshape(B * S, d), fill[:-1], slot)
     out = _experts(p, xin.reshape(E, B * C, d)).reshape(E * B * C, d)
 
+    # each kept slot is picked by exactly one (token, choice), so autograd's
+    # index_add_ here writes each of its rows once, into zeros: no sum, no
+    # order; the drop slot's row, which takes many, is the constant ``zero``
+    zero = torch.zeros((1, d), dtype=x.dtype, device=x.device)
     picked = torch.cat([out, zero]).index_select(0, slot).reshape(B, S, k, d)
     weight = (gates * keep).reshape(B, S, k, 1)
     return torch.sum(picked * weight, dim=2), aux

@@ -216,8 +216,8 @@ def lm_forward(params: dict, cfg: ModelConfig, tokens: Tensor,
     or (B, 1, V) with ``last_only`` (the last position is sliced before the
     vocab projection). ``extra_embeds`` (B, m, d) are stub embeddings
     prepended to the token embeddings (the vlm path); the logits then cover
-    the m + S positions. ``window > 0`` is sliding-window attention, which
-    runs on the CPU only (``attention_forward`` raises on the card)."""
+    the m + S positions. ``window > 0`` is sliding-window attention, through
+    ``attention_forward``'s masked plain path on the card and the CPU."""
     h = params["embed"][tokens.long()]
     if extra_embeds is not None:
         h = torch.cat([extra_embeds.to(h.dtype), h], dim=1)

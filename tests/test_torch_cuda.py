@@ -1165,19 +1165,62 @@ def test_dtensor_reaching_a_launcher_without_local_map_raises(dev, card_mesh):
 
 @pytest.mark.parametrize("arch", ["yi-6b", "zamba2-2.7b"])
 def test_lm_apply_with_a_window_raises_on_the_card(dev, arch):
-    """Sliding-window attention has no CUDA kernel: ``lm_apply`` with
-    ``window > 0`` on card tensors raises (no plain fallback on the card);
-    without a window the same call runs the flash kernel."""
+    """Sliding-window attention has no CUDA kernel (the reference's flash
+    kernel takes no window either): ``lm_apply`` with ``window > 0`` on card
+    tensors runs the masked plain path on the card, launches no flash kernel
+    and matches the same call on the CPU; without a window the same call
+    runs the flash kernel. (The name is older than the windowed route: the
+    card refused a window until it had one.)"""
     from repro_torch.configs import for_device, get_config
     from repro_torch.models import model as tmodel
+    from repro_torch.models.transformer import params_to
 
     cfg = for_device(get_config(arch, smoke=True), dev)   # heads the flash kernel takes
     params = tmodel.init_params(torch.Generator(device=dev).manual_seed(0), cfg, dev)
     batch = {"tokens": torch.randint(0, cfg.vocab, (2, 16), device=dev)}
-    with pytest.raises(NotImplementedError, match="sliding-window"):
-        tmodel.lm_apply(params, cfg, batch, window=4)
+    before = fa_mod.COUNTER.launches
+    windowed = tmodel.lm_apply(params, cfg, batch, window=4)
+    torch.cuda.synchronize()
+    assert fa_mod.COUNTER.launches == before and windowed.is_cuda
+    on_cpu = tmodel.lm_apply(params_to(params, "cpu"), cfg,
+                             {"tokens": batch["tokens"].cpu()}, window=4)
+    torch.testing.assert_close(windowed.cpu(), on_cpu, atol=1e-4, rtol=1e-4)
     before = fa_mod.COUNTER.launches
     logits = tmodel.lm_apply(params, cfg, batch, last_only=True)
     torch.cuda.synchronize()
     assert logits.shape == (2, 1, cfg.vocab) and bool(torch.isfinite(logits).all())
     assert fa_mod.COUNTER.launches > before
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("cf", [0.5, 8.0])
+def test_moe_dispatch_backward_bits_repeat_on_the_card(dev, cf, dtype):
+    """``moe_mlp_scatter``'s backward twice on the same inputs and gradient:
+    x.grad equal to the bit (the dispatch gather's backward is a gather,
+    ``moe._Dispatch``, not ``index_add_``'s float atomics), and close to the
+    same layer on the CPU. 32 experts of 64, top 8, d_model 256, 2 x 256
+    tokens."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import moe
+
+    base = get_config("qwen3-moe-30b-a3b")
+    cfg = dataclasses.replace(base, d_model=256, moe=dataclasses.replace(
+        base.moe, num_experts=32, d_expert=64, capacity_factor=cf))
+    g = torch.Generator(device=dev).manual_seed(0)
+    p = {k: v.to(dtype) for k, v in moe.init_moe_mlp(g, cfg).items()}
+    rng = np.random.default_rng(1)
+    x = _randn(rng, (2, 256, 256), dtype, dev)
+    dy = _randn(rng, (2, 256, 256), dtype, dev)
+
+    def x_grad(p, x, dy):
+        x = x.clone().requires_grad_(True)
+        y, _ = moe.moe_mlp_scatter(p, x, cfg)
+        return torch.autograd.grad(y, x, dy)[0]
+
+    first, second = x_grad(p, x, dy), x_grad(p, x, dy)
+    assert torch.equal(first, second)
+    if dtype == torch.float32:
+        on_cpu = x_grad({k: v.cpu() for k, v in p.items()}, x.cpu(), dy.cpu())
+        torch.testing.assert_close(first.cpu(), on_cpu, atol=1e-5, rtol=1e-4)

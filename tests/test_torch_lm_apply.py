@@ -114,8 +114,9 @@ def test_last_only_is_the_full_calls_last_row(family):
 
 @pytest.mark.parametrize("window", [3, 8])
 def test_dense_window_matches_the_reference(window):
-    """Sliding-window attention on the CPU (the card refuses it): the
-    reference's logits, and not the full-attention ones."""
+    """Sliding-window attention on the CPU (the card's windowed route is
+    the same plain path, ``tests/test_torch_window.py``): the reference's
+    logits, and not the full-attention ones."""
     jcfg = jax_get_config("yi-6b", smoke=True)
     tree = _live(jax.tree.map(np.asarray, jmodel.init_params(jax.random.PRNGKey(0), jcfg)),
                  np.random.default_rng(1))
