@@ -495,7 +495,7 @@ Phases (any failure ends the run with a non-zero exit and no last line):
     ``index_select`` (``index_add_``'s float atomics), each form's forward +
     backward ms; the port's must be bit-equal and within TOL (relative L2)
     of the other form's gradient, the other's bits are printed either way.
-32. Phase 26 for qwen3-moe-30b-a3b at FAMILY_DISTILL_DEPTH = 2 of its 48
+32. Phase 26 for qwen3-moe-30b-a3b at FAMILY_DISTILL_DEPTH = 1 of its 48
     layers (the width full; the depth cut for the script's time): flash N
     (C + 2 G), flash backward N G (``family_launches``), then phase 16's
     BNS case on its weights and pairs (graphed TrainLoop iterations equal to
@@ -506,7 +506,7 @@ Phases (any failure ends the run with a non-zero exit and no last line):
     as 18b compares them: flash 8, backward 4. 32c: the trainer at 2 layers
     (FAMILY_TRAIN_DEPTH), 3 steps of 8 x 64, graphed against eager to the
     bit: flash 1 and backward 1 a layer a step.
-33. The same for internvl2-26b: distilled at 2 of its 48 layers (its
+33. The same for internvl2-26b: distilled at 1 of its 48 layers (its
     decoder over 256 stub patches and 1024 tokens: flash at G 6 over 1280
     positions), 33b its gradient at 1 layer f32, 33c the trainer at 1
     layer (its 92,553 x 6144 embedding and head are most of the state).
@@ -533,7 +533,16 @@ Phases (any failure ends the run with a non-zero exit and no last line):
     eager to the bit), then a 2-layer
     f32 model card vs CPU over an 8-slot ring (the same tokens, logits
     within 1e-4).
-36. The script's wall time, one JSON line listing the kernels (the
+36. The production-mesh dry run (``repro_torch.launch.dryrun``) with the
+    card's torch, in subprocesses (each starts a fake process group of its
+    own, which this process's group would refuse): yi-6b decode_32k on the
+    16 x 16 mesh, fake tensors on the card's paths (nothing launches),
+    printing one rank's GiB, TFLOP and collective GB; and the memory
+    tracker held to the card: phase 30's yi-6b ``lm_apply(last_only)`` at
+    batch 4 x 1024 reckoned on a 1 x 1 fake world, its peak within
+    DRYRUN_PEAK_TOL of phase 30's measured peak, both beside the card's
+    name and power limit.
+37. The script's wall time, one JSON line listing the kernels (the
     ns_update and flash entries, forward and backward, with phases 4b, 5b,
     12b, 12c, 12d, 13b, 13c, 14a, 14b, 14c, 16 and 17-17d's launches and
     ms beside the main path's; every entry with phases 18-20's; the flash
@@ -699,7 +708,7 @@ KERNELS = ("ns_update", "flash_attention", "paged_attention", "gla_scan", "ns_up
 # depth: (layers, encoder layers); 26b-28b their gradient card vs CPU and
 # 29a-c the trainer at the smallest depth each takes
 FAMILY_DISTILL_DEPTH = {"rwkv6-7b": (2, None), "zamba2-2.7b": (6, None),
-                        "whisper-medium": (4, 4), MOE_ARCH: (2, None), INTERNVL: (2, None)}
+                        "whisper-medium": (4, 4), MOE_ARCH: (1, None), INTERNVL: (1, None)}
 FAMILY_DISTILL_ITERS = 8
 FAMILY_GRAD_DEPTH = {"rwkv6-7b": 1, "zamba2-2.7b": 2, "whisper-medium": 1,   # f32, each stack
                      MOE_ARCH: 1, INTERNVL: 1, "phi3-medium-14b": 1, "command-r-35b": 1,
@@ -708,7 +717,8 @@ FAMILY_TRAIN_DEPTH = {"rwkv6-7b": (1, None), "zamba2-2.7b": (6, None),
                       "whisper-medium": (1, 1), MOE_ARCH: (2, None), INTERNVL: (1, None)}
 FAMILY_TRAIN_STEPS = 3
 # phases 32-33: the same trio (distillation, gradient, trainer) for the moe
-# and vlm families, each at 2 of its 48 layers to distil (the script's time:
+# and vlm families, each at 1 of its 48 layers to distil (at 2 the script
+# passed 1100 s on a slower host; the script's time:
 # the RK45 pairs scale with the depth) and at the least depth its check
 # needs: one layer for the gradient on both sides (the CPU's half at full
 # width), 2 for qwen3-moe-30b-a3b's trainer (a layer routes what another
@@ -746,6 +756,7 @@ WINDOW_DECODE_ARGS = ["--arch", "yi-6b", "--mode", "decode", "--full", "--gatewa
                       "--prefill-chunk", "64"]
 WINDOW_RUNS: dict = {}                                     # phase 35, by part
 LM_SEQ, LM_DECODE_STEPS, LM_CPU_SEQ = 1024, 32, 64        # phase 30
+DRYRUN_PEAK_TOL, DRYRUN_TIMEOUT_S = 0.10, 300              # phase 36
 LM_RUNS: dict = {}                                         # phase 30, by arch
 TWIN_ARGS = {"quickstart": ["--pairs", "64", "--iterations", "100"],       # phase 31
              "solver_zoo": [], "gateway_demo": [],
@@ -1656,6 +1667,63 @@ def lm_apply_full_width(dev, counters, sampler) -> dict:
           f"and depth: {ms:.1f} ms, peak {peak:.3f} GiB, launches {out['launches']} (the "
           f"formula)" + "".join(f", {k} {v}" for k, v in out.items()
                                 if k not in ("ms", "peak_gib", "launches")))
+    return out
+
+
+def dryrun_paths(card: str) -> dict:
+    """Phase 36: the dry run in two subprocesses, run together (module
+    docstring). Fails where either fails or the reckoned peak misses phase
+    30's measured one by more than DRYRUN_PEAK_TOL."""
+    t0 = time.perf_counter()
+    outdir = ROOT / "build" / "chip_smoke" / "dryrun"
+    env = {**os.environ, "PYTHONPATH": str(ROOT / "src")}
+    host = (f"import json; from repro_torch.launch import dryrun; print('reckoned ' + "
+            f"json.dumps(dryrun.reckon_host('yi-6b', dict(kind='prefill', batch={BATCH}, "
+            f"seq={LM_SEQ}))))")
+    procs = {"pod": subprocess.Popen(
+                 [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", "yi-6b",
+                  "--shape", "decode_32k", "--outdir", str(outdir)],
+                 cwd=ROOT, env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True),
+             "host": subprocess.Popen([sys.executable, "-c", host], cwd=ROOT, env=env,
+                                      stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                                      text=True)}
+    logs = {}
+    try:
+        for k, proc in procs.items():
+            logs[k] = proc.communicate(timeout=DRYRUN_TIMEOUT_S)[0]
+    finally:
+        for proc in procs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    for k, proc in procs.items():
+        if proc.returncode != 0:
+            raise SystemExit(f"phase 36 [{k}] exited {proc.returncode}:\n{logs[k][-4000:]}")
+    pod = json.loads((outdir / "yi-6b__decode_32k__pod16x16.json").read_text())
+    line = [x for x in logs["host"].splitlines() if x.startswith("reckoned ")][-1]
+    reckoned = json.loads(line[len("reckoned "):])["memory"]["peak_size_in_bytes"] / 2**30
+    measured = LM_RUNS["yi-6b"]["peak_gib"]
+    mem = pod["memory"]
+    coll = sum(v for k, v in pod["collectives"].items() if not k.endswith("_count"))
+    out = {"decode_32k_pod16x16": {
+               "argument_gib": mem["argument_size_in_bytes"] / 2**30,
+               "temp_gib": mem["temp_size_in_bytes"] / 2**30,
+               "peak_gib": mem["peak_size_in_bytes"] / 2**30, "tflop": pod["flops"] / 1e12,
+               "collective_gb": coll / 1e9, "trace_s": pod["lower_s"]},
+           "lm_apply_peak_gib": {"reckoned": reckoned, "measured_phase_30": measured,
+                                 "ratio": reckoned / measured},
+           "s": time.perf_counter() - t0}
+    d = out["decode_32k_pod16x16"]
+    print(f"phase 36 [yi-6b decode_32k, 16 x 16 fake mesh, card's paths]: a rank holds "
+          f"{d['argument_gib']:.3f} GiB of arguments, temp {d['temp_gib']:.3f} GiB, peak "
+          f"{d['peak_gib']:.3f} GiB; {d['tflop']:.4f} TFLOP; collectives {d['collective_gb']:.4f} "
+          f"GB {dict(pod['collectives'])}; trace {d['trace_s']} s")
+    print(f"phase 36 [memory tracker] ({card}): yi-6b lm_apply(last_only) {BATCH} x {LM_SEQ} "
+          f"reckoned on a 1 x 1 fake world {reckoned:.3f} GiB, measured in phase 30 "
+          f"{measured:.3f} GiB, ratio {reckoned / measured:.4f} (within {DRYRUN_PEAK_TOL:.0%})")
+    if abs(reckoned / measured - 1) > DRYRUN_PEAK_TOL:
+        raise SystemExit(f"phase 36: reckoned peak {reckoned:.3f} GiB is not within "
+                         f"{DRYRUN_PEAK_TOL:.0%} of the measured {measured:.3f} GiB")
     return out
 
 
@@ -5283,6 +5351,8 @@ def main() -> int:
     t0 = time.perf_counter()
     twin_runs = twins(dev, counters, card)
     phase_s["31"] = time.perf_counter() - t0
+    dry = dryrun_paths(card)
+    phase_s["36"] = dry["s"]
     graph_kinds = {k for k in graphs if "workspace" not in k}
     print("phase 15 summary (" + card + "): " + "; ".join(
         f"{k}: graphed {v['graphed_ms']:.3f} / eager {v['eager_ms']:.3f} ms, capture "
@@ -5645,6 +5715,7 @@ def main() -> int:
     print(f"phase 31 summary ({card}): " + "; ".join(
         f"{k} {v['s']:.1f} s" for k, v in twin_runs.items()))
     print("phase 31 json: " + json.dumps(twin_runs))
+    print("phase 36 json: " + json.dumps(dry))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

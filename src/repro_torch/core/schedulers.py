@@ -28,8 +28,17 @@ def _as_t(t) -> Tensor:
 
 
 def _d(fn: Callable[[Tensor], Tensor], t) -> Tensor:
-    """Scalar-function time derivative via forward-mode AD."""
+    """Scalar-function time derivative via forward-mode AD. An elementwise
+    function of a DTensor ``t`` (a batch's times on a mesh) is
+    differentiated on each rank's local shard, laid out as ``t`` is
+    (DTensor has no forward-mode AD)."""
     t = _as_t(t)
+    if type(t) is not Tensor:
+        from torch.distributed.tensor import DTensor
+
+        if isinstance(t, DTensor):
+            return DTensor.from_local(_d(fn, t.to_local()), t.device_mesh, t.placements,
+                                      run_check=False)
     _, dot = torch.func.jvp(fn, (t,), (torch.ones_like(t),))
     return dot
 

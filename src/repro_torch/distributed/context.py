@@ -2,11 +2,14 @@
 
 Port of ``repro.distributed.context``. Models are mesh-agnostic; a launcher
 installs a context and hot layers may place ``constrain(x, *spec)`` hints.
-With no context installed every helper is a no-op, as in the reference. No
-launcher of the port installs one: in the reference only the dry run does
-(``launch/dryrun.py``, XLA-only and not ported); its trainer and the port's
-(``launch/train.py``) run without one, and ``models.model.cfm_loss`` places
-its ``constrain`` hints where the reference's does.
+With no context installed every helper is a no-op, as in the reference. The
+dry run installs one (``launch/dryrun.py``, as the reference's does); the
+trainers of both packages (``launch/train.py``) run without one, and
+``models.model.cfm_loss`` places its ``constrain`` hints where the
+reference's does. Under a context the models also pin the tensors DTensor
+would otherwise lay out in ways its next products have no rule for
+(``pin_batch``): an embedding gather, a row-parallel product's output, a
+column-parallel product's hidden.
 
 Policies:
   seq_parallel_attn — shard attention over query positions on the ``model``
@@ -79,6 +82,35 @@ def constrain(x, *spec):
                           and spec[old.dim] == "?") else new
                   for old, new in zip(x.placements, placements)]
     return x.redistribute(x.device_mesh, placements)
+
+
+def pin_batch(x, *, model_last: bool = False):
+    """A DTensor ``x`` laid out as a batch under an installed context: its
+    leading dim over the batch axes where its extent divides them (else
+    replicated), its last dim over ``model`` with ``model_last`` where it
+    divides (a column-parallel product's output: Megatron's hidden), every
+    other dim replicated. Where DTensor's propagation picks a layout of its
+    own (a gather from a vocab-split table splits the sequence on
+    ``model``; a product whose weight is split along its input over the
+    batch axes splits its rows on ``model``), the next products would
+    otherwise meet strided splits they have no rule for. Identity without a
+    context and for a plain tensor."""
+    if _CTX is None:
+        return x
+    from torch.distributed.tensor import DTensor
+
+    if not isinstance(x, DTensor):
+        return x
+    mesh = _CTX.mesh
+    size = 1
+    for a in _CTX.batch_axes:
+        size *= mesh.size(mesh.mesh_dim_names.index(a))
+    lead = batch_axis() if x.shape[0] % size == 0 else None
+    if x.dim() == 1:
+        return constrain(x, lead)
+    last = ("model" if model_last
+            and x.shape[-1] % mesh.size(mesh.mesh_dim_names.index("model")) == 0 else None)
+    return constrain(x, lead, *(None,) * (x.dim() - 2), last)
 
 
 def seq_parallel_attn_enabled() -> bool:

@@ -104,6 +104,33 @@ def check(lib: ctypes.CDLL, err: int, what: str) -> None:
         raise RuntimeError(f"{what}: CUDA error {err} at launch ({msg})")
 
 
+# callables ``(name, flops, inputs, outputs)`` told of each launch that a
+# launcher skipped because its inputs were fake (``analysis.counter``)
+FAKE_LISTENERS: list = []
+_FAKE = None
+
+
+def is_fake(*xs) -> bool:
+    """Whether every tensor among ``xs`` (None skipped) is a ``FakeTensor``:
+    a shape-only trace (``launch.dryrun``), where a launcher allocates its
+    outputs and workspaces, launches nothing and builds nothing. Never true
+    for a real tensor."""
+    global _FAKE
+    if _FAKE is None:
+        from torch._subclasses.fake_tensor import FakeTensor
+
+        _FAKE = FakeTensor
+    ts = [x for x in xs if x is not None]
+    return bool(ts) and all(isinstance(x, _FAKE) for x in ts)
+
+
+def fake_launch(name: str, flops: float, inputs, outputs) -> None:
+    """Report a launch skipped on fake tensors, with the products it would
+    run, to every listener. Not a launch: no ``LaunchCounter`` moves."""
+    for listener in FAKE_LISTENERS:
+        listener(name, flops, inputs, outputs)
+
+
 # every live LaunchCounter: ``serving.programs`` records what a capture
 # launched on each and adds it back at every replay of the graph
 COUNTERS: "weakref.WeakSet[LaunchCounter]" = weakref.WeakSet()

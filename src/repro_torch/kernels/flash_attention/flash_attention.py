@@ -5,6 +5,11 @@ blocked online-softmax GQA attention, causal or not, for any sequence length
 (the Pallas kernel needed L to be a multiple of its block). Under grad the
 forward also returns each query row's log-sum-exp, and ``flash_attention_bwd``
 (``csrc/flash_attention_bwd.cu``) computes dq, dk and dv from it.
+
+On fake tensors (``build.is_fake``: every tensor input a ``FakeTensor``, as
+in the dry run, ``launch.dryrun``) both launchers allocate their outputs and
+workspaces as for a launch, report the products to ``build.fake_launch``,
+and launch and build nothing.
 """
 from __future__ import annotations
 
@@ -40,6 +45,15 @@ def _bwd_lib():
                        + [ctypes.c_void_p, ctypes.c_float, ctypes.c_void_p])
         fn.restype = ctypes.c_int
     return lib
+
+
+def score_pairs(Lq: int, Lk: int, causal: bool) -> int:
+    """The (query, key) pairs the kernel scores: all of them, or under the
+    causal mask (key j <= query i) those on or below the diagonal."""
+    if not causal:
+        return Lq * Lk
+    n = min(Lq, Lk)
+    return n * (n + 1) // 2 + (Lq - n) * Lk
 
 
 def _check_inputs(what: str, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
@@ -86,13 +100,17 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     B, H, Lq, hd = q.shape
     KV, Lk = k.shape[1], k.shape[2]
     o = torch.empty((B, Lq, H, hd), dtype=q.dtype, device=q.device).transpose(1, 2)
+    lse = (torch.empty((B, H, Lq), dtype=torch.float32, device=q.device)
+           if return_lse else None)
+    if build.is_fake(q, k, v):
+        build.fake_launch("flash_attention", 2 * 2 * B * H * hd * score_pairs(Lq, Lk, causal),
+                          (q, k, v), (o, lse))
+        return (o, lse) if return_lse else o
     strides = [s for t in (q, k, v, o) for s in t.stride()[:3]]
     if q.dtype == torch.bfloat16 and (any(s % 8 for s in strides) or any(
             t.data_ptr() % 16 for t in (q, k, v))):
         raise ValueError("bf16 flash_attention needs 16-byte aligned q, k, v "
                          "and strides that are multiples of 8")
-    lse = (torch.empty((B, H, Lq), dtype=torch.float32, device=q.device)
-           if return_lse else None)
     lib = _lib()
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
@@ -137,6 +155,19 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             or not lse.is_contiguous()):
         raise ValueError(f"flash_attention_bwd: lse must be a contiguous (B, H, Lq) "
                          f"float32 tensor, got {tuple(lse.shape)} {lse.dtype}")
+    dq = torch.empty((B, Lq, H, hd), dtype=q.dtype, device=q.device).transpose(1, 2)
+    dk, dv = ((torch.empty((B, Lk, KV, hd), dtype=q.dtype, device=q.device).transpose(1, 2)
+               for _ in range(2)) if dkdv else (None, None))
+    # each row's lse and D, padded to whole dq tiles
+    lpad = -(-Lq // BWD_QUERY_TILE) * BWD_QUERY_TILE
+    rows = torch.empty(B * H * 2 * lpad, dtype=torch.float32, device=q.device)
+    if build.is_fake(q, k, v, o, lse, do):
+        # the dq pass's three products, and the dk/dv pass's four
+        products = 7 if dkdv else 3
+        build.fake_launch("flash_attention_bwd",
+                          products * 2 * B * H * hd * score_pairs(Lq, Lk, causal),
+                          (q, k, v, o, lse, do), (dq, dk, dv, rows))
+        return dq, dk, dv
     if q.dtype == torch.bfloat16:
         # the tensor-core path reads rows by TMA: the forward's alignment rule
         # for q, k, v, o; the incoming gradient is made contiguous if needed
@@ -146,12 +177,6 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                              "and strides that are multiples of 8")
         if any(s % 8 for s in do.stride()[:3]) or do.data_ptr() % 16:
             do = do.contiguous()
-    dq = torch.empty((B, Lq, H, hd), dtype=q.dtype, device=q.device).transpose(1, 2)
-    dk, dv = ((torch.empty((B, Lk, KV, hd), dtype=q.dtype, device=q.device).transpose(1, 2)
-               for _ in range(2)) if dkdv else (None, None))
-    # each row's lse and D, padded to whole dq tiles
-    lpad = -(-Lq // BWD_QUERY_TILE) * BWD_QUERY_TILE
-    rows = torch.empty(B * H * 2 * lpad, dtype=torch.float32, device=q.device)
     strides = [s for t in (q, k, v, o, do, dq) for s in t.stride()[:3]]
     strides += [s for t in (dk, dv) for s in (t.stride()[:3] if dkdv else (0, 0, 0))]
     lib = _bwd_lib()

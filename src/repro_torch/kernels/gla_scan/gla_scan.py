@@ -24,6 +24,12 @@ dq's state term in the scratch) or the CUDA-core one (the forward sweep
 leaves each chunk's starting state). q and k may be one group broadcast over
 the heads ((B, L, 1, dk)): their gradients are then summed over the heads in
 the library.
+
+On fake tensors (``build.is_fake``: every tensor input a ``FakeTensor``, as
+in the dry run, ``launch.dryrun``) both launchers allocate their outputs and
+workspaces (the backward's by ``uses_mma``, the C library's rule copied)
+as for a launch, report the chunked form's products to
+``build.fake_launch``, and launch and build nothing.
 """
 from __future__ import annotations
 
@@ -52,6 +58,27 @@ def _lib():
         lib.gla_scan_uses_mma.argtypes = [ctypes.c_int] * 4
         lib.gla_scan_uses_mma.restype = ctypes.c_int
     return lib
+
+
+def uses_mma(dtype: torch.dtype, dk: int, dv: int, chunk: int) -> bool:
+    """The C libraries' rule for the tensor-core kernels (``uses_mma`` in
+    both sources), for fake tensors, where no library is loaded."""
+    return (dtype == torch.bfloat16 and dk % 16 == 0 and dv % 16 == 0 and dk <= 128
+            and dv <= 128 and chunk in (16, 32, 64))
+
+
+def chunked_flops(B: int, L: int, H: int, dk: int, dv: int, chunk: int,
+                  backward: bool = False) -> float:
+    """The chunked form's products a (batch row, head): in each chunk of c
+    rows the scores (c x c x dk), their product with v (c x c x dv), the
+    state's read by q and its update (c x dk x dv each); the backward
+    recomputes the scores and the states and forms dq, dk, dv and the
+    state's gradient, c^2 (3 dk + 2 dv) + 5 c dk dv."""
+    c = min(chunk, L)
+    n = -(-L // c)
+    per = (c * c * (3 * dk + 2 * dv) + 5 * c * dk * dv if backward
+           else c * c * (dk + dv) + 2 * c * dk * dv)
+    return 2.0 * B * H * n * per
 
 
 def kernel_for(dtype: torch.dtype, L: int, dk: int, dv: int, chunk: int = 64) -> str:
@@ -104,6 +131,12 @@ def gla_scan(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, ld: torch.Tensor
     if len(devices) != 1:
         raise ValueError("gla_scan arguments lie on different devices")
     chunk = min(chunk, L)
+    o = torch.empty((B, L, H, dv), dtype=v.dtype, device=q.device)
+    state = torch.empty((B, H, dk, dv), dtype=torch.float32, device=q.device)
+    if build.is_fake(q, k, v, ld, s0):
+        build.fake_launch("gla_scan", chunked_flops(B, L, H, dk, dv, chunk),
+                          (q, k, v, ld, s0), (o, state))
+        return o, state
     lib = _lib()
     smem = lib.gla_scan_smem_bytes(_DTYPES[q.dtype], _DTYPES[ld.dtype], dk, dv, chunk)
     if smem > MAX_SMEM_BYTES:
@@ -111,8 +144,6 @@ def gla_scan(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, ld: torch.Tensor
                          f"bytes of shared memory a block, over the {MAX_SMEM_BYTES} "
                          "the card gives")
     ld = ld.expand(B, L, H, dk)          # one decay per head: a stride of 0 on d
-    o = torch.empty((B, L, H, dv), dtype=v.dtype, device=q.device)
-    state = torch.empty((B, H, dk, dv), dtype=torch.float32, device=q.device)
     strides = [s for t in (q, k, v, ld) for s in t.stride()]
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
@@ -198,12 +229,14 @@ def gla_scan_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, ld: torch.Te
     if len(devices) != 1:
         raise ValueError("gla_scan_bwd arguments lie on different devices")
     chunk = min(chunk, L)
-    lib = _bwd_lib()
-    smem = lib.gla_scan_bwd_smem_bytes(_DTYPES[q.dtype], dk, dv, chunk)
-    if smem > MAX_SMEM_BYTES:
-        raise ValueError(f"gla_scan_bwd at dk={dk}, dv={dv}, chunk={chunk} needs {smem} "
-                         f"bytes of shared memory a block, over the {MAX_SMEM_BYTES} "
-                         "the card gives")
+    fake = build.is_fake(q, k, v, ld, s0, do, dS_final)
+    lib = None if fake else _bwd_lib()
+    if not fake:
+        smem = lib.gla_scan_bwd_smem_bytes(_DTYPES[q.dtype], dk, dv, chunk)
+        if smem > MAX_SMEM_BYTES:
+            raise ValueError(f"gla_scan_bwd at dk={dk}, dv={dv}, chunk={chunk} needs "
+                             f"{smem} bytes of shared memory a block, over the "
+                             f"{MAX_SMEM_BYTES} the card gives")
     group = q.shape[2] != H
     s0f = None if s0 is None else s0.to(torch.float32).contiguous()
     dSf = None if dS_final is None else dS_final.to(torch.float32).contiguous()
@@ -214,8 +247,9 @@ def gla_scan_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, ld: torch.Te
     n_chunks = -(-L // chunk)
     # the tensor-core kernel's forward sweep leaves dq's state term (c rows of
     # dk a chunk), the CUDA-core one's each chunk's starting state (dk x dv)
-    per_chunk = (chunk if lib.gla_scan_bwd_uses_mma(_DTYPES[q.dtype], dk, dv, chunk)
-                 else dv) * dk
+    mma = (uses_mma(q.dtype, dk, dv, chunk) if fake
+           else lib.gla_scan_bwd_uses_mma(_DTYPES[q.dtype], dk, dv, chunk))
+    per_chunk = (chunk if mma else dv) * dk
     scratch = torch.empty((B, H, n_chunks, per_chunk), dtype=torch.float32, device=dev)
     dq = torch.empty(q.shape, dtype=q.dtype, device=dev)
     dk_ = torch.empty(k.shape, dtype=k.dtype, device=dev)
@@ -224,6 +258,11 @@ def gla_scan_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, ld: torch.Te
     ds0 = None if s0 is None else torch.empty(state_shape, dtype=torch.float32, device=dev)
     ws = (torch.empty((2, B, L, H, dk), dtype=torch.float32, device=dev) if group
           else None)
+    if fake:
+        build.fake_launch("gla_scan_bwd", chunked_flops(B, L, H, dk, dv, chunk, True),
+                          (q, k, v, ld, s0f, do, dSf),
+                          (scratch, dq, dk_, dv_, dld, ds0, ws))
+        return dq, dk_, dv_, dld, None if ds0 is None else ds0.to(s0.dtype)
     strides = [st for t in (qx, kx, v, ldx, do) for st in t.stride()]
     ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
     with torch.cuda.device(dev):

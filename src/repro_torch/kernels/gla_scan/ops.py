@@ -7,6 +7,7 @@ from typing import Optional
 
 import torch
 
+from repro_torch.kernels import dtensor
 from repro_torch.kernels.gla_scan.gla_scan import gla_scan, gla_scan_bwd
 from repro_torch.models.linear_scan import gla_chunked
 
@@ -52,7 +53,19 @@ def gla(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, ld: torch.Tensor,
     On the card, inputs that require grad under grad mode go through
     ``GLAScan`` (forward and backward kernels), the rest through one forward
     launch; on the CPU, the plain chunked form, which autograd
-    differentiates."""
+    differentiates. A DTensor call runs on each rank's local shards: the
+    batch over the data axes, the heads over ``model`` where they divide it
+    (``kernels.dtensor.local_call``; one group of q and k is replicated
+    along it)."""
+    if type(v) is not torch.Tensor and dtensor.any_dtensor(q, k, v, ld, s0):
+        def heads(x):
+            return 2 if x.shape[2] == v.shape[2] else None
+
+        return dtensor.local_call(
+            lambda q, k, v, ld, s0: gla(q, k, v, ld, s0, inclusive=inclusive, chunk=chunk),
+            (q, k, v, ld, s0), batch_dims=(0, 0, 0, 0, 0),
+            head_dims=(heads(q), heads(k), 2, 2, 1), out_batch_dim=(0, 0),
+            out_head_dim=(2, 1))
     if q.is_cuda:
         if torch.is_grad_enabled() and any(
                 t is not None and t.requires_grad for t in (q, k, v, ld, s0)):

@@ -22,6 +22,13 @@ advances (the others keep their bits), the page pool unconditionally, as
 the reference's pool is (page ownership isolates rows; inactive rows write
 into the trash page 0). Cross-attention (whisper's decoder) attends over an
 encoder memory without mask or RoPE, through the flash kernel on the card.
+
+On a mesh (DTensors, ``serving.sharded``) attention runs on each rank's
+local shards (``_local_heads``: the batch over the data axes, the heads over
+``model`` where both head counts divide it), and a dense decode cache that
+the mesh splits (its slots where the KV heads do not divide ``model``)
+decodes on its local shards, the ranks' softmax partials merged by
+log-sum-exp (``_decode_on_shards``).
 """
 from __future__ import annotations
 
@@ -30,8 +37,9 @@ from typing import NamedTuple, Optional
 import torch
 
 from repro_torch.distributed import context
+from repro_torch.kernels import dtensor
 from repro_torch.kernels.flash_attention.ops import attend, paged_attend
-from repro_torch.models.layers import apply_rope, dense_init, rms_norm
+from repro_torch.models.layers import apply_rope, dense_init, rms_norm, split_heads
 
 Tensor = torch.Tensor
 NEG_INF = -1e30
@@ -112,10 +120,6 @@ def _grouped_attend(q: Tensor, k: Tensor, v: Tensor, mask: Optional[Tensor]) -> 
     return torch.einsum("bkgqs,bskh->bqkgh", w, v)
 
 
-def _split_heads(x: Tensor, n: int, hd: int) -> Tensor:
-    return x.reshape(x.shape[:-1] + (n, hd))
-
-
 def _position_mask(pos_q: Tensor, positions: Tensor, window: int) -> Tensor:
     """(1, Lq, Lk) bool: key position <= query position, and within
     ``window`` of it when ``window > 0``."""
@@ -161,9 +165,9 @@ def attention_forward(
     """
     B, L, _ = x.shape
     G = n_heads // n_kv
-    q = _split_heads(x @ p["wq"], n_heads, head_dim)
-    k = _split_heads(x @ p["wk"], n_kv, head_dim)
-    v = _split_heads(x @ p["wv"], n_kv, head_dim)
+    q = split_heads(x @ p["wq"], n_heads, head_dim)
+    k = split_heads(x @ p["wk"], n_kv, head_dim)
+    v = split_heads(x @ p["wv"], n_kv, head_dim)
     if "q_norm" in p:
         q = rms_norm(q, p["q_norm"], norm_eps)
         k = rms_norm(k, p["k_norm"], norm_eps)
@@ -171,16 +175,45 @@ def attention_forward(
     k = apply_rope(k, positions, rope_theta)
 
     if x.is_cuda and not window:
-        out = attend(q, k, v, causal=causal)                  # (B, L, H, hd)
+        out = _local_heads(lambda q, k, v: attend(q, k, v, causal=causal), q, k, v)
     else:
-        q = q.reshape(B, L, n_kv, G, head_dim)
-        qc = context.q_chunk()
-        if qc and L > qc and L % qc == 0:
-            out = _chunked_attend(q, k, v, positions, causal, window, qc)
-        else:
-            mask = _position_mask(positions, positions, window) if causal else None
-            out = _grouped_attend(q, k, v, mask)
-    return out.reshape(B, L, n_heads * head_dim) @ p["wo"]
+        out = _local_heads(lambda q, k, v: _plain_attend(q, k, v, positions, causal, window),
+                           q, k, v)
+    return context.pin_batch(out @ p["wo"])
+
+
+def _plain_attend(q: Tensor, k: Tensor, v: Tensor, positions: Tensor, causal: bool,
+                  window: int) -> Tensor:
+    """The masked plain path in the model layout: q (B, L, H, hd), k, v
+    (B, Lk, KV, hd) -> (B, L, H, hd); query-chunked under an installed
+    ``q_chunk`` that divides L."""
+    B, L, H, hd = q.shape
+    q = q.reshape(B, L, k.shape[2], H // k.shape[2], hd)
+    qc = context.q_chunk()
+    if qc and L > qc and L % qc == 0:
+        out = _chunked_attend(q, k, v, positions, causal, window, qc)
+    else:
+        mask = _position_mask(positions, positions, window) if causal else None
+        out = _grouped_attend(q, k, v, mask)
+    return out.reshape(B, L, H, hd)
+
+
+def _local_heads(fn, q: Tensor, k: Tensor, v: Tensor) -> Tensor:
+    """``fn(q, k, v)`` in the model layout ((B, L, heads, hd) each) with its
+    heads merged, (B, L, H * hd); on each rank's local shards when they are
+    DTensors: the batch over the data axes, the heads over ``model`` where
+    both head counts divide it (``kernels.dtensor.local_call``). DTensor's
+    own propagation would contract the scores over a split head dim and
+    all-reduce them, (L, L) a head; and the merge is made on the local
+    shards, so no gradient is ever viewed as heads that a split cuts
+    (40 heads over a ``model`` axis of 16)."""
+    def merged(q, k, v):
+        return fn(q, k, v).flatten(2)
+
+    if type(q) is torch.Tensor or not dtensor.any_dtensor(q, k, v):
+        return merged(q, k, v)
+    return dtensor.local_call(merged, (q, k, v), batch_dims=(0, 0, 0), head_dims=(2, 2, 2),
+                              out_batch_dim=0, out_head_dim=2)
 
 
 def cross_attention_forward(
@@ -199,22 +232,23 @@ def cross_attention_forward(
     no-op."""
     B, L, _ = x.shape
     memory = memory.to(x.dtype)
-    q = _split_heads(x @ p["wq"], n_heads, head_dim)
-    k = _split_heads(memory @ p["wk"], n_heads, head_dim)
-    v = _split_heads(memory @ p["wv"], n_heads, head_dim)
+    q = split_heads(x @ p["wq"], n_heads, head_dim)
+    k = split_heads(memory @ p["wk"], n_heads, head_dim)
+    v = split_heads(memory @ p["wv"], n_heads, head_dim)
     if x.is_cuda:
-        out = attend(q, k, v, causal=False)
+        out = _local_heads(lambda q, k, v: attend(q, k, v, causal=False), q, k, v)
     else:
-        out = _grouped_attend(q.reshape(B, L, n_heads, 1, head_dim), k, v, None)
-    return out.reshape(B, L, n_heads * head_dim) @ p["wo"]
+        out = _local_heads(lambda q, k, v: _grouped_attend(
+            q.reshape(q.shape[:3] + (1, head_dim)), k, v, None), q, k, v)
+    return context.pin_batch(out @ p["wo"])
 
 
 def _project_new_token(p: dict, x: Tensor, pos: Tensor, *, n_heads: int, n_kv: int,
                        head_dim: int, rope_theta: float, norm_eps: float):
     """q, k, v of the new token (B, 1, heads, hd), RoPE'd at each row's ``pos``."""
-    q = _split_heads(x @ p["wq"], n_heads, head_dim)
-    k_new = _split_heads(x @ p["wk"], n_kv, head_dim)
-    v_new = _split_heads(x @ p["wv"], n_kv, head_dim)
+    q = split_heads(x @ p["wq"], n_heads, head_dim)
+    k_new = split_heads(x @ p["wk"], n_kv, head_dim)
+    v_new = split_heads(x @ p["wv"], n_kv, head_dim)
     if "q_norm" in p:
         q = rms_norm(q, p["q_norm"], norm_eps)
         k_new = rms_norm(k_new, p["k_norm"], norm_eps)
@@ -257,6 +291,11 @@ def decode_attention(
     rows = torch.arange(B, device=x.device)
     k_new = k_new[:, 0].to(cache.k.dtype)
     v_new = v_new[:, 0].to(cache.v.dtype)
+    if type(cache.k) is not torch.Tensor and _split_along(cache.k, (0, 1, 2)):
+        out = _decode_on_shards(q[:, 0], k_new, v_new, pos, slot, active, cache.k, cache.v,
+                                window)
+        out = context.pin_batch(out.reshape(B, 1, n_heads * head_dim) @ p["wo"])
+        return out, cache._replace(index=pos + 1)
     if active is not None:     # inactive rows write back what they hold
         keep = active[:, None, None]
         k_new = torch.where(keep, k_new, cache.k[rows, slot])
@@ -271,8 +310,82 @@ def decode_attention(
         valid = slot_ids[None, :] <= pos[:, None]
     q = q.reshape(B, 1, n_kv, G, head_dim)
     out = _grouped_attend(q, cache.k.to(q.dtype), cache.v.to(q.dtype), valid[:, None, :])
-    out = out.reshape(B, 1, n_heads * head_dim) @ p["wo"]
+    out = context.pin_batch(out.reshape(B, 1, n_heads * head_dim) @ p["wo"])
     return out, cache._replace(index=pos + 1)
+
+
+def _decode_on_shards(q: Tensor, k_new: Tensor, v_new: Tensor, pos: Tensor, slot: Tensor,
+                      active: Optional[Tensor], kbuf, vbuf, window: int) -> Tensor:
+    """One-token decode over a DTensor cache (B, slots, KV, hd) that the
+    mesh splits (``distributed.sharding.cache_spec``): along its batch, its
+    KV heads where they divide ``model``, and else along its slots (on
+    ``model``, or, at a batch of one, on the data axes). k_new, v_new: (B,
+    KV, hd) in the cache's dtype.
+
+    Each rank runs on its local shard of the cache and the matching shards
+    of q and the new K/V: it writes the rows whose slot falls in its shard,
+    at the local offset (IN PLACE, into the cache's local tensor), scores its own slots,
+    and keeps their max, the sum of their exponentials and the weighted sum
+    of their values; the partials are merged across the mesh axes that
+    split the slots by log-sum-exp (all-reduce of the max, then of the
+    rescaled sums), as ``paged_attention`` merges its splits. q: (B, H, hd);
+    returns (B, H, hd) in q's dtype, laid out as q is."""
+    from torch.distributed import _functional_collectives as funcol
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+
+    mesh, cpl = kbuf.device_mesh, tuple(kbuf.placements)
+
+    def like(dims: dict) -> list:
+        return [Shard(dims[pl.dim]) if isinstance(pl, Shard) and pl.dim in dims
+                else Replicate() for pl in cpl]
+
+    row_pl, head_pl = like({0: 0}), like({0: 0, 2: 1})
+    split = [i for i, pl in enumerate(cpl) if isinstance(pl, Shard) and pl.dim == 1]
+    first, _ = dtensor.shard_extent(mesh, cpl, 1, kbuf.shape[1])
+    slots = kbuf.shape[1]
+
+    def core(q, k_new, v_new, pos, slot, active, k, v):
+        n = k.shape[1]
+        rows = torch.arange(k.shape[0], device=k.device)
+        local = (slot - first).clamp(0, n - 1)
+        write = (slot >= first) & (slot < first + n)
+        if active is not None:
+            write = write & active
+        keep = write[:, None, None]
+        k[rows, local] = torch.where(keep, k_new, k[rows, local])
+        v[rows, local] = torch.where(keep, v_new, v[rows, local])
+        ids = first + torch.arange(n, device=k.device)
+        if window:
+            valid = ids[None, :] < torch.clamp(pos + 1, max=slots)[:, None]
+        else:
+            valid = ids[None, :] <= pos[:, None]
+        kq, vq = k.to(q.dtype), v.to(q.dtype)
+        qg = q.reshape(q.shape[0], k.shape[2], -1, q.shape[-1])      # (B, KV, G, hd)
+        scores = torch.einsum("bkgh,bskh->bkgs", qg * q.shape[-1] ** -0.5, kq)
+        scores = torch.where(valid[:, None, None, :], scores.to(torch.float32), NEG_INF)
+        m = scores.amax(-1)
+        e = torch.where(valid[:, None, None, :], torch.exp(scores - m[..., None]), 0.0)
+        lsum = e.sum(-1)
+        o = torch.einsum("bkgs,bskh->bkgh", e.to(vq.dtype), vq).to(torch.float32)
+        for dim in split:
+            top = funcol.all_reduce(m, "max", (mesh, dim))
+            scale = torch.exp(m - top)
+            lsum = funcol.all_reduce(lsum * scale, "sum", (mesh, dim))
+            o = funcol.all_reduce(o * scale[..., None], "sum", (mesh, dim))
+            m = top
+        return (o / lsum[..., None]).to(q.dtype).reshape(q.shape)
+
+    def placed(x, pl):
+        if x is None or isinstance(x, DTensor):
+            return x
+        return DTensor.from_local(x, mesh, [Replicate()] * mesh.ndim, run_check=False)
+
+    args = (q, k_new, v_new, pos, slot, active, kbuf, vbuf)
+    in_pl = (head_pl, head_pl, head_pl, row_pl, row_pl,
+             None if active is None else row_pl, list(cpl), list(cpl))
+    return local_map(core, head_pl, in_placements=in_pl, device_mesh=mesh,
+                     redistribute_inputs=True)(*(placed(x, pl) for x, pl in zip(args, in_pl)))
 
 
 def _local(x, buf, dims: dict) -> Tensor:
@@ -297,16 +410,13 @@ def _split_along(buf, dims) -> bool:
 
 def _write_slots(buf: Tensor, slot: Tensor, new: Tensor) -> None:
     """``buf[b, slot[b]] = new[b]`` for every row b, in place: buf (B, slots,
-    KV, hd), new (B, KV, hd). A DTensor cache of the mesh path (``serving.
-    sharded.place_decode_state``) takes the write on each rank's local shard,
-    with ``slot`` and ``new`` laid out as its batch and heads are (DTensor
-    has no in-place ``index_put_`` over a split cache); its slot axis must
-    not be split."""
+    KV, hd), new (B, KV, hd). A DTensor cache that no mesh axis splits (the
+    1 x 1 mesh; a split one decodes through ``_decode_on_shards``) takes the
+    write on its local tensor (the card's torch has no DTensor
+    ``index_put_``)."""
     if type(buf) is torch.Tensor:
         buf[torch.arange(buf.shape[0], device=buf.device), slot] = new
         return
-    if _split_along(buf, (1,)):
-        raise NotImplementedError("a decode write into a cache split along its slot axis")
     shard = buf.to_local()
     shard[torch.arange(shard.shape[0], device=shard.device),
           _local(slot, buf, {0: 0})] = _local(new, buf, {0: 0, 2: 1, 3: 2})

@@ -10,7 +10,72 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from repro_torch.distributed import context
+
 Tensor = torch.Tensor
+
+
+def split_heads(x: Tensor, n: int, hd: int) -> Tensor:
+    """(..., n * hd) -> (..., n, hd). A DTensor split along its last dim
+    into parts that are not whole heads (4 KV heads over a ``model`` axis
+    of 16) is gathered along those axes first: DTensor cannot view such a
+    split as heads."""
+    if type(x) is not torch.Tensor:
+        from torch.distributed.tensor import DTensor, Replicate, Shard
+
+        if isinstance(x, DTensor):
+            # a column-parallel product's output, whose rows DTensor may have
+            # split on ``model`` too: rows with the batch, features on ``model``
+            x = context.pin_batch(x, model_last=True)
+            last, mesh = x.dim() - 1, x.device_mesh
+            pl = [Replicate() if isinstance(p, Shard) and p.dim == last and n % mesh.size(i)
+                  else p for i, p in enumerate(x.placements)]
+            if pl != list(x.placements):
+                x = x.redistribute(mesh, pl)
+    return x.reshape(x.shape[:-1] + (n, hd))
+
+
+def embed(table: Tensor, tokens: Tensor) -> Tensor:
+    """``table[tokens]``: the rows of an embedding table, laid out as the
+    batch under an installed sharding context (``context.pin_batch``). A
+    DTensor table is read on each rank's local shard (``_embed_on_shards``)."""
+    if type(table) is not torch.Tensor and hasattr(table, "device_mesh"):
+        return context.pin_batch(_embed_on_shards(table, tokens))
+    return context.pin_batch(table[tokens.long()])
+
+
+def _embed_on_shards(table, tokens):
+    """Megatron's vocab-parallel embedding through ``local_map``: the table
+    gathered along every mesh axis but the one that splits its vocab (the
+    FSDP split of its width), each rank's rows read from its vocab slice and
+    zeros elsewhere, the ranks' rows summed over that axis. The tokens keep
+    their batch split. DTensor's own gather (and its backward's
+    ``index_put``) has no rule for a width split over two axes on the
+    card's torch."""
+    from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+
+    from repro_torch.kernels import dtensor
+
+    mesh = table.device_mesh
+    if not isinstance(tokens, DTensor):
+        tokens = DTensor.from_local(tokens, mesh, [Replicate()] * mesh.ndim, run_check=False)
+    vocab = [p if isinstance(p, Shard) and p.dim == 0 else Replicate() for p in table.placements]
+    rows = [p if isinstance(p, Shard) and p.dim == 0 else Replicate() for p in tokens.placements]
+    out = [Partial() if isinstance(v, Shard) else r for v, r in zip(vocab, rows)]
+    # each rank's table gradient is its own tokens' share where they split
+    grad = [Partial() if isinstance(r, Shard) else v for v, r in zip(vocab, rows)]
+    first, _ = dtensor.shard_extent(mesh, vocab, 0, table.shape[0])
+
+    def local(table, tokens):
+        idx = tokens.long() - first
+        inside = (idx >= 0) & (idx < table.shape[0])
+        got = table[idx.clamp(0, table.shape[0] - 1)]
+        return torch.where(inside[..., None], got, torch.zeros((), dtype=got.dtype,
+                                                               device=got.device))
+
+    return local_map(local, out, in_placements=(vocab, rows), in_grad_placements=(grad, rows),
+                     device_mesh=mesh, redistribute_inputs=True)(table, tokens)
 
 
 def dense_init(generator: torch.Generator, d_in: int, d_out: int,
@@ -31,7 +96,8 @@ def rms_norm(x: Tensor, weight: Tensor, eps: float = 1e-5) -> Tensor:
 
 
 def swiglu(x: Tensor, w_gate: Tensor, w_up: Tensor, w_down: Tensor) -> Tensor:
-    return (F.silu(x @ w_gate) * (x @ w_up)) @ w_down
+    hidden = context.pin_batch(F.silu(x @ w_gate) * (x @ w_up), model_last=True)
+    return context.pin_batch(hidden @ w_down)
 
 
 def rope_frequencies(head_dim: int, theta: float, device=None) -> Tensor:

@@ -39,7 +39,17 @@ def _initial_state(q: Tensor, dv: int, s0: Optional[Tensor]) -> Tensor:
 def gla_step(q: Tensor, k: Tensor, v: Tensor, ld: Tensor, S: Tensor, *,
              inclusive: bool = True) -> tuple[Tensor, Tensor]:
     """One step. q, k, ld: (B, H, dk); v: (B, H, dv); S: (B, H, dk, dv) f32.
-    Returns (o (B, H, dv) in v's dtype, new S)."""
+    Returns (o (B, H, dv) in v's dtype, new S). DTensors run on each rank's
+    local shards: the batch over the data axes, the heads over ``model``
+    where they divide it (``kernels.dtensor.local_call``)."""
+    if type(v) is not torch.Tensor:
+        from repro_torch.kernels import dtensor
+
+        if dtensor.any_dtensor(q, k, v, ld, S):
+            return dtensor.local_call(
+                lambda q, k, v, ld, S: gla_step(q, k, v, ld, S, inclusive=inclusive),
+                (q, k, v, ld, S), batch_dims=(0,) * 5, head_dims=(1,) * 5,
+                out_batch_dim=(0, 0), out_head_dim=(1, 1))
     acc = _acc(q)
     decay = torch.exp(ld.to(acc))[..., None]
     kv = k[..., None].to(acc) * v[..., None, :].to(acc)

@@ -31,6 +31,7 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch import resolve_device
 from repro_torch.configs.base import ModelConfig
+from repro_torch.distributed import context
 from repro_torch.kernels.gla_scan import ops as gla_ops
 from repro_torch.models.attention import (
     KVCache,
@@ -38,7 +39,7 @@ from repro_torch.models.attention import (
     decode_attention,
     init_attention,
 )
-from repro_torch.models.layers import dense_init, rms_norm, swiglu
+from repro_torch.models.layers import dense_init, embed, rms_norm, split_heads, swiglu
 from repro_torch.models.linear_scan import gla_step
 from repro_torch.models.transformer import (
     cast_params,
@@ -150,7 +151,7 @@ def _ssd(cfg: ModelConfig, x: Tensor, B_: Tensor, C_: Tensor, dt: Tensor, p: dic
     Bsz, L, _ = x.shape
     dt = F.softplus(dt.to(torch.float32) + p["dt_bias"])
     ld = dt * (-torch.exp(p["A_log"]))                          # (B, L, nh) f32
-    xh = x.reshape(Bsz, L, n_heads, s.head_dim)
+    xh = split_heads(x, n_heads, s.head_dim)
     v = xh * dt[..., None].to(xh.dtype)
     # one B/C group, (B, L, 1, d_state): ops.gla reads it over the heads with a
     # stride of 0, no copy, and the backward kernel sums its gradient over them
@@ -159,7 +160,7 @@ def _ssd(cfg: ModelConfig, x: Tensor, B_: Tensor, C_: Tensor, dt: Tensor, p: dic
     # one decay per (head, step): ld's trailing dim of 1
     o, S = gla_ops.gla(q, k, v, ld[..., None], s0, inclusive=True, chunk=chunk or s.chunk)
     y = o + p["D"][:, None].to(o.dtype) * xh
-    return y.reshape(Bsz, L, d_inner), S
+    return context.pin_batch(y.reshape(Bsz, L, d_inner)), S
 
 
 def mamba_block_seq(p: dict, cfg: ModelConfig, h: Tensor, chunk: Optional[int] = None
@@ -167,17 +168,20 @@ def mamba_block_seq(p: dict, cfg: ModelConfig, h: Tensor, chunk: Optional[int] =
     s = cfg.ssm
     d_inner, n_heads, conv_dim = _dims(cfg)
     hn = rms_norm(h, p["norm"], cfg.norm_eps)
-    z, xBC, dt = torch.split(hn @ p["in_proj"], [d_inner, conv_dim, n_heads], dim=-1)
+    # the projection's parts are cut along the features: whole on every rank
+    z, xBC, dt = torch.split(context.pin_batch(hn @ p["in_proj"]), [d_inner, conv_dim, n_heads],
+                             dim=-1)
     # depthwise causal conv of width d_conv, summed tap by tap (the reference's order)
     L = xBC.shape[1]
     pad = torch.zeros((xBC.shape[0], s.d_conv - 1, conv_dim), dtype=xBC.dtype,
                       device=xBC.device)
     xp = torch.cat([pad, xBC], dim=1)
     conv = sum(xp[:, i:i + L] * p["conv_w"][i].to(xBC.dtype) for i in range(s.d_conv))
-    x, B_, C_ = torch.split(F.silu(conv), [d_inner, s.d_state, s.d_state], dim=-1)
+    x, B_, C_ = torch.split(context.pin_batch(F.silu(conv)), [d_inner, s.d_state, s.d_state],
+                            dim=-1)
     y, _ = _ssd(cfg, x, B_, C_, dt, p, chunk=chunk)
     y = rms_norm(y * F.silu(z), p["gate_norm"], cfg.norm_eps)
-    return h + y @ p["out_proj"]
+    return h + context.pin_batch(y @ p["out_proj"])
 
 
 def mamba_block_step(p: dict, cfg: ModelConfig, h: Tensor, conv_state: Tensor,
@@ -187,21 +191,23 @@ def mamba_block_step(p: dict, cfg: ModelConfig, h: Tensor, conv_state: Tensor,
     s = cfg.ssm
     d_inner, n_heads, conv_dim = _dims(cfg)
     hn = rms_norm(h, p["norm"], cfg.norm_eps)
-    z, xBC, dt = torch.split(hn @ p["in_proj"], [d_inner, conv_dim, n_heads], dim=-1)
+    z, xBC, dt = torch.split(context.pin_batch(hn @ p["in_proj"]), [d_inner, conv_dim, n_heads],
+                             dim=-1)
     window = torch.cat([conv_state.to(xBC.dtype), xBC[:, None]], dim=1)
     conv = torch.einsum("bkc,kc->bc", window, p["conv_w"].to(xBC.dtype))
-    x, B_, C_ = torch.split(F.silu(conv), [d_inner, s.d_state, s.d_state], dim=-1)
+    x, B_, C_ = torch.split(context.pin_batch(F.silu(conv)), [d_inner, s.d_state, s.d_state],
+                            dim=-1)
     dtf = F.softplus(dt.to(torch.float32) + p["dt_bias"])
     ld = dtf * (-torch.exp(p["A_log"]))
-    xh = x.reshape(-1, n_heads, s.head_dim)
+    xh = split_heads(x, n_heads, s.head_dim)
     v = xh * dtf[..., None].to(xh.dtype)
     shape = xh.shape[:2] + (s.d_state,)
     k = B_[:, None, :].expand(shape)
     q = C_[:, None, :].expand(shape)
     o, S = gla_step(q, k, v, ld[..., None].expand(shape), S, inclusive=True)
-    y = (o + p["D"][:, None].to(o.dtype) * xh).reshape(-1, d_inner)
+    y = context.pin_batch((o + p["D"][:, None].to(o.dtype) * xh).reshape(-1, d_inner))
     y = rms_norm(y * F.silu(z), p["gate_norm"], cfg.norm_eps)
-    return h + y @ p["out_proj"], window[:, 1:], S
+    return h + context.pin_batch(y @ p["out_proj"]), window[:, 1:], S
 
 
 def _shared_attn_seq(p: dict, cfg: ModelConfig, h: Tensor, positions: Tensor,
@@ -246,7 +252,7 @@ def lm_forward(params: dict, cfg: ModelConfig, tokens: Tensor, positions=None, *
                window: int = 0, last_only: bool = False) -> Tensor:
     """Full-sequence logits over ``hybrid_hidden`` (``window`` reaches the
     shared attention: the CPU only, as ``attention_forward``)."""
-    h = hybrid_hidden(params, cfg, params["embed"][tokens.long()], positions, window=window)
+    h = hybrid_hidden(params, cfg, embed(params["embed"], tokens), positions, window=window)
     if last_only:
         h = h[:, -1:, :]
     return h @ params["lm_head"]
@@ -281,7 +287,7 @@ def decode_step(params: dict, cfg: ModelConfig, token: Tensor, state: HybridStat
     ``decode_attention`` in the same rows; the other rows keep every bit.
     The index advances in place too (only the active rows' when ``active``
     is given), and ``state`` is returned."""
-    h = params["embed"][token.long()]                                # (B, d)
+    h = embed(params["embed"], token)                                # (B, d)
     k = cfg.hybrid_attn_every
     sp = params["shared_attn"]
     keep = None if active is None else active.to(torch.bool)

@@ -31,6 +31,11 @@ lower expert comes first, as ``jax.lax.top_k`` orders them (``torch.topk``
 leaves ties unordered), and the order of a token's choices sets its position
 in each expert, hence which tokens are dropped.
 
+On a mesh (the experts DTensors split on ``model``) the layer is expert
+parallel (``_expert_parallel``): each rank routes its tokens over all the
+experts and computes its own experts' choices, and the ranks' outputs are
+summed; fewer experts than ranks leave some ranks none.
+
 The expert products are plain batched matmuls (``torch.bmm``), as the
 reference leaves them to XLA outside any Pallas kernel. Attention is the
 dense family's (``attention_forward``: the flash kernel on the card).
@@ -47,9 +52,10 @@ import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.kernels import dtensor
 from repro_torch.models import transformer
 from repro_torch.models.attention import attention_forward, init_attention
-from repro_torch.models.layers import dense_init, rms_norm
+from repro_torch.models.layers import dense_init, embed, rms_norm
 from repro_torch.models.transformer import (
     cast_params,
     generator_device,
@@ -136,27 +142,49 @@ def _experts(p: dict, xin: Tensor) -> Tensor:
     return torch.bmm(h, p["w_down"])
 
 
-def moe_mlp_scatter(p: dict, x: Tensor, cfg: ModelConfig):
+def moe_mlp_scatter(p: dict, x: Tensor, cfg: ModelConfig, first: int = 0):
     """(B, S, d) -> ((B, S, d), aux). Scatter/gather dispatch with one group
     a sequence: capacity and each choice's position in its expert are
     computed within the sequence, so a row's result does not depend on the
     other rows of the batch. The slots are laid out expert-major, (E, B, C),
-    so the expert products read them in place."""
+    so the expert products read them in place.
+
+    ``p``'s experts may be a slice of them, ``first`` to ``first`` + its
+    extent (a rank's share on the ``model`` axis, ``_expert_parallel``):
+    the routing is over all experts, and only the choices of the slice's
+    experts are computed (the others dropped), so the ranks' outputs sum
+    to the whole."""
     m = cfg.moe
     B, S, d = x.shape
-    E, k = m.num_experts, m.top_k
+    E, k = p["w_gate"].shape[0], m.top_k
     C = _capacity(S, cfg)
     gates, idx, aux = _routing(p, x.reshape(B * S, d), cfg)
     gates, idx = gates.reshape(B, S * k), idx.reshape(B, S * k)
+    pos_in_e, keep = _positions(idx, m.num_experts, C)
+    if E != m.num_experts:          # a slice: the other experts' choices drop
+        keep = keep & (idx >= first) & (idx < first + E)
+    return _dispatch_and_combine(p, x, gates, idx - first, pos_in_e, keep, C), aux
 
-    # position of each (token, choice) inside its expert, within the sequence:
-    # a running count a expert, laid out (B, E, S*k) so the scan runs along
-    # memory (a scan over the middle axis of (B, S*k, E) took ~2.8 ms a layer
-    # at the flow shape, scripts/moe_dispatch_profile.py)
-    hits = (idx[:, None, :] == torch.arange(E, device=x.device)[:, None]).to(torch.int32)
+
+def _positions(idx: Tensor, E: int, C: int) -> tuple[Tensor, Tensor]:
+    """Each (token, choice)'s position in its expert within its sequence,
+    and whether it is under the capacity C. idx: (B, S*k).
+
+    A running count a expert, laid out (B, E, S*k) so the scan runs along
+    memory (a scan over the middle axis of (B, S*k, E) took ~2.8 ms a layer
+    at the flow shape, scripts/moe_dispatch_profile.py)."""
+    hits = (idx[:, None, :] == torch.arange(E, device=idx.device)[:, None]).to(torch.int32)
     before = torch.cumsum(hits, dim=2, dtype=torch.int32) - hits
     pos_in_e = before.gather(1, idx[:, None, :])[:, 0].long()        # (B, S*k)
-    keep = pos_in_e < C
+    return pos_in_e, pos_in_e < C
+
+
+def _dispatch_and_combine(p: dict, x: Tensor, gates: Tensor, idx: Tensor, pos_in_e: Tensor,
+                          keep: Tensor, C: int) -> Tensor:
+    """The kept choices gathered into p's experts' slots, the expert
+    products, and the outputs gathered back and weighted: (B, S, d)."""
+    B, S, d = x.shape
+    E, k = p["w_gate"].shape[0], idx.shape[1] // S
     rows = torch.arange(B, device=x.device)[:, None]
     slot = torch.where(keep, (idx * B + rows) * C + pos_in_e, E * B * C)   # E*B*C: drop
     slot = slot.reshape(B * S * k)
@@ -174,18 +202,20 @@ def moe_mlp_scatter(p: dict, x: Tensor, cfg: ModelConfig):
     zero = torch.zeros((1, d), dtype=x.dtype, device=x.device)
     picked = torch.cat([out, zero]).index_select(0, slot).reshape(B, S, k, d)
     weight = (gates * keep).reshape(B, S, k, 1)
-    return torch.sum(picked * weight, dim=2), aux
+    return torch.sum(picked * weight, dim=2)
 
 
-def moe_mlp_onehot(p: dict, x: Tensor, cfg: ModelConfig):
+def moe_mlp_onehot(p: dict, x: Tensor, cfg: ModelConfig, first: int = 0):
     """The GShard-style einsum dispatch, capacity over the global batch
-    (small shapes only: it builds (T, k, E, C) tensors)."""
+    (small shapes only: it builds (T, k, E, C) tensors). ``p``'s experts may
+    be a slice, from ``first`` on, as in ``moe_mlp_scatter``."""
     m = cfg.moe
     B, S, d = x.shape
     T = B * S
     C = _capacity(T, cfg)
     x2d = x.reshape(T, d)
     gates, idx, aux = _routing(p, x2d, cfg)
+    n = p["w_gate"].shape[0]
 
     onehot = F.one_hot(idx, m.num_experts).to(torch.float32)          # (T, k, E)
     pos = torch.cumsum(onehot.reshape(T * m.top_k, -1), dim=0).reshape(
@@ -196,6 +226,8 @@ def moe_mlp_onehot(p: dict, x: Tensor, cfg: ModelConfig):
     dispatch = torch.einsum("tke,tkec->tec", onehot, cap_onehot)     # (T, E, C)
     combine = torch.einsum("tk,tke,tkec->tec", gates.to(torch.float32), onehot,
                            cap_onehot)
+    if n != m.num_experts:
+        dispatch, combine = dispatch[:, first:first + n], combine[:, first:first + n]
 
     expert_in = torch.einsum("tec,td->ecd", dispatch.to(x.dtype), x2d)
     expert_out = _experts(p, expert_in)
@@ -204,8 +236,93 @@ def moe_mlp_onehot(p: dict, x: Tensor, cfg: ModelConfig):
 
 
 def moe_mlp(p: dict, x: Tensor, cfg: ModelConfig):
+    if type(p["w_gate"]) is not torch.Tensor and dtensor.any_dtensor(p["w_gate"]):
+        return _expert_parallel(p, x, cfg)
     impl = cfg.moe.router_impl
     return (moe_mlp_scatter if impl == "scatter" else moe_mlp_onehot)(p, x, cfg)
+
+
+def _expert_parallel(p: dict, x: Tensor, cfg: ModelConfig):
+    """``moe_mlp`` on a mesh, the experts split on ``model`` (their rule,
+    ``distributed.sharding``): each rank routes its tokens over all experts
+    (the router gathered) and runs the choices of its own experts (their
+    weights gathered along the batch axes, the FSDP split); the outputs are
+    partial sums over ``model``. The scatter dispatch keeps the batch split
+    (its capacity is per sequence); the onehot one takes the whole batch
+    (its capacity is over it). The aux loss is formed from the whole batch's
+    expert densities."""
+    from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+
+    w = p["w_gate"]
+    mesh = w.device_mesh
+    names = mesh.mesh_dim_names
+    scatter = cfg.moe.router_impl == "scatter"
+    parts = 1
+    for i, n in enumerate(names):
+        if n in dtensor.BATCH_AXES:
+            parts *= mesh.size(i)
+    split = scatter and x.shape[0] % parts == 0
+    E = cfg.moe.num_experts
+
+    def pl(batch_dim, expert_dim, *, stack_model=False, stack_batch=False):
+        """Placements: the batch dim over the data axes (where ``split``),
+        the expert dim over ``model``; a leading stacking dim of the
+        outputs over ``model`` (each rank's partial sum) or over the data
+        axes (each rank's densities)."""
+        out = []
+        for i, n in enumerate(names):
+            if mesh.size(i) == 1:
+                out.append(Replicate())
+            elif n == "model":
+                out.append(Shard(0) if stack_model else (
+                    Shard(expert_dim) if expert_dim is not None else Replicate()))
+            elif stack_batch and split:
+                out.append(Shard(0))
+            elif split and batch_dim is not None:
+                out.append(Shard(batch_dim))
+            else:
+                out.append(Replicate())
+        return out
+
+    # this rank's experts (fewer experts than ranks: some ranks hold none)
+    first, _ = dtensor.shard_extent(mesh, pl(None, 0), 0, E)
+
+    def local(x, router, w_gate, w_up, w_down):
+        x, router, w_gate, w_up, w_down = dtensor.contiguous_grads(x, router, w_gate, w_up,
+                                                                   w_down)
+        q = {"router": router, "w_gate": w_gate, "w_up": w_up, "w_down": w_down}
+        if scatter:
+            out, _ = moe_mlp_scatter(q, x, cfg, first)
+        else:
+            out, _ = moe_mlp_onehot(q, x, cfg, first)
+        probs = torch.softmax(x.reshape(-1, x.shape[-1]).to(torch.float32)
+                              @ router.to(torch.float32), dim=-1)
+        top = torch.sort(probs, dim=-1, descending=True, stable=True)[1][:, 0]
+        density = F.one_hot(top, E).to(torch.float32).mean(0)
+        return out[None], density[None], probs.mean(0)[None]
+
+    if not isinstance(x, DTensor):
+        x = DTensor.from_local(x, mesh, [Replicate()] * mesh.ndim, run_check=False)
+    # each rank's partial output stacked over ``model`` and summed as a
+    # DTensor op (an all-reduce whose backward is autograd's own)
+    # the gradients a rank returns are its share: x's and the router's sum
+    # over ``model`` (each rank's experts), the weights' over the data axes
+    # where the batch is split (each rank's tokens)
+    def grad_pl(batch_dim, expert_dim):
+        return [Partial() if (n == "model" and expert_dim is None) or (
+                    n != "model" and split and batch_dim is None and mesh.size(i) > 1)
+                else p for i, (n, p) in enumerate(zip(names, pl(batch_dim, expert_dim)))]
+
+    out, density, proxy = local_map(
+        local, (pl(1, None, stack_model=True), pl(None, None, stack_batch=True),
+                pl(None, None, stack_batch=True)),
+        in_placements=(pl(0, None), pl(None, None), pl(None, 0), pl(None, 0), pl(None, 0)),
+        in_grad_placements=(grad_pl(0, None), grad_pl(None, None), grad_pl(None, 0),
+                            grad_pl(None, 0), grad_pl(None, 0)),
+        device_mesh=mesh, redistribute_inputs=True)(
+            x, p["router"], p["w_gate"], p["w_up"], p["w_down"])
+    return out.sum(0), E * torch.sum(density.mean(0) * proxy.mean(0))
 
 
 # ---------------------------------------------------------------------------
@@ -286,7 +403,7 @@ def lm_forward(params: dict, cfg: ModelConfig, tokens: Tensor, positions=None, *
                window: int = 0, last_only: bool = False) -> tuple[Tensor, Tensor]:
     """Full-sequence logits (``transformer.lm_forward``'s head over
     ``moe_hidden``) and the mean aux loss over the layers."""
-    h = params["embed"][tokens.long()]
+    h = embed(params["embed"], tokens)
     if positions is None:
         positions = torch.arange(h.shape[1], device=h.device)
     h, aux = moe_hidden(params, cfg, h, positions, causal=True, window=window)

@@ -26,8 +26,9 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch import resolve_device
 from repro_torch.configs.base import ModelConfig
+from repro_torch.distributed import context
 from repro_torch.kernels.gla_scan import ops as gla_ops
-from repro_torch.models.layers import dense_init, rms_norm
+from repro_torch.models.layers import dense_init, embed, rms_norm, split_heads
 from repro_torch.models.linear_scan import gla_step
 from repro_torch.models.transformer import (
     cast_params,
@@ -115,7 +116,9 @@ def params_from_jax(tree: dict, cfg: ModelConfig, device="cuda", dtype=None) -> 
 
 def _decay(p: dict, m_w: Tensor) -> Tensor:
     """Data-dependent log-decay: ld = -exp(w0 + lora(m_w)) <= 0, in f32."""
-    lora = torch.tanh(m_w @ p["w_lora_a"]) @ p["w_lora_b"]
+    # the low-rank factors are whole on every rank: keep the product's rows
+    # with the batch (DTensor may split them on ``model`` for free)
+    lora = torch.tanh(context.pin_batch(m_w @ p["w_lora_a"])) @ p["w_lora_b"]
     return -torch.exp(p["w0"].to(torch.float32) + lora.to(torch.float32))
 
 
@@ -129,17 +132,17 @@ def _time_mix_seq(p: dict, x: Tensor, shift_in: Tensor, chunk: int
     """x: (B, L, d). Returns (out, last x, final wkv state)."""
     B, L, d = x.shape
     H = d // HEAD_DIM
-    x_prev = torch.cat([shift_in[:, None, :], x[:, :-1, :]], dim=1)
+    x_prev = context.pin_batch(torch.cat([shift_in[:, None, :], x[:, :-1, :]], dim=1))
     m_r, m_k, m_v, m_w, m_g = _mixes(p, x, x_prev - x)
-    r = (m_r @ p["wr"]).reshape(B, L, H, HEAD_DIM)
-    k = (m_k @ p["wk"]).reshape(B, L, H, HEAD_DIM)
-    v = (m_v @ p["wv"]).reshape(B, L, H, HEAD_DIM)
-    g = F.silu(m_g @ p["wg"])
-    ld = _decay(p, m_w).reshape(B, L, H, HEAD_DIM)
+    r = split_heads(m_r @ p["wr"], H, HEAD_DIM)
+    k = split_heads(m_k @ p["wk"], H, HEAD_DIM)
+    v = split_heads(m_v @ p["wv"], H, HEAD_DIM)
+    g = F.silu(context.pin_batch(m_g @ p["wg"], model_last=True))
+    ld = split_heads(_decay(p, m_w), H, HEAD_DIM)
     o_hist, S = gla_ops.gla(r, k, v, ld, inclusive=False, chunk=chunk)
     bonus = torch.sum(r * p["u"] * k, dim=-1, keepdim=True) * v
-    o = rms_norm(o_hist + bonus.to(o_hist.dtype), p["ln_x"]).reshape(B, L, d)
-    return (o * g) @ p["wo"], x[:, -1, :], S
+    o = context.pin_batch(rms_norm(o_hist + bonus.to(o_hist.dtype), p["ln_x"]).reshape(B, L, d))
+    return context.pin_batch((o * g) @ p["wo"]), x[:, -1, :], S
 
 
 def _time_mix_step(p: dict, x: Tensor, shift_in: Tensor, S: Tensor
@@ -148,15 +151,15 @@ def _time_mix_step(p: dict, x: Tensor, shift_in: Tensor, S: Tensor
     B, d = x.shape
     H = d // HEAD_DIM
     m_r, m_k, m_v, m_w, m_g = _mixes(p, x, shift_in - x)
-    r = (m_r @ p["wr"]).reshape(B, H, HEAD_DIM)
-    k = (m_k @ p["wk"]).reshape(B, H, HEAD_DIM)
-    v = (m_v @ p["wv"]).reshape(B, H, HEAD_DIM)
-    g = F.silu(m_g @ p["wg"])
-    ld = _decay(p, m_w).reshape(B, H, HEAD_DIM)
+    r = split_heads(m_r @ p["wr"], H, HEAD_DIM)
+    k = split_heads(m_k @ p["wk"], H, HEAD_DIM)
+    v = split_heads(m_v @ p["wv"], H, HEAD_DIM)
+    g = F.silu(context.pin_batch(m_g @ p["wg"], model_last=True))
+    ld = split_heads(_decay(p, m_w), H, HEAD_DIM)
     o_hist, S = gla_step(r, k, v, ld, S, inclusive=False)
     bonus = torch.sum(r * p["u"] * k, dim=-1, keepdim=True) * v
-    o = rms_norm(o_hist + bonus.to(o_hist.dtype), p["ln_x"]).reshape(B, d)
-    return (o * g) @ p["wo"], x, S
+    o = context.pin_batch(rms_norm(o_hist + bonus.to(o_hist.dtype), p["ln_x"]).reshape(B, d))
+    return context.pin_batch((o * g) @ p["wo"]), x, S
 
 
 def _channel_mix(p: dict, x: Tensor, x_prev: Tensor) -> Tensor:
@@ -164,8 +167,9 @@ def _channel_mix(p: dict, x: Tensor, x_prev: Tensor) -> Tensor:
     xx = x_prev - x
     m_k = x + xx * p["mu"][0]
     m_r = x + xx * p["mu"][1]
-    k = torch.square(F.relu(m_k @ p["wk"]))
-    return torch.sigmoid(m_r @ p["wr"]) * (k @ p["wv"])
+    k = torch.square(F.relu(context.pin_batch(m_k @ p["wk"], model_last=True)))
+    r = context.pin_batch(m_r @ p["wr"], model_last=True)
+    return torch.sigmoid(r) * context.pin_batch(k @ p["wv"])
 
 
 def _seq_layer(p: dict, cfg: ModelConfig, h: Tensor, zero: Tensor, chunk: int) -> Tensor:
@@ -173,7 +177,7 @@ def _seq_layer(p: dict, cfg: ModelConfig, h: Tensor, zero: Tensor, chunk: int) -
                                  zero, chunk)
     h = h + tm_out
     hn = rms_norm(h, p["norm2"], cfg.norm_eps)
-    hn_prev = torch.cat([zero[:, None], hn[:, :-1]], dim=1)
+    hn_prev = context.pin_batch(torch.cat([zero[:, None], hn[:, :-1]], dim=1))
     return h + _channel_mix(p["cm"], hn, hn_prev)
 
 
@@ -196,7 +200,7 @@ def lm_forward(params: dict, cfg: ModelConfig, tokens: Tensor, positions=None,
                last_only: bool = False, **_) -> Tensor:
     """Full-sequence logits over ``rwkv_hidden`` (``positions`` and any
     ``window`` are ignored, as in the reference: the recurrence has none)."""
-    h = rwkv_hidden(params, cfg, params["embed"][tokens.long()])
+    h = rwkv_hidden(params, cfg, embed(params["embed"], tokens))
     if last_only:
         h = h[:, -1:, :]
     return h @ params["lm_head"]
@@ -222,7 +226,7 @@ def decode_step(params: dict, cfg: ModelConfig, token: Tensor, state: RWKVState,
     the rows where ``active`` (B,) bool is True (all rows when None); the
     other rows keep every bit. The index advances in place too (only the
     active rows' when ``active`` is given), and ``state`` is returned."""
-    h = params["embed"][token.long()]                                # (B, d)
+    h = embed(params["embed"], token)                                # (B, d)
     keep = None if active is None else active.to(torch.bool)
 
     def write(leaf: Tensor, new: Tensor) -> None:

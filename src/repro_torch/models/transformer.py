@@ -20,6 +20,7 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch import resolve_device
 from repro_torch.configs.base import ModelConfig
+from repro_torch.distributed import context
 from repro_torch.models.attention import (
     KVCache,
     PagedKVCache,
@@ -28,7 +29,7 @@ from repro_torch.models.attention import (
     decode_attention_paged,
     init_attention,
 )
-from repro_torch.models.layers import dense_init, rms_norm, swiglu, timestep_embedding
+from repro_torch.models.layers import dense_init, embed, rms_norm, swiglu, timestep_embedding
 
 Tensor = torch.Tensor
 
@@ -218,7 +219,7 @@ def lm_forward(params: dict, cfg: ModelConfig, tokens: Tensor,
     prepended to the token embeddings (the vlm path); the logits then cover
     the m + S positions. ``window > 0`` is sliding-window attention, through
     ``attention_forward``'s masked plain path on the card and the CPU."""
-    h = params["embed"][tokens.long()]
+    h = embed(params["embed"], tokens)
     if extra_embeds is not None:
         h = torch.cat([extra_embeds.to(h.dtype), h], dim=1)
     if positions is None:
@@ -269,7 +270,7 @@ def decode_step(params: dict, cfg: ModelConfig, token: Tensor, caches, *,
     """
     if mlp is None:
         mlp = lambda p, x: swiglu(x, **p["mlp"])                # noqa: E731
-    h = params["embed"][token.long()][:, None, :]              # (B, 1, d)
+    h = embed(params["embed"], token)[:, None, :]              # (B, 1, d)
     B = h.shape[0]
     paged = isinstance(caches, PagedKVCache)
     attn_kw = dict(n_heads=cfg.n_heads, n_kv=cfg.n_kv_heads, head_dim=cfg.resolved_head_dim,
@@ -319,18 +320,18 @@ def flow_velocity(params: dict, cfg: ModelConfig, t, x: Tensor,
     f = params["flow"]
     h = x.to(f["proj_in"].dtype) @ f["proj_in"]
     if cond_tokens is not None:
-        h = h + params["embed"][cond_tokens]
+        h = h + embed(params["embed"], cond_tokens)
     temb = timestep_embedding(t, cfg.d_model, device=x.device).to(h.dtype)
-    temb = F.silu(temb @ f["time_w1"]) @ f["time_w2"]
-    h = h + temb[:, None, :]
+    temb = F.silu(context.pin_batch(temb @ f["time_w1"], model_last=True)) @ f["time_w2"]
+    h = context.pin_batch(h + temb[:, None, :])
     positions = torch.arange(x.shape[1], device=x.device)
     if hidden_fn is None:
         h = dense_hidden(params, cfg, h, positions, causal=True)
     else:
         h = hidden_fn(params, cfg, h, positions)
-    return (h @ f["proj_out"]).to(x.dtype)
+    return context.pin_batch(h @ f["proj_out"]).to(x.dtype)
 
 
 def latent_targets(params: dict, tokens: Tensor) -> Tensor:
     """x1 = latent embedding of the data tokens (flow-matching target)."""
-    return params["flow"]["latent_embed"][tokens]
+    return embed(params["flow"]["latent_embed"], tokens)

@@ -16,6 +16,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.distributed import context
 from repro_torch.models import transformer
 from repro_torch.models.layers import dense_init
 
@@ -45,7 +46,9 @@ def params_from_jax(tree: dict, cfg: ModelConfig, device="cuda", dtype=None) -> 
 def project_patches(params: dict, patches: Tensor) -> Tensor:
     """patches (B, P, vit_dim), cast to the projector's dtype -> (B, P, d_model)."""
     p = params["projector"]
-    return F.gelu(patches.to(p["w1"].dtype) @ p["w1"], approximate="tanh") @ p["w2"]
+    hidden = context.pin_batch(F.gelu(patches.to(p["w1"].dtype) @ p["w1"], approximate="tanh"),
+                               model_last=True)
+    return context.pin_batch(hidden @ p["w2"])
 
 
 def lm_forward(params: dict, cfg: ModelConfig, tokens: Tensor, patches: Tensor,

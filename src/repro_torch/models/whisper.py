@@ -36,6 +36,7 @@ import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.distributed import context
 from repro_torch.models.attention import (
     KVCache,
     attention_forward,
@@ -43,7 +44,7 @@ from repro_torch.models.attention import (
     decode_attention,
     init_attention,
 )
-from repro_torch.models.layers import dense_init, rms_norm
+from repro_torch.models.layers import dense_init, embed, rms_norm
 from repro_torch.models.transformer import (
     cast_params,
     generator_device,
@@ -69,7 +70,8 @@ def _mlp_init(generator: torch.Generator, d: int, ff: int) -> dict:
 
 def _mlp(p: dict, x: Tensor) -> Tensor:
     # jax.nn.gelu's default is the tanh approximation; torch's is the erf form
-    return F.gelu(x @ p["w1"], approximate="tanh") @ p["w2"]
+    hidden = context.pin_batch(F.gelu(x @ p["w1"], approximate="tanh"), model_last=True)
+    return context.pin_batch(hidden @ p["w2"])
 
 
 def _ones(cfg: ModelConfig, device) -> Tensor:
@@ -147,7 +149,7 @@ def encode(params: dict, cfg: ModelConfig, frames: Tensor, remat: bool = False) 
             h = checkpoint(_enc_block, p, cfg, h, positions, use_reentrant=False)
         else:
             h = _enc_block(p, cfg, h, positions)
-    return rms_norm(h, params["enc_norm"], cfg.norm_eps)
+    return context.pin_batch(rms_norm(h, params["enc_norm"], cfg.norm_eps))
 
 
 def _dec_block(p: dict, cfg: ModelConfig, h: Tensor, memory: Tensor, positions: Tensor,
@@ -182,7 +184,7 @@ def lm_forward(params: dict, cfg: ModelConfig, tokens: Tensor, frames: Tensor,
     """Full-sequence logits: ``encode`` the frames, then ``decoder_hidden``
     over the tokens and the projection onto the tied embeddings."""
     memory = encode(params, cfg, frames)
-    h = decoder_hidden(params, cfg, params["embed"][tokens.long()], memory, positions)
+    h = decoder_hidden(params, cfg, embed(params["embed"], tokens), memory, positions)
     if last_only:
         h = h[:, -1:, :]
     return h @ params["embed"].T
@@ -206,7 +208,7 @@ def decode_step(params: dict, cfg: ModelConfig, token: Tensor, state: EncDecStat
     caches and index updated IN PLACE (``active`` as in
     ``transformer.decode_step``)."""
     hd = cfg.resolved_head_dim
-    h = params["embed"][token.long()][:, None, :]              # (B, 1, d)
+    h = embed(params["embed"], token)[:, None, :]              # (B, 1, d)
     B = h.shape[0]
     pos = state.index.to(torch.int32).expand(B)
     for i, p in enumerate(layer_views(params["dec_layers"])[:cfg.n_layers]):

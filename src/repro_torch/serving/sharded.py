@@ -112,7 +112,9 @@ def place_decode_state(state, cfg, mesh):
     shard their KV heads on ``model``, the block table and per-row
     positions stay replicated."""
     index = state.index
-    batch = int(index.shape[0]) if index.dim() else 1
+    # a per-row index has the batch; a scalar one (every row at one
+    # position) leaves it to the first leaf, (L, B, ...) in every state kind
+    batch = int(index.shape[0]) if index.dim() else int(state[0].shape[1])
     return _placed(state, state_specs(state, cfg, mesh, batch), mesh)
 
 

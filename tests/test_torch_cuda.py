@@ -1224,3 +1224,51 @@ def test_moe_dispatch_backward_bits_repeat_on_the_card(dev, cf, dtype):
     if dtype == torch.float32:
         on_cpu = x_grad({k: v.cpu() for k, v in p.items()}, x.cpu(), dy.cpu())
         torch.testing.assert_close(first.cpu(), on_cpu, atol=1e-5, rtol=1e-4)
+
+
+# ---------------------------------------------------------------------------
+# The dry run on the card's torch (launch/dryrun.py): fake tensors on the
+# card's paths, the kernels' launchers allocating and launching nothing
+# ---------------------------------------------------------------------------
+
+
+def test_dryrun_smoke_configs_on_the_cards_paths(dev, tmp_path):
+    """Every smoke config at the four shapes on the fake 16 x 16 mesh,
+    ``--device cuda`` (train too: autograd over fake CUDA tensors needs a
+    torch built with CUDA), each combo in a process of its own: every
+    record ``ok`` (whisper-medium's long_500k skipped, as the reference
+    skips it), and the kernels' fake launches counted where the paths
+    reach them."""
+    import json
+    import os
+    import subprocess
+    import sys
+    from pathlib import Path
+
+    root = Path(__file__).resolve().parents[1]
+    env = dict(os.environ, PYTHONPATH=str(root / "src"))
+    proc = subprocess.run([sys.executable, "-m", "repro_torch.launch.dryrun",
+                           "--single-pod", "--smoke", "--outdir", str(tmp_path), "--jobs", "4"],
+                          env=env, cwd=root, capture_output=True, text=True, timeout=1500)
+    assert proc.returncode == 0, proc.stdout[-4000:] + proc.stderr[-4000:]
+    recs = {p.name: json.loads(p.read_text()) for p in tmp_path.glob("*.json")}
+    assert len(recs) == 39                      # 10 archs x 4 shapes, less one skip
+    assert all(r["status"] == "ok" for r in recs.values())
+    assert recs["yi-6b__prefill_32k__pod16x16.json"]["kernels"] == {"flash_attention": 2}
+    assert set(recs["rwkv6-7b__train_4k__pod16x16.json"]["kernels"]) == {"gla_scan",
+                                                                         "gla_scan_bwd"}
+
+
+def test_gla_scan_uses_mma_equals_the_libraries_rule(dev):
+    """The Python copy the launchers read on fake tensors, against both
+    libraries' own rule over a grid of types and sizes."""
+    from repro_torch.kernels.gla_scan import gla_scan as gs
+
+    fwd, bwd = gs._lib(), gs._bwd_lib()
+    for dtype, code in ((torch.float32, 0), (torch.bfloat16, 1)):
+        for dk in (16, 48, 64, 72, 128, 144):
+            for dv in (16, 64, 80, 128, 160):
+                for chunk in (8, 16, 32, 48, 64, 128):
+                    want = gs.uses_mma(dtype, dk, dv, chunk)
+                    assert bool(bwd.gla_scan_bwd_uses_mma(code, dk, dv, chunk)) == want
+                    assert bool(fwd.gla_scan_uses_mma(code, dk, dv, chunk)) == want

@@ -71,3 +71,29 @@ def test_the_examples_twins_import_only_the_port_torch_numpy_and_the_stdlib():
         roots |= {node.module.split(".")[0] for node in ast.walk(tree)
                   if isinstance(node, ast.ImportFrom) and node.module}
         assert roots <= allowed, f"{path}: {sorted(roots - allowed)}"
+
+
+@pytest.mark.parametrize("module", ["repro_torch.launch.dryrun", "repro_torch.analysis",
+                                    "repro_torch.analysis.counter"])
+def test_the_dry_run_and_its_counter_load_no_jax_and_no_repro(module):
+    """The dry run and the cost counter, the twins of ``repro.launch.dryrun``
+    and ``repro.analysis.hlo``, stand alone: imported by themselves (and the
+    dry run's argument parser run) they pull in neither JAX nor the
+    reference."""
+    probe = (f"import sys, {module} as m\n"
+             "if hasattr(m, 'main'):\n"
+             "    try:\n        m.main(['--help'])\n    except SystemExit:\n        pass\n"
+             "print(sorted(k for k in sys.modules if k.split('.')[0] in "
+             "('jax', 'jaxlib', 'repro')))")
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    proc = subprocess.run([sys.executable, "-c", probe], env=env, cwd=ROOT,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.strip().splitlines()[-1] == "[]"
+
+
+def test_the_source_scan_covers_the_dry_run_and_the_counter():
+    scanned = {p.relative_to(ROOT) for p in PORT.rglob("*.py")}
+    assert Path("src/repro_torch/launch/dryrun.py") in scanned
+    assert {Path("src/repro_torch/analysis/__init__.py"),
+            Path("src/repro_torch/analysis/counter.py")} <= scanned
