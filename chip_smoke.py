@@ -3885,8 +3885,8 @@ class RouterCalls:
 
         self.module, self.inner = moe, moe._routing
 
-        def recording(p, x2d, c):
-            gates, idx, aux = self.inner(p, x2d, c)
+        def recording(p, x2d, c, mean=None):
+            gates, idx, aux = self.inner(p, x2d, c, mean=mean)
             probs = torch.softmax(x2d.float() @ p["router"].float(), dim=-1)
             self.calls[self.side].append((probs.detach().cpu(), idx.cpu()))
             return gates, idx, aux

@@ -349,8 +349,7 @@ def reckon_host(arch: str, shape, *, device="cuda", smoke: bool = False) -> dict
 
 
 def run_combo(arch: str, shape: str, multi_pod: bool, outdir: str, *,
-              seq_par_attn: bool = False, q_chunk: int = 0, flash: bool = False,
-              tag: str = "", device="cuda", smoke: bool = False) -> dict:
+              q_chunk: int = 0, tag: str = "", device="cuda", smoke: bool = False) -> dict:
     """One combo on the production mesh of the running fake group; writes
     and returns its record."""
     mesh_name = ("pod2x16x16" if multi_pod else "pod16x16") + (f"-{tag}" if tag else "")
@@ -360,8 +359,7 @@ def run_combo(arch: str, shape: str, multi_pod: bool, outdir: str, *,
         rec.update(status="skipped", reason=reason)
         return rec
     mesh = make_production_mesh(multi_pod=multi_pod, device=device)
-    context.install(mesh, seq_parallel_attn=seq_par_attn, q_chunk=q_chunk,
-                    flash_attention=flash)
+    context.install(mesh, q_chunk=q_chunk)
     try:
         rec.update(status="ok", **trace_combo(arch, shape, mesh, device=device, smoke=smoke))
     finally:
@@ -380,9 +378,12 @@ def main(argv=None):
     ap.add_argument("--multi-pod", action="store_true")
     ap.add_argument("--single-pod", action="store_true")
     ap.add_argument("--outdir", default="experiments/dryrun")
-    ap.add_argument("--seq-par-attn", action="store_true")
+    ap.add_argument("--seq-par-attn", action="store_true",
+                    help="refused: the port has no sequence-parallel attention")
     ap.add_argument("--q-chunk", type=int, default=0)
-    ap.add_argument("--flash", action="store_true")
+    ap.add_argument("--flash", action="store_true",
+                    help="refused: --device picks the attention path (cuda: the "
+                         "flash kernel)")
     ap.add_argument("--tag", default="")
     ap.add_argument("--device", default="cuda",
                     help="cuda: fake tensors on the card's paths (the kernels' "
@@ -392,6 +393,12 @@ def main(argv=None):
                     help="run each combo in a process of its own, this many at once "
                          "(each starts its own fake group; the logs go to <outdir>/logs)")
     args = ap.parse_args(argv)
+    if args.seq_par_attn:
+        ap.error("--seq-par-attn: the port's attention splits heads, never positions; "
+                 "a record under this policy would describe another step")
+    if args.flash:
+        ap.error("--flash: --device cuda already attends through the flash kernel "
+                 "and --device cpu through the plain path")
 
     archs = [args.arch] if args.arch else list(ARCHS)
     shapes = [args.shape] if args.shape else list(SHAPES)
@@ -416,9 +423,7 @@ def main(argv=None):
                 for shape in shapes:
                     try:
                         rec = run_combo(arch, shape, mp, args.outdir,
-                                        seq_par_attn=args.seq_par_attn,
-                                        q_chunk=args.q_chunk, flash=args.flash,
-                                        tag=args.tag, device=args.device,
+                                        q_chunk=args.q_chunk, tag=args.tag, device=args.device,
                                         smoke=args.smoke)
                         status = rec["status"]
                         if status == "ok":

@@ -25,10 +25,10 @@ encoder memory without mask or RoPE, through the flash kernel on the card.
 
 On a mesh (DTensors, ``serving.sharded``) attention runs on each rank's
 local shards (``_local_heads``: the batch over the data axes, the heads over
-``model`` where both head counts divide it), and a dense decode cache that
-the mesh splits (its slots where the KV heads do not divide ``model``)
-decodes on its local shards, the ranks' softmax partials merged by
-log-sum-exp (``_decode_on_shards``).
+``model`` where both head counts divide it), and a dense decode cache
+decodes on its local shards (``_decode_on_shards``), the softmax partials
+of the ranks that split its slots (where the KV heads do not divide
+``model``) merged by log-sum-exp.
 """
 from __future__ import annotations
 
@@ -291,7 +291,7 @@ def decode_attention(
     rows = torch.arange(B, device=x.device)
     k_new = k_new[:, 0].to(cache.k.dtype)
     v_new = v_new[:, 0].to(cache.v.dtype)
-    if type(cache.k) is not torch.Tensor and _split_along(cache.k, (0, 1, 2)):
+    if type(cache.k) is not torch.Tensor and dtensor.any_dtensor(cache.k):
         out = _decode_on_shards(q[:, 0], k_new, v_new, pos, slot, active, cache.k, cache.v,
                                 window)
         out = context.pin_batch(out.reshape(B, 1, n_heads * head_dim) @ p["wo"])
@@ -300,8 +300,8 @@ def decode_attention(
         keep = active[:, None, None]
         k_new = torch.where(keep, k_new, cache.k[rows, slot])
         v_new = torch.where(keep, v_new, cache.v[rows, slot])
-    _write_slots(cache.k, slot, k_new)
-    _write_slots(cache.v, slot, v_new)
+    cache.k[rows, slot] = k_new
+    cache.v[rows, slot] = v_new
 
     slot_ids = torch.arange(slots, device=x.device)
     if window:
@@ -316,11 +316,12 @@ def decode_attention(
 
 def _decode_on_shards(q: Tensor, k_new: Tensor, v_new: Tensor, pos: Tensor, slot: Tensor,
                       active: Optional[Tensor], kbuf, vbuf, window: int) -> Tensor:
-    """One-token decode over a DTensor cache (B, slots, KV, hd) that the
-    mesh splits (``distributed.sharding.cache_spec``): along its batch, its
-    KV heads where they divide ``model``, and else along its slots (on
-    ``model``, or, at a batch of one, on the data axes). k_new, v_new: (B,
-    KV, hd) in the cache's dtype.
+    """One-token decode over a DTensor cache (B, slots, KV, hd), laid out as
+    the mesh splits it (``distributed.sharding.cache_spec``): along its
+    batch, its KV heads where they divide ``model``, and else along its
+    slots (on ``model``, or, at a batch of one, on the data axes); on a
+    1 x 1 mesh, along nothing. k_new, v_new: (B, KV, hd) in the cache's
+    dtype.
 
     Each rank runs on its local shard of the cache and the matching shards
     of q and the new K/V: it writes the rows whose slot falls in its shard,
@@ -406,20 +407,6 @@ def _split_along(buf, dims) -> bool:
     from torch.distributed.tensor import Shard
 
     return any(isinstance(p, Shard) and p.dim in dims for p in buf.placements)
-
-
-def _write_slots(buf: Tensor, slot: Tensor, new: Tensor) -> None:
-    """``buf[b, slot[b]] = new[b]`` for every row b, in place: buf (B, slots,
-    KV, hd), new (B, KV, hd). A DTensor cache that no mesh axis splits (the
-    1 x 1 mesh; a split one decodes through ``_decode_on_shards``) takes the
-    write on its local tensor (the card's torch has no DTensor
-    ``index_put_``)."""
-    if type(buf) is torch.Tensor:
-        buf[torch.arange(buf.shape[0], device=buf.device), slot] = new
-        return
-    shard = buf.to_local()
-    shard[torch.arange(shard.shape[0], device=shard.device),
-          _local(slot, buf, {0: 0})] = _local(new, buf, {0: 0, 2: 1, 3: 2})
 
 
 def _write_pages(pool: Tensor, page: Tensor, off: Tensor, new: Tensor) -> None:

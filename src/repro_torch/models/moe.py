@@ -84,12 +84,15 @@ def init_moe_mlp(generator: torch.Generator, cfg: ModelConfig) -> dict:
     }
 
 
-def _routing(p: dict, x2d: Tensor, cfg: ModelConfig):
+def _routing(p: dict, x2d: Tensor, cfg: ModelConfig, mean=None):
     """x2d: (T, d) -> (gates (T, k) in x's dtype, expert_idx (T, k), aux_loss).
 
     Router logits in f32 on an f32 copy of x; softmax, the top k by a stable
     descending sort (ties to the lower expert), gates renormalised; the
-    Switch load-balance loss from the first choices."""
+    Switch load-balance loss from the first choices. Where x2d is one rank's
+    share of the batch (``_expert_parallel``), ``mean`` averages the
+    first-choice density over the ranks that share it: the loss is then this
+    rank's term, and the terms' mean over those ranks the whole batch's."""
     m = cfg.moe
     logits = x2d.to(torch.float32) @ p["router"].to(torch.float32)
     probs = torch.softmax(logits, dim=-1)                          # (T, E)
@@ -97,6 +100,8 @@ def _routing(p: dict, x2d: Tensor, cfg: ModelConfig):
     gates, idx = ranked[:, :m.top_k], order[:, :m.top_k]          # (T, k)
     gates = gates / torch.clamp(gates.sum(-1, keepdim=True), min=1e-9)
     density = F.one_hot(idx[:, 0], m.num_experts).to(torch.float32).mean(0)
+    if mean is not None:
+        density = mean(density)
     density_proxy = probs.mean(0)
     aux = m.num_experts * torch.sum(density * density_proxy)
     return gates.to(x2d.dtype), idx, aux
@@ -142,7 +147,7 @@ def _experts(p: dict, xin: Tensor) -> Tensor:
     return torch.bmm(h, p["w_down"])
 
 
-def moe_mlp_scatter(p: dict, x: Tensor, cfg: ModelConfig, first: int = 0):
+def moe_mlp_scatter(p: dict, x: Tensor, cfg: ModelConfig, first: int = 0, mean=None):
     """(B, S, d) -> ((B, S, d), aux). Scatter/gather dispatch with one group
     a sequence: capacity and each choice's position in its expert are
     computed within the sequence, so a row's result does not depend on the
@@ -153,12 +158,12 @@ def moe_mlp_scatter(p: dict, x: Tensor, cfg: ModelConfig, first: int = 0):
     extent (a rank's share on the ``model`` axis, ``_expert_parallel``):
     the routing is over all experts, and only the choices of the slice's
     experts are computed (the others dropped), so the ranks' outputs sum
-    to the whole."""
+    to the whole; ``mean`` goes to ``_routing``."""
     m = cfg.moe
     B, S, d = x.shape
     E, k = p["w_gate"].shape[0], m.top_k
     C = _capacity(S, cfg)
-    gates, idx, aux = _routing(p, x.reshape(B * S, d), cfg)
+    gates, idx, aux = _routing(p, x.reshape(B * S, d), cfg, mean=mean)
     gates, idx = gates.reshape(B, S * k), idx.reshape(B, S * k)
     pos_in_e, keep = _positions(idx, m.num_experts, C)
     if E != m.num_experts:          # a slice: the other experts' choices drop
@@ -205,16 +210,17 @@ def _dispatch_and_combine(p: dict, x: Tensor, gates: Tensor, idx: Tensor, pos_in
     return torch.sum(picked * weight, dim=2)
 
 
-def moe_mlp_onehot(p: dict, x: Tensor, cfg: ModelConfig, first: int = 0):
+def moe_mlp_onehot(p: dict, x: Tensor, cfg: ModelConfig, first: int = 0, mean=None):
     """The GShard-style einsum dispatch, capacity over the global batch
     (small shapes only: it builds (T, k, E, C) tensors). ``p``'s experts may
-    be a slice, from ``first`` on, as in ``moe_mlp_scatter``."""
+    be a slice, from ``first`` on, and ``mean`` is ``_routing``'s, as in
+    ``moe_mlp_scatter``."""
     m = cfg.moe
     B, S, d = x.shape
     T = B * S
     C = _capacity(T, cfg)
     x2d = x.reshape(T, d)
-    gates, idx, aux = _routing(p, x2d, cfg)
+    gates, idx, aux = _routing(p, x2d, cfg, mean=mean)
     n = p["w_gate"].shape[0]
 
     onehot = F.one_hot(idx, m.num_experts).to(torch.float32)          # (T, k, E)
@@ -250,7 +256,12 @@ def _expert_parallel(p: dict, x: Tensor, cfg: ModelConfig):
     partial sums over ``model``. The scatter dispatch keeps the batch split
     (its capacity is per sequence); the onehot one takes the whole batch
     (its capacity is over it). The aux loss is formed from the whole batch's
-    expert densities."""
+    expert densities, by the one router pass that routes the tokens, before
+    the expert products: a remat of the layer (``moe_hidden``), which replays
+    the forward up to the last op that saves a tensor for the backward,
+    stops before the combine product whose output the backward never
+    reads."""
+    from torch.distributed import _functional_collectives as funcol
     from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
     from torch.distributed.tensor.experimental import local_map
 
@@ -269,7 +280,7 @@ def _expert_parallel(p: dict, x: Tensor, cfg: ModelConfig):
         """Placements: the batch dim over the data axes (where ``split``),
         the expert dim over ``model``; a leading stacking dim of the
         outputs over ``model`` (each rank's partial sum) or over the data
-        axes (each rank's densities)."""
+        axes (each rank's term of the aux loss)."""
         out = []
         for i, n in enumerate(names):
             if mesh.size(i) == 1:
@@ -288,19 +299,21 @@ def _expert_parallel(p: dict, x: Tensor, cfg: ModelConfig):
     # this rank's experts (fewer experts than ranks: some ranks hold none)
     first, _ = dtensor.shard_extent(mesh, pl(None, 0), 0, E)
 
+    # the mesh dims that split the tokens, over which the densities average
+    batch_dims = [i for i, n in enumerate(names)
+                  if split and n in dtensor.BATCH_AXES and mesh.size(i) > 1]
+
+    def mean(density):
+        for i in batch_dims:        # a sum, then a division: gloo has no average
+            density = funcol.all_reduce(density, "sum", (mesh, i)) / mesh.size(i)
+        return density
+
     def local(x, router, w_gate, w_up, w_down):
         x, router, w_gate, w_up, w_down = dtensor.contiguous_grads(x, router, w_gate, w_up,
                                                                    w_down)
         q = {"router": router, "w_gate": w_gate, "w_up": w_up, "w_down": w_down}
-        if scatter:
-            out, _ = moe_mlp_scatter(q, x, cfg, first)
-        else:
-            out, _ = moe_mlp_onehot(q, x, cfg, first)
-        probs = torch.softmax(x.reshape(-1, x.shape[-1]).to(torch.float32)
-                              @ router.to(torch.float32), dim=-1)
-        top = torch.sort(probs, dim=-1, descending=True, stable=True)[1][:, 0]
-        density = F.one_hot(top, E).to(torch.float32).mean(0)
-        return out[None], density[None], probs.mean(0)[None]
+        out, aux = (moe_mlp_scatter if scatter else moe_mlp_onehot)(q, x, cfg, first, mean)
+        return out[None], aux[None]
 
     if not isinstance(x, DTensor):
         x = DTensor.from_local(x, mesh, [Replicate()] * mesh.ndim, run_check=False)
@@ -314,15 +327,14 @@ def _expert_parallel(p: dict, x: Tensor, cfg: ModelConfig):
                     n != "model" and split and batch_dim is None and mesh.size(i) > 1)
                 else p for i, (n, p) in enumerate(zip(names, pl(batch_dim, expert_dim)))]
 
-    out, density, proxy = local_map(
-        local, (pl(1, None, stack_model=True), pl(None, None, stack_batch=True),
-                pl(None, None, stack_batch=True)),
+    out, aux = local_map(
+        local, (pl(1, None, stack_model=True), pl(None, None, stack_batch=True)),
         in_placements=(pl(0, None), pl(None, None), pl(None, 0), pl(None, 0), pl(None, 0)),
         in_grad_placements=(grad_pl(0, None), grad_pl(None, None), grad_pl(None, 0),
                             grad_pl(None, 0), grad_pl(None, 0)),
         device_mesh=mesh, redistribute_inputs=True)(
             x, p["router"], p["w_gate"], p["w_up"], p["w_down"])
-    return out.sum(0), E * torch.sum(density.mean(0) * proxy.mean(0))
+    return out.sum(0), aux.mean()
 
 
 # ---------------------------------------------------------------------------

@@ -25,9 +25,10 @@ are chosen against the meshes so that the KV heads do NOT divide ``model``:
           data axes, and a batch of two over ``model``.
 
 Cases: decode logits and greedy tokens over several steps into the
-slot-split cache (a ring under a window too), MoE, zamba2-2.7b, rwkv6-7b,
-whisper-medium (frames, cross-attention) and internvl2-26b (patches)
-prefill, and a train step's loss and every gradient (``cfm_loss`` with
+slot-split cache (a ring under a window too), MoE (with its load-balance
+loss, the batch split on 2 x 2), zamba2-2.7b, rwkv6-7b, whisper-medium
+(frames, cross-attention) and internvl2-26b (patches) prefill, and a train
+step's loss and every gradient (``cfm_loss`` with
 remat). The ranks' collectives are gloo's, so each case is a real
 all-gather / all-reduce / reduce-scatter of these values.
 """
@@ -213,6 +214,7 @@ def _batch(cfg, B, S, seed=3):
 def prefill_case(mesh, arch):
     from repro_torch.configs import get_config
     from repro_torch.models import model as M
+    from repro_torch.models import moe
 
     cfg = get_config(arch, smoke=True)
     params = _redrawn_norms(_params(cfg))
@@ -221,9 +223,13 @@ def prefill_case(mesh, arch):
 
     def run(pl):
         with torch.no_grad():
-            return {"logits": _np(M.lm_apply(pl(params, "params"), cfg, pl(batch, "batch"))),
-                    "last": _np(M.lm_apply(pl(params, "params"), cfg, pl(batch, "batch"),
-                                           last_only=True))}
+            out = {"logits": _np(M.lm_apply(pl(params, "params"), cfg, pl(batch, "batch"))),
+                   "last": _np(M.lm_apply(pl(params, "params"), cfg, pl(batch, "batch"),
+                                          last_only=True))}
+            if cfg.family == "moe":     # the load-balance loss, over the whole batch
+                out["aux"] = _np(moe.lm_forward(pl(params, "params"), cfg,
+                                                pl(batch, "batch")["tokens"])[1])
+            return out
 
     placed, plain = _both(mesh, run, place=place)
     out = {}
