@@ -383,9 +383,11 @@ Phases (any failure ends the run with a non-zero exit and no last line):
     decode through the gateway and the paged kernel with phase 18c's flags
     (paged attention exactly 48 a decode_apply call) and phase 15's step
     case.
-22b. Phase 5 and phase 7 for it at 2 layers, f32, drawn on the card (the
-    full config's heads of 128): flow relative L2 <= 1e-4, decode logits
-    within 1e-4 with the paged kernel (2 a call) and the tokens equal.
+22b. Phase 5 and phase 7 for it at INTERNVL_CHECK_LAYERS = 1 layer, f32,
+    drawn on the card (the full config's heads of 128; one layer, as the
+    CPU's side of an f32 layer at full width is slow): flow relative L2 <=
+    1e-4, decode logits within 1e-4 with the paged kernel (1 a call) and the
+    tokens equal.
 23. Placement on the 1 x 1 host mesh (``launch.mesh.make_host_mesh``: a
     one-rank NCCL process group, destroyed at the end). 23a: 14a's trace
     through --mesh host (weights and batches DTensors, every kernel run on
@@ -676,6 +678,7 @@ WHISPER_FRAMES = 1500                                        # its stub frontend
 WHISPER_DECODE_STEPS, WHISPER_DECODE_SLOTS = 32, 64          # phase 21c
 # phases 22-22b: internvl2-26b at full width and depth, 48 layers (~40 GB bf16)
 INTERNVL, INTERNVL_LAYERS, INTERNVL_REQUESTS = "internvl2-26b", 48, 2
+INTERNVL_CHECK_LAYERS = 1                  # 22b's card-vs-CPU model (the CPU side is slow)
 INTERNVL_DECODE_ARGS = ["--arch", INTERNVL, "--mode", "decode", "--full", "--gateway",
                         "--max-slots", "4", "--requests", "8", "--decode-lengths", "32,16",
                         "--page-size", "16", "--paged-kernel", "--slots", "256"]
@@ -1770,7 +1773,7 @@ def lm_decode_check(dev, cfg, params, batch: dict, last: torch.Tensor) -> dict:
 
 def lm_against_cpu(dev, counters, cfg, params, on_card=None, window: int = 0,
                    label: str = "phase 30") -> float:
-    """Phase 30 on a 2-layer f32 model: ``lm_apply`` on the card
+    """Phase 30 on a phase's cut f32 model: ``lm_apply`` on the card
     (``on_card``, or ``params`` copied there) and on the CPU (``params``),
     batch 2 x LM_CPU_SEQ, the same inputs, at ``window`` (phase 35b): relative
     L2 of the logits <= 1e-4, the card run's launches equal to the formula."""
@@ -1791,7 +1794,7 @@ def lm_against_cpu(dev, counters, cfg, params, on_card=None, window: int = 0,
                          f"{lm_launches(cfg, window)}")
     rel = relative_l2(got.cpu(), want)
     what = f"lm_apply(window={window})" if window else "lm_apply"
-    print(f"{label} [{cfg.name}]: {what} card vs CPU (2 layers, f32, batch 2 x "
+    print(f"{label} [{cfg.name}]: {what} card vs CPU ({cfg.n_layers} layers, f32, batch 2 x "
           f"{LM_CPU_SEQ}): relative L2 {rel:.3e} (limit 1e-4), card launches "
           f"{ {k: v for k, v in ran.items() if v} }")
     if not rel <= 1e-4:
@@ -1802,7 +1805,7 @@ def lm_against_cpu(dev, counters, cfg, params, on_card=None, window: int = 0,
 
 
 def window_against_cpu(dev, counters, cfg, params, on_card=None) -> dict:
-    """Phase 35b on a phase's 2-layer f32 model (dense, moe, hybrid or vlm):
+    """Phase 35b on a phase's cut f32 model (dense, moe, hybrid or vlm):
     ``lm_against_cpu`` at WINDOW_CPU, then again under an installed context
     with ``q_chunk`` Q_CHUNK (both sides; a host-only mesh of 1 x 1 axis
     sizes, so ``constrain`` passes plain tensors through), where every
@@ -1909,7 +1912,7 @@ def whole_path_against_cpu(dev, counters, cfg, params, want: dict, card_params=N
     on_cpu = FlowSampler(params=params, **kw).sample_from(batch, x0)
     rel = float(torch.linalg.vector_norm(on_card.cpu() - on_cpu)
                 / torch.linalg.vector_norm(on_cpu))
-    print(f"whole path, {cfg.name}, card kernels vs CPU plain (2 layers, f32, euler "
+    print(f"whole path, {cfg.name}, card kernels vs CPU plain ({cfg.n_layers} layers, f32, euler "
           f"NFE 4): relative L2 {rel:.3e} (limit 1e-4)")
     if not rel <= 1e-4:
         raise SystemExit(f"whole path {cfg.name}: relative L2 {rel} over 1e-4")
@@ -2311,7 +2314,8 @@ def decode_against_cpu(dev, counters, cfg, params, engine_kw: dict, per_call: di
     rels = [float(torch.linalg.vector_norm(a - b) / torch.linalg.vector_norm(b))
             for a, b in zip(card_logits, cpu_logits)]
     ring = f", window {engine_kw['window']}" if engine_kw.get("window") else ""
-    print(f"decode path, {cfg.name}, card vs CPU plain (2 layers, f32, {len(lengths)} requests"
+    print(f"decode path, {cfg.name}, card vs CPU plain ({cfg.n_layers} layers, f32, "
+          f"{len(lengths)} requests"
           f"{ring}): {len(rels)} steps, worst logits relative L2 {max(rels):.3e} (limit "
           f"1e-4), tokens equal: {card_tokens == cpu_tokens}")
     if len(card_logits) != len(cpu_logits) or not max(rels) <= 1e-4:
@@ -3955,7 +3959,7 @@ def routed_path_against_cpu(dev, counters, cfg, params, on_card, want: dict) -> 
     rel = relative_l2(on_card.cpu(), on_cpu)
     same = bool(torch.equal(card_sampler.nearest_tokens(on_card).cpu(),
                             cpu_sampler.nearest_tokens(on_cpu)))
-    print(f"whole path, {cfg.name}, card kernels vs CPU plain (2 layers, f32, euler "
+    print(f"whole path, {cfg.name}, card kernels vs CPU plain ({cfg.n_layers} layers, f32, euler "
           f"NFE 4): relative L2 {rel:.3e} (limit 1e-4), nearest tokens equal: {same}")
     if not (rel <= 1e-4 and same):
         raise SystemExit(f"whole path {cfg.name}: relative L2 {rel}, tokens equal {same}")
@@ -4310,15 +4314,16 @@ def internvl_paths(dev, counters, card: str, graphs: dict) -> dict:
           f"GiB; decode {out['decode']['tokens_per_s']:.1f} tokens/s, engine call ms mean "
           f"{out['decode']['call_ms_mean']:.3f}, peak {out['decode']['peak_gib']:.3f} GiB")
     t0 = time.perf_counter()
-    cfg, on_card, params = card_drawn_model(dev, INTERNVL)
+    cfg, on_card, params = card_drawn_model(dev, INTERNVL, INTERNVL_CHECK_LAYERS)
     before = {name: c.launches for name, c in counters.items()}
     out["flow_rel_l2"] = whole_path_against_cpu(
-        dev, counters, cfg, params, {**zero, "ns_update": 4, "flash_attention": 2 * 4},
+        dev, counters, cfg, params,
+        {**zero, "ns_update": 4, "flash_attention": INTERNVL_CHECK_LAYERS * 4},
         card_params=on_card)
     del on_card
     out["decode_rel_l2"] = decode_against_cpu(dev, counters, cfg, params,
                                               dict(page_size=16, paged_kernel=True),
-                                              {"paged_attention": 2})
+                                              {"paged_attention": INTERNVL_CHECK_LAYERS})
     phases["22b"] = launched(counters, before)
     lm_against_cpu(dev, counters, cfg, params)
     window_against_cpu(dev, counters, cfg, params)
@@ -5481,7 +5486,8 @@ def main() -> int:
                        "requests", **internvl["flow"]},
         "22 decode": {"what": f"{INTERNVL} decode, paged kernel at G 6, 8 requests on 4 "
                               "slots", **internvl["decode"]},
-        "22b": {"what": f"{INTERNVL} card vs CPU, 2 layers f32, flow and decode",
+        "22b": {"what": f"{INTERNVL} card vs CPU, {INTERNVL_CHECK_LAYERS} layer f32, flow "
+                        "and decode",
                 "flow_rel_l2": internvl["flow_rel_l2"],
                 "worst_logits_relative_l2": internvl["decode_rel_l2"]}}
     slice16_launches = {**whisper_run["phase_launches"], **internvl["phase_launches"]}
